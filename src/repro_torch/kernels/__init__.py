@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/``), their ctypes
+wrappers, their plain PyTorch versions (``ref``) and the dispatcher
+(``ops``)."""
