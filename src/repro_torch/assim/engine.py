@@ -255,13 +255,13 @@ class AssimilationEngine:
         self.device = device_mod.resolve(device)
         self.forecast = forecast or (lambda x: x)
         if config.solver == "shardmap":
-            raise _not_ported("solver='shardmap'", "11")
+            raise _not_ported("solver='shardmap'", "13")
         if config.solver != "vmapped":
             raise ValueError(f"unknown solver {config.solver!r}")
         if config.time_windows > 1:
-            raise _not_ported("time_windows > 1 (Parareal)", "10")
+            raise _not_ported("time_windows > 1 (Parareal)", "12")
         if chaos is not None:
-            raise _not_ported("chaos injection", "8")
+            raise _not_ported("chaos injection", "10")
         if config.comm not in ("allreduce", "neighbour"):
             raise ValueError(f"comm must be 'allreduce' or 'neighbour' "
                              f"(got {config.comm!r})")
@@ -491,7 +491,7 @@ class AssimilationEngine:
         """Consume the stream to exhaustion; returns the journal.  Cycle
         numbering continues from the journal."""
         if checkpoint_dir is not None or snapshot_every:
-            raise _not_ported("checkpointing", "8")
+            raise _not_ported("checkpointing", "10")
         it = iter(stream)
         base = len(self.journal.records)
         self._t_last = time.perf_counter()
@@ -641,8 +641,8 @@ class AssimilationEngine:
     # -- checkpoint / resume (not ported yet) -------------------------------
 
     def snapshot(self, *args, **kwargs):
-        raise _not_ported("engine snapshots", "8")
+        raise _not_ported("engine snapshots", "10")
 
     @classmethod
     def restore(cls, *args, **kwargs):
-        raise _not_ported("engine restore", "8")
+        raise _not_ported("engine restore", "10")

@@ -4,7 +4,7 @@ The port imports nothing of ``repro``, so these take plain numpy arrays
 and dicts — what ``np.asarray`` of a JAX array, a dataclass's fields or
 a domain's ``describe()``/``state_dict()`` give — and build the port's
 counterparts on a device.  The parity tests use them to feed one packing,
-problem or domain state to both packages.
+problem, domain state or set of model weights to both packages.
 """
 from __future__ import annotations
 
@@ -75,3 +75,22 @@ def cls_problem_from_numpy(fields: dict, device=None,
     return cls_mod.CLSProblem(**{
         k: torch.as_tensor(np.asarray(fields[k]), dtype=dtype, device=device)
         for k in ("H0", "y0", "H1", "y1", "R0", "R1")})
+
+
+def lm_params_from_numpy(tree, device=None):
+    """A reference model's parameter tree (``jax.tree.map(np.asarray,
+    params)``: nested dicts of numpy arrays) as the port's, with the same
+    keys, stacked layer axes and dtypes (bf16 leaves stay bf16)."""
+    dev = device_mod.resolve(device)
+
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":   # numpy has no bf16 of its own
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        return t.to(dev)
+
+    return leaf(tree)

@@ -3,9 +3,13 @@
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper
 (``sm_90a``) into an object file, all sources at once in parallel, and
 links them into one shared library with a plain C interface under
-``build/repro_torch_kernels/<hash>/`` at the root of the checkout.  The
-hash covers the sources and the flags, so an edited source builds anew
-and an unchanged one is reused.  The library is loaded with ``ctypes``;
+``<root>/<hash>/``.  The root is ``build/repro_torch_kernels/`` at the
+top of the checkout when the package lies in one (``src/`` beside a
+``pyproject.toml``), else ``$XDG_CACHE_HOME/repro_torch_kernels/``
+(``~/.cache`` when the variable is unset), which serves an installed
+package: it ships the sources as package data.  The hash covers the
+sources and the flags, so an edited source builds anew and an unchanged
+one is reused.  The library is loaded with ``ctypes``;
 every pointer and the stream travel as ``c_void_p`` and every int as
 ``c_int``.  Nothing here runs at import time.
 """
@@ -22,9 +26,8 @@ import threading
 
 import torch
 
-CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
-              / "repro_torch_kernels")
+KERNELS_DIR = pathlib.Path(__file__).resolve().parent
+CSRC = KERNELS_DIR / "csrc"
 # ``-Xptxas -v`` only reports registers and spills (into BUILD_LOG).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,9 +43,14 @@ SIGNATURES = {
     "repro_schwarz_bwd_f64": (_P,) * 10 + (_I, _I, _I, _P),
     "repro_schwarz_bwd_f32": (_P,) * 10 + (_I, _I, _I, _P),
     "repro_schwarz_bwd_splits": (),
+    "repro_flash_attention_f32": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),
+    "repro_flash_attention_bf16": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),
+    "repro_rglru_scan_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "repro_rglru_scan_bf16": (_P, _P, _P, _I, _I, _I, _P),
 }
 
-DTYPES = (torch.float64, torch.float32)   # what the kernels take
+DTYPES = (torch.float64, torch.float32)   # what the DD-KF kernels take
+LM_DTYPES = (torch.float32, torch.bfloat16)   # what the LM kernels take
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -65,13 +73,26 @@ def _sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def build_root(kernels_dir: pathlib.Path = KERNELS_DIR) -> pathlib.Path:
+    """Where the library is built for a package whose ``kernels``
+    directory is ``kernels_dir``: under the checkout's ``build/`` when
+    the package lies in one, else under the user's cache directory."""
+    root = kernels_dir.parents[2]          # kernels -> repro_torch -> src
+    if kernels_dir.parents[1].name == "src" and (
+            root / "pyproject.toml").is_file():
+        return root / "build" / "repro_torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return pathlib.Path(cache) / "repro_torch_kernels"
+
+
 def library_path() -> pathlib.Path:
     h = hashlib.sha256()
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / h.hexdigest()[:16] / "librepro_torch_kernels.so"
+    return build_root() / h.hexdigest()[:16] / "librepro_torch_kernels.so"
 
 
 def _run_all(cmds: list) -> None:
@@ -129,14 +150,15 @@ def check(err: int, name: str) -> None:
                            f"cudaError_t {err}")
 
 
-def check_inputs(name: str, tensors: dict, dtype=None) -> torch.dtype:
-    """Validate what a kernel takes: CUDA, one dtype (f64 or f32),
+def check_inputs(name: str, tensors: dict, dtype=None,
+                 dtypes: tuple = DTYPES) -> torch.dtype:
+    """Validate what a kernel takes: CUDA, one dtype (one of ``dtypes``),
     contiguous, one device.  Returns the dtype."""
     first = next(iter(tensors.values()))
     dtype = first.dtype if dtype is None else dtype
-    if dtype not in DTYPES:
-        raise TypeError(f"{name}: dtype must be float64 or float32 "
-                        f"(got {dtype})")
+    if dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name}: dtype must be {names} (got {dtype})")
     for k, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {k} must be a CUDA tensor (got "

@@ -9,8 +9,10 @@ version in the CPU tests.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import schwarz_step as _sch
 
 MODES = ("auto", "plain")
@@ -44,13 +46,33 @@ def schwarz_bwd(A, r, b, Ax, u, x, muov, mask, *, mode: str = "auto"):
     return _ref.schwarz_bwd_plain(A, r, b, Ax, u, x, muov, mask)
 
 
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    mode: str = "auto"):
+    """Causal / sliding-window softmax attention.  q, k, v: (BH, S, D)
+    with the kv heads expanded -> (BH, S, D); ``window <= 0`` is
+    unbounded."""
+    if _use_kernel(q, mode):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _ref.attention_plain(q, k, v, causal=causal, window=window)
+
+
+def rglru_scan(a, b, *, mode: str = "auto"):
+    """h_t = a_t h_{t-1} + b_t over the sequence.  a, b: (B, S, W)."""
+    if _use_kernel(a, mode):
+        return _rg.rglru_scan(a, b)
+    return _ref.rglru_scan_plain(a, b)
+
+
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last :func:`reset_counts`."""
     return {"gram": _gram.launches, "schwarz_fwd": _sch.fwd_launches,
-            "schwarz_bwd": _sch.bwd_launches}
+            "schwarz_bwd": _sch.bwd_launches,
+            "flash_attention": _fa.launches, "rglru_scan": _rg.launches}
 
 
 def reset_counts() -> None:
     _gram.launches = 0
     _sch.fwd_launches = 0
     _sch.bwd_launches = 0
+    _fa.launches = 0
+    _rg.launches = 0

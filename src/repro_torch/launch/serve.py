@@ -1,0 +1,161 @@
+"""Serving driver: batched prefill + greedy decode with static-shape caches.
+
+The counterpart of ``repro.launch.serve``.  Requests arrive with
+different prompt lengths; prompts are left-padded into the prefill batch
+and decode proceeds in lock step.  ``serve_queue`` parks requests on a
+:class:`~repro_torch.runtime.scheduler.SlotScheduler` of ``slots`` slots
+and serves them in FIFO waves of at most ``slots`` requests, so an
+open-ended request stream runs under a bounded decode batch.
+
+Weights are random, drawn on the card from a seeded generator
+(:func:`repro_torch.models.transformer.init_params`).  The prefill runs
+the ``rglru_scan`` and ``flash_attention`` kernels on the card.
+
+Usage (the card by default; ``--device cpu`` for a CPU run):
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b [--smoke] --batch 4 --prompt-len 32 \
+      --max-new 16 [--slots 2] [--seed 0] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch import device as device_mod
+from repro_torch.models import transformer
+from repro_torch.runtime import steps as steps_mod
+from repro_torch.runtime.scheduler import SlotScheduler
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray           # (len,) int32
+    max_new: int
+    out: list = dataclasses.field(default_factory=list)
+
+
+def serve_batch(cfg, params, requests, *, max_seq: int, greedy: bool = True,
+                seed: int = 0):
+    """Run a batch of requests to completion on the device of the
+    weights.  Returns the requests with ``out`` filled, plus timing
+    stats (host wall times that end in a wait for the device).
+    ``greedy=False`` samples from a ``torch.Generator`` seeded with
+    ``seed``."""
+    dev = params["embed"].device
+    B = len(requests)
+    S = max(len(r.prompt) for r in requests)
+    # right-align prompts (left padding) so decode positions line up
+    toks = np.zeros((B, S), np.int64)
+    for i, r in enumerate(requests):
+        toks[i, S - len(r.prompt):] = r.prompt
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+
+    t0 = time.perf_counter()
+    prefill = steps_mod.make_prefill_step(cfg, max_seq=max_seq)
+    logits, cache = device_mod.block(prefill(params, batch))
+    prefill_s = time.perf_counter() - t0
+
+    serve = steps_mod.make_serve_step(cfg)
+    gen = None if greedy else torch.Generator(device=dev).manual_seed(seed)
+    cur = torch.argmax(logits, -1)[:, None]
+    max_new = max(r.max_new for r in requests)
+    t1 = time.perf_counter()
+    for step in range(max_new):
+        ids = cur[:, 0].tolist()
+        for i, r in enumerate(requests):
+            if step < r.max_new:
+                r.out.append(int(ids[i]))
+        logits, cache = serve(params, cache, cur, S + step)
+        if greedy:
+            cur = torch.argmax(logits, -1)
+        else:
+            probs = torch.softmax(logits[:, 0].float(), dim=-1)
+            cur = torch.multinomial(probs, 1, generator=gen)
+    device_mod.block(cur)
+    decode_s = time.perf_counter() - t1
+    stats = {
+        "prefill_s": prefill_s,
+        "decode_s": decode_s,
+        "tokens_per_s": B * max_new / decode_s if decode_s else 0.0,
+    }
+    return requests, stats
+
+
+def serve_queue(cfg, params, requests, *, slots: int, max_seq: int,
+                greedy: bool = True, seed: int = 0):
+    """Run an unbounded request list through a bounded decode batch.
+
+    Requests are parked on a :class:`SlotScheduler` of ``slots`` slots
+    and served in FIFO waves: admit up to ``slots``, run the wave with
+    :func:`serve_batch`, retire, repeat until the queue drains.  Returns
+    the completed requests (arrival order) and aggregate stats.
+    """
+    sched = SlotScheduler(capacity=slots, meters_prefix="serve.")
+    for r in requests:
+        sched.submit(r)
+    done = []
+    waves = 0
+    agg = {"prefill_s": 0.0, "decode_s": 0.0}
+    while not sched.idle():
+        wave = sched.admit()
+        batch = [r for _, r in wave]
+        batch, stats = serve_batch(cfg, params, batch, max_seq=max_seq,
+                                   greedy=greedy, seed=seed + waves)
+        for slot, _ in wave:
+            sched.retire(slot)
+        done.extend(batch)
+        agg["prefill_s"] += stats["prefill_s"]
+        agg["decode_s"] += stats["decode_s"]
+        waves += 1
+    total_new = sum(len(r.out) for r in done)
+    agg["waves"] = waves
+    agg["tokens_per_s"] = (total_new / agg["decode_s"]
+                           if agg["decode_s"] else 0.0)
+    return done, agg
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--slots", type=int, default=0,
+                    help="decode-batch slot count (0 = one wave of "
+                         "--batch requests, no queueing)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    params = transformer.init_params(cfg, args.seed, device=args.device)
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(1, cfg.vocab_size,
+                                        rng.integers(4, args.prompt_len),
+                                        dtype=np.int64).astype(np.int32),
+                    max_new=args.max_new)
+            for i in range(args.batch)]
+    if args.slots > 0:
+        reqs, stats = serve_queue(cfg, params, reqs, slots=args.slots,
+                                  max_seq=args.prompt_len + args.max_new)
+    else:
+        reqs, stats = serve_batch(cfg, params, reqs,
+                                  max_seq=args.prompt_len + args.max_new)
+    for r in reqs:
+        print(f"req {r.rid}: prompt[{len(r.prompt)}] -> {r.out[:8]}...")
+    print(f"prefill {stats['prefill_s']:.3f}s decode {stats['decode_s']:.3f}s "
+          f"({stats['tokens_per_s']:.1f} tok/s)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,142 @@
+"""Attention for the serving path: MHA/GQA/MQA, sliding-window KV caches.
+
+The counterpart of ``repro.models.attention``'s cache half.  Decode uses
+a static-shape KV cache; sliding-window layers use a ring buffer of
+exactly ``window`` slots, so decode state stays O(window).  A token at
+absolute position ``pos`` is written to slot ``pos % length`` and each
+slot keeps the absolute position it holds (-1 when empty), so masking
+stays right after wraparound, exactly as in the reference.  The prefill's
+attention core is :func:`repro_torch.kernels.ops.flash_attention`
+(``models/transformer.py``).  The training-path ``attention`` waits for
+the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.models import nn
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -1e30
+
+
+def make_attn_params(b: nn.Builder, cfg: ModelConfig):
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": b.param((d, h, hd), ("embed", "heads", None)),
+        "wk": b.param((d, kv, hd), ("embed", "kv_heads", None)),
+        "wv": b.param((d, kv, hd), ("embed", "kv_heads", None)),
+        "wo": b.param((h, hd, d), ("heads", None, "embed")),
+    }
+
+
+def _expand_kv(k, q_per_kv: int):
+    """(B, S, KV, D) -> (B, S, KV * q_per_kv, D) by repeat (GQA)."""
+    if q_per_kv == 1:
+        return k
+    return torch.repeat_interleave(k, q_per_kv, dim=2)
+
+
+def _mask(seq_q: int, seq_k: int, window: int, causal: bool,
+          q_offset: int = 0, device=None):
+    """(Sq, Sk) additive mask; ``window <= 0`` means unbounded."""
+    qpos = torch.arange(seq_q, device=device)[:, None] + q_offset
+    kpos = torch.arange(seq_k, device=device)[None, :]
+    ok = torch.ones((seq_q, seq_k), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    zero = torch.zeros((), device=device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+# ---------------------------------------------------------------------------
+# Decode caches.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    """Static description of one layer's KV cache."""
+
+    kind: str          # "full" | "ring"
+    length: int        # cache slots (= seq for full, = window for ring)
+
+
+def cache_spec(cfg: ModelConfig, layer_type: str, max_seq: int) -> CacheSpec:
+    if layer_type == "local":
+        return CacheSpec(kind="ring", length=min(cfg.window, max_seq))
+    return CacheSpec(kind="full", length=max_seq)
+
+
+def init_cache(cfg: ModelConfig, spec: CacheSpec, batch: int, dtype, device):
+    L = spec.length
+    shape = (batch, L, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        # absolute position stored in each slot (-1 = empty)
+        "pos": torch.full((L,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def decode_attention(cfg: ModelConfig, params, cache, spec: CacheSpec, x,
+                     pos: int, *, window: int,
+                     rope_theta: float | None = None):
+    """Single-token decode.  x: (B, 1, D); pos: the absolute position.
+
+    Returns (out (B, 1, D), new_cache); the input cache is not modified.
+    The cache slot is ``pos % length`` (ring) or ``pos`` (full); masking
+    uses the per-slot absolute positions."""
+    B = x.shape[0]
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    if theta > 0:
+        q = nn.rope(q, positions, theta)
+        k = nn.rope(k, positions, theta)
+
+    slot = pos % spec.length if spec.kind == "ring" else pos
+    new_k = cache["k"].clone()
+    new_v = cache["v"].clone()
+    new_pos = cache["pos"].clone()
+    new_k[:, slot] = k[:, 0]
+    new_v[:, slot] = v[:, 0]
+    new_pos[slot] = pos
+
+    kk = _expand_kv(new_k, cfg.q_per_kv)
+    vv = _expand_kv(new_v, cfg.q_per_kv)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    scores = torch.einsum("bqhk,bshk->bhqs", q, kk).float() * scale
+    if cfg.attn_softcap > 0:
+        scores = nn.softcap(scores, cfg.attn_softcap)
+    valid = (new_pos >= 0) & (new_pos <= pos)
+    if window > 0:
+        valid &= new_pos > pos - window
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(vv.dtype)
+    out = torch.einsum("bhqs,bshk->bqhk", probs, vv)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return out, {"k": new_k, "v": new_v, "pos": new_pos}
+
+
+def prefill_cache(cfg: ModelConfig, spec: CacheSpec, k, v, positions):
+    """Build a cache from prefill-computed k/v.  k/v: (B, S, KV, D) with
+    rope already applied; positions: (S,)."""
+    S = k.shape[1]
+    L = spec.length
+    if S <= L:
+        pad = L - S
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        pos = torch.nn.functional.pad(positions.to(torch.int32), (0, pad),
+                                      value=-1)
+    else:  # keep the last L (ring semantics)
+        k, v = k[:, -L:], v[:, -L:]
+        pos = positions[-L:].to(torch.int32)
+    return {"k": k, "v": v, "pos": pos}

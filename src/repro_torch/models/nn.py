@@ -1,0 +1,127 @@
+"""Parameter builder and basic neural-net primitives.
+
+The counterpart of ``repro.models.nn``.  ``Builder`` in ``init`` mode
+draws every parameter from one explicit ``torch.Generator`` with the
+reference's scheme (fan-in-scaled normal, ``zeros``, ``ones``, an explicit
+``scale``); the two packages give different numbers from the same seed,
+so the parity tests carry the reference's weights across
+(:func:`repro_torch.convert.lm_params_from_numpy`).  The reference's
+sharding annotations are no-ops on one device and are dropped; ``param``
+still takes the logical axes so each declaration reads as the
+reference's.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+class Builder:
+    """Declares parameters and initializes them on ``device`` in ``dtype``
+    (normal draws are made in f32, then cast)."""
+
+    def __init__(self, generator: torch.Generator, device, dtype):
+        self.generator = generator
+        self.device = torch.device(device)
+        self.dtype = dtype
+
+    def param(self, shape, axes=None, init="normal", scale: float | None
+              = None):
+        shape = tuple(shape)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if init == "ones":
+            return torch.ones(shape, dtype=self.dtype, device=self.device)
+        if scale is None:
+            # fan-in scaling
+            fan_in = shape[0] if len(shape) > 1 else shape[-1]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        w = torch.randn(shape, generator=self.generator, device=self.device,
+                        dtype=torch.float32)
+        return w.mul_(scale).to(self.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms.
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + weight.float())).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(dt)
+
+
+def make_norm_params(b: Builder, d: int, kind: str):
+    if kind == "rmsnorm":
+        return {"scale": b.param((d,), (None,), init="zeros")}
+    return {"scale": b.param((d,), (None,), init="ones"),
+            "bias": b.param((d,), (None,), init="zeros")}
+
+
+def apply_norm(params, x, kind: str, eps: float):
+    if kind == "rmsnorm":
+        return rms_norm(x, params["scale"], eps)
+    return layer_norm(x, params["scale"], params["bias"], eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings.
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta: float):
+    """Apply RoPE.  x: (..., S, H, D), positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32)
+                      * (log_theta / half)).to(x.device)
+    ang = positions[..., :, None].float() * freqs      # (..., S, half)
+    ang = ang[..., None, :]                            # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP.
+# ---------------------------------------------------------------------------
+
+def make_mlp_params(b: Builder, d: int, f: int, gated: bool):
+    p = {"w_up": b.param((d, f), ("embed", "ff")),
+         "w_down": b.param((f, d), ("ff", "embed"))}
+    if gated:
+        p["w_gate"] = b.param((d, f), ("embed", "ff"))
+    return p
+
+
+def gelu(x):
+    """The tanh approximation, as ``jax.nn.gelu(approximate=True)``."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(params, x, act: str, gated: bool):
+    act_fn = F.silu if act == "silu" else gelu
+    up = x @ params["w_up"]
+    if gated:
+        h = act_fn(x @ params["w_gate"]) * up
+    else:
+        h = act_fn(up)
+    return h @ params["w_down"]
+
+
+def softcap(x, cap: float):
+    return torch.tanh(x / cap) * cap if cap > 0 else x

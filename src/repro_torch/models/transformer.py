@@ -1,0 +1,319 @@
+"""The hybrid RecurrentGemma model: init, prefill and decode.
+
+The counterpart of ``repro.models.transformer``'s ``"periods"`` branch:
+the layers run as periods of (rglru, rglru, local attention) plus a tail
+of RG-LRU layers.  Parameters are a nested dict of tensors with the
+reference's keys and its stacked leading layer axis, so the reference's
+weights carry across leaf by leaf
+(:func:`repro_torch.convert.lm_params_from_numpy`).  The reference's
+``lax.scan`` over layers is a Python loop over that axis.
+
+The prefill runs the two kernels of this slice through
+:mod:`repro_torch.kernels.ops`: ``rglru_scan`` in every RG-LRU layer and
+``flash_attention`` in every local-attention layer (by the tensors'
+device: the CUDA kernels on the card, the plain versions on the CPU;
+``mode="plain"`` forces the plain versions).  Decode runs no kernel: it
+is the O(1) recurrence and the cached attention, as in the reference.
+Other model families raise ``NotImplementedError`` (ROADMAP Queue 1
+item 12).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.kernels import ops
+from repro_torch.models import attention, nn, rglru
+from repro_torch.models.config import ModelConfig
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _is_hybrid(cfg: ModelConfig) -> bool:
+    return "rglru" in cfg.attn_pattern and len(set(cfg.attn_pattern)) > 1
+
+
+def _require_hybrid(cfg: ModelConfig) -> None:
+    if not _is_hybrid(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the hybrid RG-LRU + local-attention "
+            f"family only; the other families are ROADMAP Queue 1 item 12")
+    if cfg.attn_softcap > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: attention soft-capping is not in the flash kernel")
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees.
+# ---------------------------------------------------------------------------
+
+class _Stacked:
+    """Prepends a leading layer axis to every declared parameter."""
+
+    def __init__(self, b: nn.Builder, n: int):
+        self._b = b
+        self._n = n
+
+    def param(self, shape, axes=None, init="normal", scale=None):
+        if scale is None and init == "normal":
+            fan_in = shape[0] if len(shape) > 1 else shape[-1]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        return self._b.param((self._n,) + tuple(shape), axes, init=init,
+                             scale=scale)
+
+
+def _attn_block(b, cfg: ModelConfig):
+    return {"norm1": nn.make_norm_params(b, cfg.d_model, cfg.norm),
+            "attn": attention.make_attn_params(b, cfg),
+            "norm2": nn.make_norm_params(b, cfg.d_model, cfg.norm),
+            "mlp": nn.make_mlp_params(b, cfg.d_model, cfg.d_ff,
+                                      cfg.gated_mlp)}
+
+
+def _rglru_block(b, cfg: ModelConfig):
+    return {"norm1": nn.make_norm_params(b, cfg.d_model, cfg.norm),
+            "rglru": rglru.make_rglru_params(b, cfg),
+            "norm2": nn.make_norm_params(b, cfg.d_model, cfg.norm),
+            "mlp": nn.make_mlp_params(b, cfg.d_model, cfg.d_ff,
+                                      cfg.gated_mlp)}
+
+
+def _n_full(cfg: ModelConfig) -> int:
+    return cfg.num_layers // len(cfg.attn_pattern)
+
+
+def _n_tail(cfg: ModelConfig) -> int:
+    return cfg.num_layers % len(cfg.attn_pattern)
+
+
+def _build(cfg: ModelConfig, b: nn.Builder):
+    _require_hybrid(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    params: dict = {
+        "embed": b.param((v, d), ("vocab", "embed_table"), scale=1.0),
+        "final_norm": nn.make_norm_params(b, d, cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = b.param((v, d), ("vocab", "embed_table"))
+    n_full = _n_full(cfg)
+    params["periods"] = {
+        "r1": _rglru_block(_Stacked(b, n_full), cfg),
+        "r2": _rglru_block(_Stacked(b, n_full), cfg),
+        "attn": _attn_block(_Stacked(b, n_full), cfg),
+    }
+    if _n_tail(cfg):
+        params["tail"] = _rglru_block(_Stacked(b, _n_tail(cfg)), cfg)
+    return params
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, dtype=None):
+    """Random weights with the reference's scheme, drawn on ``device``
+    (the card unless asked otherwise) from a ``torch.Generator`` seeded
+    with ``seed``; ``dtype`` defaults to ``cfg.dtype``."""
+    dev = device_mod.resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return _build(cfg, nn.Builder(gen, dev, dtype or DTYPES[cfg.dtype]))
+
+
+def _index(tree, i: int):
+    """Layer i of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list):
+    """Stack per-layer trees along a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# Embedding and output head.
+# ---------------------------------------------------------------------------
+
+def _embed_tokens(cfg: ModelConfig, params, tokens):
+    h = params["embed"][tokens]
+    if cfg.scale_embeddings:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
+                             device=h.device)
+    return h
+
+
+def _out_table(cfg, params):
+    return params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+
+def logits_fn(cfg: ModelConfig, params, h):
+    return nn.softcap(h @ _out_table(cfg, params).T, cfg.logits_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Decode caches + serve step.
+# ---------------------------------------------------------------------------
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                      dtype=None, device=None):
+    """The (stacked) cache tree for ``serve_step``."""
+    _require_hybrid(cfg)
+    dev = device_mod.resolve(device)
+    dtype = dtype or DTYPES[cfg.dtype]
+    spec = attention.CacheSpec("ring", min(cfg.window, max_seq))
+
+    def stacked(one, n):
+        return {k: torch.stack([t] * n) for k, t in one.items()}
+
+    n_full = _n_full(cfg)
+    cache = {
+        "r1": stacked(rglru.init_rglru_cache(cfg, batch, dtype, dev),
+                      n_full),
+        "r2": stacked(rglru.init_rglru_cache(cfg, batch, dtype, dev),
+                      n_full),
+        "attn": stacked(attention.init_cache(cfg, spec, batch, dtype, dev),
+                        n_full),
+    }
+    if _n_tail(cfg):
+        cache["tail"] = stacked(rglru.init_rglru_cache(cfg, batch, dtype,
+                                                       dev), _n_tail(cfg))
+    return cache
+
+
+def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int):
+    """One decode step.  tokens: (B, 1) int; pos: the absolute position.
+    Returns (logits (B, 1, V), new_cache); the input cache is not
+    modified."""
+    _require_hybrid(cfg)
+    pos = int(pos)
+    h = _embed_tokens(cfg, params, tokens)
+    spec = attention.CacheSpec("ring", int(cache["attn"]["k"].shape[2]))
+    periods = params["periods"]
+    new = {"r1": [], "r2": [], "attn": []}
+    for i in range(_n_full(cfg)):
+        h, c = _decode_rglru_block(cfg, _index(periods["r1"], i),
+                                   _index(cache["r1"], i), h)
+        new["r1"].append(c)
+        h, c = _decode_rglru_block(cfg, _index(periods["r2"], i),
+                                   _index(cache["r2"], i), h)
+        new["r2"].append(c)
+        h, c = _decode_attn_block(cfg, _index(periods["attn"], i),
+                                  _index(cache["attn"], i), spec, h, pos,
+                                  cfg.window, cfg.rope_theta)
+        new["attn"].append(c)
+    new_cache = {k: _stack(v) for k, v in new.items()}
+    if "tail" in params:
+        tail = []
+        for i in range(_n_tail(cfg)):
+            h, c = _decode_rglru_block(cfg, _index(params["tail"], i),
+                                       _index(cache["tail"], i), h)
+            tail.append(c)
+        new_cache["tail"] = _stack(tail)
+    h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+    return logits_fn(cfg, params, h), new_cache
+
+
+def _decode_rglru_block(cfg, lp, c, h):
+    r_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+    out, nc = rglru.decode_rglru(cfg, lp["rglru"], c, r_in)
+    h = h + out
+    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
+    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp), nc
+
+
+def _decode_attn_block(cfg, lp, c, spec, h, pos, window, theta):
+    a_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+    out, nc = attention.decode_attention(cfg, lp["attn"], c, spec, a_in,
+                                         pos, window=window,
+                                         rope_theta=theta)
+    h = h + out
+    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
+    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp), nc
+
+
+# ---------------------------------------------------------------------------
+# Prefill.
+# ---------------------------------------------------------------------------
+
+def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None, *,
+            mode: str = "auto"):
+    """Run the trunk over a prompt and build the decode caches.
+
+    batch: {"tokens": (B, S) int}.  Returns (logits_last (B, V), cache).
+    ``mode`` goes to both kernel ops (``"plain"`` forces the plain
+    versions on the card, for comparisons)."""
+    _require_hybrid(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = _embed_tokens(cfg, params, tokens)
+    max_seq = max_seq or S
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    spec = attention.CacheSpec("ring", min(cfg.window, max_seq))
+    periods = params["periods"]
+    per = {"r1": [], "r2": [], "attn": []}
+    for i in range(_n_full(cfg)):
+        h, c = _rglru_prefill_block(cfg, _index(periods["r1"], i), h,
+                                    positions, mode)
+        per["r1"].append(c)
+        h, c = _rglru_prefill_block(cfg, _index(periods["r2"], i), h,
+                                    positions, mode)
+        per["r2"].append(c)
+        h, c = _attn_prefill_block(cfg, _index(periods["attn"], i), h,
+                                   positions, spec, cfg.window,
+                                   cfg.rope_theta, mode)
+        per["attn"].append(c)
+    cache = {k: _stack(v) for k, v in per.items()}
+    if "tail" in params:
+        tail = []
+        for i in range(_n_tail(cfg)):
+            h, c = _rglru_prefill_block(cfg, _index(params["tail"], i), h,
+                                        positions, mode)
+            tail.append(c)
+        cache["tail"] = _stack(tail)
+    h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+    logits = logits_fn(cfg, params, h[:, -1:, :])
+    return logits[:, 0], cache
+
+
+def _attn_prefill_block(cfg, lp, h, positions, spec, window, theta,
+                        mode="auto"):
+    a_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", a_in, lp["attn"]["wq"])
+    k = torch.einsum("bsd,dhk->bshk", a_in, lp["attn"]["wk"])
+    v = torch.einsum("bsd,dhk->bshk", a_in, lp["attn"]["wv"])
+    if theta > 0:
+        q = nn.rope(q, positions, theta)
+        k = nn.rope(k, positions, theta)
+    B, S, H, K = q.shape
+
+    def fold(t):   # (B, S, H, K) -> (B * H, S, K), contiguous
+        return t.permute(0, 2, 1, 3).reshape(B * H, S, K)
+
+    kk = attention._expand_kv(k, cfg.q_per_kv)
+    vv = attention._expand_kv(v, cfg.q_per_kv)
+    out = ops.flash_attention(fold(q), fold(kk), fold(vv), causal=True,
+                              window=window, mode=mode)
+    out = out.view(B, H, S, K).permute(0, 2, 1, 3)
+    h = h + torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
+    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
+    h = h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+    cache = attention.prefill_cache(cfg, spec, k, v,
+                                    torch.arange(S, device=h.device))
+    return h, cache
+
+
+def _rglru_prefill_block(cfg, lp, h, positions, mode="auto"):
+    r_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+    out, st = _rglru_prefill(cfg, lp["rglru"], r_in, mode)
+    h = h + out
+    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
+    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp), st
+
+
+def _rglru_prefill(cfg, params, x, mode="auto"):
+    """``rglru.apply_rglru`` that also returns the decode cache."""
+    out, hseq, rec = rglru._prefill(params, x, mode)
+    width = params["conv_w"].shape[0]
+    cache = {"h": hseq[:, -1].float(), "conv": rec[:, -(width - 1):, :]}
+    return out, cache

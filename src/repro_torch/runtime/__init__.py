@@ -1,1 +1,2 @@
-"""Runtime support: straggler detection."""
+"""Runtime support: straggler detection, the serving slot scheduler and
+the prefill/serve step factories."""

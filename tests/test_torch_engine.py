@@ -80,13 +80,13 @@ def test_engine_config_matches_reference_fields():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(solver="shardmap"), "item 11"), (dict(time_windows=2), "item 10")])
+    (dict(solver="shardmap"), "item 13"), (dict(time_windows=2), "item 12")])
 def test_unported_paths_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         t_engine.AssimilationEngine(t_engine.EngineConfig(**kw),
                                     device="cpu")
     eng = t_engine.AssimilationEngine(t_engine.EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         eng.run([], checkpoint_dir="ckpt", snapshot_every=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         eng.snapshot()

@@ -5,7 +5,9 @@
 * No import statement anywhere in ``src/repro_torch`` or in
   ``chip_smoke.py`` (including those inside functions) names ``jax`` or
   ``repro``.
-* Entry points built without a device want the card and raise here.
+* Entry points built without a device want the card and raise here:
+  the assimilation engine, the LM weights (and so ``serve_batch``) and
+  the serving CLI.
 * The CUDA kernel wrappers refuse CPU tensors instead of falling back.
 """
 import ast
@@ -14,11 +16,16 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs as t_configs  # noqa: E402
+from repro_torch import convert as t_convert  # noqa: E402
 from repro_torch.assim import engine as t_engine  # noqa: E402
+from repro_torch.launch import serve as t_serve  # noqa: E402
+from repro_torch.models import transformer as t_transformer  # noqa: E402
 from repro_torch.kernels import gram as t_gram  # noqa: E402
 from repro_torch.kernels import schwarz_step as t_sch  # noqa: E402
 
@@ -76,6 +83,34 @@ def test_engine_defaults_to_the_card():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_engine.AssimilationEngine(t_engine.EngineConfig())
+
+
+def test_lm_serving_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = t_configs.get_smoke_config("recurrentgemma-9b")
+    reqs = [t_serve.Request(rid=0, prompt=np.arange(1, 9, dtype=np.int32),
+                            max_new=2)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_serve.serve_batch(cfg, t_transformer.init_params(cfg), reqs,
+                            max_seq=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_transformer.init_decode_cache(cfg, 1, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_convert.lm_params_from_numpy({"embed": np.zeros((4, 2))})
+
+
+def test_serving_cli_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "recurrentgemma-9b", "--smoke", "--batch", "1", "--prompt-len",
+         "8", "--max-new", "1"], env=env, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

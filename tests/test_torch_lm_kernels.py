@@ -1,0 +1,180 @@
+"""The port's plain LM kernel versions against the JAX package's.
+
+``attention_plain`` and ``rglru_scan_plain`` (the plain versions of the
+``flash_attention`` and ``rglru_scan`` CUDA kernels) are held against
+``repro.kernels.ref`` and against the Pallas kernels run in interpret
+mode, on inputs made once with numpy, at the shapes and tolerances of
+``tests/test_kernels.py``: 2e-5 (atol and rtol) in f32, 2e-2 in bf16.
+bf16 inputs are the same f32 numbers rounded to bf16 by each package.
+The CUDA kernels themselves run only on the card (``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import flash_attention as t_fa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import rglru_scan as t_rg  # noqa: E402
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+T_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+J_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _both(x, dtype):
+    """One numpy array as a torch tensor and a jax array of ``dtype``."""
+    return (torch.from_numpy(x).to(T_DTYPE[dtype]),
+            jnp.asarray(x).astype(J_DTYPE[dtype]))
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bh,s,d", [(1, 128, 32), (2, 256, 64),
+                                    (3, 192, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+def test_attention_plain_matches_ref_and_interpret(bh, s, d, dtype, causal,
+                                                   window):
+    rng = np.random.default_rng(0)
+    (qt, qj), (kt, kj), (vt, vj) = (
+        _both(rng.normal(size=(bh, s, d)).astype(np.float32), dtype)
+        for _ in range(3))
+    got = tops.flash_attention(qt, kt, vt, causal=causal, window=window,
+                               mode="plain")
+    assert got.dtype == T_DTYPE[dtype] and got.shape == (bh, s, d)
+    _close(got, jref.attention_ref(qj, kj, vj, causal=causal,
+                                   window=window), dtype)
+    _close(got, jops.flash_attention(qj, kj, vj, causal=causal,
+                                     window=window, mode="interpret",
+                                     block_q=64, block_k=64), dtype)
+
+
+@pytest.mark.parametrize("window", [1, 3])
+def test_attention_plain_rows_masked_within_blocks(window):
+    """Windows narrower than a block leave most rows of a (q, kv) block
+    pair with no visible key: the kernel's p = 0 guard must keep them at
+    0.  window = 1 sees only the diagonal, so the output is v itself."""
+    rng = np.random.default_rng(1)
+    (qt, qj), (kt, kj), (vt, vj) = (
+        _both(rng.normal(size=(2, 100, 32)).astype(np.float32), "float32")
+        for _ in range(3))
+    got = tops.flash_attention(qt, kt, vt, causal=True, window=window)
+    _close(got, jops.flash_attention(qj, kj, vj, causal=True, window=window,
+                                     mode="interpret", block_q=32,
+                                     block_k=64), "float32")
+    _close(got, jref.attention_ref(qj, kj, vj, causal=True, window=window),
+           "float32")
+    if window == 1:
+        assert torch.equal(got, vt)
+
+
+def test_attention_plain_nonuniform_blocks():
+    """S = 160 is a multiple of neither block: the ragged last blocks are
+    masked (as ``tests/test_kernels.py`` checks the Pallas kernel)."""
+    q = np.random.default_rng(2).normal(size=(2, 160, 64)).astype(np.float32)
+    qt, qj = _both(q, "float32")
+    got = tops.flash_attention(qt, qt, qt, causal=True)
+    _close(got, jops.flash_attention(qj, qj, qj, causal=True,
+                                     mode="interpret", block_q=32,
+                                     block_k=64), "float32")
+    _close(got, jref.attention_ref(qj, qj, qj, causal=True), "float32")
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(b, s, w, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.7, 0.999, size=(b, s, w)).astype(np.float32)
+    x = (0.1 * rng.normal(size=(b, s, w))).astype(np.float32)
+    return a, x
+
+
+@pytest.mark.parametrize("b,s,w", [(1, 128, 64), (2, 256, 128),
+                                   (3, 512, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_scan_plain_matches_ref_and_interpret(b, s, w, dtype):
+    a, x = _scan_inputs(b, s, w, seed=3)
+    (at, aj), (xt, xj) = _both(a, dtype), _both(x, dtype)
+    got = tops.rglru_scan(at, xt, mode="plain")
+    assert got.dtype == T_DTYPE[dtype] and got.shape == (b, s, w)
+    _close(got, jref.rglru_scan_ref(aj.astype(jnp.float32),
+                                    xj.astype(jnp.float32)), dtype)
+    _close(got, jops.rglru_scan(aj, xj, mode="interpret", block_s=64,
+                                block_w=32), dtype)
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 1, 33), (3, 77, 100), (1, 40, 1)])
+def test_rglru_scan_plain_ragged_shapes(b, s, w):
+    """S = 1 and widths that are no multiple of a warp or a lane tile."""
+    a, x = _scan_inputs(b, s, w, seed=4)
+    (at, aj), (xt, xj) = _both(a, "float32"), _both(x, "float32")
+    got = tops.rglru_scan(at, xt)
+    _close(got, jref.rglru_scan_ref(aj, xj), "float32")
+    _close(got, jops.rglru_scan(aj, xj, mode="interpret",
+                                block_s=min(s, 16), block_w=min(w, 32)),
+           "float32")
+
+
+def test_rglru_scan_plain_sequential_semantics():
+    a = torch.full((1, 5, 4), 0.5)
+    x = torch.ones((1, 5, 4))
+    h, want = 0.0, []
+    for _ in range(5):
+        h = 0.5 * h + 1.0
+        want.append(h)
+    got = tref.rglru_scan_plain(a, x)
+    np.testing.assert_allclose(got[0, :, 0].numpy(), want, rtol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch and wrappers.
+# ---------------------------------------------------------------------------
+
+def test_ops_dispatch_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.normal(size=(2, 40, 16)).astype(np.float32))
+    a, x = (torch.from_numpy(t) for t in _scan_inputs(2, 30, 8, seed=6))
+    before = tops.launch_counts()
+    assert torch.equal(tops.flash_attention(q, q, q, window=8),
+                       tref.attention_plain(q, q, q, window=8))
+    assert torch.equal(tops.rglru_scan(a, x), tref.rglru_scan_plain(a, x))
+    assert tops.launch_counts() == before
+    with pytest.raises(ValueError, match="mode"):
+        tops.rglru_scan(a, x, mode="kernel")
+    with pytest.raises(ValueError, match="mode"):
+        tops.flash_attention(q, q, q, mode="interpret")
+
+
+def test_lm_kernel_wrappers_refuse_cpu_tensors():
+    q = torch.zeros(2, 16, 8)
+    a = torch.zeros(1, 4, 8)
+    before = (t_fa.launches, t_rg.launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_rg.rglru_scan(a, a)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_fa.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_rg.rglru_scan(a.half(), a.half())
+    assert (t_fa.launches, t_rg.launches) == before
+    counts = tops.launch_counts()
+    assert set(counts) == {"gram", "schwarz_fwd", "schwarz_bwd",
+                           "flash_attention", "rglru_scan"}
