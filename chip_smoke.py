@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-and drives the port's two paths through the entry points a user calls.
+and drives the port's three paths through the entry points a user calls.
 
 DD-KF: the streaming engine (``repro_torch.assim.AssimilationEngine``,
 single-device solver) at the paper's size: n = 2048, p = 8, m = 2000
@@ -16,24 +16,33 @@ every cycle's analysis is within 1e-10 of the direct CLS solve, (a) and
 decisions of all three match, and the launch counters show that (a) ran
 every kernel and (c) none.
 
-LM serving: ``repro_torch.launch.serve.serve_batch`` on RecurrentGemma-9B
-at full width in bf16 (weights drawn on the card from a seeded
-generator), four requests of 4096, 3072, 2500 and 1800 prompt tokens
-left-padded to 4096, 32 greedy tokens each: (a) through the kernels, (b)
-the same again, bitwise equal to (a), (c) the prefill through the plain
-versions, within 2e-2 of (a) in the last-position logits (relative to
-their max-abs) and in the trunk's output less the embedding (Frobenius
-over Frobenius, and within 0.2 at the worst position), (d) the prefill through the kernels with every kernel
-call held against its plain version on that call's inputs.  The launch
-counters must show 12 ``flash_attention`` and 26 ``rglru_scan`` launches
-for the prefill.  The smoke config (f32) is also served on the card and
-on the CPU, whose plain path the CPU tests hold to the JAX package.
+LM serving: ``repro_torch.launch.serve.serve_batch`` on
+RecurrentGemma-9B and then on Mamba-2 1.3B, each at full width in bf16
+(weights drawn on the card from a seeded generator), four requests of
+4096, 3072, 2500 and 1800 prompt tokens left-padded to 4096, 32 greedy
+tokens each: (a) through the kernels, (b) the same again, bitwise equal
+to (a), (c) the prefill through the plain versions, for RecurrentGemma
+within 2e-2 of (a) in the last-position logits (relative to their
+max-abs) and in the trunk's output less the embedding (Frobenius over
+Frobenius, and within 0.2 at the worst position; ``LM_PATHS`` holds each
+model's limits), (d) the prefill through the kernels with every kernel
+call held against its plain version on that call's inputs, (e) the
+prefill with the last layer's kernel output losing its last 64
+positions, which the trunk gate must catch.  Mamba-2's (c) and (e) run on
+an f32 copy of its weights, at limits set for f32: in bf16 its random
+layers amplify rounding past any fixed gate (``LM_PATHS``), so there its
+kernel route is held to the plain route within twice a rounding-level
+control.  The launch counters must show 12 ``flash_attention`` and 26
+``rglru_scan`` launches for the RecurrentGemma prefill, 48 ``ssd_scan``
+launches for the Mamba-2 prefill, and none for decode.  The smoke configs
+(f32) are also served on the card and on the CPU, whose plain path the
+CPU tests hold to the JAX package.
 
 Each kernel is then held against its plain version on the card, on the
 main path's own inputs, on random values at the same shapes and at
 ragged shapes, and timed beside its bound, the plain version and one
-library call.  ``torch.profiler`` traces one DD-KF cycle and one LM
-prefill.
+library call where there is one.  ``torch.profiler`` traces one DD-KF
+cycle and, for each served model, one prefill and one decode step.
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
@@ -65,6 +74,7 @@ REPLACES = {
     "schwarz_bwd": "src/repro/kernels/schwarz_step.py:130",
     "flash_attention": "src/repro/kernels/flash_attention.py:118",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:57",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:82",
 }
 SOURCES = {
     "gram": "src/repro_torch/kernels/csrc/gram.cu",
@@ -72,6 +82,7 @@ SOURCES = {
     "schwarz_bwd": "src/repro_torch/kernels/csrc/schwarz_step.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 REL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 # The LM kernels' tolerances, as in tests/test_kernels.py.
@@ -82,6 +93,10 @@ LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # 5.6e-2; run (e), the last attention layer's last 64 rows zeroed, gives
 # 0.44 (NVIDIA H100 80GB HBM3, 700.00 W).
 TRUNK_ROW_TOL = 0.2
+# ssd_scan against its plain version, as tests/test_kernels.py holds the
+# Pallas kernel to its oracle: |kernel - plain| <= atol + rtol |plain| in
+# y and in the final state.
+SSD_ATOL, SSD_RTOL = 5e-5, 5e-4
 
 
 class SmokeFailure(Exception):
@@ -424,13 +439,41 @@ def phase_kernels(main_cases, counts):
 
 
 # ---------------------------------------------------------------------------
-# LM serving: RecurrentGemma-9B.
+# LM serving: RecurrentGemma-9B and Mamba-2 1.3B.
 # ---------------------------------------------------------------------------
 
-LM_ARCH = "recurrentgemma-9b"
 DEVICE = "cuda"
 PROMPT_LENS = (4096, 3072, 2500, 1800)
 MAX_NEW = 32
+# Each served model: the kernel launches of its prefill at full width and
+# on the smoke config, the prefill block whose output after the last layer
+# is the trunk's output before the final norm, the kernel op whose last
+# launch run (e) faults, and the limits of (c): the last-position logits'
+# max abs difference over max abs, and the trunk's output less the
+# embedding, Frobenius over Frobenius and at the worst position.
+LM_PATHS = {
+    "recurrentgemma-9b": {
+        "launches": {"flash_attention": 12, "rglru_scan": 26},
+        "smoke_launches": {"flash_attention": 1, "rglru_scan": 4},
+        "block": "_rglru_prefill_block", "fault": "flash_attention",
+        "gates": {"logits": 2e-2, "frob": 2e-2, "rows": TRUNK_ROW_TOL}},
+    "mamba2-1.3b": {
+        "launches": {"ssd_scan": 48}, "smoke_launches": {"ssd_scan": 3},
+        "block": "_ssd_prefill_block", "fault": "ssd_scan",
+        "gate_dtype": torch.float32,
+        "gates": {"logits": 1e-4, "frob": 2e-3, "rows": 2e-2}},
+}
+# Mamba-2's runs (c) and (e) compare an f32 copy of the weights: with
+# random weights its 48 bf16 layers amplify rounding flips, so that the
+# plain route against itself with every SSD output scaled by 1 + 1e-6
+# (below bf16's resolution) moves the trunk by 0.30 (Frobenius) and the
+# logits by 6.4e-2.  In f32 the kernel and plain routes differ by 2.3e-6
+# in the logits, 2.4e-4 (Frobenius) and 2.4e-3 (worst position) in the
+# trunk, and run (e) reaches 1.3e-2 and 0.26 in the trunk; the f32 limits
+# lie between, with room on both sides (NVIDIA H100 80GB HBM3, 700.00 W).
+# In bf16 the kernel route is held to that control instead
+# (:func:`bf16_control_gate`); (d) holds every bf16 layer.
+CONTROL_K = 2
 
 
 @contextlib.contextmanager
@@ -470,29 +513,41 @@ def keep_first_call(store: dict, name: str):
     return wrap
 
 
+def agreement(name, out, plain):
+    """(max abs err, ratio) of a kernel's output against its plain
+    version's; the kernel agrees when ratio <= 1.  ``ssd_scan`` (y and
+    the final state): the worst |kernel - plain| / (SSD_ATOL + SSD_RTOL
+    |plain|); the others: max abs err / max abs of the plain output, over
+    the dtype's LM_TOL."""
+    if name == "ssd_scan":
+        diffs = [((k - p).abs(), SSD_ATOL + SSD_RTOL * p.abs())
+                 for k, p in zip(out, plain)]
+        return (max(float(d.max()) for d, _ in diffs),
+                max(float((d / a).max()) for d, a in diffs))
+    err = float((out.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max()) or 1.0
+    return err, err / scale / LM_TOL[plain.dtype]
+
+
 def compare_calls(errs: dict, name: str):
     """Wrap a kernel op so every call's output is also held against the
     op's plain version on the same inputs; ``errs[name]`` gets each
-    call's (max abs err, relative err, input dtype)."""
+    call's :func:`agreement`."""
     def wrap(fn):
         def run(*args, **kwargs):
             out = fn(*args, **kwargs)
             kw = {k: v for k, v in kwargs.items() if k != "mode"}
-            plain = lm_plain(name)(*args, **kw).float()
-            err = float((out.float() - plain).abs().max())
-            scale = float(plain.abs().max()) or 1.0
-            errs.setdefault(name, []).append((err, err / scale,
-                                              args[0].dtype))
+            errs.setdefault(name, []).append(
+                agreement(name, out, lm_plain(name)(*args, **kw)))
             return out
         return run
     return wrap
 
 
 def keep_trunk_output(store: dict):
-    """Wrap ``transformer._rglru_prefill_block`` so the residual stream it
-    returns lands in ``store["h"]``.  The prefill's last block is a tail
-    RG-LRU block, so what stays is the trunk's output before the final
-    norm."""
+    """Wrap a prefill block function so the residual stream it returns
+    lands in ``store["h"]``: after the prefill, the last block's, which is
+    the trunk's output before the final norm."""
     def wrap(block):
         def run(*args, **kwargs):
             h, cache = block(*args, **kwargs)
@@ -502,12 +557,13 @@ def keep_trunk_output(store: dict):
     return wrap
 
 
-def serve_run(cfg, params, prompts, kept_inputs=None):
+def serve_run(cfg, params, prompts, path, kept_inputs=None):
     """One ``serve_batch`` of the prompts, greedy; returns the prefill's
     (batch, logits), the generated tokens, the stats and the launch
     counts of this run alone.  ``kept_inputs`` (a dict) receives the
-    arguments of the first call of each kernel op and the prefill's
-    trunk output (:func:`keep_first_call`, :func:`keep_trunk_output`)."""
+    arguments of the first call of each of the path's kernel ops and the
+    prefill's trunk output (:func:`keep_first_call`,
+    :func:`keep_trunk_output`)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import transformer
@@ -520,10 +576,10 @@ def serve_run(cfg, params, prompts, kept_inputs=None):
         stack.enter_context(wrapped(steps, "make_prefill_step",
                                     keep_prefill(kept)))
         if kept_inputs is not None:
-            for name in ("flash_attention", "rglru_scan"):
+            for name in path["launches"]:
                 stack.enter_context(wrapped(
                     ops, name, keep_first_call(kept_inputs, name)))
-            stack.enter_context(wrapped(transformer, "_rglru_prefill_block",
+            stack.enter_context(wrapped(transformer, path["block"],
                                         keep_trunk_output(kept_inputs)))
         ops.reset_counts()
         reqs, stats = serve.serve_batch(cfg, params, reqs,
@@ -534,24 +590,26 @@ def serve_run(cfg, params, prompts, kept_inputs=None):
     return kept[0], [r.out for r in reqs], stats, counts
 
 
-def phase_lm_small() -> None:
-    """The smoke config (f32, window 16, prompts longer than the window)
-    served on the card through the kernels and on the CPU through the
-    plain versions, with the same weights: the CPU path is the one the
-    tests hold to the JAX package at 1e-4."""
+def phase_lm_small(arch: str) -> None:
+    """The smoke config (f32, prompts longer than the RecurrentGemma
+    window and than five Mamba-2 chunks) served on the card through the
+    kernels and on the CPU through the plain versions, with the same
+    weights: the CPU path is the one the tests hold to the JAX package
+    at 1e-4."""
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.runtime import steps
 
-    print("== lm_serve: smoke config, card vs CPU")
-    cfg = configs.get_smoke_config(LM_ARCH)
+    print(f"== lm_serve: {arch} smoke config, card vs CPU")
+    path = LM_PATHS[arch]
+    cfg = configs.get_smoke_config(arch)
     cpu = transformer.init_params(cfg, 0, device="cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in (40, 29, 17)]
     (_, logits_card), toks_card, _, counts = serve_run(
-        cfg, _to_device(cpu, DEVICE), prompts)
+        cfg, _to_device(cpu, DEVICE), prompts, path)
     kept = []
     with wrapped(steps, "make_prefill_step", keep_prefill(kept)):
         reqs, _ = serve.serve_batch(
@@ -564,8 +622,9 @@ def phase_lm_small() -> None:
     check(toks_card == [r.out for r in reqs],
           f"smoke greedy tokens equal on the card and the CPU "
           f"({len(prompts)} x {MAX_NEW})")
-    check(counts["flash_attention"] == 1 and counts["rglru_scan"] == 4,
-          f"smoke prefill ran 1 flash_attention and 4 rglru_scan: {counts}")
+    want = path["smoke_launches"]
+    check(all(v == want.get(k, 0) for k, v in counts.items()),
+          f"smoke prefill ran {want} launches, decode none: {counts}")
 
 
 def _to_device(tree, device):
@@ -574,15 +633,14 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def prefill_trunk(cfg, params, batch, mode="auto"):
+def prefill_trunk(cfg, params, batch, block: str, mode="auto"):
     """One prefill of ``batch``: its last-position logits and the
-    trunk's output before the final norm."""
+    trunk's output before the final norm (the last ``block``'s)."""
     from repro_torch.models import transformer
     from repro_torch.runtime import steps
 
     kept: dict = {}
-    with wrapped(transformer, "_rglru_prefill_block",
-                 keep_trunk_output(kept)):
+    with wrapped(transformer, block, keep_trunk_output(kept)):
         logits, _ = steps.make_prefill_step(
             cfg, max_seq=max(PROMPT_LENS) + MAX_NEW, mode=mode)(params,
                                                                 batch)
@@ -604,26 +662,29 @@ def trunk_diff(label, t, ref):
     return frob, rows
 
 
-def phase_lm_serve():
-    """RecurrentGemma-9B at full width in bf16: runs (a) to (e).
-    Returns (a)'s launch counts, the weights, the prefill batch, the
-    first inputs of each kernel op in (a) and the largest max abs error
-    of each op over every layer of (d).
+def phase_lm_serve(arch: str):
+    """``arch`` at full width in bf16: runs (a) to (e).  Returns (a)'s
+    launch counts, the weights, the config, the prefill batch, the first
+    inputs of each kernel op in (a) and the largest max abs error of each
+    op over every layer of (d).
 
-    With random weights the scaled embedding dominates the residual
-    stream and so the logits, so (c) is also held to (a) in the trunk's
-    own contribution: the final residual stream less the embedding.
-    bf16 rounding differences grow through 38 random layers, so that
-    gate is on norms (all positions, and the worst one), and (e) shows
-    that it trips on a fault in one deep layer.  The tight check of the
-    kernels is (d), a kernel-route prefill whose every kernel call is
-    held against the plain version on that call's inputs."""
+    With random weights the embedding dominates the residual stream and
+    so the logits, so (c) is also held to (a) in the trunk's own
+    contribution: the final residual stream less the embedding.  bf16
+    rounding differences grow through the random layers, so that gate is
+    on norms (all positions, and the worst one), and (e) shows that it
+    trips on a fault in the last layer.  Where the path names a
+    ``gate_dtype``, (c) and (e) compare a kernel-route prefill of the
+    weights cast to it instead of (a).  The tight check of the kernels
+    is (d), a kernel-route prefill whose every kernel call is held
+    against the plain version on that call's inputs."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
 
-    cfg = configs.get_config(LM_ARCH)
-    print(f"== lm_serve: {LM_ARCH} full width ({cfg.num_layers} layers, "
+    path = LM_PATHS[arch]
+    cfg = configs.get_config(arch)
+    print(f"== lm_serve: {arch} full width ({cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, bf16), prompts {PROMPT_LENS} left-padded"
           f" to {max(PROMPT_LENS)}, {MAX_NEW} greedy tokens each")
     torch.cuda.reset_peak_memory_stats()
@@ -640,9 +701,10 @@ def phase_lm_serve():
 
     runs = {}
     inputs: dict = {}
+    want = path["launches"]
     for tag in ("a", "b"):
         (batch, logits), toks, stats, counts = serve_run(
-            cfg, params, prompts, inputs if tag == "a" else None)
+            cfg, params, prompts, path, inputs if tag == "a" else None)
         runs[tag] = (logits, toks, counts)
         print(f"  ({tag}) prefill {stats['prefill_s']:.4f} s, decode "
               f"{stats['decode_s'] / MAX_NEW * 1e3:.3f} ms/step, "
@@ -653,11 +715,9 @@ def phase_lm_serve():
         check(all(len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size
                                             for x in t) for t in toks),
               f"({tag}) {MAX_NEW} tokens in the vocabulary per request")
-        check(counts["flash_attention"] == 12 and counts["rglru_scan"] == 26
-              and counts["gram"] == counts["schwarz_fwd"]
-              == counts["schwarz_bwd"] == 0,
-              f"({tag}) the prefill ran 12 flash_attention and 26 "
-              f"rglru_scan launches, decode none")
+        check(all(v == want.get(k, 0) for k, v in counts.items()),
+              f"({tag}) the prefill ran {want} launches, decode and the "
+              f"other kernels none")
     la, ta, ca = runs["a"]
     lb, tb, _ = runs["b"]
     check(torch.equal(la, lb) and ta == tb,
@@ -665,69 +725,135 @@ def phase_lm_serve():
     print(f"  max memory allocated, weights and runs (a), (b): "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
+    fault = path["fault"]
+    ha = inputs.pop("h")
+    gate_dtype = path.get("gate_dtype")
+    gp = params
+    if gate_dtype is not None:
+        bf16_control_gate(cfg, params, batch, path, la, ha)
+        gp = _cast(params, gate_dtype)
+        ops.reset_counts()
+        la, ha = prefill_trunk(cfg, gp, batch, path["block"])
+        check(ops.launch_counts() == ca, f"(a, {str(gate_dtype)[6:]}) the "
+              f"prefill of the weights in {str(gate_dtype)[6:]} ran the "
+              f"same launches")
+    tag = "" if gate_dtype is None else f", {str(gate_dtype)[6:]}"
+    gates = path["gates"]
+
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
-    lc, hc = prefill_trunk(cfg, params, batch, mode="plain")
+    lc, hc = prefill_trunk(cfg, gp, batch, path["block"], mode="plain")
     cc = ops.launch_counts()
-    check(all(v == 0 for v in cc.values()), f"(c) ran no kernel: {cc}")
-    print(f"  max memory allocated, weights and run (c): "
+    check(all(v == 0 for v in cc.values()), f"(c{tag}) ran no kernel: {cc}")
+    print(f"  max memory allocated, weights and run (c{tag}): "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     rel = float((la.float() - lc.float()).abs().max()
                 / lc.float().abs().max())
     agree = float((la.argmax(-1) == lc.argmax(-1)).float().mean())
-    print(f"  (c) plain prefill: last-position logits max abs diff / max "
-          f"abs {rel:.3e}; first tokens agree for {agree:.2f} of the "
+    print(f"  (c{tag}) plain prefill: last-position logits max abs diff / "
+          f"max abs {rel:.3e}; first tokens agree for {agree:.2f} of the "
           f"requests")
-    check(rel <= 2e-2, f"(a) vs (c) relative logits difference {rel:.3e} "
-          f"<= 2e-2")
-    emb = transformer._embed_tokens(cfg, params, batch["tokens"]).float()
+    check(rel <= gates["logits"], f"(a{tag}) vs (c{tag}) relative logits "
+          f"difference {rel:.3e} <= {gates['logits']:g}")
+    emb = transformer._embed_tokens(cfg, gp, batch["tokens"]).float()
     tc = hc.float() - emb
-    frob, rows = trunk_diff("(a) vs (c)", inputs.pop("h").float() - emb, tc)
-    check(frob <= 2e-2, f"(a) vs (c) trunk difference, Frobenius over "
-          f"Frobenius, {frob:.3e} <= 2e-2")
-    check(rows <= TRUNK_ROW_TOL, f"(a) vs (c) trunk difference at the "
-          f"worst position, norm over norm, {rows:.3e} <= {TRUNK_ROW_TOL:g}")
+    frob, rows = trunk_diff(f"(a{tag}) vs (c{tag})", ha.float() - emb, tc)
+    check(frob <= gates["frob"], f"(a{tag}) vs (c{tag}) trunk difference, "
+          f"Frobenius over Frobenius, {frob:.3e} <= {gates['frob']:g}")
+    check(rows <= gates["rows"], f"(a{tag}) vs (c{tag}) trunk difference at "
+          f"the worst position, norm over norm, {rows:.3e} <= "
+          f"{gates['rows']:g}")
 
     # (e) The trunk gate catches a fault in one deep layer that the
-    # logits gate misses: the last attention layer's output loses its
-    # last 64 rows.
+    # logits gate misses: the last launch of the fault kernel loses the
+    # last 64 rows (positions) of its output.
     def zero_tail(fn):
         calls = []
 
         def run(*args, **kwargs):
             out = fn(*args, **kwargs)
             calls.append(1)
-            if len(calls) == ca["flash_attention"]:
-                out = out.clone()
-                out[:, -64:] = 0
+            if len(calls) == ca[fault]:
+                y = (out[0] if isinstance(out, tuple) else out).clone()
+                y[:, -64:] = 0
+                out = (y, *out[1:]) if isinstance(out, tuple) else y
             return out
         return run
 
-    with wrapped(ops, "flash_attention", zero_tail):
-        le, he = prefill_trunk(cfg, params, batch)
+    with wrapped(ops, fault, zero_tail):
+        le, he = prefill_trunk(cfg, gp, batch, path["block"])
     rel_e = float((le.float() - lc.float()).abs().max()
                   / lc.float().abs().max())
-    _, rows_e = trunk_diff("(e) faulted vs (c)", he.float() - emb, tc)
-    check(rows_e > TRUNK_ROW_TOL, f"(e) a fault in the last attention "
-          f"layer trips the trunk gate ({rows_e:.3e} > {TRUNK_ROW_TOL:g}; "
+    _, rows_e = trunk_diff(f"(e{tag}) faulted vs (c{tag})", he.float() - emb,
+                           tc)
+    check(rows_e > gates["rows"], f"(e{tag}) a fault in the last {fault} "
+          f"layer trips the trunk gate ({rows_e:.3e} > {gates['rows']:g}; "
           f"logits rel {rel_e:.3e})")
-    del emb, tc, hc, he
+    del emb, tc, hc, he, ha, gp
 
     errs: dict = {}
     with contextlib.ExitStack() as stack:
-        for name in ("flash_attention", "rglru_scan"):
+        for name in want:
             stack.enter_context(wrapped(ops, name,
                                         compare_calls(errs, name)))
-        prefill_trunk(cfg, params, batch)
+        prefill_trunk(cfg, params, batch, path["block"])
     worst = {}
     for name, calls in errs.items():
-        tol = LM_TOL[calls[0][2]]
-        rel = max(r for _, r, _ in calls)
-        worst[name] = max(e for e, _, _ in calls)
-        check(rel <= tol, f"(d) {name} against its plain version on the "
-              f"inputs of each of its {len(calls)} layers: worst rel "
-              f"{rel:.3e} <= {tol:g}")
+        worst[name] = max(e for e, _ in calls)
+        ratio = max(r for _, r in calls)
+        check(ratio <= 1, f"(d) {name} against its plain version on the "
+              f"inputs of each of its {len(calls)} layers: max abs err "
+              f"{worst[name]:.3e}, worst error over its allowance "
+              f"{ratio:.3e} <= 1")
     return ca, params, cfg, batch, inputs, worst
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def bf16_control_gate(cfg, params, batch, path, la, ha) -> None:
+    """Hold the kernel route (run (a): logits ``la``, trunk ``ha``) to the
+    plain route in the served dtype against a control: the plain route
+    against itself with every output of the path's fault kernel op scaled
+    by 1 + 1e-6, a change below bf16's resolution.  The kernel route's
+    logits and trunk Frobenius differences must stay within CONTROL_K
+    times the control's.  The worst position is printed only: CONTROL_K
+    times the control's reading there (0.72) would admit unrelated
+    outputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    def scaled(fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if isinstance(out, tuple):
+                return (out[0] * (1 + 1e-6), *out[1:])
+            return out * (1 + 1e-6)
+        return run
+
+    lc, hc = prefill_trunk(cfg, params, batch, path["block"], mode="plain")
+    with wrapped(ops, path["fault"], scaled):
+        lp, hp = prefill_trunk(cfg, params, batch, path["block"],
+                               mode="plain")
+    emb = transformer._embed_tokens(cfg, params, batch["tokens"]).float()
+    tc = hc.float() - emb
+    read = []
+    for label, lx, hx in (("(a) vs (c), bf16", la, ha),
+                          ("control: (c) scaled by 1 + 1e-6 vs (c), bf16",
+                           lp, hp)):
+        rel = float((lx.float() - lc.float()).abs().max()
+                    / lc.float().abs().max())
+        print(f"  {label}: last-position logits max abs diff / max abs "
+              f"{rel:.3e}")
+        read.append((rel, trunk_diff(label, hx.float() - emb, tc)[0]))
+    (rel_a, frob_a), (rel_c, frob_c) = read
+    check(rel_a <= CONTROL_K * rel_c and frob_a <= CONTROL_K * frob_c,
+          f"(a) vs (c), bf16, within {CONTROL_K}x the control: logits "
+          f"{rel_a:.3e} <= {CONTROL_K * rel_c:.3e}, trunk Frobenius "
+          f"{frob_a:.3e} <= {CONTROL_K * frob_c:.3e}")
 
 
 def _leaves(tree, prefix=""):
@@ -755,24 +881,25 @@ def phase_lm_profile(cfg, params, batch) -> None:
             t1 = time.perf_counter()
         return out, prof, (t1 - t0) * 1e3
 
-    print("== profile: one recurrentgemma-9b prefill (4 x 4096 tokens)")
+    B, S = batch["tokens"].shape
+    print(f"== profile: one {cfg.name} prefill ({B} x {S} tokens)")
     step = steps.make_prefill_step(cfg, max_seq=max(PROMPT_LENS) + MAX_NEW)
     (logits, cache), prof, wall_ms = profiled(lambda: step(params, batch))
     device_report(prof, wall_ms, 15)
 
-    print("== profile: one decode step (4 tokens) after that prefill")
+    print(f"== profile: one {cfg.name} decode step ({B} tokens) after that "
+          f"prefill")
     serve = steps.make_serve_step(cfg)
     cur = logits.argmax(-1)[:, None]
-    pos = batch["tokens"].shape[1]
-    serve(params, cache, cur, pos)
+    serve(params, cache, cur, S)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
-        serve(params, cache, cur, pos)
+        serve(params, cache, cur, S)
     torch.cuda.synchronize()
     print(f"  decode step without the profiler: "
           f"{(time.perf_counter() - t0) / 3 * 1e3:.3f} ms")
-    _, prof, wall_ms = profiled(lambda: serve(params, cache, cur, pos))
+    _, prof, wall_ms = profiled(lambda: serve(params, cache, cur, S))
     device_report(prof, wall_ms, 8)
 
 
@@ -814,7 +941,8 @@ def lm_kernel(name):
 def lm_plain(name):
     from repro_torch.kernels import ref
     return {"flash_attention": ref.attention_plain,
-            "rglru_scan": ref.rglru_scan_plain}[name]
+            "rglru_scan": ref.rglru_scan_plain,
+            "ssd_scan": ref.ssd_scan_plain}[name]
 
 
 def lm_compare(name, args, kwargs, label):
@@ -916,6 +1044,110 @@ def phase_lm_kernels(inputs: dict, layer_errs: dict, counts: dict,
     return rows
 
 
+# Ragged ssd_scan cases (BH, B/C rows, S, P, N, chunk): rep 1; odd BH with
+# a part-filled P tile, N 64 and a chunk off the 64-row sub-tiles; P 32
+# with rep 4; S below the chunk; the smoke config's scan.
+SSD_RAGGED = ((6, 6, 1024, 64, 128, 256), (5, 5, 300, 48, 64, 100),
+              (8, 2, 512, 32, 64, 128), (3, 1, 200, 64, 128, 256),
+              (2, 2, 40, 16, 16, 8))
+
+
+def ssd_random(bh, groups, s, p, n, gen):
+    """Random ssd_scan inputs whose decays keep the state alive across
+    chunks (dt in [0.001, 0.1], A in [-2, -0.5], as tests/test_kernels.py
+    draws them)."""
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=DEVICE)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+
+    return (randn(bh, s, p), rand(bh, s) * 0.099 + 0.001,
+            -(rand(bh) * 1.5 + 0.5), randn(groups, s, n), randn(groups, s, n))
+
+
+def ssd_compare(args, chunk: int, label: str) -> float:
+    """Kernel vs plain version on ``args``, in y and the final state."""
+    from repro_torch.kernels import ref, ssd_scan
+
+    out_k = ssd_scan.ssd_scan(*args, chunk=chunk)
+    out_p = ref.ssd_scan_plain(*args, chunk=chunk, state=True)
+    torch.cuda.synchronize()
+    err, ratio = agreement("ssd_scan", out_k, out_p)
+    ok = all(k.shape == q.shape and bool(torch.isfinite(k).all())
+             for k, q in zip(out_k, out_p))
+    check(ok and ratio <= 1, f"ssd_scan {label}: y and final state max abs "
+          f"err {err:.3e}, worst error over ({SSD_ATOL:g} + {SSD_RTOL:g} "
+          f"|plain|) {ratio:.3e} <= 1")
+    return err
+
+
+def ssd_bound(args, chunk: int):
+    """(bound_ms, bound_by) of one ssd_scan.  Flops at the least the
+    function needs, counting the causal triangle's chunk (chunk + 1) / 2
+    pairs: C B^T once per (group, chunk), 2 N a pair, as the heads of a
+    group share it; per (head, chunk), (C B^T .* L) x, 2 P a pair, and
+    the inter-chunk term and the state update, 2 N P a row each.  Bytes:
+    x, dt, A, B, C read once, y and the final state written once, f32."""
+    x, dt, A, B, C = args
+    bh, s, p = x.shape
+    groups, _, n = B.shape
+    pairs = chunk * (chunk + 1) // 2
+    flops = (s // chunk) * (groups * 2 * pairs * n
+                            + bh * (2 * pairs * p + 4 * chunk * n * p))
+    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
+                  + C.numel() + bh * n * p)
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_ssd_kernels(first_call, layer_err: float, counts: dict) -> dict:
+    """ssd_scan vs its plain version, in y and the final state: on the
+    Mamba-2 prefill's first-layer inputs (``first_call``, the op's
+    arguments in run (a)), on random inputs at the same shapes whose
+    state stays alive, and at ragged shapes; two launches bitwise equal;
+    then the timings at the prefill's shape.  The JSON max_abs_err is
+    the largest of the first two and of every layer of run (d),
+    ``layer_err``."""
+    from repro_torch.kernels import ref, ssd_scan
+
+    print("== kernels: ssd_scan")
+    args, kwargs = first_call
+    chunk = kwargs["chunk"]
+    x, _, _, B, _ = args
+    shapes = f"x {tuple(x.shape)}, B/C {tuple(B.shape)}, chunk {chunk}"
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    err = max(layer_err, ssd_compare(args, chunk, f"prefill input {shapes}"),
+              ssd_compare(ssd_random(x.shape[0], B.shape[0], x.shape[1],
+                                     x.shape[2], B.shape[2], gen),
+                          chunk, f"random {shapes}"))
+    for bh, groups, s, p, n, c in SSD_RAGGED:
+        ssd_compare(ssd_random(bh, groups, s, p, n, gen), c,
+                    f"ragged x {(bh, s, p)}, B/C {(groups, s, n)}, "
+                    f"chunk {c}")
+    y1, f1 = ssd_scan.ssd_scan(*args, chunk=chunk)
+    y2, f2 = ssd_scan.ssd_scan(*args, chunk=chunk)
+    check(torch.equal(y1, y2) and torch.equal(f1, f2),
+          "ssd_scan: two launches bitwise equal")
+    bound, by = ssd_bound(args, chunk)
+    row = {
+        "name": "ssd_scan", "ok": True, "route": "cuda",
+        "source": SOURCES["ssd_scan"], "replaces": REPLACES["ssd_scan"],
+        "launches": counts["ssd_scan"], "max_abs_err": err,
+        "ms": time_ms(lambda: ssd_scan.ssd_scan(*args, chunk=chunk), 10),
+        "plain_ms": time_ms(lambda: ref.ssd_scan_plain(
+            *args, chunk=chunk, state=True), 2),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": list(x.shape), "dtype": "float32",
+    }
+    print(f"  ssd_scan {shapes}: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library none, bound {bound:.4f} ms "
+          f"({by})")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this check runs "
@@ -943,10 +1175,22 @@ def main() -> int:
                          counts_1d)
     phase_profile(paper, "drifting_swarm", 2000, 6)
 
-    phase_lm_small()
-    counts_lm, params, cfg, batch, inputs, layer_errs = phase_lm_serve()
+    phase_lm_small("recurrentgemma-9b")
+    counts_lm, params, cfg, batch, inputs, layer_errs = phase_lm_serve(
+        "recurrentgemma-9b")
     phase_lm_profile(cfg, params, batch)
     rows += phase_lm_kernels(inputs, layer_errs, counts_lm, cfg.num_heads)
+    del params, batch, inputs   # free the 17 GB of RecurrentGemma weights
+    torch.cuda.empty_cache()
+
+    phase_lm_small("mamba2-1.3b")
+    counts_m, params, cfg, batch, inputs, layer_errs = phase_lm_serve(
+        "mamba2-1.3b")
+    phase_lm_profile(cfg, params, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+    rows.append(phase_ssd_kernels(inputs["ssd_scan"], layer_errs["ssd_scan"],
+                                  counts_m))
     print(f"== done in {time.perf_counter() - t_start:.1f} s "
           f"(2D launches {counts_2d})")
     print(f"card: {smi}")

@@ -1,6 +1,6 @@
 """Architecture configs, as in ``repro.configs``: the same ``ARCHS`` and
-``ARCH_IDS``.  This slice of the port serves ``recurrentgemma-9b`` only;
-the other archs wait for ROADMAP Queue 1 item 12."""
+``ARCH_IDS``.  The port serves ``recurrentgemma-9b`` and ``mamba2-1.3b``;
+the other archs wait for ROADMAP Queue 1 item 7."""
 from __future__ import annotations
 
 import importlib
@@ -28,7 +28,7 @@ ARCH_IDS.update({
     "phi3-vision-4.2b": "phi3_vision_4_2b",
 })
 
-PORTED = ("recurrentgemma_9b",)
+PORTED = ("recurrentgemma_9b", "mamba2_1_3b")
 
 
 def _module(arch: str):
@@ -36,7 +36,7 @@ def _module(arch: str):
     if name not in PORTED:
         raise NotImplementedError(
             f"{arch}: the port serves {', '.join(PORTED)} only; the other "
-            f"archs are ROADMAP Queue 1 item 12")
+            f"archs are ROADMAP Queue 1 item 7")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -47,6 +47,7 @@ SIGNATURES = {
     "repro_flash_attention_bf16": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),
     "repro_rglru_scan_f32": (_P, _P, _P, _I, _I, _I, _P),
     "repro_rglru_scan_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "repro_ssd_scan_f32": (_P,) * 7 + (_I,) * 6 + (_P,),
 }
 
 DTYPES = (torch.float64, torch.float32)   # what the DD-KF kernels take

@@ -14,6 +14,7 @@ from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import schwarz_step as _sch
+from repro_torch.kernels import ssd_scan as _ssd
 
 MODES = ("auto", "plain")
 
@@ -63,11 +64,24 @@ def rglru_scan(a, b, *, mode: str = "auto"):
     return _ref.rglru_scan_plain(a, b)
 
 
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, state: bool = False,
+             mode: str = "auto"):
+    """Mamba-2 SSD chunked scan, head-folded: x (BH, S, P), dt (BH, S),
+    A (BH,), B/C (BH / rep, S, N) with row ``bh // rep`` serving head
+    ``bh`` -> y (BH, S, P), and with ``state`` also the final state
+    (BH, N, P) in f32.  ``min(chunk, S)`` must divide S."""
+    if _use_kernel(x, mode):
+        y, final = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        return (y, final) if state else y
+    return _ref.ssd_scan_plain(x, dt, A, B, C, chunk=chunk, state=state)
+
+
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last :func:`reset_counts`."""
     return {"gram": _gram.launches, "schwarz_fwd": _sch.fwd_launches,
             "schwarz_bwd": _sch.bwd_launches,
-            "flash_attention": _fa.launches, "rglru_scan": _rg.launches}
+            "flash_attention": _fa.launches, "rglru_scan": _rg.launches,
+            "ssd_scan": _ssd.launches}
 
 
 def reset_counts() -> None:
@@ -76,3 +90,4 @@ def reset_counts() -> None:
     _sch.bwd_launches = 0
     _fa.launches = 0
     _rg.launches = 0
+    _ssd.launches = 0

@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the kernels.
 
 The counterparts of ``repro.kernels.ref.gram_ref``, ``schwarz_fwd_ref``,
-``schwarz_bwd_ref``, ``attention_ref`` and ``rglru_scan_ref``.  They
-compute the same functions as the CUDA kernels of
-:mod:`repro_torch.kernels.gram`, :mod:`~repro_torch.kernels.schwarz_step`,
-:mod:`~repro_torch.kernels.flash_attention` and
-:mod:`~repro_torch.kernels.rglru_scan`: the CPU path runs them, and the
+``schwarz_bwd_ref``, ``attention_ref``, ``rglru_scan_ref`` and
+``ssd_heads_ref``.  They compute the same functions as the CUDA kernels
+of :mod:`repro_torch.kernels.gram`,
+:mod:`~repro_torch.kernels.schwarz_step`,
+:mod:`~repro_torch.kernels.flash_attention`,
+:mod:`~repro_torch.kernels.rglru_scan` and
+:mod:`~repro_torch.kernels.ssd_scan`: the CPU path runs them, and the
 card's checks hold each kernel against them on the same inputs.
 """
 from __future__ import annotations
@@ -69,3 +71,63 @@ def rglru_scan_plain(a, b):
         state = a32[:, t] * state + b32[:, t]
         h[:, t] = state
     return h.to(a.dtype)
+
+
+def ssd_chunk(s: int, chunk: int) -> int:
+    """The chunk length of a scan over ``s`` steps: ``min(chunk, s)``,
+    which must divide ``s``, as in the reference's scan."""
+    c = min(chunk, s)
+    if c < 1 or s % c:
+        raise ValueError(f"ssd_scan: the sequence length {s} is not a "
+                         f"multiple of the chunk length {c} = min(chunk, S)")
+    return c
+
+
+def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256,
+                   state: bool = False):
+    """Mamba-2 SSD, the chunked algorithm of the reference prefill's
+    ``ssd_forward_with_state`` in the head-folded layout.  x: (BH, S, P),
+    dt: (BH, S), A: (BH,), B/C: (BH / rep, S, N), row ``bh // rep``
+    serving head ``bh`` -> y (BH, S, P) in x's dtype, and with ``state``
+    also the state after the last chunk (BH, N, P) in f32.  C B^T is
+    formed once per group and shared by its ``rep`` heads.  The in-chunk
+    cumulative log-decay is summed in f64, as the kernel does: at the
+    model's step sizes it reaches about -180 within a chunk, where f32
+    rounding would put ~1e-5 into every exponent cum_i - cum_j."""
+    bh, s, p = x.shape
+    groups, n = B.shape[0], B.shape[2]
+    rep = bh // groups
+    chunk = ssd_chunk(s, chunk)
+    nc = s // chunk
+    xc = x.float().reshape(groups, rep, nc, chunk, p)
+    dtc = dt.float().reshape(groups, rep, nc, chunk)
+    Bc = B.float().reshape(groups, nc, chunk, n)
+    Cc = C.float().reshape(groups, nc, chunk, n)
+    cum = torch.cumsum((dtc * A.float().reshape(groups, rep, 1, 1)).double(),
+                       dim=-1)
+
+    def exp(t):   # of an f64 exponent, in f32
+        return torch.exp(t.float())
+
+    # L[i, j] = exp(cum_i - cum_j) for i >= j: a select, since the
+    # exponent of i < j may overflow to inf and inf * 0 is NaN.
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()
+    L = torch.where(causal, exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+    CB = torch.einsum("gcln,gcmn->gclm", Cc, Bc)[:, None]
+    y = torch.matmul(CB * L * dtc[..., None, :], xc)   # (g, rep, nc, l, p)
+    w = exp(cum[..., -1:] - cum) * dtc
+    states = torch.einsum("gcln,grclp->grcnp", Bc, xc * w[..., None])
+    decay = exp(cum[..., -1])                            # (g, rep, nc)
+    carry = torch.zeros(groups, rep, n, p, dtype=torch.float32,
+                        device=x.device)
+    before = []
+    for c in range(nc):
+        before.append(carry)
+        carry = decay[..., c, None, None] * carry + states[:, :, c]
+    prev = torch.stack(before, dim=2)                    # (g, rep, nc, n, p)
+    y = y + torch.einsum("gcln,grcnp->grclp", Cc, prev) * exp(cum)[..., None]
+    y = y.reshape(bh, s, p).to(x.dtype)
+    if state:
+        return y, carry.reshape(bh, n, p)
+    return y

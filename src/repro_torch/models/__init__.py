@@ -1,2 +1,2 @@
-"""Language-model stack: the RecurrentGemma serving slice (``config``,
-``nn``, ``rglru``, ``attention``, ``transformer``)."""
+"""Language-model stack: the RecurrentGemma and Mamba-2 serving slices
+(``config``, ``nn``, ``rglru``, ``attention``, ``ssd``, ``transformer``)."""

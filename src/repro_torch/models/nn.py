@@ -77,6 +77,14 @@ def apply_norm(params, x, kind: str, eps: float):
     return layer_norm(x, params["scale"], params["bias"], eps)
 
 
+def causal_conv(x, w, b):
+    """Causal depthwise conv1d over the sequence: x (B, S, W), w
+    (width, W), b (W,) -> (B, S, W); the taps are summed in order."""
+    width, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    return sum(pad[:, i:i + S, :] * w[i] for i in range(width)) + b
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings.
 # ---------------------------------------------------------------------------

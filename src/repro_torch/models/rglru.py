@@ -55,15 +55,6 @@ def _decay(params, x_rec):
     return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
 
 
-def _conv(params, rec):
-    """Causal temporal conv1d (width 4) of rec: (B, S, W)."""
-    conv = params["conv_w"]
-    width, S = conv.shape[0], rec.shape[1]
-    rec_pad = F.pad(rec, (0, 0, width - 1, 0))
-    rec_c = sum(rec_pad[:, i:i + S, :] * conv[i] for i in range(width))
-    return rec_c + params["conv_b"]
-
-
 def _scan_inputs(params, rec_c):
     """(a, b) of the recurrence h_t = a_t h_{t-1} + b_t, in f32."""
     a, b_scale = _decay(params, rec_c)
@@ -77,8 +68,8 @@ def _prefill(params, x, mode: str = "auto"):
     prefill builds its decode cache from the last two."""
     gate = nn.gelu(x @ params["w_in_gate"])
     rec = x @ params["w_in_rec"]
-    hseq = ops.rglru_scan(*_scan_inputs(params, _conv(params, rec)),
-                          mode=mode)
+    rec_c = nn.causal_conv(rec, params["conv_w"], params["conv_b"])
+    hseq = ops.rglru_scan(*_scan_inputs(params, rec_c), mode=mode)
     return (hseq.to(x.dtype) * gate) @ params["w_out"], hseq, rec
 
 

@@ -1,21 +1,22 @@
-"""The hybrid RecurrentGemma model: init, prefill and decode.
+"""The RecurrentGemma and Mamba-2 models: init, prefill and decode.
 
-The counterpart of ``repro.models.transformer``'s ``"periods"`` branch:
-the layers run as periods of (rglru, rglru, local attention) plus a tail
-of RG-LRU layers.  Parameters are a nested dict of tensors with the
-reference's keys and its stacked leading layer axis, so the reference's
-weights carry across leaf by leaf
+The counterpart of ``repro.models.transformer``'s ``"periods"`` branch
+(the hybrid: periods of (rglru, rglru, local attention) plus a tail of
+RG-LRU layers) and of its ``("ssd",)`` branch (Mamba-2: a stack of SSD
+blocks).  Parameters are a nested dict of tensors with the reference's
+keys and its stacked leading layer axis, so the reference's weights
+carry across leaf by leaf
 (:func:`repro_torch.convert.lm_params_from_numpy`).  The reference's
 ``lax.scan`` over layers is a Python loop over that axis.
 
-The prefill runs the two kernels of this slice through
-:mod:`repro_torch.kernels.ops`: ``rglru_scan`` in every RG-LRU layer and
-``flash_attention`` in every local-attention layer (by the tensors'
-device: the CUDA kernels on the card, the plain versions on the CPU;
-``mode="plain"`` forces the plain versions).  Decode runs no kernel: it
-is the O(1) recurrence and the cached attention, as in the reference.
-Other model families raise ``NotImplementedError`` (ROADMAP Queue 1
-item 12).
+The prefill runs the kernels through :mod:`repro_torch.kernels.ops`:
+``rglru_scan`` in every RG-LRU layer, ``flash_attention`` in every
+local-attention layer and ``ssd_scan`` in every SSD layer (by the
+tensors' device: the CUDA kernels on the card, the plain versions on the
+CPU; ``mode="plain"`` forces the plain versions).  Decode runs no
+kernel: it is the O(1) recurrences and the cached attention, as in the
+reference.  Other model families raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.kernels import ops
-from repro_torch.models import attention, nn, rglru
+from repro_torch.models import attention, nn, rglru, ssd
 from repro_torch.models.config import ModelConfig
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -35,11 +36,18 @@ def _is_hybrid(cfg: ModelConfig) -> bool:
     return "rglru" in cfg.attn_pattern and len(set(cfg.attn_pattern)) > 1
 
 
-def _require_hybrid(cfg: ModelConfig) -> None:
+def _is_ssd(cfg: ModelConfig) -> bool:
+    return cfg.attn_pattern == ("ssd",)
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if _is_ssd(cfg):
+        return
     if not _is_hybrid(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the port runs the hybrid RG-LRU + local-attention "
-            f"family only; the other families are ROADMAP Queue 1 item 12")
+            f"and the Mamba-2 SSD families only; the other families are "
+            f"ROADMAP Queue 1 item 7")
     if cfg.attn_softcap > 0:
         raise NotImplementedError(
             f"{cfg.name}: attention soft-capping is not in the flash kernel")
@@ -80,6 +88,11 @@ def _rglru_block(b, cfg: ModelConfig):
                                       cfg.gated_mlp)}
 
 
+def _ssd_block(b, cfg: ModelConfig):
+    return {"norm1": nn.make_norm_params(b, cfg.d_model, cfg.norm),
+            "ssd": ssd.make_ssd_params(b, cfg)}
+
+
 def _n_full(cfg: ModelConfig) -> int:
     return cfg.num_layers // len(cfg.attn_pattern)
 
@@ -89,7 +102,7 @@ def _n_tail(cfg: ModelConfig) -> int:
 
 
 def _build(cfg: ModelConfig, b: nn.Builder):
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     params: dict = {
         "embed": b.param((v, d), ("vocab", "embed_table"), scale=1.0),
@@ -97,6 +110,9 @@ def _build(cfg: ModelConfig, b: nn.Builder):
     }
     if not cfg.tie_embeddings:
         params["unembed"] = b.param((v, d), ("vocab", "embed_table"))
+    if _is_ssd(cfg):
+        params["blocks"] = _ssd_block(_Stacked(b, cfg.num_layers), cfg)
+        return params
     n_full = _n_full(cfg)
     params["periods"] = {
         "r1": _rglru_block(_Stacked(b, n_full), cfg),
@@ -158,14 +174,17 @@ def logits_fn(cfg: ModelConfig, params, h):
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=None, device=None):
     """The (stacked) cache tree for ``serve_step``."""
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     dev = device_mod.resolve(device)
     dtype = dtype or DTYPES[cfg.dtype]
-    spec = attention.CacheSpec("ring", min(cfg.window, max_seq))
 
     def stacked(one, n):
         return {k: torch.stack([t] * n) for k, t in one.items()}
 
+    if _is_ssd(cfg):
+        return stacked(ssd.init_ssd_cache(cfg, batch, dtype, dev),
+                       cfg.num_layers)
+    spec = attention.CacheSpec("ring", min(cfg.window, max_seq))
     n_full = _n_full(cfg)
     cache = {
         "r1": stacked(rglru.init_rglru_cache(cfg, batch, dtype, dev),
@@ -185,9 +204,19 @@ def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     """One decode step.  tokens: (B, 1) int; pos: the absolute position.
     Returns (logits (B, 1, V), new_cache); the input cache is not
     modified."""
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     pos = int(pos)
     h = _embed_tokens(cfg, params, tokens)
+    if _is_ssd(cfg):
+        new = []
+        for i in range(cfg.num_layers):
+            lp = _index(params["blocks"], i)
+            s_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+            out, c = ssd.decode_ssd(cfg, lp["ssd"], _index(cache, i), s_in)
+            h = h + out
+            new.append(c)
+        h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        return logits_fn(cfg, params, h), _stack(new)
     spec = attention.CacheSpec("ring", int(cache["attn"]["k"].shape[2]))
     periods = params["periods"]
     new = {"r1": [], "r2": [], "attn": []}
@@ -241,12 +270,20 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None, *,
     """Run the trunk over a prompt and build the decode caches.
 
     batch: {"tokens": (B, S) int}.  Returns (logits_last (B, V), cache).
-    ``mode`` goes to both kernel ops (``"plain"`` forces the plain
-    versions on the card, for comparisons)."""
-    _require_hybrid(cfg)
+    ``mode`` goes to the kernel ops (``"plain"`` forces the plain
+    versions on the card, for comparisons).  For Mamba-2, S must be a
+    multiple of ``min(cfg.ssm_chunk, S)``, as in the reference."""
+    _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = _embed_tokens(cfg, params, tokens)
+    if _is_ssd(cfg):
+        per = []
+        for i in range(cfg.num_layers):
+            h, c = _ssd_prefill_block(cfg, _index(params["blocks"], i), h,
+                                      mode)
+            per.append(c)
+        return _logits_last(cfg, params, h), _stack(per)
     max_seq = max_seq or S
     positions = torch.arange(S, device=h.device).expand(B, S)
     spec = attention.CacheSpec("ring", min(cfg.window, max_seq))
@@ -271,9 +308,14 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None, *,
                                         positions, mode)
             tail.append(c)
         cache["tail"] = _stack(tail)
-    h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-    logits = logits_fn(cfg, params, h[:, -1:, :])
-    return logits[:, 0], cache
+    return _logits_last(cfg, params, h), cache
+
+
+def _logits_last(cfg, params, h):
+    """The last position's logits (B, V) of the trunk's output h."""
+    h = nn.apply_norm(params["final_norm"], h[:, -1:, :], cfg.norm,
+                      cfg.norm_eps)
+    return logits_fn(cfg, params, h)[:, 0]
 
 
 def _attn_prefill_block(cfg, lp, h, positions, spec, window, theta,
@@ -317,3 +359,17 @@ def _rglru_prefill(cfg, params, x, mode="auto"):
     width = params["conv_w"].shape[0]
     cache = {"h": hseq[:, -1].float(), "conv": rec[:, -(width - 1):, :]}
     return out, cache
+
+
+def _ssd_prefill_block(cfg, lp, h, mode="auto"):
+    s_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+    out, cache = _ssd_prefill(cfg, lp["ssd"], s_in, mode)
+    return h + out, cache
+
+
+def _ssd_prefill(cfg, params, x, mode="auto"):
+    """``ssd.apply_ssd`` without its padding, that also returns the
+    decode cache: the last ``ssm_conv - 1`` rows of the pre-conv stream
+    and the final ssm state (B, nh, N, hd) in f32."""
+    out, xbc, state = ssd._prefill(cfg, params, x, pad=False, mode=mode)
+    return out, {"conv": xbc[:, -(cfg.ssm_conv - 1):, :], "state": state}

@@ -177,4 +177,4 @@ def test_lm_kernel_wrappers_refuse_cpu_tensors():
     assert (t_fa.launches, t_rg.launches) == before
     counts = tops.launch_counts()
     assert set(counts) == {"gram", "schwarz_fwd", "schwarz_bwd",
-                           "flash_attention", "rglru_scan"}
+                           "flash_attention", "rglru_scan", "ssd_scan"}

@@ -1,0 +1,237 @@
+"""The port's SSD scan and Mamba-2 block against the JAX package's.
+
+``ssd_scan_plain`` (the plain version of the ``ssd_scan`` CUDA kernel) is
+held against ``repro.kernels.ref.ssd_heads_ref`` (the exact one-step
+recurrence) and against the Pallas kernel run in interpret mode, at the
+shapes and tolerance of ``tests/test_kernels.py`` (atol 5e-5, rtol 5e-4
+in f32: the chunked and the sequential algorithms sum in other orders).
+Its final state is held against the reference prefill's
+``ssd_forward_with_state``; the model-layout ``ssd_ref``, ``apply_ssd``
+and ``decode_ssd`` against ``repro.models.ssd`` with the same weights.
+Inputs are made with numpy from a seed; step sizes in [0.001, 0.1] and
+decay rates in [0.5, 2] keep the state alive across chunks.  The CUDA
+kernel itself runs only on the card (``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import ssd as jssd  # noqa: E402
+from repro.models import transformer as jtransformer  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import ssd_scan as t_ssd  # noqa: E402
+from repro_torch.models import ssd as tssd  # noqa: E402
+
+ATOL, RTOL = 5e-5, 5e-4
+SHAPES = [(2, 128, 32, 16, 32), (1, 256, 64, 32, 64), (4, 64, 16, 8, 16)]
+
+
+def _heads(bh, s, p, n, *, groups=None, seed=0):
+    """Head-folded inputs x, dt, A, B, C as numpy f32; B and C have
+    ``groups`` rows (``bh`` by default)."""
+    rng = np.random.default_rng(seed)
+    g = bh if groups is None else groups
+    return [a.astype(np.float32) for a in (
+        rng.normal(size=(bh, s, p)), rng.uniform(0.001, 0.1, (bh, s)),
+        -rng.uniform(0.5, 2.0, bh), rng.normal(size=(g, s, n)),
+        rng.normal(size=(g, s, n)))]
+
+
+def _t(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _j(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk", SHAPES)
+def test_plain_matches_ref_and_interpret(bh, s, p, n, chunk):
+    inputs = _heads(bh, s, p, n)
+    got = tops.ssd_scan(*_t(inputs), chunk=chunk, mode="plain")
+    assert got.shape == (bh, s, p) and got.dtype == torch.float32
+    _close(got, jref.ssd_heads_ref(*_j(inputs), chunk))
+    _close(got, jops.ssd_scan(*_j(inputs), chunk=chunk, mode="interpret"))
+
+
+def test_plain_does_not_depend_on_the_chunk():
+    inputs = _t(_heads(2, 128, 16, 8, seed=4))
+    ys = [tref.ssd_scan_plain(*inputs, chunk=c, state=True)
+          for c in (16, 32, 64, 128, 512)]
+    for y, final in ys[1:]:
+        _close(y, ys[0][0])
+        _close(final, ys[0][1])
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk", SHAPES)
+def test_final_state_is_the_recurrence_state(bh, s, p, n, chunk):
+    """The state after the last chunk is the exact recurrence's state:
+    y_t = C_t S_t, so appending one step with dt = 0 and C = e_k reads
+    row k of S out of the reference oracle."""
+    x, dt, A, B, C = _heads(bh, s, p, n, seed=1)
+    _, final = tref.ssd_scan_plain(*_t((x, dt, A, B, C)), chunk=chunk,
+                                   state=True)
+    assert final.shape == (bh, n, p) and final.dtype == torch.float32
+    rows = []
+    for k in range(n):
+        e = np.zeros((bh, 1, n), np.float32)
+        e[:, 0, k] = 1.0
+        y = jref.ssd_heads_ref(*_j((
+            np.concatenate([x, np.zeros((bh, 1, p), np.float32)], 1),
+            np.concatenate([dt, np.zeros((bh, 1), np.float32)], 1), A,
+            np.concatenate([B, np.zeros((bh, 1, n), np.float32)], 1),
+            np.concatenate([C, e], 1))), chunk)
+        rows.append(np.asarray(y)[:, -1])
+    _close(final, np.stack(rows, axis=1))
+
+
+@pytest.mark.parametrize("b,s,nh,g,chunk", [(2, 64, 4, 2, 16),
+                                            (1, 40, 4, 1, 40),
+                                            (2, 96, 6, 3, 32)])
+def test_model_layout_matches_the_reference_prefill_scan(b, s, nh, g,
+                                                         chunk):
+    """Model-layout ``ssd_ref`` and ``ssd_forward_with_state`` (y and the
+    final state) against the reference's, with grouped B and C."""
+    hd, n = 16, 8
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(b, s, nh, hd)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, (b, s, nh)).astype(np.float32)
+    A = -rng.uniform(0.5, 2.0, nh).astype(np.float32)
+    B = rng.normal(size=(b, s, g, n)).astype(np.float32)
+    C = rng.normal(size=(b, s, g, n)).astype(np.float32)
+    want_y, want_final = jtransformer.ssd_forward_with_state(
+        *_j((x, dt, A, B, C)), chunk)
+    y, final = tssd.ssd_forward_with_state(*_t((x, dt, A, B, C)), chunk)
+    assert final.shape == (b, nh, n, hd)
+    _close(y, want_y)
+    _close(final, want_final)
+    _close(tssd.ssd_ref(*_t((x, dt, A, B, C)), chunk),
+           jssd.ssd_ref(*_j((x, dt, A, B, C)), chunk))
+
+
+@pytest.mark.parametrize("rep", [2, 4])
+def test_grouped_bc_equals_the_expanded_form(rep):
+    x, dt, A, B, C = _t(_heads(8, 64, 16, 8, groups=8 // rep, seed=3))
+    y, final = tref.ssd_scan_plain(x, dt, A, B, C, chunk=16, state=True)
+    ye, fe = tref.ssd_scan_plain(x, dt, A, B.repeat_interleave(rep, 0),
+                                 C.repeat_interleave(rep, 0), chunk=16,
+                                 state=True)
+    torch.testing.assert_close(y, ye, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(final, fe, atol=1e-6, rtol=1e-6)
+
+
+def test_model_like_decays_stay_finite():
+    """dt ~ 0.7 and A = -1 (the model's initial weights) send the
+    cumulative log-decay of a 256-step chunk to ~-180; the select keeps
+    the masked exponents (up to +180, inf in f32) out of the result."""
+    rng = np.random.default_rng(5)
+    x, _, _, B, C = _heads(2, 512, 16, 8, seed=5)
+    dt = rng.uniform(0.5, 0.9, (2, 512)).astype(np.float32)
+    A = -np.ones(2, np.float32)
+    y, final = tref.ssd_scan_plain(*_t((x, dt, A, B, C)), chunk=256,
+                                   state=True)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(final).all())
+    _close(y, jref.ssd_heads_ref(*_j((x, dt, A, B, C)), 256))
+
+
+@pytest.fixture(scope="module")
+def block():
+    cfg_j = jconfigs.get_smoke_config("mamba2-1.3b")
+    cfg_t = tconfigs.get_smoke_config("mamba2-1.3b")
+    params = jtransformer.init_params(cfg_j, jax.random.PRNGKey(0))
+    lp_j = jax.tree.map(lambda a: a[0], params["blocks"]["ssd"])
+    # non-zero A_log, dt_bias and norm so each carries weight
+    rng = np.random.default_rng(6)
+    lp_j = dict(lp_j, **{k: jnp.asarray(rng.normal(size=lp_j[k].shape)
+                                        .astype(np.float32) * 0.5)
+                         for k in ("A_log", "dt_bias", "norm")})
+    lp_t = convert.lm_params_from_numpy(jax.tree.map(np.asarray, lp_j),
+                                        device="cpu")
+    return cfg_j, cfg_t, lp_j, lp_t
+
+
+@pytest.mark.parametrize("s", [5, 12, 16, 40])
+def test_apply_ssd_matches_reference(block, s):
+    """Prompts off the chunk (12) take the padding path."""
+    cfg_j, cfg_t, lp_j, lp_t = block
+    x = np.random.default_rng(7).normal(size=(2, s, 64)).astype(np.float32)
+    got = tssd.apply_ssd(cfg_t, lp_t, torch.from_numpy(x))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jssd.apply_ssd(cfg_j, lp_j, jnp.asarray(x))),
+        rtol=0, atol=1e-4)
+
+
+def test_decode_ssd_matches_reference(block):
+    cfg_j, cfg_t, lp_j, lp_t = block
+    rng = np.random.default_rng(8)
+    cache_j = jssd.init_ssd_cache(cfg_j, 3, jnp.float32)
+    cache = {k: rng.normal(size=v.shape).astype(np.float32)
+             for k, v in cache_j.items()}
+    cache_t = tssd.init_ssd_cache(cfg_t, 3, torch.float32, "cpu")
+    assert {k: tuple(v.shape) for k, v in cache_t.items()} == \
+        {k: v.shape for k, v in cache_j.items()}
+    assert cache_t["state"].dtype == torch.float32
+    x = rng.normal(size=(3, 1, 64)).astype(np.float32)
+    out_j, new_j = jssd.decode_ssd(cfg_j, lp_j, _j_tree(cache), jnp.asarray(x))
+    out_t, new_t = tssd.decode_ssd(cfg_t, lp_t, _t_tree(cache),
+                                   torch.from_numpy(x))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=0,
+                               atol=1e-4)
+    for k in new_j:
+        np.testing.assert_allclose(new_t[k].numpy(), np.asarray(new_j[k]),
+                                   rtol=0, atol=1e-4, err_msg=k)
+
+
+def _j_tree(tree):
+    return {k: jnp.asarray(v) for k, v in tree.items()}
+
+
+def _t_tree(tree):
+    return {k: torch.from_numpy(v) for k, v in tree.items()}
+
+
+def test_ops_on_cpu_tensors_is_the_plain_version():
+    inputs = _t(_heads(4, 64, 16, 8, groups=2))
+    before = tops.launch_counts()
+    y = tops.ssd_scan(*inputs, chunk=16)
+    y2, final = tops.ssd_scan(*inputs, chunk=16, state=True)
+    assert tops.launch_counts() == before
+    want, want_final = tref.ssd_scan_plain(*inputs, chunk=16, state=True)
+    assert torch.equal(y, want) and torch.equal(y2, want)
+    assert torch.equal(final, want_final)
+    with pytest.raises(ValueError, match="mode"):
+        tops.ssd_scan(*inputs, chunk=16, mode="interpret")
+
+
+@pytest.mark.parametrize("mode", ["auto", "plain"])
+def test_a_sequence_off_the_chunk_raises(mode):
+    """As the reference's scan: min(chunk, S) must divide S."""
+    inputs = _t(_heads(2, 12, 16, 8))
+    with pytest.raises(ValueError, match="not a multiple of the chunk"):
+        tops.ssd_scan(*inputs, chunk=8, mode=mode)
+    assert tops.ssd_scan(*inputs, chunk=16, mode=mode).shape == (2, 12, 16)
+
+
+def test_cuda_binding_refuses_cpu_tensors_and_other_dtypes():
+    x, dt, A, B, C = _t(_heads(2, 64, 16, 8))
+    before = t_ssd.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_ssd.ssd_scan(x, dt, A, B, C, chunk=16)
+    with pytest.raises(TypeError, match="float32"):
+        t_ssd.ssd_scan(*(t.double() for t in (x, dt, A, B, C)), chunk=16)
+    assert t_ssd.launches == before
