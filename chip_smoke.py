@@ -41,8 +41,16 @@ CPU tests hold to the JAX package.
 Each kernel is then held against its plain version on the card, on the
 main path's own inputs, on random values at the same shapes and at
 ragged shapes, and timed beside its bound, the plain version and one
-library call where there is one.  ``torch.profiler`` traces one DD-KF
-cycle and, for each served model, one prefill and one decode step.
+library call where there is one; ``gram`` and ``ssd_scan`` must also
+give bitwise equal outputs over two launches at the main shape.
+``ssd_scan``'s ``bound_ms`` counts the flops the function needs at the
+TF32 tensor-core peak beside its bytes; the text line also prints the
+time of the kernel's own 3xTF32 arithmetic and of exact f32 FMA.  The
+build phase prints every kernel's registers, spills and static shared
+memory from ``-Xptxas -v``.
+``torch.profiler`` traces one DD-KF cycle and, for each served model,
+one prefill and one decode step; the five launches of one ``ssd_scan``
+call are timed one by one.
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
@@ -62,10 +70,11 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet, dense peaks: FP64 (tensor core) 67 TFLOP/s,
-# FP32 67 TFLOP/s outside the tensor cores, BF16 (tensor core) 989
-# TFLOP/s; HBM3 3.35 TB/s.
+# FP32 67 TFLOP/s outside the tensor cores, TF32 (tensor core) 495 TFLOP/s,
+# BF16 (tensor core) 989 TFLOP/s; HBM3 3.35 TB/s.
 PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
               torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 REPLACES = {
@@ -293,8 +302,10 @@ def kernel_cases(packed, x_loc, dtype):
     }
 
 
-# Ragged shapes: m and w off every tile, w = 1, zero-padded columns.
-RAGGED = ((3, 1001, 77, 0), (2, 37, 1, 0), (2, 300, 130, 9), (1, 5, 300, 40))
+# Ragged shapes: m and w off every tile, w = 1, zero-padded columns; an
+# odd w over four 128-column tiles with m off the 16-row slabs.
+RAGGED = ((3, 1001, 77, 0), (2, 37, 1, 0), (2, 300, 130, 9), (1, 5, 300, 40),
+          (2, 1003, 389, 0))
 
 
 def random_case(p: int, m: int, w: int, pad: int, dtype, gen):
@@ -413,6 +424,11 @@ def phase_kernels(main_cases, counts):
                 err = compare(name, args, dtype, f"{label} {shape}")
                 if not timed or dtype != torch.float64:
                     continue
+                if name == "gram":
+                    n1, n2 = _kernel(name)(*args), _kernel(name)(*args)
+                    check(torch.equal(n1, n2),
+                          f"gram {label}: two launches bitwise equal")
+                    del n1, n2
                 reps = 5 if name == "gram" else 20
                 bound, by = _bound(name, args)
                 rows[name] = {
@@ -1046,10 +1062,11 @@ def phase_lm_kernels(inputs: dict, layer_errs: dict, counts: dict,
 
 # Ragged ssd_scan cases (BH, B/C rows, S, P, N, chunk): rep 1; odd BH with
 # a part-filled P tile, N 64 and a chunk off the 64-row sub-tiles; P 32
-# with rep 4; S below the chunk; the smoke config's scan.
+# with rep 4; S below the chunk; the smoke config's scan; an odd P and an
+# odd chunk, which take the kernel's single-float loads.
 SSD_RAGGED = ((6, 6, 1024, 64, 128, 256), (5, 5, 300, 48, 64, 100),
               (8, 2, 512, 32, 64, 128), (3, 1, 200, 64, 128, 256),
-              (2, 2, 40, 16, 16, 8))
+              (2, 2, 40, 16, 16, 8), (3, 3, 65, 7, 8, 5))
 
 
 def ssd_random(bh, groups, s, p, n, gen):
@@ -1083,12 +1100,16 @@ def ssd_compare(args, chunk: int, label: str) -> float:
 
 
 def ssd_bound(args, chunk: int):
-    """(bound_ms, bound_by) of one ssd_scan.  Flops at the least the
-    function needs, counting the causal triangle's chunk (chunk + 1) / 2
-    pairs: C B^T once per (group, chunk), 2 N a pair, as the heads of a
-    group share it; per (head, chunk), (C B^T .* L) x, 2 P a pair, and
-    the inter-chunk term and the state update, 2 N P a row each.  Bytes:
-    x, dt, A, B, C read once, y and the final state written once, f32."""
+    """The least time of one ssd_scan: (bound_ms, bound_by, ops) with
+    ops the operations' times (ms) of the function's flops at the TF32
+    tensor-core peak (495 TFLOP/s; the bound's side), of the kernel's
+    own arithmetic, each product as three TF32 products, and of exact
+    f32 FMA (67 TFLOP/s).  Flops at the least the function needs,
+    counting the causal triangle's chunk (chunk + 1) / 2 pairs: C B^T
+    once per (group, chunk), 2 N a pair, as the heads of a group share
+    it; per (head, chunk), (C B^T .* L) x, 2 P a pair, and the
+    inter-chunk term and the state update, 2 N P a row each.  Bytes: x,
+    dt, A, B, C read once, y and the final state written once, f32."""
     x, dt, A, B, C = args
     bh, s, p = x.shape
     groups, _, n = B.shape
@@ -1097,10 +1118,34 @@ def ssd_bound(args, chunk: int):
                             + bh * (2 * pairs * p + 4 * chunk * n * p))
     nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
                   + C.numel() + bh * n * p)
-    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_TF32 * 1e3
+    ops = {"tf32": t_ops, "3xtf32": 3 * t_ops,
+           "fma": flops / PEAK_FLOPS[torch.float32] * 1e3}
     return (max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes", ops)
+
+
+def print_ssd_launches(args, chunk: int) -> None:
+    """Device time of each of the five CUDA launches of one ssd_scan call
+    (mean over three profiled calls)."""
+    import re
+
+    from repro_torch.kernels import ssd_scan
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ssd_scan.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        m = re.search(r"ssd_([a-z]+)_kernel", e.key)
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if m and us:
+            parts.append(f"{m.group(1)} {us / 1e3 / 3:.4f} ms")
+    print("  ssd_scan launches, device time a call: " + ", ".join(parts))
 
 
 def phase_ssd_kernels(first_call, layer_err: float, counts: dict) -> dict:
@@ -1131,7 +1176,7 @@ def phase_ssd_kernels(first_call, layer_err: float, counts: dict) -> dict:
     y2, f2 = ssd_scan.ssd_scan(*args, chunk=chunk)
     check(torch.equal(y1, y2) and torch.equal(f1, f2),
           "ssd_scan: two launches bitwise equal")
-    bound, by = ssd_bound(args, chunk)
+    bound, by, ops = ssd_bound(args, chunk)
     row = {
         "name": "ssd_scan", "ok": True, "route": "cuda",
         "source": SOURCES["ssd_scan"], "replaces": REPLACES["ssd_scan"],
@@ -1139,12 +1184,17 @@ def phase_ssd_kernels(first_call, layer_err: float, counts: dict) -> dict:
         "ms": time_ms(lambda: ssd_scan.ssd_scan(*args, chunk=chunk), 10),
         "plain_ms": time_ms(lambda: ref.ssd_scan_plain(
             *args, chunk=chunk, state=True), 2),
-        "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "shape": list(x.shape), "dtype": "float32",
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": None, "shape": list(x.shape), "dtype": "float32",
     }
+    print_ssd_launches(args, chunk)
     print(f"  ssd_scan {shapes}: kernel {row['ms']:.4f} ms, plain "
           f"{row['plain_ms']:.4f} ms, library none, bound {bound:.4f} ms "
-          f"({by})")
+          f"({by}; the function's flops at the TF32 peak "
+          f"{ops['tf32']:.4f} ms), share of the bound "
+          f"{bound / row['ms']:.3f}; operations alone: 3xTF32 as the "
+          f"kernel does them {ops['3xtf32']:.4f} ms, exact f32 FMA "
+          f"{ops['fma']:.4f} ms")
     return row
 
 

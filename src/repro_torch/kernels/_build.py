@@ -47,7 +47,7 @@ SIGNATURES = {
     "repro_flash_attention_bf16": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),
     "repro_rglru_scan_f32": (_P, _P, _P, _I, _I, _I, _P),
     "repro_rglru_scan_bf16": (_P, _P, _P, _I, _I, _I, _P),
-    "repro_ssd_scan_f32": (_P,) * 7 + (_I,) * 6 + (_P,),
+    "repro_ssd_scan_f32": (_P,) * 10 + (_I,) * 6 + (_P,),
 }
 
 DTYPES = (torch.float64, torch.float32)   # what the DD-KF kernels take
@@ -173,6 +173,15 @@ def check_inputs(name: str, tensors: dict, dtype=None,
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
     return dtype
+
+
+def check_aligned(name: str, tensors: dict) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary, as
+    the kernels' 16-byte loads and bulk copies need (a view that starts
+    at an odd element of an f64 or f32 storage does not)."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
 def check_shape(name: str, key: str, t: torch.Tensor, shape: tuple) -> None:

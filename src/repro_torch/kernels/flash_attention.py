@@ -41,10 +41,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(got {bh})")
     for key, t in (("k", k), ("v", v)):
         _build.check_shape("flash_attention", key, t, (bh, s, d))
-    for key, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {key} must be 16-byte "
-                             f"aligned")
+    _build.check_aligned("flash_attention", {"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
     lib = _build.load()
     err = getattr(lib, _FN[dtype])(

@@ -2,9 +2,10 @@
 
 Wrapper of the CUDA kernel ``csrc/gram.cu`` (the Hopper counterpart of
 the TPU kernel ``repro.kernels.gram.gram``): N_i = A_i^T diag(r_i) A_i
-for every subdomain i, accumulated in the input type (f64 or f32).  It
-takes CUDA tensors only; :func:`repro_torch.kernels.ops.gram` routes CPU
-tensors to the plain version.
+for every subdomain i, accumulated in the input type (f64 or f32): f64
+on the f64 tensor cores, f32 in exact FMA.  It takes CUDA tensors only;
+:func:`repro_torch.kernels.ops.gram` routes CPU tensors to the plain
+version.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ def gram(A: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
                          f"(got {tuple(A.shape)})")
     p, m, w = A.shape
     _build.check_shape("gram", "r", r, (p, m))
+    if dtype == torch.float64:
+        _build.check_aligned("gram", {"A": A, "r": r})
     N = torch.empty((p, w, w), dtype=dtype, device=A.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(A.device).cuda_stream

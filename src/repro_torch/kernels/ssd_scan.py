@@ -8,6 +8,13 @@ before the scan).  It returns y (BH, S, P) and the state after the last
 chunk (BH, N, P), the decode cache that the TPU kernel keeps in scratch.
 It takes CUDA tensors only; :func:`repro_torch.kernels.ops.ssd_scan`
 routes CPU tensors to the plain version.
+
+One call is five CUDA launches on the current stream (cum, cb, states,
+pass, out; ``csrc/ssd_scan.cu``), and ``launches`` counts calls.  Their
+workspaces are allocated here: the in-chunk cumulative decay (BH, S) in
+f64, C B^T per group and chunk (BH / rep, S / chunk, chunk, chunk) and
+the chunk states (BH, S / chunk, N, P) in f32 (134 MB at the Mamba-2
+1.3B prefill shape).
 """
 from __future__ import annotations
 
@@ -16,11 +23,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_chunk
 
-launches = 0   # kernel launches since the last reset (see ops.reset_counts)
+launches = 0   # calls since the last reset (see ops.reset_counts)
 
-MAX_N = 128        # the state's rows live in registers, 8 per thread row
+MAX_N = 128        # B's slab rows in shared memory are sized for it
 MAX_CHUNK = 1024   # cum, dt and the decay weights of a chunk in shared memory
-MAX_BH = 65535     # the grid's y extent
+MAX_BH = 65535     # the grid's z extent
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -51,16 +58,20 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.check_shape("ssd_scan", "A", A, (bh,))
     _build.check_shape("ssd_scan", "B", B, (groups, s, n))
     _build.check_shape("ssd_scan", "C", C, (groups, s, n))
-    for key in ("B", "C"):
-        if tensors[key].data_ptr() % 16:
-            raise ValueError(f"ssd_scan: {key} must be 16-byte aligned")
+    _build.check_aligned("ssd_scan", {"B": B, "C": C})
     y = torch.empty_like(x)
     final = torch.empty((bh, n, p), dtype=x.dtype, device=x.device)
+    nc = s // chunk
+    cum = torch.empty((bh, s), dtype=torch.float64, device=x.device)
+    cb = torch.empty((groups, nc, chunk, chunk), dtype=x.dtype,
+                     device=x.device)
+    states = torch.empty((bh, nc, n, p), dtype=x.dtype, device=x.device)
     lib = _build.load()
     err = lib.repro_ssd_scan_f32(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), final.data_ptr(), bh, s, p, n,
-        bh // groups, chunk, torch.cuda.current_stream(x.device).cuda_stream)
+        C.data_ptr(), y.data_ptr(), final.data_ptr(), cum.data_ptr(),
+        cb.data_ptr(), states.data_ptr(), bh, s, p, n, bh // groups, chunk,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_scan")
     launches += 1
     return y, final

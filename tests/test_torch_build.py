@@ -1,13 +1,14 @@
 """The port's kernels build from an installed package, not only from a
 checkout: the wheel ships every CUDA source as package data, and the
 build goes to the user's cache directory when the package lies outside
-a checkout (to the checkout's git-ignored ``build/`` inside one)."""
+a checkout (to the checkout's git-ignored ``build/`` inside one).  The
+wrappers' shared alignment check is tested here too."""
 import pathlib
 import tomllib
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 
@@ -21,6 +22,17 @@ def test_package_data_ships_every_cuda_source():
     shipped = {p for g in globs for p in PKG.glob(g)}
     sources = set(_build.CSRC.glob("*.cu"))
     assert sources and sources <= shipped
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_check_aligned_refuses_a_view_off_16_bytes(dtype):
+    # The f64 gram, ssd_scan and flash_attention wrappers call this before
+    # they launch; a view one element into its storage starts 8 (f64) or
+    # 4 (f32) bytes past a 16-byte boundary.
+    base = torch.zeros(64, dtype=dtype)
+    _build.check_aligned("gram", {"A": base[:32], "r": base[4:36]})
+    with pytest.raises(ValueError, match="gram: r must be 16-byte aligned"):
+        _build.check_aligned("gram", {"A": base[:32], "r": base[1:33]})
 
 
 def test_build_root_in_a_checkout_is_its_build_dir():

@@ -235,3 +235,104 @@ def test_cuda_binding_refuses_cpu_tensors_and_other_dtypes():
     with pytest.raises(TypeError, match="float32"):
         t_ssd.ssd_scan(*(t.double() for t in (x, dt, A, B, C)), chunk=16)
     assert t_ssd.launches == before
+
+
+# The CUDA kernel runs the four products of the scan (C B^T, the masked
+# intra-chunk product, the chunk states and the inter-chunk term) on the
+# tensor cores in 3xTF32.  These tests emulate that arithmetic on the
+# plain version's algorithm and hold it to the kernel's tolerance against
+# the exact f32 result (5e-5 + 5e-4 |plain|, chip_smoke.py's SSD_ATOL and
+# SSD_RTOL), with inputs drawn as chip_smoke.ssd_random draws them.
+
+SSD_ALLOWANCE = (5e-5, 5e-4)
+
+
+def _tf32(t):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: add 0x1000 to the bit pattern and
+    clear the low 13 bits."""
+    bits = t.contiguous().numpy().view(np.uint32)
+    return torch.from_numpy(
+        ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def _mm_tf32(a, b):
+    """One TF32 product: both operands rounded, f32 accumulation (the
+    products of two TF32 values are exact in f32)."""
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _mm_3xtf32(a, b):
+    """3xTF32: a = hi + lo with hi = tf32(a), lo = tf32(a - hi); the sum
+    lo hi + hi lo + hi hi, small terms first, in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah,
+                                                                       bh)
+
+
+def _ssd_products_through(mm, x, dt, A, B, C, chunk):
+    """``ref.ssd_scan_plain``'s algorithm with its four products through
+    ``mm`` -> (y, final state)."""
+    bh, s, p = x.shape
+    groups, n = B.shape[0], B.shape[2]
+    rep, nc = bh // groups, s // chunk
+    xc = x.reshape(groups, rep, nc, chunk, p)
+    dtc = dt.reshape(groups, rep, nc, chunk)
+    Bc = B.reshape(groups, nc, chunk, n)
+    Cc = C.reshape(groups, nc, chunk, n)
+    cum = torch.cumsum((dtc * A.reshape(groups, rep, 1, 1)).double(), dim=-1)
+
+    def exp(t):
+        return torch.exp(t.float())
+
+    causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    L = torch.where(causal, exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+    y = mm(mm(Cc, Bc.mT)[:, None] * L * dtc[..., None, :], xc)
+    w = exp(cum[..., -1:] - cum) * dtc
+    states = mm(Bc.mT[:, None], xc * w[..., None])
+    decay = exp(cum[..., -1])
+    carry = torch.zeros(groups, rep, n, p)
+    before = []
+    for c in range(nc):
+        before.append(carry)
+        carry = decay[..., c, None, None] * carry + states[:, :, c]
+    y = y + mm(Cc[:, None], torch.stack(before, dim=2)) * exp(cum)[..., None]
+    return y.reshape(bh, s, p), carry.reshape(bh, n, p)
+
+
+def _over_allowance(got, want):
+    atol, rtol = SSD_ALLOWANCE
+    return max(float(((g - w).abs() / (atol + rtol * w.abs())).max())
+               for g, w in zip(got, want))
+
+
+def test_tf32_rounding_helper():
+    v = torch.tensor([1.0, 1 + 2.0 ** -11, 1 + 2.0 ** -12, -(1 + 2.0 ** -11),
+                      1 + 3 * 2.0 ** -11, 3.0e-3], dtype=torch.float32)
+    got = _tf32(v)
+    assert got[:5].tolist() == [1.0, 1 + 2.0 ** -10, 1.0, -(1 + 2.0 ** -10),
+                                1 + 2 * 2.0 ** -10]
+    assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+    assert (got.numpy().view(np.uint32) & 0x1FFF == 0).all()
+
+
+@pytest.mark.parametrize("bh,groups,s,p,n,chunk", [(8, 2, 1024, 64, 128, 256),
+                                                   (4, 1, 512, 64, 128, 128)])
+def test_3xtf32_holds_the_kernel_tolerance_and_single_tf32_does_not(
+        bh, groups, s, p, n, chunk):
+    """At shapes whose state stays alive across chunks, the emulated
+    3xTF32 products stay well inside the allowance in y and the final
+    state; one TF32 product each misses it many times over."""
+    rng = np.random.default_rng(9)
+    args = _t([a.astype(np.float32) for a in (
+        rng.normal(size=(bh, s, p)), rng.uniform(0.001, 0.1, (bh, s)),
+        -rng.uniform(0.5, 2.0, bh), rng.normal(size=(groups, s, n)),
+        rng.normal(size=(groups, s, n)))])
+    want = tref.ssd_scan_plain(*args, chunk=chunk, state=True)
+    exact = _ssd_products_through(torch.matmul, *args, chunk)
+    assert _over_allowance(exact, want) <= 1e-3
+    assert _over_allowance(_ssd_products_through(_mm_3xtf32, *args, chunk),
+                           want) <= 0.25
+    assert _over_allowance(_ssd_products_through(_mm_tf32, *args, chunk),
+                           want) > 10
