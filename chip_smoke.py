@@ -40,14 +40,23 @@ CPU tests hold to the JAX package.
 
 Each kernel is then held against its plain version on the card, on the
 main path's own inputs, on random values at the same shapes and at
-ragged shapes, and timed beside its bound, the plain version and one
-library call where there is one; ``gram`` and ``ssd_scan`` must also
-give bitwise equal outputs over two launches at the main shape.
+ragged shapes (``flash_attention`` also with k and v at fewer rows than
+q, the grouped kv heads that the prefill passes unexpanded), and timed
+beside its bound, the plain version and one library call where there is
+one (for ``flash_attention``, SDPA with the same mask on an expanded copy
+of k and v; SDPA's full causal attention, ``sdpa_causal_ms``, is printed
+beside it and is no yardstick of the same function); ``gram``,
+``flash_attention``, ``rglru_scan`` and ``ssd_scan`` must also give
+bitwise equal outputs over two launches at the main shape.
+``flash_attention`` is also held row by row (the worst row's difference
+norm over its norm), a limit that one-tile faults planted in its plain
+version at the main shape must exceed.
 ``ssd_scan``'s ``bound_ms`` counts the flops the function needs at the
 TF32 tensor-core peak beside its bytes; the text line also prints the
 time of the kernel's own 3xTF32 arithmetic and of exact f32 FMA.  The
 build phase prints every kernel's registers, spills and static shared
-memory from ``-Xptxas -v``.
+memory from ``-Xptxas -v``, and fails if ptxas ignored the bf16
+``flash_attention`` kernel's ``setmaxnreg`` (C7508).
 ``torch.profiler`` traces one DD-KF cycle and, for each served model,
 one prefill and one decode step; the five launches of one ``ssd_scan``
 call are timed one by one.
@@ -96,6 +105,13 @@ SOURCES = {
 REL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 # The LM kernels' tolerances, as in tests/test_kernels.py.
 LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# flash_attention row by row as well: the worst output row's difference
+# norm over its norm.  LM_TOL divides by the largest |plain| of the whole
+# output, which comes from the first rows (few keys, |o| ~ 3), while most
+# rows of a long sequence average ~ 750 keys (|o| ~ 0.04), so one missing
+# or extra 64-key tile would pass it; phase_lm_kernels plants such faults
+# in the plain version and checks that this limit catches them.
+ATTN_ROW_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # Full-width RecurrentGemma-9B, kernels vs plain route, the trunk's output
 # less the embedding: the worst position's difference norm over its norm.
 # bf16 rounding differences that grow through 38 random layers give
@@ -158,6 +174,13 @@ def phase_build():
             if any(k in line for k in ("Compiling entry", "registers",
                                        "spill", "warning", "error")):
                 print("  " + line.strip())
+    # setmaxnreg is ignored (ptxas C7508) unless the bf16 flash_attention
+    # kernel's producer and consumer roles never reconverge.
+    if _build.BUILD_LOG:
+        check(not any("C7508" in log for log in _build.BUILD_LOG),
+              "ptxas reports no ignored setmaxnreg (C7508)")
+    else:
+        print("  library built by an earlier run: no ptxas output here")
 
 
 def run_engine(cfg, scenario: str, m: int, cycles: int):
@@ -931,14 +954,16 @@ def visible_scores(s: int, causal: bool, window: int) -> int:
 def lm_bound(name, args, kwargs):
     """(bound_ms, bound_by): bytes (inputs read once, output written
     once) over the HBM rate against flops over the dtype's peak; the
-    attention's flops count the visible score entries only."""
+    attention's flops count the visible score entries only, its bytes k
+    and v at their own (kv head) rows."""
     t = args[0]
     it = t.element_size()
     if name == "flash_attention":
         bh, s, d = t.shape
         flops = 4 * d * bh * visible_scores(s, kwargs["causal"],
                                             kwargs["window"])
-        nbytes = 4 * t.numel() * it
+        # q read and o written at BH rows, k and v read once at BH_kv rows
+        nbytes = (2 * t.numel() + 2 * args[1].numel()) * it
     else:
         flops = 2 * t.numel()
         nbytes = 3 * t.numel() * it
@@ -961,25 +986,110 @@ def lm_plain(name):
             "ssd_scan": ref.ssd_scan_plain}[name]
 
 
+def worst_row(out, plain) -> float:
+    """The largest over rows (the last dimension) of ||out - plain|| /
+    ||plain||; a row of zeros in ``plain`` asks for zeros in ``out``."""
+    diff = (out.float() - plain.float()).norm(dim=-1)
+    return float((diff / plain.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
 def lm_compare(name, args, kwargs, label):
     out_k = lm_kernel(name)(*args, **kwargs)
     out_p = lm_plain(name)(*args, **kwargs)
     torch.cuda.synchronize()
     err = float((out_k.float() - out_p.float()).abs().max())
     scale = float(out_p.float().abs().max()) or 1.0
-    tol = LM_TOL[args[0].dtype]
-    check(out_k.shape == out_p.shape and out_k.dtype == out_p.dtype
-          and bool(torch.isfinite(out_k).all()) and err / scale <= tol,
-          f"{name} {label} {str(args[0].dtype)[6:]}: max abs err "
-          f"{err:.3e}, rel {err / scale:.3e} <= {tol:g}")
+    dtype = args[0].dtype
+    tol = LM_TOL[dtype]
+    ok = (out_k.shape == out_p.shape and out_k.dtype == out_p.dtype
+          and bool(torch.isfinite(out_k).all()) and err / scale <= tol)
+    what = (f"{name} {label} {str(dtype)[6:]}: max abs err {err:.3e}, rel "
+            f"{err / scale:.3e} <= {tol:g}")
+    if name == "flash_attention" and ok:
+        row = worst_row(out_k, out_p)
+        ok = row <= ATTN_ROW_TOL[dtype]
+        what += f", worst row {row:.3e} <= {ATTN_ROW_TOL[dtype]:g}"
+    check(ok, what)
     return err
 
 
-def sdpa_call(q, k, v, causal: bool, window: int, heads: int):
-    """One ``scaled_dot_product_attention`` on the same (BH, S, D) inputs
-    with the same causal-window boolean mask (timed as the library
-    yardstick; the port never calls it)."""
+def attention_masked(q, k, v, visible):
+    """``ref.attention_plain``'s function under an explicit (S, S)
+    visibility mask, one query head at a time."""
+    from repro_torch.kernels import ref
+    rep = q.shape[0] // k.shape[0]
+    out = torch.empty_like(q)
+    for b in range(q.shape[0]):
+        scores = (q[b].float() @ k[b // rep].float().T
+                  / float(np.sqrt(q.shape[2])))
+        scores = torch.where(visible, scores, ref.NEG_INF)
+        out[b] = (torch.softmax(scores, dim=-1)
+                  @ v[b // rep].float()).to(q.dtype)
+    return out
+
+
+def attention_masks(s: int, causal: bool, window: int, device):
+    """The visibility mask of (causal, window) and the masks that a kernel
+    with one 64-key tile wrong would apply: the window's edge one tile
+    early (rows >= window lose their 64 oldest keys), and the first tile
+    that all rows of the last 128-row q block see in full skipped for
+    that block (the rows that see the most keys, where one tile moves the
+    output least).  (mask, [(label, faulty mask), ...])."""
+    pos = torch.arange(s)
+    ok = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    faults = []
+    if window > 64:
+        faults.append(("window edge one 64-key tile early",
+                       ok & (pos[None, :] > pos[:, None] - (window - 64))))
+    if window > 0:
+        ok &= pos[None, :] > pos[:, None] - window
+    q0 = (s - 1) // 128 * 128
+    k0 = next((k0 for k0 in range(0, s - 63, 64)
+               if bool(ok[q0:, k0:k0 + 64].all())), None)
+    if k0 is not None:
+        skipped = ok.clone()
+        skipped[q0:, k0:k0 + 64] = False
+        faults.append((f"rows {q0}.. without keys {k0}..{k0 + 63}, their "
+                       f"first fully visible 64-key tile", skipped))
+    return ok.to(device), [(label, m.to(device)) for label, m in faults]
+
+
+def check_attention_faults(qkv, kwargs):
+    """Plant one-tile faults in the plain output and hold them to the
+    checks: ``ATTN_ROW_TOL`` must catch each (``LM_TOL`` alone is printed
+    beside it), and must pass the plain version recomputed under the true
+    mask by the same code that plants them."""
+    plain = lm_plain("flash_attention")(*qkv, **kwargs)
+    scale = float(plain.float().abs().max())
+    tol = ATTN_ROW_TOL[plain.dtype]
+    ok, faults = attention_masks(qkv[0].shape[1], kwargs["causal"],
+                                 kwargs["window"], qkv[0].device)
+    row = worst_row(attention_masked(*qkv, ok), plain)
+    check(row <= tol, f"flash_attention plain under its own mask, one head "
+          f"at a time: worst row {row:.3e} <= {tol:g}")
+    for label, mask in faults:
+        out = attention_masked(*qkv, mask)
+        rel = float((out.float() - plain.float()).abs().max()) / scale
+        row = worst_row(out, plain)
+        check(row > tol, f"flash_attention planted fault ({label}): worst "
+              f"row {row:.3e} > {tol:g} (max abs over max |plain| "
+              f"{rel:.3e}, against LM_TOL {LM_TOL[plain.dtype]:g})")
+
+
+def sdpa_calls(q, k, v, causal: bool, window: int, heads: int):
+    """Two ``scaled_dot_product_attention`` calls on the same inputs,
+    timed as yardsticks (the port never calls them): with the same
+    causal-window boolean mask, the same function as the kernel; and with
+    ``is_causal=True`` and no mask, full causal attention (1.33x the
+    visible scores at the prefill's window), which shows only what
+    PyTorch's own fused kernel reaches on this card.  SDPA takes k and v
+    with every query head's row, so the expanded copy is made here,
+    before the timed window."""
     bh, s, d = q.shape
+    rep = bh // k.shape[0]
+    k, v = (t.repeat_interleave(rep, dim=0) for t in (k, v))
     pos = torch.arange(s, device=q.device)
     mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
     if causal:
@@ -988,8 +1098,18 @@ def sdpa_call(q, k, v, causal: bool, window: int, heads: int):
         mask &= pos[None, :] > pos[:, None] - window
     shape = (bh // heads, heads, s, d)
     qs, ks, vs = (t.view(shape) for t in (q, k, v))
-    return lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return (lambda: sdpa(qs, ks, vs, attn_mask=mask),
+            lambda: sdpa(qs, ks, vs, is_causal=True))
+
+
+# Ragged flash_attention cases with grouped kv (BH, BH_kv, S, D, causal,
+# window): GQA at D 256, MQA at D 128, one kv row per query row at an odd S,
+# one prefill-length MQA layer at the prefill's window, and a window no
+# shorter than S.
+GQA_RAGGED = ((32, 2, 1000, 256, True, 0), (16, 1, 160, 128, True, 64),
+              (4, 4, 77, 64, False, 0), (3, 1, 4096, 256, True, 2048),
+              (8, 2, 300, 128, True, 512))
 
 
 def phase_lm_kernels(inputs: dict, layer_errs: dict, counts: dict,
@@ -1013,12 +1133,16 @@ def phase_lm_kernels(inputs: dict, layer_errs: dict, counts: dict,
         err = max(layer_errs[name],
                   lm_compare(name, args, kwargs, f"prefill input {shape}"))
         if name == "flash_attention":
-            rand = tuple(randn(*shape, dtype=dtype) for _ in range(3))
+            kshape = tuple(args[1].shape)
+            rand = (randn(*shape, dtype=dtype), randn(*kshape, dtype=dtype),
+                    randn(*kshape, dtype=dtype))
         else:
             rand = (torch.rand(*shape, generator=gen, device=DEVICE)
                     .mul(0.3).add(0.7).to(dtype),
                     randn(*shape, dtype=dtype).mul(0.1))
         err = max(err, lm_compare(name, rand, kwargs, f"random {shape}"))
+        if name == "flash_attention":
+            check_attention_faults(rand, kwargs)
         k1 = lm_kernel(name)(*args, **kwargs)
         check(torch.equal(k1, lm_kernel(name)(*args, **kwargs)),
               f"{name}: two launches bitwise equal")
@@ -1029,17 +1153,34 @@ def phase_lm_kernels(inputs: dict, layer_errs: dict, counts: dict,
             "launches": counts[name], "max_abs_err": err,
             "ms": time_ms(lambda: lm_kernel(name)(*args, **kwargs), 20),
             "plain_ms": time_ms(lambda: lm_plain(name)(*args, **kwargs), 2),
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": (time_ms(sdpa_call(*args, heads=heads, **kwargs),
-                                   10)
-                           if name == "flash_attention" else None),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
             "shape": list(shape), "dtype": str(dtype)[6:],
         }
+        if name == "flash_attention":
+            row["kv_shape"] = list(args[1].shape)
+            masked, causal_only = sdpa_calls(*args, heads=heads, **kwargs)
+            row["library_ms"] = time_ms(masked, 10)
+            row["sdpa_causal_ms"] = time_ms(causal_only, 10)
+            # The kernel on k and v expanded to every query head, as the
+            # prefill passed them before it read the kv heads in place.
+            rep = shape[0] // args[1].shape[0]
+            kv = tuple(t.repeat_interleave(rep, dim=0) for t in args[1:])
+            row["ms_expanded_kv"] = time_ms(
+                lambda: lm_kernel(name)(args[0], *kv, **kwargs), 20)
+            del kv
         lib = row["library_ms"]
         print(f"  {name} {shape}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{bound:.4f} ms ({by})")
+        if name == "flash_attention":
+            print(f"  flash_attention k, v {row['kv_shape']}; kernel on k, v "
+                  f"expanded to every query head "
+                  f"{row['ms_expanded_kv']:.4f} ms; library = SDPA with the "
+                  f"same mask on that expanded copy; SDPA is_causal=True "
+                  f"without the window (full causal, "
+                  f"{row['sdpa_causal_ms']:.4f} ms) is no yardstick of the "
+                  f"same function")
         rows.append(row)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -1052,6 +1193,15 @@ def phase_lm_kernels(inputs: dict, layer_errs: dict, counts: dict,
                                {"causal": causal, "window": window},
                                f"ragged (3, {s}, {d}) causal={causal} "
                                f"window={window}")
+        # k and v read in place: BH_kv rows serving BH query rows.
+        for bh, bh_kv, s, d, causal, window in GQA_RAGGED:
+            qkv = (randn(bh, s, d, dtype=dtype),
+                   randn(bh_kv, s, d, dtype=dtype),
+                   randn(bh_kv, s, d, dtype=dtype))
+            lm_compare("flash_attention", qkv,
+                       {"causal": causal, "window": window},
+                       f"grouped kv ({bh}, {bh_kv}, {s}, {d}) causal={causal}"
+                       f" window={window}")
         for shape in ((3, 77, 100), (2, 1, 33), (1, 33, 1)):
             ab = (torch.rand(*shape, generator=gen, device=DEVICE)
                   .mul(0.3).add(0.7).to(dtype),

@@ -5,40 +5,67 @@
 // prefill.  On the TPU the kv-block axis is the sequential grid dimension
 // and the online-softmax state (m, l, acc) lives in VMEM scratch across it.
 //
-// q, k, v, o are (BH, S, D) with heads folded into the batch and the kv
-// heads already expanded; window <= 0 means unbounded; a key is visible to
-// a query when key < S, (causal) key <= query, and (window) key > query -
-// window.  kv blocks that lie wholly after the q block (causal) or wholly
-// before its window are skipped, as the TPU kernel skips them.
+// q and o are (BH, S, D) with heads folded into the batch; k and v are
+// (BH_kv, S, D), and row bh / (BH / BH_kv) of k and v serves query row bh
+// (repeat_interleave's order: an MQA or GQA layer's kv heads are read in
+// place, never expanded).  window <= 0 means unbounded; a key is visible
+// to a query when key < S, (causal) key <= query, and (window) key >
+// query - window.  kv blocks that lie wholly after the q block (causal) or
+// wholly before its window are skipped, as the TPU kernel skips them.
 //
 // Bound on this card: operations for bf16 at long S (4 flops per visible
 // score entry per head dimension against one read of q, k, v and one
-// write of o; at the RecurrentGemma-9B prefill shape (64, 4096, 256),
-// window 2048, ~412 GFLOP against 537 MB), bytes for short S.
+// write of o; at the RecurrentGemma-9B prefill shape, q (64, 4096, 256)
+// and one kv row per batch row, window 2048: ~412 GFLOP against ~290 MB),
+// bytes for short S.
 //
-// Design: one CTA per (bh, 64-row q block) for bf16, (bh, 32-row q block)
-// for f32.  The q tile stays in shared memory; k and v tiles of the same
-// height are streamed through shared memory one at a time (no software
-// pipelining or TMA yet).  The head dimension is zero-padded in shared
-// memory to DP in {64, 128, 256}, a template parameter, so every loop over
-// it unrolls; padded rows past S are zero and masked.
+// bf16 design: warp-specialised wgmma with TMA loads, one CTA of three
+// warpgroups per (q head, 128-row q block).
+// * Warpgroup 0 is the producer.  Under setmaxnreg.dec it gives up its
+//   registers; one thread issues every TMA load: the q tile once, then the
+//   k and v tiles (64 rows) of each kv block the q block visits, through a
+//   ring of stages in shared memory with full and empty mbarriers per
+//   stage and per tile (2 stages at D <= 256, 4 at D <= 128).  The tensor
+//   maps are 3-D (D, S, heads), so rows past S are zero-filled by TMA and
+//   never read from the next head; boxes are 64 columns (128 B) by 64 rows
+//   with the 128-byte swizzle, the layout wgmma reads without bank
+//   conflicts.
+// * Warpgroups 1 and 2 are consumers, 64 q rows each, under
+//   setmaxnreg.inc.  S = Q K^T is wgmma m64n64k16 with both operands in
+//   shared memory (K-major), D / 16 steps a tile.  The online softmax runs
+//   on the S fragment in registers (running max m and sum l per row,
+//   reduced over the 4 lanes that share a row, in the base-2 domain with
+//   the scale folded in); masks are evaluated only on tiles that cross the
+//   diagonal, the window's edge or S (the loop over tiles runs as masked,
+//   unmasked and masked stretches, so no branch sits between a product
+//   and its wait).  P is rounded to bf16 in registers and is the A operand
+//   of O += P V, wgmma m64n{D}k16 with V read from shared memory as an
+//   MN-major (transposed) B operand; the f32 O accumulator (64 x D per
+//   warpgroup) stays in registers.
+// * Schedule (FA3's): a consumer issues tile i's S together with tile
+//   i - 1's P V and runs tile i's softmax while P V is in flight; the two
+//   consumers take turns issuing their products (named barriers), so one's
+//   softmax overlaps the other's products.  Each consumer runs every tile
+//   of the q block, also one that none of its rows sees, whose masked
+//   softmax adds exactly 0.  On the card this schedule gave bitwise the
+//   same outputs as issuing and waiting on each product in turn, in less
+//   time at D = 64, 128 and 256.
+// * Epilogue: O / max(l, 1e-30) in bf16 is written into the warpgroup's
+//   own (now free) q tile in the swizzled layout and stored by TMA, which
+//   drops the rows past S.
+// * CTAs are ordered heaviest q block first, and within a q block by q
+//   head, so the q heads that share a kv head run side by side and find
+//   its tiles in L2.
 //
-// * bf16: tensor cores through mma.sync m16n8k16 (bf16 in, f32 out).  Each
-//   of the 4 warps owns 16 q rows: S = Q K^T for its rows lands in
-//   registers, the online softmax runs on them with the running max m and
-//   sum l per row in registers (reduced over the 4 lanes that share a row),
-//   the probabilities are rounded to bf16 and fed straight back as the A
-//   operand of P V, whose f32 accumulator (16 x DP per warp) stays in
-//   registers.  At DP = 256 the three tiles take 99 KB of shared memory,
-//   above the 48 KB default, so the launcher raises the limit with
-//   cudaFuncSetAttribute.
-// * f32: exact f32 FMA, no tensor cores (no TF32).  32 x 32 tiles; each
-//   warp owns the q rows r = warp (mod 4) for scores, softmax and output,
-//   so only the k/v tiles are shared between warps.
+// f32 design: exact f32 FMA, no tensor cores (no TF32).  32 x 32 tiles;
+// each warp owns the q rows r = warp (mod 4) for scores, softmax and
+// output, so only the k/v tiles are shared between warps.
 //
 // Fully masked rows of a block contribute exactly 0 (the p = 0 guard), the
 // final division is floored at 1e-30, and every sum runs in a fixed order
-// with no atomics, so two runs give bitwise equal outputs.
+// with no atomics and no split over kv, so two runs give bitwise equal
+// outputs.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -68,26 +95,144 @@ __device__ __forceinline__ bool block_runs(int q_start, int k_start, int bq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores.
+// bf16: wgmma and TMA, warp-specialised.
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;   // q rows per CTA (16 per warp)
-constexpr int kBK = 64;   // kv rows per streamed tile
-constexpr int kTC = 128;  // threads
+constexpr int kBQ = 128;           // q rows per CTA, 64 per consumer
+constexpr int kBK = 64;            // kv rows per tile
+constexpr int kBox = 64 * 128;     // one TMA box: 64 rows of 64 bf16 (128 B)
+constexpr int kThreads = 384;      // producer + two consumer warpgroups
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// Shared memory at head dimension DP (64, 128 or 256): the q tiles of both
+// consumers, the k ring, the v ring, then the mbarriers (full q; full k,
+// full v, empty k and empty v per stage), after up to 1 KB of padding that
+// aligns the tiles to the 1024-byte period of the 128-byte swizzle.
+template <int DP>
+struct Bf16Cfg {
+  static constexpr int kNB = DP / 64;       // 64-column boxes in a row
+  static constexpr int kStages = DP == 256 ? 2 : 4;
+  static constexpr int kTile = kNB * kBox;  // one 64-row tile
+  static constexpr size_t kSmem =
+      1024 + size_t(2 + 2 * kStages) * kTile + 8 * (1 + 4 * kStages);
+  // One CTA an SM: the H100's 227 KB of dynamic shared memory a CTA.
+  static_assert(kSmem <= 232448, "bf16 tiles exceed 227 KB");
+};
+
+// The mbarriers by shared-memory address: full q, then full k, full v,
+// empty k and empty v of each stage.
+template <int kStages>
+struct Barriers {
+  uint32_t base;
+  __device__ uint32_t full_q() const { return base; }
+  __device__ uint32_t full_k(int s) const { return base + 8 * (1 + s); }
+  __device__ uint32_t full_v(int s) const {
+    return base + 8 * (1 + kStages + s);
+  }
+  __device__ uint32_t empty_k(int s) const {
+    return base + 8 * (1 + 2 * kStages + s);
+  }
+  __device__ uint32_t empty_v(int s) const {
+    return base + 8 * (1 + 3 * kStages + s);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+// Arrive on the barrier and add `bytes` to the transfers it awaits.
+__device__ __forceinline__ void bar_arrive_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (column c0, row c1, head c2) into shared memory,
+// completing on `bar`; and a box from shared memory back to the tensor.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand in shared memory: start
+// address, leading and stride byte offsets (all in 16-byte units), and the
+// swizzle mode (1 = 128 B) in the top bits.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of products are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads of a wgmma accumulator above the
+// wait that completes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two bf16 in one register, the first in the low half.
@@ -96,173 +241,462 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// d (+)= A B over one k16 step.  wgmma_ss_n64: A (64 x 16) and B (16 x 64)
+// from shared memory, both K-major; scale_d = 0 overwrites d.  wgmma_rs: A
+// from registers (the m64k16 fragment: a[0..3] hold rows g and g + 8 of
+// each warp's 16, columns 2t, 2t + 1 and 2t + 8, 2t + 9), B MN-major
+// (transposed) from shared memory, accumulating.  The f32 accumulator
+// fragment gives each warp 16 rows: d[4n + e] is row g + 8 (e >> 1),
+// column 8n + 2t + (e & 1), with g = lane / 4 and t = lane % 4.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// rows [start, start + 64) of a (S, D) matrix into a (64, DP + 8) tile,
-// 16 bytes a thread per step; zero past S and past D.
-template <int DP>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* tile,
-                                               const __nv_bfloat16* src,
-                                               int start, int S, int D) {
-  constexpr int kStride = DP + 8;
-  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < 64 * kChunks; e += kTC) {
-    const int r = e / kChunks;
-    const int c = (e % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (start + r < S && c < D)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(start + r) * D + c);
-    *reinterpret_cast<uint4*>(tile + r * kStride + c) = val;
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// One tile's online softmax for this thread's two rows (r0 and r0 + 8) on
+// the S fragment, in place: updates the running max m (raw scores) and
+// sum l, returns the rescale factor alpha of each row, and leaves
+// P = 2^(c (s - m)) (c = scale * log2 e) in s.  kMask evaluates visible()
+// per entry; masked entries become exactly 0.
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[32],
+                                             float (&m_run)[2],
+                                             float (&l_run)[2],
+                                             float (&alpha)[2], float c,
+                                             int r0, int k0, int S,
+                                             int causal, int window) {
+  float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (kMask && !visible(r0 + 8 * ((i >> 1) & 1),
+                          k0 + 8 * (i >> 2) + (i & 1), S, causal, window))
+      s[i] = kNegInf;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+  float mc[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    alpha[h] = ex2((m_run[h] - mx[h]) * c);
+    m_run[h] = mx[h];
+    mc[h] = mx[h] * c;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    s[i] = (!kMask || s[i] > 0.5f * kNegInf) ? ex2(fmaf(s[i], c, -mc[h]))
+                                             : 0.0f;
+    sum[h] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    l_run[h] = l_run[h] * alpha[h] + sum[h];
   }
 }
 
+// The S = Q K^T products of one tile: D / 16 k16 steps, each in box
+// kk / 4 at a 32-byte column step kk % 4.
 template <int DP>
-__global__ void __launch_bounds__(kTC)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int S, int D, float scale,
-                  int causal, int window) {
-  constexpr int kStride = DP + 8;  // bf16 per shared row: no bank conflicts
-  constexpr int kDn = DP / 8;      // n-tiles of the output
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + kBQ * kStride;
-  __nv_bfloat16* Vs = Ks + kBK * kStride;
-
-  // Heaviest q blocks (last under causal) first.
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const size_t off = static_cast<size_t>(blockIdx.y) * S * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // row within the warp's 8-row half
-  const int tig = lane & 3;  // lane within the row's quad
-  const int qpos0 = q_start + warp * 16 + g;
-  const int qpos1 = qpos0 + 8;
-
-  load_tile_bf16<DP>(Qs, q + off, q_start, S, D);
-
-  float acc[kDn][4];
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint64_t q_desc,
+                                         uint64_t k_desc) {
 #pragma unroll
-  for (int n = 0; n < kDn; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.0f, 0.0f};
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
+    wgmma_ss_n64(s, q_desc + off, k_desc + off, kk > 0);
+  }
+}
 
+// O += P V over one tile's four k16 steps.  V (64 keys x DP) is B,
+// MN-major: 64-column boxes kBox apart (leading offset), 8-key groups
+// 1024 B apart (stride offset); step j starts 16 rows (2048 B) further.
+// P's A fragment of step j is p[4j .. 4j + 3]: the S fragment's columns
+// 16j .. 16j + 15, packed in pairs.
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
+                                         const uint32_t (&p)[16],
+                                         uint64_t v_desc) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_rs(o, p + 4 * j, v_desc + ((j * 2048) >> 4));
+}
+
+template <int DP>
+__device__ __forceinline__ void rescale_pack(float (&o)[DP / 2],
+                                             uint32_t (&p)[16],
+                                             const float (&s)[32],
+                                             const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    o[4 * n] *= alpha[0];
+    o[4 * n + 1] *= alpha[0];
+    o[4 * n + 2] *= alpha[1];
+    o[4 * n + 3] *= alpha[1];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) p[j] = pack2(s[2 * j], s[2 * j + 1]);
+}
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Lane 0 of each consumer warp releases a stage's k or v tile.
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) bar_arrive(bar);
+}
+
+// Whether every (q, key) pair of a 64-row warpgroup block and a kv tile is
+// visible, so that its softmax needs no mask.
+__device__ __forceinline__ bool tile_full(int k_start, int q0, int S,
+                                          int causal, int window) {
+  return k_start + kBK <= S && (!causal || k_start + kBK - 1 <= q0) &&
+         (window <= 0 || k_start > q0 + 63 - window);
+}
+
+// One step i >= 1 of the overlapped schedule: tile i's S = Q K^T and tile
+// i - 1's O += P V issued together in this consumer's turn, tile i's
+// softmax while P V runs, then O rescaled and tile i's P packed.
+template <int DP>
+struct OverlapStep {
+  static constexpr int kStages = Bf16Cfg<DP>::kStages;
+  static constexpr int kTile = Bf16Cfg<DP>::kTile;
+  uint32_t k_ring, v_ring;
+  Barriers<kStages> bars;
+  uint64_t q_desc;
+  float c;
+  int r0, S, causal, window, h, lane;
+
+  template <bool kMask>
+  __device__ __forceinline__ void run(float (&o)[DP / 2], float (&s)[32],
+                                      uint32_t (&p)[16], float (&m_run)[2],
+                                      float (&l_run)[2], int i,
+                                      int k0) const {
+    const int st = i % kStages, parity = (i / kStages) & 1;
+    const int pst = (i - 1) % kStages, ppar = ((i - 1) / kStages) & 1;
+    float alpha[2];
+    bar_wait(bars.full_k(st), parity);
+    bar_wait(bars.full_v(pst), ppar);
+    named_sync(3 + h, 256);
+    wgmma_fence();
+    issue_qk<DP>(s, q_desc, sw128_desc(k_ring + st * kTile, 16, 1024));
+    wgmma_commit();
+    issue_pv<DP>(o, p, sw128_desc(v_ring + pst * kTile, kBox, 1024));
+    wgmma_commit();
+    named_arrive(4 - h, 256);
+    wgmma_wait<1>();
+    fence_regs(s);
+    softmax_tile<kMask>(s, m_run, l_run, alpha, c, r0, k0, S, causal,
+                        window);
+    release(bars.empty_k(st), lane);
+    wgmma_wait<0>();
+    fence_regs(o);
+    release(bars.empty_v(pst), lane);
+    rescale_pack<DP>(o, p, s, alpha);
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
+                  __grid_constant__ const CUtensorMap tk,
+                  __grid_constant__ const CUtensorMap tv,
+                  __grid_constant__ const CUtensorMap to, int BH, int rep,
+                  int S, float c, int causal, int window) {
+  using Cfg = Bf16Cfg<DP>;
+  constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages, kTile = Cfg::kTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = base;                   // [consumer][box][64][128 B]
+  unsigned char* Ks = Qs + 2 * kTile;         // [stage][box][64][128 B]
+  unsigned char* Vs = Ks + kStages * kTile;
+  const Barriers<kStages> bars{smem_u32(Vs + kStages * kTile)};
+
+  // Heaviest q blocks (last under causal) first; the heads of one q block
+  // side by side.  The q block's kv tiles are kb_lo .. kb_lo + n_tiles - 1
+  // (block_runs holds on one contiguous range).
+  const int nqb = (S + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x % BH;
+  const int q_start = (nqb - 1 - static_cast<int>(blockIdx.x) / BH) * kBQ;
   const int nk = (S + kBK - 1) / kBK;
-  for (int kb = 0; kb < nk; ++kb) {
-    const int k_start = kb * kBK;
-    if (!block_runs(q_start, k_start, kBQ, kBK, causal, window)) continue;
-    __syncthreads();  // every warp is done with the previous k/v tiles
-    load_tile_bf16<DP>(Ks, k + off, k_start, S, D);
-    load_tile_bf16<DP>(Vs, v + off, k_start, S, D);
-    __syncthreads();
+  const int kb_end = causal ? min(nk, (q_start + kBQ - 1) / kBK + 1) : nk;
+  int kb_lo = 0;
+  while (kb_lo < kb_end &&
+         !block_runs(q_start, kb_lo * kBK, kBQ, kBK, causal, window))
+    ++kb_lo;
+  const int n_tiles = kb_end - kb_lo;
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      const __nv_bfloat16* qa = Qs + (warp * 16 + g) * kStride + kk + 2 * tig;
-      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * kStride);
-      const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * kStride + 8);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* kp = Ks + (n * 8 + g) * kStride + kk + 2 * tig;
-        mma_bf16(s[n], a0, a1, a2, a3, ld32(kp), ld32(kp + 8));
-      }
+  if (threadIdx.x == 0) {
+    bar_init(bars.full_q(), 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(bars.full_k(s), 1);
+      bar_init(bars.full_v(s), 1);
+      bar_init(bars.empty_k(s), 8);   // lane 0 of each consumer warp
+      bar_init(bars.empty_v(s), 8);
     }
-
-    // Online softmax over the tile, rows qpos0 (e < 2) and qpos1 (e >= 2).
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k_start + n * 8 + 2 * tig + (e & 1);
-        const int qpos = e < 2 ? qpos0 : qpos1;
-        const float x = visible(qpos, kpos, S, causal, window)
-                            ? s[n][e] * scale
-                            : kNegInf;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_run[h], mx[h]);
-      alpha[h] = expf(m_run[h] - m_new);
-      m_run[h] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // A row with no visible key in this tile adds exactly 0.
-        const float p = s[n][e] > 0.5f * kNegInf
-                            ? expf(s[n][e] - m_run[e >> 1])
-                            : 0.0f;
-        s[n][e] = p;
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      l_run[h] = l_run[h] * alpha[h] + sum[h];
-    }
-#pragma unroll
-    for (int n = 0; n < kDn; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // acc += P V: the score fragments of n-tiles 2j, 2j+1 are the A
-    // fragment of the 16-key step j.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t a0 = pack2(s[2 * j][0], s[2 * j][1]);
-      const uint32_t a1 = pack2(s[2 * j][2], s[2 * j][3]);
-      const uint32_t a2 = pack2(s[2 * j + 1][0], s[2 * j + 1][1]);
-      const uint32_t a3 = pack2(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const __nv_bfloat16* vp = Vs + (j * 16 + 2 * tig) * kStride + g;
-#pragma unroll
-      for (int n = 0; n < kDn; ++n) {
-        const __nv_bfloat16* vc = vp + n * 8;
-        const uint32_t b0 = pack2(vc[0], vc[kStride]);
-        const uint32_t b1 = pack2(vc[8 * kStride], vc[9 * kStride]);
-        mma_bf16(acc[n], a0, a1, a2, a3, b0, b1);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const float d0 = fmaxf(l_run[0], 1e-30f);
-  const float d1 = fmaxf(l_run[1], 1e-30f);
+  if (threadIdx.x < 128) {
+    // Producer.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x == 0) {
+      const int bkv = bh / rep;
+      bar_arrive_tx(bars.full_q(), 2 * kTile);
+      for (int h = 0; h < 2; ++h)
+        for (int j = 0; j < kNB; ++j)
+          tma_load(Qs + (h * kNB + j) * kBox, &tq, 64 * j, q_start + 64 * h,
+                   bh, bars.full_q());
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages, parity = ((i / kStages) & 1) ^ 1;
+        const int row = (kb_lo + i) * kBK;
+        bar_wait(bars.empty_k(st), parity);
+        bar_arrive_tx(bars.full_k(st), kTile);
+        for (int j = 0; j < kNB; ++j)
+          tma_load(Ks + st * kTile + j * kBox, &tk, 64 * j, row, bkv,
+                   bars.full_k(st));
+        bar_wait(bars.empty_v(st), parity);
+        bar_arrive_tx(bars.full_v(st), kTile);
+        for (int j = 0; j < kNB; ++j)
+          tma_load(Vs + st * kTile + j * kBox, &tv, 64 * j, row, bkv,
+                   bars.full_v(st));
+      }
+    }
+  } else {
+    // Consumers.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    const int h = threadIdx.x / 128 - 1;  // consumer 0 or 1
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int q0 = q_start + 64 * h;      // the warpgroup's first row
+    const int r0 = q0 + 16 * warp + g;    // this thread's rows: r0, r0 + 8
+    unsigned char* Qh = Qs + h * kTile;
+    const uint64_t q_desc = sw128_desc(smem_u32(Qh), 16, 1024);
+    const uint32_t k_ring = smem_u32(Ks), v_ring = smem_u32(Vs);
+
+    float o[DP / 2];
 #pragma unroll
-  for (int n = 0; n < kDn; ++n) {
-    const int col = n * 8 + 2 * tig;
-    if (col >= D) continue;
-    if (qpos0 < S)
-      *reinterpret_cast<uint32_t*>(o + off + static_cast<size_t>(qpos0) * D +
-                                   col) = pack2(acc[n][0] / d0,
-                                                acc[n][1] / d0);
-    if (qpos1 < S)
-      *reinterpret_cast<uint32_t*>(o + off + static_cast<size_t>(qpos1) * D +
-                                   col) = pack2(acc[n][2] / d1,
-                                                acc[n][3] / d1);
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+    float s[32] = {};   // written by the first k16 step of every tile
+    uint32_t p[16];
+    float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.0f, 0.0f};
+
+    bar_wait(bars.full_q(), 0);
+    if (n_tiles > 0) {
+      // Tile 0 alone: its S and its softmax, masked (the first tile
+      // usually holds the window's edge or the first block's diagonal).
+      if (h == 1) named_arrive(3, 256);   // consumer 0 goes first
+      float alpha[2];
+      bar_wait(bars.full_k(0), 0);
+      named_sync(3 + h, 256);
+      wgmma_fence();
+      issue_qk<DP>(s, q_desc, sw128_desc(k_ring, 16, 1024));
+      wgmma_commit();
+      named_arrive(4 - h, 256);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax_tile<true>(s, m_run, l_run, alpha, c, r0, kb_lo * kBK + 2 * t,
+                         S, causal, window);
+      release(bars.empty_k(0), lane);
+      rescale_pack<DP>(o, p, s, alpha);
+
+      // Tiles 1 .. n_tiles - 1 in three runs: masked, unmasked [f0, f1),
+      // masked (the diagonal, S's edge).
+      int f0 = n_tiles, f1 = n_tiles;
+      for (int i = n_tiles - 1; i >= 1; --i)
+        if (tile_full((kb_lo + i) * kBK, q0, S, causal, window)) {
+          if (f1 == n_tiles) f1 = i + 1;
+          f0 = i;
+        }
+      const OverlapStep<DP> step{k_ring, v_ring, bars, q_desc, c, r0, S,
+                                 causal, window, h, lane};
+      for (int i = 1; i < f0; ++i)
+        step.template run<true>(o, s, p, m_run, l_run, i,
+                                (kb_lo + i) * kBK + 2 * t);
+      for (int i = f0; i < f1; ++i)
+        step.template run<false>(o, s, p, m_run, l_run, i, 0);
+      for (int i = f1; i < n_tiles; ++i)
+        step.template run<true>(o, s, p, m_run, l_run, i,
+                                (kb_lo + i) * kBK + 2 * t);
+
+      // The last tile's P V alone.
+      const int last = n_tiles - 1;
+      const int lst = last % kStages;
+      bar_wait(bars.full_v(lst), (last / kStages) & 1);
+      wgmma_fence();
+      issue_pv<DP>(o, p, sw128_desc(v_ring + lst * kTile, kBox, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(bars.empty_v(lst), lane);
+      if (h == 0) named_sync(3, 256);   // consumer 1's last arrival
+    }
+
+    // Epilogue: O / l in bf16 into this warpgroup's q tile (swizzled as
+    // TMA wrote it), then one TMA store per box; rows past S are dropped.
+    const float d0 = fmaxf(l_run[0], 1e-30f);
+    const float d1 = fmaxf(l_run[1], 1e-30f);
+    const int row = 16 * warp + g;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      unsigned char* at =
+          Qh + (n / 8) * kBox + (((n % 8) ^ g) << 4) + 4 * t;
+      *reinterpret_cast<uint32_t*>(at + row * 128) =
+          pack2(o[4 * n] / d0, o[4 * n + 1] / d0);
+      *reinterpret_cast<uint32_t*>(at + (row + 8) * 128) =
+          pack2(o[4 * n + 2] / d1, o[4 * n + 3] / d1);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(1 + h, 128);
+    if (threadIdx.x % 128 == 0) {
+      for (int j = 0; j < kNB; ++j)
+        tma_store(&to, Qh + j * kBox, 64 * j, q0, bh);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
   }
 }
 
@@ -281,12 +715,13 @@ constexpr size_t f32_smem_bytes() {
   return sizeof(float) *
          (kBQ32 * DP + kBK32 * (DP + 1) + kBK32 * DP + kBQ32 * (kBK32 + 1));
 }
+static_assert(f32_smem_bytes<256>() <= 232448, "f32 tiles exceed 227 KB");
 
 template <int DP>
 __global__ void __launch_bounds__(kT32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int D, float scale, int causal, int window) {
+                 int D, int rep, float scale, int causal, int window) {
   constexpr int kCols = DP / 32;  // output columns per lane
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // (32, DP)
@@ -296,6 +731,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int q_start = (gridDim.x - 1 - blockIdx.x) * kBQ32;
   const size_t off = static_cast<size_t>(blockIdx.y) * S * D;
+  const size_t off_kv = static_cast<size_t>(blockIdx.y / rep) * S * D;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -325,7 +761,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = threadIdx.x; e < kBK32 * DP; e += kT32) {
       const int r = e / DP, c = e % DP;
       const bool in = k_start + r < S && c < D;
-      const size_t src = off + static_cast<size_t>(k_start + r) * D + c;
+      const size_t src =
+          off_kv + static_cast<size_t>(k_start + r) * D + c;
       Ks[r * (DP + 1) + c] = in ? k[src] : 0.0f;
       Vs[e] = in ? v[src] : 0.0f;
     }
@@ -399,67 +836,121 @@ float softmax_scale(int D) {
   return static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (heads, S, D) bf16 tensor as a 3-D map of 64 x 64 boxes, 128-byte
+// swizzle; elements outside the tensor read as zero and are not written.
+bool encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(S) * D * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
-                int S, int D, int causal, int window, cudaStream_t stream) {
-  const size_t smem = 3ull * 64 * (DP + 8) * sizeof(__nv_bfloat16);
+                int BH_kv, int S, int D, int causal, int window,
+                cudaStream_t stream) {
+  const size_t bytes = Bf16Cfg<DP>::kSmem;
+  CUtensorMap tq, tk, tv, to;
+  if (!encode_map(&tq, q, BH, S, D) || !encode_map(&tk, k, BH_kv, S, D) ||
+      !encode_map(&tv, v, BH_kv, S, D) || !encode_map(&to, o, BH, S, D))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, BH);
-  flash_bf16_kernel<DP><<<grid, kTC, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      D, softmax_scale(D), causal, window);
+  const unsigned grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
+  // 2^(c s) = e^(scale s): the scale and log2 e folded into one factor.
+  const float c = static_cast<float>(
+      1.4426950408889634 / std::sqrt(static_cast<double>(D)));
+  flash_bf16_kernel<DP><<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, to, BH, BH / BH_kv, S, c, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
-               int S, int D, int causal, int window, cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes<DP>();
+               int BH_kv, int S, int D, int causal, int window,
+               cudaStream_t stream) {
+  const size_t bytes = f32_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ32 - 1) / kBQ32, BH);
-  flash_f32_kernel<DP><<<grid, kT32, smem, stream>>>(
+  flash_f32_kernel<DP><<<grid, kT32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, D,
-      softmax_scale(D), causal, window);
+      BH / BH_kv, softmax_scale(D), causal, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int BH, int BH_kv, int S, int D) {
+  return BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || D <= 0 ||
+         D % 8 != 0 || D > 256;
 }
 
 }  // namespace
 
-// q, k, v, o: (BH, S, D), contiguous, 16-byte aligned, one dtype, on the
-// stream's device; D a multiple of 8 and at most 256.  Returns the
-// cudaError_t of the launch (0 on success); cudaErrorInvalidValue for a D
-// the kernels do not take.
+// q, o: (BH, S, D); k, v: (BH_kv, S, D) with BH_kv dividing BH; contiguous,
+// 16-byte aligned, one dtype, on the stream's device; D a multiple of 8 and
+// at most 256.  Returns the cudaError_t of the launch (0 on success);
+// cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o, int BH,
-                                          int S, int D, int causal,
+                                          int BH_kv, int S, int D, int causal,
                                           int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 0 || D % 8 != 0 || D > 256)
+  if (bad_shape(BH, BH_kv, S, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64) return launch_bf16<64>(q, k, v, o, BH, S, D, causal, window, st);
+  if (D <= 64)
+    return launch_bf16<64>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
   if (D <= 128)
-    return launch_bf16<128>(q, k, v, o, BH, S, D, causal, window, st);
-  return launch_bf16<256>(q, k, v, o, BH, S, D, causal, window, st);
+    return launch_bf16<128>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
+  return launch_bf16<256>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
 }
 
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          const void* v, void* o, int BH,
-                                         int S, int D, int causal, int window,
-                                         void* stream) {
+                                         int BH_kv, int S, int D, int causal,
+                                         int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 0 || D % 8 != 0 || D > 256)
+  if (bad_shape(BH, BH_kv, S, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64) return launch_f32<64>(q, k, v, o, BH, S, D, causal, window, st);
+  if (D <= 64)
+    return launch_f32<64>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
   if (D <= 128)
-    return launch_f32<128>(q, k, v, o, BH, S, D, causal, window, st);
-  return launch_f32<256>(q, k, v, o, BH, S, D, causal, window, st);
+    return launch_f32<128>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
+  return launch_f32<256>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
 }

@@ -49,8 +49,9 @@ def schwarz_bwd(A, r, b, Ax, u, x, muov, mask, *, mode: str = "auto"):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     mode: str = "auto"):
-    """Causal / sliding-window softmax attention.  q, k, v: (BH, S, D)
-    with the kv heads expanded -> (BH, S, D); ``window <= 0`` is
+    """Causal / sliding-window softmax attention.  q: (BH, S, D), k, v:
+    (BH_kv, S, D) with BH_kv dividing BH, row ``bh // (BH // BH_kv)``
+    serving query row ``bh`` -> (BH, S, D); ``window <= 0`` is
     unbounded."""
     if _use_kernel(q, mode):
         return _fa.flash_attention(q, k, v, causal=causal, window=window)

@@ -41,11 +41,35 @@ def schwarz_bwd_plain(A, r, b, Ax, u, x, muov, mask):
     return (torch.einsum("pmw,pm->pw", A, t) + muov * x) * mask
 
 
+def attention_shapes(name: str, q_shape, k_shape, v_shape) -> int:
+    """Raise ``ValueError`` unless q is (BH, S, D) and k, v are both
+    (BH_kv, S, D) with BH_kv dividing BH; returns BH // BH_kv."""
+    q_shape, k_shape = tuple(q_shape), tuple(k_shape)
+    if len(q_shape) != 3 or min(q_shape) < 1:
+        raise ValueError(f"{name}: q must be (BH, S, D) with BH, S, D >= 1 "
+                         f"(got {q_shape})")
+    bh = q_shape[0]
+    if (len(k_shape) != 3 or k_shape[1:] != q_shape[1:] or k_shape[0] < 1
+            or bh % k_shape[0]):
+        raise ValueError(f"{name}: k must be (BH_kv, S, D) with BH_kv "
+                         f"dividing BH = {bh} (got {k_shape} for q "
+                         f"{q_shape})")
+    if tuple(v_shape) != k_shape:
+        raise ValueError(f"{name}: v has shape {tuple(v_shape)}, expected "
+                         f"k's {k_shape}")
+    return bh // k_shape[0]
+
+
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
-    """Softmax attention with f32 scores.  q, k, v: (BH, S, D) ->
-    (BH, S, D) in q's dtype; a key is visible when (causal) it is not
-    after the query and (window > 0) it is less than ``window`` before
-    it; masked scores are -1e30."""
+    """Softmax attention with f32 scores.  q: (BH, S, D), k, v:
+    (BH_kv, S, D) with BH_kv dividing BH, expanded along dim 0 in
+    ``repeat_interleave``'s order -> (BH, S, D) in q's dtype; a key is
+    visible when (causal) it is not after the query and (window > 0) it
+    is less than ``window`` before it; masked scores are -1e30."""
+    rep = attention_shapes("attention_plain", q.shape, k.shape, v.shape)
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=0)
+        v = v.repeat_interleave(rep, dim=0)
     s, d = q.shape[1], q.shape[2]
     scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (
         1.0 / math.sqrt(d))

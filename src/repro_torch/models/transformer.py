@@ -329,12 +329,12 @@ def _attn_prefill_block(cfg, lp, h, positions, spec, window, theta,
         k = nn.rope(k, positions, theta)
     B, S, H, K = q.shape
 
-    def fold(t):   # (B, S, H, K) -> (B * H, S, K), contiguous
-        return t.permute(0, 2, 1, 3).reshape(B * H, S, K)
+    def fold(t):   # (B, S, heads, K) -> (B * heads, S, K), contiguous
+        return t.permute(0, 2, 1, 3).reshape(-1, S, K).contiguous()
 
-    kk = attention._expand_kv(k, cfg.q_per_kv)
-    vv = attention._expand_kv(v, cfg.q_per_kv)
-    out = ops.flash_attention(fold(q), fold(kk), fold(vv), causal=True,
+    # k and v keep their kv heads: the kernel reads row bh // q_per_kv for
+    # query row bh, and with one kv head fold() is a view, not a copy.
+    out = ops.flash_attention(fold(q), fold(k), fold(v), causal=True,
                               window=window, mode=mode)
     out = out.view(B, H, S, K).permute(0, 2, 1, 3)
     h = h + torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])

@@ -6,7 +6,10 @@
 mode, on inputs made once with numpy, at the shapes and tolerances of
 ``tests/test_kernels.py``: 2e-5 (atol and rtol) in f32, 2e-2 in bf16.
 bf16 inputs are the same f32 numbers rounded to bf16 by each package.
-The CUDA kernels themselves run only on the card (``chip_smoke.py``).
+The port's attention also takes k and v with fewer rows than q (grouped
+kv heads, read in place); the JAX package gets the same arrays
+expanded.  The CUDA kernels themselves run only on the card
+(``chip_smoke.py``).
 """
 import numpy as np
 import pytest
@@ -93,6 +96,78 @@ def test_attention_plain_nonuniform_blocks():
                                      mode="interpret", block_q=32,
                                      block_k=64), "float32")
     _close(got, jref.attention_ref(qj, qj, qj, causal=True), "float32")
+
+
+@pytest.mark.parametrize("bh,bh_kv", [(8, 8), (8, 2), (32, 2), (16, 1)])
+@pytest.mark.parametrize("s", [40, 130])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
+                                           (False, 0)])
+def test_attention_grouped_kv_matches_ref_and_interpret(bh, bh_kv, s, d,
+                                                        causal, window):
+    """k and v with BH_kv rows, row bh // (BH / BH_kv) serving query row
+    bh: the port on grouped k, v against the JAX package on the same
+    arrays expanded with np.repeat (repeat_interleave's order), and
+    bitwise equal to the plain version on the expanded tensors."""
+    rng = np.random.default_rng(7)
+    q = rng.normal(size=(bh, s, d)).astype(np.float32)
+    k, v = (rng.normal(size=(bh_kv, s, d)).astype(np.float32)
+            for _ in range(2))
+    rep = bh // bh_kv
+    (qt, qj), (kt, _), (vt, _) = (_both(x, "float32") for x in (q, k, v))
+    (ket, kej), (vet, vej) = (_both(np.repeat(x, rep, axis=0), "float32")
+                              for x in (k, v))
+    got = tops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.shape == (bh, s, d)
+    _close(got, jref.attention_ref(qj, kej, vej, causal=causal,
+                                   window=window), "float32")
+    _close(got, jops.flash_attention(qj, kej, vej, causal=causal,
+                                     window=window, mode="interpret",
+                                     block_q=64, block_k=64), "float32")
+    assert torch.equal(got, tref.attention_plain(qt, ket, vet, causal=causal,
+                                                 window=window))
+
+
+@pytest.mark.parametrize("q_shape,k_shape,v_shape", [
+    ((6, 40, 16), (4, 40, 16), (4, 40, 16)),    # BH_kv does not divide BH
+    ((6, 40, 16), (3, 41, 16), (3, 41, 16)),    # S differs
+    ((6, 40, 16), (3, 40, 8), (3, 40, 8)),      # D differs
+    ((6, 40, 16), (3, 40, 16), (2, 40, 16)),    # v's rows differ from k's
+])
+def test_attention_kv_shape_checks(q_shape, k_shape, v_shape):
+    """The CPU path (plain version) and the wrapper's launch plan refuse
+    k, v that cannot serve q."""
+    q, k, v = (torch.zeros(sh) for sh in (q_shape, k_shape, v_shape))
+    with pytest.raises(ValueError, match="attention_plain"):
+        tops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="flash_attention"):
+        t_fa.launch_plan(q_shape, k_shape, v_shape, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_launch_plan_fits_one_cta(dtype):
+    """Every head dimension the kernels take fits the card's 227 KB of
+    shared memory a CTA; bf16 runs one CTA of three warpgroups (384
+    threads) on 128 q rows with 64-row kv tiles, head dimension padded
+    to 64, 128 or 256."""
+    seen = set()
+    for d in range(8, t_fa.MAX_HEAD_DIM + 1, 8):
+        kv = (4, 4096, d)
+        plan = t_fa.launch_plan((64, 4096, d), kv, kv, T_DTYPE[dtype])
+        assert plan["smem_bytes"] <= t_fa.MAX_SMEM == 232448
+        assert plan["dp"] >= d and plan["rep"] == 16
+        seen.add(plan["dp"])
+        if dtype == "bfloat16":
+            assert (plan["threads"], plan["bq"], plan["bk"]) == (384, 128, 64)
+            assert plan["ctas"] == 64 * 4096 // 128
+            assert plan["stages"] >= 2
+    assert seen == {64, 128, 256}
+    with pytest.raises(ValueError, match="multiple of 8"):
+        t_fa.launch_plan((2, 16, 12), (2, 16, 12), (2, 16, 12),
+                         T_DTYPE[dtype])
+    with pytest.raises(ValueError, match="at most 256"):
+        t_fa.launch_plan((2, 16, 264), (2, 16, 264), (2, 16, 264),
+                         T_DTYPE[dtype])
 
 
 # ---------------------------------------------------------------------------
