@@ -5,7 +5,10 @@ Runs registered observation-stream scenarios through
 imbalance before/after DyDD, the balance ratio E, repartitions, migrated
 observations, cycle time and the error against the one-shot CLS solve —
 the table of ``examples/dydd_assimilation.py`` for the single-device
-(``vmapped``) engine.  Runs on the card unless ``--device cpu``:
+(``vmapped``) engine.  With ``--time-windows W`` (W > 1) the cycles run
+through the parallel-in-time Parareal engine
+(:class:`repro_torch.assim.TimeParEngine`) and its ``pint`` summary is
+printed.  Runs on the card unless ``--device cpu``:
 
   python -m repro_torch.assim --n 2048 --p 8 --m 2000 --cycles 6 \\
       --scenarios drifting_swarm
@@ -13,12 +16,16 @@ the table of ``examples/dydd_assimilation.py`` for the single-device
       --scenarios drifting_swarm
   python -m repro_torch.assim --ndim 2 --nx 64 --ny 32 --pr 2 --pc 4 \\
       --overlap 1 --m 2000 --cycles 3 --scenarios rotating_swarm
+  python -m repro_torch.assim --n 2048 --p 8 --m 2000 --cycles 8 \\
+      --time-windows 4 --scenarios drifting_swarm
 """
 import argparse
+import json
 
 import numpy as np
 
-from repro_torch.assim import AssimilationEngine, EngineConfig, streams
+from repro_torch.assim import (AssimilationEngine, EngineConfig,
+                               TimeParEngine, streams)
 from repro_torch.core import ddkf
 from repro_torch.obs import trace as obs_trace
 
@@ -31,7 +38,11 @@ def make_config(args) -> EngineConfig:
                   halo_weight=args.halo_weight,
                   record_residuals=args.residuals,
                   solver_kernel=args.solver_kernel,
-                  gram_mode=args.gram_mode)
+                  gram_mode=args.gram_mode,
+                  time_windows=args.time_windows, pint_tol=args.pint_tol,
+                  pint_max_iters=args.pint_max_iters,
+                  pint_coarse_iters=args.pint_coarse_iters,
+                  pint_fine_iters=args.pint_fine_iters)
     if args.ndim == 1:
         return EngineConfig(n=args.n, p=args.p, **common)
     if args.domain == "kdtree":
@@ -42,10 +53,10 @@ def make_config(args) -> EngineConfig:
                         pc=args.pc, damping=args.damping, **common)
 
 
-def print_load_table(eng, rec) -> None:
+def print_load_table(domain, rec) -> None:
     """Per-cell loads before/after the cycle's rebalance, as pr x pc grids."""
-    before = eng.domain.load_table(rec.loads_before)
-    after = eng.domain.load_table(rec.loads)
+    before = domain.load_table(rec.loads_before)
+    after = domain.load_table(rec.loads)
     rows = []
     for rb, ra in zip(np.atleast_2d(before), np.atleast_2d(after)):
         rows.append("  " + " ".join(f"{v:5d}" for v in rb)
@@ -56,7 +67,10 @@ def print_load_table(eng, rec) -> None:
 
 def run_scenario(name: str, args) -> None:
     cfg = make_config(args)
-    eng = AssimilationEngine(cfg, device=args.device)
+    windowed = cfg.time_windows > 1
+    eng = (TimeParEngine(cfg, device=args.device) if windowed
+           else AssimilationEngine(cfg, device=args.device))
+    domain = eng.engine.domain if windowed else eng.domain
     dom = eng.journal.meta
     if args.ndim == 1:
         shape = f"p={dom['p']}"
@@ -68,7 +82,9 @@ def run_scenario(name: str, args) -> None:
                  f"{dom['nx']}x{dom['ny']} mesh")
     print(f"\n=== {name} ({'static DD' if args.static else 'DyDD'}, "
           f"{shape}, overlap={cfg.overlap}, vmapped on {eng.device}, "
-          f"m={args.m}, {args.cycles} cycles) ===")
+          f"m={args.m}, {args.cycles} cycles"
+          + (f", {cfg.time_windows} time windows" if windowed else "")
+          + ") ===")
     print(f"{'cycle':>5s} {'imb_in':>7s} {'imb_out':>7s} {'E':>6s} "
           f"{'rep':>4s} {'moved':>6s} {'t_cycle':>8s} {'err_DD-DA':>10s}")
     journal = eng.run_scenario(name, m=args.m, cycles=args.cycles,
@@ -79,7 +95,7 @@ def run_scenario(name: str, args) -> None:
               f"{r.migrated:6d} {r.cycle_time * 1e3:7.1f}ms "
               f"{r.error_vs_direct:10.2e}")
         if args.ndim == 2 and r.repartitioned:
-            print_load_table(eng, r)
+            print_load_table(domain, r)
     s = journal.summary()
     print(f"summary: {s['repartitions']} repartitions, "
           f"{s['migrated_total']} observations migrated, "
@@ -94,6 +110,8 @@ def run_scenario(name: str, args) -> None:
         split = ", ".join(f"{k} {v['p50'] * 1e3:.1f}ms"
                           for k, v in sorted(s["phases"].items()))
         print(f"phase p50: {split}")
+    if windowed:
+        print(f"pint: {json.dumps(journal.meta['pint'])}")
     if cfg.record_residuals and s.get("residual_final_mean") is not None:
         print(f"Schwarz residual (final iter, mean over cycles): "
               f"{s['residual_final_mean']:.2e}")
@@ -147,6 +165,19 @@ def main() -> None:
     ap.add_argument("--gram-mode", default="auto", choices=ddkf.GRAM_MODES,
                     help="normal-matrix build: auto (gram kernel on the "
                     "card) or plain")
+    ap.add_argument("--time-windows", type=int, default=1,
+                    help="parallel-in-time windows; > 1 runs the Parareal "
+                    "engine")
+    ap.add_argument("--pint-tol", type=float, default=1e-8,
+                    help="Parareal tolerance on the max boundary correction")
+    ap.add_argument("--pint-max-iters", type=int, default=8,
+                    help="Parareal iteration cap (0 runs the sequential "
+                    "engine)")
+    ap.add_argument("--pint-coarse-iters", type=int, default=0,
+                    help="coarse Schwarz iterations (0: iters // 10)")
+    ap.add_argument("--pint-fine-iters", type=int, default=0,
+                    help="fine Schwarz iterations, warm-started from the "
+                    "coarse trajectory (0: iters from cold)")
     ap.add_argument("--scenarios", nargs="*", default=None,
                     choices=streams.available(),
                     help="subset of the registered scenarios "

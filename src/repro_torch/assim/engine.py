@@ -29,6 +29,7 @@ waits for its own packing before it returns.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -88,7 +89,10 @@ class EngineConfig:
     25-26.  ``solver_kernel`` picks the local step ("auto": the fused
     CUDA kernels on the card, the plain composition on the CPU) and
     ``gram_mode`` the normal-matrix build ("auto": the gram kernel on the
-    card; "plain": the plain version).
+    card; "plain": the plain version).  The ``time_windows`` and
+    ``pint_*`` fields are read by
+    :class:`repro_torch.assim.timepar.TimeParEngine`; this engine
+    validates them and runs its cycles in sequence whatever they are.
 
     Rebalance trigger policy: a repartition fires at the start of a cycle
     when EITHER (a) some subdomain would receive zero observations, or
@@ -130,12 +134,18 @@ class EngineConfig:
     gram_mode: str = "auto"           # "auto" | "plain"
     solve_retries: int = 2            # retries under fault injection
                                       # (chaos is not ported yet)
-    time_windows: int = 1             # parallel-in-time windows (only 1
-                                      # is ported)
-    pint_tol: float = 1e-8            # Parareal settings, read only by the
-    pint_max_iters: int = 8           # parallel-in-time engine (not
-    pint_coarse_iters: int = 0        # ported yet)
-    pint_fine_iters: int = 0
+    time_windows: int = 1             # parallel-in-time (Parareal) window
+                                      # count for assim.timepar; 1 = the
+                                      # sequential cycle loop
+    pint_tol: float = 1e-8            # Parareal tolerance on the max
+                                      # window-boundary correction
+    pint_max_iters: int = 8           # Parareal iteration cap; 0 runs the
+                                      # sequential engine
+    pint_coarse_iters: int = 0        # coarse Schwarz iterations;
+                                      # 0 = max(1, iters // 10)
+    pint_fine_iters: int = 0          # fine Schwarz iterations; 0 = iters
+                                      # from cold, else warm-started from
+                                      # the coarse trajectory
 
 
 def _resolve_mesh_shape(cfg: EngineConfig) -> tuple:
@@ -258,8 +268,6 @@ class AssimilationEngine:
             raise _not_ported("solver='shardmap'", "13")
         if config.solver != "vmapped":
             raise ValueError(f"unknown solver {config.solver!r}")
-        if config.time_windows > 1:
-            raise _not_ported("time_windows > 1 (Parareal)", "12")
         if chaos is not None:
             raise _not_ported("chaos injection", "10")
         if config.comm not in ("allreduce", "neighbour"):
@@ -288,6 +296,18 @@ class AssimilationEngine:
             raise ValueError(
                 f"imbalance_threshold is a max/mean ratio and must be "
                 f">= 1.0 (got {config.imbalance_threshold})")
+        if config.time_windows < 1:
+            raise ValueError(
+                f"time_windows must be >= 1 (got {config.time_windows})")
+        if (config.pint_max_iters < 0 or config.pint_coarse_iters < 0
+                or config.pint_fine_iters < 0):
+            raise ValueError(
+                f"pint_max_iters/pint_coarse_iters/pint_fine_iters must "
+                f"be >= 0 (got {config.pint_max_iters}/"
+                f"{config.pint_coarse_iters}/{config.pint_fine_iters})")
+        if config.pint_tol <= 0:
+            raise ValueError(
+                f"pint_tol must be > 0 (got {config.pint_tol})")
 
         self.domain = domain if domain is not None \
             else _domain_from_config(config)
@@ -303,6 +323,7 @@ class AssimilationEngine:
         self._suppressed = False  # this cycle's trigger was suppressed
         self._dec_cache: Optional[dd_mod.Decomposition] = None
         self._t_last = time.perf_counter()
+        self._stream = None  # the resumable stream being run, if any
         # One straggler monitor per subdomain, as the reference keeps;
         # the single-device solve feeds monitor 0 the whole-solve time.
         self._stragglers = [StragglerMonitor(straggler_config)
@@ -492,6 +513,7 @@ class AssimilationEngine:
         numbering continues from the journal."""
         if checkpoint_dir is not None or snapshot_every:
             raise _not_ported("checkpointing", "10")
+        self._stream = stream if hasattr(stream, "cursor") else None
         it = iter(stream)
         base = len(self.journal.records)
         self._t_last = time.perf_counter()
@@ -559,6 +581,12 @@ class AssimilationEngine:
                             solve_time=step.solve_time, hist=step.hist,
                             device_times=step.device_times)
         return step
+
+    def reset_clock(self) -> None:
+        """Restart the per-cycle wall-clock reference (``cycle_time`` of
+        the next completed cycle is measured from now) — what ``run``
+        does at stream start, exposed for external drivers."""
+        self._t_last = time.perf_counter()
 
     def complete_cycle(self, prep: _Prepared, x, background,
                        solve_time: float, hist=None,
@@ -638,7 +666,29 @@ class AssimilationEngine:
             straggler_flags=flags,
             window=prep.window))
 
-    # -- checkpoint / resume (not ported yet) -------------------------------
+    # -- checkpoint / resume (snapshots not ported yet) ---------------------
+
+    def host_state(self) -> dict:
+        """Deep copy of the host-side mutable state ``prepare`` advances
+        (truth, rng, domain boundary state, trigger state, stream
+        cursor) at the current point of the prepare sweep.
+
+        The parallel-in-time engine prepares *every* cycle up front, so
+        a window boundary's host state is long gone by the time the
+        window's analyses exist — it stashes this at each boundary
+        during the sweep."""
+        cursor = self._stream.cursor if self._stream is not None else None
+        return {
+            "truth": np.asarray(self._truth, np.float64).copy(),
+            "rng_state": copy.deepcopy(self._rng.bit_generator.state),
+            "domain": {k: np.asarray(v).copy()
+                       for k, v in self.domain.state_dict().items()},
+            "streak": int(self._streak),
+            "last_rebalance_loads": (
+                None if self._last_rebalance_loads is None
+                else np.asarray(self._last_rebalance_loads).copy()),
+            "cursor": copy.deepcopy(cursor),
+        }
 
     def snapshot(self, *args, **kwargs):
         raise _not_ported("engine snapshots", "10")

@@ -98,6 +98,39 @@ def solve(prob: CLSProblem) -> torch.Tensor:
     return torch.linalg.solve_triangular(chol.mT, z, upper=True)[:, 0]
 
 
+def solve_cg(prob: CLSProblem, x0: torch.Tensor | None = None,
+             tol: float = 1e-10, maxiter: int = 2000) -> torch.Tensor:
+    """Matrix-free CG on the normal equations — used when n is large and
+    materializing A^T R A is undesirable.
+
+    The semantics of ``jax.scipy.sparse.linalg.cg`` with no
+    preconditioner: r0 = c - A x0 (``x0=None`` means zeros), stop when
+    ||r||^2 <= (tol ||c||)^2 or after ``maxiter`` iterations.  The
+    stopping test reads ||r||^2 on the host once per iteration."""
+    def matvec(x):
+        return (prob.H0.T @ (prob.R0 * (prob.H0 @ x))
+                + prob.H1.T @ (prob.R1 * (prob.H1 @ x)))
+
+    c = normal_rhs(prob)
+    x = torch.zeros_like(c) if x0 is None else torch.as_tensor(
+        x0, dtype=c.dtype, device=c.device)
+    bound = tol * tol * float(torch.dot(c, c))
+    r = c - matvec(x)
+    p = r
+    gamma = torch.dot(r, r)
+    for _ in range(maxiter):
+        if float(gamma) <= bound:
+            break
+        Ap = matvec(p)
+        alpha = gamma / torch.dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        gamma_new = torch.dot(r, r)
+        p = r + (gamma_new / gamma) * p
+        gamma = gamma_new
+    return x
+
+
 def state_operator(n: int, smooth: float = 0.25):
     """H0 of the paper's PDE setting: identity rows plus ``smooth``-weighted
     second-difference rows (a discretized diffusion/background term) —

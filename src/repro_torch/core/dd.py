@@ -1,15 +1,23 @@
-"""Domain Decomposition of CLS problems (DD-CLS) — paper §4, host half.
+"""Domain Decomposition of CLS problems (DD-CLS) — paper §4.
 
-The numpy side of ``repro.core.dd``:
+Implements:
+  * matrix/vector reduction + extension operators (Definitions 3-4),
   * geometric 1D decomposition of the state index set I = {1..n} with
     optional overlap s (eq. 21-22),
   * the graph-general :class:`Decomposition` (column sets, column
     multiplicity, halo sizes) and its neighbour-exchange schedule
     (:class:`HaloExchange`),
-  * row assignment of observations to subdomains (Remark 5).
+  * row assignment of observations to subdomains (Remark 5),
+  * the Alternating Schwarz DD-CLS iteration (eq. 24-28), both the
+    multiplicative (sequential sweep) and additive (parallel, what DD-KF
+    distributes) variants, with the overlap regularization term mu*O_{i,j},
+    and the assembly of the global estimate (eq. 28).
 
-The tensor half (reduction/extension operators and the ``SchwarzSolver``
-sweeps) is not ported yet; the DD-KF solve lives in
+The fixed point of the non-overlapping iteration is exactly the block
+Gauss-Seidel solution of the normal equations (A^T R A) x = A^T R b, i.e.
+the CLS/KF estimate — which is why the paper observes error_DD-DA ~ 1e-11.
+The decomposition is numpy; the operators and :class:`SchwarzSolver` act
+on the problem's tensors, on its device.  The batched DD-KF solve lives in
 :mod:`repro_torch.core.ddkf`.
 """
 from __future__ import annotations
@@ -20,9 +28,43 @@ from collections import defaultdict
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.core import cls as cls_mod
 from repro_torch.obs import meters as meters_mod
 from repro_torch.obs import trace as trace_mod
+
+
+# ---------------------------------------------------------------------------
+# Reduction / extension operators (Definitions 3-4).
+# ---------------------------------------------------------------------------
+
+def _index(idx, device) -> torch.Tensor:
+    """An index set (numpy, list or tensor) as a long tensor on ``device``."""
+    return torch.as_tensor(idx, dtype=torch.long, device=device)
+
+
+def restrict_cols(B: torch.Tensor, idx) -> torch.Tensor:
+    """B|_I — reduction of a matrix to the columns in idx (Definition 3)."""
+    return B[:, _index(idx, B.device)]
+
+
+def restrict_rows(B: torch.Tensor, idx) -> torch.Tensor:
+    """Reduction of a matrix to the rows in idx (Remark 4, 2D DD)."""
+    return B[_index(idx, B.device), :]
+
+
+def restrict_vec(w: torch.Tensor, idx) -> torch.Tensor:
+    """w|_I — reduction of a vector (Definition 4)."""
+    return w[_index(idx, w.device)]
+
+
+def extend_vec(w: torch.Tensor, idx, size: int) -> torch.Tensor:
+    """EO_{I_r}(w) — extension by zero of w to a vector of ``size``
+    (Definition 4): out[idx] = w, zero elsewhere."""
+    out = torch.zeros((size,), dtype=w.dtype, device=w.device)
+    out[_index(idx, w.device)] = w
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -367,3 +409,123 @@ def assign_rows(locations: np.ndarray, boundaries: np.ndarray):
     owner = np.clip(np.searchsorted(boundaries, locations, side="right") - 1,
                     0, p - 1)
     return [np.where(owner == i)[0].astype(np.int64) for i in range(p)]
+
+
+# ---------------------------------------------------------------------------
+# DD-CLS Schwarz iteration (eqs. 24-28).
+# ---------------------------------------------------------------------------
+
+def _local_factor(prob: cls_mod.CLSProblem, cols: np.ndarray,
+                  mu: float, ov_mask: np.ndarray):
+    """Cholesky factor of A_i^T R A_i + mu * diag(ov_mask) (eq. 25)."""
+    A_i = torch.cat(
+        [restrict_cols(prob.H0, cols), restrict_cols(prob.H1, cols)], dim=0)
+    r = torch.cat([prob.R0, prob.R1])
+    N = (A_i.T * r) @ A_i
+    if mu > 0.0:
+        N = N + mu * torch.diag(torch.as_tensor(ov_mask, dtype=N.dtype,
+                                                device=N.device))
+    return A_i, torch.linalg.cholesky(N)
+
+
+def _chol_solve(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    z = torch.linalg.solve_triangular(L, rhs[:, None], upper=False)
+    return torch.linalg.solve_triangular(L.T, z, upper=True)[:, 0]
+
+
+@dataclasses.dataclass
+class SchwarzSolver:
+    """Alternating-Schwarz solver for a CLS problem under a Decomposition.
+
+    mode='multiplicative' sweeps subdomains sequentially with newest iterates
+    (eq. 24); mode='additive' updates all subdomains from the previous global
+    iterate — the form DD-KF parallelizes (each subdomain = one processor).
+
+    With overlap > 0, the local objective gains the regularization term
+    mu * ||x_i|_ov - x_glob|_ov||^2 (eq. 25-26) and the global assembly
+    averages the overlap values (eq. 28 with the paper's mu/2 weighting at
+    mu = 1).  Every tensor lives on the problem's device; the
+    convergence test reads two norms on the host per iteration.
+    """
+
+    prob: cls_mod.CLSProblem
+    dec: Decomposition
+    mu: float = 1.0
+    damping: float = 1.0  # additive mode under-relaxation
+
+    def __post_init__(self):
+        dev = self.prob.H0.device
+        self._cols = []  # local column indices, on the device
+        self._A = []     # local column blocks of A
+        self._L = []     # local Cholesky factors
+        self._ov_masks = []
+        counts = self.dec.column_multiplicity
+        self._multiplicity = torch.as_tensor(np.maximum(counts, 1),
+                                             device=dev)
+        mu_eff = self.mu if self.dec.has_overlap else 0.0
+        for c in self.dec.col_sets:
+            cols = np.asarray(c)
+            ov = (counts[cols] > 1).astype(np.float64)
+            A_i, L_i = _local_factor(self.prob, cols, mu_eff, ov)
+            self._cols.append(_index(cols, dev))
+            self._A.append(A_i)
+            self._L.append(L_i)
+            self._ov_masks.append(torch.as_tensor(ov, device=dev))
+        self._r = torch.cat([self.prob.R0, self.prob.R1])
+        self._b = torch.cat([self.prob.y0, self.prob.y1])
+
+    # -- single local solve (eq. 25/27) -----------------------------------
+    def _solve_local(self, i: int, x_global: torch.Tensor) -> torch.Tensor:
+        cols = self._cols[i]
+        A_i = self._A[i]
+        # b - sum_{j != i} A_j x_j  ==  b - A x + A_i x_i  (cheap form).
+        Ax = self._apply_A(x_global)
+        resid = self._b - Ax + A_i @ x_global[cols]
+        rhs = A_i.T @ (self._r * resid)
+        if self.dec.has_overlap and self.mu > 0.0:
+            rhs = rhs + self.mu * self._ov_masks[i] * x_global[cols]
+        return _chol_solve(self._L[i], rhs)
+
+    def _apply_A(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.prob.H0 @ x, self.prob.H1 @ x])
+
+    def _assemble(self, locals_: list, x_prev: torch.Tensor) -> torch.Tensor:
+        """eq. 28: additive assembly with overlap averaging."""
+        acc = torch.zeros_like(x_prev)
+        for cols, xi in zip(self._cols, locals_):
+            acc = acc.index_add(0, cols, xi)
+        return acc / self._multiplicity.to(acc.dtype)
+
+    # -- outer iterations ---------------------------------------------------
+    def step_multiplicative(self, x: torch.Tensor) -> torch.Tensor:
+        for i, cols in enumerate(self._cols):
+            xi = self._solve_local(i, x)
+            if self.dec.has_overlap:
+                # keep a consistent global iterate: average into overlap
+                old = x[cols]
+                ov = self._ov_masks[i].to(x.dtype)
+                xi = ov * 0.5 * (xi + old) + (1.0 - ov) * xi
+            x = x.index_copy(0, cols, xi)
+        return x
+
+    def step_additive(self, x: torch.Tensor) -> torch.Tensor:
+        locals_ = [self._solve_local(i, x) for i in range(self.dec.p)]
+        x_new = self._assemble(locals_, x)
+        return (1.0 - self.damping) * x + self.damping * x_new
+
+    def solve(self, x0: torch.Tensor | None = None, iters: int = 100,
+              tol: float = 1e-13, mode: str = "multiplicative"):
+        """Iterate to convergence; returns (x, n_iters, residual_history)."""
+        x = torch.zeros((self.dec.n,), dtype=self.prob.H0.dtype,
+                        device=self.prob.H0.device) if x0 is None else x0
+        step = (self.step_multiplicative if mode == "multiplicative"
+                else self.step_additive)
+        hist = []
+        for k in range(iters):
+            x_new = step(x)
+            delta = float(torch.linalg.norm(x_new - x))
+            hist.append(delta)
+            x = x_new
+            if delta < tol * max(1.0, float(torch.linalg.norm(x))):
+                return x, k + 1, hist
+        return x, iters, hist

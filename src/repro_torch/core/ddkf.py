@@ -10,8 +10,11 @@ inter-subdomain coupling per iteration is
 plus the boundary/overlap averaging folded into the assembly — the
 communication structure the paper counts in its overhead T^p_oh.
 
-This module ports the single-device path of ``repro.core.ddkf``
-(``solve_vmapped``: subdomains on the leading axis of a batch).  The
+This module ports the single-device paths of ``repro.core.ddkf``
+(``solve_vmapped``: subdomains on the leading axis of a batch;
+``solve_fleet``: independent problems on a leading axis, solved one
+after another, with ``stack_packed`` and ``pad_packed_width`` to build
+the stack).  The
 setup builds the local normal matrices with the ``gram`` kernel and the
 iteration runs the fused ``schwarz_fwd``/``schwarz_bwd`` kernels (see
 :mod:`repro_torch.kernels.ops`); the Cholesky factors and triangular
@@ -316,6 +319,55 @@ def with_rhs(packed: PackedDD, b) -> PackedDD:
         b, dtype=packed.A_loc.dtype, device=packed.device))
 
 
+def pad_packed_width(packed: PackedDD, w_new: int) -> PackedDD:
+    """Re-pad a packing to a larger local block width ``w_new``.
+
+    Different cycles of a stream decompose with different max block
+    widths (DyDD moves boundaries), so their packings cannot be stacked
+    (:func:`stack_packed` requires equal ``w``).  Padding widens every
+    per-slot field with the same conventions ``pack_operator`` uses for
+    its own padding — zero columns in ``A_loc``, identity diagonal in
+    ``L_loc``, ``cols=-1``/``mask=0``, multiplicity 1, scatter to the
+    dump slot ``n`` — so the padded slots solve to exactly zero and the
+    assembled estimate is unchanged up to reduction order.
+    ``owner_slots`` holds flat ``i*w + k`` slots, so it is rebuilt from
+    the padded ``scatter_cols``, not padded.  Returns ``packed`` itself
+    when ``w_new == packed.w``.
+    """
+    if w_new < packed.w:
+        raise ValueError(f"cannot shrink a packing: w={packed.w} -> "
+                         f"{w_new}")
+    if w_new == packed.w:
+        return packed
+    pad = w_new - packed.w
+    p, w = packed.p, packed.w
+    L = packed.L_loc.new_zeros((p, w_new, w_new))
+    L[:, :w, :w] = packed.L_loc
+    diag = torch.arange(w, w_new, device=packed.device)
+    L[:, diag, diag] = 1.0
+    pad2 = ((0, 0), (0, pad))
+    scatter_cols = np.pad(packed.scatter_cols, pad2,
+                          constant_values=packed.n)
+
+    def widen(t):
+        return torch.nn.functional.pad(t, (0, pad))
+
+    return dataclasses.replace(
+        packed,
+        A_loc=widen(packed.A_loc),
+        L_loc=L,
+        cols=np.pad(packed.cols, pad2, constant_values=-1),
+        mask=widen(packed.mask),
+        muov=widen(packed.muov),
+        wdiv=widen(packed.wdiv),
+        mult_loc=np.pad(packed.mult_loc, pad2, constant_values=1.0),
+        scatter_cols=scatter_cols,
+        gather_cols=widen(packed.gather_cols),
+        owner_slots=torch.as_tensor(owner_slots(scatter_cols, packed.n),
+                                    device=packed.device),
+        w=w_new)
+
+
 def _chol_solve(L, rhs):
     """Batched L L^T z = rhs: L (p, w, w), rhs (p, w) -> (p, w)."""
     z = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
@@ -378,6 +430,89 @@ def solve_vmapped(packed: PackedDD, iters: int = 60, damping: float = 1.0,
         return x
     return x, (torch.stack(hist) if hist else
                torch.zeros((0,), dtype=x.dtype, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# Fleet path: independent *problems* on a leading batch axis.
+# ---------------------------------------------------------------------------
+
+def _stack_key(pk: PackedDD) -> tuple:
+    return (pk.n, pk.p, pk.w, pk.m, pk.solve_kernel, pk.A_loc.dtype)
+
+
+def stack_packed(packs) -> PackedDD:
+    """Stack same-shape packings onto a leading *problem* axis.
+
+    Every data field gains a leading axis of size ``len(packs)`` (the
+    fleet/cohort axis): ``torch.stack`` for the tensors, ``np.stack`` for
+    the :data:`HOST_FIELDS`.  The meta fields — which must agree exactly
+    across the stack, including the resolved ``solve_kernel`` — are
+    carried through unchanged; a mismatch raises ``ValueError``.
+    ``owner_slots`` may differ in width (the largest column multiplicity
+    of each packing): narrower ones are padded with the dump slot, which
+    adds an exact zero to the assembly.  The result is what
+    :func:`solve_fleet` consumes.
+    """
+    packs = list(packs)
+    if not packs:
+        raise ValueError("stack_packed needs at least one packing")
+    key0 = _stack_key(packs[0])
+    for pk in packs[1:]:
+        if _stack_key(pk) != key0:
+            raise ValueError(
+                f"cannot stack packings with different shapes/kernels: "
+                f"{_stack_key(pk)} vs {key0} — bucket them into separate "
+                f"cohorts")
+    ref = packs[0]
+    K = max(pk.owner_slots.shape[1] for pk in packs)
+    dump = ref.p * ref.w
+    fields = {}
+    for f in dataclasses.fields(PackedDD):
+        vals = [getattr(pk, f.name) for pk in packs]
+        if f.name in HOST_FIELDS:
+            fields[f.name] = np.stack(vals)
+        elif f.name == "owner_slots":
+            fields[f.name] = torch.stack([torch.nn.functional.pad(
+                v, (0, K - v.shape[1]), value=dump) for v in vals])
+        elif isinstance(vals[0], torch.Tensor):
+            fields[f.name] = torch.stack(vals)
+        else:
+            fields[f.name] = vals[0]
+    return PackedDD(**fields)
+
+
+def _member(stacked: PackedDD, s: int) -> PackedDD:
+    """Problem ``s`` of a stack: contiguous views of its rows."""
+    return dataclasses.replace(stacked, **{
+        f.name: getattr(stacked, f.name)[s]
+        for f in dataclasses.fields(PackedDD)
+        if isinstance(getattr(stacked, f.name), (torch.Tensor, np.ndarray))})
+
+
+def solve_fleet(stacked: PackedDD, iters: int = 60, damping: float = 1.0,
+                residual_history: bool = False, mesh=None, x0=None):
+    """Solve every problem of a stacked cohort.
+
+    On one device this is a loop of :func:`solve_vmapped` over the
+    leading problem axis — what the reference's ``lax.map`` does.  Each
+    member is a contiguous view of the stack, so the fleet results equal
+    the standalone per-problem solves.  Returns the (S, n) stacked
+    estimates, or ``(x, hist)`` with ``hist`` of shape (S, iters) under
+    ``residual_history=True``.  ``x0`` is an optional (S, n) stack of
+    global warm starts, one per problem (see :func:`solve_vmapped`).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "solve_fleet(mesh=...) is not ported to repro_torch yet "
+            "(ROADMAP.md Queue 1 item 13)")
+    outs = [solve_vmapped(_member(stacked, s), iters=iters, damping=damping,
+                          residual_history=residual_history,
+                          x0=None if x0 is None else x0[s])
+            for s in range(int(stacked.A_loc.shape[0]))]
+    if not residual_history:
+        return torch.stack(outs)
+    return (torch.stack([x for x, _ in outs]),
+            torch.stack([h for _, h in outs]))
 
 
 def assemble(packed: PackedDD, x_loc: torch.Tensor) -> torch.Tensor:

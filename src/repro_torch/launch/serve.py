@@ -13,6 +13,8 @@ the ``rglru_scan`` and ``flash_attention`` kernels (RecurrentGemma) or
 the ``ssd_scan`` kernel (Mamba-2) on the card.  For Mamba-2 the longest
 prompt of a batch must be a multiple of the SSD chunk or shorter than
 it, as in the reference (the CLI draws lengths below ``--prompt-len``).
+For both models it must have at least 3 tokens, the conv width minus
+one; a shorter one raises ``ValueError`` (the CLI draws 4 or more).
 
 Usage (the card by default; ``--device cpu`` for a CPU run):
   PYTHONPATH=src python -m repro_torch.launch.serve \

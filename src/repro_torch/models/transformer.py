@@ -272,7 +272,9 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None, *,
     batch: {"tokens": (B, S) int}.  Returns (logits_last (B, V), cache).
     ``mode`` goes to the kernel ops (``"plain"`` forces the plain
     versions on the card, for comparisons).  For Mamba-2, S must be a
-    multiple of ``min(cfg.ssm_chunk, S)``, as in the reference."""
+    multiple of ``min(cfg.ssm_chunk, S)``, as in the reference.  S must
+    be at least the conv width minus one (3 for both families): a
+    shorter prompt raises ``ValueError``."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -356,8 +358,8 @@ def _rglru_prefill_block(cfg, lp, h, positions, mode="auto"):
 def _rglru_prefill(cfg, params, x, mode="auto"):
     """``rglru.apply_rglru`` that also returns the decode cache."""
     out, hseq, rec = rglru._prefill(params, x, mode)
-    width = params["conv_w"].shape[0]
-    cache = {"h": hseq[:, -1].float(), "conv": rec[:, -(width - 1):, :]}
+    cache = {"h": hseq[:, -1].float(),
+             "conv": _conv_cache(rec, params["conv_w"].shape[0])}
     return out, cache
 
 
@@ -372,4 +374,18 @@ def _ssd_prefill(cfg, params, x, mode="auto"):
     decode cache: the last ``ssm_conv - 1`` rows of the pre-conv stream
     and the final ssm state (B, nh, N, hd) in f32."""
     out, xbc, state = ssd._prefill(cfg, params, x, pad=False, mode=mode)
-    return out, {"conv": xbc[:, -(cfg.ssm_conv - 1):, :], "state": state}
+    return out, {"conv": _conv_cache(xbc, cfg.ssm_conv), "state": state}
+
+
+def _conv_cache(seq, width: int):
+    """The decode conv cache: the last ``width - 1`` rows of the pre-conv
+    stream ``seq`` (B, S, C).  Decode reads all of them, so a prompt
+    shorter than that is refused here, before any decode step (the
+    reference keeps the S rows it has and decodes wrong logits)."""
+    S = seq.shape[1]
+    if S < width - 1:
+        raise ValueError(
+            f"prefill: the longest prompt has {S} tokens, shorter than the "
+            f"conv width minus one ({width - 1}) that decode's conv cache "
+            f"needs")
+    return seq[:, -(width - 1):, :]

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro.assim import engine as j_engine  # noqa: E402
 from repro_torch.assim import engine as t_engine  # noqa: E402
+from repro_torch.assim import streams as t_streams  # noqa: E402
 
 CONFIGS = {
     "interval": (dict(n=64, p=4), "drifting_swarm"),
@@ -79,14 +80,65 @@ def test_engine_config_matches_reference_fields():
     assert j_fields <= t_fields
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(solver="shardmap"), "item 13"), (dict(time_windows=2), "item 12")])
+@pytest.mark.parametrize("kw,item", [(dict(solver="shardmap"), "item 13")])
 def test_unported_paths_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         t_engine.AssimilationEngine(t_engine.EngineConfig(**kw),
                                     device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(time_windows=2),
+                                dict(time_windows=4, pint_max_iters=0,
+                                     pint_coarse_iters=3, pint_fine_iters=5)])
+def test_engine_accepts_time_windows_as_the_reference_does(kw):
+    """The sequential engine validates the Parareal settings and runs
+    its cycles in order whatever they are, as the reference's does
+    (``TimeParEngine`` reads them)."""
+    cfg_kw = dict(n=32, p=2, iters=20, **kw)
+    ref = j_engine.AssimilationEngine(j_engine.EngineConfig(**cfg_kw))
+    eng = t_engine.AssimilationEngine(t_engine.EngineConfig(**cfg_kw),
+                                      device="cpu")
+    jj = ref.run_scenario("drifting_swarm", m=60, cycles=2, seed=1)
+    tj = eng.run_scenario("drifting_swarm", m=60, cycles=2, seed=1)
+    assert [r.loads for r in tj.records] == [r.loads for r in jj.records]
+    assert [r.window for r in tj.records] == [-1, -1]
+    assert "pint" not in tj.meta
+
+
+@pytest.mark.parametrize("kw,field", [(dict(time_windows=0), "time_windows"),
+                                      (dict(pint_tol=0.0), "pint_tol")])
+def test_engine_rejects_bad_parareal_settings(kw, field):
+    with pytest.raises(ValueError, match=field):
+        j_engine.AssimilationEngine(j_engine.EngineConfig(**kw))
+    with pytest.raises(ValueError, match=field):
+        t_engine.AssimilationEngine(t_engine.EngineConfig(**kw),
+                                    device="cpu")
+
+
+def test_checkpoints_and_snapshots_still_raise_item_10():
     eng = t_engine.AssimilationEngine(t_engine.EngineConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         eng.run([], checkpoint_dir="ckpt", snapshot_every=1)
     with pytest.raises(NotImplementedError, match="item 10"):
         eng.snapshot()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        t_engine.AssimilationEngine.restore({})
+
+
+def test_host_state_and_reset_clock():
+    """``host_state`` copies what ``prepare`` advances, with the cursor of
+    a resumable stream; ``reset_clock`` restarts the cycle clock."""
+    eng = t_engine.AssimilationEngine(t_engine.EngineConfig(n=32, p=2,
+                                                            iters=10),
+                                      device="cpu")
+    assert eng.host_state()["cursor"] is None
+    stream = t_streams.ResumableStream("drifting_swarm", 60, 2)
+    eng.run(stream)
+    hs = eng.host_state()
+    assert hs["cursor"]["pos"] == 2 and np.array_equal(hs["truth"],
+                                                       eng._truth)
+    hs["truth"][:] = 0.0
+    assert not np.array_equal(hs["truth"], eng._truth)
+    before = eng._t_last
+    eng.reset_clock()
+    assert eng._t_last >= before

@@ -6,8 +6,8 @@
   ``chip_smoke.py`` (including those inside functions) names ``jax`` or
   ``repro``.
 * Entry points built without a device want the card and raise here:
-  the assimilation engine, the LM weights (and so ``serve_batch``) and
-  the serving CLI.
+  the assimilation engines (sequential and Parareal) and their CLI, the
+  LM weights (and so ``serve_batch``) and the serving CLI.
 * The CUDA kernel wrappers refuse CPU tensors instead of falling back.
 """
 import ast
@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs as t_configs  # noqa: E402
 from repro_torch import convert as t_convert  # noqa: E402
 from repro_torch.assim import engine as t_engine  # noqa: E402
+from repro_torch.assim import timepar as t_timepar  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.models import transformer as t_transformer  # noqa: E402
 from repro_torch.kernels import gram as t_gram  # noqa: E402
@@ -49,6 +50,8 @@ for name in names:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
 assert not bad, bad
+for name in ("repro_torch.core.kalman", "repro_torch.assim.timepar"):
+    assert name in names, name
 print(len(names))
 """
 
@@ -83,6 +86,26 @@ def test_engine_defaults_to_the_card():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_engine.AssimilationEngine(t_engine.EngineConfig())
+
+
+def test_timepar_engine_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_timepar.TimeParEngine(t_engine.EngineConfig(time_windows=4))
+
+
+def test_assim_cli_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.assim", "--n", "64", "--m",
+         "100", "--cycles", "2", "--time-windows", "4", "--scenarios",
+         "drifting_swarm"], env=env, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
 
 
 def test_lm_serving_defaults_to_the_card():

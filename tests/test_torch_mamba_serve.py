@@ -204,6 +204,40 @@ def test_serve_batch_greedy_tokens_match_reference(model, lengths, max_new):
     assert stats["prefill_s"] > 0 and stats["decode_s"] > 0
 
 
+@pytest.mark.parametrize("length", [1, 2])
+def test_prompt_shorter_than_the_conv_cache_raises(model, length):
+    """Decode reads conv width - 1 = 3 rows of the conv cache.  For a
+    longest prompt of 1 or 2 tokens the reference clamps the index and
+    decodes wrong logits; the port's prefill refuses it before any
+    decode step, alone and inside ``serve_batch``."""
+    _, cfg_t, _, params_t = model
+    before = tops.launch_counts()
+    with pytest.raises(ValueError, match="conv width minus one"):
+        ttransformer.prefill(cfg_t, params_t,
+                             {"tokens": torch.as_tensor(_prompts(2, length))},
+                             max_seq=MAX_SEQ)
+    with pytest.raises(ValueError, match="conv width minus one"):
+        tserve.serve_batch(cfg_t, params_t,
+                           _requests(tserve.Request, (length, 1), (2, 2)),
+                           max_seq=MAX_SEQ)
+    assert tops.launch_counts() == before
+
+
+def test_three_token_prompt_decodes_as_the_reference(model):
+    """The shortest longest-prompt the conv cache allows still serves
+    the reference's greedy tokens."""
+    cfg_j, cfg_t, params_j, params_t = model
+    lengths, max_new = (3, 2), (4, 4)
+    ref, _ = jserve.serve_batch(cfg_j, params_j,
+                                _requests(jserve.Request, lengths, max_new),
+                                max_seq=MAX_SEQ)
+    got, _ = tserve.serve_batch(
+        cfg_t, params_t, _requests(tserve.Request, lengths, max_new),
+        max_seq=MAX_SEQ)
+    assert [r.out for r in got] == [r.out for r in ref]
+    assert [len(r.out) for r in got] == list(max_new)
+
+
 def test_serve_queue_greedy_tokens_match_reference(model):
     """Each wave's longest prompt is a multiple of the chunk or below it."""
     cfg_j, cfg_t, params_j, params_t = model
