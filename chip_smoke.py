@@ -35,6 +35,28 @@ nothing, (a) launches ``schwarz_fwd`` and ``schwarz_bwd`` k C fine +
 cycles), and (d) is bitwise (b).  It prints the wall times, k, the
 correction norms and the peak device memory of each run.
 
+Fleet (``fleet``): ``repro_torch.assim.serving.FleetServer`` at
+``ex4_p8``'s width over five streams of 4 cycles (three on DyDD:
+``drifting_swarm``, ``bursty_clusters``, ``storm_front``; two static
+``drifting_swarm`` streams that share a cohort key), ``max_active=4``,
+four packing threads, a snapshot every 2 cycles, a transient pack
+fault, a transient cohort-solve fault and a stream retired by faults
+on every attempt, then readmitted from its snapshot.  It fails unless
+each stream's journal and final analysis equal the same stream run
+alone bitwise, every cycle is within 1e-10 of the direct solve, a
+cohort of two or more went through ``stack_packed``/``solve_fleet``,
+and ``gram`` launched once for each stream and cycle and each Schwarz
+kernel ``iters`` times for each cohort slot.  It prints the rounds, the
+cohorts, the wall time beside the standalone runs', the snapshot p50
+and the peak memory.
+
+Resume (``resume``): at ``ex4_p8``, a child process killed by its chaos
+injector after cycle 3 of 6 (snapshots every 2) is resumed here from
+step 4 bitwise equal to an uninterrupted run; step 4 resumed at p = 4
+stays within 1e-10 of the direct solve; a torn step 4 fails ``verify``
+and ``latest_checkpoint`` falls back to step 2; a ``TimeParEngine``
+window checkpoint resumes the sequential engine within 1e-6.
+
 LM serving: ``repro_torch.launch.serve.serve_batch`` on
 RecurrentGemma-9B and then on Mamba-2 1.3B, each at full width in bf16
 (weights drawn on the card from a seeded generator), four requests of
@@ -442,6 +464,276 @@ def phase_pint(smi: str) -> None:
     check(all(torch.equal(u, v) for u, v in zip(xb, xd))
           and jb.deterministic_json() == jd.deterministic_json(),
           "(d) time_windows=1 bitwise equal to (b)")
+
+
+# The multi-tenant fleet at ex4_p8's width: (sid, scenario, seed, DyDD).
+# The static pair is added first, so both start in the first admission
+# and share a cohort key; the fifth stream waits for a slot.
+FLEET = {"n": 2048, "p": 8, "m": 2000, "iters": 120, "cycles": 4,
+         "max_active": 4, "pack_workers": 4, "snapshot_every": 2}
+FLEET_STREAMS = (("static_3", "drifting_swarm", 3, False),
+                 ("static_4", "drifting_swarm", 4, False),
+                 ("dydd_drift", "drifting_swarm", 0, True),
+                 ("dydd_bursty", "bursty_clusters", 1, True),
+                 ("dydd_storm", "storm_front", 2, True))
+# The faults: a transient pack fault of one stream at cycle 1, a
+# transient cohort-solve fault of the server at round 1, and pack faults
+# of one stream at cycle 2 on every attempt, which retire it as failed
+# after its step-2 snapshot; it is readmitted from that snapshot.
+FLEET_TRANSIENT_PACK = ("dydd_drift", 1)
+FLEET_TRANSIENT_SOLVE_ROUND = 1
+FLEET_FAILED = ("dydd_bursty", 2)
+
+
+def p50_ms(values) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), 50)) * 1e3
+
+
+def phase_fleet(smi: str) -> None:
+    """``FleetServer`` at ex4_p8's width (n = 2048, p = 8, m = 2000, 120
+    iterations, 4 cycles) over five streams, three on DyDD and two
+    static, with ``max_active=4``, four packing threads, a snapshot
+    every 2 cycles and three injected faults (``FLEET_*``).  Each
+    stream's journal and final analysis must equal the same stream run
+    alone by ``AssimilationEngine.run`` bitwise, every cycle must be
+    within 1e-10 of the direct solve, one cohort must stack two or more
+    members, and the launch counts must follow: ``gram`` once for each
+    stream and cycle prepared (no prepare is repeated: the readmitted
+    stream resumes at its last snapshot, which the failed cycle
+    follows), ``schwarz_fwd`` and ``schwarz_bwd`` ``iters`` times for
+    each slot of each cohort solve, padded slots included."""
+    import tempfile
+    from repro_torch.assim import AssimilationEngine, EngineConfig, streams
+    from repro_torch.assim.serving import FleetServer
+    from repro_torch.kernels import ops
+    from repro_torch.obs import meters
+    from repro_torch.runtime.chaos import ChaosConfig, ChaosInjector
+
+    f = FLEET
+    cycles = f["cycles"]
+    print(f"== fleet: FleetServer at ex4_p8 width (n={f['n']}, p={f['p']}, "
+          f"m={f['m']}, iters={f['iters']}, {cycles} cycles, "
+          f"{len(FLEET_STREAMS)} streams, max_active={f['max_active']}, "
+          f"pack_workers={f['pack_workers']}, snapshot_every="
+          f"{f['snapshot_every']})")
+
+    def config(dydd: bool):
+        return EngineConfig(n=f["n"], p=f["p"], iters=f["iters"],
+                            rebalance=dydd, track_reference=True)
+
+    def stream(name: str, seed: int):
+        return streams.ResumableStream(name, f["m"], cycles, seed=seed)
+
+    alone, alone_wall = {}, 0.0
+    for sid, name, seed, dydd in FLEET_STREAMS:
+        eng = AssimilationEngine(config(dydd))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        journal = eng.run(stream(name, seed))
+        torch.cuda.synchronize()
+        alone_wall += time.perf_counter() - t0
+        alone[sid] = (journal, eng.analysis)
+
+    reg = meters.Meters()
+    prev = meters.set_meters(reg)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            server = FleetServer(
+                max_active=f["max_active"], pack_workers=f["pack_workers"],
+                gather_window=1.0, chaos=ChaosInjector(ChaosConfig(
+                    solve_fault_cycles=(FLEET_TRANSIENT_SOLVE_ROUND,))))
+            for sid, name, seed, dydd in FLEET_STREAMS:
+                chaos = None
+                if sid == FLEET_TRANSIENT_PACK[0]:
+                    chaos = ChaosInjector(ChaosConfig(
+                        pack_fault_cycles=(FLEET_TRANSIENT_PACK[1],)))
+                elif sid == FLEET_FAILED[0]:
+                    chaos = ChaosInjector(ChaosConfig(
+                        pack_fault_cycles=(FLEET_FAILED[1],),
+                        fail_every_attempt=True))
+                server.add_stream(sid, config(dydd), stream(name, seed),
+                                  checkpoint_dir=os.path.join(tmp, sid),
+                                  snapshot_every=f["snapshot_every"],
+                                  chaos=chaos)
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            journals = server.serve()
+            failed = len(journals[FLEET_FAILED[0]])
+            rounds = server.stats["rounds"]
+            server.readmit(FLEET_FAILED[0])
+            journals = server.serve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rounds += server.stats["rounds"]
+    finally:
+        meters.set_meters(prev)
+    snap = reg.snapshot()
+    cohorts = [e for e in snap["events"] if e["name"] == "fleet.cohort"]
+    names = [e["name"] for e in snap["events"]]
+    print(f"  {rounds} rounds; cohorts (size/capacity, w): "
+          + ", ".join(f"{e['size']}/{e['capacity']} w{e['w']}"
+                      for e in cohorts))
+    print(f"  fleet wall {wall:.2f} s against {alone_wall:.2f} s for the "
+          f"five streams run alone one after another; snapshot time p50 "
+          f"{p50_ms(snap['series']['engine.snapshot_time']):.3f} ms over "
+          f"{len(snap['series']['engine.snapshot_time'])} snapshots; peak "
+          f"memory {peak:.2f} GiB; launches {counts} ({smi})")
+    check(failed == FLEET_FAILED[1] and names.count("fleet.stream_failed")
+          == 1 and names.count("fleet.stream_readmitted") == 1,
+          f"{FLEET_FAILED[0]} retired as failed after {failed} cycles and "
+          f"was readmitted")
+    check(snap["counters"]["chaos.retries"] == 4 and sorted(
+        (e["site"], e.get("sid")) for e in snap["events"]
+        if e["name"] == "chaos.retry") == [
+            ("pack", FLEET_FAILED[0])] * 2 + [
+            ("pack", FLEET_TRANSIENT_PACK[0])] + [("solve", None)],
+          "the transient pack and solve faults were retried once each, the "
+          "failing stream's twice")
+    for sid, _, _, _ in FLEET_STREAMS:
+        journal, x = alone[sid]
+        fj = journals[sid]
+        check(len(fj.records) == cycles and all(
+            r.error_vs_direct <= 1e-10 for r in fj.records),
+            f"{sid}: {cycles} cycles, each within 1e-10 of the direct "
+            f"solve (max {max(r.error_vs_direct for r in fj.records):.3e})")
+        check(fj.deterministic_json() == journal.deterministic_json()
+              and torch.equal(server.engines[sid].analysis, x),
+              f"{sid}: journal and final analysis bitwise equal to the "
+              f"stream run alone")
+    stacked = [e for e in cohorts if e["capacity"] >= 2]
+    check(any(e["size"] >= 2 for e in stacked),
+          f"{len(stacked)} cohort solves went through stack_packed/"
+          f"solve_fleet, one with two or more members")
+    members = sum(e["size"] for e in cohorts)
+    slots = sum(e["capacity"] for e in cohorts)
+    prepared = sum(len(j.records) for j in journals.values())
+    check(members == prepared == len(FLEET_STREAMS) * cycles
+          and counts["gram"] == prepared
+          and counts["schwarz_fwd"] == counts["schwarz_bwd"]
+          == f["iters"] * slots,
+          f"launches: gram {counts['gram']} = streams x cycles = "
+          f"{prepared}; schwarz_fwd/bwd {counts['schwarz_fwd']}/"
+          f"{counts['schwarz_bwd']} = iters x cohort slots = {f['iters']} "
+          f"x {slots} ({slots - members} padded)")
+
+
+# The resume checks at ex4_p8: 6 cycles, a snapshot every 2, the process
+# killed at the end of cycle 3 (after its step-4 snapshot).
+RESUME = {"n": 2048, "p": 8, "m": 2000, "iters": 120, "cycles": 6,
+          "snapshot_every": 2, "kill_cycle": 3, "elastic_p": 4}
+
+_RESUME_CHILD = """
+import sys
+sys.path.insert(0, {src!r})
+from repro_torch.assim import EngineConfig, AssimilationEngine, streams
+from repro_torch.runtime.chaos import ChaosConfig, ChaosInjector
+chaos = ChaosInjector(ChaosConfig(kill_cycles=({kill},)))
+eng = AssimilationEngine(EngineConfig(**{cfg!r}), chaos=chaos)
+eng.run(streams.ResumableStream("drifting_swarm", {m}, {cycles}, seed=0),
+        checkpoint_dir={ck!r}, snapshot_every={every})
+print("UNREACHABLE")
+"""
+
+
+def phase_resume(smi: str) -> None:
+    """Checkpoint and resume at ex4_p8 on the card.  Kill: a child
+    process runs 6 cycles with a snapshot every 2 and is SIGKILLed at the
+    end of cycle 3; the newest verified step must be 4, and the resume
+    here must give a journal and final analysis bitwise equal to an
+    uninterrupted run.  Elastic: the same step resumed at p = 4, each
+    remaining cycle within 1e-10 of the direct solve.  Torn: a torn step
+    4 fails ``verify`` and ``latest_checkpoint`` falls back to step 2.
+    Parareal: ``TimeParEngine`` over 4 cycles in 2 windows with a
+    snapshot every window; the sequential engine resumed from step 2
+    repeats the tail's DyDD decisions and ends within 1e-6 of it."""
+    import signal
+    import tempfile
+    from repro_torch.assim import (AssimilationEngine, EngineConfig,
+                                   TimeParEngine, streams)
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.runtime import chaos, elastic
+
+    r = RESUME
+    cfg_kw = dict(n=r["n"], p=r["p"], iters=r["iters"],
+                  track_reference=True)
+    print(f"== resume: kill, torn, elastic and Parareal checkpoints at "
+          f"ex4_p8 (n={r['n']}, p={r['p']}, m={r['m']}, drifting_swarm, "
+          f"{r['cycles']} cycles, snapshot every {r['snapshot_every']})")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "kill")
+        script = _RESUME_CHILD.format(
+            src=os.path.join(HERE, "src"), cfg=cfg_kw, kill=r["kill_cycle"],
+            m=r["m"], cycles=r["cycles"], ck=ck, every=r["snapshot_every"])
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", script],
+                             capture_output=True, text=True, timeout=300)
+        print(f"  child ran {time.perf_counter() - t0:.1f} s, exit "
+              f"{out.returncode}")
+        check(out.returncode == -signal.SIGKILL
+              and "UNREACHABLE" not in out.stdout,
+              f"the child died by SIGKILL{out.stderr[-2000:]}")
+        latest = ckpt.latest_checkpoint(ck)
+        step4 = os.path.join(ck, "step_00000004")
+        check(latest == step4, f"latest verified checkpoint is "
+              f"{os.path.basename(latest or 'none')}")
+
+        base = AssimilationEngine(EngineConfig(**cfg_kw))
+        base.run(streams.ResumableStream("drifting_swarm", r["m"],
+                                         r["cycles"], seed=0))
+        eng, stream = elastic.resume_assim_engine(ck)
+        t0 = time.perf_counter()
+        eng.run(stream)
+        torch.cuda.synchronize()
+        print(f"  resumed cycles 4-5 in {time.perf_counter() - t0:.2f} s "
+              f"({smi})")
+        check(eng.journal.deterministic_json()
+              == base.journal.deterministic_json()
+              and torch.equal(eng.analysis, base.analysis),
+              "the child's cycles 0-3 and the resumed 4-5 are bitwise the "
+              "uninterrupted run's journal and final analysis")
+
+        eng, stream = elastic.resume_assim_engine(step4, p=r["elastic_p"])
+        eng.run(stream)
+        tail = eng.journal.records[4:]
+        errs = [t.error_vs_direct for t in tail]
+        check(eng.p == r["elastic_p"] and len(tail) == 2
+              and all(len(t.loads) == r["elastic_p"] for t in tail)
+              and all(e <= 1e-10 for e in errs),
+              f"elastic resume at p={r['elastic_p']}: cycles 4-5 within "
+              f"1e-10 of the direct solve (max {max(errs):.3e})")
+
+        chaos.tear_checkpoint(step4, seed=0)
+        check(not ckpt.verify(step4) and ckpt.latest_checkpoint(ck)
+              == os.path.join(ck, "step_00000002"),
+              "torn step 4 fails verify; latest_checkpoint falls back to "
+              "step 2")
+
+        pk = os.path.join(tmp, "pint")
+        tp = TimeParEngine(EngineConfig(time_windows=2, **cfg_kw))
+        t0 = time.perf_counter()
+        tp.run(streams.ResumableStream("drifting_swarm", r["m"], 4, seed=0),
+               checkpoint_dir=pk, snapshot_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = sorted(d for d in os.listdir(pk) if d.startswith("step_"))
+        check(steps == ["step_00000002", "step_00000004"],
+              f"Parareal window checkpoints {steps} ({wall:.2f} s)")
+        eng, stream = elastic.resume_assim_engine(
+            os.path.join(pk, "step_00000002"))
+        eng.run(stream)
+        diff = float((eng.analysis - tp.analysis).abs().max())
+        check(all(a.loads == b.loads and a.repartitioned == b.repartitioned
+                  for a, b in zip(eng.journal.records[2:],
+                                  tp.journal.records[2:]))
+              and len(eng.journal.records) == 4 and diff <= 1e-6,
+              f"sequential resume from the window-1 checkpoint repeats the "
+              f"tail's DyDD decisions; final analysis within {diff:.3e} "
+              f"<= 1e-6 of the windowed run")
 
 
 def phase_profile(cfg, scenario: str, m: int, cycles: int) -> None:
@@ -1556,6 +1848,8 @@ def main() -> int:
 
     phase_kf(smi)
     phase_pint(smi)
+    phase_fleet(smi)
+    phase_resume(smi)
 
     rows = phase_kernels([("ex4_p8", main_1d), ("shelf2d", main_2d)],
                          counts_1d)

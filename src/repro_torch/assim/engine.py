@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.checkpoint import manager as ckpt_mod
 from repro_torch.core import cls as cls_mod
 from repro_torch.core import dd as dd_mod
 from repro_torch.core import ddkf as ddkf_mod
@@ -47,6 +48,7 @@ from repro_torch.core import dydd as dydd_mod
 from repro_torch.core import kdtree as kdtree_mod
 from repro_torch.obs import meters as meters_mod
 from repro_torch.obs import trace as trace_mod
+from repro_torch.runtime import chaos as chaos_mod
 from repro_torch.runtime.straggler import StragglerConfig, StragglerMonitor
 from repro_torch.assim import streams as streams_mod
 from repro_torch.assim.metrics import CycleMetrics, Journal, imbalance_ratio
@@ -132,8 +134,9 @@ class EngineConfig:
                                       # update-norm history
     solver_kernel: str = "auto"       # "auto" | "plain" | "fused"
     gram_mode: str = "auto"           # "auto" | "plain"
-    solve_retries: int = 2            # retries under fault injection
-                                      # (chaos is not ported yet)
+    solve_retries: int = 2            # bounded retry on a TransientFault
+                                      # from prepare/solve (exponential
+                                      # backoff); exceeding it is fatal
     time_windows: int = 1             # parallel-in-time (Parareal) window
                                       # count for assim.timepar; 1 = the
                                       # sequential cycle loop
@@ -181,6 +184,37 @@ def _domain_from_config(cfg: EngineConfig) -> domain_mod.Domain:
         return kdtree_mod.KDTreeDomain(nx=nx, ny=ny, p=cfg.p)
     raise ValueError(f"domain_kind must be 'interval', 'shelf' or "
                      f"'kdtree' (got {cfg.domain_kind!r})")
+
+
+# Checkpoint-tree key prefix for the domain's boundary-state arrays.
+_DOMAIN_PREFIX = "domain/"
+
+# A snapshot's "config" holds the reference's EngineConfig fields under
+# the reference's names, so that either package restores it; the port's
+# own fields go under "config_port".  solver_kernel: the reference's
+# "jnp" is the port's "plain", and each fused variant its fused step.
+_PORT_FIELDS = ("gram_mode",)
+_KERNEL_TO_REF = {"auto": "auto", "plain": "jnp", "fused": "fused"}
+_KERNEL_FROM_REF = {"auto": "auto", "jnp": "plain", "fused": "fused",
+                    "fused_interpret": "fused", "fused_ref": "fused"}
+
+
+def config_to_meta(cfg: EngineConfig) -> tuple:
+    """(``config``, ``config_port``) entries of a snapshot's metadata."""
+    d = dataclasses.asdict(cfg)
+    ref = {k: v for k, v in d.items() if k not in _PORT_FIELDS}
+    ref["solver_kernel"] = _KERNEL_TO_REF[cfg.solver_kernel]
+    return ref, {k: d[k] for k in _PORT_FIELDS}
+
+
+def config_from_meta(meta: dict) -> EngineConfig:
+    """The EngineConfig a snapshot's metadata records — written by either
+    package (a reference snapshot has no ``config_port``: the port's own
+    fields keep their defaults)."""
+    kw = dict(meta["config"])
+    kw["solver_kernel"] = _KERNEL_FROM_REF[kw["solver_kernel"]]
+    kw.update(meta.get("config_port", {}))
+    return EngineConfig(**kw)
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -253,7 +287,11 @@ class AssimilationEngine:
     analysis of cycle t is carried as the background of cycle t+1
     (persistence forecast by default; pass ``forecast`` to override).
     ``eng.analysis`` holds the latest analysis state (a tensor on the
-    engine's device).
+    engine's device).  ``chaos`` (a
+    :class:`~repro_torch.runtime.chaos.ChaosInjector`) injects the
+    scheduled faults; ``run(checkpoint_dir=..., snapshot_every=k)``
+    saves a snapshot every k cycles, and :meth:`restore` rebuilds an
+    engine from one (the reference's snapshots too).
     """
 
     def __init__(self, config: EngineConfig, device=None, *,
@@ -268,8 +306,6 @@ class AssimilationEngine:
             raise _not_ported("solver='shardmap'", "13")
         if config.solver != "vmapped":
             raise ValueError(f"unknown solver {config.solver!r}")
-        if chaos is not None:
-            raise _not_ported("chaos injection", "10")
         if config.comm not in ("allreduce", "neighbour"):
             raise ValueError(f"comm must be 'allreduce' or 'neighbour' "
                              f"(got {config.comm!r})")
@@ -323,11 +359,16 @@ class AssimilationEngine:
         self._suppressed = False  # this cycle's trigger was suppressed
         self._dec_cache: Optional[dd_mod.Decomposition] = None
         self._t_last = time.perf_counter()
-        self._stream = None  # the resumable stream being run, if any
         # One straggler monitor per subdomain, as the reference keeps;
         # the single-device solve feeds monitor 0 the whole-solve time.
         self._stragglers = [StragglerMonitor(straggler_config)
                             for _ in range(self.p)]
+        self._chaos = chaos
+        # The stream being consumed, when it exposes a serializable
+        # cursor (streams.ResumableStream) — what snapshot() records so
+        # resume can fast-forward the seeded generator.
+        self._stream = None
+        self._restored_cursor: Optional[dict] = None
         # Optional per-cycle analysis hook: ``on_analysis(cycle, x)``.
         self.on_analysis: Optional[Callable] = None
 
@@ -384,6 +425,12 @@ class AssimilationEngine:
         so it may run on a worker thread while the device solves an
         earlier cycle.  At most one ``prepare`` per engine may be in
         flight at a time."""
+        # Fault injection sits BEFORE any state mutation: a retried
+        # prepare after a TransientFault starts from identical rng/
+        # domain/truth state, so the retry is bitwise-equivalent to an
+        # uninjected run.
+        if self._chaos is not None:
+            self._chaos.check("pack", cycle)
         t0 = time.perf_counter()
         cfg = self.cfg
         obs = np.asarray(obs, dtype=np.float64)
@@ -484,6 +531,10 @@ class AssimilationEngine:
         ``device_times`` is empty on this single-device path (the caller
         substitutes the whole-solve time)."""
         cfg = self.cfg
+        # The solve mutates no engine state until complete_cycle, so a
+        # fault raised here leaves the cycle cleanly retryable.
+        if self._chaos is not None:
+            self._chaos.check("solve", prep.cycle)
         packed, background = self.solve_input(prep)
         hist = None
         with trace_mod.span("solve", cycle=prep.cycle,
@@ -509,22 +560,44 @@ class AssimilationEngine:
     def run(self, stream: Iterable[np.ndarray], *,
             checkpoint_dir: str | None = None,
             snapshot_every: int = 0) -> Journal:
-        """Consume the stream to exhaustion; returns the journal.  Cycle
-        numbering continues from the journal."""
-        if checkpoint_dir is not None or snapshot_every:
-            raise _not_ported("checkpointing", "10")
+        """Consume the stream to exhaustion; returns the journal.
+
+        Resume-aware: cycle numbering continues from the journal (a
+        restored engine picks up at ``len(journal)``), and when the
+        stream exposes a ``cursor`` (:class:`streams.ResumableStream`)
+        it is recorded for :meth:`snapshot`.  With ``checkpoint_dir``
+        and ``snapshot_every=k``, an atomic engine checkpoint is saved
+        every k completed cycles — on those cycles the next cycle's
+        prepare (which mutates rng/domain/truth state) is *deferred*
+        until the snapshot is taken, so the saved state is exactly the
+        cycle boundary and resume is bitwise journal-continuing.
+        """
+        cfg = self.cfg
         self._stream = stream if hasattr(stream, "cursor") else None
         it = iter(stream)
         base = len(self.journal.records)
         self._t_last = time.perf_counter()
 
+        def snap_due(cycle: int) -> bool:
+            return (checkpoint_dir is not None and snapshot_every > 0
+                    and (cycle + 1) % snapshot_every == 0)
+
         def finish(step: CycleStep) -> None:
             self.finish_step(self.solve_step(step))
+            if snap_due(step.cycle):
+                self.save_checkpoint(checkpoint_dir, step=step.cycle + 1)
+            if self._chaos is not None:
+                # After the snapshot: a kill at cycle c resumes from a
+                # checkpoint no newer than c+1, never a torn mid-cycle.
+                self._chaos.maybe_kill("cycle_end", step.cycle)
 
-        if not self.cfg.double_buffer:
+        if not cfg.double_buffer:
             for i, obs in enumerate(it):
                 step = CycleStep(cycle=base + i, obs=obs)
-                step.prep = self.prepare(step.cycle, step.obs)
+                step.prep = chaos_mod.retry_transient(
+                    lambda: self.prepare(step.cycle, step.obs),
+                    retries=max(cfg.solve_retries, 0),
+                    site="pack", cycle=step.cycle)
                 finish(step)
             return self.journal
 
@@ -541,16 +614,48 @@ class AssimilationEngine:
             fut = pool.submit(self.prepare, step.cycle, step.obs)
             cycle = base
             while fut is not None:
-                step.prep = fut.result()
+                step.prep = self._claim_prepare(fut, pool, step.cycle,
+                                                step.obs)
                 cur = step
                 cycle += 1
                 fut = None
-                nxt = next(it, None)
-                if nxt is not None:
-                    step = CycleStep(cycle=cycle, obs=nxt)
-                    fut = pool.submit(self.prepare, step.cycle, step.obs)
-                finish(cur)
+
+                def submit_next():
+                    nonlocal fut, step
+                    nxt = next(it, None)
+                    if nxt is not None:
+                        step = CycleStep(cycle=cycle, obs=nxt)
+                        fut = pool.submit(self.prepare, step.cycle,
+                                          step.obs)
+
+                if snap_due(cur.cycle):
+                    # Snapshot cycle: do NOT pipeline — the next prepare
+                    # would mutate rng/domain/truth before the save, and
+                    # the checkpoint would no longer be a cycle boundary.
+                    finish(cur)
+                    submit_next()
+                else:
+                    submit_next()
+                    finish(cur)
         return self.journal
+
+    def _claim_prepare(self, fut, pool, cycle: int, obs):
+        """Claim an in-flight prepare, retrying TransientFaults with
+        exponential backoff by resubmitting the same (cycle, obs) — safe
+        because injected pack faults fire before any state mutation."""
+        retries = max(self.cfg.solve_retries, 0)
+        for attempt in range(retries + 1):
+            try:
+                return fut.result()
+            except chaos_mod.TransientFault:
+                if attempt >= retries:
+                    raise
+                m = meters_mod.get_meters()
+                m.event("chaos.retry", site="pack", cycle=int(cycle),
+                        attempt=attempt + 1)
+                m.inc("chaos.retries")
+                time.sleep(0.05 * (2.0 ** attempt))
+                fut = pool.submit(self.prepare, cycle, obs)
 
     def run_scenario(self, name: str, m: int, cycles: int,
                      seed: int = 0, **kw) -> Journal:
@@ -564,10 +669,13 @@ class AssimilationEngine:
                                                 seed=seed, **kw))
 
     def solve_step(self, step: CycleStep) -> CycleStep:
-        """Stage 2 of the cycle state machine: the device solve, wall
-        time measured to analysis-ready."""
+        """Stage 2 of the cycle state machine: the device solve (bounded
+        TransientFault retries), wall time measured to analysis-ready."""
         t0 = time.perf_counter()
-        x, background, hist, device_times = self._solve(step.prep)
+        x, background, hist, device_times = chaos_mod.retry_transient(
+            lambda: self._solve(step.prep),
+            retries=max(self.cfg.solve_retries, 0),
+            site="solve", cycle=step.prep.cycle)
         step.analysis = device_mod.block(x)
         step.background = background
         step.hist = hist
@@ -610,6 +718,10 @@ class AssimilationEngine:
 
         if not device_times:
             device_times = [solve_time]
+        if self._chaos is not None:
+            # Forced straggler: inflate the scheduled device's *reported*
+            # time — the solve already happened, analyses stay bitwise.
+            device_times = self._chaos.straggle(prep.cycle, device_times)
         flags = [i for i, dt in enumerate(device_times)
                  if self._stragglers[i].record(dt)]
 
@@ -666,7 +778,14 @@ class AssimilationEngine:
             straggler_flags=flags,
             window=prep.window))
 
-    # -- checkpoint / resume (snapshots not ported yet) ---------------------
+    # -- checkpoint / resume ------------------------------------------------
+
+    # v2 adds nothing mandatory over v1 — it marks snapshots that may
+    # carry the optional "pint" metadata entry (window id + window count
+    # of a parallel-in-time window-boundary save) and may be assembled
+    # from a stashed host_state().  restore() accepts both versions.
+    SNAPSHOT_VERSION = 2
+    _SNAPSHOT_VERSIONS = (1, 2)
 
     def host_state(self) -> dict:
         """Deep copy of the host-side mutable state ``prepare`` advances
@@ -676,7 +795,8 @@ class AssimilationEngine:
         The parallel-in-time engine prepares *every* cycle up front, so
         a window boundary's host state is long gone by the time the
         window's analyses exist — it stashes this at each boundary
-        during the sweep."""
+        during the sweep and hands it back to :meth:`snapshot` when the
+        completion phase reaches the boundary."""
         cursor = self._stream.cursor if self._stream is not None else None
         return {
             "truth": np.asarray(self._truth, np.float64).copy(),
@@ -690,9 +810,148 @@ class AssimilationEngine:
             "cursor": copy.deepcopy(cursor),
         }
 
-    def snapshot(self, *args, **kwargs):
-        raise _not_ported("engine snapshots", "10")
+    def snapshot(self, host_state: dict | None = None,
+                 extra_meta: dict | None = None) -> tuple:
+        """(tree, metadata) capturing everything resume needs, in the
+        reference's snapshot format (either package restores it).
+
+        Must be taken at a cycle boundary with no prepare in flight
+        (``run`` defers the pipelined next-prepare around snapshot
+        cycles).  The tree holds the array state (truth, carried
+        analysis, domain boundary state) as numpy arrays; the metadata
+        holds the JSON-side state: config, rng bit-generator state
+        (exact — resume re-draws the same truth walk and data noise),
+        journal, stream cursor, straggler EWMAs and empty autotune
+        caches (the CUDA kernels tune nothing).
+
+        ``host_state`` substitutes a stashed :meth:`host_state` capture
+        for the live truth/rng/domain/trigger/cursor state — the
+        parallel-in-time engine's window-boundary snapshots.
+        ``extra_meta`` merges extra JSON entries into the metadata
+        (e.g. the ``"pint"`` window descriptor).
+        """
+        hs = host_state
+        truth = (self._truth if hs is None else hs["truth"])
+        domain_sd = (self.domain.state_dict() if hs is None
+                     else hs["domain"])
+        last_loads = (self._last_rebalance_loads if hs is None
+                      else hs["last_rebalance_loads"])
+        tree: dict = {"truth": np.asarray(truth, np.float64)}
+        if self.analysis is not None:
+            tree["analysis"] = _to_numpy(self.analysis)
+        if last_loads is not None:
+            tree["last_rebalance_loads"] = np.asarray(last_loads)
+        for k, v in domain_sd.items():
+            tree[_DOMAIN_PREFIX + k] = np.asarray(v)
+        cursor = (self._stream.cursor
+                  if self._stream is not None else None) \
+            if hs is None else hs["cursor"]
+        config, config_port = config_to_meta(self.cfg)
+        metadata = {
+            "snapshot_version": self.SNAPSHOT_VERSION,
+            "config": config,
+            "config_port": config_port,
+            "domain": self.domain.describe(),
+            "rng_state": (self._rng.bit_generator.state if hs is None
+                          else hs["rng_state"]),
+            "streak": int(self._streak if hs is None else hs["streak"]),
+            "journal": self.journal.to_dict(),
+            "cursor": cursor,
+            "stragglers": [s.state_dict() for s in self._stragglers],
+            "autotune": {"gram": [], "schwarz": []},
+        }
+        if extra_meta:
+            metadata.update(extra_meta)
+        return tree, metadata
+
+    def save_checkpoint(self, directory: str, step: int,
+                        host_state: dict | None = None,
+                        extra_meta: dict | None = None) -> str:
+        """Atomic engine checkpoint via the hash-verified manager
+        primitives; ``step`` is the completed-cycle count.  Returns the
+        final checkpoint path."""
+        tree, metadata = self.snapshot(host_state=host_state,
+                                       extra_meta=extra_meta)
+        t0 = time.perf_counter()
+        path = ckpt_mod.save_pytree(tree, directory, step, metadata)
+        m = meters_mod.get_meters()
+        m.inc("engine.snapshots")
+        m.observe("engine.snapshot_time", time.perf_counter() - t0)
+        return path
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        raise _not_ported("engine restore", "10")
+    def restore(cls, checkpoint: str, device=None, *,
+                config: "EngineConfig | None" = None,
+                domain: Optional[domain_mod.Domain] = None,
+                forecast: Optional[Callable] = None,
+                straggler_config: Optional[StragglerConfig] = None,
+                chaos=None) -> "AssimilationEngine":
+        """Rebuild an engine on ``device`` from a checkpoint directory
+        (latest verified step) or a specific ``step_XXXX`` path, written
+        by this package or by the reference.
+
+        Same-shape resume (``config``/``domain`` omitted) restores the
+        exact saved state and is bitwise journal-continuing.  Passing a
+        ``config`` and ``domain`` overrides them for an *elastic* resume
+        under a different p — the saved domain state is then not loaded
+        (the caller, :func:`repro_torch.runtime.elastic.
+        remesh_assim_domain`, derives the new tiling) while truth/rng/
+        analysis/journal carry over, so the stream still continues
+        without replaying cycles.
+        """
+        flat, manifest = ckpt_mod.restore_pytree(checkpoint)
+        meta = manifest["metadata"]
+        ver = meta.get("snapshot_version")
+        if ver not in cls._SNAPSHOT_VERSIONS:
+            raise ValueError(f"unsupported engine snapshot version {ver}")
+        cfg = config if config is not None else config_from_meta(meta)
+        eng = cls(cfg, device, forecast=forecast, domain=domain,
+                  straggler_config=straggler_config, chaos=chaos)
+        eng._load_snapshot(flat, meta, remeshed=domain is not None)
+        return eng
+
+    def _load_snapshot(self, flat: dict, meta: dict,
+                       remeshed: bool = False) -> None:
+        self._truth = np.asarray(flat["truth"], np.float64)
+        if "analysis" in flat:
+            self.analysis = torch.as_tensor(flat["analysis"],
+                                            device=self.device)
+        # Exact generator state, not a reseed: the resumed run draws the
+        # same truth steps and data noise the uninterrupted run would.
+        self._rng.bit_generator.state = meta["rng_state"]
+        journal = Journal.from_dict(meta["journal"])
+        resume_log = list(journal.meta.get("resume", []))
+        resume_log.append({"at_cycle": len(journal.records),
+                           "p": int(self.p), "remeshed": bool(remeshed)})
+        if remeshed:
+            # New tiling: domain state stays as the caller derived it,
+            # trigger/straggler state is stale for the new p — start
+            # those fresh.  The journal meta switches to the new
+            # descriptor so downstream load_table reshapes correctly.
+            journal.meta = self.domain.describe()
+        else:
+            self.domain.load_state(
+                {k.split(_DOMAIN_PREFIX, 1)[1]: v
+                 for k, v in flat.items()
+                 if k.startswith(_DOMAIN_PREFIX)})
+            self._streak = int(meta.get("streak", 0))
+            if "last_rebalance_loads" in flat:
+                self._last_rebalance_loads = np.asarray(
+                    flat["last_rebalance_loads"])
+            for mon, st in zip(self._stragglers,
+                               meta.get("stragglers", [])):
+                mon.load_state(st)
+        journal.meta["resume"] = resume_log
+        self.journal = journal
+        self._dec_cache = None
+        self._restored_cursor = meta.get("cursor")
+        # The reference's "autotune" entry holds Pallas block sizes;
+        # the CUDA kernels have nothing to import.
+
+    def resume_stream(self) -> "streams_mod.ResumableStream | None":
+        """The stream continuation from the restored cursor (None when
+        the snapshot was taken without a cursor-bearing stream)."""
+        cursor = self._restored_cursor
+        if cursor is None:
+            return None
+        return streams_mod.ResumableStream.from_cursor(cursor)

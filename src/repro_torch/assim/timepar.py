@@ -40,10 +40,14 @@ order ULPs from the padded solves).  The degenerate settings
 ``time_windows=1`` or ``pint_max_iters=0`` run the sequential engine
 itself: bitwise identity by construction.
 
+Checkpoints: ``run(checkpoint_dir=..., snapshot_every=k)`` saves an
+engine snapshot at every k-th window boundary, from the host state
+stashed there during the prepare sweep, with a ``"pint"`` window
+descriptor in its metadata; the sequential engine resumes from it.
+
 The port of ``repro.assim.timepar`` on one device: the reference's
 ``("time", "sub")`` device mesh (``resolve_time_mesh``,
-``ddkf.solve_window_stack``) is ROADMAP.md Queue 1 item 13, and its
-window-boundary checkpoints and fault injection are item 10.
+``ddkf.solve_window_stack``) is ROADMAP.md Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ from repro_torch import device as device_mod
 from repro_torch.core import ddkf as ddkf_mod
 from repro_torch.obs import meters as meters_mod
 from repro_torch.obs import trace as trace_mod
+from repro_torch.runtime import chaos as chaos_mod
 from repro_torch.assim import streams as streams_mod
 from repro_torch.assim.engine import (AssimilationEngine, CycleStep,
                                       EngineConfig, _not_ported, _to_numpy)
@@ -98,8 +103,6 @@ class TimeParEngine:
                  domain=None, mesh=None, chaos=None):
         if mesh is not None:
             raise _not_ported("the ('time', 'sub') device mesh", "13")
-        if chaos is not None:
-            raise _not_ported("chaos injection", "10")
         self.cfg = config
         self._degenerate = (config.time_windows <= 1
                             or config.pint_max_iters == 0)
@@ -108,7 +111,7 @@ class TimeParEngine:
         eng_cfg = config if self._degenerate else dataclasses.replace(
             config, solver="vmapped")
         self.engine = AssimilationEngine(eng_cfg, device, forecast=forecast,
-                                         domain=domain)
+                                         domain=domain, chaos=chaos)
         self.analyses: list = []
         # Host state at each window boundary of the last windowed run.
         self.window_host: dict = {}
@@ -147,13 +150,16 @@ class TimeParEngine:
         """Consume the stream to exhaustion; returns the journal.
 
         Degenerate configs (``time_windows=1`` / ``pint_max_iters=0``)
-        delegate to :meth:`AssimilationEngine.run` unchanged."""
-        if checkpoint_dir is not None or snapshot_every:
-            raise _not_ported("checkpointing", "10")
+        delegate to :meth:`AssimilationEngine.run` unchanged — including
+        its per-cycle snapshot cadence.  The windowed path snapshots on
+        window boundaries instead, every ``snapshot_every`` *windows*.
+        """
         if self._degenerate:
-            return self.engine.run(stream)
+            return self.engine.run(stream, checkpoint_dir=checkpoint_dir,
+                                   snapshot_every=snapshot_every)
         try:
-            return self._run_windowed(stream)
+            return self._run_windowed(stream, checkpoint_dir,
+                                      snapshot_every)
         finally:
             # The packed operators of every cycle stay on the device for
             # the whole run; let them go with it.
@@ -244,9 +250,10 @@ class TimeParEngine:
                 solve_times[c] = dt
         return x, analyses, backgrounds, solve_times
 
-    def _run_windowed(self, stream):
+    def _run_windowed(self, stream, checkpoint_dir, snapshot_every):
         eng = self.engine
         cfg = self.cfg
+        retries = max(cfg.solve_retries, 0)
         eng._stream = stream if hasattr(stream, "cursor") else None
         pos0 = getattr(stream, "pos", 0)
         obs_list = list(stream)
@@ -261,10 +268,7 @@ class TimeParEngine:
         m = meters_mod.get_meters()
 
         # -- 1. prepare sweep (the sequential engine's exact mutation
-        # chain), stashing host state at each window boundary.  The
-        # reference retries a transient fault of prepare under its fault
-        # injector; without chaos (item 10) nothing transient is raised,
-        # so prepare is called directly. ----------------------------------
+        # chain), stashing host state at each window boundary ------------
         steps: list = []
         self.window_host = {}
         with trace_mod.span("pint.prepare", cycles=C, windows=W):
@@ -272,12 +276,16 @@ class TimeParEngine:
                 for c in range(bounds[w], bounds[w + 1]):
                     step = CycleStep(cycle=base + c, obs=obs_list[c],
                                      window=w)
-                    step.prep = eng.prepare(step.cycle, step.obs, window=w)
+                    step.prep = chaos_mod.retry_transient(
+                        lambda: eng.prepare(step.cycle, step.obs,
+                                            window=step.window),
+                        retries=retries, site="pack", cycle=step.cycle)
                     steps.append(step)
                 hs = eng.host_state()
                 if hs["cursor"] is not None:
                     # The stream is fully drained; rewind the recorded
-                    # cursor to this boundary.
+                    # cursor to this boundary so resume fast-forwards to
+                    # exactly here.
                     hs["cursor"]["pos"] = pos0 + bounds[w + 1]
                 self.window_host[w] = hs
         self._preps = [s.prep for s in steps]
@@ -346,10 +354,19 @@ class TimeParEngine:
         }
 
         # -- 5. ordered completion: journal every cycle with the last
-        # fine sweep's analyses -------------------------------------------
+        # fine sweep's analyses; checkpoints on window boundaries --------
         for c, step in enumerate(steps):
             step.analysis = analyses[c]
             step.background = backgrounds[c]
             step.solve_time = solve_times[c]
             eng.finish_step(step)
+            w = step.window
+            if (c + 1 == bounds[w + 1] and checkpoint_dir is not None
+                    and snapshot_every > 0
+                    and (w + 1) % snapshot_every == 0):
+                eng.save_checkpoint(
+                    checkpoint_dir, step=base + c + 1,
+                    host_state=self.window_host[w],
+                    extra_meta={"pint": {"window": w,
+                                         "time_windows": W}})
         return eng.journal

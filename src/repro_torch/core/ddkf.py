@@ -232,10 +232,16 @@ def _factor_batched(A_loc: torch.Tensor, r: torch.Tensor,
     N_i = A_i^T diag(r) A_i comes from ``kernels.ops.gram`` (the CUDA
     kernel on the card, the plain version on CPU tensors); ``diag_add``
     carries the mu-regularization on overlap slots plus the identity on
-    padded slots that keeps every factor nonsingular."""
+    padded slots that keeps every factor nonsingular.
+
+    The factors are returned row-major: ``cholesky`` gives each one in
+    column-major strides, and ``stack_packed`` (``torch.stack``) copies
+    them row-major, where the triangular solves round differently — so
+    a fleet member would not solve bit for bit as the packing alone."""
     p = A_loc.shape[0]
     N = ops_mod.gram(A_loc, r.expand(p, -1).contiguous(), mode=gram_mode)
-    return torch.linalg.cholesky(N + torch.diag_embed(diag_add.to(N.dtype)))
+    return torch.linalg.cholesky(
+        N + torch.diag_embed(diag_add.to(N.dtype))).contiguous()
 
 
 def pack_operator(A, r, dec: dd_mod.Decomposition, mu: float = 1.0,

@@ -9,11 +9,16 @@ version.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import _build
 
 launches = 0   # kernel launches since the last reset (see ops.reset_counts)
+# The fleet server's packing threads launch gram concurrently; the count's
+# read-modify-write must not lose one of them.
+_COUNT_LOCK = threading.Lock()
 
 _FN = {torch.float64: "repro_gram_f64", torch.float32: "repro_gram_f32"}
 
@@ -35,5 +40,6 @@ def gram(A: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     err = getattr(lib, _FN[dtype])(A.data_ptr(), r.data_ptr(), N.data_ptr(),
                                    p, m, w, stream)
     _build.check(err, "gram")
-    launches += 1
+    with _COUNT_LOCK:
+        launches += 1
     return N

@@ -1,2 +1,3 @@
-"""Runtime support: straggler detection, the serving slot scheduler and
-the prefill/serve step factories."""
+"""Runtime support: straggler detection, the serving slot scheduler, the
+prefill/serve step factories, chaos injection and the assimilation
+engine's elastic resume."""

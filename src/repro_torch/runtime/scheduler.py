@@ -3,10 +3,12 @@
 A copy of ``repro.runtime.scheduler`` on the port's meters.  In the
 reference it is the one admission/retirement engine of every serving
 surface: the LM driver (:mod:`repro_torch.launch.serve` admits prompt
-requests in waves here) and the assimilation fleet (not ported yet).
-Both need the same small mechanism — a bounded table of *slots* holding in-flight work, a
-FIFO queue of work waiting for a slot, and admit/retire transitions that
-never disturb the other occupants — so it lives here once.
+requests in waves here) and the assimilation fleet
+(:class:`repro_torch.assim.serving.FleetServer` admits streams here).
+Both need the same small mechanism — a bounded table of *slots* holding
+in-flight work, a FIFO queue of work waiting for a slot, and
+admit/retire transitions that never disturb the other occupants — so it
+lives here once.
 
 The scheduler is bookkeeping only: it never touches devices and holds
 opaque payloads.  Callers decide *when* to admit (each fleet round, each

@@ -5,9 +5,11 @@ m = 150, p = 4, 4 cycles) on the interval, shelf and k-d tree domains.
 Per cycle, the host decisions are identical, the analyses agree within
 1e-12 (same arithmetic; summation order differs by package) and so do
 the recorded Schwarz residual histories.  Within the port, double
-buffering on and off give identical journals.
+buffering on and off give identical journals, and a run's snapshots
+restore bitwise.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -115,14 +117,28 @@ def test_engine_rejects_bad_parareal_settings(kw, field):
                                     device="cpu")
 
 
-def test_checkpoints_and_snapshots_still_raise_item_10():
-    eng = t_engine.AssimilationEngine(t_engine.EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.run([], checkpoint_dir="ckpt", snapshot_every=1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.snapshot()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_engine.AssimilationEngine.restore({})
+def test_checkpoints_and_snapshots_still_raise_item_10(tmp_path):
+    """Checkpoints, snapshots and restore no longer raise the refusal
+    that named ROADMAP.md Queue 1 item 10: a run saves its snapshots, a
+    snapshot is in the reference's format, and restore continues the
+    stream bitwise."""
+    cfg = t_engine.EngineConfig(n=32, p=2, iters=10)
+    eng = t_engine.AssimilationEngine(cfg, device="cpu")
+    ck = str(tmp_path / "ck")
+    eng.run(t_streams.ResumableStream("drifting_swarm", 60, 3, seed=1),
+            checkpoint_dir=ck, snapshot_every=1)
+    assert sorted(os.listdir(ck)) == [f"step_{s:08d}" for s in (1, 2, 3)]
+    tree, meta = eng.snapshot()
+    assert set(meta["config"]) == {
+        f.name for f in dataclasses.fields(j_engine.EngineConfig)}
+    assert meta["config_port"] == {"gram_mode": "auto"}
+    assert meta["autotune"] == {"gram": [], "schwarz": []}
+    assert np.array_equal(tree["analysis"], eng.analysis.numpy())
+    back = t_engine.AssimilationEngine.restore(ck, device="cpu")
+    assert torch.equal(back.analysis, eng.analysis)
+    assert back.journal.deterministic_json() == \
+        eng.journal.deterministic_json()
+    assert back.resume_stream().remaining() == 0
 
 
 def test_host_state_and_reset_clock():

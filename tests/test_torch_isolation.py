@@ -6,8 +6,9 @@
   ``chip_smoke.py`` (including those inside functions) names ``jax`` or
   ``repro``.
 * Entry points built without a device want the card and raise here:
-  the assimilation engines (sequential and Parareal) and their CLI, the
-  LM weights (and so ``serve_batch``) and the serving CLI.
+  the assimilation engines (sequential and Parareal), the fleet server,
+  the engine's restore and elastic resume, the assimilation CLI, the LM
+  weights (and so ``serve_batch``) and the serving CLI.
 * The CUDA kernel wrappers refuse CPU tensors instead of falling back.
 """
 import ast
@@ -24,6 +25,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs as t_configs  # noqa: E402
 from repro_torch import convert as t_convert  # noqa: E402
 from repro_torch.assim import engine as t_engine  # noqa: E402
+from repro_torch.assim import serving as t_serving  # noqa: E402
+from repro_torch.runtime import elastic as t_elastic  # noqa: E402
 from repro_torch.assim import timepar as t_timepar  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.models import transformer as t_transformer  # noqa: E402
@@ -50,7 +53,10 @@ for name in names:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
 assert not bad, bad
-for name in ("repro_torch.core.kalman", "repro_torch.assim.timepar"):
+for name in ("repro_torch.core.kalman", "repro_torch.assim.timepar",
+             "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+             "repro_torch.runtime.chaos", "repro_torch.runtime.elastic",
+             "repro_torch.assim.fleet", "repro_torch.assim.serving"):
     assert name in names, name
 print(len(names))
 """
@@ -61,7 +67,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 30
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -93,6 +99,27 @@ def test_timepar_engine_defaults_to_the_card():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_timepar.TimeParEngine(t_engine.EngineConfig(time_windows=4))
+
+
+def test_fleet_server_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_serving.FleetServer()
+
+
+def test_restore_and_resume_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    eng = t_engine.AssimilationEngine(t_engine.EngineConfig(n=32, p=2),
+                                      device="cpu")
+    path = eng.save_checkpoint(str(tmp_path), step=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_engine.AssimilationEngine.restore(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_elastic.resume_assim_engine(path)
+    back, _ = t_elastic.resume_assim_engine(path, device="cpu")
+    assert back.device.type == "cpu"
 
 
 def test_assim_cli_defaults_to_the_card():

@@ -16,10 +16,12 @@
   1.8e-15; the sequential engines agree to 1e-12) and within 1e-6 of the
   port's own sequential chain (the reference's bound).
 * Both degenerate settings are the port's sequential engine, bitwise.
-* Checkpoints, fault injection and the device mesh raise the errors that
-  name ROADMAP.md Queue 1 items 10 and 13.
+* The device mesh raises the error that names ROADMAP.md Queue 1 item
+  13; fault injection retries bitwise and window checkpoints are saved
+  (their resume is held in ``tests/test_torch_chaos.py``).
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -284,14 +286,23 @@ def test_degenerate_is_bitwise_sequential(degenerate_kw):
     assert all(np.array_equal(a, b) for a, b in zip(tp.analyses, chain))
 
 
-def test_unported_options_name_their_items():
+def test_unported_options_name_their_items(tmp_path):
+    """The device mesh still names ROADMAP.md Queue 1 item 13; fault
+    injection and window checkpoints (item 10) now run: a retried pack
+    fault leaves the journal bitwise, and each window boundary saves."""
+    from repro_torch.runtime import chaos as t_chaos
     cfg = t_engine.EngineConfig(n=32, p=2, iters=10, time_windows=2)
     with pytest.raises(NotImplementedError, match="item 13"):
         t_timepar.TimeParEngine(cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_timepar.TimeParEngine(cfg, device="cpu", chaos=object())
-    tp = t_timepar.TimeParEngine(cfg, device="cpu")
-    for kw in (dict(checkpoint_dir="ckpt"), dict(snapshot_every=1)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tp.run(t_streams.make_stream("drifting_swarm", 50, 2), **kw)
-    assert tp.journal.records == []
+    base = t_timepar.TimeParEngine(cfg, device="cpu")
+    base.run(t_streams.make_stream("drifting_swarm", 50, 2))
+    inj = t_chaos.ChaosInjector(t_chaos.ChaosConfig(pack_fault_cycles=(1,)))
+    tp = t_timepar.TimeParEngine(cfg, device="cpu", chaos=inj)
+    ck = str(tmp_path / "ck")
+    tp.run(t_streams.ResumableStream("drifting_swarm", 50, 2),
+           checkpoint_dir=ck, snapshot_every=1)
+    assert [(r["site"], r["cycle"]) for r in inj.injections] == \
+        [("pack", 1)]
+    assert tp.journal.deterministic_json() == \
+        base.journal.deterministic_json()
+    assert sorted(os.listdir(ck)) == ["step_00000001", "step_00000002"]
