@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-and drives the port's three paths through the entry points a user calls.
+and drives the port's paths through the entry points a user calls: the
+DA engines, serving and training.
 
 DD-KF: the streaming engine (``repro_torch.assim.AssimilationEngine``,
 single-device solver) at the paper's size: n = 2048, p = 8, m = 2000
@@ -102,6 +103,29 @@ memory from ``-Xptxas -v``, and fails if ptxas ignored the bf16
 one prefill and one decode step; the five launches of one ``ssd_scan``
 call are timed one by one.
 
+Training (``train``): ``repro_torch.runtime.steps.make_train_step`` on
+one ``BalancedLoader`` batch, bf16 params, AdamW with f32 moments, remat
+"block", the chunked loss (512): Mamba-2 1.3B at full size (48 layers,
+batch 4 x seq 2048, loader dp 4) and RecurrentGemma-9B at full width
+with its depth cut to 18 layers (six (R, R, A) periods, batch 2 x seq
+4096, dp 2; its 38 layers would need ~102 GB at 12 bytes a parameter).
+Step 0's loss and global grad norm through the kernels are held to the
+plain route on the same batch (within 1e-3 and 2e-2 relative; Mamba-2
+on an f32 copy of its weights, as its serving gates), the loss must fall
+over 4 steps on the repeated batch, and every step must launch each
+forward kernel twice a layer (remat recomputes it) and each backward
+kernel once; it prints the step time p50, tokens a second and peak
+memory.  ``train_kernels`` then holds each backward kernel
+(``flash_attention_bwd``, ``rglru_scan_bwd``, ``ssd_scan_bwd``) to
+autograd through its plain version at the first training layer's inputs,
+random inputs at the same shapes and ragged shapes (f32 within 1e-4,
+bf16 within 2e-2 relative Frobenius; ``flash_attention``'s dK and dV
+also row by row within ``ATTN_ROW_TOL``, which two planted one-tile
+faults must trip), checks two launches bitwise equal and times each
+(median) beside its bound, the plain backward and, for attention, SDPA's
+backward with the same mask.  The ``kernels`` line has nine rows: the
+six forward kernels and the three backward ones.
+
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -143,6 +167,13 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+}
+# The backward kernels (no TPU counterpart; each row's "replaces" names
+# the TPU kernel of its forward).
+BWD_SOURCES = {
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
 }
 REL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 # The LM kernels' tolerances, as in tests/test_kernels.py.
@@ -1565,12 +1596,7 @@ def sdpa_calls(q, k, v, causal: bool, window: int, heads: int):
     bh, s, d = q.shape
     rep = bh // k.shape[0]
     k, v = (t.repeat_interleave(rep, dim=0) for t in (k, v))
-    pos = torch.arange(s, device=q.device)
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window > 0:
-        mask &= pos[None, :] > pos[:, None] - window
+    mask = attention_masks(s, causal, window, q.device)[0]
     shape = (bh // heads, heads, s, d)
     qs, ks, vs = (t.view(shape) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1823,6 +1849,570 @@ def phase_ssd_kernels(first_call, layer_err: float, counts: dict) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Training (``train`` and ``train_kernels``).
+# ---------------------------------------------------------------------------
+
+# The training runs: Mamba-2 1.3B at full size; RecurrentGemma-9B at full
+# width with its depth cut to 18 layers, six (R, R, A) periods: at 12
+# bytes a parameter (bf16 params and grads, f32 m and v) its 38 layers
+# need ~102 GB, more than the card's 80 GB; 18 layers (4.60 B parameters)
+# need ~55 GB and leave room for the block-remat activations at batch 2 x
+# seq 4096.  Both from one BalancedLoader batch (dp shards of one row),
+# bf16 params, AdamW (lr 3e-4, f32 moments), remat "block", loss_chunk
+# 512.  Step 0 is held kernels against plain routes on the same batch in
+# ``gate_dtype``: Mamba-2 on an f32 copy of its weights, as its serving
+# gates are (``LM_PATHS``), since its 48 random bf16 layers amplify
+# rounding flips past any fixed gate; RecurrentGemma-9B in bf16.
+TRAIN_RUNS = {
+    "recurrentgemma-9b": {"layers": 18, "batch": 2, "seq": 4096, "dp": 2,
+                          "gate_dtype": torch.bfloat16},
+    "mamba2-1.3b": {"layers": None, "batch": 4, "seq": 2048, "dp": 4,
+                    "gate_dtype": torch.float32},
+}
+TRAIN_STEPS = 4
+TRAIN_LOSS_TOL = 1e-3   # step 0, kernels vs plain: loss, relative
+TRAIN_NORM_TOL = 2e-2   # step 0, kernels vs plain: global grad norm
+# The backward kernels against autograd through the plain versions: each
+# gradient's Frobenius difference over its norm (f32: as the forward's
+# REL_TOL; bf16: as LM_TOL).  flash_attention at the training shape also
+# row by row, within ATTN_ROW_TOL as its forward: the worst row's
+# difference norm over its norm, the row norms floored at GRAD_ROW_FLOOR
+# times their median.  dK and dV are held so against autograd; dQ
+# against ref.attention_bwd_plain fed the kernel's own bf16 out and lse,
+# because autograd's Delta = rowsum(dO .* O) reads the f32 output: dQ's
+# row i is sum_j dS_ij k_j with dS = P .* (dP - Delta), which cancels
+# where a row's softmax sits on one key, and there the bf16 rounding of
+# O alone moved the first training layer's worst dQ row to 0.25 against
+# autograd (NVIDIA H100 80GB HBM3, 700.00 W).  The forward outputs each
+# backward reads are held to the forward's gates (forward_agrees).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GRAD_ROW_FLOOR = 1e-2
+
+
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches of one training step: each layer's forward kernel
+    once in the forward and once more in the backward's recompute under
+    remat, its backward kernel once."""
+    mult = 2 if cfg.remat in ("block", "group") else 1
+    if cfg.attn_pattern == ("ssd",):
+        return {"ssd_scan": mult * cfg.num_layers,
+                "ssd_scan_bwd": cfg.num_layers}
+    period = len(cfg.attn_pattern)
+    attn = cfg.num_layers // period
+    rec = cfg.num_layers - attn
+    return {"rglru_scan": mult * rec, "rglru_scan_bwd": rec,
+            "flash_attention": mult * attn, "flash_attention_bwd": attn}
+
+
+def phase_train(arch: str, smi: str, kept: dict) -> dict:
+    """Train ``arch`` (``TRAIN_RUNS``) through the port's entry points:
+    step 0's loss and global grad norm through the kernels against the
+    plain route on the loader's first batch; the trainer
+    (``launch.train.train``) for TRAIN_STEPS steps, with its kernel
+    launches exactly as the code implies, the step time p50, peak memory
+    and tokens a second; then TRAIN_STEPS AdamW steps on that first batch
+    repeated, over which the loss must fall, and one more under
+    ``torch.profiler``.  The first call of each kernel op lands in
+    ``kept`` (the train_kernels phase's inputs).  Returns the kernels'
+    launches a step of the trainer's run (its counts over TRAIN_STEPS)."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    spec = TRAIN_RUNS[arch]
+    cfg = configs.get_config(arch)
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    B, S = spec["batch"], spec["seq"]
+    print(f"== train: {arch}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, batch {B} x seq {S}, remat {cfg.remat}, "
+          f"loss_chunk {cfg.loss_chunk} ({smi})")
+    params = transformer.init_params(cfg, seed=0, device=DEVICE)
+    n_params = sum(p.numel() for p in adamw.leaves(params))
+    loader = pipeline.BalancedLoader(
+        vocab_size=cfg.vocab_size, dp=spec["dp"],
+        batch_per_shard=B // spec["dp"], seq=S, seed=0)
+    batch = train_mod.batch_on(DEVICE, *loader.next_batch())
+    st = loader.last_stats
+    print(f"  {n_params / 1e9:.3f} B parameters; loader dp {spec['dp']}: "
+          f"loads {st.loads_before.tolist()} -> {st.loads_after.tolist()}"
+          f", E {st.efficiency_before:.3f} -> {st.efficiency_after:.3f}, "
+          f"{st.docs_moved} documents moved, "
+          f"{int(batch['mask'].sum())} target tokens")
+    want = expected_train_launches(cfg)
+    if cfg.num_heads:
+        kept.setdefault("heads", cfg.num_heads)
+
+    # Step 0: loss and global grad norm, kernels against plain.
+    gate = (params if spec["gate_dtype"] == torch.bfloat16
+            else _cast(params, spec["gate_dtype"]))
+    read = {}
+    for mode in ("auto", "plain"):
+        ops.reset_counts()
+        with contextlib.ExitStack() as stack:
+            if mode == "auto":
+                for name in ("flash_attention", "rglru_scan", "ssd_scan"):
+                    stack.enter_context(wrapped(
+                        ops, name, keep_first_call(kept, name)))
+            t0 = time.perf_counter()
+            loss, grads = steps.value_and_grad(
+                steps.make_loss_fn(cfg, mode=mode), gate, batch)
+            norm = float(adamw.global_norm(grads))
+            wall = time.perf_counter() - t0
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        read[mode] = (float(loss), norm)
+        print(f"  step 0 {mode:5s} ({str(spec['gate_dtype'])[6:]}): loss "
+              f"{float(loss):.6f}, global grad norm {norm:.6f}, "
+              f"{wall:.2f} s, launches {counts}")
+        check(counts == (want if mode == "auto" else {}),
+              f"step 0 {mode}: kernel launches {counts} == "
+              f"{want if mode == 'auto' else {}}")
+        del grads, loss
+    for p in adamw.leaves(gate):
+        p.requires_grad_(False)
+    del gate
+    torch.cuda.empty_cache()
+    (lk, nk), (lp, np_) = read["auto"], read["plain"]
+    check(abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp),
+          f"step 0 loss, kernels vs plain: {abs(lk - lp) / abs(lp):.3e} "
+          f"<= {TRAIN_LOSS_TOL:g} relative")
+    check(abs(nk - np_) <= TRAIN_NORM_TOL * np_,
+          f"step 0 global grad norm, kernels vs plain: "
+          f"{abs(nk - np_) / np_:.3e} <= {TRAIN_NORM_TOL:g} relative")
+
+    # The main path: the trainer (launch.train.train) for TRAIN_STEPS
+    # steps of the loader's batches on the cosine schedule, each step
+    # timed to a synchronised end.
+    times = []
+
+    def timed(make):
+        def make_timed(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(*a):
+                t0 = time.perf_counter()
+                out = step(*a)
+                float(out[0])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                return out
+            return run
+        return make_timed
+
+    ops.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with wrapped(train_mod.steps_mod, "make_train_step", timed):
+        params, opt, losses = train_mod.train(
+            cfg, steps=TRAIN_STEPS, seq=S, global_batch=B, dp=spec["dp"],
+            ckpt_dir=None, seed=0, log_every=1, device=DEVICE,
+            init_params=params)
+    main_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    p50 = float(np.median(times))
+    total = {k: TRAIN_STEPS * v for k, v in want.items()}
+    check(main_counts == total, f"train: kernel launches over "
+          f"{TRAIN_STEPS} steps {main_counts} == {total} (each step: "
+          f"every layer's forward "
+          f"kernel twice, remat recomputing it, its backward kernel once)")
+    check(all(np.isfinite(losses)), f"train: losses "
+          f"{[round(x, 6) for x in losses]} finite")
+    print(f"  {arch} train ({smi}): step p50 {p50:.4f} s (steps "
+          f"{[round(t, 4) for t in times]} s), {B * S / p50:.1f} tokens/s,"
+          f" peak memory {peak:.2f} GB, launches a step {want}")
+
+    # TRAIN_STEPS more steps on one repeated batch: the loss must fall.
+    del opt
+    torch.cuda.empty_cache()
+    step_fn = steps.make_train_step(cfg, adamw.AdamWConfig())
+    opt = adamw.adamw_init(params)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        ops.reset_counts()
+        loss, params, opt = step_fn(params, opt, batch)
+        losses.append(float(loss))
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        check(counts == want, f"repeated batch, step {i}: kernel launches "
+              f"{counts} == {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the loss falls over {TRAIN_STEPS} steps on one batch: "
+          f"{[round(x, 6) for x in losses]}")
+
+    # One more step under torch.profiler: where a step's device time goes.
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  profile of one {arch} training step:")
+    device_report(prof, wall_ms, 15)
+    for p in adamw.leaves(params):
+        p.requires_grad_(False)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return {k: v // TRAIN_STEPS for k, v in main_counts.items()}
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` over ``reps`` calls, each between two
+    CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        out.append(t0.elapsed_time(t1))
+    return float(np.median(out))
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def worst_grad_row(g, plain) -> float:
+    """The largest over rows of ||g - plain|| / max(||plain||, floor),
+    the floor GRAD_ROW_FLOOR times the median row norm."""
+    rows = plain.float().norm(dim=-1)
+    floor = GRAD_ROW_FLOOR * float(rows.median())
+    diff = (g.float() - plain.float()).norm(dim=-1)
+    return float((diff / rows.clamp_min(floor)).max())
+
+
+def bwd_case(name: str, args, kwargs, gen):
+    """(the kernel's forward outputs, the plain forward's, the backward
+    kernel and the plain backward as callables, the output gradient) for
+    ``name`` at ``args``: the kernel forward (attention with its lse,
+    ssd_scan with its final state) then its backward kernel, and
+    autograd through the plain forward, on one random output gradient."""
+    from repro_torch.kernels import flash_attention, ref, rglru_scan
+    from repro_torch.kernels import ssd_scan
+
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    if name == "flash_attention":
+        fwd = flash_attention.flash_attention(*args, lse=True, **kwargs)
+        fwd_p = ref.attention_plain(*leaves, lse=True, **kwargs)
+        dout = torch.randn(fwd[0].shape, generator=gen, device=DEVICE).to(
+            fwd[0].dtype)
+
+        def kernel():
+            return flash_attention.flash_attention_bwd(*args, *fwd, dout,
+                                                       **kwargs)
+    elif name == "rglru_scan":
+        fwd = (rglru_scan.rglru_scan(*args),)
+        fwd_p = (ref.rglru_scan_plain(*leaves),)
+        dout = torch.randn(fwd[0].shape, generator=gen, device=DEVICE).to(
+            fwd[0].dtype)
+
+        def kernel():
+            return rglru_scan.rglru_scan_bwd(args[0], fwd[0], dout)
+    else:
+        y, state, saved = ssd_scan.ssd_scan(*args, workspaces=True,
+                                            **kwargs)
+        fwd = (y, state)
+        fwd_p = ref.ssd_scan_plain(*leaves, state=True, **kwargs)
+        dout = torch.randn(y.shape, generator=gen, device=DEVICE)
+
+        def kernel():
+            return ssd_scan.ssd_scan_bwd(*args, dout, saved, **kwargs)
+
+    def plain():
+        return torch.autograd.grad(fwd_p[0], leaves, dout, retain_graph=True)
+    return fwd, fwd_p, kernel, plain, dout
+
+
+def forward_agrees(name, fwd, fwd_p):
+    """Hold the forward outputs that a backward case reads (the kernel's
+    and the plain version's on the same inputs) to the forward's own
+    gates: :func:`agreement` (LM_TOL; for ssd_scan y and the final state
+    against SSD_ATOL + SSD_RTOL |plain|), and for attention the worst
+    row within ATTN_ROW_TOL and the lse by :func:`agreement` in f32.
+    Returns (ok, the readings for the check's message)."""
+    fwd_p = tuple(t.detach() for t in fwd_p)
+    ok = all(k.shape == p.shape and k.dtype == p.dtype
+             and bool(torch.isfinite(k).all()) for k, p in zip(fwd, fwd_p))
+    if name == "ssd_scan":
+        _, ratio = agreement(name, fwd, fwd_p)
+    else:
+        _, ratio = agreement(name, fwd[0], fwd_p[0])
+    ok = ok and ratio <= 1
+    what = f"forward over its gate {ratio:.3e} <= 1"
+    if name == "flash_attention":
+        tol = ATTN_ROW_TOL[fwd[0].dtype]
+        row = worst_row(fwd[0], fwd_p[0])
+        _, lse_ratio = agreement(name, fwd[1], fwd_p[1])
+        ok = ok and row <= tol and lse_ratio <= 1
+        what += (f", worst row {row:.3e} <= {tol:g}, lse over its gate "
+                 f"{lse_ratio:.3e} <= 1")
+    return ok, what
+
+
+def bwd_compare(name, args, kwargs, gen, label, rows: bool = False):
+    """Hold the forward outputs to their plain version's
+    (:func:`forward_agrees`) and the backward kernel to autograd through
+    the plain version on ``args``; with ``rows``, flash_attention's dK
+    and dV row by row against autograd and its dQ row by row against
+    ``ref.attention_bwd_plain`` fed the kernel's own out and lse.
+    Returns (max abs err of the gradients, the kernel's forward outputs,
+    the kernel and plain callables, the output gradient, the FA2 plain
+    gradients or None)."""
+    from repro_torch.kernels import ref
+
+    fwd, fwd_p, kernel, plain, dout = bwd_case(name, args, kwargs, gen)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    dtype = args[0].dtype
+    ok_fwd, what_fwd = forward_agrees(name, fwd, fwd_p)
+    tol = GRAD_TOL[dtype]
+    rels = [_rel(g, w) for g, w in zip(got, want)]
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    ok = all(g.shape == w.shape and g.dtype == w.dtype
+             and bool(torch.isfinite(g).all()) for g, w in zip(got, want))
+    what = (f"{name} {label} {str(dtype)[6:]}: {what_fwd}; backward "
+            f"gradients' Frobenius over norm {['%.3e' % r for r in rels]} "
+            f"<= {tol:g}")
+    ok = ok_fwd and ok and max(rels) <= tol
+    fa2 = None
+    if rows and ok:
+        worst = [worst_grad_row(g, w) for g, w in zip(got[1:], want[1:])]
+        fa2 = ref.attention_bwd_plain(*args, *fwd, dout, **kwargs)
+        worst_dq = worst_grad_row(got[0], fa2[0])
+        ok = max(worst + [worst_dq]) <= ATTN_ROW_TOL[dtype]
+        what += (f", worst rows of dK, dV {['%.3e' % r for r in worst]}, "
+                 f"of dQ against the FA2 plain backward on the kernel's "
+                 f"out and lse {worst_dq:.3e} <= {ATTN_ROW_TOL[dtype]:g}")
+    check(ok, what)
+    return err, fwd, kernel, plain, dout, fa2
+
+
+def attention_grads_masked(q, k, v, dout, visible):
+    """The gradients of :func:`attention_masked` (one head at a time under
+    an explicit mask) by autograd."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = attention_masked(*leaves, visible)
+    return torch.autograd.grad(out, leaves, dout)
+
+
+def attention_dq_masked(q, k, v, o, lse, dout, visible):
+    """dQ by the FA2 formulas of ``ref.attention_bwd_plain`` from the
+    given o and lse, under an explicit (S, S) visibility mask, one query
+    head at a time (f32)."""
+    rep = q.shape[0] // k.shape[0]
+    scale = 1.0 / float(np.sqrt(q.shape[2]))
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for b in range(q.shape[0]):
+        kb, vb, dob = k[b // rep].float(), v[b // rep].float(), dout[b].float()
+        p = torch.where(visible, torch.exp(q[b].float() @ kb.T * scale
+                                           - lse[b, :, None]), 0.0)
+        delta = (dob * o[b].float()).sum(-1)
+        dq[b] = (p * (dob @ vb.T - delta[:, None])) @ kb * scale
+    return dq
+
+
+def check_attention_bwd_faults(args, kwargs, dout, plain_grads, fwd, fa2):
+    """One-tile faults planted in the attention's plain gradients (the
+    masks of :func:`attention_masks`) must trip the row checks: dK and
+    dV against autograd's ``plain_grads``, dQ (by the FA2 formulas on
+    the kernel's out and lse ``fwd``) against ``fa2``; the same per-head
+    code under the true mask must pass them."""
+    tol = ATTN_ROW_TOL[args[0].dtype]
+    ok_mask, faults = attention_masks(args[0].shape[1], kwargs["causal"],
+                                      kwargs["window"], DEVICE)
+
+    def worst(mask):
+        dkv = [worst_grad_row(g, w) for g, w in zip(
+            attention_grads_masked(*args, dout, mask)[1:], plain_grads[1:])]
+        dq = worst_grad_row(attention_dq_masked(*args, *fwd, dout, mask),
+                            fa2[0])
+        return dkv, dq
+
+    dkv, dq = worst(ok_mask)
+    check(max(dkv + [dq]) <= tol, f"flash_attention backward, plain one "
+          f"head at a time under its own mask: worst rows of dK, dV "
+          f"{['%.3e' % r for r in dkv]}, of dQ {dq:.3e} <= {tol:g}")
+    for label, mask in faults:
+        dkv, dq = worst(mask)
+        check(max(dkv) > tol and dq > tol, f"flash_attention backward "
+              f"planted fault ({label}): worst rows of dK, dV "
+              f"{['%.3e' % r for r in dkv]}, the largest > {tol:g}; of "
+              f"dQ {dq:.3e} > {tol:g}")
+
+
+def bwd_bound(name, args, kwargs):
+    """(bound_ms, bound_by) of one backward call: the bytes it must move
+    (inputs, the forward's saved tensors it reads, output gradient read
+    once; gradients written once) over the HBM rate against the flops
+    the function needs at the type's peak (TF32 for f32, as
+    ``ssd_bound``).  flash_attention: 2 D flops a visible (q, key) pair
+    for each of S (recomputed from the saved lse), dP, dV, dQ and dK.
+    rglru_scan: 3 flops an element.  ssd_scan: per (head, chunk), the
+    causal triangle's chunk (chunk + 1) / 2 pairs: dy x^T and M^T dy
+    (2 P a pair), dG B and dG^T C (2 N a pair), and 4 chunk N P
+    multiply-adds for the state terms."""
+    t = args[0]
+    it = t.element_size()
+    if name == "flash_attention":
+        bh, s, d = t.shape
+        flops = 10 * d * bh * visible_scores(s, kwargs["causal"],
+                                             kwargs["window"])
+        nbytes = ((4 * t.numel() + 4 * args[1].numel()) * it
+                  + 4 * bh * s)
+        peak = PEAK_FLOPS[t.dtype]
+    elif name == "rglru_scan":
+        flops = 3 * t.numel()
+        nbytes = 5 * t.numel() * it
+        peak = PEAK_TF32
+    else:
+        x, dt, A, B, C = args
+        bh, s, p = x.shape
+        groups, _, n = B.shape
+        chunk = min(kwargs["chunk"], s)
+        nc = s // chunk
+        pairs = chunk * (chunk + 1) // 2
+        flops = 2 * nc * bh * (2 * pairs * (p + n) + 4 * chunk * n * p)
+        nbytes = (4 * (3 * x.numel() + 2 * dt.numel() + 2 * A.numel()
+                       + 4 * B.numel() + groups * nc * chunk * chunk
+                       + bh * nc * n * p) + 8 * dt.numel())
+        peak = PEAK_TF32
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_backward(q, k, v, dout, causal: bool, window: int, heads: int):
+    """SDPA's backward with the same mask on k and v expanded to every
+    query head, as a callable: the library's yardstick (the port never
+    calls it)."""
+    bh, s, d = q.shape
+    rep = bh // k.shape[0]
+    mask = attention_masks(s, causal, window, q.device)[0]
+    shape = (bh // heads, heads, s, d)
+    leaves = [t.detach().view(shape).clone().requires_grad_()
+              for t in (q, k.repeat_interleave(rep, dim=0),
+                        v.repeat_interleave(rep, dim=0))]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=mask)
+    dview = dout.view(shape)
+    return lambda: torch.autograd.grad(out, leaves, dview, retain_graph=True)
+
+
+# Ragged backward cases: flash_attention (BH, BH_kv, S, D, causal,
+# window) in bf16; rglru_scan shapes in f32 and bf16; ssd_scan (BH, B/C
+# rows, S, P, N, chunk).
+BWD_ATTN_RAGGED = ((8, 2, 1000, 256, True, 0), (4, 1, 160, 128, True, 64),
+                   (4, 4, 77, 64, False, 0), (6, 3, 300, 128, True, 512))
+BWD_RGLRU_RAGGED = ((3, 77, 100), (2, 1, 33))
+BWD_SSD_RAGGED = ((5, 5, 300, 48, 64, 100), (8, 2, 512, 32, 64, 128),
+                  (3, 1, 200, 64, 128, 256))
+
+
+def phase_train_kernels(kept: dict, counts: dict) -> list:
+    """Each backward kernel against autograd through its plain version,
+    and the forward outputs it reads against the plain forward's: at the
+    first training layer's inputs (``kept``, from the train phases), on
+    random inputs at the same shapes and at ragged shapes;
+    flash_attention at the training shape also row by row in dQ, dK and
+    dV, with planted one-tile faults that must trip those checks; two
+    launches bitwise equal; then the timings (median of several) beside
+    the bound, the plain backward and, for flash_attention, SDPA's
+    backward with the same mask.  ``counts``: each backward kernel's
+    launches a step of the train phases' main path."""
+    print("== train_kernels: backward kernels")
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    rows = []
+    for name in ("flash_attention", "rglru_scan", "ssd_scan"):
+        args, kwargs = kept[name]
+        args = tuple(a.detach().clone() for a in args)
+        kwargs = {k: v for k, v in kwargs.items()
+                  if k in ("causal", "window", "chunk")}
+        if name == "ssd_scan":
+            args = args[:5]
+        shape, dtype = tuple(args[0].shape), args[0].dtype
+        rows_check = name == "flash_attention"
+        err, fwd, kernel, plain, dout, fa2 = bwd_compare(
+            name, args, kwargs, gen, f"first training layer {shape}",
+            rows_check)
+        if name == "flash_attention":
+            rand = (torch.randn(shape, generator=gen, device=DEVICE),
+                    torch.randn(args[1].shape, generator=gen, device=DEVICE),
+                    torch.randn(args[1].shape, generator=gen, device=DEVICE))
+            rand = tuple(t.to(dtype) for t in rand)
+        elif name == "rglru_scan":
+            rand = (torch.rand(shape, generator=gen, device=DEVICE)
+                    .mul(0.3).add(0.7).to(dtype),
+                    torch.randn(shape, generator=gen, device=DEVICE)
+                    .mul(0.1).to(dtype))
+        else:
+            x, _, _, B, _ = args
+            rand = ssd_random(x.shape[0], B.shape[0], x.shape[1],
+                              x.shape[2], B.shape[2], gen)
+        err = max(err, bwd_compare(name, rand, kwargs, gen,
+                                   f"random {shape}", rows_check)[0])
+        if name == "flash_attention":
+            check_attention_bwd_faults(args, kwargs, dout, plain(), fwd,
+                                       fa2)
+        g1, g2 = kernel(), kernel()
+        check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
+              f"{name} backward: two launches bitwise equal")
+        del g1, g2
+        bound, by = bwd_bound(name, args, kwargs)
+        row = {
+            "name": f"{name}_bwd", "ok": True, "route": "cuda",
+            "source": BWD_SOURCES[name], "replaces": REPLACES[name],
+            "pass": "backward", "launches": counts[f"{name}_bwd"],
+            "max_abs_err": err, "ms": median_ms(kernel, 7),
+            "plain_ms": median_ms(plain, 3),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": list(shape), "dtype": str(dtype)[6:],
+        }
+        if name == "flash_attention":
+            row["library_ms"] = median_ms(sdpa_backward(
+                *args, dout, heads=kept["heads"], **kwargs), 5)
+        lib = row["library_ms"]
+        print(f"  {name} backward {shape}: kernel {row['ms']:.4f} ms "
+              f"(median), plain {row['plain_ms']:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms (SDPA backward, same mask)'}"
+              f", bound {bound:.4f} ms ({by}), share of the bound "
+              f"{bound / row['ms']:.3f}")
+        rows.append(row)
+        del kernel, plain, dout, args, rand, fwd, fa2
+        torch.cuda.empty_cache()
+
+    for bh, bh_kv, s, d, causal, window in BWD_ATTN_RAGGED:
+        qkv = tuple(torch.randn(r, s, d, generator=gen, device=DEVICE)
+                    .bfloat16() for r in (bh, bh_kv, bh_kv))
+        bwd_compare("flash_attention", qkv,
+                    {"causal": causal, "window": window}, gen,
+                    f"ragged ({bh}, {bh_kv}, {s}, {d}) causal={causal} "
+                    f"window={window}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in BWD_RGLRU_RAGGED:
+            ab = (torch.rand(shape, generator=gen, device=DEVICE)
+                  .mul(0.3).add(0.7).to(dtype),
+                  torch.randn(shape, generator=gen, device=DEVICE)
+                  .mul(0.1).to(dtype))
+            bwd_compare("rglru_scan", ab, {}, gen, f"ragged {shape}")
+    for bh, groups, s, p, n, c in BWD_SSD_RAGGED:
+        bwd_compare("ssd_scan", ssd_random(bh, groups, s, p, n, gen),
+                    {"chunk": c}, gen, f"ragged x {(bh, s, p)}, B/C "
+                    f"{(groups, s, n)}, chunk {c}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this check runs "
@@ -1871,6 +2461,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.append(phase_ssd_kernels(inputs["ssd_scan"], layer_errs["ssd_scan"],
                                   counts_m))
+    del inputs
+
+    kept, train_counts = {}, {}
+    for arch in ("recurrentgemma-9b", "mamba2-1.3b"):
+        train_counts.update(phase_train(arch, smi, kept))
+    rows += phase_train_kernels(kept, train_counts)
     print(f"== done in {time.perf_counter() - t_start:.1f} s "
           f"(2D launches {counts_2d})")
     print(f"card: {smi}")

@@ -15,7 +15,10 @@ so a checkpoint written by either package reads in the other:
 
 Trees are nested dicts, lists and tuples whose leaves are tensors, numpy
 arrays or scalars (``None`` is an empty subtree, as in a JAX pytree).
-Tensors leave the device through ``.detach().cpu().numpy()``.
+Tensors leave the device through ``.detach().cpu().numpy()``; a bf16
+tensor is written as the reference's ``np.save`` writes a bf16 array
+(numpy has no bf16 of its own): its raw 2-byte values as the ``|V2``
+dtype, with ``bfloat16`` as its dtype in the manifest.
 
 Two writers of the same step both return and leave one verified
 checkpoint: publishing renames the staged directory into place and, when
@@ -136,10 +139,27 @@ def _unflatten(like, leaves: dict):
     return walk(like, [])
 
 
+_BF16 = np.dtype("V2")   # how a bf16 array's values lie in a .npy file
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16 else str(arr.dtype)
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype == _BF16:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(
+            np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(arr)
 
 
 def _publish(tmp: str, final: str) -> None:
@@ -184,7 +204,8 @@ def save_pytree(tree, directory: str, step: int,
         hasher.update(key.encode())
         hasher.update(arr.tobytes())
         manifest["leaves"][key] = {
-            "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+            "file": fname, "shape": list(arr.shape),
+            "dtype": _dtype_name(arr)}
     manifest["hash"] = hasher.hexdigest()
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -257,8 +278,8 @@ def restore_pytree(directory_or_path: str, like=None, shardings=None,
         if tuple(arr.shape) != tuple(want.shape):
             raise ValueError(f"{key}: shape {arr.shape} != {want.shape}")
         if isinstance(want, torch.Tensor):
-            leaves[key] = torch.as_tensor(arr).to(device=want.device,
-                                                  dtype=want.dtype)
+            leaves[key] = _to_tensor(arr).to(device=want.device,
+                                             dtype=want.dtype)
         else:
             leaves[key] = arr.astype(want.dtype)
     return _unflatten(like, leaves), manifest

@@ -3,8 +3,10 @@
 The port imports nothing of ``repro``, so these take plain numpy arrays
 and dicts — what ``np.asarray`` of a JAX array, a dataclass's fields or
 a domain's ``describe()``/``state_dict()`` give — and build the port's
-counterparts on a device.  The parity tests use them to feed one packing,
-problem, domain state or set of model weights to both packages.
+counterparts on a device, and (``lm_params_to_numpy``,
+``adamw_state_to_numpy``) carry the port's model weights and optimizer
+state back.  The parity tests use them to feed one packing, problem,
+domain state, set of model weights or optimizer state to both packages.
 """
 from __future__ import annotations
 
@@ -94,3 +96,33 @@ def lm_params_from_numpy(tree, device=None):
         return t.to(dev)
 
     return leaf(tree)
+
+
+def lm_params_to_numpy(tree):
+    """The inverse of :func:`lm_params_from_numpy`: nested dicts of numpy
+    arrays with the same keys.  bf16 leaves come back as float32 arrays
+    holding the same values (numpy has no bf16 of its own; the reference
+    casts them back with ``astype(jnp.bfloat16)``)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def adamw_state_from_numpy(state, device=None):
+    """A reference AdamW state (``{"m", "v", "step"}`` as numpy: the f32
+    moment trees and the int32 step) as the port's."""
+    dev = device_mod.resolve(device)
+    return {"m": lm_params_from_numpy(state["m"], device=dev),
+            "v": lm_params_from_numpy(state["v"], device=dev),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def adamw_state_to_numpy(state) -> dict:
+    """The inverse of :func:`adamw_state_from_numpy`."""
+    return {"m": lm_params_to_numpy(state["m"]),
+            "v": lm_params_to_numpy(state["v"]),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}

@@ -242,6 +242,17 @@ def balance_ratio(loads: np.ndarray) -> float:
     return float(loads.min() / mx) if mx > 0 else 1.0
 
 
+def incidence_matrix(p: int, edges: Sequence[Edge]) -> np.ndarray:
+    """(E, p) signed incidence matrix: row k has +1 at edges[k][0] and -1
+    at edges[k][1]."""
+    E = len(edges)
+    M = np.zeros((E, p), dtype=np.float64)
+    for k, (i, j) in enumerate(edges):
+        M[k, i] = 1.0
+        M[k, j] = -1.0
+    return M
+
+
 @dataclasses.dataclass
 class DyDDResult:
     boundaries: np.ndarray          # (p+1,) final interval edges

@@ -1,2 +1,2 @@
-"""Synthetic observation networks."""
+"""Synthetic observation networks and the DyDD-balanced token loader."""
 from repro_torch.data.observations import make_observations  # noqa: F401

@@ -52,7 +52,10 @@
 //   time at D = 64, 128 and 256.
 // * Epilogue: O / max(l, 1e-30) in bf16 is written into the warpgroup's
 //   own (now free) q tile in the swizzled layout and stored by TMA, which
-//   drops the rows past S.
+//   drops the rows past S.  Each row's log-sum-exp of the scaled scores,
+//   scale m + ln max(l, 1e-30), goes to a (BH, S) f32 output that the
+//   backward (flash_attention_bwd.cu) reads instead of re-running the
+//   forward.
 // * CTAs are ordered heaviest q block first, and within a q block by q
 //   head, so the q heads that share a kv head run side by side and find
 //   its tiles in L2.
@@ -539,8 +542,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
                   __grid_constant__ const CUtensorMap tk,
                   __grid_constant__ const CUtensorMap tv,
-                  __grid_constant__ const CUtensorMap to, int BH, int rep,
-                  int S, float c, int causal, int window) {
+                  __grid_constant__ const CUtensorMap to,
+                  float* __restrict__ lse, int BH, int rep, int S, float c,
+                  int causal, int window) {
   using Cfg = Bf16Cfg<DP>;
   constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages, kTile = Cfg::kTile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -680,6 +684,12 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
     const float d0 = fmaxf(l_run[0], 1e-30f);
     const float d1 = fmaxf(l_run[1], 1e-30f);
     const int row = 16 * warp + g;
+    if (t == 0) {   // the four lanes of a row hold the same m and l
+      const float ln2 = 0.6931471805599453f;
+      float* lr = lse + static_cast<size_t>(bh) * S;
+      if (r0 < S) lr[r0] = (m_run[0] * c + log2f(d0)) * ln2;
+      if (r0 + 8 < S) lr[r0 + 8] = (m_run[1] * c + log2f(d1)) * ln2;
+    }
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       unsigned char* at =
@@ -720,8 +730,9 @@ static_assert(f32_smem_bytes<256>() <= 232448, "f32 tiles exceed 227 KB");
 template <int DP>
 __global__ void __launch_bounds__(kT32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int D, int rep, float scale, int causal, int window) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int S, int D, int rep, float scale,
+                 int causal, int window) {
   constexpr int kCols = DP / 32;  // output columns per lane
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // (32, DP)
@@ -819,6 +830,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qpos = q_start + warp + 4 * r;
     if (qpos >= S) continue;
     const float den = fmaxf(l_run[r], 1e-30f);
+    if (lane == 0)
+      lse[static_cast<size_t>(blockIdx.y) * S + qpos] = m_run[r] + logf(den);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
@@ -878,9 +891,9 @@ bool encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D) {
 }
 
 template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
-                int BH_kv, int S, int D, int causal, int window,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int BH, int BH_kv, int S, int D, int causal,
+                int window, cudaStream_t stream) {
   const size_t bytes = Bf16Cfg<DP>::kSmem;
   CUtensorMap tq, tk, tv, to;
   if (!encode_map(&tq, q, BH, S, D) || !encode_map(&tk, k, BH_kv, S, D) ||
@@ -895,14 +908,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
   const float c = static_cast<float>(
       1.4426950408889634 / std::sqrt(static_cast<double>(D)));
   flash_bf16_kernel<DP><<<grid, kThreads, bytes, stream>>>(
-      tq, tk, tv, to, BH, BH / BH_kv, S, c, causal, window);
+      tq, tk, tv, to, static_cast<float*>(lse), BH, BH / BH_kv, S, c, causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
-               int BH_kv, int S, int D, int causal, int window,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int BH, int BH_kv, int S, int D, int causal,
+               int window, cudaStream_t stream) {
   const size_t bytes = f32_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -911,8 +925,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
   const dim3 grid((S + kBQ32 - 1) / kBQ32, BH);
   flash_f32_kernel<DP><<<grid, kT32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, D,
-      BH / BH_kv, softmax_scale(D), causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), S, D, BH / BH_kv, softmax_scale(D), causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -923,34 +938,43 @@ bool bad_shape(int BH, int BH_kv, int S, int D) {
 
 }  // namespace
 
-// q, o: (BH, S, D); k, v: (BH_kv, S, D) with BH_kv dividing BH; contiguous,
-// 16-byte aligned, one dtype, on the stream's device; D a multiple of 8 and
-// at most 256.  Returns the cudaError_t of the launch (0 on success);
+// q, o: (BH, S, D); k, v: (BH_kv, S, D) with BH_kv dividing BH; lse: (BH, S)
+// f32, each row's log-sum-exp of its scaled scores; contiguous, 16-byte
+// aligned, one dtype, on the stream's device; D a multiple of 8 and at most
+// 256.  Returns the cudaError_t of the launch (0 on success);
 // cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* o, int BH,
-                                          int BH_kv, int S, int D, int causal,
-                                          int window, void* stream) {
+                                          const void* v, void* o,
+                                          void* lse, int BH, int BH_kv, int S,
+                                          int D, int causal, int window,
+                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(BH, BH_kv, S, D))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
-    return launch_bf16<64>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
+    return launch_bf16<64>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+                           window, st);
   if (D <= 128)
-    return launch_bf16<128>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
-  return launch_bf16<256>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
+    return launch_bf16<128>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+                            window, st);
+  return launch_bf16<256>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+                          window, st);
 }
 
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
-                                         const void* v, void* o, int BH,
-                                         int BH_kv, int S, int D, int causal,
-                                         int window, void* stream) {
+                                         const void* v, void* o, void* lse,
+                                         int BH, int BH_kv, int S, int D,
+                                         int causal, int window,
+                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(BH, BH_kv, S, D))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
-    return launch_f32<64>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
+    return launch_f32<64>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+                          window, st);
   if (D <= 128)
-    return launch_f32<128>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
-  return launch_f32<256>(q, k, v, o, BH, BH_kv, S, D, causal, window, st);
+    return launch_f32<128>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+                           window, st);
+  return launch_f32<256>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+                         window, st);
 }

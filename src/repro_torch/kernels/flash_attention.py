@@ -8,18 +8,26 @@ the batch, and k, v of shape (BH_kv, S, D) with BH_kv dividing BH: row
 (``repeat_interleave``'s order), so an MQA or GQA layer's kv heads are
 read in place.  f32 accumulation, the output in the input type.  bf16
 runs on the tensor cores (``wgmma`` fed by TMA, three warpgroups a CTA),
-f32 in exact f32 arithmetic.  It takes CUDA tensors only;
-:func:`repro_torch.kernels.ops.flash_attention` routes CPU tensors to the
-plain version.
+f32 in exact f32 arithmetic.  The forward also writes each row's
+log-sum-exp (BH, S) in f32, which the backward reads.
+
+The backward (``csrc/flash_attention_bwd.cu``, no TPU counterpart) is
+FA2's: one launch for dQ, one for dK and dV per kv block looping over the
+query heads that share it; bf16 only.  The wrappers take CUDA tensors
+only.  :class:`FlashAttention` is the autograd Function that
+:func:`repro_torch.kernels.ops.flash_attention` calls: the kernels for
+CUDA tensors, the plain versions of ``kernels/ref.py`` for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import attention_shapes
 
-launches = 0   # kernel launches since the last reset (see ops.reset_counts)
+launches = 0       # forward launches since the last reset (ops.reset_counts)
+bwd_launches = 0   # backward calls (two CUDA launches each) since then
 
 _FN = {torch.float32: "repro_flash_attention_f32",
        torch.bfloat16: "repro_flash_attention_bf16"}
@@ -61,9 +69,10 @@ def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype) -> dict:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, lse: bool = False):
     """q (BH, S, D), k, v (BH_kv, S, D) -> (BH, S, D); ``window <= 0`` is
-    unbounded."""
+    unbounded.  With ``lse`` also each row's log-sum-exp of its scaled
+    scores, (BH, S) f32."""
     global launches
     dtype = _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v},
                                 dtypes=_build.LM_DTYPES)
@@ -71,11 +80,92 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check_aligned("flash_attention", {"q": q, "k": k, "v": v})
     bh, s, d = q.shape
     out = torch.empty_like(q)
+    lse_out = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     lib = _build.load()
     err = getattr(lib, _FN[dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-        k.shape[0], s, d, int(bool(causal)), int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse_out.data_ptr(), bh, k.shape[0], s, d, int(bool(causal)),
+        int(window), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     launches += 1
-    return out
+    return (out, lse_out) if lse else out
+
+
+def bwd_plan(q_shape, k_shape) -> dict:
+    """The backward's tiles: the dq launch's q rows a CTA (BQ) and kv rows
+    a tile (BK), the dkdv launch's kv rows a CTA (BKV), q rows a tile (BQT)
+    and the split of D (DH columns a CTA); dynamic shared memory of each
+    (bf16 rows padded to DP + 8, plus lse and Delta) and CTAs; as
+    ``csrc/flash_attention_bwd.cu`` has them."""
+    bh, s, d = q_shape
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    dh = min(dp, 128)
+    row = 2 * (dp + 8)
+    return {"dp": dp, "dh": dh, "bq": 64, "bk": 32, "bkv": 64, "bqt": 32,
+            "dq_smem_bytes": (2 * 64 + 2 * 32) * row + 2 * 64 * 4,
+            "dkdv_smem_bytes": (2 * 64 + 2 * 32) * row + 2 * 32 * 4,
+            "dq_ctas": -(-s // 64) * bh,
+            "dkdv_ctas": -(-s // 64) * (dp // dh) * k_shape[0]}
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0) -> tuple:
+    """The gradients (dq, dk, dv) of :func:`flash_attention` from its
+    inputs, its output ``o``, its ``lse`` and ``do``; bf16, D a multiple
+    of 16.  Two CUDA launches (dq, then dk and dv)."""
+    global bwd_launches
+    _build.check_inputs("flash_attention_bwd",
+                        {"q": q, "k": k, "v": v, "o": o, "do": do},
+                        dtypes=(torch.bfloat16,))
+    launch_plan(q.shape, k.shape, v.shape, torch.bfloat16)
+    bh, s, d = q.shape
+    if d % 16:
+        raise ValueError(f"flash_attention_bwd: D must be a multiple of 16 "
+                         f"(got {d})")
+    _build.check_shape("flash_attention_bwd", "o", o, q.shape)
+    _build.check_shape("flash_attention_bwd", "do", do, q.shape)
+    _build.check_inputs("flash_attention_bwd", {"lse": lse},
+                        dtypes=(torch.float32,))
+    _build.check_shape("flash_attention_bwd", "lse", lse, (bh, s))
+    _build.check_aligned("flash_attention_bwd",
+                         {"q": q, "k": k, "v": v, "o": o, "do": do})
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    err = lib.repro_flash_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], s, d,
+        int(bool(causal)), int(window),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """out = flash_attention(q, k, v) with FA2's backward; saves q, k, v,
+    out and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        if q.is_cuda:
+            out, lse = flash_attention(q, k, v, causal=causal,
+                                       window=window, lse=True)
+        else:
+            out, lse = ref.attention_plain(q, k, v, causal=causal,
+                                           window=window, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        fn = flash_attention_bwd if q.is_cuda else ref.attention_bwd_plain
+        dq, dk, dv = fn(q, k, v, out, lse, do, causal=ctx.causal,
+                        window=ctx.window)
+        return dq, dk, dv, None, None

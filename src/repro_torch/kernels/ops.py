@@ -6,6 +6,12 @@ version.  ``mode="plain"`` forces the plain version on any device; it
 exists to compare the two.  The choice is made from the tensor's device
 alone, so the same call runs the kernel on the card and the plain
 version in the CPU tests.
+
+The three LM kernels are differentiable.  In ``"auto"`` mode they run as
+autograd Functions (``FlashAttention``, ``RglruScan``, ``SsdScan``) whose
+backward is a CUDA kernel too, on the card, and the plain backward of
+``kernels/ref.py`` on the CPU; ``"plain"`` runs the plain forward, which
+autograd differentiates.
 """
 from __future__ import annotations
 
@@ -19,10 +25,14 @@ from repro_torch.kernels import ssd_scan as _ssd
 MODES = ("auto", "plain")
 
 
-def _use_kernel(t, mode: str) -> bool:
+def _auto(mode: str) -> bool:
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES} (got {mode!r})")
-    return mode == "auto" and t.is_cuda
+    return mode == "auto"
+
+
+def _use_kernel(t, mode: str) -> bool:
+    return _auto(mode) and t.is_cuda
 
 
 def gram(A, r, *, mode: str = "auto"):
@@ -53,15 +63,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (BH_kv, S, D) with BH_kv dividing BH, row ``bh // (BH // BH_kv)``
     serving query row ``bh`` -> (BH, S, D); ``window <= 0`` is
     unbounded."""
-    if _use_kernel(q, mode):
-        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    if _auto(mode):
+        return _fa.FlashAttention.apply(q, k, v, causal, window)
     return _ref.attention_plain(q, k, v, causal=causal, window=window)
 
 
 def rglru_scan(a, b, *, mode: str = "auto"):
     """h_t = a_t h_{t-1} + b_t over the sequence.  a, b: (B, S, W)."""
-    if _use_kernel(a, mode):
-        return _rg.rglru_scan(a, b)
+    if _auto(mode):
+        return _rg.RglruScan.apply(a, b)
     return _ref.rglru_scan_plain(a, b)
 
 
@@ -71,8 +81,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, state: bool = False,
     A (BH,), B/C (BH / rep, S, N) with row ``bh // rep`` serving head
     ``bh`` -> y (BH, S, P), and with ``state`` also the final state
     (BH, N, P) in f32.  ``min(chunk, S)`` must divide S."""
-    if _use_kernel(x, mode):
-        y, final = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    if _auto(mode):
+        y, final = _ssd.SsdScan.apply(x, dt, A, B, C, chunk)
         return (y, final) if state else y
     return _ref.ssd_scan_plain(x, dt, A, B, C, chunk=chunk, state=state)
 
@@ -82,7 +92,10 @@ def launch_counts() -> dict:
     return {"gram": _gram.launches, "schwarz_fwd": _sch.fwd_launches,
             "schwarz_bwd": _sch.bwd_launches,
             "flash_attention": _fa.launches, "rglru_scan": _rg.launches,
-            "ssd_scan": _ssd.launches}
+            "ssd_scan": _ssd.launches,
+            "flash_attention_bwd": _fa.bwd_launches,
+            "rglru_scan_bwd": _rg.bwd_launches,
+            "ssd_scan_bwd": _ssd.bwd_launches}
 
 
 def reset_counts() -> None:
@@ -92,3 +105,6 @@ def reset_counts() -> None:
     _fa.launches = 0
     _rg.launches = 0
     _ssd.launches = 0
+    _fa.bwd_launches = 0
+    _rg.bwd_launches = 0
+    _ssd.bwd_launches = 0

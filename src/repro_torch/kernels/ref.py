@@ -60,12 +60,27 @@ def attention_shapes(name: str, q_shape, k_shape, v_shape) -> int:
     return bh // k_shape[0]
 
 
-def attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+def _visible(s: int, causal: bool, window: int, device):
+    """(S, S) bool: key k visible to query q."""
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(s, device=device)[None, :]
+    ok = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                    lse: bool = False):
     """Softmax attention with f32 scores.  q: (BH, S, D), k, v:
     (BH_kv, S, D) with BH_kv dividing BH, expanded along dim 0 in
     ``repeat_interleave``'s order -> (BH, S, D) in q's dtype; a key is
     visible when (causal) it is not after the query and (window > 0) it
-    is less than ``window`` before it; masked scores are -1e30."""
+    is less than ``window`` before it; masked scores are -1e30.  With
+    ``lse`` also the log-sum-exp of each row's scaled scores, (BH, S) in
+    f32, which the backward reads."""
     rep = attention_shapes("attention_plain", q.shape, k.shape, v.shape)
     if rep > 1:
         k = k.repeat_interleave(rep, dim=0)
@@ -73,28 +88,70 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     s, d = q.shape[1], q.shape[2]
     scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (
         1.0 / math.sqrt(d))
-    qpos = torch.arange(s, device=q.device)[:, None]
-    kpos = torch.arange(s, device=q.device)[None, :]
-    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos <= qpos
-    if window > 0:
-        ok &= kpos > qpos - window
+    ok = _visible(s, causal, window, q.device)
     scores = torch.where(ok[None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
+    out = torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
+    if lse:
+        return out, torch.logsumexp(scores, dim=-1)
+    return out
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """The gradients (dq, dk, dv) of :func:`attention_plain` by the FA2
+    formulas the kernel evaluates: P = exp(s / sqrt(D) - lse) on visible
+    keys, Delta = rowsum(dO .* O), dS = P .* (dO V^T - Delta), dQ = dS K
+    / sqrt(D), dK = dS^T Q / sqrt(D) and dV = P^T dO, with dK and dV of
+    a shared kv row summed over the query rows it serves; f32 inside,
+    each gradient in its input's dtype."""
+    rep = attention_shapes("attention_bwd_plain", q.shape, k.shape,
+                           v.shape)
+    bh_kv, s, d = k.shape
+    ke = k.float().repeat_interleave(rep, dim=0)
+    ve = v.float().repeat_interleave(rep, dim=0)
+    qf, dof = q.float(), do.float()
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bqd,bkd->bqk", qf, ke) * scale
+    ok = _visible(s, causal, window, q.device)[None]
+    p = torch.where(ok, torch.exp(scores - lse[..., None]), 0.0)
+    delta = (dof * o.float()).sum(-1)
+    ds = p * (torch.einsum("bqd,bkd->bqk", dof, ve) - delta[..., None])
+    dq = torch.einsum("bqk,bkd->bqd", ds, ke) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dk = dk.view(bh_kv, rep, s, d).sum(1)
+    dv = dv.view(bh_kv, rep, s, d).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rglru_scan_plain(a, b):
     """h_t = a_t h_{t-1} + b_t from h_{-1} = 0, one step at a time in f32.
     a, b: (B, S, W) -> h: (B, S, W) in a's dtype."""
     a32, b32 = a.float(), b.float()
-    h = torch.empty_like(a32)
     state = torch.zeros_like(a32[:, 0])
+    h = []
     for t in range(a.shape[1]):
         state = a32[:, t] * state + b32[:, t]
-        h[:, t] = state
-    return h.to(a.dtype)
+        h.append(state)
+    return torch.stack(h, dim=1).to(a.dtype)
+
+
+def rglru_scan_bwd_plain(a, h, dh):
+    """The gradients (da, db) of :func:`rglru_scan_plain` from its output
+    h: the reverse scan g_t = dh_t + a_{t+1} g_{t+1}, db_t = g_t and
+    da_t = g_t h_{t-1} (h_{-1} = 0), in f32, in a's dtype."""
+    a32, h32, dh32 = a.float(), h.float(), dh.float()
+    s = a.shape[1]
+    g = torch.zeros_like(a32[:, 0])
+    db = [None] * s
+    da = [None] * s
+    for t in reversed(range(s)):
+        g = dh32[:, t] + a32[:, t + 1] * g if t + 1 < s else dh32[:, t]
+        db[t] = g
+        da[t] = g * h32[:, t - 1] if t else torch.zeros_like(g)
+    return (torch.stack(da, dim=1).to(a.dtype),
+            torch.stack(db, dim=1).to(a.dtype))
 
 
 def ssd_chunk(s: int, chunk: int) -> int:
@@ -134,10 +191,12 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256,
         return torch.exp(t.float())
 
     # L[i, j] = exp(cum_i - cum_j) for i >= j: a select, since the
-    # exponent of i < j may overflow to inf and inf * 0 is NaN.
+    # exponent of i < j may overflow to inf and inf * 0 is NaN; the
+    # exponent is selected too, so that autograd's exp' is never inf.
     causal = torch.ones(chunk, chunk, dtype=torch.bool,
                         device=x.device).tril()
-    L = torch.where(causal, exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+    L = torch.where(causal, exp(torch.where(
+        causal, cum[..., :, None] - cum[..., None, :], 0.0)), 0.0)
     CB = torch.einsum("gcln,gcmn->gclm", Cc, Bc)[:, None]
     y = torch.matmul(CB * L * dtc[..., None, :], xc)   # (g, rep, nc, l, p)
     w = exp(cum[..., -1:] - cum) * dtc
@@ -155,3 +214,111 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256,
     if state:
         return y, carry.reshape(bh, n, p)
     return y
+
+
+def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk: int = 256):
+    """The gradients (dx, ddt, dA, dB, dC) of :func:`ssd_scan_plain`'s y
+    (the final state gets none), in the steps the kernel takes
+    (``csrc/ssd_scan_bwd.cu``), in f32 with the in-chunk cumulative decay
+    in f64 as in the forward.  Per head and chunk, with
+    Lm = exp(cum_l - cum_m) (m <= l), G = C B^T, M = G .* Lm .* dt_m,
+    w = dt exp(cum_last - cum) and S_prev the state before the chunk:
+
+    * ychunk: Y_c = sum_l exp(cum_l) C_l dy_l^T (N, P);
+    * rpass: the state gradients in reverse, R_c = Y_c + exp(cum_last)
+      R_{c+1}, keeping dS_c = R_{c+1} (the gradient of the chunk's own
+      state) and ddecay_c = sum(dS_c .* S_prev);
+    * row (per l): dM = dy x^T, dG = dM .* Lm .* dt_m, dC = dG B +
+      exp(cum_l) S_prev dy_l, and the row part of dcum, sum_m dG .* G +
+      C_l . exp(cum_l) S_prev dy_l;
+    * col (per m): v = dS x_m, dx = M^T dy + w B dS, dB = dG^T C + w v,
+      ddt = sum_l dM .* G .* Lm + exp(cum_last - cum_m) (B . v), and the
+      column part of dcum, -sum_l dG .* G - w (B . v);
+    * dcum: cum_last also gets sum_m w (B . v) + ddecay exp(cum_last);
+      the reverse in-chunk cumsum of dcum is the gradient of dt * A;
+    * reduce: dB and dC summed over the heads of a group, dA over the
+      chunks.
+
+    x (BH, S, P), dt (BH, S), A (BH,), B/C (BH / rep, S, N), dy like x ->
+    dx, ddt, dA, dB, dC in their inputs' shapes and dtypes."""
+    bh, s, p = x.shape
+    groups, n = B.shape[0], B.shape[2]
+    rep = bh // groups
+    chunk = ssd_chunk(s, chunk)
+    nc = s // chunk
+    xc = x.float().reshape(groups, rep, nc, chunk, p)
+    dyc = dy.float().reshape(groups, rep, nc, chunk, p)
+    dtc = dt.float().reshape(groups, rep, nc, chunk)
+    Af = A.float().reshape(groups, rep, 1, 1)
+    Bc = B.float().reshape(groups, nc, chunk, n)
+    Cc = C.float().reshape(groups, nc, chunk, n)
+    cum = torch.cumsum((dtc * Af).double(), dim=-1)
+
+    def exp(t):   # of an f64 exponent, in f32
+        return torch.exp(t.float())
+
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()
+    Lm = torch.where(causal, exp(torch.where(
+        causal, cum[..., :, None] - cum[..., None, :], 0.0)), 0.0)
+    G = torch.where(causal, torch.einsum("gcln,gcmn->gclm", Cc, Bc)[:, None],
+                    0.0)
+    tail = exp(cum[..., -1:] - cum)                      # exp(cum_last - cum)
+    w = tail * dtc
+    decay = exp(cum[..., -1])                            # (g, rep, nc)
+    states = torch.einsum("gcln,grclp->grcnp", Bc, xc * w[..., None])
+    carry = torch.zeros(groups, rep, n, p, dtype=torch.float32,
+                        device=x.device)
+    before = []
+    for c in range(nc):
+        before.append(carry)
+        carry = decay[..., c, None, None] * carry + states[:, :, c]
+    sprev = torch.stack(before, dim=2)                   # (g, rep, nc, n, p)
+    ecum = exp(cum)
+
+    # ychunk and rpass.
+    yc = torch.einsum("gcln,grcl,grclp->grcnp", Cc, ecum, dyc)
+    r = torch.zeros_like(carry)
+    ds, ddecay = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        ds[c] = r
+        ddecay[c] = (r * sprev[:, :, c]).sum((-1, -2))
+        r = yc[:, :, c] + decay[..., c, None, None] * r
+    ds = torch.stack(ds, dim=2)                          # (g, rep, nc, n, p)
+    ddecay = torch.stack(ddecay, dim=2)                  # (g, rep, nc)
+
+    # row: per l.
+    dc_inter = ecum[..., None] * torch.einsum("grcnp,grclp->grcln", sprev,
+                                              dyc)
+    dM = torch.einsum("grclp,grcmp->grclm", dyc, xc)
+    dG = dM * Lm * dtc[..., None, :]
+    Z = (dG * G).double()
+    dcum = Z.sum(-1) + torch.einsum("grcln,gcln->grcl", dc_inter, Cc)
+    dC = dc_inter + torch.einsum("grclm,gcmn->grcln", dG, Bc)
+
+    # col: per m.
+    v = torch.einsum("grcnp,grcmp->grcmn", ds, xc)
+    bv = torch.einsum("grcmn,gcmn->grcm", v, Bc)
+    M = G * Lm * dtc[..., None, :]
+    dx = (w[..., None] * torch.einsum("gcmn,grcnp->grcmp", Bc, ds)
+          + torch.einsum("grclm,grclp->grcmp", M, dyc))
+    dB = w[..., None] * v + torch.einsum("grclm,gcln->grcmn", dG, Cc)
+    ddt = (dM * G * Lm).sum(-2) + tail * bv
+    dcum = dcum - Z.sum(-2) - w * bv
+
+    # dcum: cum_last's own terms, then the reverse in-chunk cumsum.  The
+    # sums that build dcum, its cumsum and dA run in f64, as autograd
+    # through the forward's f64 cumsum runs them: the row and column
+    # sums of G .* dG cancel in the reverse cumsum (at Mamba-2's decays
+    # to ~1e-3 of their size, which in f32 puts ~1e-3 into dA).
+    last = (w * bv).double().sum(-1) + ddecay * decay
+    dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + last[..., None]], -1)
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = ddt + Af * dda.float()
+    dA = (dtc.double() * dda).sum((-1, -2)).reshape(bh)
+
+    # reduce over the heads of a group.
+    dB = dB.sum(1).reshape(groups, s, n)
+    dC = dC.sum(1).reshape(groups, s, n)
+    return (dx.reshape(bh, s, p).to(x.dtype), ddt.reshape(bh, s).to(dt.dtype),
+            dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype))

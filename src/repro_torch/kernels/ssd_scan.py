@@ -15,25 +15,39 @@ workspaces are allocated here: the in-chunk cumulative decay (BH, S) in
 f64, C B^T per group and chunk (BH / rep, S / chunk, chunk, chunk) and
 the chunk states (BH, S / chunk, N, P) in f32 (134 MB at the Mamba-2
 1.3B prefill shape).
+
+The backward (``csrc/ssd_scan_bwd.cu``, no TPU counterpart) gives dx,
+ddt, dA, dB and dC of y in six CUDA launches, from the forward's cum, C
+B^T and state workspaces (which :class:`SsdScan` saves) and an f32 and an f64
+workspace allocated here; f32, P at most 64.  The wrappers take CUDA
+tensors only.  :class:`SsdScan` is the autograd Function that
+:func:`repro_torch.kernels.ops.ssd_scan` calls: the kernels for CUDA
+tensors, the plain versions of ``kernels/ref.py`` for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import ssd_chunk
 
-launches = 0   # calls since the last reset (see ops.reset_counts)
+launches = 0       # forward calls since the last reset (ops.reset_counts)
+bwd_launches = 0   # backward calls (six CUDA launches each) since then
 
 MAX_N = 128        # B's slab rows in shared memory are sized for it
 MAX_CHUNK = 1024   # cum, dt and the decay weights of a chunk in shared memory
 MAX_BH = 65535     # the grid's z extent
+MAX_P_BWD = 64     # the backward's per-thread column share
+TILE_BWD = 32      # rows of the backward's row and col tiles
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *,
-             chunk: int = 256) -> tuple:
-    """-> (y (BH, S, P), final state (BH, N, P)), both f32."""
+             chunk: int = 256, workspaces: bool = False) -> tuple:
+    """-> (y (BH, S, P), final state (BH, N, P)), both f32; with
+    ``workspaces`` also (cum, C B^T, the state before each chunk), what
+    the backward reads."""
     global launches
     tensors = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
     _build.check_inputs("ssd_scan", tensors, dtypes=(torch.float32,))
@@ -74,4 +88,89 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_scan")
     launches += 1
+    if workspaces:
+        return y, final, (cum, cb, states)
     return y, final
+
+
+def bwd_workspaces(bh: int, s: int, p: int, n: int, chunk: int) -> tuple:
+    """Elements of the backward's f32 and f64 workspaces, by the formulas
+    of ``csrc/ssd_scan_bwd.cu``."""
+    nc = s // chunk
+    tiles = -(-chunk // TILE_BWD)
+    return (bh * nc * n * p + 2 * bh * s * n + bh * s + bh * nc,
+            2 * bh * s + bh * nc + bh * nc * tiles)
+
+
+def ssd_scan_bwd(x, dt, A, B, C, dy, saved, *, chunk: int = 256) -> tuple:
+    """The gradients (dx, ddt, dA, dB, dC) of :func:`ssd_scan`'s y, from
+    its inputs, ``dy`` and ``saved``, the forward's workspaces (cum, C B^T,
+    the state before each chunk); all f32."""
+    global bwd_launches
+    tensors = {"x": x, "dt": dt, "A": A, "B": B, "C": C, "dy": dy}
+    _build.check_inputs("ssd_scan_bwd", tensors, dtypes=(torch.float32,))
+    bh, s, p = x.shape
+    groups, n = B.shape[0], B.shape[2]
+    chunk = ssd_chunk(s, chunk)
+    if p > MAX_P_BWD or n > MAX_N or chunk > MAX_CHUNK or bh > MAX_BH:
+        raise ValueError(f"ssd_scan_bwd: P must be at most {MAX_P_BWD}, N "
+                         f"at most {MAX_N}, the chunk at most {MAX_CHUNK} "
+                         f"and BH at most {MAX_BH} (got P {p}, N {n}, "
+                         f"chunk {chunk}, BH {bh})")
+    nc = s // chunk
+    cum, cb, states = saved
+    _build.check_shape("ssd_scan_bwd", "dy", dy, (bh, s, p))
+    _build.check_shape("ssd_scan_bwd", "cum", cum, (bh, s))
+    _build.check_shape("ssd_scan_bwd", "G", cb, (groups, nc, chunk, chunk))
+    _build.check_shape("ssd_scan_bwd", "states", states, (bh, nc, n, p))
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dB = torch.empty_like(B)
+    dC = torch.empty_like(C)
+    n32, n64 = bwd_workspaces(bh, s, p, n, chunk)
+    ws = torch.empty(n32, dtype=torch.float32, device=x.device)
+    ws64 = torch.empty(n64, dtype=torch.float64, device=x.device)
+    lib = _build.load()
+    err = lib.repro_ssd_scan_bwd_f32(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), dy.data_ptr(), cum.data_ptr(), cb.data_ptr(),
+        states.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), ws.data_ptr(), ws64.data_ptr(), bh,
+        s, p, n, bh // groups, chunk,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd_scan_bwd")
+    bwd_launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+class SsdScan(torch.autograd.Function):
+    """(y, final state) = ssd_scan(...) with the backward of y; the final
+    state is not differentiable.  On the card it saves the forward's
+    workspaces for the backward; on the CPU the plain backward recomputes
+    what it needs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        if x.is_cuda:
+            y, final, saved = ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                       workspaces=True)
+        else:
+            y, final = ref.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                          state=True)
+            saved = ()
+        ctx.save_for_backward(x, dt, A, B, C, *saved)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(final)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C, *saved = ctx.saved_tensors
+        dy = dy.contiguous()
+        if x.is_cuda:
+            grads = ssd_scan_bwd(x, dt, A, B, C, dy, saved, chunk=ctx.chunk)
+        else:
+            grads = ref.ssd_scan_bwd_plain(x, dt, A, B, C, dy,
+                                           chunk=ctx.chunk)
+        return (*grads, None)

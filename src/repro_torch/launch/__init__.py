@@ -1,1 +1,1 @@
-"""Entry points: the LM serving driver."""
+"""Entry points: the LM serving and training drivers."""

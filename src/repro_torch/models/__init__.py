@@ -1,2 +1,3 @@
-"""Language-model stack: the RecurrentGemma and Mamba-2 serving slices
-(``config``, ``nn``, ``rglru``, ``attention``, ``ssd``, ``transformer``)."""
+"""Language-model stack: the RecurrentGemma and Mamba-2 slices, serving
+and training (``config``, ``nn``, ``rglru``, ``attention``, ``ssd``,
+``transformer``)."""

@@ -1,14 +1,15 @@
-"""Attention for the serving path: MHA/GQA/MQA, sliding-window KV caches.
+"""Attention: MHA/GQA/MQA, global + sliding-window, KV caches for decode.
 
-The counterpart of ``repro.models.attention``'s cache half.  Decode uses
-a static-shape KV cache; sliding-window layers use a ring buffer of
+The counterpart of ``repro.models.attention`` for causal self-attention.
+Training and prefill run :func:`attention`, whose core is
+:func:`repro_torch.kernels.ops.flash_attention` (the flash kernel and its
+backward on the card, the plain versions on the CPU); the reference's
+blocked jnp attention computes the same function.  Decode uses a
+static-shape KV cache; sliding-window layers use a ring buffer of
 exactly ``window`` slots, so decode state stays O(window).  A token at
 absolute position ``pos`` is written to slot ``pos % length`` and each
 slot keeps the absolute position it holds (-1 when empty), so masking
-stays right after wraparound, exactly as in the reference.  The prefill's
-attention core is :func:`repro_torch.kernels.ops.flash_attention`
-(``models/transformer.py``).  The training-path ``attention`` waits for
-the training slice.
+stays right after wraparound, exactly as in the reference.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import nn
 from repro_torch.models.config import ModelConfig
 
@@ -52,6 +54,34 @@ def _mask(seq_q: int, seq_k: int, window: int, causal: bool,
         ok &= kpos > qpos - window
     zero = torch.zeros((), device=device)
     return torch.where(ok, zero, NEG_INF)
+
+
+def attention(cfg: ModelConfig, params, x, positions, *, window: int,
+              rope_theta: float | None = None, mode: str = "auto",
+              return_kv: bool = False):
+    """Causal (sliding-window) self-attention for training and prefill.
+    x: (B, S, D) -> (B, S, D); with ``return_kv`` also k and v (B, S, KV,
+    hd) after rope, which the prefill caches.  ``mode`` goes to
+    :func:`ops.flash_attention`."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    if theta > 0:
+        q = nn.rope(q, positions, theta)
+        k = nn.rope(k, positions, theta)
+    B, S, H, K = q.shape
+
+    def fold(t):   # (B, S, heads, K) -> (B * heads, S, K), contiguous
+        return t.permute(0, 2, 1, 3).reshape(-1, S, K).contiguous()
+
+    # k and v keep their kv heads: the kernel reads row bh // q_per_kv for
+    # query row bh, and with one kv head fold() is a view, not a copy.
+    out = ops.flash_attention(fold(q), fold(k), fold(v), causal=True,
+                              window=window, mode=mode)
+    out = out.view(B, H, S, K).permute(0, 2, 1, 3)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return (out, k, v) if return_kv else out
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 class Builder:
@@ -133,3 +134,54 @@ def apply_mlp(params, x, act: str, gated: bool):
 
 def softcap(x, cap: float):
     return torch.tanh(x / cap) * cap if cap > 0 else x
+
+
+# ---------------------------------------------------------------------------
+# Loss.
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in f32.  logits: (B, S, V), labels: (B, S)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - picked
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _chunk_nll(hc, embed, yc, mc, softcap_val: float):
+    """(sum of the masked nll, sum of the mask) of one sequence chunk."""
+    logits = softcap(hc @ embed.T, softcap_val).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+    return torch.sum((lse - picked) * mc), torch.sum(mc)
+
+
+def chunked_loss(h_final, embed, labels, chunk: int, softcap_val: float,
+                 mask=None):
+    """Sequence-chunked cross entropy: never materializes (B, S, V).
+
+    h_final: (B, S, D) final hidden states; embed: (V, D) tied output
+    table.  Each chunk runs under ``torch.utils.checkpoint``, so the
+    backward recomputes one chunk's logits at a time, as the reference's
+    ``jax.checkpoint`` per chunk does."""
+    B, S, D = h_final.shape
+    if S % chunk:
+        raise ValueError(f"chunked_loss: S = {S} is not a multiple of the "
+                         f"chunk {chunk}")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=h_final.device)
+    tot = torch.zeros((), device=h_final.device)
+    cnt = torch.zeros((), device=h_final.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        nll, m = torch.utils.checkpoint.checkpoint(
+            _chunk_nll, h_final[:, sl], embed, labels[:, sl],
+            mask[:, sl].float(), softcap_val, use_reentrant=False)
+        tot = tot + nll
+        cnt = cnt + m
+    return tot / torch.clamp(cnt, min=1.0)

@@ -10,10 +10,10 @@ Real-Gated Linear Recurrent Unit:
 
 wrapped in the Griffin recurrent block: linear in-proj to a gated branch
 (GeLU) and a recurrent branch (temporal conv1d width 4 -> RG-LRU), merged
-by elementwise product and projected out.  The prefill's recurrence runs
-through :func:`repro_torch.kernels.ops.rglru_scan` (the CUDA kernel on the
-card, its plain version on the CPU); decode carries (h, conv_state), O(1)
-per step.
+by elementwise product and projected out.  The training and prefill
+recurrence runs through :func:`repro_torch.kernels.ops.rglru_scan` (the
+CUDA kernel and its backward on the card, the plain versions on the
+CPU); decode carries (h, conv_state), O(1) per step.
 """
 from __future__ import annotations
 
@@ -73,9 +73,10 @@ def _prefill(params, x, mode: str = "auto"):
     return (hseq.to(x.dtype) * gate) @ params["w_out"], hseq, rec
 
 
-def apply_rglru(cfg: ModelConfig, params, x):
-    """Griffin recurrent block, prefill.  x: (B, S, D) -> (B, S, D)."""
-    return _prefill(params, x)[0]
+def apply_rglru(cfg: ModelConfig, params, x, *, mode: str = "auto"):
+    """Griffin recurrent block, training and prefill.  x: (B, S, D) ->
+    (B, S, D); ``mode`` goes to :func:`ops.rglru_scan`."""
+    return _prefill(params, x, mode)[0]
 
 
 # ---------------------------------------------------------------------------

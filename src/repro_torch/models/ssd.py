@@ -114,9 +114,11 @@ def _prefill(cfg: ModelConfig, params, x, *, pad: bool, mode: str):
     return y @ params["out_proj"], xbc, state
 
 
-def apply_ssd(cfg: ModelConfig, params, x):
-    """Mamba-2 block, prefill.  x: (B, S, D) -> (B, S, D)."""
-    return _prefill(cfg, params, x, pad=True, mode="auto")[0]
+def apply_ssd(cfg: ModelConfig, params, x, *, mode: str = "auto"):
+    """Mamba-2 block, training and prefill, with S padded to a multiple
+    of the chunk as in the reference.  x: (B, S, D) -> (B, S, D);
+    ``mode`` goes to :func:`ops.ssd_scan`."""
+    return _prefill(cfg, params, x, pad=True, mode=mode)[0]
 
 
 # ---------------------------------------------------------------------------

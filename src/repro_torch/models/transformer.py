@@ -1,4 +1,5 @@
-"""The RecurrentGemma and Mamba-2 models: init, prefill and decode.
+"""The RecurrentGemma and Mamba-2 models: init, training forward and
+loss, prefill and decode.
 
 The counterpart of ``repro.models.transformer``'s ``"periods"`` branch
 (the hybrid: periods of (rglru, rglru, local attention) plus a tail of
@@ -9,23 +10,26 @@ carry across leaf by leaf
 (:func:`repro_torch.convert.lm_params_from_numpy`).  The reference's
 ``lax.scan`` over layers is a Python loop over that axis.
 
-The prefill runs the kernels through :mod:`repro_torch.kernels.ops`:
-``rglru_scan`` in every RG-LRU layer, ``flash_attention`` in every
-local-attention layer and ``ssd_scan`` in every SSD layer (by the
-tensors' device: the CUDA kernels on the card, the plain versions on the
-CPU; ``mode="plain"`` forces the plain versions).  Decode runs no
-kernel: it is the O(1) recurrences and the cached attention, as in the
-reference.  Other model families raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 7).
+Training (``forward``, ``loss_fn``) and the prefill run the kernels
+through :mod:`repro_torch.kernels.ops`: ``rglru_scan`` in every RG-LRU
+layer, ``flash_attention`` in every local-attention layer and
+``ssd_scan`` in every SSD layer (by the tensors' device: the CUDA
+kernels, and for training their backward kernels, on the card; the plain
+versions on the CPU; ``mode="plain"`` forces the plain versions).
+``cfg.remat`` recomputes each scan body (an RG-LRU period or tail
+layer, an SSD layer) in the backward under ``torch.utils.checkpoint``,
+as the reference's ``jax.checkpoint`` does.  Decode runs no kernel: it is the O(1) recurrences
+and the cached attention, as in the reference.  Other model families
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import device as device_mod
-from repro_torch.kernels import ops
 from repro_torch.models import attention, nn, rglru, ssd
 from repro_torch.models.config import ModelConfig
 
@@ -140,6 +144,16 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree) -> list:
+    """The per-layer trees of a stacked tree, as views (one ``unbind`` a
+    leaf, whose backward stacks the layers' gradients once)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def _stack(trees: list):
     """Stack per-layer trees along a new leading axis."""
     if isinstance(trees[0], dict):
@@ -165,6 +179,101 @@ def _out_table(cfg, params):
 
 def logits_fn(cfg: ModelConfig, params, h):
     return nn.softcap(h @ _out_table(cfg, params).T, cfg.logits_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Forward (training trunk) and loss.
+# ---------------------------------------------------------------------------
+
+def _apply_rglru_block(cfg, lp, h, mode):
+    r_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+    h = h + rglru.apply_rglru(cfg, lp["rglru"], r_in, mode=mode)
+    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
+    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+
+
+def _apply_attn_block(cfg, lp, h, positions, mode):
+    a_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+    h = h + attention.attention(cfg, lp["attn"], a_in, positions,
+                                window=cfg.window,
+                                rope_theta=cfg.rope_theta, mode=mode)
+    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
+    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+
+
+def _apply_ssd_block(cfg, lp, h, mode):
+    s_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+    return h + ssd.apply_ssd(cfg, lp["ssd"], s_in, mode=mode)
+
+
+def _scan_layers(cfg: ModelConfig, body, h, layers: list):
+    """``body(h, lp)`` over the per-layer trees ``layers`` in order; under
+    remat ("block" or "group") each body runs in ``torch.utils.checkpoint``
+    and is recomputed in the backward.  The values do not depend on it;
+    "group"'s coarser residuals are the reference's memory trade for MoE
+    models, which the port does not run."""
+    for lp in layers:
+        if cfg.remat in ("block", "group"):
+            h = torch.utils.checkpoint.checkpoint(body, h, lp,
+                                                  use_reentrant=False)
+        else:
+            h = body(h, lp)
+    return h
+
+
+def forward(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
+    """Final hidden states (B, S, D) of the trunk over batch["tokens"]
+    (B, S).  ``mode`` goes to the kernel ops."""
+    _require_ported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = _embed_tokens(cfg, params, tokens)
+    if _is_ssd(cfg):
+        h = _scan_layers(
+            cfg, lambda h, lp: _apply_ssd_block(cfg, lp, h, mode), h,
+            _unstack(params["blocks"]))
+    else:
+        positions = torch.arange(S, device=h.device).expand(B, S)
+
+        def period(h, lps):
+            r1, r2, at = lps
+            h = _apply_rglru_block(cfg, r1, h, mode)
+            h = _apply_rglru_block(cfg, r2, h, mode)
+            return _apply_attn_block(cfg, at, h, positions, mode)
+
+        periods = params["periods"]
+        h = _scan_layers(cfg, period, h, list(zip(
+            _unstack(periods["r1"]), _unstack(periods["r2"]),
+            _unstack(periods["attn"]))))
+        if "tail" in params:
+            h = _scan_layers(
+                cfg, lambda h, lp: _apply_rglru_block(cfg, lp, h, mode), h,
+                _unstack(params["tail"]))
+    return nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
+    """Mean next-token cross-entropy (f32 scalar).  batch: "tokens" (B,
+    S) and optionally "labels" (default: the next token, 0 at the end)
+    and "mask" (default: all but the last position).  Uses the
+    sequence-chunked loss when ``cfg.loss_chunk`` divides S (never
+    materializes (B, S, V))."""
+    h = forward(cfg, params, batch, mode=mode)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+        mask[:, -1] = 0.0
+    table = _out_table(cfg, params)
+    if cfg.loss_chunk and S % cfg.loss_chunk == 0:
+        return nn.chunked_loss(h, table, labels, cfg.loss_chunk,
+                               cfg.logits_softcap, mask)
+    return nn.cross_entropy(logits_fn(cfg, params, h), labels, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -323,27 +432,14 @@ def _logits_last(cfg, params, h):
 def _attn_prefill_block(cfg, lp, h, positions, spec, window, theta,
                         mode="auto"):
     a_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", a_in, lp["attn"]["wq"])
-    k = torch.einsum("bsd,dhk->bshk", a_in, lp["attn"]["wk"])
-    v = torch.einsum("bsd,dhk->bshk", a_in, lp["attn"]["wv"])
-    if theta > 0:
-        q = nn.rope(q, positions, theta)
-        k = nn.rope(k, positions, theta)
-    B, S, H, K = q.shape
-
-    def fold(t):   # (B, S, heads, K) -> (B * heads, S, K), contiguous
-        return t.permute(0, 2, 1, 3).reshape(-1, S, K).contiguous()
-
-    # k and v keep their kv heads: the kernel reads row bh // q_per_kv for
-    # query row bh, and with one kv head fold() is a view, not a copy.
-    out = ops.flash_attention(fold(q), fold(k), fold(v), causal=True,
-                              window=window, mode=mode)
-    out = out.view(B, H, S, K).permute(0, 2, 1, 3)
-    h = h + torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
+    out, k, v = attention.attention(cfg, lp["attn"], a_in, positions,
+                                    window=window, rope_theta=theta,
+                                    mode=mode, return_kv=True)
+    h = h + out
     f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
     h = h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
     cache = attention.prefill_cache(cfg, spec, k, v,
-                                    torch.arange(S, device=h.device))
+                                    torch.arange(h.shape[1], device=h.device))
     return h, cache
 
 

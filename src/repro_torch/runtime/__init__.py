@@ -1,3 +1,3 @@
 """Runtime support: straggler detection, the serving slot scheduler, the
-prefill/serve step factories, chaos injection and the assimilation
+train/prefill/serve step factories, chaos injection and the assimilation
 engine's elastic resume."""

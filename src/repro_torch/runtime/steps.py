@@ -1,9 +1,10 @@
-"""Prefill and serve step factories.
+"""Train, prefill and serve step factories.
 
-The counterparts of ``repro.runtime.steps.make_prefill_step`` and
-``make_serve_step``: eager calls under ``torch.inference_mode()``.  The
-reference's jit, mesh shardings and buffer donation have no counterpart
-on one device.  The train step waits for the training slice.
+The counterparts of ``repro.runtime.steps.make_loss_fn``,
+``make_train_step``, ``make_prefill_step`` and ``make_serve_step``:
+eager calls.  The reference's jit and buffer donation have no
+counterpart on one device (the AdamW update is in place); its mesh
+shardings wait for ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -11,6 +12,82 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+
+
+def make_loss_fn(cfg: ModelConfig, *, mode: str = "auto"):
+    """``loss(params, batch) -> f32 scalar``; ``mode`` goes to the kernel
+    ops."""
+    def loss(params, batch):
+        return transformer.loss_fn(cfg, params, batch, mode=mode)
+    return loss
+
+
+def value_and_grad(loss_fn, params, batch):
+    """(loss, grads) of ``loss_fn(params, batch)``: the grads a tree like
+    params, in the params' dtypes (bf16 params give bf16 grads, as in the
+    reference); every param leaf is set to require grad."""
+    leaves = adamw.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn(params, batch)
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return loss.detach(), adamw.tree_map(lambda _: next(grads), params)
+
+
+def check_trainable(cfg: ModelConfig, dtype: torch.dtype, device) -> None:
+    """Refuse, before a step runs, a model that the kernels cannot train:
+    the flash_attention backward kernel takes bf16 only, so a model with
+    attention layers trains on the card in bf16 (no f32 backward kernel
+    is written; ROADMAP Queue 2)."""
+    if (torch.device(device).type == "cuda" and not cfg.attention_free
+            and dtype != torch.bfloat16):
+        raise TypeError(
+            f"{cfg.name}: training a model with attention layers on the "
+            f"card needs bf16 params (got {dtype}); the flash_attention "
+            f"backward kernel has no f32 entry (ROADMAP Queue 2)")
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                    lr_schedule=None, mesh=None):
+    """Returns ``train_step(params, opt_state, batch) -> (loss, params,
+    opt_state)``; the update is in place.  With ``opt_cfg.accum_steps``
+    = k > 1 the batch splits into k microbatches along its leading axis
+    and their grads are summed in f32 and divided by k, as the
+    reference's microbatch scan does.  Each step first refuses what
+    :func:`check_trainable` refuses."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step(mesh=...): sharded training is not ported "
+            "(ROADMAP Queue 1 item 13)")
+    loss_fn = make_loss_fn(cfg)
+    accum = opt_cfg.accum_steps
+
+    def step(params, opt_state, batch):
+        leaf = adamw.leaves(params)[0]
+        check_trainable(cfg, leaf.dtype, leaf.device)
+        lr = (lr_schedule(int(opt_state["step"]))
+              if lr_schedule is not None else opt_cfg.lr)
+        if accum > 1:
+            grads, loss = None, 0.0
+            for i in range(accum):
+                mb = {k: v.reshape((accum, v.shape[0] // accum)
+                                   + tuple(v.shape[1:]))[i]
+                      for k, v in batch.items()}
+                l, g = value_and_grad(loss_fn, params, mb)
+                grads = (adamw.tree_map(lambda x: x.float(), g)
+                         if grads is None else
+                         adamw.tree_map(torch.add, grads, g))
+                loss = loss + l
+            grads = adamw.tree_map(lambda g: g / accum, grads)
+            loss = loss / accum
+        else:
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        params, opt_state, _ = adamw.adamw_step(opt_cfg, grads, opt_state,
+                                                params, lr=lr)
+        return loss, params, opt_state
+
+    return step
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int | None = None, *,

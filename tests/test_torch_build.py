@@ -2,8 +2,11 @@
 checkout: the wheel ships every CUDA source as package data, and the
 build goes to the user's cache directory when the package lies outside
 a checkout (to the checkout's git-ignored ``build/`` inside one).  The
-wrappers' shared alignment check is tested here too."""
+wrappers' shared alignment check is tested here too, and that the ctypes
+signatures match the C launchers the sources export."""
+import ctypes
 import pathlib
+import re
 import tomllib
 
 import pytest
@@ -53,3 +56,38 @@ def test_build_root_of_an_installed_package_is_the_cache(tmp_path,
     # a src/ layout without a pyproject.toml is not a checkout either
     stray = tmp_path / "src" / "repro_torch" / "kernels"
     assert _build.build_root(stray).parent == tmp_path / "home" / ".cache"
+
+
+def _exported(source: str) -> dict:
+    """{name: C parameter types} of every ``extern "C" int`` function of a
+    .cu source, each parameter as "P" (a pointer) or "I" (an int)."""
+    out = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', source):
+        params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+        out[m.group(1)] = tuple("P" if "*" in p else "I" for p in params)
+    return out
+
+
+def test_signatures_cover_every_exported_function():
+    """Every launcher the sources export is bound with its C parameter
+    list (the three backward kernels' entries included), and every bound
+    name is exported."""
+    exported = {}
+    for src in _build.CSRC.glob("*.cu"):
+        exported.update(_exported(src.read_text()))
+    for name in ("repro_flash_attention_bwd_bf16", "repro_rglru_scan_bwd_f32",
+                 "repro_rglru_scan_bwd_bf16", "repro_ssd_scan_bwd_f32"):
+        assert name in exported and name in _build.SIGNATURES
+    assert set(exported) == set(_build.SIGNATURES)
+    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I"}
+    for name, params in exported.items():
+        assert tuple(kind[t] for t in _build.SIGNATURES[name]) == params, \
+            name
+
+
+def test_backward_sources_ship_as_package_data():
+    meta = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = meta["tool"]["setuptools"]["package-data"]["repro_torch"]
+    shipped = {p.name for g in globs for p in PKG.glob(g)}
+    assert {"flash_attention_bwd.cu", "ssd_scan_bwd.cu",
+            "rglru_scan.cu"} <= shipped

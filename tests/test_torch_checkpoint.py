@@ -381,3 +381,28 @@ def test_snapshot_config_keeps_the_port_fields_apart(tmp_path):
     assert t_engine.config_from_meta(meta) == cfg
     # The reference builds its config from "config" alone.
     assert j_engine.EngineConfig(**meta["config"]).solver_kernel == "jnp"
+
+
+def test_bf16_leaves_cross_packages(tmp_path):
+    """bf16 leaves (the training path's params) are written as the
+    reference writes them: the same 2-byte values and the manifest dtype
+    ``bfloat16``; the port restores its own and the reference's bitwise.
+    (The reference cannot restore either: its ``astype`` from the
+    2-byte void that ``np.load`` returns raises; ROADMAP Queue 3.)"""
+    vals = np.random.default_rng(9).normal(size=(6, 5)).astype(np.float32)
+    t_tree = {"w": torch.from_numpy(vals).bfloat16(),
+              "step": torch.tensor(3, dtype=torch.int32)}
+    j_tree = {"w": jnp.asarray(vals).astype(jnp.bfloat16),
+              "step": jnp.asarray(3, jnp.int32)}
+    pt = t_ckpt.save_pytree(t_tree, str(tmp_path / "t"), 1)
+    pj = j_ckpt.save_pytree(j_tree, str(tmp_path / "j"), 1)
+    mt, mj = (json.load(open(os.path.join(p, "manifest.json")))
+              for p in (pt, pj))
+    assert mt == mj            # leaves, dtypes ("bfloat16") and hash
+    for path in (pt, pj):
+        got, _ = t_ckpt.restore_pytree(path, like=t_tree)
+        assert got["w"].dtype == torch.bfloat16
+        assert torch.equal(got["w"], t_tree["w"])
+        assert int(got["step"]) == 3
+    with pytest.raises(ValueError):
+        j_ckpt.restore_pytree(pt, like=j_tree)

@@ -8,8 +8,10 @@
 * Entry points built without a device want the card and raise here:
   the assimilation engines (sequential and Parareal), the fleet server,
   the engine's restore and elastic resume, the assimilation CLI, the LM
-  weights (and so ``serve_batch``) and the serving CLI.
-* The CUDA kernel wrappers refuse CPU tensors instead of falling back.
+  weights (and so ``serve_batch``), the serving CLI, and the training
+  driver (``train`` and its CLI).
+* The CUDA kernel wrappers, the backward kernels' among them, refuse CPU
+  tensors instead of falling back.
 """
 import ast
 import os
@@ -29,9 +31,14 @@ from repro_torch.assim import serving as t_serving  # noqa: E402
 from repro_torch.runtime import elastic as t_elastic  # noqa: E402
 from repro_torch.assim import timepar as t_timepar  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
+from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import transformer as t_transformer  # noqa: E402
+from repro_torch.runtime import steps as t_steps  # noqa: E402
+from repro_torch.kernels import flash_attention as t_fa  # noqa: E402
 from repro_torch.kernels import gram as t_gram  # noqa: E402
+from repro_torch.kernels import rglru_scan as t_rg  # noqa: E402
 from repro_torch.kernels import schwarz_step as t_sch  # noqa: E402
+from repro_torch.kernels import ssd_scan as t_ssd  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -56,7 +63,10 @@ assert not bad, bad
 for name in ("repro_torch.core.kalman", "repro_torch.assim.timepar",
              "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
              "repro_torch.runtime.chaos", "repro_torch.runtime.elastic",
-             "repro_torch.assim.fleet", "repro_torch.assim.serving"):
+             "repro_torch.assim.fleet", "repro_torch.assim.serving",
+             "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+             "repro_torch.optim.compress", "repro_torch.core.balance",
+             "repro_torch.data.pipeline", "repro_torch.launch.train"):
     assert name in names, name
 print(len(names))
 """
@@ -176,5 +186,66 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_sch.schwarz_bwd(A, v, v, v, m, pw, pw, pw)
     with pytest.raises(TypeError, match="float64 or float32"):
         t_gram.gram(A.half(), m.half())
+    # the backward kernels' wrappers
+    q = torch.zeros(2, 16, 16, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 16)
+    a = torch.zeros(1, 4, 8)
+    x, dt, A1 = torch.zeros(2, 16, 8), torch.zeros(2, 16), torch.zeros(2)
+    B = torch.zeros(1, 16, 8)
+    saved = (torch.zeros(2, 16, dtype=torch.float64),
+             torch.zeros(1, 2, 8, 8), torch.zeros(2, 2, 8, 8))
+    bwd_before = (t_fa.bwd_launches, t_rg.bwd_launches, t_ssd.bwd_launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_fa.flash_attention_bwd(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_rg.rglru_scan_bwd(a, a, a)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_ssd.ssd_scan_bwd(x, dt, A1, B, B, x, saved, chunk=8)
+    with pytest.raises(TypeError, match="bfloat16"):
+        t_fa.flash_attention_bwd(*(t.float() for t in (q, q, q, q)), lse,
+                                 q.float())
+    assert (t_fa.bwd_launches, t_rg.bwd_launches,
+            t_ssd.bwd_launches) == bwd_before
     assert (t_gram.launches, t_sch.fwd_launches,
             t_sch.bwd_launches) == before
+
+
+def test_training_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = t_configs.get_smoke_config("mamba2-1.3b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_train.train(cfg, steps=1, seq=16, global_batch=2, dp=2,
+                      ckpt_dir=None)
+
+
+@pytest.mark.parametrize("arch,dtype,device,refused", [
+    ("recurrentgemma-9b", torch.float32, "cuda", True),
+    ("recurrentgemma-9b", torch.bfloat16, "cuda", False),
+    ("recurrentgemma-9b", torch.float32, "cpu", False),
+    ("mamba2-1.3b", torch.float32, "cuda", False),
+])
+def test_training_refuses_f32_attention_on_the_card(arch, dtype, device,
+                                                    refused):
+    # The flash_attention backward kernel takes bf16 only: a step of a
+    # model with attention layers on the card refuses other dtypes before
+    # it runs (the CPU runs the plain backward; Mamba-2 has no attention).
+    cfg = t_configs.get_smoke_config(arch)
+    if refused:
+        with pytest.raises(TypeError, match="no f32 entry"):
+            t_steps.check_trainable(cfg, dtype, torch.device(device))
+    else:
+        t_steps.check_trainable(cfg, dtype, torch.device(device))
+
+
+def test_training_cli_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "recurrentgemma-9b", "--smoke", "--steps", "1", "--seq", "16",
+         "--batch", "2", "--dp", "2"], env=env, capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr

@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -252,4 +253,103 @@ def test_lm_kernel_wrappers_refuse_cpu_tensors():
     assert (t_fa.launches, t_rg.launches) == before
     counts = tops.launch_counts()
     assert set(counts) == {"gram", "schwarz_fwd", "schwarz_bwd",
-                           "flash_attention", "rglru_scan", "ssd_scan"}
+                           "flash_attention", "rglru_scan", "ssd_scan",
+                           "flash_attention_bwd", "rglru_scan_bwd",
+                           "ssd_scan_bwd"}
+
+
+# ---------------------------------------------------------------------------
+# The backward (training).  On CPU tensors ``ops.flash_attention`` and
+# ``ops.rglru_scan`` run the autograd Functions ``FlashAttention`` and
+# ``RglruScan`` with the plain forward and the plain backward that the
+# CUDA kernels evaluate (``ref.attention_bwd_plain``, FA2's formulas from
+# the saved log-sum-exp; ``ref.rglru_scan_bwd_plain``, the reverse scan).
+# Their gradients are held to autograd through the plain forward (1e-5
+# relative Frobenius in f32: the same sums in other orders) and to
+# ``jax.grad`` of the reference's jnp oracles (1e-4).
+# ---------------------------------------------------------------------------
+
+def _rel_frob(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("bh,bh_kv,s,d,causal,window", [
+    (4, 4, 40, 16, True, 0), (8, 2, 64, 32, True, 24),
+    (16, 1, 48, 16, True, 16), (4, 2, 33, 16, False, 0),
+    (4, 1, 50, 32, False, 20)])
+def test_flash_attention_function_grads_match_autograd_and_reference(
+        bh, bh_kv, s, d, causal, window):
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(bh, s, d)).astype(np.float32)
+    k, v = (rng.normal(size=(bh_kv, s, d)).astype(np.float32)
+            for _ in range(2))
+    do = rng.normal(size=(bh, s, d)).astype(np.float32)
+    kw = dict(causal=causal, window=window)
+    before = tops.launch_counts()
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(tops.flash_attention(*leaves, **kw), leaves,
+                              torch.from_numpy(do))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    want = torch.autograd.grad(tops.flash_attention(*leaves, **kw,
+                                                    mode="plain"),
+                               leaves, torch.from_numpy(do))
+    assert tops.launch_counts() == before    # the CPU runs no kernel
+    rep = bh // bh_kv
+
+    def ref_loss(q, k, v):
+        out = jref.attention_ref(q, jnp.repeat(k, rep, 0),
+                                 jnp.repeat(v, rep, 0), **kw)
+        return jnp.sum(out * jnp.asarray(do))
+
+    ref = jax.grad(ref_loss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                                  for a in (q, k, v)))
+    for g, w, r in zip(got, want, ref):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert _rel_frob(g, w) <= 1e-5
+        assert _rel_frob(g, r) <= 1e-4
+
+
+def test_flash_attention_function_saves_the_log_sum_exp():
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 24, 16)).astype(
+        np.float32)) for _ in range(3))
+    out, lse = tref.attention_plain(q, k, v, causal=True, window=8,
+                                    lse=True)
+    s = torch.einsum("bqd,bkd->bqk", q, k) / 4.0
+    pos = torch.arange(24)
+    ok = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - 8)
+    want = torch.logsumexp(torch.where(ok, s, -torch.inf), dim=-1)
+    assert torch.allclose(lse, want, atol=1e-5, rtol=1e-6)
+    assert torch.equal(out, tref.attention_plain(q, k, v, causal=True,
+                                                 window=8))
+
+
+@pytest.mark.parametrize("b,s,w", [(1, 37, 8), (2, 64, 16)])
+def test_rglru_scan_function_grads_match_autograd_and_reference(b, s, w):
+    rng = np.random.default_rng(13)
+    a = rng.uniform(0.5, 0.99, (b, s, w)).astype(np.float32)
+    x = rng.normal(size=(b, s, w)).astype(np.float32)
+    dh = rng.normal(size=(b, s, w)).astype(np.float32)
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (a, x)]
+    got = torch.autograd.grad(tops.rglru_scan(*leaves), leaves,
+                              torch.from_numpy(dh))
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (a, x)]
+    want = torch.autograd.grad(tops.rglru_scan(*leaves, mode="plain"),
+                               leaves, torch.from_numpy(dh))
+    ref = jax.grad(lambda a, x: jnp.sum(jref.rglru_scan_ref(a, x)
+                                        * jnp.asarray(dh)),
+                   argnums=(0, 1))(jnp.asarray(a), jnp.asarray(x))
+    for g, wt, r in zip(got, want, ref):
+        assert _rel_frob(g, wt) <= 1e-5
+        assert _rel_frob(g, r) <= 1e-4
+
+
+def test_flash_attention_bwd_plan_fits_one_cta():
+    plan = t_fa.bwd_plan((32, 4096, 256), (2, 4096, 256))
+    # D = 256: dK and dV split into halves of D across two CTAs
+    assert (plan["dp"], plan["dh"]) == (256, 128)
+    assert plan["dq_smem_bytes"] <= t_fa.MAX_SMEM
+    assert plan["dkdv_smem_bytes"] <= t_fa.MAX_SMEM
+    assert plan["dq_ctas"] == 64 * 32 and plan["dkdv_ctas"] == 64 * 2 * 2

@@ -336,3 +336,95 @@ def test_3xtf32_holds_the_kernel_tolerance_and_single_tf32_does_not(
                            want) <= 0.25
     assert _over_allowance(_ssd_products_through(_mm_tf32, *args, chunk),
                            want) > 10
+
+
+# ---------------------------------------------------------------------------
+# The backward (training).  On the CPU ``ops.ssd_scan`` runs the autograd
+# Function ``SsdScan`` with the plain forward and the plain backward
+# ``ssd_scan_bwd_plain``, written in the steps of the CUDA kernel
+# ``csrc/ssd_scan_bwd.cu``.  Its gradients are held to autograd through
+# the plain forward (1e-5 relative Frobenius: the same f32 sums in other
+# orders) and to ``jax.grad`` of the reference's exact recurrence
+# ``ssd_heads_ref`` (1e-4: chunked against sequential).
+# ---------------------------------------------------------------------------
+
+GRAD_SHAPES = [(4, 64, 16, 8, 2, 16), (6, 48, 8, 16, 3, 16),
+               (2, 40, 16, 8, 2, 40), (4, 32, 8, 8, 1, 8)]
+
+
+def _rel_frob(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("bh,s,p,n,groups,chunk", GRAD_SHAPES)
+def test_ssd_scan_function_grads_match_autograd_and_reference(
+        bh, s, p, n, groups, chunk):
+    inputs = _heads(bh, s, p, n, groups=groups, seed=5)
+    dy = np.random.default_rng(6).normal(size=(bh, s, p)).astype(np.float32)
+    before = tops.launch_counts()
+    leaves = [t.requires_grad_() for t in _t(inputs)]
+    got = torch.autograd.grad(tops.ssd_scan(*leaves, chunk=chunk), leaves,
+                              torch.from_numpy(dy))
+    leaves = [t.requires_grad_() for t in _t(inputs)]
+    want = torch.autograd.grad(
+        tops.ssd_scan(*leaves, chunk=chunk, mode="plain"), leaves,
+        torch.from_numpy(dy))
+    assert tops.launch_counts() == before    # the CPU runs no kernel
+    rep = bh // groups
+
+    def ref_loss(x, dt, A, B, C):
+        y = jref.ssd_heads_ref(x, dt, A, jnp.repeat(B, rep, 0),
+                               jnp.repeat(C, rep, 0), chunk)
+        return jnp.sum(y * jnp.asarray(dy))
+
+    ref = jax.grad(ref_loss, argnums=(0, 1, 2, 3, 4))(*_j(inputs))
+    for g, w, r in zip(got, want, ref):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert _rel_frob(g, w) <= 1e-5
+        assert _rel_frob(g, r) <= 1e-4
+
+
+def test_ssd_backward_at_model_like_decays_is_finite():
+    """Mamba-2's step sizes and decay rates take cum to about -180 within
+    a chunk of 256, where exp(cum_i - cum_j) above the diagonal
+    overflows; the selects keep every gradient (and autograd through the
+    plain forward) finite and equal."""
+    rng = np.random.default_rng(7)
+    bh, s, p, n = 2, 512, 8, 8
+    x, _, _, B, C = _heads(bh, s, p, n, seed=7)
+    dt = rng.uniform(0.3, 0.8, (bh, s)).astype(np.float32)
+    A = -rng.uniform(8.0, 12.0, bh).astype(np.float32)
+    dy = rng.normal(size=(bh, s, p)).astype(np.float32)
+    leaves = [t.requires_grad_() for t in _t((x, dt, A, B, C))]
+    got = torch.autograd.grad(tops.ssd_scan(*leaves, chunk=256), leaves,
+                              torch.from_numpy(dy))
+    leaves = [t.requires_grad_() for t in _t((x, dt, A, B, C))]
+    want = torch.autograd.grad(tops.ssd_scan(*leaves, chunk=256,
+                                             mode="plain"), leaves,
+                               torch.from_numpy(dy))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())
+        assert _rel_frob(g, w) <= 1e-5
+
+
+def test_ssd_backward_binding_refuses_cpu_tensors():
+    x, dt, A, B, C = _t(_heads(2, 64, 16, 8))
+    saved = (torch.zeros(2, 64, dtype=torch.float64),
+             torch.zeros(2, 4, 16, 16), torch.zeros(2, 4, 8, 16))
+    before = t_ssd.bwd_launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_ssd.ssd_scan_bwd(x, dt, A, B, C, x, saved, chunk=16)
+    assert t_ssd.bwd_launches == before
+
+
+def test_ssd_bwd_workspace_formula():
+    # f32: dS, dB_h and dC_h, ddt's parts (BH, S), ddecay (BH, nc); f64:
+    # dcum's row and column parts (BH, S), dA's parts (BH, nc) and the
+    # tiles' sums; at the Mamba-2 1.3B training shape 151 M f32 (604 MB).
+    n32, n64 = t_ssd.bwd_workspaces(256, 2048, 64, 128, 256)
+    nc, tiles = 8, 8
+    assert n32 == (256 * nc * 128 * 64 + 2 * 256 * 2048 * 128 + 256 * 2048
+                   + 256 * nc)
+    assert n64 == 2 * 256 * 2048 + 256 * nc + 256 * nc * tiles
