@@ -123,8 +123,12 @@ bf16 within 2e-2 relative Frobenius; ``flash_attention``'s dK and dV
 also row by row within ``ATTN_ROW_TOL``, which two planted one-tile
 faults must trip), checks two launches bitwise equal and times each
 (median) beside its bound, the plain backward and, for attention, SDPA's
-backward with the same mask.  The ``kernels`` line has nine rows: the
-six forward kernels and the three backward ones.
+backward with the same mask and the earlier design's time; it prints
+the device time of each CUDA launch of one backward call (attention:
+prep, dq, dkdv; SSD: ychunk, rpass, col, row, dcum), each backward
+kernel's ``-Xptxas -v`` line and the launches' dynamic shared memory.
+The ``kernels`` line has nine rows: the six forward kernels and the
+three backward ones.
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
@@ -175,6 +179,16 @@ BWD_SOURCES = {
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
 }
+# The first design of each redesigned backward kernel at the training
+# shape, for comparison on the printed line, as PERF.md rows 7 and 9 keep
+# it (NVIDIA H100 80GB HBM3, 700.00 W).
+EARLIER_BWD_MS = {"flash_attention": 7.9980, "ssd_scan": 16.7313}
+# Each backward kernel's CUDA kernels by name, as the profiler and (with
+# the template's mangled arguments) -Xptxas -v name them.
+BWD_KERNELS = {
+    "flash_attention": r"(fa_bwd_[a-z]+_kernel(?:ILi\d+E|<\d+>)?)",
+    "rglru_scan": r"(rglru_scan_bwd_kernel(?:I\w+?E|<[\w:]+>))",
+    "ssd_scan": r"(ssd_bwd_[a-z]+_kernel)"}
 REL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 # The LM kernels' tolerances, as in tests/test_kernels.py.
 LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -1777,26 +1791,74 @@ def ssd_bound(args, chunk: int):
             "operations" if t_ops >= t_bytes else "bytes", ops)
 
 
-def print_ssd_launches(args, chunk: int) -> None:
-    """Device time of each of the five CUDA launches of one ssd_scan call
-    (mean over three profiled calls)."""
+def launch_times(fn, pattern: str, calls: int = 3) -> list:
+    """(name, ms) of each CUDA launch of ``fn`` whose kernel matches the
+    regex ``pattern`` (its first group is the name): device time a call,
+    the mean over the launches of ``calls`` profiled calls.  The
+    profiler's schedule skips a call and warms up on another before it
+    records (without one it has dropped launches)."""
     import re
 
-    from repro_torch.kernels import ssd_scan
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            ssd_scan.ssd_scan(*args, chunk=chunk)
-        torch.cuda.synchronize()
-    parts = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=calls)) as prof:
+        for _ in range(calls + 2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = []
     for e in prof.key_averages():
-        m = re.search(r"ssd_([a-z]+)_kernel", e.key)
+        m = re.search(pattern, e.key)
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
-        if m and us:
-            parts.append(f"{m.group(1)} {us / 1e3 / 3:.4f} ms")
-    print("  ssd_scan launches, device time a call: " + ", ".join(parts))
+        if m and us and e.count:
+            out.append((m.group(1), us / 1e3 / e.count))
+    return out
+
+
+def print_ssd_launches(args, chunk: int) -> None:
+    """Device time of each of the five CUDA launches of one ssd_scan call
+    (:func:`launch_times` over three profiled calls)."""
+    from repro_torch.kernels import ssd_scan
+
+    parts = launch_times(lambda: ssd_scan.ssd_scan(*args, chunk=chunk),
+                         r"ssd_([a-z]+)_kernel")
+    print("  ssd_scan launches, device time a call: "
+          + ", ".join(f"{k} {ms:.4f} ms" for k, ms in parts))
+
+
+def ptxas_report(pattern: str) -> list:
+    """The ``-Xptxas -v`` lines of this run's build for every kernel whose
+    mangled name matches the regex ``pattern`` (its first group is the
+    name): "name: R registers, S bytes spill stores, static shared memory
+    M bytes"."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    out, name = [], None
+    for log in _build.BUILD_LOG:
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                k = re.search(pattern, m.group(1))
+                name = k.group(1) if k else None
+                spill = None
+                continue
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = m.group(1)
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                          line)
+            if m:
+                out.append(f"{name}: {m.group(1)} registers, {spill} bytes "
+                           f"spill stores, static shared memory "
+                           f"{m.group(2) or 0} bytes")
+                name = None
+    return out
 
 
 def phase_ssd_kernels(first_call, layer_err: float, counts: dict) -> dict:
@@ -2293,6 +2355,28 @@ def bwd_bound(name, args, kwargs):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def print_bwd_build(name: str, args, kwargs) -> None:
+    """A backward kernel's ``-Xptxas -v`` lines from this run's build and
+    the dynamic shared memory of its launches at ``args``' shapes."""
+    from repro_torch.kernels import flash_attention, ssd_scan
+
+    for line in ptxas_report(BWD_KERNELS[name]):
+        print(f"  ptxas: {line}")
+    if name == "flash_attention":
+        plan = flash_attention.bwd_plan(args[0].shape, args[1].shape)
+        print(f"  dynamic shared memory: dq {plan['dq_smem_bytes']} B, dkdv "
+              f"{plan['dkdv_smem_bytes']} B; CTAs dq {plan['dq_ctas']}, "
+              f"dkdv {plan['dkdv_ctas']} ({plan['groups']} query-head "
+              f"groups a kv block)")
+    elif name == "ssd_scan":
+        smem = ssd_scan.bwd_smem_bytes()
+        x, _, _, B, _ = args
+        splits = ssd_scan.bwd_splits(x.shape[0], B.shape[0], x.shape[1],
+                                     min(kwargs["chunk"], x.shape[1]))
+        print(f"  dynamic shared memory: col {smem['col']} B, row "
+              f"{smem['row']} B; head splits {splits}")
+
+
 def sdpa_backward(q, k, v, dout, causal: bool, window: int, heads: int):
     """SDPA's backward with the same mask on k and v expanded to every
     query head, as a callable: the library's yardstick (the port never
@@ -2383,11 +2467,19 @@ def phase_train_kernels(kept: dict, counts: dict) -> list:
             row["library_ms"] = median_ms(sdpa_backward(
                 *args, dout, heads=kept["heads"], **kwargs), 5)
         lib = row["library_ms"]
+        earlier = EARLIER_BWD_MS.get(name)
         print(f"  {name} backward {shape}: kernel {row['ms']:.4f} ms "
               f"(median), plain {row['plain_ms']:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms (SDPA backward, same mask)'}"
               f", bound {bound:.4f} ms ({by}), share of the bound "
-              f"{bound / row['ms']:.3f}")
+              f"{bound / row['ms']:.3f}"
+              + ("" if earlier is None else
+                 f"; first design {earlier:.4f} ms (PERF.md)"))
+        parts = launch_times(kernel, BWD_KERNELS[name])
+        print(f"  {name} backward launches, device time a call: " + (
+            ", ".join(f"{k} {ms:.4f} ms" for k, ms in parts)
+            or "not traced"))
+        print_bwd_build(name, args, kwargs)
         rows.append(row)
         del kernel, plain, dout, args, rand, fwd, fa2
         torch.cuda.empty_cache()

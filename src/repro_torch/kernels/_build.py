@@ -51,9 +51,10 @@ SIGNATURES = {
     "repro_rglru_scan_bwd_f32": (_P,) * 5 + (_I, _I, _I, _P),
     "repro_rglru_scan_bwd_bf16": (_P,) * 5 + (_I, _I, _I, _P),
     "repro_ssd_scan_f32": (_P,) * 10 + (_I,) * 6 + (_P,),
-    "repro_ssd_scan_bwd_f32": (_P,) * 16 + (_I,) * 6 + (_P,),
+    "repro_ssd_scan_bwd_f32": (_P,) * 16 + (_I,) * 7 + (_P,),
 }
 
+NUM_SMS = 132      # an H100's SMs, which the launch plans fill
 DTYPES = (torch.float64, torch.float32)   # what the DD-KF kernels take
 LM_DTYPES = (torch.float32, torch.bfloat16)   # what the LM kernels take
 

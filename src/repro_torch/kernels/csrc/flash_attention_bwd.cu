@@ -3,49 +3,75 @@
 //
 // Training only: the TPU package has no backward kernel (its training
 // forward runs the jnp reference, repro/models/attention.py), so this has
-// no Pallas counterpart.  The forward is flash_attention.cu, which now also
+// no Pallas counterpart.  The forward is flash_attention.cu, which also
 // writes each row's log-sum-exp lse = ln sum_j exp(scale s_j) (BH, S) f32;
 // the backward reads it and never re-runs the forward.
 //
 // Layout as the forward: q, o, dO, dQ (BH, S, D); k, v, dK, dV (BH_kv, S,
 // D), kv row bh / rep serving query row bh (MQA and GQA read in place).
-// FA2's scheme, two launches on the stream:
-//   1. dq    per (q head, 64-row q block), 4 warps of 16 rows: Delta =
-//            rowsum(dO .* O) for its rows (f32, also written to a (BH, S)
-//            workspace for launch 2), then for every 32-key kv tile that a
-//            row of the block sees: S = Q K^T, P = exp(scale S - lse),
-//            dP = dO V^T, dS = P .* (dP - Delta), dQ += dS K.
-//   2. dkdv  per (kv head, 64-row kv block, half of D), 4 warps of 16 kv
-//            rows: for each of the rep query heads that share the kv head
-//            and every 32-row q tile that sees the block: S^T = K Q^T,
-//            P^T, dP^T = V dO^T, dS^T, then dV += P^T dO and dK += dS^T Q
-//            over the CTA's columns of D.  The heads' sums run in the CTA
-//            in a fixed order: no atomics, and two runs are bitwise equal.
-// Tiles wholly outside the causal window are skipped, as in the forward;
-// the rest are masked per entry (p = 0 for an invisible key or a row past
-// S).
+// FA2's formulas, three launches on the stream:
+//   1. prep  per row: Delta = rowsum(dO .* O) (f32) and lse log2 e, into a
+//            (2, BH, S_pad) f32 workspace, S_pad = S rounded up to 128,
+//            zero past S (whole tiles for the bulk copies of launch 3).
+//   2. dq    per (q head, 128-row q block): S = Q K^T, P = 2^(c S -
+//            lse2), dP = dO V^T, dS = P .* (dP - Delta), dQ += dS K.
+//   3. dkdv  per (kv block of 64 rows, kv head, group of the query heads
+//            that share it): S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and
+//            dK += dS^T Q over every q tile of each head that sees the
+//            block.
 //
-// D = 256 is the squeeze.  A warp's f32 dK and dV accumulators over all of
-// D would be 16 x 256 x 2 floats, 256 registers a thread: launch 2 splits
-// D into halves (two CTAs a kv block, each recomputing S^T and dP^T over
-// the full D), so a thread holds 2 x 64 accumulator floats.  Launch 1
-// keeps dQ's 16 x 256 in 128 registers a thread.  Shared memory (bf16
-// rows padded to D + 8 elements, so the fragment loads are free of bank
-// conflicts), at D = 256 (dq_smem and dkdv_smem below):
-//   dq:    Q and dO 64 rows, K and V 32 rows: 101,376 B + lse and Delta;
-//   dkdv:  K and V 64 rows, Q and dO 32 rows: 101,376 B + lse and Delta.
+// Bound on this card: operations.  At the RecurrentGemma-9B training shape
+// (q (32, 4096, 256), one kv head per 16 q heads, window 2048) the visible
+// (q, key) pairs are 6.29 M a head and the function needs 2 D flops a pair
+// for each of S, dP, dV, dQ and dK (~515 GFLOP, 0.52 ms at 989 TFLOP/s);
+// the two main launches compute S and dP once each (FA2: dQ outside the
+// dK/dV launch keeps every sum in a fixed order, no atomics), 7 products.
 //
-// Products: bf16 mma.sync m16n8k16 with f32 accumulation; P and dS are
-// rounded to bf16 as the A operand of dV, dQ and dK (FA2 does the same);
-// exp, the row terms and the accumulators are f32; the gradients are
-// written in bf16.  Bound on this card: operations.  At the
-// RecurrentGemma-9B training shape (q (32, 4096, 256), one kv head per 16
-// q heads, window 2048) the visible (q, key) pairs are 6.29 M a head; the
-// backward needs 4 D flops a pair for each of dV, dP, dQ and dK (~515
-// GFLOP, 0.52 ms at 989 TFLOP/s); the two launches recompute S twice and
-// dP twice (and launch 2 S^T and dP^T once more for its second half of D).
-// This is the simple first version: plain loads into shared memory, no
-// pipelining, no wgmma.
+// Both main launches are the forward's machinery: one CTA of three
+// warpgroups, a producer (under setmaxnreg.dec; one thread issues every
+// TMA load, 128-byte-swizzled boxes of 64 columns, through a ring of
+// stages with full and empty mbarriers) and two consumer warpgroups (under
+// setmaxnreg.inc) that run every product on wgmma, bf16 in and f32
+// accumulate, with P and dS rounded to bf16 as register A operands (as FA2
+// and FA3 do) and the f32 accumulators of dQ, dK and dV in registers.
+// Each consumer issues a product and waits for it before it uses the
+// result; the two consumers overlap each other.  Masks are evaluated per
+// entry as selects, so no branch sits between a product and its wait.
+//
+// dq: each consumer owns 64 q rows (dQ 64 x D in registers, 128 floats a
+// thread at D = 256); the kv tiles are 32 rows at D = 256 (Q and dO of
+// both consumers take 128 KB, so three stages of K and V fit in 227 KB)
+// and 64 below.  S = Q K^T and dP = dO V^T are wgmma m64nBKk16 with both
+// operands in shared memory; dQ += dS K is m64nDk16 with dS from
+// registers and K read as an MN-major (transposed) operand.  dQ is scaled,
+// rounded and stored by TMA from the consumer's own q tile.
+//
+// dkdv: D = 256 is the squeeze.  dK and dV of 64 kv rows over all of D are
+// 2 x 64 x 256 f32, 256 registers a thread of one warpgroup, so the two
+// consumers split the work by gradient, not by columns of D: consumer 0
+// computes S^T = K Q^T (64 x 64 q) and P^T, hands P^T (f32) to consumer 1
+// through a double buffer in shared memory (named barriers), and
+// accumulates dV += P^T dO; consumer 1 computes dP^T = V dO^T, reads P^T,
+// forms dS^T and accumulates dK += dS^T Q.  S^T and dP^T are computed
+// once, each of the four products once per (kv block, q tile).  K and V
+// stay in shared memory; the producer streams Q, dO, lse2 and Delta of
+// each visible q tile of each head (bulk copies for the row terms).
+// One kv head serves 16 query heads at the training shape, and 64 kv
+// blocks x 2 kv heads are 128 CTAs, fewer than the 132 SMs: the query
+// heads are split into two groups, and the two CTAs of a kv block run as a
+// cluster that sums their f32 dK and dV through distributed shared memory
+// (CTA rank 0 finishes dV, rank 1 dK; a sum of two is the same in either
+// order), 256 CTAs.  Shared memory at D = 256: K, V 64 KB; two stages of
+// Q and dO 128 KB; the P buffers 32 KB; lse2 and Delta 1 KB.
+//
+// What holds it back (chip_smoke.py prints each launch's time; PERF.md
+// keeps them): a consumer issues a product and waits for it, so its
+// tensor-core work never overlaps its own elementwise passes (FA3 overlaps
+// them within a warpgroup), and the dq launch recomputes S and dP.
+//
+// Every sum runs in a fixed order with no atomics: two runs are bitwise
+// equal.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -57,11 +83,15 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;   // 4 warps of 16 rows
-constexpr int kBQ = 64;         // q rows of a dq CTA
-constexpr int kBK = 32;         // kv rows of a dq tile
-constexpr int kBKV = 64;        // kv rows of a dkdv CTA
-constexpr int kBQT = 32;        // q rows of a dkdv tile
+constexpr int kThreads = 384;      // producer + two consumer warpgroups
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kBox = 64 * 128;     // one TMA box: 64 rows of 64 bf16 (128 B)
+constexpr int kBQ = 128;           // q rows of a dq CTA, 64 per consumer
+constexpr int kBKV = 64;           // kv rows of a dkdv CTA
+constexpr int kBQT = 64;           // q rows of a dkdv tile
+constexpr int kPad = 128;          // S_pad: S rounded up to this
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
                                         int window) {
@@ -71,406 +101,978 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
   return ok;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ---------------------------------------------------------------------------
+// TMA, mbarriers and wgmma (as flash_attention.cu).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
 }
 
-__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
+// Arrive on the barrier and add `bytes` to the transfers it awaits.
+__device__ __forceinline__ void bar_arrive_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (column c0, row c1, head c2) into shared memory,
+// completing on `bar`; and a box from shared memory back to the tensor.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A contiguous bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand in shared memory: start
+// address, leading and stride byte offsets (all in 16-byte units), and the
+// swizzle mode (1 = 128 B) in the top bits.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads of a wgmma accumulator above the
+// wait that completes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two bf16 in one register, the first in the low half.
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a b, m16n8k16, bf16 in, f32 accumulate.  Fragments (g = lane / 4,
-// t = lane % 4): a[0] rows g, columns 2t, 2t + 1; a[1] row g + 8; a[2],
-// a[3] the same at columns + 8.  b[0] k rows 2t, 2t + 1 of column g, b[1]
-// k rows + 8.  d[0..1] row g, columns 2t, 2t + 1; d[2..3] row g + 8.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Lane 0 of each consumer warp releases a stage.
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) bar_arrive(bar);
+}
+
+// d (+)= A B over one k16 step, A and B from shared memory, both K-major;
+// scale_d = 0 overwrites d.  The f32 accumulator fragment gives each warp
+// 16 rows: d[4n + e] is row g + 8 (e >> 1), column 8n + 2t + (e & 1), with
+// g = lane / 4 and t = lane % 4.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// A fragment: A[r][k] = T[r0 + r][k0 + k], T row-major with stride ld.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* T,
-                                       int ld, int r0, int k0, int g, int t) {
-  const bf16* p = T + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// B fragment with B[k][n] = T[n0 + n][k0 + k] (T row-major by n).
-__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[2], const bf16* T,
-                                          int ld, int n0, int k0, int g,
-                                          int t) {
-  const bf16* p = T + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
+// d += A B over one k16 step, A from registers (the m64k16 fragment: a[0..3]
+// hold rows g and g + 8 of each warp's 16, columns 2t, 2t + 1 and 2t + 8,
+// 2t + 9), B MN-major (transposed) from shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// B fragment with B[k][n] = T[k0 + k][n0 + n] (T row-major by k).
-__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[2], const bf16* T,
-                                          int ld, int n0, int k0, int g,
-                                          int t) {
-  const bf16* p = T + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = pack2(p[0], p[ld]);
-  b[1] = pack2(p[8 * ld], p[9 * ld]);
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Rows [row0, row0 + rows) of a (S, D) bf16 matrix into shared memory with
-// row stride ld (>= DP), zero past S and past D, 16 bytes a thread a step.
-template <int DP>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, int row0,
-                                      int rows, int S, int D, int ld) {
-  constexpr int kVec = DP / 8;   // 16-byte pieces a row
-  for (int e = threadIdx.x; e < rows * kVec; e += kThreads) {
-    const int r = e / kVec, c = (e % kVec) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S && c < D)
-      v = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The S-like products of one tile: D / 16 k16 steps of A (64 rows) times
+// B^T (N rows), both K-major in 64-column boxes of aBox and bBox bytes;
+// step kk lies in box kk / 4 at a 32-byte column step kk % 4.
+template <int DP, int N>
+__device__ __forceinline__ void issue_ss(float (&d)[N / 2], uint64_t a_desc,
+                                         int a_box, uint64_t b_desc,
+                                         int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss(d, a_desc + (((kk / 4) * a_box + col) >> 4),
+             b_desc + (((kk / 4) * b_box + col) >> 4), kk > 0);
   }
 }
 
-template <int DP>
-constexpr size_t dq_smem() {
-  return sizeof(bf16) * size_t(2 * kBQ + 2 * kBK) * (DP + 8) +
-         2 * kBQ * sizeof(float);
+// acc += A B over K rows (K / 16 steps) with A's fragments in a (4 words a
+// step) and B (K x DP) MN-major: 64-column boxes `box` bytes apart, 8-row
+// groups 1024 B apart; step j starts 16 rows (2048 B) further.
+template <int DP, int K>
+__device__ __forceinline__ void issue_rs(float (&acc)[DP / 2],
+                                         const uint32_t* a, uint64_t b_desc) {
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j)
+    wgmma_rs(acc, a + 4 * j, b_desc + ((j * 2048) >> 4));
 }
 
+// The 128-byte-swizzled store of a 64 x DP f32 fragment (scaled, in bf16)
+// into 64-column boxes of 64 rows (the layout TMA reads back).
 template <int DP>
-constexpr size_t dkdv_smem() {
-  return sizeof(bf16) * size_t(2 * kBKV + 2 * kBQT) * (DP + 8) +
-         2 * kBQT * sizeof(float);
+__device__ __forceinline__ void store_swizzled(unsigned char* tile,
+                                               const float (&acc)[DP / 2],
+                                               float scale, int warp, int g,
+                                               int t) {
+  const int row = 16 * warp + g;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    unsigned char* at = tile + (n / 8) * kBox + (((n % 8) ^ g) << 4) + 4 * t;
+    *reinterpret_cast<uint32_t*>(at + row * 128) =
+        pack2(acc[4 * n] * scale, acc[4 * n + 1] * scale);
+    *reinterpret_cast<uint32_t*>(at + (row + 8) * 128) =
+        pack2(acc[4 * n + 2] * scale, acc[4 * n + 3] * scale);
+  }
 }
-static_assert(dq_smem<256>() <= 232448, "dq tiles exceed 227 KB");
-static_assert(dkdv_smem<256>() <= 232448, "dkdv tiles exceed 227 KB");
 
 // ---------------------------------------------------------------------------
-// 1. dq (and Delta).
+// 1. prep: Delta and lse log2 e per row.
 // ---------------------------------------------------------------------------
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ o,
-                 const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, float* __restrict__ delta,
-                 bf16* __restrict__ dq, int BH, int rep, int S, int D,
-                 float scale, int causal, int window) {
-  constexpr int LD = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kBQ * LD;
-  bf16* Ks = dOs + kBQ * LD;
-  bf16* Vs = Ks + kBK * LD;
-  float* sLse = reinterpret_cast<float*>(Vs + kBK * LD);
-  float* sDelta = sLse + kBQ;
+constexpr int kPrepThreads = 256;   // a warp a row
 
-  const int bh = blockIdx.x % BH;
-  const int q_start = (blockIdx.x / BH) * kBQ;
-  const size_t off = size_t(bh) * S * D;
-  const size_t off_kv = size_t(bh / rep) * S * D;
+__global__ void __launch_bounds__(kPrepThreads)
+fa_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ lse2,
+                   float* __restrict__ delta, int BH, int S, int S_pad,
+                   int D) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-
-  stage<DP>(Qs, q + off, q_start, kBQ, S, D, LD);
-  stage<DP>(dOs, dout + off, q_start, kBQ, S, D, LD);
-  // Delta = rowsum(dO .* O) of the warp's 16 rows, lanes over D.
-  for (int r = 16 * warp; r < 16 * warp + 16; ++r) {
-    const int row = q_start + r;
-    float acc = 0.0f;
-    if (row < S)
-      for (int c = lane; c < D; c += 32) {
-        const size_t at = off + size_t(row) * D + c;
-        acc += __bfloat162float(dout[at]) * __bfloat162float(o[at]);
-      }
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) + warp;
+  if (row >= static_cast<long long>(BH) * S_pad) return;
+  const int bh = static_cast<int>(row / S_pad);
+  const int r = static_cast<int>(row % S_pad);
+  float acc = 0.0f;
+  if (r < S) {
+    const size_t base = (size_t(bh) * S + r) * D;
+    for (int c = 8 * lane; c < D; c += 256) {
+      const uint4 a = *reinterpret_cast<const uint4*>(dout + base + c);
+      const uint4 b = *reinterpret_cast<const uint4*>(o + base + c);
+      const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-    for (int sh = 16; sh > 0; sh >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, sh);
-    if (lane == 0) {
-      sDelta[r] = acc;
-      sLse[r] = row < S ? lse[size_t(bh) * S + row] : 0.0f;
-      if (row < S) delta[size_t(bh) * S + row] = acc;
+      for (int j = 0; j < 4; ++j) {
+        const float2 fa = __bfloat1622float2(pa[j]);
+        const float2 fb = __bfloat1622float2(pb[j]);
+        acc = fmaf(fa.x, fb.x, acc);
+        acc = fmaf(fa.y, fb.y, acc);
+      }
     }
   }
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, sh);
+  if (lane == 0) {
+    delta[row] = acc;
+    lse2[row] = r < S ? lse[size_t(bh) * S + r] * kLog2e : 0.0f;
+  }
+}
 
-  // kv tiles with a key some row of the block sees.
+// ---------------------------------------------------------------------------
+// 2. dq.
+// ---------------------------------------------------------------------------
+
+// At head dimension DP: kv tiles of BK rows (32 at 256, where Q and dO of
+// both consumers take 128 KB), the ring's stages, and shared memory: the
+// q and dO tiles of both consumers, the k ring, the v ring, the mbarriers
+// (full q/dO; full k, full v, empty k, empty v per stage), after up to
+// 1 KB of padding to the 1024-byte period of the swizzle.
+template <int DP>
+struct DqCfg {
+  static constexpr int kNB = DP / 64;
+  static constexpr int kBK = DP == 256 ? 32 : 64;
+  static constexpr int kStages = DP == 256 ? 3 : 4;
+  static constexpr int kQTile = kNB * kBox;        // 64 rows
+  static constexpr int kKBox = kBK * 128;          // one box of a kv tile
+  static constexpr int kKTile = kNB * kKBox;
+  static constexpr size_t kSmem = 1024 + size_t(4) * kQTile +
+                                  size_t(2) * kStages * kKTile +
+                                  8 * (1 + 4 * kStages);
+  static_assert(kSmem <= 232448, "dq tiles exceed 227 KB");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
+                 __grid_constant__ const CUtensorMap tdo,
+                 __grid_constant__ const CUtensorMap tk,
+                 __grid_constant__ const CUtensorMap tv,
+                 __grid_constant__ const CUtensorMap tdq,
+                 const float* __restrict__ lse2,
+                 const float* __restrict__ delta, int BH, int rep, int S,
+                 int S_pad, float c, float scale, int causal, int window) {
+  using Cfg = DqCfg<DP>;
+  constexpr int kNB = Cfg::kNB, kBK = Cfg::kBK, kStages = Cfg::kStages;
+  constexpr int kQTile = Cfg::kQTile, kKBox = Cfg::kKBox;
+  constexpr int kKTile = Cfg::kKTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = base;                  // [consumer][box][64][128 B]
+  unsigned char* dOs = Qs + 2 * kQTile;
+  unsigned char* Ks = dOs + 2 * kQTile;      // [stage][box][BK][128 B]
+  unsigned char* Vs = Ks + kStages * kKTile;
+  const uint32_t bars = smem_u32(Vs + kStages * kKTile);
+  const uint32_t full_q = bars;
+  auto full_k = [&](int s) { return bars + 8 * (1 + s); };
+  auto full_v = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto empty_k = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return bars + 8 * (1 + 3 * kStages + s); };
+
+  // Heaviest q blocks (last under causal) first; the heads of one q block
+  // side by side.  Its kv tiles are kb_lo .. kb_end - 1.
+  const int nqb = (S + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x % BH;
+  const int q_start = (nqb - 1 - static_cast<int>(blockIdx.x) / BH) * kBQ;
   const int q_last = min(S - 1, q_start + kBQ - 1);
-  const int k_first = window > 0 ? max(0, q_start - window + 1) : 0;
-  const int k_last = causal ? q_last : S - 1;
-  const int r_lo = 16 * warp + g;   // this thread's rows r_lo, r_lo + 8
-  float dacc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dacc[n][e] = 0.0f;
+  const int nk = (S + kBK - 1) / kBK;
+  const int kb_end = causal ? min(nk, q_last / kBK + 1) : nk;
+  const int kb_lo = window > 0 ? max(0, q_start - window + 1) / kBK : 0;
+  const int n_tiles = max(0, kb_end - kb_lo);
 
-  for (int kt = k_first / kBK; kt <= k_last / kBK; ++kt) {
-    const int k_start = kt * kBK;
-    __syncthreads();   // Q, dO, Delta staged; the last tile's K, V read
-    stage<DP>(Ks, k + off_kv, k_start, kBK, S, D, LD);
-    stage<DP>(Vs, v + off_kv, k_start, kBK, S, D, LD);
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    bar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full_k(s), 1);
+      bar_init(full_v(s), 1);
+      bar_init(empty_k(s), 8);   // lane 0 of each consumer warp
+      bar_init(empty_v(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[kBK / 8][4], dp[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll 4
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t aq[4], ad[4];
-      frag_a(aq, Qs, LD, 16 * warp, kk, g, t);
-      frag_a(ad, dOs, LD, 16 * warp, kk, g, t);
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        uint32_t b[2];
-        frag_b_nk(b, Ks, LD, 8 * n, kk, g, t);
-        mma(s[n], aq, b);
-        frag_b_nk(b, Vs, LD, 8 * n, kk, g, t);
-        mma(dp[n], ad, b);
+  if (threadIdx.x < 128) {
+    // Producer.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x == 0) {
+      const int bkv = bh / rep;
+      bar_arrive_tx(full_q, 4 * kQTile);
+      for (int h = 0; h < 2; ++h)
+        for (int j = 0; j < kNB; ++j) {
+          tma_load(Qs + h * kQTile + j * kBox, &tq, 64 * j,
+                   q_start + 64 * h, bh, full_q);
+          tma_load(dOs + h * kQTile + j * kBox, &tdo, 64 * j,
+                   q_start + 64 * h, bh, full_q);
+        }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages, parity = ((i / kStages) & 1) ^ 1;
+        const int row = (kb_lo + i) * kBK;
+        bar_wait(empty_k(st), parity);
+        bar_arrive_tx(full_k(st), kKTile);
+        for (int j = 0; j < kNB; ++j)
+          tma_load(Ks + st * kKTile + j * kKBox, &tk, 64 * j, row, bkv,
+                   full_k(st));
+        bar_wait(empty_v(st), parity);
+        bar_arrive_tx(full_v(st), kKTile);
+        for (int j = 0; j < kNB; ++j)
+          tma_load(Vs + st * kKTile + j * kKBox, &tv, 64 * j, row, bkv,
+                   full_v(st));
       }
     }
-    // dS = P .* (dP - Delta) in place of s.
+  } else {
+    // Consumers, 64 q rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    const int h = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int q0 = q_start + 64 * h;
+    const int r0 = q0 + 16 * warp + g;   // this thread's rows r0, r0 + 8
+    unsigned char* Qh = Qs + h * kQTile;
+    const uint64_t q_desc = sw128_desc(smem_u32(Qh), 16, 1024);
+    const uint64_t do_desc = sw128_desc(smem_u32(dOs + h * kQTile), 16, 1024);
+    const uint32_t k_ring = smem_u32(Ks), v_ring = smem_u32(Vs);
+    const size_t rows = size_t(bh) * S_pad;
+    const float l2[2] = {lse2[rows + r0], lse2[rows + r0 + 8]};
+    const float dl[2] = {delta[rows + r0], delta[rows + r0 + 8]};
+
+    float dq[DP / 2];
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
+    float s[kBK / 2], dp[kBK / 2];
+    uint32_t ds[kBK / 4];
+
+    bar_wait(full_q, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages, parity = (i / kStages) & 1;
+      const int k0 = (kb_lo + i) * kBK;
+      bar_wait(full_k(st), parity);
+      bar_wait(full_v(st), parity);
+      wgmma_fence();
+      issue_ss<DP, kBK>(s, q_desc, kBox,
+                        sw128_desc(k_ring + st * kKTile, 16, 1024), kKBox);
+      issue_ss<DP, kBK>(dp, do_desc, kBox,
+                        sw128_desc(v_ring + st * kKTile, 16, 1024), kKBox);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+      release(empty_v(st), lane);
+      // dS = P .* (dP - Delta), P = 2^(c s - lse2); masked entries 0.
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r_lo + 8 * (e >> 1);
-        const int kpos = k_start + 8 * n + 2 * t + (e & 1);
-        const float p = visible(q_start + r, kpos, S, causal, window)
-                            ? expf(s[n][e] * scale - sLse[r])
+      for (int e = 0; e < kBK / 2; ++e) {
+        const int hr = (e >> 1) & 1;
+        const int kpos = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        const float p = visible(r0 + 8 * hr, kpos, S, causal, window)
+                            ? ex2(fmaf(s[e], c, -l2[hr]))
                             : 0.0f;
-        s[n][e] = p * (dp[n][e] - sDelta[r]);
+        s[e] = p * (dp[e] - dl[hr]);
       }
-    // dQ += dS K: dS as the A operand (the accumulator fragment of two
-    // n8 tiles is the A fragment of one k16 step), K row-major by key.
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      const uint32_t a[4] = {pack2f(s[2 * j][0], s[2 * j][1]),
-                             pack2f(s[2 * j][2], s[2 * j][3]),
-                             pack2f(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack2f(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        uint32_t b[2];
-        frag_b_kn(b, Ks, LD, 8 * n, 16 * j, g, t);
-        mma(dacc[n], a, b);
-      }
+      for (int j = 0; j < kBK / 4; ++j) ds[j] = pack2(s[2 * j], s[2 * j + 1]);
+      wgmma_fence();
+      issue_rs<DP, kBK>(dq, ds,
+                        sw128_desc(k_ring + st * kKTile, kKBox, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dq);
+      release(empty_k(st), lane);
+    }
+
+    // Epilogue: dQ scale in bf16 into this warpgroup's q tile (swizzled as
+    // TMA wrote it), then one TMA store per box; rows past S are dropped.
+    store_swizzled<DP>(Qh, dq, scale, warp, g, t);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(1 + h, 128);
+    if (threadIdx.x % 128 == 0) {
+      for (int j = 0; j < kNB; ++j)
+        tma_store(&tdq, Qh + j * kBox, 64 * j, q0, bh);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
   }
+}
 
+// ---------------------------------------------------------------------------
+// 3. dkdv.
+// ---------------------------------------------------------------------------
+
+// At head dimension DP: the K and V tiles, the ring of Q and dO tiles with
+// lse2 and Delta, the two P^T buffers (64 x 64 f32 each), the mbarriers
+// (full K/V; full and empty per stage), after up to 1 KB of padding.
+template <int DP>
+struct KvCfg {
+  static constexpr int kNB = DP / 64;
+  static constexpr int kStages = DP == 256 ? 2 : 4;
+  static constexpr int kTile = kNB * kBox;           // 64 rows
+  static constexpr int kRowBytes = kBQT * 4;          // lse2 or Delta
+  static constexpr int kPBuf = kBKV * kBQT * 4;
+  static constexpr size_t kSmem =
+      1024 + size_t(2) * kTile +
+      size_t(kStages) * (2 * kTile + 2 * kRowBytes) + 2 * kPBuf +
+      8 * (1 + 2 * kStages);
+  static_assert(kSmem <= 232448, "dkdv tiles exceed 227 KB");
+  // The exchange of the cluster's partial sums reuses the ring.
+  static_assert(size_t(kStages) * 2 * kTile >= size_t(128) * DP * 2,
+                "dkdv exchange buffer exceeds the ring");
+};
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld_remote4(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(local), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// A consumer's 64 x DP accumulator fragment to global memory in bf16
+// (scaled), rows past S and columns past D dropped.
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* out,
+                                           const float (&acc)[DP / 2],
+                                           float scale, int k_start, int S,
+                                           int D, int warp, int g, int t) {
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n) {
     const int col = 8 * n + 2 * t;
     if (col >= D) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = q_start + r_lo + 8 * h;
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = k_start + 16 * warp + g + 8 * hr;
       if (row < S)
-        *reinterpret_cast<uint32_t*>(dq + off + size_t(row) * D + col) =
-            pack2f(dacc[n][2 * h] * scale, dacc[n][2 * h + 1] * scale);
+        *reinterpret_cast<uint32_t*>(out + size_t(row) * D + col) =
+            pack2(acc[4 * n + 2 * hr] * scale, acc[4 * n + 2 * hr + 1] * scale);
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// 2. dkdv.
-// ---------------------------------------------------------------------------
+// Named barriers of the P^T hand-over (ids 1-4) and the consumers' end.
+constexpr int kBarPFull = 1;    // + buffer
+constexpr int kBarPEmpty = 3;   // + buffer
+constexpr int kBarDone = 5;
 
-template <int DP, int DH>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse,
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
+                   __grid_constant__ const CUtensorMap tdo,
+                   __grid_constant__ const CUtensorMap tk,
+                   __grid_constant__ const CUtensorMap tv,
+                   const float* __restrict__ lse2,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int BH_kv, int rep, int S, int D,
-                   float scale, int causal, int window) {
-  constexpr int LD = DP + 8;
-  constexpr int kSplit = DP / DH;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kBKV * LD;
-  bf16* Qs = Vs + kBKV * LD;
-  bf16* dOs = Qs + kBQT * LD;
-  float* sLse = reinterpret_cast<float*>(dOs + kBQT * LD);
-  float* sDelta = sLse + kBQT;
+                   bf16* __restrict__ dv, int BH_kv, int rep, int groups,
+                   int S, int S_pad, int D, float c, float scale, int causal,
+                   int window) {
+  using Cfg = KvCfg<DP>;
+  constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages, kTile = Cfg::kTile;
+  constexpr int kRowBytes = Cfg::kRowBytes, kPBuf = Cfg::kPBuf;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = base;                       // [box][64][128 B]
+  unsigned char* Vs = Ks + kTile;
+  unsigned char* Qs = Vs + kTile;                 // [stage][box][64][128 B]
+  unsigned char* dOs = Qs + kStages * kTile;
+  float* L2s = reinterpret_cast<float*>(dOs + kStages * kTile);  // [stage][64]
+  float* Dls = L2s + kStages * kBQT;
+  float* Ps = Dls + kStages * kBQT;               // [buffer][8][128][4]
+  const uint32_t bars = smem_u32(reinterpret_cast<unsigned char*>(Ps) +
+                                 2 * kPBuf);
+  const uint32_t full_kv = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
 
-  const int bkv = blockIdx.x % BH_kv;
-  const int rest = blockIdx.x / BH_kv;
-  const int d0 = (rest % kSplit) * DH;   // this CTA's columns of D
-  const int k_start = (rest / kSplit) * kBKV;
-  const size_t off_kv = size_t(bkv) * S * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r_lo = 16 * warp + g;   // this thread's kv rows r_lo, r_lo + 8
-
-  stage<DP>(Ks, k + off_kv, k_start, kBKV, S, D, LD);
-  stage<DP>(Vs, v + off_kv, k_start, kBKV, S, D, LD);
-
-  // q rows that see a key of the block.
+  // Block order: kv blocks from the first (the heaviest under causal and
+  // window), the kv heads, then the groups of query heads (a cluster).
+  const int grp = blockIdx.x % groups;
+  const int bkv = (blockIdx.x / groups) % BH_kv;
+  const int k_start = (blockIdx.x / groups / BH_kv) * kBKV;
   const int k_last = min(S - 1, k_start + kBKV - 1);
-  const int q_first = causal ? k_start : 0;
-  const int q_last = window > 0 ? min(S - 1, k_last + window - 1) : S - 1;
+  const int qt_lo = (causal ? k_start : 0) / kBQT;
+  const int qt_hi =
+      (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / kBQT;
+  const int n_qt = qt_hi - qt_lo + 1;
+  const int h_lo = bkv * rep + (grp * rep) / groups;
+  const int h_hi = bkv * rep + ((grp + 1) * rep) / groups;
+  const int n_items = (h_hi - h_lo) * n_qt;
 
-  float kacc[DH / 8][4], vacc[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) kacc[n][e] = vacc[n][e] = 0.0f;
+  if (threadIdx.x == 0) {
+    bar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full(s), 1);
+      bar_init(empty(s), 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int hh = 0; hh < rep; ++hh) {
-    const int bh = bkv * rep + hh;
-    const size_t off = size_t(bh) * S * D;
-    for (int qt = q_first / kBQT; qt <= q_last / kBQT; ++qt) {
-      const int q0 = qt * kBQT;
-      __syncthreads();   // the last tile's Q, dO, lse and Delta read
-      stage<DP>(Qs, q + off, q0, kBQT, S, D, LD);
-      stage<DP>(dOs, dout + off, q0, kBQT, S, D, LD);
-      for (int r = threadIdx.x; r < kBQT; r += kThreads) {
-        const bool in = q0 + r < S;
-        sLse[r] = in ? lse[size_t(bh) * S + q0 + r] : 0.0f;
-        sDelta[r] = in ? delta[size_t(bh) * S + q0 + r] : 0.0f;
+  if (threadIdx.x < 128) {
+    // Producer.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x == 0) {
+      bar_arrive_tx(full_kv, 2 * kTile);
+      for (int j = 0; j < kNB; ++j) {
+        tma_load(Ks + j * kBox, &tk, 64 * j, k_start, bkv, full_kv);
+        tma_load(Vs + j * kBox, &tv, 64 * j, k_start, bkv, full_kv);
       }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 kv rows x 32 q.
-      float st[kBQT / 8][4], dpt[kBQT / 8][4];
-#pragma unroll
-      for (int n = 0; n < kBQT / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
-#pragma unroll 4
-      for (int kk = 0; kk < DP; kk += 16) {
-        uint32_t ak[4], av[4];
-        frag_a(ak, Ks, LD, 16 * warp, kk, g, t);
-        frag_a(av, Vs, LD, 16 * warp, kk, g, t);
-#pragma unroll
-        for (int n = 0; n < kBQT / 8; ++n) {
-          uint32_t b[2];
-          frag_b_nk(b, Qs, LD, 8 * n, kk, g, t);
-          mma(st[n], ak, b);
-          frag_b_nk(b, dOs, LD, 8 * n, kk, g, t);
-          mma(dpt[n], av, b);
+      for (int i = 0; i < n_items; ++i) {
+        const int st = i % kStages, parity = ((i / kStages) & 1) ^ 1;
+        const int bh = h_lo + i / n_qt;
+        const int q0 = (qt_lo + i % n_qt) * kBQT;
+        bar_wait(empty(st), parity);
+        bar_arrive_tx(full(st), 2 * kTile + 2 * kRowBytes);
+        for (int j = 0; j < kNB; ++j) {
+          tma_load(Qs + st * kTile + j * kBox, &tq, 64 * j, q0, bh,
+                   full(st));
+          tma_load(dOs + st * kTile + j * kBox, &tdo, 64 * j, q0, bh,
+                   full(st));
         }
-      }
-      // P^T in st, dS^T in dpt.
-#pragma unroll
-      for (int n = 0; n < kBQT / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = k_start + r_lo + 8 * (e >> 1);
-          const int c = 8 * n + 2 * t + (e & 1);
-          const float p = visible(q0 + c, kpos, S, causal, window)
-                              ? expf(st[n][e] * scale - sLse[c])
-                              : 0.0f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - sDelta[c]);
-        }
-      // dV += P^T dO and dK += dS^T Q over this CTA's columns.
-#pragma unroll
-      for (int j = 0; j < kBQT / 16; ++j) {
-        const uint32_t ap[4] = {pack2f(st[2 * j][0], st[2 * j][1]),
-                                pack2f(st[2 * j][2], st[2 * j][3]),
-                                pack2f(st[2 * j + 1][0], st[2 * j + 1][1]),
-                                pack2f(st[2 * j + 1][2], st[2 * j + 1][3])};
-        const uint32_t as[4] = {pack2f(dpt[2 * j][0], dpt[2 * j][1]),
-                                pack2f(dpt[2 * j][2], dpt[2 * j][3]),
-                                pack2f(dpt[2 * j + 1][0], dpt[2 * j + 1][1]),
-                                pack2f(dpt[2 * j + 1][2],
-                                       dpt[2 * j + 1][3])};
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
-          uint32_t b[2];
-          frag_b_kn(b, dOs, LD, d0 + 8 * n, 16 * j, g, t);
-          mma(vacc[n], ap, b);
-          frag_b_kn(b, Qs, LD, d0 + 8 * n, 16 * j, g, t);
-          mma(kacc[n], as, b);
-        }
+        const size_t row = size_t(bh) * S_pad + q0;
+        bulk_load(L2s + st * kBQT, lse2 + row, kRowBytes, full(st));
+        bulk_load(Dls + st * kBQT, delta + row, kRowBytes, full(st));
       }
     }
-  }
+    if (groups > 1) {   // the consumers' exchange (two cluster barriers)
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {
+    // Consumers: 0 the S^T / P^T / dV side, 1 the dP^T / dS^T / dK side.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    const int h = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int kr = k_start + 16 * warp + g;   // this thread's kv rows kr, +8
+    const uint32_t q_ring = smem_u32(Qs), do_ring = smem_u32(dOs);
+    // Consumer 0 multiplies K by Q^T and P^T by dO; consumer 1 V by dO^T
+    // and dS^T by Q.
+    const uint64_t a_desc = sw128_desc(smem_u32(h == 0 ? Ks : Vs), 16, 1024);
+    const uint32_t b_ring = h == 0 ? q_ring : do_ring;
+    const uint32_t o_ring = h == 0 ? do_ring : q_ring;
 
+    float acc[DP / 2];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
-    const int col = d0 + 8 * n + 2 * t;
-    if (col >= D) continue;
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+    float s[32];
+    uint32_t pk[16];
+
+    bar_wait(full_kv, 0);
+    for (int i = 0; i < n_items; ++i) {
+      const int st = i % kStages, parity = (i / kStages) & 1;
+      const int q0 = (qt_lo + i % n_qt) * kBQT;
+      const int buf = i & 1;
+      float4* pb = reinterpret_cast<float4*>(Ps) + buf * (kPBuf / 16);
+      bar_wait(full(st), parity);
+      wgmma_fence();
+      issue_ss<DP, 64>(s, a_desc, kBox,
+                       sw128_desc(b_ring + st * kTile, 16, 1024), kBox);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      if (h == 0) {
+        // P^T = 2^(c S^T - lse2[q]), masked entries 0; to consumer 1.
+        const float* l2 = L2s + st * kBQT;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = k_start + r_lo + 8 * h;
-      if (row >= S) continue;
-      const size_t at = off_kv + size_t(row) * D + col;
-      *reinterpret_cast<uint32_t*>(dk + at) =
-          pack2f(kacc[n][2 * h] * scale, kacc[n][2 * h + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + at) =
-          pack2f(vacc[n][2 * h], vacc[n][2 * h + 1]);
+        for (int e = 0; e < 32; ++e) {
+          const int col = 8 * (e >> 2) + 2 * t + (e & 1);
+          const int kpos = kr + 8 * ((e >> 1) & 1);
+          s[e] = visible(q0 + col, kpos, S, causal, window)
+                     ? ex2(fmaf(s[e], c, -l2[col]))
+                     : 0.0f;
+        }
+        if (i >= 2) named_sync(kBarPEmpty + buf, 256);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          pb[j * 128 + tid] =
+              make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+        named_arrive(kBarPFull + buf, 256);
+      } else {
+        // dS^T = P^T .* (dP^T - Delta[q]).
+        const float* dl = Dls + st * kBQT;
+        named_sync(kBarPFull + buf, 256);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 p = pb[j * 128 + tid];
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            s[4 * j + e] = pv[e] * (s[4 * j + e] - dl[col]);
+          }
+        }
+        named_arrive(kBarPEmpty + buf, 256);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) pk[j] = pack2(s[2 * j], s[2 * j + 1]);
+      // dV += P^T dO (consumer 0), dK += dS^T Q (consumer 1).
+      wgmma_fence();
+      issue_rs<DP, kBQT>(acc, pk,
+                         sw128_desc(o_ring + st * kTile, kBox, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      release(empty(st), lane);
+    }
+    // Consumer 1's last arrivals on the P^T buffers.
+    if (h == 0)
+      for (int i = max(0, n_items - 2); i < n_items; ++i)
+        named_sync(kBarPEmpty + (i & 1), 256);
+
+    bf16* out = (h == 0 ? dv : dk) + size_t(bkv) * S * D;
+    const float sc = h == 0 ? 1.0f : scale;
+    if (groups == 1) {
+      store_rows<DP>(out, acc, sc, k_start, S, D, warp, g, t);
+    } else {
+      // The cluster's two CTAs: rank 0 finishes dV, rank 1 dK.  Each
+      // leaves the partial the other finishes in its (now free) ring.
+      const uint32_t rank = cluster_rank();
+      float4* xb = reinterpret_cast<float4*>(Qs);
+      const bool mine = static_cast<int>(rank) == h;
+      named_sync(kBarDone, 256);   // every consumer is past the ring
+      if (!mine)
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j)
+          xb[j * 128 + tid] = make_float4(acc[4 * j], acc[4 * j + 1],
+                                          acc[4 * j + 2], acc[4 * j + 3]);
+      cluster_sync();
+      if (mine) {
+        const uint32_t peer = rank ^ 1u;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          const float4 r = ld_remote4(smem_u32(xb + j * 128 + tid), peer);
+          // rank 0's part first: the same sum in either CTA.
+          if (rank == 0) {
+            acc[4 * j] += r.x;
+            acc[4 * j + 1] += r.y;
+            acc[4 * j + 2] += r.z;
+            acc[4 * j + 3] += r.w;
+          } else {
+            acc[4 * j] = r.x + acc[4 * j];
+            acc[4 * j + 1] = r.y + acc[4 * j + 1];
+            acc[4 * j + 2] = r.z + acc[4 * j + 2];
+            acc[4 * j + 3] = r.w + acc[4 * j + 3];
+          }
+        }
+      }
+      cluster_sync();   // the peer has read this CTA's partial
+      if (mine) store_rows<DP>(out, acc, sc, k_start, S, D, warp, g, t);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Launcher.
+// Launchers.
 // ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (heads, S, D) bf16 tensor as a 3-D map of boxes of 64 columns by `rows`
+// rows, 128-byte swizzle; elements outside the tensor read as zero and are
+// not written.
+bool encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D,
+                int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(S) * D * 2};
+  const cuuint32_t box[3] = {64, cuuint32_t(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Query-head groups of the dkdv launch: two (a cluster) while the kv
+// blocks of the kv heads alone would leave SMs idle for two waves.
+int dkdv_groups(int rep, int n_kv_blocks) {
+  return rep >= 2 && n_kv_blocks < 2 * 132 ? 2 : 1;
+}
 
 template <int DP>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* delta, void* dq,
-           void* dk, void* dv, int BH, int BH_kv, int S, int D, int causal,
-           int window, cudaStream_t stream) {
-  constexpr int DH = DP > 128 ? 128 : DP;
-  const auto dq_k = fa_bwd_dq_kernel<DP>;
-  const auto dkdv_k = fa_bwd_dkdv_kernel<DP, DH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dq_smem<DP>()));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dkdv_k,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dkdv_smem<DP>()));
-  if (err != cudaSuccess) return static_cast<int>(err);
+           const void* dout, const void* lse, void* ws, void* dq, void* dk,
+           void* dv, int BH, int BH_kv, int S, int D, int causal, int window,
+           cudaStream_t stream) {
+  const int rep = BH / BH_kv;
+  const int S_pad = (S + kPad - 1) / kPad * kPad;
+  float* lse2 = static_cast<float*>(ws);
+  float* delta = lse2 + size_t(BH) * S_pad;
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  const int rep = BH / BH_kv;
-  const unsigned dq_grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
-  dq_k<<<dq_grid, kThreads, dq_smem<DP>(), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<bf16*>(dq), BH, rep, S, D,
-      scale, causal, window);
+  const float c = scale * kLog2e;   // 2^(c s) = e^(scale s)
+
+  CUtensorMap tq, tdo, tk_dq, tv_dq, tdq, tk, tv;
+  if (!encode_map(&tq, q, BH, S, D, 64) ||
+      !encode_map(&tdo, dout, BH, S, D, 64) ||
+      !encode_map(&tk_dq, k, BH_kv, S, D, DqCfg<DP>::kBK) ||
+      !encode_map(&tv_dq, v, BH_kv, S, D, DqCfg<DP>::kBK) ||
+      !encode_map(&tdq, dq, BH, S, D, 64) ||
+      !encode_map(&tk, k, BH_kv, S, D, 64) ||
+      !encode_map(&tv, v, BH_kv, S, D, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(DqCfg<DP>::kSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(KvCfg<DP>::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const long long prep_rows = static_cast<long long>(BH) * S_pad;
+  const unsigned prep_grid = static_cast<unsigned>(
+      (prep_rows + kPrepThreads / 32 - 1) / (kPrepThreads / 32));
+  fa_bwd_prep_kernel<<<prep_grid, kPrepThreads, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), lse2, delta, BH, S, S_pad, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const unsigned kv_grid =
-      static_cast<unsigned>((S + kBKV - 1) / kBKV) * (DP / DH) * BH_kv;
-  dkdv_k<<<kv_grid, kThreads, dkdv_smem<DP>(), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH_kv, rep, S, D,
-      scale, causal, window);
+
+  const unsigned dq_grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
+  fa_bwd_dq_kernel<DP><<<dq_grid, kThreads, DqCfg<DP>::kSmem, stream>>>(
+      tq, tdo, tk_dq, tv_dq, tdq, lse2, delta, BH, rep, S, S_pad, c, scale,
+      causal, window);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  const int nkb = (S + kBKV - 1) / kBKV;
+  const int groups = dkdv_groups(rep, nkb * BH_kv);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nkb * BH_kv * groups));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = KvCfg<DP>::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(groups);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fa_bwd_dkdv_kernel<DP>, tq, tdo, tk, tv,
+                           static_cast<const float*>(lse2),
+                           static_cast<const float*>(delta),
+                           static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                           BH_kv, rep, groups, S, S_pad, D, c, scale, causal,
+                           window);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o, dout, dq: (BH, S, D) bf16; k, v, dk, dv: (BH_kv, S, D) bf16 with
-// BH_kv dividing BH; lse (the forward's) and the workspace delta: (BH, S)
-// f32.  Contiguous, 16-byte aligned, on the stream's device; D a multiple
-// of 16 and at most 256.  Two launches on the stream; returns the first
-// nonzero cudaError_t (0 on success), cudaErrorInvalidValue for a shape the
-// kernels do not take.
+// BH_kv dividing BH; lse (the forward's): (BH, S) f32; the workspace ws:
+// (2, BH, S_pad) f32 with S_pad = S rounded up to 128.  Contiguous, 16-byte
+// aligned, on the stream's device; D a multiple of 16 and at most 256.
+// Three launches on the stream; returns the first nonzero cudaError_t (0
+// on success), cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    const void* dout, const void* lse, void* ws, void* dq, void* dk,
     void* dv, int BH, int BH_kv, int S, int D, int causal, int window,
     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -478,11 +1080,11 @@ extern "C" int repro_flash_attention_bwd_bf16(
       D % 16 != 0 || D > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
-    return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, BH_kv, S,
-                      D, causal, window, st);
+    return launch<64>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D,
+                      causal, window, st);
   if (D <= 128)
-    return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, BH_kv,
-                       S, D, causal, window, st);
-  return launch<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, BH_kv, S,
-                     D, causal, window, st);
+    return launch<128>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
+                       D, causal, window, st);
+  return launch<256>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D,
+                     causal, window, st);
 }

@@ -12,8 +12,11 @@ f32 in exact f32 arithmetic.  The forward also writes each row's
 log-sum-exp (BH, S) in f32, which the backward reads.
 
 The backward (``csrc/flash_attention_bwd.cu``, no TPU counterpart) is
-FA2's: one launch for dQ, one for dK and dV per kv block looping over the
-query heads that share it; bf16 only.  The wrappers take CUDA tensors
+FA2's on the forward's machinery (``wgmma`` fed by TMA): a small launch
+for Delta = rowsum(dO .* O), one for dQ, one for dK and dV per kv block
+looping over the query heads that share it (two groups of them, summed
+by a cluster of two CTAs, when the kv blocks alone would not fill the
+card); bf16 only.  The wrappers take CUDA tensors
 only.  :class:`FlashAttention` is the autograd Function that
 :func:`repro_torch.kernels.ops.flash_attention` calls: the kernels for
 CUDA tensors, the plain versions of ``kernels/ref.py`` for CPU tensors.
@@ -27,7 +30,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.ref import attention_shapes
 
 launches = 0       # forward launches since the last reset (ops.reset_counts)
-bwd_launches = 0   # backward calls (two CUDA launches each) since then
+bwd_launches = 0   # backward calls (three CUDA launches each) since then
 
 _FN = {torch.float32: "repro_flash_attention_f32",
        torch.bfloat16: "repro_flash_attention_bf16"}
@@ -91,28 +94,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse_out) if lse else out
 
 
+BWD_PAD = 128        # rows of the backward's workspace: S rounded up
+
+
 def bwd_plan(q_shape, k_shape) -> dict:
-    """The backward's tiles: the dq launch's q rows a CTA (BQ) and kv rows
-    a tile (BK), the dkdv launch's kv rows a CTA (BKV), q rows a tile (BQT)
-    and the split of D (DH columns a CTA); dynamic shared memory of each
-    (bf16 rows padded to DP + 8, plus lse and Delta) and CTAs; as
-    ``csrc/flash_attention_bwd.cu`` has them."""
+    """The backward's launches as ``csrc/flash_attention_bwd.cu`` has
+    them: the dq launch's q rows a CTA (BQ, 64 a consumer warpgroup), kv
+    rows a tile (BK) and stages; the dkdv launch's kv rows a CTA (BKV), q
+    rows a tile (BQT), stages and query-head groups (a cluster of that
+    many CTAs a kv block); dynamic shared memory of each (after up to 1 KB
+    of padding to the swizzle's period) and CTAs; and the rows of the
+    (2, BH, S_pad) f32 workspace (lse log2 e and Delta)."""
     bh, s, d = q_shape
+    bh_kv = k_shape[0]
+    rep = bh // bh_kv
     dp = 64 if d <= 64 else 128 if d <= 128 else 256
-    dh = min(dp, 128)
-    row = 2 * (dp + 8)
-    return {"dp": dp, "dh": dh, "bq": 64, "bk": 32, "bkv": 64, "bqt": 32,
-            "dq_smem_bytes": (2 * 64 + 2 * 32) * row + 2 * 64 * 4,
-            "dkdv_smem_bytes": (2 * 64 + 2 * 32) * row + 2 * 32 * 4,
-            "dq_ctas": -(-s // 64) * bh,
-            "dkdv_ctas": -(-s // 64) * (dp // dh) * k_shape[0]}
+    tile = (dp // 64) * BOX_BYTES           # 64 rows of D
+    bk = 32 if dp == 256 else 64
+    dq_stages = 3 if dp == 256 else 4
+    kv_stages = 2 if dp == 256 else 4
+    nkb = -(-s // 64)
+    groups = 2 if rep >= 2 and nkb * bh_kv < 2 * _build.NUM_SMS else 1
+    return {"dp": dp, "bq": 128, "bk": bk, "dq_stages": dq_stages,
+            "bkv": 64, "bqt": 64, "kv_stages": kv_stages, "groups": groups,
+            # q and dO tiles of both consumers, the k and v rings,
+            # 1 + 4 stages mbarriers
+            "dq_smem_bytes": (1024 + 4 * tile
+                              + 2 * dq_stages * tile * bk // 64
+                              + 8 * (1 + 4 * dq_stages)),
+            # k and v, the ring of q and dO with lse2 and Delta (64 f32
+            # each), two 64 x 64 f32 buffers of P^T, 1 + 2 stages mbarriers
+            "dkdv_smem_bytes": (1024 + 2 * tile
+                                + kv_stages * (2 * tile + 2 * 256)
+                                + 2 * 64 * 64 * 4 + 8 * (1 + 2 * kv_stages)),
+            "dq_ctas": -(-s // 128) * bh,
+            "dkdv_ctas": nkb * bh_kv * groups,
+            "s_pad": -(-s // BWD_PAD) * BWD_PAD}
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0) -> tuple:
     """The gradients (dq, dk, dv) of :func:`flash_attention` from its
     inputs, its output ``o``, its ``lse`` and ``do``; bf16, D a multiple
-    of 16.  Two CUDA launches (dq, then dk and dv)."""
+    of 16.  Three CUDA launches (Delta, dq, then dk and dv)."""
     global bwd_launches
     _build.check_inputs("flash_attention_bwd",
                         {"q": q, "k": k, "v": v, "o": o, "do": do},
@@ -132,11 +156,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    ws = torch.empty((2, bh, bwd_plan(q.shape, k.shape)["s_pad"]),
+                     dtype=torch.float32, device=q.device)
     lib = _build.load()
     err = lib.repro_flash_attention_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], s, d,
         int(bool(causal)), int(window),
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -216,28 +216,38 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256,
     return y
 
 
-def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk: int = 256):
+def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk: int = 256,
+                       matmul=torch.matmul):
     """The gradients (dx, ddt, dA, dB, dC) of :func:`ssd_scan_plain`'s y
     (the final state gets none), in the steps the kernel takes
     (``csrc/ssd_scan_bwd.cu``), in f32 with the in-chunk cumulative decay
     in f64 as in the forward.  Per head and chunk, with
     Lm = exp(cum_l - cum_m) (m <= l), G = C B^T, M = G .* Lm .* dt_m,
-    w = dt exp(cum_last - cum) and S_prev the state before the chunk:
+    w = dt exp(cum_last - cum), e = exp(cum) and S_prev the state before
+    the chunk:
 
-    * ychunk: Y_c = sum_l exp(cum_l) C_l dy_l^T (N, P);
-    * rpass: the state gradients in reverse, R_c = Y_c + exp(cum_last)
-      R_{c+1}, keeping dS_c = R_{c+1} (the gradient of the chunk's own
-      state) and ddecay_c = sum(dS_c .* S_prev);
-    * row (per l): dM = dy x^T, dG = dM .* Lm .* dt_m, dC = dG B +
-      exp(cum_l) S_prev dy_l, and the row part of dcum, sum_m dG .* G +
-      C_l . exp(cum_l) S_prev dy_l;
-    * col (per m): v = dS x_m, dx = M^T dy + w B dS, dB = dG^T C + w v,
-      ddt = sum_l dM .* G .* Lm + exp(cum_last - cum_m) (B . v), and the
-      column part of dcum, -sum_l dG .* G - w (B . v);
-    * dcum: cum_last also gets sum_m w (B . v) + ddecay exp(cum_last);
-      the reverse in-chunk cumsum of dcum is the gradient of dt * A;
-    * reduce: dB and dC summed over the heads of a group, dA over the
-      chunks.
+    * ychunk (per head and chunk): Y_c = (e .* C)^T dy (N, P);
+    * rpass (per head, slices of the state): the state gradients in
+      reverse, R_c = Y_c + exp(cum_last) R_{c+1}, keeping dS_c = R_{c+1}
+      (the gradient of the chunk's own state) and ddecay_c = sum(dS_c .*
+      S_prev);
+    * col (per group, chunk and rows m, the group's heads in turn):
+      dM = dy x^T, once; dG = dM .* Lm .* dt_m; Z = dG .* G; g = B dS;
+      dx = M^T dy + w g; ddt = sum_l dM .* G .* Lm + exp(cum_last -
+      cum_m) (x . g); the row sums of Z and, for the column,
+      -sum_l Z - w (x . g); the heads' sums sum_h dG and
+      sum_h (w x) dS^T, which gives dB with (sum_h dG)^T C;
+    * row (per group, chunk and rows l, the heads in turn): P1 = dy
+      S_prev^T, dc = e P1 summed over the heads, the row sum
+      C_l . dc_l per head; dC = sum_h dc + (sum_h dG) B;
+    * dcum (per head): cum_last also gets sum_m w (x . g) + ddecay
+      exp(cum_last); the reverse in-chunk cumsum of dcum is the gradient
+      of dt * A, which gives ddt's last term and dA.
+
+    B and C are shared by the heads of a group, so dG B and dG^T C are
+    formed once per group from the heads' sum of dG.  ``matmul`` takes
+    every matrix product of those steps (the tests pass one that rounds
+    as the kernel's tensor cores do).
 
     x (BH, S, P), dt (BH, S), A (BH,), B/C (BH / rep, S, N), dy like x ->
     dx, ddt, dA, dB, dC in their inputs' shapes and dtypes."""
@@ -246,6 +256,7 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk: int = 256):
     rep = bh // groups
     chunk = ssd_chunk(s, chunk)
     nc = s // chunk
+    mm = matmul
     xc = x.float().reshape(groups, rep, nc, chunk, p)
     dyc = dy.float().reshape(groups, rep, nc, chunk, p)
     dtc = dt.float().reshape(groups, rep, nc, chunk)
@@ -257,6 +268,8 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk: int = 256):
     def exp(t):   # of an f64 exponent, in f32
         return torch.exp(t.float())
 
+    # The forward's quantities, which the kernel reads from its
+    # workspaces: G and the state before each chunk.
     causal = torch.ones(chunk, chunk, dtype=torch.bool,
                         device=x.device).tril()
     Lm = torch.where(causal, exp(torch.where(
@@ -277,7 +290,7 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk: int = 256):
     ecum = exp(cum)
 
     # ychunk and rpass.
-    yc = torch.einsum("gcln,grcl,grclp->grcnp", Cc, ecum, dyc)
+    yc = mm((Cc[:, None] * ecum[..., None]).mT, dyc)     # (g, rep, nc, n, p)
     r = torch.zeros_like(carry)
     ds, ddecay = [None] * nc, [None] * nc
     for c in reversed(range(nc)):
@@ -287,24 +300,27 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk: int = 256):
     ds = torch.stack(ds, dim=2)                          # (g, rep, nc, n, p)
     ddecay = torch.stack(ddecay, dim=2)                  # (g, rep, nc)
 
-    # row: per l.
-    dc_inter = ecum[..., None] * torch.einsum("grcnp,grclp->grcln", sprev,
-                                              dyc)
-    dM = torch.einsum("grclp,grcmp->grclm", dyc, xc)
+    # col: per m, the heads' sums over the group.
+    dM = mm(dyc, xc.mT)                                  # (.., l, m)
     dG = dM * Lm * dtc[..., None, :]
     Z = (dG * G).double()
-    dcum = Z.sum(-1) + torch.einsum("grcln,gcln->grcl", dc_inter, Cc)
-    dC = dc_inter + torch.einsum("grclm,gcmn->grcln", dG, Bc)
-
-    # col: per m.
-    v = torch.einsum("grcnp,grcmp->grcmn", ds, xc)
-    bv = torch.einsum("grcmn,gcmn->grcm", v, Bc)
+    gds = mm(Bc[:, None], ds)                            # B dS (.., m, p)
+    bv = (xc * gds).sum(-1)                              # B . (dS x_m)
     M = G * Lm * dtc[..., None, :]
-    dx = (w[..., None] * torch.einsum("gcmn,grcnp->grcmp", Bc, ds)
-          + torch.einsum("grclm,grclp->grcmp", M, dyc))
-    dB = w[..., None] * v + torch.einsum("grclm,gcln->grcmn", dG, Cc)
+    dx = mm(M.mT, dyc) + w[..., None] * gds
     ddt = (dM * G * Lm).sum(-2) + tail * bv
-    dcum = dcum - Z.sum(-2) - w * bv
+    dcum = Z.sum(-1) - Z.sum(-2) - w * bv
+    dGs = dG.sum(1)                                      # (g, nc, l, m)
+    # sum_h (w x_h) dS_h^T as one product over (head, p).
+    wx = (w[..., None] * xc).permute(0, 2, 3, 1, 4).reshape(
+        groups, nc, chunk, rep * p)
+    dsT = ds.mT.permute(0, 2, 1, 3, 4).reshape(groups, nc, rep * p, n)
+    dB = mm(wx, dsT) + mm(dGs.mT, Cc)
+
+    # row: per l.
+    dc = ecum[..., None] * mm(dyc, sprev.mT)             # (.., l, n)
+    dcum = dcum + (dc * Cc[:, None]).sum(-1).double()
+    dC = dc.sum(1) + mm(dGs, Bc)
 
     # dcum: cum_last's own terms, then the reverse in-chunk cumsum.  The
     # sums that build dcum, its cumsum and dA run in f64, as autograd
@@ -316,9 +332,6 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, dy, *, chunk: int = 256):
     dda = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
     ddt = ddt + Af * dda.float()
     dA = (dtc.double() * dda).sum((-1, -2)).reshape(bh)
-
-    # reduce over the heads of a group.
-    dB = dB.sum(1).reshape(groups, s, n)
-    dC = dC.sum(1).reshape(groups, s, n)
     return (dx.reshape(bh, s, p).to(x.dtype), ddt.reshape(bh, s).to(dt.dtype),
-            dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype))
+            dA.to(A.dtype), dB.reshape(groups, s, n).to(B.dtype),
+            dC.reshape(groups, s, n).to(C.dtype))

@@ -17,12 +17,14 @@ the chunk states (BH, S / chunk, N, P) in f32 (134 MB at the Mamba-2
 1.3B prefill shape).
 
 The backward (``csrc/ssd_scan_bwd.cu``, no TPU counterpart) gives dx,
-ddt, dA, dB and dC of y in six CUDA launches, from the forward's cum, C
-B^T and state workspaces (which :class:`SsdScan` saves) and an f32 and an f64
-workspace allocated here; f32, P at most 64.  The wrappers take CUDA
-tensors only.  :class:`SsdScan` is the autograd Function that
-:func:`repro_torch.kernels.ops.ssd_scan` calls: the kernels for CUDA
-tensors, the plain versions of ``kernels/ref.py`` for CPU tensors.
+ddt, dA, dB and dC of y in five CUDA launches (ychunk, rpass, col, row,
+dcum), every product in 3xTF32 on the tensor cores, from the forward's
+cum, C B^T and state workspaces (which :class:`SsdScan` saves) and an f32
+and an f64 workspace allocated here; f32, P at most 64, the chunk at
+most 256.  The wrappers take CUDA tensors only.  :class:`SsdScan` is the
+autograd Function that :func:`repro_torch.kernels.ops.ssd_scan` calls:
+the kernels for CUDA tensors, the plain versions of ``kernels/ref.py``
+for CPU tensors.
 """
 from __future__ import annotations
 
@@ -33,13 +35,15 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.ref import ssd_chunk
 
 launches = 0       # forward calls since the last reset (ops.reset_counts)
-bwd_launches = 0   # backward calls (six CUDA launches each) since then
+bwd_launches = 0   # backward calls (five CUDA launches each) since then
 
 MAX_N = 128        # B's slab rows in shared memory are sized for it
 MAX_CHUNK = 1024   # cum, dt and the decay weights of a chunk in shared memory
 MAX_BH = 65535     # the grid's z extent
-MAX_P_BWD = 64     # the backward's per-thread column share
-TILE_BWD = 32      # rows of the backward's row and col tiles
+MAX_P_BWD = 64     # the backward's tiles hold 64 columns of P
+MAX_CHUNK_BWD = 256   # its strip of the heads' sum of dG in shared memory
+TILE_BWD = 64      # rows of the backward's col and row tiles
+PASS_BWD = 256     # state elements an rpass CTA of the backward owns
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -93,13 +97,42 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, final
 
 
-def bwd_workspaces(bh: int, s: int, p: int, n: int, chunk: int) -> tuple:
+def bwd_splits(bh: int, groups: int, s: int, chunk: int) -> int:
+    """How many parts the backward's col launch splits a group's heads
+    into: the fewest (a power of two, at most 8 and at most rep) that give
+    two waves of col CTAs on the card."""
+    rep, nc, tiles = bh // groups, s // chunk, -(-chunk // TILE_BWD)
+    h = 1
+    while (2 * h <= min(rep, 8)
+           and groups * nc * tiles * h < 2 * _build.NUM_SMS):
+        h *= 2
+    return h
+
+
+def bwd_smem_bytes() -> dict:
+    """Dynamic shared memory of the backward's col and row launches, by
+    the formulas of ``csrc/ssd_scan_bwd.cu`` (chunk at most 256, N 128, P
+    64, 64-row tiles with padded rows; a row CTA owns 64 columns of N)."""
+    t, lda, ldb, ldna = TILE_BWD, 68, 72, 132
+    col = (8 * (MAX_CHUNK_BWD + 4 * t)
+           + 4 * (MAX_CHUNK_BWD + 6 * t + t * ldna + t * lda + MAX_N * ldb
+                  + 2 * t * lda + (MAX_CHUNK_BWD // t) * t * t))
+    row = 8 * 3 * t + 4 * (4 * t * lda + t * ldb)
+    return {"col": col, "row": row}
+
+
+def bwd_workspaces(bh: int, groups: int, s: int, p: int, n: int,
+                   chunk: int) -> tuple:
     """Elements of the backward's f32 and f64 workspaces, by the formulas
     of ``csrc/ssd_scan_bwd.cu``."""
     nc = s // chunk
     tiles = -(-chunk // TILE_BWD)
-    return (bh * nc * n * p + 2 * bh * s * n + bh * s + bh * nc,
-            2 * bh * s + bh * nc + bh * nc * tiles)
+    slices = -(-(n * p) // PASS_BWD)
+    h = bwd_splits(bh, groups, s, chunk)
+    halves = -(-n // 64)
+    return (bh * nc * n * p + h * groups * nc * chunk * chunk
+            + h * groups * s * n + bh * s + bh * nc * slices,
+            bh * s * tiles + (halves + 1) * bh * s + bh * nc * tiles)
 
 
 def ssd_scan_bwd(x, dt, A, B, C, dy, saved, *, chunk: int = 256) -> tuple:
@@ -112,9 +145,10 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, saved, *, chunk: int = 256) -> tuple:
     bh, s, p = x.shape
     groups, n = B.shape[0], B.shape[2]
     chunk = ssd_chunk(s, chunk)
-    if p > MAX_P_BWD or n > MAX_N or chunk > MAX_CHUNK or bh > MAX_BH:
+    if p > MAX_P_BWD or n > MAX_N or chunk > MAX_CHUNK_BWD or bh > MAX_BH:
         raise ValueError(f"ssd_scan_bwd: P must be at most {MAX_P_BWD}, N "
-                         f"at most {MAX_N}, the chunk at most {MAX_CHUNK} "
+                         f"at most {MAX_N}, the chunk at most "
+                         f"{MAX_CHUNK_BWD} "
                          f"and BH at most {MAX_BH} (got P {p}, N {n}, "
                          f"chunk {chunk}, BH {bh})")
     nc = s // chunk
@@ -128,7 +162,7 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, saved, *, chunk: int = 256) -> tuple:
     dA = torch.empty_like(A)
     dB = torch.empty_like(B)
     dC = torch.empty_like(C)
-    n32, n64 = bwd_workspaces(bh, s, p, n, chunk)
+    n32, n64 = bwd_workspaces(bh, groups, s, p, n, chunk)
     ws = torch.empty(n32, dtype=torch.float32, device=x.device)
     ws64 = torch.empty(n64, dtype=torch.float64, device=x.device)
     lib = _build.load()
@@ -137,7 +171,7 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, saved, *, chunk: int = 256) -> tuple:
         C.data_ptr(), dy.data_ptr(), cum.data_ptr(), cb.data_ptr(),
         states.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
         dB.data_ptr(), dC.data_ptr(), ws.data_ptr(), ws64.data_ptr(), bh,
-        s, p, n, bh // groups, chunk,
+        s, p, n, bh // groups, chunk, bwd_splits(bh, groups, s, chunk),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_scan_bwd")
     bwd_launches += 1

@@ -348,8 +348,18 @@ def test_rglru_scan_function_grads_match_autograd_and_reference(b, s, w):
 
 def test_flash_attention_bwd_plan_fits_one_cta():
     plan = t_fa.bwd_plan((32, 4096, 256), (2, 4096, 256))
-    # D = 256: dK and dV split into halves of D across two CTAs
-    assert (plan["dp"], plan["dh"]) == (256, 128)
+    # D = 256: kv tiles of 32 rows in the dq launch (Q and dO of both
+    # consumers take 128 KB); each launch within one CTA's shared memory
+    assert (plan["dp"], plan["bk"]) == (256, 32)
     assert plan["dq_smem_bytes"] <= t_fa.MAX_SMEM
     assert plan["dkdv_smem_bytes"] <= t_fa.MAX_SMEM
-    assert plan["dq_ctas"] == 64 * 32 and plan["dkdv_ctas"] == 64 * 2 * 2
+    # one kv head per 16 query heads: two groups of query heads (a
+    # cluster of two CTAs a kv block) fill the 132 SMs
+    assert plan["groups"] == 2
+    assert plan["dkdv_ctas"] == 64 * 2 * 2 >= 132
+    assert plan["dq_ctas"] == 32 * 32 and plan["s_pad"] == 4096
+    for d in (64, 128):
+        small = t_fa.bwd_plan((4, 1000, d), (4, 1000, d))
+        assert small["groups"] == 1 and small["s_pad"] == 1024
+        assert max(small["dq_smem_bytes"],
+                   small["dkdv_smem_bytes"]) <= t_fa.MAX_SMEM

@@ -338,6 +338,39 @@ def test_3xtf32_holds_the_kernel_tolerance_and_single_tf32_does_not(
                            want) > 10
 
 
+@pytest.mark.parametrize("bh,groups,s,p,n,chunk,a_hi",
+                         [(8, 2, 1024, 64, 128, 256, 2.0),
+                          (4, 1, 512, 64, 128, 128, 16.0)])
+def test_bwd_3xtf32_holds_the_gradient_gate_and_single_tf32_does_not(
+        bh, groups, s, p, n, chunk, a_hi):
+    """The backward kernel runs every product of ``ssd_scan_bwd_plain``'s
+    steps in 3xTF32 (dcum, its cumsum and dA in f64).  Emulated at shapes
+    whose state stays alive across chunks, at Mamba-2's step sizes and
+    decay rates (A = -exp(A_log), A_log from log U(1, 16)), all five
+    gradients stay within chip_smoke.py's f32 gate (1e-4 relative
+    Frobenius against autograd through the plain forward) by two decades;
+    one TF32 product each misses it (~3e-4 in dx, dB and dC)."""
+    rng = np.random.default_rng(9)
+    args = _t([a.astype(np.float32) for a in (
+        rng.normal(size=(bh, s, p)), rng.uniform(0.001, 0.1, (bh, s)),
+        -rng.uniform(0.5, a_hi, bh), rng.normal(size=(groups, s, n)),
+        rng.normal(size=(groups, s, n)))])
+    dy = torch.from_numpy(rng.normal(size=(bh, s, p)).astype(np.float32))
+    leaves = [a.clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(tref.ssd_scan_plain(*leaves, chunk=chunk),
+                               leaves, dy)
+
+    def worst(mm):
+        got = tref.ssd_scan_bwd_plain(*args, dy, chunk=chunk, matmul=mm)
+        return [_rel_frob(g, w) for g, w in zip(got, want)]
+
+    assert max(worst(torch.matmul)) <= 1e-6
+    assert max(worst(_mm_3xtf32)) <= 1e-6
+    single = worst(_mm_tf32)
+    assert max(single) > 1e-4
+    assert min(single) > 1e-5
+
+
 # ---------------------------------------------------------------------------
 # The backward (training).  On the CPU ``ops.ssd_scan`` runs the autograd
 # Function ``SsdScan`` with the plain forward and the plain backward
@@ -420,11 +453,25 @@ def test_ssd_backward_binding_refuses_cpu_tensors():
 
 
 def test_ssd_bwd_workspace_formula():
-    # f32: dS, dB_h and dC_h, ddt's parts (BH, S), ddecay (BH, nc); f64:
-    # dcum's row and column parts (BH, S), dA's parts (BH, nc) and the
-    # tiles' sums; at the Mamba-2 1.3B training shape 151 M f32 (604 MB).
-    n32, n64 = t_ssd.bwd_workspaces(256, 2048, 64, 128, 256)
-    nc, tiles = 8, 8
-    assert n32 == (256 * nc * 128 * 64 + 2 * 256 * 2048 * 128 + 256 * 2048
-                   + 256 * nc)
-    assert n64 == 2 * 256 * 2048 + 256 * nc + 256 * nc * tiles
+    # f32: dS (BH, nc, N, P), the head splits' sums of dG (H, BG, nc,
+    # chunk, chunk) and parts of dB (H, BG, S, N), ddt's parts (BH, S),
+    # ddecay's parts (BH, nc, N P / 256); f64: the row sums of dG .* G per
+    # 64-row m tile (BH, S, tiles), the row part of dcum per 64 columns of
+    # N (2, BH, S), its column part (BH, S), sum w (x . g) per tile (BH,
+    # nc, tiles).  The heads' dB and
+    # dC are summed inside the CTAs: no per-head (BH, S, N) dB_h and dC_h
+    # (2 x 268 MB at the Mamba-2 1.3B training shape); 120 MB in all.
+    bh, groups, s, p, n, chunk = 256, 4, 2048, 64, 128, 256
+    nc, tiles = 8, 4
+    # four splits of the 64 heads give 4 x 8 x 4 x 4 = 512 >= 264 col CTAs
+    assert t_ssd.bwd_splits(bh, groups, s, chunk) == 4
+    assert t_ssd.bwd_splits(8, 8, 64, 16) == 1     # rep 1: no split
+    assert t_ssd.bwd_splits(6, 2, 48, 16) == 2     # at most rep (3)
+    n32, n64 = t_ssd.bwd_workspaces(bh, groups, s, p, n, chunk)
+    assert n32 == (bh * nc * n * p + 4 * groups * nc * chunk * chunk
+                   + 4 * groups * s * n + bh * s + bh * nc * 32)
+    assert n64 == bh * s * tiles + 3 * bh * s + bh * nc * tiles
+    assert 4 * n32 < 121e6 and 4 * n32 + 8 * n64 < 160e6
+    smem = t_ssd.bwd_smem_bytes()
+    assert smem == {"col": 195072, "row": 89600}
+    assert max(smem.values()) <= 232448
