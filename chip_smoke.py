@@ -104,31 +104,39 @@ one prefill and one decode step; the five launches of one ``ssd_scan``
 call are timed one by one.
 
 Training (``train``): ``repro_torch.runtime.steps.make_train_step`` on
-one ``BalancedLoader`` batch, bf16 params, AdamW with f32 moments, remat
-"block", the chunked loss (512): Mamba-2 1.3B at full size (48 layers,
+one ``BalancedLoader`` batch, AdamW with f32 moments, remat "block", the
+chunked loss (512), three runs: Mamba-2 1.3B at full size (48 layers,
 batch 4 x seq 2048, loader dp 4) and RecurrentGemma-9B at full width
 with its depth cut to 18 layers (six (R, R, A) periods, batch 2 x seq
-4096, dp 2; its 38 layers would need ~102 GB at 12 bytes a parameter).
-Step 0's loss and global grad norm through the kernels are held to the
-plain route on the same batch (within 1e-3 and 2e-2 relative; Mamba-2
-on an f32 copy of its weights, as its serving gates), the loss must fall
-over 4 steps on the repeated batch, and every step must launch each
-forward kernel twice a layer (remat recomputes it) and each backward
-kernel once; it prints the step time p50, tokens a second and peak
-memory.  ``train_kernels`` then holds each backward kernel
-(``flash_attention_bwd``, ``rglru_scan_bwd``, ``ssd_scan_bwd``) to
-autograd through its plain version at the first training layer's inputs,
-random inputs at the same shapes and ragged shapes (f32 within 1e-4,
-bf16 within 2e-2 relative Frobenius; ``flash_attention``'s dK and dV
-also row by row within ``ATTN_ROW_TOL``, which two planted one-tile
-faults must trip), checks two launches bitwise equal and times each
-(median) beside its bound, the plain backward and, for attention, SDPA's
-backward with the same mask and the earlier design's time; it prints
-the device time of each CUDA launch of one backward call (attention:
-prep, dq, dkdv; SSD: ychunk, rpass, col, row, dcum), each backward
-kernel's ``-Xptxas -v`` line and the launches' dynamic shared memory.
-The ``kernels`` line has nine rows: the six forward kernels and the
-three backward ones.
+4096, dp 2; its 38 layers would need ~102 GB at 12 bytes a parameter),
+both in bf16, then RecurrentGemma-9B in f32 at full width, 6 layers
+(two periods, ~2.2 B parameters, ~36 GB at 16 bytes a parameter), batch
+2 x seq 4096, through the f32 attention backward.  Step 0's loss and
+global grad norm through the kernels are held to the plain route on the
+same batch (within 1e-3 and 2e-2 relative; Mamba-2 on an f32 copy of
+its weights, as its serving gates), the loss must fall over 4 steps on
+the repeated batch, and every step must launch each forward kernel
+twice a layer (remat recomputes it) and each backward kernel once; it
+prints the step time p50, tokens a second and peak memory.  The
+training CLI then runs the f32 RecurrentGemma smoke config on the card
+(``train_cli``, no ``--device``) and must exit 0.  ``train_kernels``
+holds each backward kernel (``flash_attention_bwd`` in bf16 and in f32,
+``rglru_scan_bwd``, ``ssd_scan_bwd``) to autograd through its plain
+version at the first training layer's inputs, random inputs at the same
+shapes and ragged shapes (f32 within 1e-4, bf16 within 2e-2 relative
+Frobenius; ``flash_attention``'s dK and dV also row by row within
+``ATTN_ROW_TOL`` and its dQ against the FA2 plain backward, in f64 for
+f32, on the kernel's out and lse, which two planted one-tile faults at
+the kernel's tiles must trip), checks two launches bitwise equal and
+times each (median) beside its bound, the plain backward and, for
+attention, SDPA's backward with the same mask and the earlier design's
+time; it prints the device time of each CUDA launch of one backward call
+(attention: prep, dq, dkdv; RG-LRU: chunk, carry, out; SSD: ychunk,
+rpass, col, row, dcum), each backward kernel's ``-Xptxas -v`` line and
+the launches' dynamic shared memory, and times the f32 forward kernels
+(attention beside SDPA, ``rglru_scan``) at their training shapes.  The
+``kernels`` line has ten rows: the six forward kernels and the four
+backward ones.
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
@@ -176,18 +184,22 @@ SOURCES = {
 # the TPU kernel of its forward).
 BWD_SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_f32":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd_f32.cu",
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
 }
 # The first design of each redesigned backward kernel at the training
-# shape, for comparison on the printed line, as PERF.md rows 7 and 9 keep
-# it (NVIDIA H100 80GB HBM3, 700.00 W).
-EARLIER_BWD_MS = {"flash_attention": 7.9980, "ssd_scan": 16.7313}
+# shape, for comparison on the printed line, as PERF.md rows 7-9 keep it
+# (NVIDIA H100 80GB HBM3, 700.00 W).
+EARLIER_BWD_MS = {"flash_attention": 7.9980, "rglru_scan": 1.0065,
+                  "ssd_scan": 16.7313}
 # Each backward kernel's CUDA kernels by name, as the profiler and (with
 # the template's mangled arguments) -Xptxas -v name them.
 BWD_KERNELS = {
     "flash_attention": r"(fa_bwd_[a-z]+_kernel(?:ILi\d+E|<\d+>)?)",
-    "rglru_scan": r"(rglru_scan_bwd_kernel(?:I\w+?E|<[\w:]+>))",
+    "flash_attention_f32": r"(fa32_bwd_[a-z]+_kernel(?:ILi\d+E|<\d+>)?)",
+    "rglru_scan": r"(rglru_bwd_[a-z]+_kernel(?:I\w+?E|<[\w:]+>)?)",
     "ssd_scan": r"(ssd_bwd_[a-z]+_kernel)"}
 REL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 # The LM kernels' tolerances, as in tests/test_kernels.py.
@@ -1548,31 +1560,34 @@ def attention_masked(q, k, v, visible):
     return out
 
 
-def attention_masks(s: int, causal: bool, window: int, device):
+def attention_masks(s: int, causal: bool, window: int, device, *,
+                    key_tile: int = 64, q_block: int = 128):
     """The visibility mask of (causal, window) and the masks that a kernel
-    with one 64-key tile wrong would apply: the window's edge one tile
-    early (rows >= window lose their 64 oldest keys), and the first tile
-    that all rows of the last 128-row q block see in full skipped for
-    that block (the rows that see the most keys, where one tile moves the
-    output least).  (mask, [(label, faulty mask), ...])."""
+    with one ``key_tile``-key tile wrong would apply (64 keys and 128-row
+    q blocks, the bf16 kernels' tiles, unless given): the window's edge
+    one tile early (rows >= window lose their ``key_tile`` oldest keys),
+    and the first tile that all rows of the last q block see in full
+    skipped for that block (the rows that see the most keys, where one
+    tile moves the output least).  (mask, [(label, faulty mask), ...])."""
+    t = key_tile
     pos = torch.arange(s)
     ok = torch.ones(s, s, dtype=torch.bool)
     if causal:
         ok &= pos[None, :] <= pos[:, None]
     faults = []
-    if window > 64:
-        faults.append(("window edge one 64-key tile early",
-                       ok & (pos[None, :] > pos[:, None] - (window - 64))))
+    if window > t:
+        faults.append((f"window edge one {t}-key tile early",
+                       ok & (pos[None, :] > pos[:, None] - (window - t))))
     if window > 0:
         ok &= pos[None, :] > pos[:, None] - window
-    q0 = (s - 1) // 128 * 128
-    k0 = next((k0 for k0 in range(0, s - 63, 64)
-               if bool(ok[q0:, k0:k0 + 64].all())), None)
+    q0 = (s - 1) // q_block * q_block
+    k0 = next((k0 for k0 in range(0, s - t + 1, t)
+               if bool(ok[q0:, k0:k0 + t].all())), None)
     if k0 is not None:
         skipped = ok.clone()
-        skipped[q0:, k0:k0 + 64] = False
-        faults.append((f"rows {q0}.. without keys {k0}..{k0 + 63}, their "
-                       f"first fully visible 64-key tile", skipped))
+        skipped[q0:, k0:k0 + t] = False
+        faults.append((f"rows {q0}.. without keys {k0}..{k0 + t - 1}, their "
+                       f"first fully visible {t}-key tile", skipped))
     return ok.to(device), [(label, m.to(device)) for label, m in faults]
 
 
@@ -1794,26 +1809,51 @@ def ssd_bound(args, chunk: int):
 def launch_times(fn, pattern: str, calls: int = 3) -> list:
     """(name, ms) of each CUDA launch of ``fn`` whose kernel matches the
     regex ``pattern`` (its first group is the name): device time a call,
-    the mean over the launches of ``calls`` profiled calls.  The
-    profiler's schedule skips a call and warms up on another before it
-    records (without one it has dropped launches)."""
+    the mean over the launches of ``calls`` profiled calls.  The profiler
+    has dropped the kernel records (keeping only the runtime's launch
+    calls) of some calls, with and without a schedule, in runs of the
+    whole script and not in runs of the training phases alone (PERF.md
+    §7; the cause is not known).  So it takes a CUDA-only session whose
+    schedule skips a call and warms up on another and, where that matched
+    nothing, one of CPU and CUDA activities after a warm-up call, as a
+    training step's profile runs; where neither did, it prints what the
+    profiler recorded."""
     import re
 
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    def matched(prof):
+        out = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            m = re.search(pattern, e.key)
+            if m and us and e.count:
+                out.append((m.group(1), us / 1e3 / e.count))
+        return out, [e.key[:60] for e in prof.key_averages()][:4]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=calls)) as prof:
         for _ in range(calls + 2):
             fn()
             torch.cuda.synchronize()
             prof.step()
-    out = []
-    for e in prof.key_averages():
-        m = re.search(pattern, e.key)
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if m and us and e.count:
-            out.append((m.group(1), us / 1e3 / e.count))
+    out, seen = matched(prof)
+    if out:
+        return out
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out, seen2 = matched(prof)
+    if not out:
+        print(f"  launch_times: no kernel matched {pattern!r}; the profiler "
+              f"recorded {seen} and then {seen2}")
     return out
 
 
@@ -1915,9 +1955,9 @@ def phase_ssd_kernels(first_call, layer_err: float, counts: dict) -> dict:
 # Training (``train`` and ``train_kernels``).
 # ---------------------------------------------------------------------------
 
-# The training runs: Mamba-2 1.3B at full size; RecurrentGemma-9B at full
-# width with its depth cut to 18 layers, six (R, R, A) periods: at 12
-# bytes a parameter (bf16 params and grads, f32 m and v) its 38 layers
+# The training runs, by name: Mamba-2 1.3B at full size; RecurrentGemma-9B
+# at full width with its depth cut to 18 layers, six (R, R, A) periods: at
+# 12 bytes a parameter (bf16 params and grads, f32 m and v) its 38 layers
 # need ~102 GB, more than the card's 80 GB; 18 layers (4.60 B parameters)
 # need ~55 GB and leave room for the block-remat activations at batch 2 x
 # seq 4096.  Both from one BalancedLoader batch (dp shards of one row),
@@ -1925,12 +1965,27 @@ def phase_ssd_kernels(first_call, layer_err: float, counts: dict) -> dict:
 # 512.  Step 0 is held kernels against plain routes on the same batch in
 # ``gate_dtype``: Mamba-2 on an f32 copy of its weights, as its serving
 # gates are (``LM_PATHS``), since its 48 random bf16 layers amplify
-# rounding flips past any fixed gate; RecurrentGemma-9B in bf16.
+# rounding flips past any fixed gate; RecurrentGemma-9B in bf16.  Then
+# RecurrentGemma-9B in f32, the dtype of its smoke config and the
+# reference's, through the f32 flash_attention backward: full width, the
+# depth cut to two (R, R, A) periods, 6 layers: ~1.05 B of embedding and
+# 6 x ~0.197 B of layers, ~2.2 B parameters at 16 bytes each (f32 params,
+# grads, m and v) are ~36 GB before activations.  ``keep``: the kernel ops
+# whose first call's arguments the train_kernels phase reads, stored
+# under the op's name plus ``suffix``, as the run's launch counts are.
 TRAIN_RUNS = {
-    "recurrentgemma-9b": {"layers": 18, "batch": 2, "seq": 4096, "dp": 2,
-                          "gate_dtype": torch.bfloat16},
-    "mamba2-1.3b": {"layers": None, "batch": 4, "seq": 2048, "dp": 4,
-                    "gate_dtype": torch.float32},
+    "recurrentgemma-9b": {"arch": "recurrentgemma-9b", "layers": 18,
+                          "dtype": None, "batch": 2, "seq": 4096, "dp": 2,
+                          "gate_dtype": torch.bfloat16, "suffix": "",
+                          "keep": ("flash_attention", "rglru_scan")},
+    "mamba2-1.3b": {"arch": "mamba2-1.3b", "layers": None, "dtype": None,
+                    "batch": 4, "seq": 2048, "dp": 4,
+                    "gate_dtype": torch.float32, "suffix": "",
+                    "keep": ("ssd_scan",)},
+    "recurrentgemma-9b-f32": {"arch": "recurrentgemma-9b", "layers": 6,
+                              "dtype": "float32", "batch": 2, "seq": 4096,
+                              "dp": 2, "gate_dtype": torch.float32,
+                              "suffix": "_f32", "keep": ("flash_attention",)},
 }
 TRAIN_STEPS = 4
 TRAIN_LOSS_TOL = 1e-3   # step 0, kernels vs plain: loss, relative
@@ -1967,17 +2022,19 @@ def expected_train_launches(cfg) -> dict:
             "flash_attention": mult * attn, "flash_attention_bwd": attn}
 
 
-def phase_train(arch: str, smi: str, kept: dict) -> dict:
-    """Train ``arch`` (``TRAIN_RUNS``) through the port's entry points:
+def phase_train(run: str, smi: str, kept: dict) -> dict:
+    """Train ``TRAIN_RUNS[run]`` through the port's entry points:
     step 0's loss and global grad norm through the kernels against the
     plain route on the loader's first batch; the trainer
     (``launch.train.train``) for TRAIN_STEPS steps, with its kernel
     launches exactly as the code implies, the step time p50, peak memory
     and tokens a second; then TRAIN_STEPS AdamW steps on that first batch
     repeated, over which the loss must fall, and one more under
-    ``torch.profiler``.  The first call of each kernel op lands in
-    ``kept`` (the train_kernels phase's inputs).  Returns the kernels'
-    launches a step of the trainer's run (its counts over TRAIN_STEPS)."""
+    ``torch.profiler``.  The first call of each kernel op of the run's
+    ``keep`` lands in ``kept`` (the train_kernels phase's inputs) under
+    its name and the run's ``suffix``.  Returns the kernels' launches a
+    step of the trainer's run (its counts over TRAIN_STEPS), each under
+    its name and the suffix."""
     from repro_torch import configs
     from repro_torch.data import pipeline
     from repro_torch.kernels import ops
@@ -1986,12 +2043,15 @@ def phase_train(arch: str, smi: str, kept: dict) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.runtime import steps
 
-    spec = TRAIN_RUNS[arch]
+    spec = TRAIN_RUNS[run]
+    arch = spec["arch"]
     cfg = configs.get_config(arch)
     if spec["layers"]:
         cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    if spec["dtype"]:
+        cfg = dataclasses.replace(cfg, dtype=spec["dtype"])
     B, S = spec["batch"], spec["seq"]
-    print(f"== train: {arch}, {cfg.num_layers} layers, d_model "
+    print(f"== train: {arch}, {cfg.num_layers} layers, {cfg.dtype}, d_model "
           f"{cfg.d_model}, batch {B} x seq {S}, remat {cfg.remat}, "
           f"loss_chunk {cfg.loss_chunk} ({smi})")
     params = transformer.init_params(cfg, seed=0, device=DEVICE)
@@ -2009,6 +2069,7 @@ def phase_train(arch: str, smi: str, kept: dict) -> dict:
     want = expected_train_launches(cfg)
     if cfg.num_heads:
         kept.setdefault("heads", cfg.num_heads)
+    suffix = spec["suffix"]
 
     # Step 0: loss and global grad norm, kernels against plain.
     gate = (params if spec["gate_dtype"] == torch.bfloat16
@@ -2018,9 +2079,9 @@ def phase_train(arch: str, smi: str, kept: dict) -> dict:
         ops.reset_counts()
         with contextlib.ExitStack() as stack:
             if mode == "auto":
-                for name in ("flash_attention", "rglru_scan", "ssd_scan"):
+                for name in spec["keep"]:
                     stack.enter_context(wrapped(
-                        ops, name, keep_first_call(kept, name)))
+                        ops, name, keep_first_call(kept, name + suffix)))
             t0 = time.perf_counter()
             loss, grads = steps.value_and_grad(
                 steps.make_loss_fn(cfg, mode=mode), gate, batch)
@@ -2083,7 +2144,7 @@ def phase_train(arch: str, smi: str, kept: dict) -> dict:
           f"kernel twice, remat recomputing it, its backward kernel once)")
     check(all(np.isfinite(losses)), f"train: losses "
           f"{[round(x, 6) for x in losses]} finite")
-    print(f"  {arch} train ({smi}): step p50 {p50:.4f} s (steps "
+    print(f"  {run} train ({smi}): step p50 {p50:.4f} s (steps "
           f"{[round(t, 4) for t in times]} s), {B * S / p50:.1f} tokens/s,"
           f" peak memory {peak:.2f} GB, launches a step {want}")
 
@@ -2113,13 +2174,33 @@ def phase_train(arch: str, smi: str, kept: dict) -> dict:
         step_fn(params, opt, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print(f"  profile of one {arch} training step:")
+    print(f"  profile of one {run} training step:")
     device_report(prof, wall_ms, 15)
     for p in adamw.leaves(params):
         p.requires_grad_(False)
     del params, opt, batch
     torch.cuda.empty_cache()
-    return {k: v // TRAIN_STEPS for k, v in main_counts.items()}
+    return {k + suffix: v // TRAIN_STEPS for k, v in main_counts.items()}
+
+
+def phase_train_cli(arch: str) -> None:
+    """The training CLI on the card (no ``--device``: the card is the
+    default) at the smoke config of ``arch``, f32 for RecurrentGemma, in a
+    child process; it must exit 0."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+           "--smoke", "--steps", "3", "--seq", "32", "--batch", "4",
+           "--dp", "2"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    tail = (out.stdout + out.stderr).strip().splitlines()[-4:]
+    print(f"== train_cli: {' '.join(cmd[1:])} ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    for line in tail:
+        print(f"  | {line}")
+    check(out.returncode == 0, f"the training CLI at the {arch} smoke "
+          f"config exits 0 on the card (got {out.returncode})")
 
 
 def median_ms(fn, reps: int) -> float:
@@ -2250,7 +2331,8 @@ def bwd_compare(name, args, kwargs, gen, label, rows: bool = False):
     fa2 = None
     if rows and ok:
         worst = [worst_grad_row(g, w) for g, w in zip(got[1:], want[1:])]
-        fa2 = ref.attention_bwd_plain(*args, *fwd, dout, **kwargs)
+        fa2 = ref.attention_bwd_plain(*fa2_inputs(*args, *fwd, dout),
+                                      **kwargs)
         worst_dq = worst_grad_row(got[0], fa2[0])
         ok = max(worst + [worst_dq]) <= ATTN_ROW_TOL[dtype]
         what += (f", worst rows of dK, dV {['%.3e' % r for r in worst]}, "
@@ -2258,6 +2340,21 @@ def bwd_compare(name, args, kwargs, gen, label, rows: bool = False):
                  f"out and lse {worst_dq:.3e} <= {ATTN_ROW_TOL[dtype]:g}")
     check(ok, what)
     return err, fwd, kernel, plain, dout, fa2
+
+
+def fa2_inputs(*tensors):
+    """The inputs of the FA2 plain backward that holds a kernel's dQ (q, k,
+    v, the kernel's out and lse, dO): as they are for bf16 (the plain
+    version computes in f32); in f64 for f32.  In f32 a row whose softmax
+    sits on one key (the first row of a causal head) has dQ = 0 in exact
+    arithmetic, and both the kernel's and an f32 plain version's reading
+    of it are rounding residues of dP - Delta, ~1e-6, which the row
+    check's floor turns into ~1e-3; the f32 kernel sums Delta in dP's
+    order (exactly 0 there), and f64 takes the plain version's residue to
+    ~1e-15."""
+    if tensors[0].dtype == torch.float32:
+        return tuple(t.double() for t in tensors)
+    return tensors
 
 
 def attention_grads_masked(q, k, v, dout, visible):
@@ -2271,34 +2368,39 @@ def attention_grads_masked(q, k, v, dout, visible):
 def attention_dq_masked(q, k, v, o, lse, dout, visible):
     """dQ by the FA2 formulas of ``ref.attention_bwd_plain`` from the
     given o and lse, under an explicit (S, S) visibility mask, one query
-    head at a time (f32)."""
+    head at a time (f32; f64 for f64 inputs)."""
     rep = q.shape[0] // k.shape[0]
     scale = 1.0 / float(np.sqrt(q.shape[2]))
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    wide = torch.promote_types(q.dtype, torch.float32)
+    dq = torch.empty(q.shape, dtype=wide, device=q.device)
     for b in range(q.shape[0]):
-        kb, vb, dob = k[b // rep].float(), v[b // rep].float(), dout[b].float()
-        p = torch.where(visible, torch.exp(q[b].float() @ kb.T * scale
-                                           - lse[b, :, None]), 0.0)
-        delta = (dob * o[b].float()).sum(-1)
+        kb, vb, dob = (t.to(wide) for t in (k[b // rep], v[b // rep],
+                                            dout[b]))
+        p = torch.where(visible, torch.exp(q[b].to(wide) @ kb.T * scale
+                                           - lse[b, :, None].to(wide)), 0.0)
+        delta = (dob * o[b].to(wide)).sum(-1)
         dq[b] = (p * (dob @ vb.T - delta[:, None])) @ kb * scale
     return dq
 
 
-def check_attention_bwd_faults(args, kwargs, dout, plain_grads, fwd, fa2):
+def check_attention_bwd_faults(args, kwargs, dout, plain_grads, fwd, fa2,
+                               tiles=(64, 128)):
     """One-tile faults planted in the attention's plain gradients (the
-    masks of :func:`attention_masks`) must trip the row checks: dK and
-    dV against autograd's ``plain_grads``, dQ (by the FA2 formulas on
-    the kernel's out and lse ``fwd``) against ``fa2``; the same per-head
-    code under the true mask must pass them."""
+    masks of :func:`attention_masks` at the kernel's ``tiles``: keys a kv
+    tile, rows a q block) must trip the row checks: dK and dV against
+    autograd's ``plain_grads``, dQ (by the FA2 formulas on the kernel's
+    out and lse ``fwd``, in :func:`fa2_inputs`' dtype) against ``fa2``;
+    the same per-head code under the true mask must pass them."""
     tol = ATTN_ROW_TOL[args[0].dtype]
     ok_mask, faults = attention_masks(args[0].shape[1], kwargs["causal"],
-                                      kwargs["window"], DEVICE)
+                                      kwargs["window"], DEVICE,
+                                      key_tile=tiles[0], q_block=tiles[1])
 
     def worst(mask):
         dkv = [worst_grad_row(g, w) for g, w in zip(
             attention_grads_masked(*args, dout, mask)[1:], plain_grads[1:])]
-        dq = worst_grad_row(attention_dq_masked(*args, *fwd, dout, mask),
-                            fa2[0])
+        dq = worst_grad_row(attention_dq_masked(
+            *fa2_inputs(*args, *fwd, dout), mask), fa2[0])
         return dkv, dq
 
     dkv, dq = worst(ok_mask)
@@ -2355,20 +2457,21 @@ def bwd_bound(name, args, kwargs):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def print_bwd_build(name: str, args, kwargs) -> None:
+def print_bwd_build(key: str, args, kwargs) -> None:
     """A backward kernel's ``-Xptxas -v`` lines from this run's build and
     the dynamic shared memory of its launches at ``args``' shapes."""
     from repro_torch.kernels import flash_attention, ssd_scan
 
-    for line in ptxas_report(BWD_KERNELS[name]):
+    for line in ptxas_report(BWD_KERNELS[key]):
         print(f"  ptxas: {line}")
-    if name == "flash_attention":
-        plan = flash_attention.bwd_plan(args[0].shape, args[1].shape)
+    if key.startswith("flash_attention"):
+        plan = flash_attention.bwd_plan(args[0].shape, args[1].shape,
+                                        args[0].dtype)
         print(f"  dynamic shared memory: dq {plan['dq_smem_bytes']} B, dkdv "
               f"{plan['dkdv_smem_bytes']} B; CTAs dq {plan['dq_ctas']}, "
               f"dkdv {plan['dkdv_ctas']} ({plan['groups']} query-head "
               f"groups a kv block)")
-    elif name == "ssd_scan":
+    elif key == "ssd_scan":
         smem = ssd_scan.bwd_smem_bytes()
         x, _, _, B, _ = args
         splits = ssd_scan.bwd_splits(x.shape[0], B.shape[0], x.shape[1],
@@ -2394,12 +2497,39 @@ def sdpa_backward(q, k, v, dout, causal: bool, window: int, heads: int):
     return lambda: torch.autograd.grad(out, leaves, dview, retain_graph=True)
 
 
+def print_forward_time(name: str, args, kwargs, heads: int) -> None:
+    """The f32 forward kernel of a backward case at the training shape:
+    its time (mean of back-to-back calls) beside its bound, its plain
+    version's and, for attention, SDPA's with the same mask; a text line
+    (PERF.md rows 4 and 6 keep it beside the prefill's)."""
+    ms = time_ms(lambda: lm_kernel(name)(*args, **kwargs), 10)
+    plain_ms = time_ms(lambda: lm_plain(name)(*args, **kwargs), 2)
+    bound, by = lm_bound(name, args, kwargs)
+    lib = ""
+    if name == "flash_attention":
+        masked = sdpa_calls(*args, heads=heads, **kwargs)[0]
+        lib = f", library {time_ms(masked, 5):.4f} ms (SDPA, same mask)"
+    print(f"  {name} forward {tuple(args[0].shape)} float32 at the training "
+          f"shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+          f"{bound:.4f} ms ({by}), share of the bound {bound / ms:.3f}")
+
+
 # Ragged backward cases: flash_attention (BH, BH_kv, S, D, causal,
-# window) in bf16; rglru_scan shapes in f32 and bf16; ssd_scan (BH, B/C
-# rows, S, P, N, chunk).
+# window) in bf16 and f32; rglru_scan shapes in f32 and bf16 (one at
+# S = 1, one shorter than the backward's 64-step chunk, one chunk and a
+# step, a ragged last chunk at a width off the 4-channel vectors);
+# ssd_scan (BH, B/C rows, S, P, N, chunk).
 BWD_ATTN_RAGGED = ((8, 2, 1000, 256, True, 0), (4, 1, 160, 128, True, 64),
                    (4, 4, 77, 64, False, 0), (6, 3, 300, 128, True, 512))
-BWD_RGLRU_RAGGED = ((3, 77, 100), (2, 1, 33))
+BWD_RGLRU_RAGGED = ((3, 77, 100), (2, 1, 33), (1, 33, 1), (2, 65, 8),
+                    (2, 1000, 70))
+# The backward cases at the training shapes: the kept first call's key,
+# the kernel op, and the kernel's tiles (keys a kv tile, rows a q block)
+# at which the attention's planted faults sit.
+BWD_CASES = (("flash_attention", "flash_attention", (64, 128)),
+             ("rglru_scan", "rglru_scan", None),
+             ("ssd_scan", "ssd_scan", None),
+             ("flash_attention_f32", "flash_attention", (32, 64)))
 BWD_SSD_RAGGED = ((5, 5, 300, 48, 64, 100), (8, 2, 512, 32, 64, 128),
                   (3, 1, 200, 64, 128, 256))
 
@@ -2407,19 +2537,22 @@ BWD_SSD_RAGGED = ((5, 5, 300, 48, 64, 100), (8, 2, 512, 32, 64, 128),
 def phase_train_kernels(kept: dict, counts: dict) -> list:
     """Each backward kernel against autograd through its plain version,
     and the forward outputs it reads against the plain forward's: at the
-    first training layer's inputs (``kept``, from the train phases), on
-    random inputs at the same shapes and at ragged shapes;
+    first training layer's inputs (``kept``, from the train phases;
+    flash_attention in bf16 and, from the f32 RecurrentGemma run, in
+    f32), on random inputs at the same shapes and at ragged shapes;
     flash_attention at the training shape also row by row in dQ, dK and
     dV, with planted one-tile faults that must trip those checks; two
     launches bitwise equal; then the timings (median of several) beside
     the bound, the plain backward and, for flash_attention, SDPA's
-    backward with the same mask.  ``counts``: each backward kernel's
-    launches a step of the train phases' main path."""
+    backward with the same mask; the f32 forward kernels (attention,
+    rglru_scan) timed at their training shapes.  ``counts``: each
+    backward kernel's launches a step of the train phases' main path,
+    under its ``kept`` key's suffix."""
     print("== train_kernels: backward kernels")
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     rows = []
-    for name in ("flash_attention", "rglru_scan", "ssd_scan"):
-        args, kwargs = kept[name]
+    for key, name, tiles in BWD_CASES:
+        args, kwargs = kept[key]
         args = tuple(a.detach().clone() for a in args)
         kwargs = {k: v for k, v in kwargs.items()
                   if k in ("causal", "window", "chunk")}
@@ -2448,17 +2581,21 @@ def phase_train_kernels(kept: dict, counts: dict) -> list:
                                    f"random {shape}", rows_check)[0])
         if name == "flash_attention":
             check_attention_bwd_faults(args, kwargs, dout, plain(), fwd,
-                                       fa2)
+                                       fa2, tiles)
         g1, g2 = kernel(), kernel()
         check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
-              f"{name} backward: two launches bitwise equal")
+              f"{key} backward: two launches bitwise equal")
         del g1, g2
         bound, by = bwd_bound(name, args, kwargs)
+        suffix = key[len(name):]
         row = {
-            "name": f"{name}_bwd", "ok": True, "route": "cuda",
-            "source": BWD_SOURCES[name], "replaces": REPLACES[name],
-            "pass": "backward", "launches": counts[f"{name}_bwd"],
+            "name": f"{name}_bwd{suffix}", "ok": True, "route": "cuda",
+            "source": BWD_SOURCES[key], "replaces": REPLACES[name],
+            "pass": "backward", "launches": counts[f"{name}_bwd{suffix}"],
             "max_abs_err": err, "ms": median_ms(kernel, 7),
+            # the host's share of a call (checks, allocations, the ctypes
+            # call before the first launch) hidden behind the last call
+            "ms_back_to_back": time_ms(kernel, 10),
             "plain_ms": median_ms(plain, 3),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "shape": list(shape), "dtype": str(dtype)[6:],
@@ -2467,30 +2604,34 @@ def phase_train_kernels(kept: dict, counts: dict) -> list:
             row["library_ms"] = median_ms(sdpa_backward(
                 *args, dout, heads=kept["heads"], **kwargs), 5)
         lib = row["library_ms"]
-        earlier = EARLIER_BWD_MS.get(name)
-        print(f"  {name} backward {shape}: kernel {row['ms']:.4f} ms "
-              f"(median), plain {row['plain_ms']:.4f} ms, library "
+        earlier = EARLIER_BWD_MS.get(key)
+        print(f"  {key} backward {shape}: kernel {row['ms']:.4f} ms "
+              f"(median; back to back {row['ms_back_to_back']:.4f} ms), "
+              f"plain {row['plain_ms']:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms (SDPA backward, same mask)'}"
               f", bound {bound:.4f} ms ({by}), share of the bound "
               f"{bound / row['ms']:.3f}"
               + ("" if earlier is None else
                  f"; first design {earlier:.4f} ms (PERF.md)"))
-        parts = launch_times(kernel, BWD_KERNELS[name])
-        print(f"  {name} backward launches, device time a call: " + (
+        parts = launch_times(kernel, BWD_KERNELS[key])
+        print(f"  {key} backward launches, device time a call: " + (
             ", ".join(f"{k} {ms:.4f} ms" for k, ms in parts)
             or "not traced"))
-        print_bwd_build(name, args, kwargs)
+        print_bwd_build(key, args, kwargs)
+        if name != "ssd_scan" and dtype == torch.float32:
+            print_forward_time(name, args, kwargs, kept["heads"])
         rows.append(row)
         del kernel, plain, dout, args, rand, fwd, fa2
         torch.cuda.empty_cache()
 
-    for bh, bh_kv, s, d, causal, window in BWD_ATTN_RAGGED:
-        qkv = tuple(torch.randn(r, s, d, generator=gen, device=DEVICE)
-                    .bfloat16() for r in (bh, bh_kv, bh_kv))
-        bwd_compare("flash_attention", qkv,
-                    {"causal": causal, "window": window}, gen,
-                    f"ragged ({bh}, {bh_kv}, {s}, {d}) causal={causal} "
-                    f"window={window}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for bh, bh_kv, s, d, causal, window in BWD_ATTN_RAGGED:
+            qkv = tuple(torch.randn(r, s, d, generator=gen, device=DEVICE)
+                        .to(dtype) for r in (bh, bh_kv, bh_kv))
+            bwd_compare("flash_attention", qkv,
+                        {"causal": causal, "window": window}, gen,
+                        f"ragged ({bh}, {bh_kv}, {s}, {d}) causal={causal} "
+                        f"window={window}")
     for dtype in (torch.float32, torch.bfloat16):
         for shape in BWD_RGLRU_RAGGED:
             ab = (torch.rand(shape, generator=gen, device=DEVICE)
@@ -2556,8 +2697,9 @@ def main() -> int:
     del inputs
 
     kept, train_counts = {}, {}
-    for arch in ("recurrentgemma-9b", "mamba2-1.3b"):
-        train_counts.update(phase_train(arch, smi, kept))
+    for run in TRAIN_RUNS:
+        train_counts.update(phase_train(run, smi, kept))
+    phase_train_cli("recurrentgemma-9b")
     rows += phase_train_kernels(kept, train_counts)
     print(f"== done in {time.perf_counter() - t_start:.1f} s "
           f"(2D launches {counts_2d})")

@@ -46,10 +46,13 @@ SIGNATURES = {
     "repro_flash_attention_f32": (_P,) * 5 + (_I,) * 6 + (_P,),
     "repro_flash_attention_bf16": (_P,) * 5 + (_I,) * 6 + (_P,),
     "repro_flash_attention_bwd_bf16": (_P,) * 10 + (_I,) * 6 + (_P,),
+    "repro_flash_attention_bwd_f32": (_P,) * 10 + (_I,) * 6 + (_P,),
     "repro_rglru_scan_f32": (_P, _P, _P, _I, _I, _I, _P),
     "repro_rglru_scan_bf16": (_P, _P, _P, _I, _I, _I, _P),
-    "repro_rglru_scan_bwd_f32": (_P,) * 5 + (_I, _I, _I, _P),
-    "repro_rglru_scan_bwd_bf16": (_P,) * 5 + (_I, _I, _I, _P),
+    "repro_rglru_scan_bwd_carry_f32": (_P,) * 3 + (_I, _I, _I, _P),
+    "repro_rglru_scan_bwd_carry_bf16": (_P,) * 3 + (_I, _I, _I, _P),
+    "repro_rglru_scan_bwd_f32": (_P,) * 6 + (_I, _I, _I, _P),
+    "repro_rglru_scan_bwd_bf16": (_P,) * 6 + (_I, _I, _I, _P),
     "repro_ssd_scan_f32": (_P,) * 10 + (_I,) * 6 + (_P,),
     "repro_ssd_scan_bwd_f32": (_P,) * 16 + (_I,) * 7 + (_P,),
 }
@@ -158,20 +161,21 @@ def check(err: int, name: str) -> None:
 
 def check_inputs(name: str, tensors: dict, dtype=None,
                  dtypes: tuple = DTYPES) -> torch.dtype:
-    """Validate what a kernel takes: CUDA, one dtype (one of ``dtypes``),
-    contiguous, one device.  Returns the dtype."""
+    """Validate what a kernel takes: one dtype (one of ``dtypes``), then
+    CUDA, contiguous, one device.  Returns the dtype."""
     first = next(iter(tensors.values()))
     dtype = first.dtype if dtype is None else dtype
     if dtype not in dtypes:
         names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
         raise TypeError(f"{name}: dtype must be {names} (got {dtype})")
     for k, t in tensors.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {k} is {t.dtype}, expected {dtype}")
+    for k, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {k} must be a CUDA tensor (got "
                              f"{t.device}); the plain version serves CPU "
                              f"tensors through kernels.ops")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {k} is {t.dtype}, expected {dtype}")
         if t.device != first.device:
             raise ValueError(f"{name}: {k} is on {t.device}, expected "
                              f"{first.device}")

@@ -11,15 +11,18 @@ runs on the tensor cores (``wgmma`` fed by TMA, three warpgroups a CTA),
 f32 in exact f32 arithmetic.  The forward also writes each row's
 log-sum-exp (BH, S) in f32, which the backward reads.
 
-The backward (``csrc/flash_attention_bwd.cu``, no TPU counterpart) is
-FA2's on the forward's machinery (``wgmma`` fed by TMA): a small launch
-for Delta = rowsum(dO .* O), one for dQ, one for dK and dV per kv block
-looping over the query heads that share it (two groups of them, summed
-by a cluster of two CTAs, when the kv blocks alone would not fill the
-card); bf16 only.  The wrappers take CUDA tensors
-only.  :class:`FlashAttention` is the autograd Function that
-:func:`repro_torch.kernels.ops.flash_attention` calls: the kernels for
-CUDA tensors, the plain versions of ``kernels/ref.py`` for CPU tensors.
+The backward (no TPU counterpart) has an entry for each dtype, three
+CUDA launches each: a small launch for Delta = rowsum(dO .* O), one for
+dQ, one for dK and dV per kv block looping over the query heads that
+share it.  bf16 (``csrc/flash_attention_bwd.cu``) is FA2's on the
+forward's machinery (``wgmma`` fed by TMA; two groups of query heads,
+summed by a cluster of two CTAs, when the kv blocks alone would not fill
+the card), D a multiple of 16; f32 (``csrc/flash_attention_bwd_f32.cu``)
+is a tiled kernel in exact f32 FMA, as the f32 forward, D a multiple of
+8.  The wrappers take CUDA tensors only.  :class:`FlashAttention` is the
+autograd Function that :func:`repro_torch.kernels.ops.flash_attention`
+calls: the kernels for CUDA tensors, the plain versions of
+``kernels/ref.py`` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -97,18 +100,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 BWD_PAD = 128        # rows of the backward's workspace: S rounded up
 
 
-def bwd_plan(q_shape, k_shape) -> dict:
-    """The backward's launches as ``csrc/flash_attention_bwd.cu`` has
-    them: the dq launch's q rows a CTA (BQ, 64 a consumer warpgroup), kv
-    rows a tile (BK) and stages; the dkdv launch's kv rows a CTA (BKV), q
-    rows a tile (BQT), stages and query-head groups (a cluster of that
-    many CTAs a kv block); dynamic shared memory of each (after up to 1 KB
-    of padding to the swizzle's period) and CTAs; and the rows of the
-    (2, BH, S_pad) f32 workspace (lse log2 e and Delta)."""
+F32_BQ, F32_BK = 64, 32   # q rows and kv rows of the f32 backward's tiles
+
+
+def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The backward's launches at ``dtype``.  bf16 as
+    ``csrc/flash_attention_bwd.cu`` has them: the dq launch's q rows a CTA
+    (BQ, 64 a consumer warpgroup), kv rows a tile (BK) and stages; the
+    dkdv launch's kv rows a CTA (BKV), q rows a tile (BQT), stages and
+    query-head groups (a cluster of that many CTAs a kv block); dynamic
+    shared memory of each (after up to 1 KB of padding to the swizzle's
+    period) and CTAs; and the f32 workspace's shape (lse log2 e and Delta,
+    (2, BH, S_pad)).  f32 as ``csrc/flash_attention_bwd_f32.cu`` (its
+    ``Cfg``, which asserts the same 227 KB limit when it compiles): 256
+    threads a CTA, q tiles of BQ = BQT = 64 rows, kv tiles of BK = BKV =
+    32 rows, one group, staged rows of max(D_pad, 128) + 4 floats, and a
+    (BH, S) workspace (Delta)."""
     bh, s, d = q_shape
     bh_kv = k_shape[0]
     rep = bh // bh_kv
     dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    if dtype == torch.float32:
+        ld = max(dp, 128) + 4
+        bq, bk = F32_BQ, F32_BK
+        return {"dp": dp, "bq": bq, "bk": bk, "bkv": bk, "bqt": bq,
+                "groups": 1, "threads": 256,
+                # Q, dO; K, V; dS (bq, bk + 4)
+                "dq_smem_bytes": 4 * (2 * bq * ld + 2 * bk * ld
+                                      + bq * (bk + 4)),
+                # K, V; Q, dO; P^T and dS^T (bk, bq + 4); lse and Delta
+                "dkdv_smem_bytes": 4 * (2 * bk * ld + 2 * bq * ld
+                                        + 2 * bk * (bq + 4) + 2 * bq),
+                "dq_ctas": -(-s // bq) * bh,
+                "dkdv_ctas": -(-s // bk) * bh_kv,
+                "ws_shape": (bh, s)}
     tile = (dp // 64) * BOX_BYTES           # 64 rows of D
     bk = 32 if dp == 256 else 64
     dq_stages = 3 if dp == 256 else 4
@@ -129,23 +154,30 @@ def bwd_plan(q_shape, k_shape) -> dict:
                                 + 2 * 64 * 64 * 4 + 8 * (1 + 2 * kv_stages)),
             "dq_ctas": -(-s // 128) * bh,
             "dkdv_ctas": nkb * bh_kv * groups,
-            "s_pad": -(-s // BWD_PAD) * BWD_PAD}
+            "s_pad": -(-s // BWD_PAD) * BWD_PAD,
+            "ws_shape": (2, bh, -(-s // BWD_PAD) * BWD_PAD)}
+
+
+_BWD_FN = {torch.float32: "repro_flash_attention_bwd_f32",
+           torch.bfloat16: "repro_flash_attention_bwd_bf16"}
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0) -> tuple:
     """The gradients (dq, dk, dv) of :func:`flash_attention` from its
-    inputs, its output ``o``, its ``lse`` and ``do``; bf16, D a multiple
-    of 16.  Three CUDA launches (Delta, dq, then dk and dv)."""
+    inputs, its output ``o``, its ``lse`` and ``do``; f32 (exact FMA, D a
+    multiple of 8) or bf16 (``wgmma``, D a multiple of 16), all in one
+    dtype but the f32 ``lse``.  Three CUDA launches (Delta, dq, then dk
+    and dv)."""
     global bwd_launches
-    _build.check_inputs("flash_attention_bwd",
-                        {"q": q, "k": k, "v": v, "o": o, "do": do},
-                        dtypes=(torch.bfloat16,))
-    launch_plan(q.shape, k.shape, v.shape, torch.bfloat16)
+    dtype = _build.check_inputs("flash_attention_bwd",
+                                {"q": q, "k": k, "v": v, "o": o, "do": do},
+                                dtypes=_build.LM_DTYPES)
+    launch_plan(q.shape, k.shape, v.shape, dtype)
     bh, s, d = q.shape
-    if d % 16:
+    if dtype == torch.bfloat16 and d % 16:
         raise ValueError(f"flash_attention_bwd: D must be a multiple of 16 "
-                         f"(got {d})")
+                         f"in bf16 (got {d})")
     _build.check_shape("flash_attention_bwd", "o", o, q.shape)
     _build.check_shape("flash_attention_bwd", "do", do, q.shape)
     _build.check_inputs("flash_attention_bwd", {"lse": lse},
@@ -156,10 +188,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    ws = torch.empty((2, bh, bwd_plan(q.shape, k.shape)["s_pad"]),
+    ws = torch.empty(bwd_plan(q.shape, k.shape, dtype)["ws_shape"],
                      dtype=torch.float32, device=q.device)
     lib = _build.load()
-    err = lib.repro_flash_attention_bwd_bf16(
+    err = getattr(lib, _BWD_FN[dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], s, d,

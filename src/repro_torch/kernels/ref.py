@@ -103,19 +103,20 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     formulas the kernel evaluates: P = exp(s / sqrt(D) - lse) on visible
     keys, Delta = rowsum(dO .* O), dS = P .* (dO V^T - Delta), dQ = dS K
     / sqrt(D), dK = dS^T Q / sqrt(D) and dV = P^T dO, with dK and dV of
-    a shared kv row summed over the query rows it serves; f32 inside,
-    each gradient in its input's dtype."""
+    a shared kv row summed over the query rows it serves; f32 inside (f64
+    for f64 inputs), each gradient in its input's dtype."""
     rep = attention_shapes("attention_bwd_plain", q.shape, k.shape,
                            v.shape)
     bh_kv, s, d = k.shape
-    ke = k.float().repeat_interleave(rep, dim=0)
-    ve = v.float().repeat_interleave(rep, dim=0)
-    qf, dof = q.float(), do.float()
+    wide = torch.promote_types(q.dtype, torch.float32)
+    ke = k.to(wide).repeat_interleave(rep, dim=0)
+    ve = v.to(wide).repeat_interleave(rep, dim=0)
+    qf, dof = q.to(wide), do.to(wide)
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("bqd,bkd->bqk", qf, ke) * scale
     ok = _visible(s, causal, window, q.device)[None]
-    p = torch.where(ok, torch.exp(scores - lse[..., None]), 0.0)
-    delta = (dof * o.float()).sum(-1)
+    p = torch.where(ok, torch.exp(scores - lse.to(wide)[..., None]), 0.0)
+    delta = (dof * o.to(wide)).sum(-1)
     ds = p * (torch.einsum("bqd,bkd->bqk", dof, ve) - delta[..., None])
     dq = torch.einsum("bqk,bkd->bqd", ds, ke) * scale
     dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
@@ -137,21 +138,64 @@ def rglru_scan_plain(a, b):
     return torch.stack(h, dim=1).to(a.dtype)
 
 
-def rglru_scan_bwd_plain(a, h, dh):
+RGLRU_BWD_CHUNK = 64   # steps a chunk of the backward kernel (kChunk)
+
+
+def rglru_scan_bwd_plain(a, h, dh, *, chunk: int = RGLRU_BWD_CHUNK):
     """The gradients (da, db) of :func:`rglru_scan_plain` from its output
     h: the reverse scan g_t = dh_t + a_{t+1} g_{t+1}, db_t = g_t and
-    da_t = g_t h_{t-1} (h_{-1} = 0), in f32, in a's dtype."""
-    a32, h32, dh32 = a.float(), h.float(), dh.float()
-    s = a.shape[1]
-    g = torch.zeros_like(a32[:, 0])
-    db = [None] * s
-    da = [None] * s
-    for t in reversed(range(s)):
-        g = dh32[:, t] + a32[:, t + 1] * g if t + 1 < s else dh32[:, t]
+    da_t = g_t h_{t-1} (h_{-1} = 0), in f32, in a's dtype; in the steps
+    the kernel takes (``csrc/rglru_scan.cu``), over chunks of ``chunk``
+    steps [t0, t1) (the last one ragged):
+
+    * chunk: each chunk's reverse scan from a zero carry, keeping
+      u_k = a_{t0} g_{t0} and A_k, the product of its own a's;
+    * carry: x_{nc-1} = 0 and x_{k-1} = u_k + A_k x_k, the value that
+      enters chunk k - 1 (a_{t1} g_{t1} of the chunk after it);
+    * out: each chunk's reverse scan again from x_k, giving da and db.
+
+    Every chunk advances at once, so the loops run ``chunk`` and ``nc``
+    steps, not S."""
+    if chunk < 1:
+        raise ValueError(f"rglru_scan_bwd_plain: chunk must be >= 1 (got "
+                         f"{chunk})")
+    bsz, s, w = a.shape
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    # Steps past S: a = 1 and dh = 0 carry a zero gradient and leave the
+    # last chunk's product A alone.
+    a32 = torch.nn.functional.pad(a.float(), (0, 0, 0, pad), value=1.0)
+    dh32 = torch.nn.functional.pad(dh.float(), (0, 0, 0, pad))
+    # h_{t-1}: h moved one step later, 0 at t = 0 (a pad of -1 crops).
+    hprev = torch.nn.functional.pad(h.float(), (0, 0, 1, pad - 1))
+    a32, dh32, hprev = (t.reshape(bsz, nc, chunk, w)
+                        for t in (a32, dh32, hprev))
+
+    g = torch.zeros_like(a32[:, :, 0])
+    an = torch.zeros_like(g)
+    prod = torch.ones_like(g)
+    for t in reversed(range(chunk)):
+        g = dh32[:, :, t] + an * g
+        an = a32[:, :, t]
+        prod = prod * an
+    u = an * g
+
+    x = [None] * nc
+    x[nc - 1] = torch.zeros_like(g[:, 0])
+    for k in range(nc - 1, 0, -1):
+        x[k - 1] = u[:, k] + prod[:, k] * x[k]
+    g = torch.stack(x, dim=1)
+    an = torch.ones_like(g)
+    db = [None] * chunk
+    da = [None] * chunk
+    for t in reversed(range(chunk)):
+        g = dh32[:, :, t] + an * g
+        an = a32[:, :, t]
         db[t] = g
-        da[t] = g * h32[:, t - 1] if t else torch.zeros_like(g)
-    return (torch.stack(da, dim=1).to(a.dtype),
-            torch.stack(db, dim=1).to(a.dtype))
+        da[t] = g * hprev[:, :, t]
+    da = torch.stack(da, dim=2).reshape(bsz, nc * chunk, w)[:, :s]
+    db = torch.stack(db, dim=2).reshape(bsz, nc * chunk, w)[:, :s]
+    return da.to(a.dtype), db.to(a.dtype)
 
 
 def ssd_chunk(s: int, chunk: int) -> int:

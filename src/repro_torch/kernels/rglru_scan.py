@@ -4,8 +4,10 @@ Wrappers of the CUDA kernels in ``csrc/rglru_scan.cu`` (the forward is the
 Hopper counterpart of the TPU kernel ``repro.kernels.rglru_scan``; the
 backward has no TPU counterpart): h_t = a_t h_{t-1} + b_t over the
 sequence axis of (B, S, W) inputs, f32 or bf16 in, the state in f32, the
-output in the input type; and its gradients from h and dh by the reverse
-scan.  The wrappers take CUDA tensors only.  :class:`RglruScan` is the
+output in the input type; and its gradients from h and dh by a chunked
+reverse scan over S (three CUDA launches a call: each chunk's local scan,
+the carry across chunks, each chunk's scan again from its carry).  The
+wrappers take CUDA tensors only.  :class:`RglruScan` is the
 autograd Function that :func:`repro_torch.kernels.ops.rglru_scan` calls:
 the kernels for CUDA tensors, the plain versions of ``kernels/ref.py``
 for CPU tensors.
@@ -18,13 +20,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 launches = 0       # forward launches since the last reset (ops.reset_counts)
-bwd_launches = 0   # backward launches since the last reset
+bwd_launches = 0   # backward calls (three CUDA launches each) since then
 
 _FN = {torch.float32: "repro_rglru_scan_f32",
        torch.bfloat16: "repro_rglru_scan_bf16"}
+_CARRY_FN = {torch.float32: "repro_rglru_scan_bwd_carry_f32",
+             torch.bfloat16: "repro_rglru_scan_bwd_carry_bf16"}
 _BWD_FN = {torch.float32: "repro_rglru_scan_bwd_f32",
            torch.bfloat16: "repro_rglru_scan_bwd_bf16"}
-MAX_B = 65535   # the grid's y extent
+MAX_B = 65535   # the grid's y (forward) and z (backward) extent
+BWD_CHUNK = ref.RGLRU_BWD_CHUNK   # steps a chunk of the backward
+MAX_CHUNKS = 65535   # the backward grid's y extent
 
 
 def _check(name: str, tensors: dict):
@@ -56,20 +62,38 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def bwd_workspace_shape(shape) -> tuple:
+    """The backward's f32 workspace for a (B, S, W) call: each chunk's
+    (u_k, then its incoming carry x_k) and A_k, (2, B, nc, W) with nc =
+    ceil(S / BWD_CHUNK)."""
+    B, S, W = shape
+    return (2, B, -(-S // BWD_CHUNK), W)
+
+
 def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor,
                    dh: torch.Tensor) -> tuple:
     """The gradients (da, db) of :func:`rglru_scan` from its output h and
-    dh, all (B, S, W) in one dtype."""
+    dh, all (B, S, W) in one dtype; three CUDA launches (chunk, carry,
+    out), the steps of ``ref.rglru_scan_bwd_plain``, in two calls: da and
+    db are allocated while the first two run."""
     global bwd_launches
     dtype = _check("rglru_scan_bwd", {"a": a, "h": h, "dh": dh})
     B, S, W = a.shape
+    ws_shape = bwd_workspace_shape(a.shape)
+    if ws_shape[2] > MAX_CHUNKS:
+        raise ValueError(f"rglru_scan_bwd: S must be at most "
+                         f"{MAX_CHUNKS * BWD_CHUNK} (got {S})")
+    ws = torch.empty(ws_shape, dtype=torch.float32, device=a.device)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = getattr(lib, _CARRY_FN[dtype])(a.data_ptr(), dh.data_ptr(),
+                                         ws.data_ptr(), B, S, W, stream)
+    _build.check(err, "rglru_scan_bwd")
     da = torch.empty_like(a)
     db = torch.empty_like(a)
-    lib = _build.load()
     err = getattr(lib, _BWD_FN[dtype])(
-        a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
-        db.data_ptr(), B, S, W,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        a.data_ptr(), h.data_ptr(), dh.data_ptr(), ws.data_ptr(),
+        da.data_ptr(), db.data_ptr(), B, S, W, stream)
     _build.check(err, "rglru_scan_bwd")
     bwd_launches += 1
     return da, db

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import LM_DTYPES
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -35,17 +36,25 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), adamw.tree_map(lambda _: next(grads), params)
 
 
+# The kernel each layer kind of ``ModelConfig.attn_pattern`` runs.
+_KERNEL_OF = {"global": "flash_attention", "local": "flash_attention",
+              "rglru": "rglru_scan", "ssd": "ssd_scan"}
+
+
 def check_trainable(cfg: ModelConfig, dtype: torch.dtype, device) -> None:
-    """Refuse, before a step runs, a model that the kernels cannot train:
-    the flash_attention backward kernel takes bf16 only, so a model with
-    attention layers trains on the card in bf16 (no f32 backward kernel
-    is written; ROADMAP Queue 2)."""
-    if (torch.device(device).type == "cuda" and not cfg.attention_free
-            and dtype != torch.bfloat16):
-        raise TypeError(
-            f"{cfg.name}: training a model with attention layers on the "
-            f"card needs bf16 params (got {dtype}); the flash_attention "
-            f"backward kernel has no f32 entry (ROADMAP Queue 2)")
+    """Refuse, before a step runs, params that the kernels cannot train:
+    on the card every layer's forward and backward is a kernel, and each
+    takes f32 or bf16 (``flash_attention`` and its backward for attention
+    layers, ``rglru_scan`` for recurrent ones, ``ssd_scan`` for SSD ones);
+    the CPU runs the plain versions in any dtype."""
+    if torch.device(device).type != "cuda" or dtype in LM_DTYPES:
+        return
+    kernels = " and ".join(sorted({_KERNEL_OF.get(t, t)
+                                   for t in cfg.attn_pattern}))
+    names = " or ".join(str(d).removeprefix("torch.") for d in LM_DTYPES)
+    raise TypeError(
+        f"{cfg.name}: training on the card needs {names} params (got "
+        f"{dtype}): the {kernels} kernels take no other dtype")
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -55,7 +64,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     = k > 1 the batch splits into k microbatches along its leading axis
     and their grads are summed in f32 and divided by k, as the
     reference's microbatch scan does.  Each step first refuses what
-    :func:`check_trainable` refuses."""
+    :func:`check_trainable` refuses: on the card, params in a dtype that
+    no kernel takes (f32 and bf16 train there, attention layers
+    included)."""
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step(mesh=...): sharded training is not ported "

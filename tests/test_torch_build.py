@@ -75,8 +75,11 @@ def test_signatures_cover_every_exported_function():
     exported = {}
     for src in _build.CSRC.glob("*.cu"):
         exported.update(_exported(src.read_text()))
-    for name in ("repro_flash_attention_bwd_bf16", "repro_rglru_scan_bwd_f32",
-                 "repro_rglru_scan_bwd_bf16", "repro_ssd_scan_bwd_f32"):
+    for name in ("repro_flash_attention_bwd_bf16",
+                 "repro_flash_attention_bwd_f32", "repro_rglru_scan_bwd_f32",
+                 "repro_rglru_scan_bwd_bf16",
+                 "repro_rglru_scan_bwd_carry_f32",
+                 "repro_rglru_scan_bwd_carry_bf16", "repro_ssd_scan_bwd_f32"):
         assert name in exported and name in _build.SIGNATURES
     assert set(exported) == set(_build.SIGNATURES)
     kind = {ctypes.c_void_p: "P", ctypes.c_int: "I"}
@@ -89,5 +92,30 @@ def test_backward_sources_ship_as_package_data():
     meta = tomllib.loads((ROOT / "pyproject.toml").read_text())
     globs = meta["tool"]["setuptools"]["package-data"]["repro_torch"]
     shipped = {p.name for g in globs for p in PKG.glob(g)}
-    assert {"flash_attention_bwd.cu", "ssd_scan_bwd.cu",
-            "rglru_scan.cu"} <= shipped
+    assert {"flash_attention_bwd.cu", "flash_attention_bwd_f32.cu",
+            "ssd_scan_bwd.cu", "rglru_scan.cu"} <= shipped
+    # every source the build compiles ships
+    assert {p.name for p in _build.CSRC.glob("*.cu")} <= shipped
+
+
+def test_kernel_constants_match_their_python_copies():
+    """The rglru_scan backward's chunk length, which the plain copy and the
+    workspace's shape take from ``ref.RGLRU_BWD_CHUNK``, and the f32
+    attention backward's tiles, which ``flash_attention.bwd_plan``
+    restates, are the sources' own."""
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.kernels import ref as t_ref
+    from repro_torch.kernels import rglru_scan as t_rg
+
+    def const(source, name):
+        text = (_build.CSRC / source).read_text()
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)
+                   .group(1))
+
+    assert const("rglru_scan.cu", "kChunk") == t_ref.RGLRU_BWD_CHUNK \
+        == t_rg.BWD_CHUNK
+    assert t_rg.bwd_workspace_shape((2, 4096, 4096)) == (2, 2, 64, 4096)
+    assert t_rg.bwd_workspace_shape((3, 65, 5)) == (2, 3, 2, 5)
+    assert (const("flash_attention_bwd_f32.cu", "kBQ"),
+            const("flash_attention_bwd_f32.cu", "kBK")) == (t_fa.F32_BQ,
+                                                           t_fa.F32_BK)

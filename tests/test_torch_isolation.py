@@ -201,9 +201,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_rg.rglru_scan_bwd(a, a, a)
     with pytest.raises(ValueError, match="CUDA tensor"):
         t_ssd.ssd_scan_bwd(x, dt, A1, B, B, x, saved, chunk=8)
-    with pytest.raises(TypeError, match="bfloat16"):
+    # the f32 entry takes f32 on the card only, and one dtype throughout
+    with pytest.raises(ValueError, match="CUDA tensor"):
         t_fa.flash_attention_bwd(*(t.float() for t in (q, q, q, q)), lse,
                                  q.float())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_fa.flash_attention_bwd(*(t.half() for t in (q, q, q, q)), lse,
+                                 q.half())
+    with pytest.raises(TypeError, match="expected torch.float32"):
+        t_fa.flash_attention_bwd(q.float(), q, q, q, lse, q)
     assert (t_fa.bwd_launches, t_rg.bwd_launches,
             t_ssd.bwd_launches) == bwd_before
     assert (t_gram.launches, t_sch.fwd_launches,
@@ -220,19 +226,29 @@ def test_training_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("arch,dtype,device,refused", [
-    ("recurrentgemma-9b", torch.float32, "cuda", True),
+    ("recurrentgemma-9b", torch.float32, "cuda", False),
     ("recurrentgemma-9b", torch.bfloat16, "cuda", False),
     ("recurrentgemma-9b", torch.float32, "cpu", False),
     ("mamba2-1.3b", torch.float32, "cuda", False),
+    ("mamba2-1.3b", torch.bfloat16, "cuda", False),
+    ("recurrentgemma-9b", torch.float16, "cpu", False),
+    ("recurrentgemma-9b", torch.float16, "cuda", True),
+    ("recurrentgemma-9b", torch.float64, "cuda", True),
+    ("mamba2-1.3b", torch.float16, "cuda", True),
 ])
 def test_training_refuses_f32_attention_on_the_card(arch, dtype, device,
                                                     refused):
-    # The flash_attention backward kernel takes bf16 only: a step of a
-    # model with attention layers on the card refuses other dtypes before
-    # it runs (the CPU runs the plain backward; Mamba-2 has no attention).
+    # What check_trainable accepts and refuses before a step runs.  The
+    # name is the refusal this case table once pinned, when the
+    # flash_attention backward kernel took bf16 only; it has an f32 entry
+    # now, so f32 and bf16 train on the card with or without attention
+    # layers, and only a dtype that no kernel takes is refused there,
+    # naming the kernels.  The CPU runs the plain versions in any dtype.
     cfg = t_configs.get_smoke_config(arch)
     if refused:
-        with pytest.raises(TypeError, match="no f32 entry"):
+        kernels = ("ssd_scan" if cfg.attention_free
+                   else "flash_attention and rglru_scan")
+        with pytest.raises(TypeError, match=f"the {kernels} kernels"):
             t_steps.check_trainable(cfg, dtype, torch.device(device))
     else:
         t_steps.check_trainable(cfg, dtype, torch.device(device))

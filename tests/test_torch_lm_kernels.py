@@ -263,7 +263,8 @@ def test_lm_kernel_wrappers_refuse_cpu_tensors():
 # ``ops.rglru_scan`` run the autograd Functions ``FlashAttention`` and
 # ``RglruScan`` with the plain forward and the plain backward that the
 # CUDA kernels evaluate (``ref.attention_bwd_plain``, FA2's formulas from
-# the saved log-sum-exp; ``ref.rglru_scan_bwd_plain``, the reverse scan).
+# the saved log-sum-exp; ``ref.rglru_scan_bwd_plain``, the chunked reverse
+# scan).
 # Their gradients are held to autograd through the plain forward (1e-5
 # relative Frobenius in f32: the same sums in other orders) and to
 # ``jax.grad`` of the reference's jnp oracles (1e-4).
@@ -344,6 +345,103 @@ def test_rglru_scan_function_grads_match_autograd_and_reference(b, s, w):
     for g, wt, r in zip(got, want, ref):
         assert _rel_frob(g, wt) <= 1e-5
         assert _rel_frob(g, r) <= 1e-4
+
+
+def _rel_or_zero(a, b):
+    """Relative Frobenius difference; 0 where both are exactly zero (da
+    at S = 1, where h_{-1} = 0)."""
+    b64 = np.asarray(b, np.float64)
+    if not np.linalg.norm(b64):
+        return float(np.linalg.norm(np.asarray(a, np.float64)))
+    return _rel_frob(a, b64)
+
+
+# S a multiple of the chunk, not a multiple, shorter than it, and S = 1;
+# at a small chunk (several chunks at CPU sizes) and at the kernel's.
+@pytest.mark.parametrize("b,s,w,chunk", [
+    (2, 64, 8, 8), (1, 37, 5, 8), (2, 5, 4, 8), (2, 1, 3, 8),
+    (2, 128, 6, None), (1, 130, 4, None), (3, 40, 3, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_scan_bwd_plain_chunked_matches_autograd_and_reference(
+        b, s, w, chunk, dtype):
+    """``ref.rglru_scan_bwd_plain``, the chunked reverse scan the kernel
+    runs (chunk, carry, out), against autograd through the sequential
+    plain forward (1e-5 in f32, LM_TOL in bf16) and, in f32, ``jax.grad``
+    of the reference's jnp oracle (1e-4)."""
+    rng = np.random.default_rng(14)
+    a = rng.uniform(0.5, 0.99, (b, s, w)).astype(np.float32)
+    x = rng.normal(size=(b, s, w)).astype(np.float32)
+    dh = rng.normal(size=(b, s, w)).astype(np.float32)
+    t = T_DTYPE[dtype]
+    leaves = [torch.from_numpy(v).to(t).requires_grad_() for v in (a, x)]
+    h = tref.rglru_scan_plain(*leaves)
+    dht = torch.from_numpy(dh).to(t)
+    want = torch.autograd.grad(h, leaves, dht)
+    kw = {} if chunk is None else {"chunk": chunk}
+    got = tref.rglru_scan_bwd_plain(leaves[0].detach(), h.detach(), dht,
+                                    **kw)
+    tol = 1e-5 if dtype == "float32" else TOL[dtype]
+    for g, wt in zip(got, want):
+        assert g.shape == (b, s, w) and g.dtype == t
+        assert _rel_or_zero(g.float(), wt.float()) <= tol
+    if dtype == "float32":
+        ref = jax.grad(lambda a, x: jnp.sum(jref.rglru_scan_ref(a, x)
+                                            * jnp.asarray(dh)),
+                       argnums=(0, 1))(jnp.asarray(a), jnp.asarray(x))
+        for g, r in zip(got, ref):
+            assert _rel_or_zero(g, r) <= 1e-4
+
+
+def test_rglru_scan_bwd_plain_chunk_is_the_kernels():
+    """The default chunk is the kernel's (``test_torch_build`` reads it
+    from the source); the chunk length moves only the rounding, and a
+    chunk of 1 or of S is the plain reverse scan."""
+    rng = np.random.default_rng(15)
+    a, x, dh = (torch.from_numpy(v.astype(np.float32)) for v in (
+        rng.uniform(0.5, 0.99, (2, 100, 3)), rng.normal(size=(2, 100, 3)),
+        rng.normal(size=(2, 100, 3))))
+    h = tref.rglru_scan_plain(a, x)
+    base = tref.rglru_scan_bwd_plain(a, h, dh)
+    assert all(torch.equal(u, v) for u, v in zip(
+        base, tref.rglru_scan_bwd_plain(a, h, dh, chunk=64)))
+    for c in (1, 7, 100, 1000):
+        for u, v in zip(tref.rglru_scan_bwd_plain(a, h, dh, chunk=c), base):
+            assert _rel_frob(u, v) <= 1e-6
+    with pytest.raises(ValueError, match="chunk"):
+        tref.rglru_scan_bwd_plain(a, h, dh, chunk=0)
+
+
+@pytest.mark.parametrize("d", [16, 128, 256])
+def test_flash_attention_bwd_plan_f32_fits_one_cta(d):
+    """The f32 backward's launches fit one CTA's 227 KB of shared memory
+    at the smoke head dimension, 128 and the training shape's 256; 64-row
+    q tiles and 32-row kv tiles, no query-head groups."""
+    plan = t_fa.bwd_plan((32, 4096, d), (2, 4096, d), torch.float32)
+    assert plan["dq_smem_bytes"] <= t_fa.MAX_SMEM
+    assert plan["dkdv_smem_bytes"] <= t_fa.MAX_SMEM
+    assert (plan["bq"], plan["bk"], plan["groups"]) == (64, 32, 1)
+    assert plan["dp"] >= d and plan["threads"] == 256
+    assert plan["dq_ctas"] == 64 * 32 and plan["dkdv_ctas"] == 128 * 2
+    assert plan["ws_shape"] == (32, 4096)
+    if d == 256:
+        # K, V and P^T, dS^T at 32 rows, Q and dO at 64, rows of 260
+        assert plan["dkdv_smem_bytes"] == 217600
+
+
+def test_flash_attention_bwd_f32_refuses_cpu_tensors_and_mixed_dtypes():
+    q = torch.zeros(2, 16, 8)
+    lse = torch.zeros(2, 16)
+    before = t_fa.bwd_launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_fa.flash_attention_bwd(q, q, q, q, lse, q)
+    with pytest.raises(TypeError, match="expected torch.float32"):
+        t_fa.flash_attention_bwd(q, q.bfloat16(), q, q, lse, q)
+    with pytest.raises(TypeError, match="expected torch.float32"):
+        t_fa.flash_attention_bwd(q, q, q, q, lse, q.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_fa.flash_attention_bwd(*(t.double() for t in (q, q, q, q)), lse,
+                                 q.double())
+    assert t_fa.bwd_launches == before
 
 
 def test_flash_attention_bwd_plan_fits_one_cta():
