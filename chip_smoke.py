@@ -190,10 +190,15 @@ BWD_SOURCES = {
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
 }
 # The first design of each redesigned backward kernel at the training
-# shape, for comparison on the printed line, as PERF.md rows 7-9 keep it
+# shape, for comparison on the printed line, as PERF.md rows 7-10 keep it,
+# and of the f32 attention forward at the f32 training shape (row 4)
 # (NVIDIA H100 80GB HBM3, 700.00 W).
 EARLIER_BWD_MS = {"flash_attention": 7.9980, "rglru_scan": 1.0065,
-                  "ssd_scan": 16.7313}
+                  "ssd_scan": 16.7313, "flash_attention_f32": 31.7893}
+EARLIER_FWD_MS = {"flash_attention_f32": 28.6055}
+# The f32 attention kernels, forward and backward, by their names in
+# -Xptxas -v: none may spill.
+F32_ATTN_KERNELS = r"((?:flash_f32|fa32_bwd_[a-z]+)_kernel(?:ILi\d+E)?)"
 # Each backward kernel's CUDA kernels by name, as the profiler and (with
 # the template's mangled arguments) -Xptxas -v name them.
 BWD_KERNELS = {
@@ -278,6 +283,11 @@ def phase_build():
     if _build.BUILD_LOG:
         check(not any("C7508" in log for log in _build.BUILD_LOG),
               "ptxas reports no ignored setmaxnreg (C7508)")
+        f32 = ptxas_report(F32_ATTN_KERNELS)
+        check(len(f32) == 10 and all(" 0 bytes spill stores" in line
+                                     for line in f32),
+              f"ptxas reports no spills for the {len(f32)} f32 attention "
+              f"kernels (forward and backward at D 64, 128 and 256, prep)")
     else:
         print("  library built by an earlier run: no ptxas output here")
 
@@ -1811,13 +1821,15 @@ def launch_times(fn, pattern: str, calls: int = 3) -> list:
     regex ``pattern`` (its first group is the name): device time a call,
     the mean over the launches of ``calls`` profiled calls.  The profiler
     has dropped the kernel records (keeping only the runtime's launch
-    calls) of some calls, with and without a schedule, in runs of the
-    whole script and not in runs of the training phases alone (PERF.md
-    §7; the cause is not known).  So it takes a CUDA-only session whose
-    schedule skips a call and warms up on another and, where that matched
-    nothing, one of CPU and CUDA activities after a warm-up call, as a
-    training step's profile runs; where neither did, it prints what the
-    profiler recorded."""
+    calls) of the f32 attention backward in most runs of the whole
+    script, with 57 of 85 GB of device memory free, and not in runs of
+    its kernels alone (PERF.md §7; the cause is not known), so that
+    kernel's launches are timed by ``attention_f32_launch_times``
+    instead.  It takes a CUDA-only session whose schedule skips a call
+    and warms up on another and, where that matched nothing, one of CPU
+    and CUDA activities after a warm-up call, as a training step's
+    profile runs; where neither did, it prints what the profiler
+    recorded."""
     import re
 
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -2185,8 +2197,8 @@ def phase_train(run: str, smi: str, kept: dict) -> dict:
 
 def phase_train_cli(arch: str) -> None:
     """The training CLI on the card (no ``--device``: the card is the
-    default) at the smoke config of ``arch``, f32 for RecurrentGemma, in a
-    child process; it must exit 0."""
+    default) at the smoke config of ``arch`` (f32; Mamba-2's SSD chunk is
+    8), in a child process; it must exit 0."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
            "--smoke", "--steps", "3", "--seq", "32", "--batch", "4",
            "--dp", "2"]
@@ -2497,21 +2509,114 @@ def sdpa_backward(q, k, v, dout, causal: bool, window: int, heads: int):
     return lambda: torch.autograd.grad(out, leaves, dview, retain_graph=True)
 
 
-def print_forward_time(name: str, args, kwargs, heads: int) -> None:
+def print_forward_time(name: str, args, kwargs) -> None:
     """The f32 forward kernel of a backward case at the training shape:
-    its time (mean of back-to-back calls) beside its bound, its plain
-    version's and, for attention, SDPA's with the same mask; a text line
-    (PERF.md rows 4 and 6 keep it beside the prefill's)."""
+    its time (mean of back-to-back calls) beside its bound and its plain
+    version's; a text line (PERF.md row 6 keeps it beside the
+    prefill's)."""
     ms = time_ms(lambda: lm_kernel(name)(*args, **kwargs), 10)
     plain_ms = time_ms(lambda: lm_plain(name)(*args, **kwargs), 2)
     bound, by = lm_bound(name, args, kwargs)
-    lib = ""
-    if name == "flash_attention":
-        masked = sdpa_calls(*args, heads=heads, **kwargs)[0]
-        lib = f", library {time_ms(masked, 5):.4f} ms (SDPA, same mask)"
     print(f"  {name} forward {tuple(args[0].shape)} float32 at the training "
-          f"shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+          f"shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({by}), share of the bound {bound / ms:.3f}")
+
+
+def attention_f32_row(args, kwargs, heads: int, launches: int) -> dict:
+    """The f32 flash_attention forward at the f32 training run's first
+    layer inputs, as a row of the kernels JSON line: held to
+    attention_plain (its ``agreement`` within LM_TOL and the worst row
+    within ATTN_ROW_TOL), two launches bitwise equal (out and lse), each
+    causal head's first row, which sees one key, equal to that key's V
+    bitwise (the backward's f32 dQ row gate rests on it); its -Xptxas -v
+    lines; its time (median of 7 between CUDA events; one launch a call)
+    beside the plain version's, SDPA's with the same mask, the bound and
+    the first design's.  ``launches``: its launches a step of the f32 training
+    run."""
+    from repro_torch.kernels import flash_attention, ref
+
+    q, k, v = args
+    run = lambda: flash_attention.flash_attention(*args, lse=True, **kwargs)
+    out, lse = run()
+    out2, lse2 = run()
+    plain = ref.attention_plain(*args, **kwargs)
+    err, ratio = agreement("flash_attention", out, plain)
+    row = worst_row(out, plain)
+    tol = ATTN_ROW_TOL[q.dtype]
+    shape = tuple(q.shape)
+    check(bool(torch.isfinite(out).all()) and ratio <= 1 and row <= tol,
+          f"flash_attention f32 forward {shape} against attention_plain: "
+          f"max abs err {err:.3e} over its gate {ratio:.3e} <= 1, worst "
+          f"row {row:.3e} <= {tol:g}")
+    check(torch.equal(out, out2) and torch.equal(lse, lse2),
+          "flash_attention f32 forward: two launches bitwise equal")
+    if kwargs["causal"]:
+        rep = q.shape[0] // k.shape[0]
+        check(torch.equal(out[:, 0], v.repeat_interleave(rep, dim=0)[:, 0]),
+              f"flash_attention f32 forward: the first row of each of the "
+              f"{q.shape[0]} heads (one visible key) is that key's V "
+              f"bitwise")
+    del out, lse, out2, lse2, plain
+    torch.cuda.empty_cache()
+    for line in ptxas_report(r"(flash_f32_kernel(?:ILi\d+E)?)"):
+        print(f"  ptxas: {line}")
+    bound, by = lm_bound("flash_attention", args, kwargs)
+    out = {
+        "name": "flash_attention_f32", "ok": True, "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], "launches": launches,
+        "max_abs_err": err, "ms": median_ms(run, 7),
+        "plain_ms": median_ms(
+            lambda: ref.attention_plain(*args, **kwargs), 3),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": median_ms(
+            sdpa_calls(*args, heads=heads, **kwargs)[0], 5),
+        "shape": list(shape), "dtype": "float32",
+    }
+    print(f"  flash_attention forward {shape} float32 at the training "
+          f"shape: kernel {out['ms']:.4f} ms (median; one launch), plain "
+          f"{out['plain_ms']:.4f} ms, library {out['library_ms']:.4f} ms "
+          f"(SDPA, same mask), bound {bound:.4f} ms ({by}), share of the "
+          f"bound {bound / out['ms']:.3f}; first design "
+          f"{EARLIER_FWD_MS['flash_attention_f32']:.4f} ms (PERF.md)")
+    return out
+
+
+def attention_f32_launch_times(args, fwd, dout, kwargs, kernel,
+                               whole_ms: float) -> list:
+    """(name, ms) of each CUDA launch of one f32 flash_attention backward
+    at ``args``: prep, dq and dkdv, each run alone through the C entry
+    ``repro_flash_attention_bwd_f32_part`` (which only this script calls)
+    and timed between CUDA events, the median of 7 (prep first, so that
+    dq and dkdv read its Delta).  The profiler keeps no record of these
+    kernels in most runs of the whole script (:func:`launch_times`).
+    Checks that the three launches alone give ``kernel``'s dQ, dK and dV
+    bitwise, so the launches timed are the path's, and that their times
+    add up to the whole call's median ``whole_ms`` within 10%."""
+    from repro_torch.kernels import _build
+
+    q, k, v = args
+    o, lse = fwd
+    ws = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    lib = _build.load()
+    out = []
+    for part, name in enumerate(("prep", "dq", "dkdv")):
+        def one(part=part):
+            _build.check(lib.repro_flash_attention_bwd_f32_part(
+                *(t.data_ptr() for t in (q, k, v, o, dout, lse, ws, *grads)),
+                q.shape[0], k.shape[0], q.shape[1], q.shape[2],
+                int(bool(kwargs["causal"])), int(kwargs["window"]), part,
+                torch.cuda.current_stream(q.device).cuda_stream),
+                "flash_attention_bwd_f32_part")
+        out.append((name, median_ms(one, 7)))
+    total = sum(ms for _, ms in out)
+    check(all(torch.equal(a, b) for a, b in zip(grads, kernel()))
+          and abs(total - whole_ms) <= 0.1 * whole_ms,
+          f"flash_attention_f32 backward's launches alone: dQ, dK and dV "
+          f"bitwise the whole call's, their times' sum {total:.4f} ms "
+          f"within 10% of its {whole_ms:.4f} ms")
+    return out
 
 
 # Ragged backward cases: flash_attention (BH, BH_kv, S, D, causal,
@@ -2544,10 +2649,13 @@ def phase_train_kernels(kept: dict, counts: dict) -> list:
     dV, with planted one-tile faults that must trip those checks; two
     launches bitwise equal; then the timings (median of several) beside
     the bound, the plain backward and, for flash_attention, SDPA's
-    backward with the same mask; the f32 forward kernels (attention,
-    rglru_scan) timed at their training shapes.  ``counts``: each
-    backward kernel's launches a step of the train phases' main path,
-    under its ``kept`` key's suffix."""
+    backward with the same mask, and each CUDA launch's device time (the
+    profiler's; the f32 attention's each run alone between CUDA events,
+    ``attention_f32_launch_times``); the f32 attention forward as a row
+    of its own (``attention_f32_row``) and the f32 rglru_scan forward
+    timed at their training shapes.
+    ``counts``: each kernel's launches a step of the train phases' main
+    path, under its ``kept`` key's suffix."""
     print("== train_kernels: backward kernels")
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     rows = []
@@ -2613,13 +2721,20 @@ def phase_train_kernels(kept: dict, counts: dict) -> list:
               f"{bound / row['ms']:.3f}"
               + ("" if earlier is None else
                  f"; first design {earlier:.4f} ms (PERF.md)"))
-        parts = launch_times(kernel, BWD_KERNELS[key])
+        if key == "flash_attention_f32":
+            parts = attention_f32_launch_times(args, fwd, dout, kwargs,
+                                               kernel, row["ms"])
+        else:
+            parts = launch_times(kernel, BWD_KERNELS[key])
         print(f"  {key} backward launches, device time a call: " + (
             ", ".join(f"{k} {ms:.4f} ms" for k, ms in parts)
             or "not traced"))
         print_bwd_build(key, args, kwargs)
-        if name != "ssd_scan" and dtype == torch.float32:
-            print_forward_time(name, args, kwargs, kept["heads"])
+        if key == "flash_attention_f32":
+            rows.append(attention_f32_row(args, kwargs, kept["heads"],
+                                          counts[key]))
+        elif name != "ssd_scan" and dtype == torch.float32:
+            print_forward_time(name, args, kwargs)
         rows.append(row)
         del kernel, plain, dout, args, rand, fwd, fa2
         torch.cuda.empty_cache()
@@ -2700,6 +2815,7 @@ def main() -> int:
     for run in TRAIN_RUNS:
         train_counts.update(phase_train(run, smi, kept))
     phase_train_cli("recurrentgemma-9b")
+    phase_train_cli("mamba2-1.3b")
     rows += phase_train_kernels(kept, train_counts)
     print(f"== done in {time.perf_counter() - t_start:.1f} s "
           f"(2D launches {counts_2d})")

@@ -1,16 +1,17 @@
 """Build and bind the CUDA kernels of ``kernels/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper
-(``sm_90a``) into an object file, all sources at once in parallel, and
-links them into one shared library with a plain C interface under
-``<root>/<hash>/``.  The root is ``build/repro_torch_kernels/`` at the
-top of the checkout when the package lies in one (``src/`` beside a
-``pyproject.toml``), else ``$XDG_CACHE_HOME/repro_torch_kernels/``
-(``~/.cache`` when the variable is unset), which serves an installed
-package: it ships the sources as package data.  The hash covers the
-sources and the flags, so an edited source builds anew and an unchanged
-one is reused.  The library is loaded with ``ctypes``;
-every pointer and the stream travel as ``c_void_p`` and every int as
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` (which may include
+the ``csrc/*.cuh`` headers beside them) for Hopper (``sm_90a``) into an
+object file, all sources at once in parallel, and links them into one
+shared library with a plain C interface under ``<root>/<hash>/``.  The
+root is ``build/repro_torch_kernels/`` at the top of the checkout when
+the package lies in one (``src/`` beside a ``pyproject.toml``), else
+``$XDG_CACHE_HOME/repro_torch_kernels/`` (``~/.cache`` when the
+variable is unset), which serves an installed package: it ships the
+sources and headers as package data.  The hash covers the sources, the
+headers and the flags, so an edited source or header builds anew and an
+unchanged tree is reused.  The library is loaded with ``ctypes``; every
+pointer and the stream travel as ``c_void_p`` and every int as
 ``c_int``.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -47,6 +48,7 @@ SIGNATURES = {
     "repro_flash_attention_bf16": (_P,) * 5 + (_I,) * 6 + (_P,),
     "repro_flash_attention_bwd_bf16": (_P,) * 10 + (_I,) * 6 + (_P,),
     "repro_flash_attention_bwd_f32": (_P,) * 10 + (_I,) * 6 + (_P,),
+    "repro_flash_attention_bwd_f32_part": (_P,) * 10 + (_I,) * 7 + (_P,),
     "repro_rglru_scan_f32": (_P, _P, _P, _I, _I, _I, _P),
     "repro_rglru_scan_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "repro_rglru_scan_bwd_carry_f32": (_P,) * 3 + (_I, _I, _I, _P),
@@ -82,6 +84,12 @@ def _sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _inputs() -> list:
+    """Every file the build reads: the sources and the headers they
+    include."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
+
+
 def build_root(kernels_dir: pathlib.Path = KERNELS_DIR) -> pathlib.Path:
     """Where the library is built for a package whose ``kernels``
     directory is ``kernels_dir``: under the checkout's ``build/`` when
@@ -97,7 +105,7 @@ def build_root(kernels_dir: pathlib.Path = KERNELS_DIR) -> pathlib.Path:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _inputs():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -60,9 +60,19 @@
 //   head, so the q heads that share a kv head run side by side and find
 //   its tiles in L2.
 //
-// f32 design: exact f32 FMA, no tensor cores (no TF32).  32 x 32 tiles;
-// each warp owns the q rows r = warp (mod 4) for scores, softmax and
-// output, so only the k/v tiles are shared between warps.
+// f32 design: exact f32 FMA, no tensor cores (no TF32), so the bound is
+// the FMA rate (4 D flops a visible pair; at the f32 training shape, q (32,
+// 4096, 256), k, v (2, 4096, 256), window 2048: ~206 GFLOP, 3.1 ms at 67
+// TFLOP/s).  Shared memory delivers at most 32 words a clock to an SM's
+// lanes, broadcast or not, against 128 FMAs, so each product is
+// register-tiled: a thread keeps a micro-tile of S (4 rows by 4 keys, 0.5
+// words loaded a multiply-add) and of O (8 rows by 4 kNC columns, 0.375:
+// P is loaded again for each block of 4 columns, whose P V chain needs its
+// own registers).
+// 64-row q blocks, 256 threads (8 warps of 8 q rows, so the softmax and P
+// stay within a warp); K and V in pairs of 32-row tiles, the next pair's
+// K copied by cp.async during this pair's softmax and P V, its V during
+// its scores; 212 KB of shared memory at D = 256.
 //
 // Fully masked rows of a block contribute exactly 0 (the p = 0 guard), the
 // final division is floored at 1e-30, and every sum runs in a fixed order
@@ -75,6 +85,8 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "fa32_fma.cuh"
 
 namespace {
 
@@ -714,129 +726,242 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
 // f32 with exact FMA arithmetic.
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ32 = 32;
-constexpr int kBK32 = 32;
-constexpr int kT32 = 128;
-constexpr int kRows32 = kBQ32 / 4;  // q rows per warp
+constexpr int kBQ32 = 64;        // q rows of a CTA, 8 a warp
+constexpr int kBK32 = 32;        // kv rows of a tile
+constexpr int kT32 = 256;        // 8 warps
+constexpr int kStages32 = 2;     // K and V tiles in flight: a pair
+constexpr int kPL32 = kStages32 * kBK32 + 4;   // row stride of P
 
+// At head dimension DP (64, 128 or 256): the columns of O the lanes cover
+// (4 a lane, 128 a warp, so at least 128), the row stride of a staged tile
+// (4 floats of padding, so a quarter-warp's 16-byte loads of 8 rows 1 or 2
+// apart fall on distinct banks), the float4 columns a lane owns, and the
+// dynamic shared memory: Q, a pair of K tiles and of V tiles, P.
 template <int DP>
-constexpr size_t f32_smem_bytes() {
-  // Q (32, DP), K (32, DP + 1), V (32, DP), P (32, 33)
-  return sizeof(float) *
-         (kBQ32 * DP + kBK32 * (DP + 1) + kBK32 * DP + kBQ32 * (kBK32 + 1));
+struct F32Cfg {
+  static constexpr int kDW = DP < 128 ? 128 : DP;
+  static constexpr int kLD = kDW + 4;
+  static constexpr int kNC = kDW / 128;
+  static constexpr int kKV = kBK32 * kLD;   // floats of one K or V tile
+  static constexpr size_t kSmem =
+      sizeof(float) * (kBQ32 * kLD + 2 * kStages32 * kKV + kBQ32 * kPL32);
+  static_assert(kSmem <= 232448, "f32 tiles exceed 227 KB");
+};
+
+// Rows [r0, r0 + ROWS) of a (S, D) f32 matrix into `dst` (row stride kLD,
+// kDW columns) by the CTA's threads (fa32_fma.cuh).
+template <int DP, int ROWS>
+__device__ __forceinline__ void stage_f32(float* dst,
+                                          const float* __restrict__ src,
+                                          int r0, int S, int D) {
+  fa32::stage<F32Cfg<DP>::kLD, F32Cfg<DP>::kDW, ROWS, kT32>(dst, src, r0, S,
+                                                            D, threadIdx.x);
 }
-static_assert(f32_smem_bytes<256>() <= 232448, "f32 tiles exceed 227 KB");
 
+using fa32::axpy4;
+using fa32::comp;
+using fa32::dot4;
+using fa32::ld4;
+
+// One CTA a (64-row q block, q head), heaviest q block first and, within
+// a q block, q heads in order (those of a kv head side by side).  Warp w
+// owns q rows 8 w .. 8 w + 7.  The kv tiles the block sees go in pairs
+// (64 keys; the last pair may hold one tile).  Scores of a pair: lane
+// 16 g + j holds rows 8 w + 4 g + i (i < 4) against keys j + 16 c (c < 4;
+// c < 2 the pair's first tile), built over D by 16-byte loads (0.5 shared
+// words a multiply-add); each row's max and sum reduce over the 16 lanes
+// of its keys.  P goes to the warp's own rows of shared memory.  O: a lane
+// holds 8 rows by kNC float4 columns 4 (lane + 32 h), fed by a broadcast
+// of P and one 16-byte load of V a key (0.375 words a multiply-add).  The
+// next pair's K is copied (cp.async) while this pair's softmax and P V
+// run, its V while its own scores run.  Every sum runs in the first
+// design's order (its 32 x 32 tiles), so O and lse are bitwise its
+// own: the scores one fmaf chain over D, the online softmax updated tile
+// by tile, each tile's sum a butterfly over its 32 keys, its P V a chain
+// over its keys added to O alpha.
 template <int DP>
-__global__ void __launch_bounds__(kT32)
+__global__ void __launch_bounds__(kT32, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int S, int D, int rep, float scale,
-                 int causal, int window) {
-  constexpr int kCols = DP / 32;  // output columns per lane
+                 float* __restrict__ lse, int BH, int S, int D, int rep,
+                 float scale, int causal, int window) {
+  using C = F32Cfg<DP>;
+  constexpr int kPair = 2 * kBK32;              // keys of a pair
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // (32, DP)
-  float* Ks = Qs + kBQ32 * DP;                 // (32, DP + 1)
-  float* Vs = Ks + kBK32 * (DP + 1);           // (32, DP)
-  float* Ps = Vs + kBK32 * DP;                 // (32, 33)
+  float* Qs = reinterpret_cast<float*>(smem);   // (kBQ32, kLD)
+  float* Ks = Qs + kBQ32 * C::kLD;              // (kPair, kLD)
+  float* Vs = Ks + kPair * C::kLD;              // (kPair, kLD)
+  float* Ps = Vs + kPair * C::kLD;              // (kBQ32, kPL32)
 
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * kBQ32;
-  const size_t off = static_cast<size_t>(blockIdx.y) * S * D;
-  const size_t off_kv = static_cast<size_t>(blockIdx.y / rep) * S * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int nq = (S + kBQ32 - 1) / kBQ32;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / BH)) * kBQ32;
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const size_t off = static_cast<size_t>(bh) * S * D;
+  const size_t off_kv = static_cast<size_t>(bh / rep) * S * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 16, j16 = lane % 16;
+  const int sr = 8 * warp + 4 * g;              // score rows sr + i
+  float* Pw = Ps + 8 * warp * kPL32;
 
-  for (int e = threadIdx.x; e < kBQ32 * DP; e += kT32) {
-    const int r = e / DP, c = e % DP;
-    Qs[e] = (q_start + r < S && c < D)
-                ? q[off + static_cast<size_t>(q_start + r) * D + c]
-                : 0.0f;
-  }
-
-  float acc[kRows32][kCols];
-  float m_run[kRows32], l_run[kRows32];
-#pragma unroll
-  for (int r = 0; r < kRows32; ++r) {
-    m_run[r] = kNegInf;
-    l_run[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
-  }
-
+  // The kv tiles the q block sees: one contiguous range, in pairs.
   const int nk = (S + kBK32 - 1) / kBK32;
-  for (int kb = 0; kb < nk; ++kb) {
-    const int k_start = kb * kBK32;
-    if (!block_runs(q_start, k_start, kBQ32, kBK32, causal, window))
-      continue;
-    __syncthreads();
-    for (int e = threadIdx.x; e < kBK32 * DP; e += kT32) {
-      const int r = e / DP, c = e % DP;
-      const bool in = k_start + r < S && c < D;
-      const size_t src =
-          off_kv + static_cast<size_t>(k_start + r) * D + c;
-      Ks[r * (DP + 1) + c] = in ? k[src] : 0.0f;
-      Vs[e] = in ? v[src] : 0.0f;
-    }
+  int lo = 0, hi = nk - 1;
+  while (lo < nk && !block_runs(q0, lo * kBK32, kBQ32, kBK32, causal, window))
+    ++lo;
+  while (hi >= lo && !block_runs(q0, hi * kBK32, kBQ32, kBK32, causal, window))
+    --hi;
+  const int n_pairs = hi >= lo ? (hi - lo + 2) / 2 : 0;
+
+  stage_f32<DP, kBQ32>(Qs, q + off, q0, S, D);
+  if (n_pairs > 0) stage_f32<DP, kPair>(Ks, k + off_kv, lo * kBK32, S, D);
+  fa32::commit();
+  if (n_pairs > 0) stage_f32<DP, kPair>(Vs, v + off_kv, lo * kBK32, S, D);
+  fa32::commit();
+
+  float acc[8][C::kNC][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int h = 0; h < C::kNC; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][h][e] = 0.0f;
+  float m_run[4], l_run[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m_run[i] = kNegInf, l_run[i] = 0.0f;
+
+  for (int pr = 0; pr < n_pairs; ++pr) {
+    const int t0 = lo + 2 * pr;
+    const int tiles = t0 < hi ? 2 : 1;
+    const bool more = pr + 1 < n_pairs;
+    fa32::wait<1>();   // this pair's K is in (its V may not be)
     __syncthreads();
 
-    // Scores of rows warp + 4 r against key `lane`, then the online softmax
-    // of those rows by this warp alone.
-    const int kpos = k_start + lane;
-    float alpha[kRows32];
+    float s[4][4];
 #pragma unroll
-    for (int r = 0; r < kRows32; ++r) {
-      const int i = warp + 4 * r;
-      const float* qi = Qs + i * DP;
-      const float* kj = Ks + lane * (DP + 1);
-      float dot = 0.0f;
-#pragma unroll 16
-      for (int d = 0; d < DP; ++d) dot = fmaf(qi[d], kj[d], dot);
-      const float x = visible(q_start + i, kpos, S, causal, window)
-                          ? dot * scale
-                          : kNegInf;
-      float mx = x;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int sh = 16; sh > 0; sh >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
-      const float m_new = fmaxf(m_run[r], mx);
-      alpha[r] = expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-      const float p = x > 0.5f * kNegInf ? expf(x - m_new) : 0.0f;
-      float sum = p;
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < DP; d += 4) {
+      float4 qa[4], kf[4];
 #pragma unroll
-      for (int sh = 16; sh > 0; sh >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, sh);
-      l_run[r] = l_run[r] * alpha[r] + sum;
-      Ps[i * (kBK32 + 1) + lane] = p;
+      for (int i = 0; i < 4; ++i) qa[i] = ld4(Qs + (sr + i) * C::kLD + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kf[c] = ld4(Ks + (j16 + 16 * c) * C::kLD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = dot4(qa[i], kf[c], s[i][c]);
     }
-    __syncwarp();
+    __syncthreads();   // every warp is past this pair's K
+    if (more) {
+      stage_f32<DP, kPair>(Ks, k + off_kv, (t0 + 2) * kBK32, S, D);
+      fa32::commit();
+    }
 
+    // The online softmax of rows sr + i, tile by tile.
+    float alpha[2][4];
 #pragma unroll
-    for (int r = 0; r < kRows32; ++r) {
-      const float* pi = Ps + (warp + 4 * r) * (kBK32 + 1);
+    for (int tt = 0; tt < 2; ++tt) {
+      if (tt == tiles) break;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float* vc = Vs + lane + 32 * c;
-        float pv = 0.0f;
-#pragma unroll 8
-        for (int j = 0; j < kBK32; ++j) pv = fmaf(pi[j], vc[j * DP], pv);
-        acc[r][c] = acc[r][c] * alpha[r] + pv;
+      for (int i = 0; i < 4; ++i) {
+        const int qpos = q0 + sr + i;
+        float x[2], p[2];
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int c = 2 * tt + b;
+          x[b] = visible(qpos, t0 * kBK32 + j16 + 16 * c, S, causal, window)
+                     ? s[i][c] * scale
+                     : kNegInf;
+        }
+        float mx = fmaxf(x[0], x[1]);
+#pragma unroll
+        for (int sh = 8; sh > 0; sh >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+        const float m_new = fmaxf(m_run[i], mx);
+        alpha[tt][i] = expf(m_run[i] - m_new);
+        m_run[i] = m_new;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          p[b] = x[b] > 0.5f * kNegInf ? expf(x[b] - m_new) : 0.0f;
+          Pw[(4 * g + i) * kPL32 + j16 + 16 * (2 * tt + b)] = p[b];
+        }
+        // A butterfly over the tile's 32 keys, key bits 4 to 0 (b, then
+        // the lanes').
+        float sum = p[0] + p[1];
+#pragma unroll
+        for (int sh = 8; sh > 0; sh >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, sh);
+        l_run[i] = l_run[i] * alpha[tt][i] + sum;
       }
     }
+    if (more)
+      fa32::wait<1>();   // this pair's V is in (the next K may not be)
+    else
+      fa32::wait<0>();
+    __syncthreads();
+
+    // O rows 8 w + r, tile by tile: the tile's P V (pv, one fmaf chain over
+    // its keys from 0), then O = O alpha + pv, a column block at a time.
+#pragma unroll
+    for (int tt = 0; tt < 2; ++tt) {
+      if (tt == tiles) break;
+      float a_o[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        a_o[r] = __shfl_sync(0xffffffffu, alpha[tt][r & 3], 16 * (r >> 2));
+#pragma unroll
+      for (int h = 0; h < C::kNC; ++h) {
+        float pv[8][4];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[r][e] = 0.0f;
+#pragma unroll 2
+        for (int j = kBK32 * tt; j < kBK32 * (tt + 1); j += 4) {
+          float4 pf[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) pf[r] = ld4(Pw + r * kPL32 + j);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float4 vf =
+                ld4(Vs + (j + u) * C::kLD + 4 * (lane + 32 * h));
+#pragma unroll
+            for (int r = 0; r < 8; ++r) axpy4(comp(pf[r], u), vf, pv[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[r][h][e] = acc[r][h][e] * a_o[r] + pv[r][e];
+      }
+    }
+    __syncthreads();   // every warp is past this pair's V and P
+    if (more) {
+      stage_f32<DP, kPair>(Vs, v + off_kv, (t0 + 2) * kBK32, S, D);
+      fa32::commit();
+    }
   }
+  fa32::wait<0>();   // nothing left in flight, also when no tile ran
 
 #pragma unroll
-  for (int r = 0; r < kRows32; ++r) {
-    const int qpos = q_start + warp + 4 * r;
+  for (int r = 0; r < 8; ++r) {
+    const float l_r = __shfl_sync(0xffffffffu, l_run[r & 3], 16 * (r >> 2));
+    const float m_r = __shfl_sync(0xffffffffu, m_run[r & 3], 16 * (r >> 2));
+    const int qpos = q0 + 8 * warp + r;
     if (qpos >= S) continue;
-    const float den = fmaxf(l_run[r], 1e-30f);
-    if (lane == 0)
-      lse[static_cast<size_t>(blockIdx.y) * S + qpos] = m_run[r] + logf(den);
+    const float den = fmaxf(l_r, 1e-30f);
+    if (lane == 0) lse[static_cast<size_t>(bh) * S + qpos] = m_r + logf(den);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) o[off + static_cast<size_t>(qpos) * D + col] =
-          acc[r][c] / den;
+    for (int h = 0; h < C::kNC; ++h) {
+      const int col = 4 * (lane + 32 * h);
+      if (col < D)
+        *reinterpret_cast<float4*>(o + off + static_cast<size_t>(qpos) * D +
+                                   col) =
+            make_float4(acc[r][h][0] / den, acc[r][h][1] / den,
+                        acc[r][h][2] / den, acc[r][h][3] / den);
     }
   }
 }
@@ -917,17 +1042,17 @@ template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int BH, int BH_kv, int S, int D, int causal,
                int window, cudaStream_t stream) {
-  const size_t bytes = f32_smem_bytes<DP>();
+  const size_t bytes = F32Cfg<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ32 - 1) / kBQ32, BH);
+  const unsigned grid = static_cast<unsigned>((S + kBQ32 - 1) / kBQ32) * BH;
   flash_f32_kernel<DP><<<grid, kT32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), S, D, BH / BH_kv, softmax_scale(D), causal,
-      window);
+      static_cast<float*>(lse), BH, S, D, BH / BH_kv, softmax_scale(D),
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 

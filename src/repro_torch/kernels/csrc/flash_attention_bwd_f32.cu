@@ -14,15 +14,20 @@
 // Three launches on the stream:
 //   1. prep  a thread a row: Delta = rowsum(dO .* O) into a (BH, S) f32
 //            workspace, summed in the order of dP's sums (below).
-//   2. dq    a CTA per (q head, 64-row q block), over every visible kv
-//            tile of 32 rows: S = Q K^T, P = exp(scale S - lse), dP =
-//            dO V^T, dS = P .* (dP - Delta), dQ += dS K; dQ scaled at the
-//            end.
-//   3. dkdv  a CTA per (32-row kv block, kv head), over the rep query
-//            heads of the kv head in order and each one's visible q tiles
-//            of 64 rows: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK +=
-//            dS^T Q.  The heads' sum runs inside the CTA in a fixed order:
-//            no atomics, so two launches are bitwise equal.
+//   2. dq    a CTA per (64-row q block, q head), heaviest q block first,
+//            over every visible kv tile of 16 rows, two at a time: S = Q
+//            K^T, P = exp(scale S - lse), dP = dO V^T, dS = P .* (dP -
+//            Delta), dQ += dS K; dQ scaled at the end.
+//   3. dkdv  a CTA per (32-row kv block, kv head, query-head group),
+//            heaviest kv block first, over the group's query heads in
+//            order and each one's visible q tiles of 32 rows, two at a
+//            time: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T
+//            Q.  While the
+//            kv blocks alone would leave the SMs ragged over two waves,
+//            a kv block's query heads split into two groups, the CTAs of
+//            a cluster of two, which sum their dK and dV through
+//            distributed shared memory, group 0's part first.  No
+//            atomics: two launches are bitwise equal.
 //
 // Bound on this card: operations.  At the RecurrentGemma-9B training shape
 // (q (32, 4096, 256), one kv head per 16 q heads, window 2048) the visible
@@ -30,30 +35,46 @@
 // for each of S, dP, dV, dQ and dK (~515 GFLOP, 7.7 ms at the 67 TFLOP/s
 // of f32 FMA); the dq launch computes S and dP again (7 products).
 //
-// Design: a simple tiled kernel in shared memory, as the f32 forward.
-// Tiles are staged by cp.async (16 bytes a copy, rows past S and columns
-// past D zero-filled) into rows padded by 4 floats, so a quarter-warp's
-// 16-byte loads of 8 rows fall on distinct banks.  Each product keeps a
-// register tile per thread: a warp owns rows of one operand, loaded as
-// 16-byte broadcasts, and its lanes own rows (the S-like products) or
-// 4 columns of D (the accumulating products) of the other; 8 warps a CTA,
-// one CTA an SM (217 KB of shared memory at D = 256).  f32 sums of D
-// terms and of a tile's rows run in a fixed order.  Loads and products do
-// not overlap (one tile buffer); that and the 32-row kv tiles are what a
-// faster design would change.
+// Design: register-tiled FMA on cp.async copies.  A shared-memory load
+// delivers at most 32 words a clock to an SM's lanes, broadcast or not,
+// against 128 FMAs, so a product runs at the FMA rate only where a thread
+// loads at most one word for every 4 of its multiply-adds: an r x c
+// micro-tile of an output loads r + c words a column of the sum for r c
+// of them.  The accumulating products (dQ += dS K; dV += P^T dO, dK +=
+// dS^T Q) keep 8 x 8 tiles (0.25 words a multiply-add).  The S-like
+// products (S and dP; S^T and dP^T) are small a tile, so each launch
+// gives one of them to each half of the CTA (warp groups A and B, 4 warps
+// each), as the bf16 backward's consumers split them, and takes its
+// streamed tiles two at a time (K and V in dq; Q, dO, lse and Delta in
+// dkdv): 16 entries a thread, 4 x 4 (0.5 words), where both products over
+// all 8 warps on one tile would have 4 (1.0).  Each group copies its own
+// operands with cp.async and waits on its own copies, and copies the next
+// pair's as soon as it is past this pair's (dq: V during dS and dS K, K
+// while group B starts on dP; dkdv: a half while the other half's dK and
+// dV run).  Tiles are staged into rows padded by 4 floats, so a
+// quarter-warp's 16-byte loads of 8 rows fall on distinct banks; 256
+// threads a CTA, one CTA an SM (204 and 212.5 KB of shared memory at D =
+// 256).  Every sum over D runs from column 0 in one fmaf chain and every
+// sum over keys or query rows in order, so dQ is bitwise the first
+// design's (the same sums in the same order).
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+
+#include "fa32_fma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;   // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 64;         // q rows of a tile
-constexpr int kBK = 32;         // kv rows of a tile
-constexpr int kPQ = kBQ + 4;    // row stride of P^T and dS^T (dkdv)
-constexpr int kPK = kBK + 4;    // row stride of dS (dq)
+constexpr int kStages = 2;      // tiles of a pair (K, V in dq; Q, dO dkdv)
+constexpr int kBQ = 64;         // dq: q rows a CTA
+constexpr int kBK = 16;         // dq: kv rows a tile, two to a pair
+constexpr int kBKV = 32;        // dkdv: kv rows a CTA
+constexpr int kBQT = 32;        // dkdv: q rows an item, two to a pair
+constexpr int kPK = kStages * kBK + 4;   // row stride of P and dS (dq)
+constexpr int kPQ = kStages * kBQT + 4;  // row stride of P^T, dS^T (dkdv)
 
 // At head dimension DP (64, 128 or 256): the columns the lanes cover (4 a
 // lane, 128 a warp, so at least 128), the row stride of a staged tile, the
@@ -63,15 +84,18 @@ struct Cfg {
   static constexpr int kDW = DP < 128 ? 128 : DP;
   static constexpr int kLD = kDW + 4;
   static constexpr int kNC = kDW / 128;
-  // K, V; Q, dO; P^T, dS^T; lse and Delta of the q tile.
-  static constexpr size_t kDkdvSmem =
-      sizeof(float) * (2 * kBK * kLD + 2 * kBQ * kLD + 2 * kBK * kPQ +
-                       2 * kBQ);
-  // Q, dO; K, V; dS.
+  // dq: Q, dO; a pair of K tiles and of V tiles; P, then dS.
   static constexpr size_t kDqSmem =
-      sizeof(float) * (2 * kBQ * kLD + 2 * kBK * kLD + kBQ * kPK);
+      sizeof(float) * (2 * kBQ * kLD + 2 * kStages * kBK * kLD + kBQ * kPK);
+  // dkdv: K, V; a pair of items' Q, dO, lse and Delta; P^T and dS^T.
+  static constexpr size_t kDkdvSmem =
+      sizeof(float) * (2 * kBKV * kLD + kStages * (2 * kBQT * kLD + 2 * kBQT) +
+                       2 * kBKV * kPQ);
   static_assert(kDkdvSmem <= 232448, "dkdv tiles exceed 227 KB");
   static_assert(kDqSmem <= 232448, "dq tiles exceed 227 KB");
+  // The cluster's exchange of one gradient's partial sum reuses the
+  // pair's Q and dO.
+  static_assert(2 * kStages * kBQT * kLD >= kBKV * kDW, "exchange too big");
 };
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
@@ -82,66 +106,47 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
   return ok;
 }
 
-// Whether any (q, key) pair of a (kBQ-row q tile, kBK-row kv tile) is
+// Whether any (q, key) pair of a (bq-row q tile, bk-row kv tile) is
 // visible: the forward's skip test.
-__device__ __forceinline__ bool tile_runs(int q0, int k0, int causal,
-                                          int window) {
+__device__ __forceinline__ bool tile_runs(int q0, int k0, int bq, int bk,
+                                          int causal, int window) {
   bool run = true;
-  if (causal) run = k0 <= q0 + kBQ - 1;
-  if (window > 0) run = run && (k0 + kBK - 1 > q0 - window);
+  if (causal) run = k0 <= q0 + bq - 1;
+  if (window > 0) run = run && (k0 + bk - 1 > q0 - window);
   return run;
 }
 
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
 // Stage rows [r0, r0 + ROWS) of a (S, D) matrix into `dst` (row stride
-// kLD, kDW columns): 16-byte cp.async copies, zero-filled past S and D.
-template <int DP, int ROWS>
+// kLD, kDW columns) by NT threads, this one thread tid of them
+// (fa32_fma.cuh).
+template <int DP, int ROWS, int NT>
 __device__ __forceinline__ void stage(float* dst,
                                       const float* __restrict__ src, int r0,
-                                      int S, int D) {
-  constexpr int kC4 = Cfg<DP>::kDW / 4;
-  static_assert((ROWS * kC4) % kThreads == 0, "uneven staging");
-#pragma unroll
-  for (int it = 0; it < ROWS * kC4 / kThreads; ++it) {
-    const int e = threadIdx.x + it * kThreads;
-    const int r = e / kC4, c = 4 * (e % kC4);
-    const bool in = r0 + r < S && c < D;
-    const float* from = in ? src + static_cast<size_t>(r0 + r) * D + c : src;
-    const unsigned to = static_cast<unsigned>(
-        __cvta_generic_to_shared(dst + r * Cfg<DP>::kLD + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to),
-                 "l"(from), "r"(in ? 16 : 0)
-                 : "memory");
-  }
+                                      int S, int D, int tid) {
+  fa32::stage<Cfg<DP>::kLD, Cfg<DP>::kDW, ROWS, NT>(dst, src, r0, S, D, tid);
 }
 
-__device__ __forceinline__ void staged() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
+// One float of a row vector, element r of [r0, r0 + n), zero past S: a
+// 4-byte cp.async (lse and Delta rows need not be 16-byte aligned).
+__device__ __forceinline__ void stage_one(float* dst,
+                                          const float* __restrict__ src,
+                                          int r0, int r, int S) {
+  const bool in = r0 + r < S;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst + r)),
+               "l"(in ? src + r0 + r : src), "r"(in ? 4 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// acc += x . y over four terms, in order.
-__device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
-  acc = fmaf(x.x, y.x, acc);
-  acc = fmaf(x.y, y.y, acc);
-  acc = fmaf(x.z, y.z, acc);
-  return fmaf(x.w, y.w, acc);
-}
-
-// acc[0..3] += s * y.
-__device__ __forceinline__ void axpy4(float s, float4 y, float* acc) {
-  acc[0] = fmaf(s, y.x, acc[0]);
-  acc[1] = fmaf(s, y.y, acc[1]);
-  acc[2] = fmaf(s, y.z, acc[2]);
-  acc[3] = fmaf(s, y.w, acc[3]);
-}
-
-__device__ __forceinline__ float comp(float4 x, int u) {
-  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
-}
+using fa32::axpy4;
+using fa32::commit;
+using fa32::comp;
+using fa32::dot4;
+using fa32::ld4;
 
 // ---------------------------------------------------------------------------
 // 1. prep: Delta per row.
@@ -168,8 +173,29 @@ fa32_bwd_prep_kernel(const float* __restrict__ o,
 }
 
 // ---------------------------------------------------------------------------
-// 2. dq: rows j = warp + 8 a of the q tile; S and dP at key `lane` of the
-// kv tile; dQ at columns 4 (lane + 32 c) + e.
+// Warp groups: each launch gives one S-like product to each half of the
+// CTA (4 warps each, group A and group B).
+// ---------------------------------------------------------------------------
+
+constexpr int kGroup = kThreads / 2;   // threads of a warp group
+
+// A named barrier of one warp group (ids 1 and 2; 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(kGroup)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 2. dq.  The kv tiles a q block sees go in pairs (32 keys; the last pair
+// may hold one tile).  Group A computes S and P, group B dP and then dS =
+// P (dP - Delta) in place of P: warp w % 4 of a group owns q rows
+// 16 (w % 4) .. + 15, lane 8 g + j holding rows 16 (w % 4) + 4 g + i
+// (i < 4) against keys j + 8 c (c < 4; c < 2 the pair's first tile), 0.5
+// shared words a multiply-add.  dQ += dS K: warp w owns q rows 8 w ..
+// 8 w + 7, the lane float4 columns 4 (lane + 32 h).  Group A copies Q and
+// the K pairs, group B dO and the V pairs, each waiting on its own
+// copies: the next pair's V is copied while this pair's dS and dS K run,
+// its K once dS K is done (while group B starts on dP).
 // ---------------------------------------------------------------------------
 
 template <int DP>
@@ -179,114 +205,193 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dq,
-                   int rep, int S, int D, float scale, int causal,
+                   int BH, int rep, int S, int D, float scale, int causal,
                    int window) {
   using C = Cfg<DP>;
-  constexpr int kRows = kBQ / kWarps;   // 8 q rows a warp
+  constexpr int kPair = kStages * kBK;   // keys of a pair
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
   float* Os = Qs + kBQ * C::kLD;        // dO
-  float* Ks = Os + kBQ * C::kLD;
-  float* Vs = Ks + kBK * C::kLD;
-  float* Ds = Vs + kBK * C::kLD;        // dS (kBQ, kPK)
+  float* Ks = Os + kBQ * C::kLD;        // (kPair, kLD)
+  float* Vs = Ks + kPair * C::kLD;      // (kPair, kLD)
+  float* Ps = Vs + kPair * C::kLD;      // P, then dS (kBQ, kPK)
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // heaviest first
-  const int bh = blockIdx.y;
+  const int nq = (S + kBQ - 1) / kBQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / BH)) * kBQ;
+  const int bh = static_cast<int>(blockIdx.x % BH);
   const size_t q_off = static_cast<size_t>(bh) * S * D;
   const size_t kv_off = static_cast<size_t>(bh / rep) * S * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool group_b = warp >= 4;
+  const int tg = threadIdx.x % kGroup;      // thread within its group
+  const int g = lane / 8, j8 = lane % 8;
+  const int sr = 16 * (warp % 4) + 4 * g;   // S (dP) rows sr + i
 
-  stage<DP, kBQ>(Qs, q + q_off, q0, S, D);
-  stage<DP, kBQ>(Os, dout + q_off, q0, S, D);
-  float lse_r[kRows], delta_r[kRows];
-#pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    const int qpos = q0 + warp + kWarps * a;
-    const size_t row = static_cast<size_t>(bh) * S + qpos;
-    lse_r[a] = qpos < S ? lse[row] : 0.0f;
-    delta_r[a] = qpos < S ? delta[row] : 0.0f;
-  }
-  float acc[kRows][C::kNC][4];
-#pragma unroll
-  for (int a = 0; a < kRows; ++a)
-#pragma unroll
-    for (int c = 0; c < C::kNC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][c][e] = 0.0f;
-
+  // The kv tiles the q block sees: one contiguous range, in pairs.
   const int nk = (S + kBK - 1) / kBK;
-  for (int kb = 0; kb < nk; ++kb) {
-    const int k0 = kb * kBK;
-    if (!tile_runs(q0, k0, causal, window)) continue;
-    __syncthreads();   // the last tile's K and dS are read
-    stage<DP, kBK>(Ks, k + kv_off, k0, S, D);
-    stage<DP, kBK>(Vs, v + kv_off, k0, S, D);
-    staged();
-    __syncthreads();
+  int lo = 0, hi = nk - 1;
+  while (lo < nk && !tile_runs(q0, lo * kBK, kBQ, kBK, causal, window)) ++lo;
+  while (hi >= lo && !tile_runs(q0, hi * kBK, kBQ, kBK, causal, window)) --hi;
+  const int n_pairs = hi >= lo ? (hi - lo + 2) / 2 : 0;
 
-    float s[kRows], dp[kRows];
+  // The group's operands: Q and K (group A) or dO and V (group B).
+  float* X = group_b ? Os : Qs;
+  float* Y = group_b ? Vs : Ks;
+  const float* y_src = (group_b ? v : k) + kv_off;
+  stage<DP, kBQ, kGroup>(X, (group_b ? dout : q) + q_off, q0, S, D, tg);
+  if (n_pairs > 0) stage<DP, kPair, kGroup>(Y, y_src, lo * kBK, S, D, tg);
+  commit();
+  // Group A reads each row's lse, group B its Delta.
+  float row_r[4];
 #pragma unroll
-    for (int a = 0; a < kRows; ++a) s[a] = 0.0f, dp[a] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      const float4 kf = ld4(Ks + lane * C::kLD + d);
-      const float4 vf = ld4(Vs + lane * C::kLD + d);
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + sr + i;
+    row_r[i] = qpos < S ? (group_b ? delta : lse)[static_cast<size_t>(bh) * S +
+                                                  qpos]
+                        : 0.0f;
+  }
+  float acc[8][C::kNC][4];
 #pragma unroll
-      for (int a = 0; a < kRows; ++a) {
-        const int j = warp + kWarps * a;
-        s[a] = dot4(ld4(Qs + j * C::kLD + d), kf, s[a]);
-        dp[a] = dot4(ld4(Os + j * C::kLD + d), vf, dp[a]);
-      }
-    }
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int a = 0; a < kRows; ++a) {
-      const int j = warp + kWarps * a;
-      const float p = visible(q0 + j, k0 + lane, S, causal, window)
-                          ? expf(s[a] * scale - lse_r[a])
-                          : 0.0f;
-      Ds[j * kPK + lane] = p * (dp[a] - delta_r[a]);
-    }
-    __syncthreads();
+    for (int h = 0; h < C::kNC; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][h][e] = 0.0f;
 
+  for (int pr = 0; pr < n_pairs; ++pr) {
+    const int t0 = lo + 2 * pr;
+    const int tiles = t0 < hi ? 2 : 1;
+    const bool more = pr + 1 < n_pairs;
+    fa32::wait<0>();
+    group_sync(group_b);   // the group's operands of this pair are in
+
+    // S = Q K^T (group A) or dP = dO V^T (group B), one fmaf chain over D
+    // from column 0 an entry (Delta's order).
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
 #pragma unroll 2
-    for (int i = 0; i < kBK; i += 4) {
-      float4 ds[kRows];
+    for (int d = 0; d < DP; d += 4) {
+      float4 xa[4], yb[4];
 #pragma unroll
-      for (int a = 0; a < kRows; ++a)
-        ds[a] = ld4(Ds + (warp + kWarps * a) * kPK + i);
+      for (int i = 0; i < 4; ++i) xa[i] = ld4(X + (sr + i) * C::kLD + d);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int c = 0; c < 4; ++c) yb[c] = ld4(Y + (j8 + 8 * c) * C::kLD + d);
 #pragma unroll
-        for (int c = 0; c < C::kNC; ++c) {
-          const float4 kf = ld4(Ks + (i + u) * C::kLD + 4 * (lane + 32 * c));
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int a = 0; a < kRows; ++a) axpy4(comp(ds[a], u), kf, acc[a][c]);
+        for (int c = 0; c < 4; ++c) s[i][c] = dot4(xa[i], yb[c], s[i][c]);
+    }
+    if (!group_b) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          Ps[(sr + i) * kPK + j8 + 8 * c] =
+              visible(q0 + sr + i, t0 * kBK + j8 + 8 * c, S, causal, window)
+                  ? expf(s[i][c] * scale - row_r[i])
+                  : 0.0f;
+    }
+    __syncthreads();   // P is in; group B is past this pair's V
+    if (group_b) {
+      if (more) {
+        stage<DP, kPair, kGroup>(Vs, y_src, (t0 + 2) * kBK, S, D, tg);
+        commit();
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float* at = Ps + (sr + i) * kPK + j8 + 8 * c;
+          *at = *at * (s[i][c] - row_r[i]);
+        }
+    }
+    __syncthreads();   // dS is in
+
+    // dQ += dS K over the pair's keys in order.
+#pragma unroll
+    for (int tt = 0; tt < kStages; ++tt) {
+      if (tt == tiles) break;
+#pragma unroll
+      for (int j = kBK * tt; j < kBK * (tt + 1); j += 4) {
+        float4 df[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) df[r] = ld4(Ps + (8 * warp + r) * kPK + j);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int h = 0; h < C::kNC; ++h) {
+            const float4 kf =
+                ld4(Ks + (j + u) * C::kLD + 4 * (lane + 32 * h));
+#pragma unroll
+            for (int r = 0; r < 8; ++r) axpy4(comp(df[r], u), kf, acc[r][h]);
+          }
         }
       }
     }
+    if (more) {
+      __syncthreads();   // every warp is past this pair's K and dS
+      if (!group_b) {
+        stage<DP, kPair, kGroup>(Ks, y_src, (t0 + 2) * kBK, S, D, tg);
+        commit();
+      }
+    }
   }
-  staged();   // nothing left in flight, also when no kv tile ran
+  fa32::wait<0>();   // nothing left in flight, also when no kv tile ran
 
 #pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    const int qpos = q0 + warp + kWarps * a;
+  for (int r = 0; r < 8; ++r) {
+    const int qpos = q0 + 8 * warp + r;
     if (qpos >= S) continue;
 #pragma unroll
-    for (int c = 0; c < C::kNC; ++c) {
-      const int col = 4 * (lane + 32 * c);
+    for (int h = 0; h < C::kNC; ++h) {
+      const int col = 4 * (lane + 32 * h);
       if (col < D)
         *reinterpret_cast<float4*>(dq + q_off + static_cast<size_t>(qpos) * D +
                                    col) =
-            make_float4(acc[a][c][0] * scale, acc[a][c][1] * scale,
-                        acc[a][c][2] * scale, acc[a][c][3] * scale);
+            make_float4(acc[r][h][0] * scale, acc[r][h][1] * scale,
+                        acc[r][h][2] * scale, acc[r][h][3] * scale);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// 3. dkdv: kv rows i = warp + 8 a of the block; S^T and dP^T at q rows
-// lane + 32 b of the q tile; dK and dV at columns 4 (lane + 32 c) + e.
+// 3. dkdv.  The items (query head, q tile) go in pairs (64 q rows; the last
+// pair may hold one).  Group A computes S^T, P^T and dK += dS^T Q, group
+// B dP^T, dS^T = P^T (dP^T - Delta) and dV += P^T dO, so each reads one
+// streamed operand (Q and lse; dO and Delta), which it copies itself.
+// S^T and dP^T: warp w % 4 of a group owns kv rows 8 (w % 4) .. + 7, lane
+// 16 g + j holding kv rows 8 (w % 4) + 4 g + i (i < 4) against the pair's
+// q rows j + 16 c (c < 4; c < 2 the first item), 0.5 shared words a
+// multiply-add.  dK and dV: warp w % 4 of a group owns kv rows 8 (w % 4)
+// .. + 7, the lane float4 columns 4 (lane + 32 h).
 // ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld_remote4(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(local), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -295,146 +400,226 @@ fa32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int rep, int S, int D,
-                     float scale, int causal, int window) {
+                     float* __restrict__ dv, int BH_kv, int rep, int groups,
+                     int S, int D, float scale, int causal, int window) {
   using C = Cfg<DP>;
-  constexpr int kRows = kBK / kWarps;   // 4 kv rows a warp
-  constexpr int kCols = kBQ / 32;       // 2 q rows a lane
+  constexpr int kPairQ = kStages * kBQT;   // q rows of a pair of items
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + kBK * C::kLD;
-  float* Qs = Vs + kBK * C::kLD;
-  float* Os = Qs + kBQ * C::kLD;        // dO
-  float* Ps = Os + kBQ * C::kLD;        // P^T (kBK, kPQ)
-  float* Ds = Ps + kBK * kPQ;           // dS^T (kBK, kPQ)
-  float* Ls = Ds + kBK * kPQ;           // lse of the q tile's rows
-  float* Es = Ls + kBQ;                 // Delta
+  float* Vs = Ks + kBKV * C::kLD;
+  float* Qp = Vs + kBKV * C::kLD;       // (kPairQ, kLD)
+  float* Op = Qp + kPairQ * C::kLD;     // dO (kPairQ, kLD)
+  float* Lp = Op + kPairQ * C::kLD;     // lse (kPairQ)
+  float* Ep = Lp + kPairQ;              // Delta (kPairQ)
+  float* Ps = Ep + kPairQ;              // P^T (kBKV, kPQ)
+  float* Dss = Ps + kBKV * kPQ;         // dS^T (kBKV, kPQ)
 
-  const int k0 = blockIdx.x * kBK;
-  const int hkv = blockIdx.y;
+  // Heaviest kv block first; a kv block's groups side by side (a cluster).
+  const int grp = static_cast<int>(blockIdx.x % groups);
+  const int hkv = static_cast<int>((blockIdx.x / groups) % BH_kv);
+  const int k0 = static_cast<int>(blockIdx.x / (groups * BH_kv)) * kBKV;
   const size_t kv_off = static_cast<size_t>(hkv) * S * D;
+  const int hq_lo = grp * rep / groups, hq_hi = (grp + 1) * rep / groups;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gw = warp % 4;                  // warp within its group
+  const bool group_b = warp >= 4;
+  const int tg = threadIdx.x % kGroup;      // thread within its group
+  const int g = lane / 16, j16 = lane % 16;
+  const int sr = 8 * gw + 4 * g;            // S^T (dP^T) rows sr + i
 
-  stage<DP, kBK>(Ks, k + kv_off, k0, S, D);
-  stage<DP, kBK>(Vs, v + kv_off, k0, S, D);
-  float acc_k[kRows][C::kNC][4], acc_v[kRows][C::kNC][4];
-#pragma unroll
-  for (int a = 0; a < kRows; ++a)
-#pragma unroll
-    for (int c = 0; c < C::kNC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_k[a][c][e] = 0.0f, acc_v[a][c][e] = 0.0f;
+  // The q tiles the kv block sees: one contiguous range, for each head;
+  // the items (head, q tile) go in pairs.
+  const int nq = (S + kBQT - 1) / kBQT;
+  int lo = 0, hi = nq - 1;
+  while (lo < nq && !tile_runs(lo * kBQT, k0, kBQT, kBKV, causal, window))
+    ++lo;
+  while (hi >= lo && !tile_runs(hi * kBQT, k0, kBQT, kBKV, causal, window))
+    --hi;
+  const int n_tiles = hi - lo + 1;
+  const int n_items = n_tiles > 0 ? (hq_hi - hq_lo) * n_tiles : 0;
+  const int n_pairs = (n_items + 1) / 2;
+  const auto item_q0 = [&](int item) {
+    return (lo + item % n_tiles) * kBQT;
+  };
 
-  const int nq = (S + kBQ - 1) / kBQ;
-  for (int hq = 0; hq < rep; ++hq) {
-    const int bh = hkv * rep + hq;
-    const size_t q_off = static_cast<size_t>(bh) * S * D;
-    for (int qb = 0; qb < nq; ++qb) {
-      const int q0 = qb * kBQ;
-      if (!tile_runs(q0, k0, causal, window)) continue;
-      __syncthreads();   // the last tile's Q, dO, P^T and dS^T are read
-      stage<DP, kBQ>(Qs, q + q_off, q0, S, D);
-      stage<DP, kBQ>(Os, dout + q_off, q0, S, D);
-      if (threadIdx.x < kBQ) {
-        const int qpos = q0 + threadIdx.x;
-        const size_t row = static_cast<size_t>(bh) * S + qpos;
-        Ls[threadIdx.x] = qpos < S ? lse[row] : 0.0f;
-        Es[threadIdx.x] = qpos < S ? delta[row] : 0.0f;
-      }
-      staged();
-      __syncthreads();
+  // The group's operand: Q and lse (group A) or dO and Delta (group B),
+  // item `item` into half `half` of the pair's rows.
+  float* Y = group_b ? Op : Qp;
+  float* R = group_b ? Ep : Lp;
+  const auto stage_half = [&](int item, int half) {
+    const int bh = hkv * rep + hq_lo + item / n_tiles;
+    const int q0 = item_q0(item);
+    stage<DP, kBQT, kGroup>(Y + half * kBQT * C::kLD,
+                            (group_b ? dout : q) + static_cast<size_t>(bh) *
+                                                       S * D,
+                            q0, S, D, tg);
+    if (tg < kBQT)
+      stage_one(R + half * kBQT,
+                (group_b ? delta : lse) + static_cast<size_t>(bh) * S, q0,
+                tg, S);
+  };
 
-      float s[kRows][kCols], dp[kRows][kCols];
+  stage<DP, kBKV, kThreads>(Ks, k + kv_off, k0, S, D, threadIdx.x);
+  stage<DP, kBKV, kThreads>(Vs, v + kv_off, k0, S, D, threadIdx.x);
+  for (int half = 0; half < kStages && half < n_items; ++half)
+    stage_half(half, half);
+  commit();
+
+  const float* X = group_b ? Vs : Ks;       // rows of the group's S-like
+  const float* W = group_b ? Ps : Dss;      // P^T (group B) or dS^T (A)
+  float acc[8][C::kNC][4];                  // dK (group A) or dV (group B)
 #pragma unroll
-      for (int a = 0; a < kRows; ++a)
+  for (int a = 0; a < 8; ++a)
 #pragma unroll
-        for (int b = 0; b < kCols; ++b) s[a][b] = 0.0f, dp[a][b] = 0.0f;
+    for (int h = 0; h < C::kNC; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][h][e] = 0.0f;
+
+  for (int pr = 0; pr < n_pairs; ++pr) {
+    const int items = 2 * pr + 1 < n_items ? 2 : 1;
+    const int next = 2 * pr + kStages;      // the next pair's first item
+    fa32::wait<0>();
+    __syncthreads();   // the pair is in; every warp is past the last one
+
+    // S^T = K Q^T (group A) or dP^T = V dO^T (group B): kv rows sr + i
+    // against the pair's q rows j16 + 16 c (half c / 2), one fmaf chain
+    // over D from column 0 an entry (Delta's order).
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
 #pragma unroll 2
-      for (int d = 0; d < DP; d += 4) {
-        float4 qf[kCols], of[kCols];
+    for (int d = 0; d < DP; d += 4) {
+      float4 xa[4], yb[4];
 #pragma unroll
-        for (int b = 0; b < kCols; ++b) {
-          qf[b] = ld4(Qs + (lane + 32 * b) * C::kLD + d);
-          of[b] = ld4(Os + (lane + 32 * b) * C::kLD + d);
-        }
+      for (int i = 0; i < 4; ++i) xa[i] = ld4(X + (sr + i) * C::kLD + d);
 #pragma unroll
-        for (int a = 0; a < kRows; ++a) {
-          const int i = warp + kWarps * a;
-          const float4 kf = ld4(Ks + i * C::kLD + d);
-          const float4 vf = ld4(Vs + i * C::kLD + d);
+      for (int c = 0; c < 4; ++c) yb[c] = ld4(Y + (j16 + 16 * c) * C::kLD + d);
 #pragma unroll
-          for (int b = 0; b < kCols; ++b) {
-            s[a][b] = dot4(kf, qf[b], s[a][b]);
-            dp[a][b] = dot4(vf, of[b], dp[a][b]);
-          }
-        }
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = dot4(xa[i], yb[c], s[i][c]);
+    }
+    if (!group_b) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = j16 + 16 * c;
+        const int half = c / 2;
+        const int qpos = item_q0(2 * pr + half) + j - half * kBQT;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          Ps[(sr + i) * kPQ + j] =
+              half < items && visible(qpos, k0 + sr + i, S, causal, window)
+                  ? expf(s[i][c] * scale - Lp[j])
+                  : 0.0f;
       }
+    }
+    __syncthreads();   // P^T is in
+    if (group_b) {
 #pragma unroll
-      for (int a = 0; a < kRows; ++a) {
-        const int i = warp + kWarps * a;
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int b = 0; b < kCols; ++b) {
-          const int j = lane + 32 * b;
-          const float p = visible(q0 + j, k0 + i, S, causal, window)
-                              ? expf(s[a][b] * scale - Ls[j])
-                              : 0.0f;
-          Ps[i * kPQ + j] = p;
-          Ds[i * kPQ + j] = p * (dp[a][b] - Es[j]);
+        for (int c = 0; c < 4; ++c) {
+          const int j = j16 + 16 * c;
+          Dss[(sr + i) * kPQ + j] = Ps[(sr + i) * kPQ + j] * (s[i][c] - Ep[j]);
         }
-      }
-      __syncthreads();
+    }
+    __syncthreads();   // dS^T is in
 
-#pragma unroll 1
-      for (int j = 0; j < kBQ; j += 4) {
-        float4 pf[kRows], df[kRows];
+    // dK += dS^T Q (group A) or dV += P^T dO (group B) over the pair's q
+    // rows in order; once the group is past a half, it copies the next
+    // pair's item of that half.
 #pragma unroll
-        for (int a = 0; a < kRows; ++a) {
-          pf[a] = ld4(Ps + (warp + kWarps * a) * kPQ + j);
-          df[a] = ld4(Ds + (warp + kWarps * a) * kPQ + j);
-        }
+    for (int half = 0; half < kStages; ++half) {
+      if (half == items) break;
+#pragma unroll 2
+      for (int j = kBQT * half; j < kBQT * (half + 1); j += 4) {
+        float4 wf[8];
+#pragma unroll
+        for (int a = 0; a < 8; ++a) wf[a] = ld4(W + (8 * gw + a) * kPQ + j);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
 #pragma unroll
-          for (int c = 0; c < C::kNC; ++c) {
-            const int col = 4 * (lane + 32 * c);
-            const float4 o4 = ld4(Os + (j + u) * C::kLD + col);
-            const float4 q4 = ld4(Qs + (j + u) * C::kLD + col);
+          for (int h = 0; h < C::kNC; ++h) {
+            const float4 zf = ld4(Y + (j + u) * C::kLD + 4 * (lane + 32 * h));
 #pragma unroll
-            for (int a = 0; a < kRows; ++a) {
-              axpy4(comp(pf[a], u), o4, acc_v[a][c]);
-              axpy4(comp(df[a], u), q4, acc_k[a][c]);
-            }
+            for (int a = 0; a < 8; ++a) axpy4(comp(wf[a], u), zf, acc[a][h]);
           }
         }
       }
+      if (next + half < n_items) {
+        group_sync(group_b);   // the group is past this half
+        stage_half(next + half, half);
+        commit();
+      }
     }
   }
-  staged();   // nothing left in flight, also when no q tile ran
+  fa32::wait<0>();   // nothing left in flight, also when no q tile ran
 
+  float* out = (group_b ? dv : dk) + kv_off;
+  const float sc = group_b ? 1.0f : scale;
+  if (groups > 1) {
+    // The cluster's two CTAs: rank 0 finishes dV (group B), rank 1 dK
+    // (group A).  The other group of each leaves its partial in the (now
+    // free) pair buffers; the sum takes group 0's part first in either CTA.
+    const uint32_t rank = cluster_rank();
+    const bool mine = rank == 0 ? group_b : !group_b;
+    float4* xb = reinterpret_cast<float4*>(Qp);
+    __syncthreads();   // every warp is past the pair buffers
+    if (!mine)
 #pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    const int kpos = k0 + warp + kWarps * a;
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int h = 0; h < C::kNC; ++h)
+          xb[(a * C::kNC + h) * kGroup + tg] =
+              make_float4(acc[a][h][0], acc[a][h][1], acc[a][h][2],
+                          acc[a][h][3]);
+    cluster_sync();
+    if (mine)
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int h = 0; h < C::kNC; ++h) {
+          const float4 r = ld_remote4(
+              smem_u32(xb + (a * C::kNC + h) * kGroup + tg), rank ^ 1u);
+          const float part[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[a][h][e] = rank == 0 ? acc[a][h][e] + part[e]
+                                     : part[e] + acc[a][h][e];
+        }
+    cluster_sync();   // the peer has read this CTA's partial
+    if (!mine) return;
+  }
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int kpos = k0 + 8 * gw + a;
     if (kpos >= S) continue;
-    const size_t row = kv_off + static_cast<size_t>(kpos) * D;
 #pragma unroll
-    for (int c = 0; c < C::kNC; ++c) {
-      const int col = 4 * (lane + 32 * c);
-      if (col >= D) continue;
-      *reinterpret_cast<float4*>(dk + row + col) =
-          make_float4(acc_k[a][c][0] * scale, acc_k[a][c][1] * scale,
-                      acc_k[a][c][2] * scale, acc_k[a][c][3] * scale);
-      *reinterpret_cast<float4*>(dv + row + col) =
-          make_float4(acc_v[a][c][0], acc_v[a][c][1], acc_v[a][c][2],
-                      acc_v[a][c][3]);
+    for (int h = 0; h < C::kNC; ++h) {
+      const int col = 4 * (lane + 32 * h);
+      if (col < D)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(kpos) * D + col) =
+            make_float4(acc[a][h][0] * sc, acc[a][h][1] * sc,
+                        acc[a][h][2] * sc, acc[a][h][3] * sc);
     }
   }
 }
 
+// Query-head groups of the dkdv launch: two (a cluster) while the kv
+// blocks of the kv heads alone would leave SMs idle for two waves.
+int dkdv_groups(int rep, int n_kv_blocks) {
+  return rep >= 2 && n_kv_blocks < 2 * 132 ? 2 : 1;
+}
+
+// The launches of one call: all three (part < 0) or only prep (0), dq (1)
+// or dkdv (2), which reads what the earlier ones wrote.
 template <int DP>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* delta, float* dq,
            float* dk, float* dv, int BH, int BH_kv, int S, int D, int causal,
-           int window, cudaStream_t stream) {
+           int window, int part, cudaStream_t stream) {
   const int rep = BH / BH_kv;
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
@@ -447,22 +632,66 @@ int launch(const float* q, const float* k, const float* v, const float* o,
                                static_cast<int>(Cfg<DP>::kDkdvSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const long long rows = static_cast<long long>(BH) * S;
-  const unsigned prep_grid =
-      static_cast<unsigned>((rows + kPrepThreads - 1) / kPrepThreads);
-  fa32_bwd_prep_kernel<<<prep_grid, kPrepThreads, 0, stream>>>(o, dout, delta,
-                                                               rows, D);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (part < 0 || part == 0) {
+    const long long rows = static_cast<long long>(BH) * S;
+    const unsigned prep_grid =
+        static_cast<unsigned>((rows + kPrepThreads - 1) / kPrepThreads);
+    fa32_bwd_prep_kernel<<<prep_grid, kPrepThreads, 0, stream>>>(
+        o, dout, delta, rows, D);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  if (part < 0 || part == 1) {
+    const unsigned dq_grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
+    fa32_bwd_dq_kernel<DP><<<dq_grid, kThreads, Cfg<DP>::kDqSmem, stream>>>(
+        q, k, v, dout, lse, delta, dq, BH, rep, S, D, scale, causal, window);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  if (part >= 0 && part != 2) return 0;
 
-  const dim3 dq_grid((S + kBQ - 1) / kBQ, BH);
-  fa32_bwd_dq_kernel<DP><<<dq_grid, kThreads, Cfg<DP>::kDqSmem, stream>>>(
-      q, k, v, dout, lse, delta, dq, rep, S, D, scale, causal, window);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  const dim3 kv_grid((S + kBK - 1) / kBK, BH_kv);
-  fa32_bwd_dkdv_kernel<DP><<<kv_grid, kThreads, Cfg<DP>::kDkdvSmem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, rep, S, D, scale, causal, window);
+  const int nkb = (S + kBKV - 1) / kBKV;
+  const int groups = dkdv_groups(rep, nkb * BH_kv);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nkb * BH_kv * groups));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Cfg<DP>::kDkdvSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(groups);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fa32_bwd_dkdv_kernel<DP>, q, k, v, dout, lse,
+                           static_cast<const float*>(delta), dk, dv, BH_kv,
+                           rep, groups, S, D, scale, causal, window);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+int run(const void* q, const void* k, const void* v, const void* o,
+        const void* dout, const void* lse, void* ws, void* dq, void* dk,
+        void* dv, int BH, int BH_kv, int S, int D, int causal, int window,
+        int part, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || D <= 0 ||
+      D % 8 != 0 || D > 256 || part > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto w = [](void* p) { return static_cast<float*>(p); };
+  if (D <= 64)
+    return launch<64>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws), w(dq),
+                      w(dk), w(dv), BH, BH_kv, S, D, causal, window, part,
+                      st);
+  if (D <= 128)
+    return launch<128>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws),
+                       w(dq), w(dk), w(dv), BH, BH_kv, S, D, causal, window,
+                       part, st);
+  return launch<256>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws), w(dq),
+                     w(dk), w(dv), BH, BH_kv, S, D, causal, window, part,
+                     st);
 }
 
 }  // namespace
@@ -478,19 +707,19 @@ extern "C" int repro_flash_attention_bwd_f32(
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
     void* dv, int BH, int BH_kv, int S, int D, int causal, int window,
     void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || BH_kv > 65535 ||
-      BH > 65535 || S <= 0 || D <= 0 || D % 8 != 0 || D > 256)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const auto w = [](void* p) { return static_cast<float*>(p); };
-  if (D <= 64)
-    return launch<64>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws), w(dq),
-                      w(dk), w(dv), BH, BH_kv, S, D, causal, window, st);
-  if (D <= 128)
-    return launch<128>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws),
-                       w(dq), w(dk), w(dv), BH, BH_kv, S, D, causal, window,
-                       st);
-  return launch<256>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws), w(dq),
-                     w(dk), w(dv), BH, BH_kv, S, D, causal, window, st);
+  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, causal,
+             window, -1, stream);
+}
+
+// One launch of the above alone, so that each can be timed between CUDA
+// events: prep (part 0), dq (1) or dkdv (2), on the same arguments; dq and
+// dkdv read the Delta that an earlier prep left in ws.
+extern "C" int repro_flash_attention_bwd_f32_part(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* ws, void* dq, void* dk,
+    void* dv, int BH, int BH_kv, int S, int D, int causal, int window,
+    int part, void* stream) {
+  if (part < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, causal,
+             window, part, stream);
 }

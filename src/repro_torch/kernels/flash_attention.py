@@ -8,7 +8,8 @@ the batch, and k, v of shape (BH_kv, S, D) with BH_kv dividing BH: row
 (``repeat_interleave``'s order), so an MQA or GQA layer's kv heads are
 read in place.  f32 accumulation, the output in the input type.  bf16
 runs on the tensor cores (``wgmma`` fed by TMA, three warpgroups a CTA),
-f32 in exact f32 arithmetic.  The forward also writes each row's
+f32 in exact f32 arithmetic (register-tiled FMA, K and V copied by
+cp.async in pairs of tiles).  The forward also writes each row's
 log-sum-exp (BH, S) in f32, which the backward reads.
 
 The backward (no TPU counterpart) has an entry for each dtype, three
@@ -18,9 +19,10 @@ share it.  bf16 (``csrc/flash_attention_bwd.cu``) is FA2's on the
 forward's machinery (``wgmma`` fed by TMA; two groups of query heads,
 summed by a cluster of two CTAs, when the kv blocks alone would not fill
 the card), D a multiple of 16; f32 (``csrc/flash_attention_bwd_f32.cu``)
-is a tiled kernel in exact f32 FMA, as the f32 forward, D a multiple of
-8.  The wrappers take CUDA tensors only.  :class:`FlashAttention` is the
-autograd Function that :func:`repro_torch.kernels.ops.flash_attention`
+is register-tiled exact f32 FMA on tiles copied by cp.async, as the f32
+forward, with the same split into two query-head groups, D a multiple
+of 8.  The wrappers take CUDA tensors only.  :class:`FlashAttention` is
+the autograd Function that :func:`repro_torch.kernels.ops.flash_attention`
 calls: the kernels for CUDA tensors, the plain versions of
 ``kernels/ref.py`` for CPU tensors.
 """
@@ -38,26 +40,36 @@ bwd_launches = 0   # backward calls (three CUDA launches each) since then
 _FN = {torch.float32: "repro_flash_attention_f32",
        torch.bfloat16: "repro_flash_attention_bf16"}
 MAX_HEAD_DIM = 256
-MAX_BH = 65535     # the f32 grid's y extent
 MAX_SMEM = 232448  # dynamic shared memory a CTA may use on an H100
 BOX_BYTES = 64 * 128   # one TMA box of the bf16 kernel: 64 rows of 64 bf16
+# The f32 kernels' tiles, as their sources have them: the forward's q rows a
+# CTA, kv rows a tile and tiles in flight, a pair (kBQ32, kBK32, kStages32);
+# the backward's dq launch q rows a CTA and kv rows a tile (kBQ, kBK), its
+# dkdv launch kv rows a CTA and q rows a tile (kBKV, kBQT), and the tiles
+# of a pair, which both launches stream (kStages).
+F32_BQ, F32_BK, F32_STAGES = 64, 32, 2
+F32_BWD_BQ, F32_BWD_BK, F32_BWD_BKV, F32_BWD_BQT = 64, 16, 32, 32
+F32_BWD_STAGES = 2
+
+
+def _f32_row(dp: int) -> int:
+    """Floats a staged row of the f32 kernels takes at head dimension DP:
+    the 128 columns a warp covers at least, padded by 4."""
+    return max(dp, 128) + 4
 
 
 def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype) -> dict:
     """Shape checks and the launch of one call: the head dimension DP the
     kernel is compiled for, the q rows a CTA owns (BQ), the kv rows a tile
-    holds (BK), the ring's stages, the dynamic shared memory in bytes,
-    threads a CTA and CTAs.  The tiles are ``Bf16Cfg`` and
-    ``f32_smem_bytes`` of the source, which asserts the same 227 KB limit
-    when it compiles."""
+    holds (BK), the tiles in flight (the bf16 ring's stages, the f32
+    pair), the dynamic shared memory in bytes, threads a CTA and CTAs.
+    The tiles are ``Bf16Cfg`` and ``F32Cfg`` of the source, which
+    asserts the same 227 KB limit when it compiles."""
     rep = attention_shapes("flash_attention", q_shape, k_shape, v_shape)
     bh, s, d = q_shape
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: D must be a multiple of 8 and "
                          f"at most {MAX_HEAD_DIM} (got {d})")
-    if bh > MAX_BH:
-        raise ValueError(f"flash_attention: BH must be at most {MAX_BH} "
-                         f"(got {bh})")
     dp = 64 if d <= 64 else 128 if d <= 128 else 256
     if dtype == torch.bfloat16:
         bq, bk, threads = 128, 64, 384
@@ -67,8 +79,10 @@ def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype) -> dict:
         smem = (1024 + (2 + 2 * stages) * (dp // 64) * BOX_BYTES
                 + 8 * (1 + 4 * stages))
     else:
-        bq, bk, threads, stages = 32, 32, 128, 1
-        smem = 4 * (bq * dp + bk * (dp + 1) + bk * dp + bq * (bk + 1))
+        bq, bk, threads, stages = F32_BQ, F32_BK, 256, F32_STAGES
+        # Q, a pair of K and of V tiles, P (a pair's keys + 4 a row)
+        ld = _f32_row(dp)
+        smem = 4 * (bq * ld + 2 * stages * bk * ld + bq * (stages * bk + 4))
     return {"dp": dp, "bq": bq, "bk": bk, "stages": stages,
             "smem_bytes": smem, "threads": threads, "rep": rep,
             "ctas": -(-s // bq) * bh}
@@ -100,9 +114,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 BWD_PAD = 128        # rows of the backward's workspace: S rounded up
 
 
-F32_BQ, F32_BK = 64, 32   # q rows and kv rows of the f32 backward's tiles
-
-
 def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The backward's launches at ``dtype``.  bf16 as
     ``csrc/flash_attention_bwd.cu`` has them: the dq launch's q rows a CTA
@@ -113,26 +124,33 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
     period) and CTAs; and the f32 workspace's shape (lse log2 e and Delta,
     (2, BH, S_pad)).  f32 as ``csrc/flash_attention_bwd_f32.cu`` (its
     ``Cfg``, which asserts the same 227 KB limit when it compiles): 256
-    threads a CTA, q tiles of BQ = BQT = 64 rows, kv tiles of BK = BKV =
-    32 rows, one group, staged rows of max(D_pad, 128) + 4 floats, and a
-    (BH, S) workspace (Delta)."""
+    threads a CTA; dq: 64 q rows a CTA, kv tiles of 16 rows in pairs;
+    dkdv: 32 kv rows a CTA (a cluster of ``groups`` CTAs, by the bf16
+    rule), q tiles of 32 rows in pairs; staged rows of max(D_pad, 128) +
+    4 floats, and a (BH, S) workspace (Delta)."""
     bh, s, d = q_shape
     bh_kv = k_shape[0]
     rep = bh // bh_kv
     dp = 64 if d <= 64 else 128 if d <= 128 else 256
     if dtype == torch.float32:
-        ld = max(dp, 128) + 4
-        bq, bk = F32_BQ, F32_BK
-        return {"dp": dp, "bq": bq, "bk": bk, "bkv": bk, "bqt": bq,
-                "groups": 1, "threads": 256,
-                # Q, dO; K, V; dS (bq, bk + 4)
-                "dq_smem_bytes": 4 * (2 * bq * ld + 2 * bk * ld
-                                      + bq * (bk + 4)),
-                # K, V; Q, dO; P^T and dS^T (bk, bq + 4); lse and Delta
-                "dkdv_smem_bytes": 4 * (2 * bk * ld + 2 * bq * ld
-                                        + 2 * bk * (bq + 4) + 2 * bq),
+        ld = _f32_row(dp)
+        bq, bk = F32_BWD_BQ, F32_BWD_BK
+        bkv, bqt, stages = F32_BWD_BKV, F32_BWD_BQT, F32_BWD_STAGES
+        nkb = -(-s // bkv)
+        groups = 2 if rep >= 2 and nkb * bh_kv < 2 * _build.NUM_SMS else 1
+        return {"dp": dp, "bq": bq, "bk": bk, "bkv": bkv, "bqt": bqt,
+                "stages": stages, "groups": groups, "threads": 256,
+                # Q, dO; a pair of K and of V tiles; P, then dS (a pair's
+                # keys + 4 a row)
+                "dq_smem_bytes": 4 * (2 * bq * ld + stages * 2 * bk * ld
+                                      + bq * (stages * bk + 4)),
+                # K, V; a pair of items' Q, dO, lse and Delta; P^T and
+                # dS^T (a pair's q rows + 4 a row)
+                "dkdv_smem_bytes": 4 * (2 * bkv * ld
+                                        + stages * (2 * bqt * ld + 2 * bqt)
+                                        + 2 * bkv * (stages * bqt + 4)),
                 "dq_ctas": -(-s // bq) * bh,
-                "dkdv_ctas": -(-s // bk) * bh_kv,
+                "dkdv_ctas": nkb * bh_kv * groups,
                 "ws_shape": (bh, s)}
     tile = (dp // 64) * BOX_BYTES           # 64 rows of D
     bk = 32 if dp == 256 else 64

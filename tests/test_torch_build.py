@@ -25,6 +25,25 @@ def test_package_data_ships_every_cuda_source():
     shipped = {p for g in globs for p in PKG.glob(g)}
     sources = set(_build.CSRC.glob("*.cu"))
     assert sources and sources <= shipped
+    # and every header they include
+    headers = set(_build.CSRC.glob("*.cuh"))
+    assert headers and headers <= shipped
+    for src in sources:
+        for name in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert _build.CSRC / name in headers, (src.name, name)
+
+
+def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
+    """An edited header, which no source's bytes show, builds a new
+    library; an unchanged tree maps to the same one."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path()
+    assert _build.library_path() == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path() != first
+    assert [p.name for p in _build._sources()] == ["a.cu"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -100,9 +119,11 @@ def test_backward_sources_ship_as_package_data():
 
 def test_kernel_constants_match_their_python_copies():
     """The rglru_scan backward's chunk length, which the plain copy and the
-    workspace's shape take from ``ref.RGLRU_BWD_CHUNK``, and the f32
-    attention backward's tiles, which ``flash_attention.bwd_plan``
-    restates, are the sources' own."""
+    workspace's shape take from ``ref.RGLRU_BWD_CHUNK``, the f32
+    attention forward's tiles, which ``flash_attention.launch_plan``
+    restates, and the f32 attention backward's tiles, stages and
+    query-head groups, which ``flash_attention.bwd_plan`` restates, are
+    the sources' own."""
     from repro_torch.kernels import flash_attention as t_fa
     from repro_torch.kernels import ref as t_ref
     from repro_torch.kernels import rglru_scan as t_rg
@@ -116,6 +137,28 @@ def test_kernel_constants_match_their_python_copies():
         == t_rg.BWD_CHUNK
     assert t_rg.bwd_workspace_shape((2, 4096, 4096)) == (2, 2, 64, 4096)
     assert t_rg.bwd_workspace_shape((3, 65, 5)) == (2, 3, 2, 5)
-    assert (const("flash_attention_bwd_f32.cu", "kBQ"),
-            const("flash_attention_bwd_f32.cu", "kBK")) == (t_fa.F32_BQ,
-                                                           t_fa.F32_BK)
+    fwd = {name: const("flash_attention.cu", name)
+           for name in ("kBQ32", "kBK32", "kStages32", "kT32")}
+    plan = t_fa.launch_plan((32, 4096, 256), (2, 4096, 256),
+                            (2, 4096, 256), torch.float32)
+    assert (fwd["kBQ32"], fwd["kBK32"], fwd["kStages32"], fwd["kT32"]) \
+        == (t_fa.F32_BQ, t_fa.F32_BK, t_fa.F32_STAGES, 256) \
+        == (plan["bq"], plan["bk"], plan["stages"], plan["threads"])
+    bwd = {name: const("flash_attention_bwd_f32.cu", name)
+           for name in ("kBQ", "kBK", "kBKV", "kBQT", "kStages", "kThreads")}
+    plan = t_fa.bwd_plan((32, 4096, 256), (2, 4096, 256), torch.float32)
+    assert (bwd["kBQ"], bwd["kBK"], bwd["kBKV"], bwd["kBQT"],
+            bwd["kStages"]) == (t_fa.F32_BWD_BQ, t_fa.F32_BWD_BK,
+                                t_fa.F32_BWD_BKV, t_fa.F32_BWD_BQT,
+                                t_fa.F32_BWD_STAGES)
+    assert (plan["bq"], plan["bk"], plan["bkv"], plan["bqt"], plan["stages"],
+            plan["threads"]) == (bwd["kBQ"], bwd["kBK"], bwd["kBKV"],
+                                 bwd["kBQT"], bwd["kStages"],
+                                 bwd["kThreads"])
+    # the dkdv launch's query-head groups: two while the kv blocks of the
+    # kv heads are fewer than two waves of the card's SMs, as bwd_plan
+    text = (_build.CSRC / "flash_attention_bwd_f32.cu").read_text()
+    rule = re.search(r"return rep >= 2 && n_kv_blocks < 2 \* (\d+) \? 2 : 1;",
+                     text)
+    assert rule and int(rule.group(1)) == _build.NUM_SMS
+    assert plan["groups"] == 2 and plan["dkdv_ctas"] == 128 * 2 * 2

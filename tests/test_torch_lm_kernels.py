@@ -149,8 +149,9 @@ def test_attention_kv_shape_checks(q_shape, k_shape, v_shape):
 def test_attention_launch_plan_fits_one_cta(dtype):
     """Every head dimension the kernels take fits the card's 227 KB of
     shared memory a CTA; bf16 runs one CTA of three warpgroups (384
-    threads) on 128 q rows with 64-row kv tiles, head dimension padded
-    to 64, 128 or 256."""
+    threads) on 128 q rows with 64-row kv tiles, f32 one CTA of 8 warps
+    (256 threads) on 64 q rows with 32-row kv tiles in pairs, head
+    dimension padded to 64, 128 or 256."""
     seen = set()
     for d in range(8, t_fa.MAX_HEAD_DIM + 1, 8):
         kv = (4, 4096, d)
@@ -162,6 +163,14 @@ def test_attention_launch_plan_fits_one_cta(dtype):
             assert (plan["threads"], plan["bq"], plan["bk"]) == (384, 128, 64)
             assert plan["ctas"] == 64 * 4096 // 128
             assert plan["stages"] >= 2
+        else:
+            assert (plan["threads"], plan["bq"], plan["bk"],
+                    plan["stages"]) == (256, 64, 32, 2)
+            assert plan["ctas"] == 64 * 4096 // 64
+            if d == 256:
+                # Q at 64 rows, a pair of K and of V tiles at 32, P (64
+                # rows of 68), rows of 260 floats
+                assert plan["smem_bytes"] == 217088
     assert seen == {64, 128, 256}
     with pytest.raises(ValueError, match="multiple of 8"):
         t_fa.launch_plan((2, 16, 12), (2, 16, 12), (2, 16, 12),
@@ -414,18 +423,34 @@ def test_rglru_scan_bwd_plain_chunk_is_the_kernels():
 @pytest.mark.parametrize("d", [16, 128, 256])
 def test_flash_attention_bwd_plan_f32_fits_one_cta(d):
     """The f32 backward's launches fit one CTA's 227 KB of shared memory
-    at the smoke head dimension, 128 and the training shape's 256; 64-row
-    q tiles and 32-row kv tiles, no query-head groups."""
+    at the smoke head dimension, 128 and the training shape's 256: dq on
+    64 q rows with 16-row kv tiles in pairs, dkdv on 32 kv rows with
+    32-row q tiles in pairs; one kv head per 16 query
+    heads splits into two query-head groups (a cluster of two CTAs a kv
+    block), since 128 kv blocks of 2 kv heads alone would leave the 132
+    SMs ragged."""
     plan = t_fa.bwd_plan((32, 4096, d), (2, 4096, d), torch.float32)
     assert plan["dq_smem_bytes"] <= t_fa.MAX_SMEM
     assert plan["dkdv_smem_bytes"] <= t_fa.MAX_SMEM
-    assert (plan["bq"], plan["bk"], plan["groups"]) == (64, 32, 1)
+    assert (plan["bq"], plan["bk"], plan["bkv"], plan["bqt"],
+            plan["stages"], plan["groups"]) == (64, 16, 32, 32, 2, 2)
     assert plan["dp"] >= d and plan["threads"] == 256
-    assert plan["dq_ctas"] == 64 * 32 and plan["dkdv_ctas"] == 128 * 2
+    assert plan["dq_ctas"] == 64 * 32 and plan["dkdv_ctas"] == 128 * 2 * 2
     assert plan["ws_shape"] == (32, 4096)
     if d == 256:
-        # K, V and P^T, dS^T at 32 rows, Q and dO at 64, rows of 260
+        # K, V at 32 rows, a pair of Q, dO (32 rows), lse and Delta, P^T
+        # and dS^T (32 rows of 68), rows of 260 floats
         assert plan["dkdv_smem_bytes"] == 217600
+        # Q, dO at 64 rows, a pair of K and of V tiles (16 rows), P and
+        # dS (64 rows of 36)
+        assert plan["dq_smem_bytes"] == 208896
+    # one query head per kv head, or kv blocks enough for two waves: one
+    # group
+    for q_shape, k_shape in (((4, 4096, d), (4, 4096, d)),
+                             ((32, 16384, d), (2, 16384, d))):
+        small = t_fa.bwd_plan(q_shape, k_shape, torch.float32)
+        assert small["groups"] == 1
+        assert small["dkdv_ctas"] == -(-q_shape[1] // 32) * k_shape[0]
 
 
 def test_flash_attention_bwd_f32_refuses_cpu_tensors_and_mixed_dtypes():
@@ -442,6 +467,24 @@ def test_flash_attention_bwd_f32_refuses_cpu_tensors_and_mixed_dtypes():
         t_fa.flash_attention_bwd(*(t.double() for t in (q, q, q, q)), lse,
                                  q.double())
     assert t_fa.bwd_launches == before
+
+
+def test_flash_attention_f32_refuses_cpu_tensors_and_mixed_dtypes():
+    """The f32 forward's wrapper takes CUDA tensors of one dtype only and
+    counts no launch when it refuses."""
+    q = torch.zeros(2, 16, 8)
+    before = t_fa.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_fa.flash_attention(q, q, q, lse=True)
+    with pytest.raises(TypeError, match="expected torch.float32"):
+        t_fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(TypeError, match="expected torch.float32"):
+        t_fa.flash_attention(q, q, q.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_fa.flash_attention(q.double(), q.double(), q.double())
+    assert t_fa.launches == before
 
 
 def test_flash_attention_bwd_plan_fits_one_cta():
