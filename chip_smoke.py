@@ -127,16 +127,23 @@ shapes and ragged shapes (f32 within 1e-4, bf16 within 2e-2 relative
 Frobenius; ``flash_attention``'s dK and dV also row by row within
 ``ATTN_ROW_TOL`` and its dQ against the FA2 plain backward, in f64 for
 f32, on the kernel's out and lse, which two planted one-tile faults at
-the kernel's tiles must trip), checks two launches bitwise equal and
+the kernel's tiles must trip; the f32 attention's row gates also on
+``DQ_DRAWS`` seeded draws at its training shape, and its dQ row gate on
+an input whose rows sit nearly on one key, against f64), checks two
+launches bitwise equal and
 times each (median) beside its bound, the plain backward and, for
 attention, SDPA's backward with the same mask and the earlier design's
 time; it prints the device time of each CUDA launch of one backward call
 (attention: prep, dq, dkdv; RG-LRU: chunk, carry, out; SSD: ychunk,
 rpass, col, row, dcum), each backward kernel's ``-Xptxas -v`` line and
 the launches' dynamic shared memory, and times the f32 forward kernels
-(attention beside SDPA, ``rglru_scan``) at their training shapes.  The
-``kernels`` line has ten rows: the six forward kernels and the four
-backward ones.
+(attention beside SDPA, ``rglru_scan``) at their training shapes.
+``rglru_scan``'s forward takes its TMA path where the row stride is a
+multiple of 16 bytes and its direct path elsewhere: at the prefill and
+training shapes and at ragged shapes that reach both, each call prints
+its path and must equal the direct path bitwise, and both paths are
+timed in the same run.  The ``kernels`` line has eleven rows: the six
+forward kernels, the f32 attention forward, and the four backward ones.
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
@@ -191,11 +198,13 @@ BWD_SOURCES = {
 }
 # The first design of each redesigned backward kernel at the training
 # shape, for comparison on the printed line, as PERF.md rows 7-10 keep it,
-# and of the f32 attention forward at the f32 training shape (row 4)
+# of the f32 attention forward at the f32 training shape (row 4) and of
+# the rglru_scan forward at the training and prefill shapes (row 6)
 # (NVIDIA H100 80GB HBM3, 700.00 W).
 EARLIER_BWD_MS = {"flash_attention": 7.9980, "rglru_scan": 1.0065,
                   "ssd_scan": 16.7313, "flash_attention_f32": 31.7893}
-EARLIER_FWD_MS = {"flash_attention_f32": 28.6055}
+EARLIER_FWD_MS = {"flash_attention_f32": 28.6055, "rglru_scan": 0.3605,
+                  "rglru_scan_prefill": 0.4283}
 # The f32 attention kernels, forward and backward, by their names in
 # -Xptxas -v: none may spill.
 F32_ATTN_KERNELS = r"((?:flash_f32|fa32_bwd_[a-z]+)_kernel(?:ILi\d+E)?)"
@@ -1696,6 +1705,8 @@ def phase_lm_kernels(inputs: dict, layer_errs: dict, counts: dict,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "shape": list(shape), "dtype": str(dtype)[6:],
         }
+        if name == "rglru_scan":
+            row.update(rglru_paths(args, f"prefill input {shape}"))
         if name == "flash_attention":
             row["kv_shape"] = list(args[1].shape)
             masked, causal_only = sdpa_calls(*args, heads=heads, **kwargs)
@@ -1713,6 +1724,12 @@ def phase_lm_kernels(inputs: dict, layer_errs: dict, counts: dict,
               f"{row['plain_ms']:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{bound:.4f} ms ({by})")
+        if name == "rglru_scan":
+            print(f"  rglru_scan {shape}: {row['path']} path, median "
+                  f"{row['ms_median']:.4f} ms; the direct path (the first "
+                  f"design) {row['direct_ms']:.4f} ms back to back, median "
+                  f"{row['direct_ms_median']:.4f} ms; earlier "
+                  f"{EARLIER_FWD_MS['rglru_scan_prefill']:.4f} ms (PERF.md)")
         if name == "flash_attention":
             print(f"  flash_attention k, v {row['kv_shape']}; kernel on k, v "
                   f"expanded to every query head "
@@ -1742,12 +1759,58 @@ def phase_lm_kernels(inputs: dict, layer_errs: dict, counts: dict,
                        {"causal": causal, "window": window},
                        f"grouped kv ({bh}, {bh_kv}, {s}, {d}) causal={causal}"
                        f" window={window}")
-        for shape in ((3, 77, 100), (2, 1, 33), (1, 33, 1)):
+    for dtype, shapes in RGLRU_RAGGED.items():
+        for shape in shapes:
             ab = (torch.rand(*shape, generator=gen, device=DEVICE)
                   .mul(0.3).add(0.7).to(dtype),
                   randn(*shape, dtype=dtype).mul(0.1))
-            lm_compare("rglru_scan", ab, {}, f"ragged {shape}")
+            rglru_compare(ab, f"ragged {shape}")
     return rows
+
+
+# Ragged rglru_scan forward cases (B, S, W) that reach both paths: S = 1,
+# S off the 64-step box, W = 1, 33, 70 (direct) and 100, 36 (TMA in f32,
+# W off the 32-channel box), bf16 at W % 8 = 4 (direct) and W % 8 = 0
+# (TMA), B = 1 and B = 3.
+RGLRU_RAGGED = {
+    torch.float32: ((1, 1, 4096), (3, 77, 100), (2, 1, 33), (1, 33, 1),
+                    (2, 1000, 70), (3, 130, 36)),
+    torch.bfloat16: ((3, 77, 100), (2, 65, 8), (1, 200, 1000), (2, 1, 33),
+                     (1, 33, 1))}
+
+
+def rglru_compare(ab, label) -> float:
+    """rglru_scan against its plain version (:func:`lm_compare`), two
+    launches bitwise equal, and the path the wrapper chose bitwise equal
+    to the direct path; prints the path."""
+    from repro_torch.kernels import rglru_scan
+    err = lm_compare("rglru_scan", ab, {}, label)
+    h = rglru_scan.rglru_scan(*ab)
+    path = rglru_scan.last_path
+    check(torch.equal(h, rglru_scan.rglru_scan(*ab))
+          and torch.equal(h, rglru_scan.rglru_scan(*ab, direct=True)),
+          f"rglru_scan {label} {str(ab[0].dtype)[6:]}: {path} path, two "
+          f"launches and the direct path bitwise equal")
+    return err
+
+
+def rglru_paths(args, label) -> dict:
+    """The rglru_scan forward at ``args``: the path its wrapper chooses,
+    bitwise equal to the direct path (the first design, kept for the shapes
+    TMA does not take), each path's time (median of 7 between CUDA events;
+    the direct path also as the mean of back-to-back calls)."""
+    from repro_torch.kernels import rglru_scan
+    h = rglru_scan.rglru_scan(*args)
+    path = rglru_scan.last_path
+    check(torch.equal(h, rglru_scan.rglru_scan(*args, direct=True)),
+          f"rglru_scan {label}: the {path} path and the direct path bitwise "
+          f"equal")
+    del h
+    direct = lambda: rglru_scan.rglru_scan(*args, direct=True)
+    return {"path": path,
+            "ms_median": median_ms(lambda: rglru_scan.rglru_scan(*args), 7),
+            "direct_ms": time_ms(direct, 20),
+            "direct_ms_median": median_ms(direct, 7)}
 
 
 # Ragged ssd_scan cases (BH, B/C rows, S, P, N, chunk): rep 1; odd BH with
@@ -2357,13 +2420,12 @@ def bwd_compare(name, args, kwargs, gen, label, rows: bool = False):
 def fa2_inputs(*tensors):
     """The inputs of the FA2 plain backward that holds a kernel's dQ (q, k,
     v, the kernel's out and lse, dO): as they are for bf16 (the plain
-    version computes in f32); in f64 for f32.  In f32 a row whose softmax
-    sits on one key (the first row of a causal head) has dQ = 0 in exact
-    arithmetic, and both the kernel's and an f32 plain version's reading
-    of it are rounding residues of dP - Delta, ~1e-6, which the row
-    check's floor turns into ~1e-3; the f32 kernel sums Delta in dP's
-    order (exactly 0 there), and f64 takes the plain version's residue to
-    ~1e-15."""
+    version computes in f32); in f64 for f32.  The f32 kernel's dQ takes
+    dS = P .* dO (V - O), exactly 0 where a row's softmax sits on one key
+    (its O is that key's V bitwise) and accurate where it sits nearly on
+    one; held to an f32 plain version, the plain version's own rounding
+    would count against it, which the row check's floor turns into
+    ~1e-3 on rows whose dQ is near 0."""
     if tensors[0].dtype == torch.float32:
         return tuple(t.double() for t in tensors)
     return tensors
@@ -2378,9 +2440,12 @@ def attention_grads_masked(q, k, v, dout, visible):
 
 
 def attention_dq_masked(q, k, v, o, lse, dout, visible):
-    """dQ by the FA2 formulas of ``ref.attention_bwd_plain`` from the
-    given o and lse, under an explicit (S, S) visibility mask, one query
-    head at a time (f32; f64 for f64 inputs)."""
+    """dQ by the FA2 formulas from the given o and lse, under an explicit
+    (S, S) visibility mask, one query head at a time (f32; f64 for f64
+    inputs): dS = P .* (dO V^T - Delta), less each row's P-weighted mean
+    but for bf16 inputs, as ``ref.attention_bwd_plain`` takes it; in f64
+    (the f32 kernel's check) the Delta form agrees with its dO (V - O)
+    form far inside the row gate, and it needs no (S, S, D) difference."""
     rep = q.shape[0] // k.shape[0]
     scale = 1.0 / float(np.sqrt(q.shape[2]))
     wide = torch.promote_types(q.dtype, torch.float32)
@@ -2391,7 +2456,11 @@ def attention_dq_masked(q, k, v, o, lse, dout, visible):
         p = torch.where(visible, torch.exp(q[b].to(wide) @ kb.T * scale
                                            - lse[b, :, None].to(wide)), 0.0)
         delta = (dob * o[b].to(wide)).sum(-1)
-        dq[b] = (p * (dob @ vb.T - delta[:, None])) @ kb * scale
+        ds = p * (dob @ vb.T - delta[:, None])
+        dq[b] = ds @ kb * scale
+        if q.dtype != torch.bfloat16:
+            mean = ds.sum(-1) / p.sum(-1).clamp_min(torch.finfo(wide).tiny)
+            dq[b] -= mean[:, None] * (p @ kb) * scale
     return dq
 
 
@@ -2425,6 +2494,87 @@ def check_attention_bwd_faults(args, kwargs, dout, plain_grads, fwd, fa2,
               f"planted fault ({label}): worst rows of dK, dV "
               f"{['%.3e' % r for r in dkv]}, the largest > {tol:g}; of "
               f"dQ {dq:.3e} > {tol:g}")
+
+
+# The f32 attention backward's row gates at the training shape on seeded
+# draws beside the kept inputs: DQ_DRAWS draws of q, k, v and dO, each
+# from a generator seeded DQ_SEED + i, and one input whose rows sit nearly
+# on one key (NEAR_KEY_SEED): each query row is a key row it sees scaled
+# so that the key's score is about NEAR_KEY_SCORE (8 / sqrt(D) times the
+# key: at D 64, the CPU test's inputs), where dP - Delta would cancel.
+DQ_DRAWS, DQ_SEED = 8, 1000
+NEAR_KEY_SEED, NEAR_KEY_SCORE = 2000, 8.0
+
+
+def attention_f32_draws(args, kwargs) -> None:
+    """The f32 flash_attention backward on DQ_DRAWS seeded draws at
+    ``args``' shapes (:func:`bwd_compare` with its row checks: dK and dV
+    against autograd, dQ against the FA2 plain backward in f64 on the
+    kernel's out and lse, each within ATTN_ROW_TOL; each draw's worst rows
+    printed) and on the near-one-key input (:func:`near_one_key_dq`)."""
+    shape, kshape = args[0].shape, args[1].shape
+    for i in range(DQ_DRAWS):
+        gen = torch.Generator(device=DEVICE).manual_seed(DQ_SEED + i)
+        rand = tuple(torch.randn(sh, generator=gen, device=DEVICE)
+                     for sh in (shape, kshape, kshape))
+        bwd_compare("flash_attention", rand, kwargs, gen,
+                    f"seeded draw {i} (seed {DQ_SEED + i}) {tuple(shape)}",
+                    True)
+        del rand
+        torch.cuda.empty_cache()
+    near_one_key_dq(args, kwargs)
+
+
+def near_one_key_dq(args, kwargs) -> None:
+    """The f32 flash_attention backward where every query row sits nearly
+    on one key it sees (k, v and dO seeded draws; query row i of head h is
+    k[h // rep, j] scaled by NEAR_KEY_SCORE / sqrt(D) for a key j it sees,
+    drawn at random): the forward within its gates, and dQ within
+    ATTN_ROW_TOL row by row of the FA2 plain backward in f64 on the
+    kernel's out and lse.  There autograd through the f32 plain forward
+    is itself off the f64 gradients, so dQ, dK and dV are held to f64; dK
+    and dV (dS^T = P^T (dP^T - Delta), which cancels there) are printed
+    beside it, not gated, with autograd's own distance from f64."""
+    from repro_torch.kernels import flash_attention, ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(NEAR_KEY_SEED)
+    bh, s, d = args[0].shape
+    k, v, dout = (torch.randn(sh, generator=gen, device=DEVICE)
+                  for sh in (args[1].shape, args[1].shape, args[0].shape))
+    pos = torch.arange(s, device=DEVICE)
+    window, causal = kwargs["window"], kwargs["causal"]
+    lo = (pos - window + 1).clamp_min(0) if window > 0 else pos * 0
+    hi = pos + 1 if causal else pos * 0 + s
+    pick = lo + (torch.rand((bh, s), generator=gen, device=DEVICE)
+                 * (hi - lo)).long().clamp_max(hi - lo - 1)
+    rep = bh // k.shape[0]
+    heads = torch.arange(bh, device=DEVICE)[:, None] // rep
+    q = k[heads, pick] * (NEAR_KEY_SCORE / float(np.sqrt(d)))
+    fwd = flash_attention.flash_attention(q, k, v, lse=True, **kwargs)
+    ok_fwd, what_fwd = forward_agrees(
+        "flash_attention", fwd,
+        ref.attention_plain(q, k, v, lse=True, **kwargs))
+    got = flash_attention.flash_attention_bwd(q, k, v, *fwd, dout, **kwargs)
+    want = ref.attention_bwd_plain(*fa2_inputs(q, k, v, *fwd, dout),
+                                   **kwargs)
+    rows = [worst_grad_row(g, w) for g, w in zip(got, want)]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(ref.attention_plain(*leaves, **kwargs),
+                               leaves, dout)
+    auto_rows = [worst_grad_row(g, w) for g, w in zip(auto, want)]
+    del leaves, auto
+    tol = ATTN_ROW_TOL[torch.float32]
+    check(ok_fwd and all(bool(torch.isfinite(g).all()) for g in got)
+          and rows[0] <= tol,
+          f"flash_attention f32 near one key {tuple(q.shape)} (seed "
+          f"{NEAR_KEY_SEED}): {what_fwd}; worst row of dQ against the FA2 "
+          f"plain backward in f64 {rows[0]:.3e} <= {tol:g}")
+    print(f"  near one key: worst rows of dK, dV against f64 (dS^T = P^T "
+          f"(dP^T - Delta), not gated) {rows[1]:.3e}, {rows[2]:.3e}; "
+          f"autograd through the f32 plain forward against f64: dQ, dK, dV "
+          f"{', '.join('%.3e' % r for r in auto_rows)}")
+    del q, k, v, dout, fwd, got, want
+    torch.cuda.empty_cache()
 
 
 def bwd_bound(name, args, kwargs):
@@ -2509,17 +2659,35 @@ def sdpa_backward(q, k, v, dout, causal: bool, window: int, heads: int):
     return lambda: torch.autograd.grad(out, leaves, dview, retain_graph=True)
 
 
-def print_forward_time(name: str, args, kwargs) -> None:
-    """The f32 forward kernel of a backward case at the training shape:
-    its time (mean of back-to-back calls) beside its bound and its plain
-    version's; a text line (PERF.md row 6 keeps it beside the
-    prefill's)."""
-    ms = time_ms(lambda: lm_kernel(name)(*args, **kwargs), 10)
-    plain_ms = time_ms(lambda: lm_plain(name)(*args, **kwargs), 2)
-    bound, by = lm_bound(name, args, kwargs)
-    print(f"  {name} forward {tuple(args[0].shape)} float32 at the training "
-          f"shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound:.4f} ms ({by}), share of the bound {bound / ms:.3f}")
+def rglru_training_forward(args) -> None:
+    """The rglru_scan forward at the training shape (f32): held to its
+    plain version within LM_TOL, two launches and the direct path bitwise
+    equal (:func:`rglru_compare`), its time as the median of 7 calls
+    between CUDA events beside the mean of back-to-back calls, the direct
+    path's (the first design) in this run, the bound, its plain version's
+    and the earlier design's (PERF.md row 6); a text line."""
+    from repro_torch.kernels import rglru_scan
+    shape = tuple(args[0].shape)
+    rglru_compare(args, f"training shape {shape}")
+    paths = rglru_paths(args, f"training shape {shape}")
+    ms = time_ms(lambda: rglru_scan.rglru_scan(*args), 20)
+    plain_ms = time_ms(lambda: lm_plain("rglru_scan")(*args), 2)
+    bound, by = lm_bound("rglru_scan", args, {})
+    plan = rglru_scan.fwd_plan(shape, args[0].dtype)
+    for line in ptxas_report(r"(rglru_scan_(?:tma_)?kernel(?:I\w+?E)?)"):
+        print(f"  ptxas: {line}")
+    print(f"  rglru_scan forward launch: {plan['path']} path, {plan['ctas']} "
+          f"CTAs of {plan['threads']} threads, {plan['stages']} stages, "
+          f"dynamic shared memory {plan['smem_bytes']} B")
+    print(f"  rglru_scan forward {shape} {str(args[0].dtype)[6:]} at the "
+          f"training shape: "
+          f"{paths['path']} path, kernel {paths['ms_median']:.4f} ms (median "
+          f"of 7; back to back {ms:.4f} ms), direct path "
+          f"{paths['direct_ms_median']:.4f} ms (median; back to back "
+          f"{paths['direct_ms']:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), share of the bound "
+          f"{bound / paths['ms_median']:.3f}; earlier "
+          f"{EARLIER_FWD_MS['rglru_scan']:.4f} ms (PERF.md)")
 
 
 def attention_f32_row(args, kwargs, heads: int, launches: int) -> dict:
@@ -2690,6 +2858,8 @@ def phase_train_kernels(kept: dict, counts: dict) -> list:
         if name == "flash_attention":
             check_attention_bwd_faults(args, kwargs, dout, plain(), fwd,
                                        fa2, tiles)
+        if key == "flash_attention_f32":
+            attention_f32_draws(args, kwargs)
         g1, g2 = kernel(), kernel()
         check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
               f"{key} backward: two launches bitwise equal")
@@ -2733,8 +2903,8 @@ def phase_train_kernels(kept: dict, counts: dict) -> list:
         if key == "flash_attention_f32":
             rows.append(attention_f32_row(args, kwargs, kept["heads"],
                                           counts[key]))
-        elif name != "ssd_scan" and dtype == torch.float32:
-            print_forward_time(name, args, kwargs)
+        elif name == "rglru_scan":
+            rglru_training_forward(args)
         rows.append(row)
         del kernel, plain, dout, args, rand, fwd, fa2
         torch.cuda.empty_cache()

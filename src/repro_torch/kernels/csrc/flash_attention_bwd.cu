@@ -79,6 +79,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "tma.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -102,66 +104,18 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// TMA, mbarriers and wgmma (as flash_attention.cu).
+// TMA, mbarriers and wgmma (tma.cuh; as flash_attention.cu).
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-// Arrive on the barrier and add `bytes` to the transfers it awaits.
-__device__ __forceinline__ void bar_arrive_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the box at (column c0, row c1, head c2) into shared memory,
-// completing on `bar`; and a box from shared memory back to the tensor.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
+using tma::bar_arrive;
+using tma::bar_arrive_tx;
+using tma::bar_init;
+using tma::bar_wait;
+using tma::encode_tiled;
+using tma::EncodeTiledFn;
+using tma::smem_u32;
+using tma::tma_load;
+using tma::tma_store;
 
 // A contiguous bulk copy of `bytes` (a multiple of 16, both ends 16-byte
 // aligned) from global to shared memory, completing on `bar`.
@@ -943,32 +897,6 @@ fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
 // ---------------------------------------------------------------------------
 // Launchers.
 // ---------------------------------------------------------------------------
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // A (heads, S, D) bf16 tensor as a 3-D map of boxes of 64 columns by `rows`
 // rows, 128-byte swizzle; elements outside the tensor read as zero and are

@@ -13,17 +13,28 @@
 // D), kv row bh / rep serving query row bh (MQA and GQA read in place).
 // Three launches on the stream:
 //   1. prep  a thread a row: Delta = rowsum(dO .* O) into a (BH, S) f32
-//            workspace, summed in the order of dP's sums (below).
-//   2. dq    a CTA per (64-row q block, q head), heaviest q block first,
+//            workspace, summed in the order of dkdv's dP sums (below).
+//   2. dq    a CTA per (48-row q block, q head), heaviest q block first,
 //            over every visible kv tile of 16 rows, two at a time: S = Q
-//            K^T, P = exp(scale S - lse), dP = dO V^T, dS = P .* (dP -
-//            Delta), dQ += dS K; dQ scaled at the end.
+//            K^T, P = exp(scale S - lse), dS_ij = P_ij (dO_i . (V_j -
+//            O_i)); dQ = scale (dS K - m P K) with m_i = sum_j dS_ij /
+//            sum_j P_ij.  A row's dQ is a sum of dS_ij K_j that nearly
+//            cancels (sum_j dS_ij = 0) and is small wherever the row's
+//            g_ij = dO_i . (V_j - O_i) nearly agree, so three things keep
+//            its digits: V_j - O_i is taken element by element inside the
+//            sum over D (where a row's softmax sits nearly on one key,
+//            V_j ~ O_i, and dP_ij - Delta_i would leave mostly the
+//            rounding of two near-equal sums); that sum is compensated
+//            (dot4_diff); and m_i, 0 in exact arithmetic (sum_j P_ij V_j
+//            = O_i), takes out the rounding of the saved O and lse
+//            against this P, which would reach dQ as m_i times the
+//            P-weighted mean of K.
 //   3. dkdv  a CTA per (32-row kv block, kv head, query-head group),
 //            heaviest kv block first, over the group's query heads in
 //            order and each one's visible q tiles of 32 rows, two at a
 //            time: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T
-//            Q.  While the
-//            kv blocks alone would leave the SMs ragged over two waves,
+//            Q, with dS^T = P^T .* (dP^T - Delta).  While the kv blocks
+//            alone would leave the SMs ragged over two waves,
 //            a kv block's query heads split into two groups, the CTAs of
 //            a cluster of two, which sum their dK and dV through
 //            distributed shared memory, group 0's part first.  No
@@ -40,23 +51,27 @@
 // against 128 FMAs, so a product runs at the FMA rate only where a thread
 // loads at most one word for every 4 of its multiply-adds: an r x c
 // micro-tile of an output loads r + c words a column of the sum for r c
-// of them.  The accumulating products (dQ += dS K; dV += P^T dO, dK +=
-// dS^T Q) keep 8 x 8 tiles (0.25 words a multiply-add).  The S-like
-// products (S and dP; S^T and dP^T) are small a tile, so each launch
-// gives one of them to each half of the CTA (warp groups A and B, 4 warps
-// each), as the bf16 backward's consumers split them, and takes its
-// streamed tiles two at a time (K and V in dq; Q, dO, lse and Delta in
-// dkdv): 16 entries a thread, 4 x 4 (0.5 words), where both products over
-// all 8 warps on one tile would have 4 (1.0).  Each group copies its own
-// operands with cp.async and waits on its own copies, and copies the next
-// pair's as soon as it is past this pair's (dq: V during dS and dS K, K
-// while group B starts on dP; dkdv: a half while the other half's dK and
-// dV run).  Tiles are staged into rows padded by 4 floats, so a
-// quarter-warp's 16-byte loads of 8 rows fall on distinct banks; 256
-// threads a CTA, one CTA an SM (204 and 212.5 KB of shared memory at D =
-// 256).  Every sum over D runs from column 0 in one fmaf chain and every
-// sum over keys or query rows in order, so dQ is bitwise the first
-// design's (the same sums in the same order).
+// of them.  The accumulating products (dV += P^T dO, dK += dS^T Q) keep
+// 8 x 8 tiles (0.25 words a multiply-add), dS K and P K 6 x 8 on the same
+// K loads (0.21).  The
+// S-like products (S and dO (V - O); S^T and dP^T) are small a tile, so
+// each launch gives one of them to each half of the CTA (warp groups A
+// and B, 4 warps each), as the bf16 backward's consumers split them, and
+// takes its streamed tiles two at a time (K and V in dq; Q, dO, lse and
+// Delta in dkdv): in dkdv 16 entries a thread, 4 x 4 (0.5 words), where
+// both products over all 8 warps on one tile would have 4 (1.0); in dq
+// 12, 3 x 4 (0.58 words; 0.83 with O beside dO).  Each group copies its
+// own operands with cp.async and waits on its own copies, and copies the
+// next pair's as soon as it is past this pair's (dq: V during dS and dS
+// K, K while group B starts on dO (V - O); dkdv: a half while the other
+// half's dK and dV run).  Tiles are staged into rows padded by 4 floats,
+// so a quarter-warp's 16-byte loads of 8 rows fall on distinct banks; 256
+// threads a CTA, one CTA an SM (224.75 and 212.5 KB of shared memory at
+// D = 256: Q, dO and O of 48 rows beside the K and V pairs and P and dS;
+// 64 rows of O would not fit).  Every sum over D runs from column 0 (one
+// fmaf chain, but dq's dO (V - O), compensated a quad at a time) and
+// every sum over keys or query rows in order: two launches are bitwise
+// equal.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -69,7 +84,7 @@ namespace {
 
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kStages = 2;      // tiles of a pair (K, V in dq; Q, dO dkdv)
-constexpr int kBQ = 64;         // dq: q rows a CTA
+constexpr int kBQ = 48;         // dq: q rows a CTA
 constexpr int kBK = 16;         // dq: kv rows a tile, two to a pair
 constexpr int kBKV = 32;        // dkdv: kv rows a CTA
 constexpr int kBQT = 32;        // dkdv: q rows an item, two to a pair
@@ -84,9 +99,10 @@ struct Cfg {
   static constexpr int kDW = DP < 128 ? 128 : DP;
   static constexpr int kLD = kDW + 4;
   static constexpr int kNC = kDW / 128;
-  // dq: Q, dO; a pair of K tiles and of V tiles; P, then dS.
+  // dq: Q, dO, O; a pair of K tiles and of V tiles; P and dS.
   static constexpr size_t kDqSmem =
-      sizeof(float) * (2 * kBQ * kLD + 2 * kStages * kBK * kLD + kBQ * kPK);
+      sizeof(float) *
+      (3 * kBQ * kLD + 2 * kStages * kBK * kLD + 2 * kBQ * kPK);
   // dkdv: K, V; a pair of items' Q, dO, lse and Delta; P^T and dS^T.
   static constexpr size_t kDkdvSmem =
       sizeof(float) * (2 * kBKV * kLD + kStages * (2 * kBQT * kLD + 2 * kBQT) +
@@ -154,10 +170,10 @@ using fa32::ld4;
 
 constexpr int kPrepThreads = 128;   // a thread a row
 
-// Delta_i sums dO_i . O_i over D in the order the dq and dkdv launches sum
-// dP_ij = dO_i . V_j (one fmaf a column, from column 0): where a row's
-// softmax sits on one key, O_i is V_j bitwise, and dS_ij = P_ij (dP_ij -
-// Delta_i) is exactly 0, as it is in exact arithmetic.
+// Delta_i sums dO_i . O_i over D in the order the dkdv launch sums dP_ij =
+// dO_i . V_j (one fmaf a column, from column 0): where a row's softmax
+// sits on one key, O_i is V_j bitwise, and dS_ij = P_ij (dP_ij - Delta_i)
+// is exactly 0, as it is in exact arithmetic.
 __global__ void __launch_bounds__(kPrepThreads)
 fa32_bwd_prep_kernel(const float* __restrict__ o,
                      const float* __restrict__ dout,
@@ -187,34 +203,56 @@ __device__ __forceinline__ void group_sync(int group) {
 
 // ---------------------------------------------------------------------------
 // 2. dq.  The kv tiles a q block sees go in pairs (32 keys; the last pair
-// may hold one tile).  Group A computes S and P, group B dP and then dS =
-// P (dP - Delta) in place of P: warp w % 4 of a group owns q rows
-// 16 (w % 4) .. + 15, lane 8 g + j holding rows 16 (w % 4) + 4 g + i
-// (i < 4) against keys j + 8 c (c < 4; c < 2 the pair's first tile), 0.5
-// shared words a multiply-add.  dQ += dS K: warp w owns q rows 8 w ..
-// 8 w + 7, the lane float4 columns 4 (lane + 32 h).  Group A copies Q and
-// the K pairs, group B dO and the V pairs, each waiting on its own
-// copies: the next pair's V is copied while this pair's dS and dS K run,
-// its K once dS K is done (while group B starts on dP).
+// may hold one tile).  Group A computes S and P, group B dO (V - O) and
+// then dS = P .* dO (V - O): warp w % 4 of a group owns q rows 12 (w % 4)
+// .. + 11, lane 8 g + j holding rows 12 (w % 4) + 3 g + i (i < 3) against
+// keys j + 8 c (c < 4; c < 2 the pair's first tile).  dS K and P K (and
+// the rows' sums of dS and P, in every lane): warp w owns q rows 6 w .. 6
+// w + 5, the lane float4 columns 4 (lane + 32 h).  Group A copies Q and the K pairs, group B dO, O and the
+// V pairs, each waiting on its own copies: the next pair's V is copied
+// while this pair's dS and dS K run, its K once dS K is done (while group
+// B starts on the next dO (V - O)).
 // ---------------------------------------------------------------------------
+
+// acc + x . (y - o) over four terms, each difference rounded once (where
+// y ~ o the terms are small and nothing cancels after the sum): the four
+// in one fmaf chain, that partial then added to acc compensated (Kahan:
+// err carries acc's own rounding), so a sum over D = 256 keeps about 8
+// times the digits of one fmaf chain.  A row's dS_ij - dS_ik rests on
+// g_ij - g_ik = dO_i . (V_j - V_k), which one chain over D leaves with
+// ~1e-5 of |g| where two keys' g nearly agree.
+__device__ __forceinline__ void dot4_diff(float4 x, float4 y, float4 o,
+                                          float& acc, float& err) {
+  float part = x.x * (y.x - o.x);
+  part = fmaf(x.y, y.y - o.y, part);
+  part = fmaf(x.z, y.z - o.z, part);
+  part = fmaf(x.w, y.w - o.w, part);
+  const float t0 = part - err;
+  const float t1 = acc + t0;
+  err = (t1 - acc) - t0;
+  acc = t1;
+}
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
 fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
+                   const float* __restrict__ v, const float* __restrict__ o,
                    const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dq,
+                   const float* __restrict__ lse, float* __restrict__ dq,
                    int BH, int rep, int S, int D, float scale, int causal,
                    int window) {
   using C = Cfg<DP>;
   constexpr int kPair = kStages * kBK;   // keys of a pair
+  constexpr int kRows = kBQ / 16;        // S rows a lane (3)
+  constexpr int kAcc = kBQ / 8;          // dQ rows a warp (6)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Os = Qs + kBQ * C::kLD;        // dO
+  float* Ds = Qs + kBQ * C::kLD;        // dO
+  float* Os = Ds + kBQ * C::kLD;        // O
   float* Ks = Os + kBQ * C::kLD;        // (kPair, kLD)
   float* Vs = Ks + kPair * C::kLD;      // (kPair, kLD)
-  float* Ps = Vs + kPair * C::kLD;      // P, then dS (kBQ, kPK)
+  float* Ps = Vs + kPair * C::kLD;      // P (kBQ, kPK)
+  float* Dss = Ps + kBQ * kPK;          // dS (kBQ, kPK)
 
   const int nq = (S + kBQ - 1) / kBQ;
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / BH)) * kBQ;
@@ -225,7 +263,7 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool group_b = warp >= 4;
   const int tg = threadIdx.x % kGroup;      // thread within its group
   const int g = lane / 8, j8 = lane % 8;
-  const int sr = 16 * (warp % 4) + 4 * g;   // S (dP) rows sr + i
+  const int sr = 12 * (warp % 4) + kRows * g;   // S rows sr + i
 
   // The kv tiles the q block sees: one contiguous range, in pairs.
   const int nk = (S + kBK - 1) / kBK;
@@ -234,29 +272,34 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   while (hi >= lo && !tile_runs(q0, hi * kBK, kBQ, kBK, causal, window)) --hi;
   const int n_pairs = hi >= lo ? (hi - lo + 2) / 2 : 0;
 
-  // The group's operands: Q and K (group A) or dO and V (group B).
-  float* X = group_b ? Os : Qs;
+  // The group's operands: Q and K (group A) or dO, O and V (group B).
+  float* X = group_b ? Ds : Qs;
   float* Y = group_b ? Vs : Ks;
   const float* y_src = (group_b ? v : k) + kv_off;
   stage<DP, kBQ, kGroup>(X, (group_b ? dout : q) + q_off, q0, S, D, tg);
+  if (group_b) stage<DP, kBQ, kGroup>(Os, o + q_off, q0, S, D, tg);
   if (n_pairs > 0) stage<DP, kPair, kGroup>(Y, y_src, lo * kBK, S, D, tg);
   commit();
-  // Group A reads each row's lse, group B its Delta.
-  float row_r[4];
+  // Group A reads each row's lse.
+  float row_lse[kRows];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kRows; ++i) {
     const int qpos = q0 + sr + i;
-    row_r[i] = qpos < S ? (group_b ? delta : lse)[static_cast<size_t>(bh) * S +
-                                                  qpos]
-                        : 0.0f;
+    row_lse[i] =
+        !group_b && qpos < S ? lse[static_cast<size_t>(bh) * S + qpos] : 0.0f;
   }
-  float acc[8][C::kNC][4];
+  // dS K and P K, and each row's sums of dS and of P, over the keys in
+  // order.
+  float acc[kAcc][C::kNC][4], pk[kAcc][C::kNC][4];
+  float sum_ds[kAcc], sum_p[kAcc];
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int r = 0; r < kAcc; ++r) {
+    sum_ds[r] = sum_p[r] = 0.0f;
 #pragma unroll
     for (int h = 0; h < C::kNC; ++h)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][h][e] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[r][h][e] = pk[r][h][e] = 0.0f;
+  }
 
   for (int pr = 0; pr < n_pairs; ++pr) {
     const int t0 = lo + 2 * pr;
@@ -265,34 +308,55 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     fa32::wait<0>();
     group_sync(group_b);   // the group's operands of this pair are in
 
-    // S = Q K^T (group A) or dP = dO V^T (group B), one fmaf chain over D
-    // from column 0 an entry (Delta's order).
-    float s[4][4];
+    // S = Q K^T (group A; one fmaf chain over D from column 0 an entry)
+    // or dO (V - O) (group B; compensated, dot4_diff).
+    float s[kRows][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
-#pragma unroll 2
-    for (int d = 0; d < DP; d += 4) {
-      float4 xa[4], yb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xa[i] = ld4(X + (sr + i) * C::kLD + d);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) yb[c] = ld4(Y + (j8 + 8 * c) * C::kLD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = dot4(xa[i], yb[c], s[i][c]);
-    }
     if (!group_b) {
+#pragma unroll 2
+      for (int d = 0; d < DP; d += 4) {
+        float4 xa[kRows], yb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kRows; ++i) xa[i] = ld4(X + (sr + i) * C::kLD + d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) yb[c] = ld4(Y + (j8 + 8 * c) * C::kLD + d);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[i][c] = dot4(xa[i], yb[c], s[i][c]);
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           Ps[(sr + i) * kPK + j8 + 8 * c] =
               visible(q0 + sr + i, t0 * kBK + j8 + 8 * c, S, causal, window)
-                  ? expf(s[i][c] * scale - row_r[i])
+                  ? expf(s[i][c] * scale - row_lse[i])
                   : 0.0f;
+    } else {
+      float err[kRows][4];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) err[i][c] = 0.0f;
+      for (int d = 0; d < DP; d += 4) {
+        float4 xa[kRows], oa[kRows], yb[4];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          xa[i] = ld4(X + (sr + i) * C::kLD + d);
+          oa[i] = ld4(Os + (sr + i) * C::kLD + d);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) yb[c] = ld4(Y + (j8 + 8 * c) * C::kLD + d);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            dot4_diff(xa[i], yb[c], oa[i], s[i][c], err[i][c]);
+      }
     }
     __syncthreads();   // P is in; group B is past this pair's V
     if (group_b) {
@@ -301,24 +365,32 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         commit();
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kRows; ++i)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          float* at = Ps + (sr + i) * kPK + j8 + 8 * c;
-          *at = *at * (s[i][c] - row_r[i]);
+          const int at = (sr + i) * kPK + j8 + 8 * c;
+          Dss[at] = Ps[at] * s[i][c];
         }
     }
     __syncthreads();   // dS is in
 
-    // dQ += dS K over the pair's keys in order.
+    // dS K and P K, and the rows' sums, over the pair's keys in order.
 #pragma unroll
     for (int tt = 0; tt < kStages; ++tt) {
       if (tt == tiles) break;
 #pragma unroll
       for (int j = kBK * tt; j < kBK * (tt + 1); j += 4) {
-        float4 df[8];
+        float4 df[kAcc], pf[kAcc];
 #pragma unroll
-        for (int r = 0; r < 8; ++r) df[r] = ld4(Ps + (8 * warp + r) * kPK + j);
+        for (int r = 0; r < kAcc; ++r) {
+          df[r] = ld4(Dss + (kAcc * warp + r) * kPK + j);
+          pf[r] = ld4(Ps + (kAcc * warp + r) * kPK + j);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            sum_ds[r] += comp(df[r], u);
+            sum_p[r] += comp(pf[r], u);
+          }
+        }
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
 #pragma unroll
@@ -326,13 +398,16 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float4 kf =
                 ld4(Ks + (j + u) * C::kLD + 4 * (lane + 32 * h));
 #pragma unroll
-            for (int r = 0; r < 8; ++r) axpy4(comp(df[r], u), kf, acc[r][h]);
+            for (int r = 0; r < kAcc; ++r) {
+              axpy4(comp(df[r], u), kf, acc[r][h]);
+              axpy4(comp(pf[r], u), kf, pk[r][h]);
+            }
           }
         }
       }
     }
     if (more) {
-      __syncthreads();   // every warp is past this pair's K and dS
+      __syncthreads();   // every warp is past this pair's K, P and dS
       if (!group_b) {
         stage<DP, kPair, kGroup>(Ks, y_src, (t0 + 2) * kBK, S, D, tg);
         commit();
@@ -341,18 +416,25 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   fa32::wait<0>();   // nothing left in flight, also when no kv tile ran
 
+  // dQ = scale (dS K - (sum dS / sum P) P K): the row's dS less its
+  // P-weighted mean, which is 0 in exact arithmetic (sum_j P_ij V_j = O_i)
+  // and otherwise the rounding of the saved O and lse against this P.
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int qpos = q0 + 8 * warp + r;
+  for (int r = 0; r < kAcc; ++r) {
+    const int qpos = q0 + kAcc * warp + r;
     if (qpos >= S) continue;
+    const float mean = sum_p[r] > 0.0f ? sum_ds[r] / sum_p[r] : 0.0f;
 #pragma unroll
     for (int h = 0; h < C::kNC; ++h) {
       const int col = 4 * (lane + 32 * h);
+      float out[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out[e] = fmaf(-mean, pk[r][h][e], acc[r][h][e]) * scale;
       if (col < D)
         *reinterpret_cast<float4*>(dq + q_off + static_cast<size_t>(qpos) * D +
                                    col) =
-            make_float4(acc[r][h][0] * scale, acc[r][h][1] * scale,
-                        acc[r][h][2] * scale, acc[r][h][3] * scale);
+            make_float4(out[0], out[1], out[2], out[3]);
     }
   }
 }
@@ -644,7 +726,7 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   if (part < 0 || part == 1) {
     const unsigned dq_grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
     fa32_bwd_dq_kernel<DP><<<dq_grid, kThreads, Cfg<DP>::kDqSmem, stream>>>(
-        q, k, v, dout, lse, delta, dq, BH, rep, S, D, scale, causal, window);
+        q, k, v, o, dout, lse, dq, BH, rep, S, D, scale, causal, window);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
   }
@@ -712,8 +794,8 @@ extern "C" int repro_flash_attention_bwd_f32(
 }
 
 // One launch of the above alone, so that each can be timed between CUDA
-// events: prep (part 0), dq (1) or dkdv (2), on the same arguments; dq and
-// dkdv read the Delta that an earlier prep left in ws.
+// events: prep (part 0), dq (1) or dkdv (2), on the same arguments; dkdv
+// reads the Delta that an earlier prep left in ws.
 extern "C" int repro_flash_attention_bwd_f32_part(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,

@@ -8,17 +8,39 @@
 // Bound on this card: bytes.  Each element of a and b is read once and
 // each h written once, with one multiply-add per element: at the
 // RecurrentGemma-9B prefill shape (4, 4096, 4096) in f32 that is 805 MB of
-// traffic against 67 MFLOP, ~0.24 ms at 3.35 TB/s.
+// traffic against 67 MFLOP, ~0.24 ms at 3.35 TB/s; at the training shape
+// (2, 4096, 4096), ~0.12 ms.
 //
-// Design: one thread per (batch, channel) walks S in order with the state
-// in a register, so the sum order is that of the TPU kernel and every run
-// is bitwise equal.  A warp holds 32 neighbouring channels, so each step's
-// loads and stores are coalesced along W.  The recurrence is a chain, but
-// its inputs are not: the thread loads the next kUnroll steps of a and b
-// into registers before it runs them, which keeps kUnroll loads of each in
-// flight per thread (B * W threads are too few to hide the memory latency
-// one step at a time).  Inputs are f32 or bf16; the state and the
-// arithmetic are f32; the output is in the input type.
+// Both paths keep one sequential f32 chain a (batch, channel), state =
+// fmaf(a_t, state, b_t) from t = 0, so the sum order is that of the TPU
+// kernel, the two paths give the same h bitwise, and every run is bitwise
+// equal.  Inputs are f32 or bf16; the state and the arithmetic are f32;
+// the output is in the input type.
+//
+// What holds a scan back is bytes in flight, not arithmetic: the chain
+// costs one dependent FMA a step (~4096 x 4 clocks a channel, far under
+// the byte bound), but the card needs ~3 MB of loads in flight to run at
+// its HBM rate.  A thread a channel that loads kUnroll steps ahead (the
+// direct path) keeps 2 kUnroll words a thread in flight, ~1 MB over the
+// card at B W = 8192 channels, a third of that.
+//
+// TMA path (a row stride that is a multiple of 16 bytes, W % 4 == 0 for
+// f32 and W % 8 == 0 for bf16, and 16-byte aligned pointers): a CTA owns
+// kTmaCh = 32 channels of one batch row, two warps.  Thread 0 of the
+// producer warp issues TMA loads of (kTmaSteps = 64 steps x 32 channels)
+// boxes of a and b, by a 3-D tensor map over (W, S, B), into a ring of
+// kTmaStages mbarrier stages; the consumer warp (a lane a channel) waits
+// on a stage, reads its 64 steps of a and b into registers, releases the
+// stage, runs the chain and writes h into one of two staged tiles that a
+// TMA store drains.  Steps past S and channels past W read as zeros and
+// are clipped on the store; no box crosses a batch row.  At the training
+// shape that is 256 CTAs, two an SM at 80 KB of shared memory each, and
+// up to 128 KB of loads in flight an SM whatever B W is.
+//
+// Direct path (any other shape): one thread per (batch, channel) walks S,
+// loading the next kUnroll steps of a and b into registers before it runs
+// them; a warp holds 32 neighbouring channels, so each step's loads and
+// stores are coalesced along W.
 //
 // Backward (training; no TPU counterpart: the reference trains through
 // jax.lax.associative_scan): given h from the forward and dh, the reverse
@@ -45,16 +67,34 @@
 // carry would depend on which predecessor had published, which breaks
 // the bitwise repeatability every kernel here keeps.  No atomics, every
 // sum in a fixed order: two launches are bitwise equal.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "tma.cuh"
+
 namespace {
 
-constexpr int kThreads = 64;  // channels per block: more blocks than SMs
-constexpr int kUnroll = 16;   // steps whose inputs are loaded ahead
+constexpr int kThreads = 64;  // direct path: channels per block
+constexpr int kUnroll = 16;   // direct path: steps whose inputs load ahead
+constexpr int kTmaCh = 32;      // TMA path: channels a CTA (a warp's lanes)
+constexpr int kTmaSteps = 64;   // TMA path: steps a box
+constexpr int kTmaStages = 4;   // TMA path: boxes of a and b in flight
+constexpr int kTmaOut = 2;      // TMA path: staged tiles of h
+
+// The TMA path's dynamic shared memory: the ring of a and b boxes, the h
+// tiles, then a full and an empty mbarrier a stage, after up to 128 bytes
+// of padding that align the boxes.
+template <typename T>
+struct TmaCfg {
+  static constexpr int kBox = kTmaCh * kTmaSteps;   // elements of a box
+  static constexpr size_t kSmem =
+      128 + sizeof(T) * kBox * (2 * kTmaStages + kTmaOut) + 16 * kTmaStages;
+  static_assert(kSmem <= 232448, "rglru_scan boxes exceed 227 KB");
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -102,6 +142,89 @@ rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
     state = to_f32(ap[off]) * state + to_f32(bp[off]);
     hp[off] = from_f32<T>(state);
   }
+}
+
+// The TMA path: warp 0 runs the chain, thread 32 issues the loads.  Grid
+// (ceil(W / kTmaCh), B).
+template <typename T>
+__global__ void __launch_bounds__(64)
+rglru_scan_tma_kernel(const __grid_constant__ CUtensorMap ta,
+                      const __grid_constant__ CUtensorMap tb,
+                      const __grid_constant__ CUtensorMap th, int S) {
+  using C = TmaCfg<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  T* Bs = As + kTmaStages * C::kBox;
+  T* Hs = Bs + kTmaStages * C::kBox;
+  const uint32_t full = tma::smem_u32(Hs + kTmaOut * C::kBox);
+  const uint32_t empty = full + 8 * kTmaStages;
+  const int w0 = blockIdx.x * kTmaCh, b = blockIdx.y;
+  const int n = (S + kTmaSteps - 1) / kTmaSteps;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTmaStages; ++s) {
+      tma::bar_init(full + 8 * s, 1);
+      tma::bar_init(empty + 8 * s, 1);
+    }
+    tma::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 32) {
+    // Producer: box c into stage c % kTmaStages once the consumer has
+    // released the box kTmaStages before it.
+    if (threadIdx.x == 32) {
+      for (int c = 0; c < n; ++c) {
+        const int s = c % kTmaStages;
+        if (c >= kTmaStages)
+          tma::bar_wait(empty + 8 * s, (c / kTmaStages - 1) & 1);
+        tma::bar_arrive_tx(full + 8 * s,
+                           static_cast<int>(2 * sizeof(T) * C::kBox));
+        tma::tma_load(As + s * C::kBox, &ta, w0, c * kTmaSteps, b,
+                     full + 8 * s);
+        tma::tma_load(Bs + s * C::kBox, &tb, w0, c * kTmaSteps, b,
+                     full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // Consumer: lane = channel w0 + lane.
+  const int lane = threadIdx.x;
+  float state = 0.0f;
+  for (int c = 0; c < n; ++c) {
+    const int s = c % kTmaStages;
+    tma::bar_wait(full + 8 * s, (c / kTmaStages) & 1);
+    const T* ap = As + s * C::kBox + lane;
+    const T* bp = Bs + s * C::kBox + lane;
+    float av[kTmaSteps], bv[kTmaSteps];
+#pragma unroll
+    for (int u = 0; u < kTmaSteps; ++u) {
+      av[u] = to_f32(ap[u * kTmaCh]);
+      bv[u] = to_f32(bp[u * kTmaCh]);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      tma::bar_arrive(empty + 8 * s);   // the stage is free again
+      // The tile about to be written was stored kTmaOut boxes ago.
+      if (c >= kTmaOut) tma::store_wait_read<kTmaOut - 1>();
+    }
+    __syncwarp();
+    T* hp = Hs + (c % kTmaOut) * C::kBox + lane;
+#pragma unroll
+    for (int u = 0; u < kTmaSteps; ++u) {
+      state = fmaf(av[u], state, bv[u]);
+      hp[u * kTmaCh] = from_f32<T>(state);
+    }
+    tma::store_fence();
+    __syncwarp();
+    if (lane == 0) {
+      tma::tma_store(&th, Hs + (c % kTmaOut) * C::kBox, w0, c * kTmaSteps, b);
+      tma::store_commit();
+    }
+  }
+  if (lane == 0) tma::store_wait_read<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -381,29 +504,77 @@ int launch_bwd_out(const void* a, const void* h, const void* dh,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A (B, S, W) tensor as a 3-D map of (kTmaCh channels x kTmaSteps steps)
+// boxes; elements outside the tensor read as zero and are not written.
+template <typename T>
+bool encode_scan_map(CUtensorMap* map, const void* ptr, int B, int S,
+                     int W) {
+  const tma::EncodeTiledFn fn = tma::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t es = sizeof(T);
+  const cuuint64_t dims[3] = {cuuint64_t(W), cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t strides[2] = {cuuint64_t(W) * es,
+                                 cuuint64_t(S) * cuuint64_t(W) * es};
+  const cuuint32_t box[3] = {kTmaCh, kTmaSteps, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map,
+            sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// path 1: the TMA path, which refuses (cudaErrorInvalidValue) a row stride
+// off 16 bytes or a pointer off a 16-byte boundary; path 0: the direct
+// path.
 template <typename T>
 int launch(const void* a, const void* b, void* h, int B, int S, int W,
-           void* stream) {
-  const dim3 grid((W + kThreads - 1) / kThreads, B);
-  rglru_scan_kernel<T><<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(h),
-      S, W);
+           int path, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || W <= 0 || (path != 0 && path != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 0) {
+    const dim3 grid((W + kThreads - 1) / kThreads, B);
+    rglru_scan_kernel<T><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(a), static_cast<const T*>(b),
+        static_cast<T*>(h), S, W);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if ((W * sizeof(T)) % 16 != 0 || !aligned16(a) || !aligned16(b) ||
+      !aligned16(h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb, th;
+  if (!encode_scan_map<T>(&ta, a, B, S, W) ||
+      !encode_scan_map<T>(&tb, b, B, S, W) ||
+      !encode_scan_map<T>(&th, h, B, S, W))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      rglru_scan_tma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(TmaCfg<T>::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((W + kTmaCh - 1) / kTmaCh, B);
+  rglru_scan_tma_kernel<T><<<grid, 64, TmaCfg<T>::kSmem, st>>>(ta, tb, th, S);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// a, b, h: (B, S, W), contiguous, one dtype, on the stream's device.
-// Returns the cudaError_t of the launch (0 on success).
+// a, b, h: (B, S, W), contiguous, one dtype, on the stream's device;
+// path 1 the TMA path (W * sizeof(T) a multiple of 16, 16-byte aligned
+// pointers), 0 the direct path.  Returns the cudaError_t of the launch (0
+// on success), cudaErrorInvalidValue for a shape or path it does not take.
 extern "C" int repro_rglru_scan_f32(const void* a, const void* b, void* h,
-                                    int B, int S, int W, void* stream) {
-  return launch<float>(a, b, h, B, S, W, stream);
+                                    int B, int S, int W, int path,
+                                    void* stream) {
+  return launch<float>(a, b, h, B, S, W, path, stream);
 }
 
 extern "C" int repro_rglru_scan_bf16(const void* a, const void* b, void* h,
-                                     int B, int S, int W, void* stream) {
-  return launch<__nv_bfloat16>(a, b, h, B, S, W, stream);
+                                     int B, int S, int W, int path,
+                                     void* stream) {
+  return launch<__nv_bfloat16>(a, b, h, B, S, W, path, stream);
 }
 
 // The backward in two calls, so that a caller may allocate da and db while

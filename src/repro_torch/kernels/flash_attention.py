@@ -15,8 +15,12 @@ log-sum-exp (BH, S) in f32, which the backward reads.
 The backward (no TPU counterpart) has an entry for each dtype, three
 CUDA launches each: a small launch for Delta = rowsum(dO .* O), one for
 dQ, one for dK and dV per kv block looping over the query heads that
-share it.  bf16 (``csrc/flash_attention_bwd.cu``) is FA2's on the
-forward's machinery (``wgmma`` fed by TMA; two groups of query heads,
+share it.  The f32 dQ takes dS_ij = P_ij dO_i . (V_j - O_i), the
+difference inside the sum, less each row's P-weighted mean of dS, so
+that neither a row whose softmax sits nearly on one key nor the rounding
+of the saved out and lse costs a row of small dQ its digits
+(``ref.attention_bwd_plain``).  bf16 (``csrc/flash_attention_bwd.cu``)
+is FA2's on the forward's machinery (``wgmma`` fed by TMA; two groups of query heads,
 summed by a cluster of two CTAs, when the kv blocks alone would not fill
 the card), D a multiple of 16; f32 (``csrc/flash_attention_bwd_f32.cu``)
 is register-tiled exact f32 FMA on tiles copied by cp.async, as the f32
@@ -48,7 +52,7 @@ BOX_BYTES = 64 * 128   # one TMA box of the bf16 kernel: 64 rows of 64 bf16
 # dkdv launch kv rows a CTA and q rows a tile (kBKV, kBQT), and the tiles
 # of a pair, which both launches stream (kStages).
 F32_BQ, F32_BK, F32_STAGES = 64, 32, 2
-F32_BWD_BQ, F32_BWD_BK, F32_BWD_BKV, F32_BWD_BQT = 64, 16, 32, 32
+F32_BWD_BQ, F32_BWD_BK, F32_BWD_BKV, F32_BWD_BQT = 48, 16, 32, 32
 F32_BWD_STAGES = 2
 
 
@@ -124,7 +128,8 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
     period) and CTAs; and the f32 workspace's shape (lse log2 e and Delta,
     (2, BH, S_pad)).  f32 as ``csrc/flash_attention_bwd_f32.cu`` (its
     ``Cfg``, which asserts the same 227 KB limit when it compiles): 256
-    threads a CTA; dq: 64 q rows a CTA, kv tiles of 16 rows in pairs;
+    threads a CTA; dq: 48 q rows a CTA (Q, dO and O staged), kv tiles of
+    16 rows in pairs;
     dkdv: 32 kv rows a CTA (a cluster of ``groups`` CTAs, by the bf16
     rule), q tiles of 32 rows in pairs; staged rows of max(D_pad, 128) +
     4 floats, and a (BH, S) workspace (Delta)."""
@@ -140,10 +145,10 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
         groups = 2 if rep >= 2 and nkb * bh_kv < 2 * _build.NUM_SMS else 1
         return {"dp": dp, "bq": bq, "bk": bk, "bkv": bkv, "bqt": bqt,
                 "stages": stages, "groups": groups, "threads": 256,
-                # Q, dO; a pair of K and of V tiles; P, then dS (a pair's
-                # keys + 4 a row)
-                "dq_smem_bytes": 4 * (2 * bq * ld + stages * 2 * bk * ld
-                                      + bq * (stages * bk + 4)),
+                # Q, dO, O; a pair of K and of V tiles; P and dS (a
+                # pair's keys + 4 a row)
+                "dq_smem_bytes": 4 * (3 * bq * ld + stages * 2 * bk * ld
+                                      + 2 * bq * (stages * bk + 4)),
                 # K, V; a pair of items' Q, dO, lse and Delta; P^T and
                 # dS^T (a pair's q rows + 4 a row)
                 "dkdv_smem_bytes": 4 * (2 * bkv * ld

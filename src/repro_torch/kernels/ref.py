@@ -97,30 +97,69 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
+# Elements of V_j - O_i that attention_bwd_plain holds at once (1 GB in
+# f64): its dQ takes the difference element by element, over chunks of
+# query rows.
+ATTN_DIFF_ELEMENTS = 1 << 27
+
+
+def _dq_scores(dof, ve, of, causal: bool, window: int):
+    """(BH, S, S): dO_i . (V_j - O_i), the difference taken inside the sum
+    over D, for the keys each chunk of query rows may see (0 elsewhere)."""
+    bh, s, d = dof.shape
+    span = min(s, window) if window > 0 else s
+    rows = max(1, ATTN_DIFF_ELEMENTS // (bh * d * span))
+    out = dof.new_zeros((bh, s, s))
+    for i0 in range(0, s, rows):
+        i1 = min(s, i0 + rows)
+        k0 = max(0, i0 - window + 1) if window > 0 else 0
+        k1 = i1 if causal else s
+        diff = ve[:, None, k0:k1] - of[:, i0:i1, None]   # (BH, r, keys, D)
+        out[:, i0:i1, k0:k1] = torch.matmul(diff,
+                                            dof[:, i0:i1, :, None])[..., 0]
+    return out
+
+
 def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0):
     """The gradients (dq, dk, dv) of :func:`attention_plain` by the FA2
-    formulas the kernel evaluates: P = exp(s / sqrt(D) - lse) on visible
-    keys, Delta = rowsum(dO .* O), dS = P .* (dO V^T - Delta), dQ = dS K
-    / sqrt(D), dK = dS^T Q / sqrt(D) and dV = P^T dO, with dK and dV of
-    a shared kv row summed over the query rows it serves; f32 inside (f64
-    for f64 inputs), each gradient in its input's dtype."""
+    formulas the kernels evaluate: P = exp(s / sqrt(D) - lse) on visible
+    keys, Delta = rowsum(dO .* O), dS = P .* (dO V^T - Delta), dK = dS^T
+    Q / sqrt(D) and dV = P^T dO, with dK and dV of a shared kv row summed
+    over the query rows it serves; dQ = dS K / sqrt(D) in bf16, as the
+    bf16 kernel, and in f32 and f64, as the f32 kernel, (dS' K - m P K) /
+    sqrt(D) with dS'_ij = P_ij dO_i . (V_j - O_i), the difference taken
+    inside the sum over D, so that a row whose softmax sits nearly on one
+    key (V_j ~ O_i) keeps its digits, and m_i = sum_j dS'_ij / sum_j P_ij,
+    0 in exact arithmetic, which takes out the rounding of the saved o and
+    lse against P (it would otherwise reach dQ as m_i times the
+    P-weighted mean of K, far larger than the dQ of a row whose dS nearly
+    cancels); f32 inside (f64 for f64 inputs), each gradient in its
+    input's dtype."""
     rep = attention_shapes("attention_bwd_plain", q.shape, k.shape,
                            v.shape)
     bh_kv, s, d = k.shape
     wide = torch.promote_types(q.dtype, torch.float32)
     ke = k.to(wide).repeat_interleave(rep, dim=0)
     ve = v.to(wide).repeat_interleave(rep, dim=0)
-    qf, dof = q.to(wide), do.to(wide)
+    qf, dof, of = q.to(wide), do.to(wide), o.to(wide)
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("bqd,bkd->bqk", qf, ke) * scale
     ok = _visible(s, causal, window, q.device)[None]
     p = torch.where(ok, torch.exp(scores - lse.to(wide)[..., None]), 0.0)
-    delta = (dof * o.to(wide)).sum(-1)
+    del scores
+    delta = (dof * of).sum(-1)
     ds = p * (torch.einsum("bqd,bkd->bqk", dof, ve) - delta[..., None])
-    dq = torch.einsum("bqk,bkd->bqd", ds, ke) * scale
     dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    if q.dtype == torch.bfloat16:
+        dq = torch.einsum("bqk,bkd->bqd", ds, ke) * scale
+    else:
+        del ds
+        ds = p * _dq_scores(dof, ve, of, causal, window)
+        mean = ds.sum(-1) / p.sum(-1).clamp_min(torch.finfo(wide).tiny)
+        dq = (torch.einsum("bqk,bkd->bqd", ds, ke)
+              - mean[..., None] * torch.einsum("bqk,bkd->bqd", p, ke)) * scale
     dk = dk.view(bh_kv, rep, s, d).sum(1)
     dv = dv.view(bh_kv, rep, s, d).sum(1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -4,10 +4,13 @@ Wrappers of the CUDA kernels in ``csrc/rglru_scan.cu`` (the forward is the
 Hopper counterpart of the TPU kernel ``repro.kernels.rglru_scan``; the
 backward has no TPU counterpart): h_t = a_t h_{t-1} + b_t over the
 sequence axis of (B, S, W) inputs, f32 or bf16 in, the state in f32, the
-output in the input type; and its gradients from h and dh by a chunked
-reverse scan over S (three CUDA launches a call: each chunk's local scan,
-the carry across chunks, each chunk's scan again from its carry).  The
-wrappers take CUDA tensors only.  :class:`RglruScan` is the
+output in the input type, by one of two paths chosen by shape
+(:func:`fwd_plan`): TMA loads of 64-step boxes into an mbarrier ring where
+the row stride is a multiple of 16 bytes and the pointers 16-byte aligned,
+direct loads otherwise, with the same sums in the same order; and its
+gradients from h and dh by a chunked reverse scan over S (three CUDA
+launches a call: each chunk's local scan, the carry across chunks, each
+chunk's scan again from its carry).  The wrappers take CUDA tensors only.  :class:`RglruScan` is the
 autograd Function that :func:`repro_torch.kernels.ops.rglru_scan` calls:
 the kernels for CUDA tensors, the plain versions of ``kernels/ref.py``
 for CPU tensors.
@@ -21,6 +24,7 @@ from repro_torch.kernels import ref
 
 launches = 0       # forward launches since the last reset (ops.reset_counts)
 bwd_launches = 0   # backward calls (three CUDA launches each) since then
+last_path = None   # the path of the last forward launch: "tma" or "direct"
 
 _FN = {torch.float32: "repro_rglru_scan_f32",
        torch.bfloat16: "repro_rglru_scan_bf16"}
@@ -29,6 +33,10 @@ _CARRY_FN = {torch.float32: "repro_rglru_scan_bwd_carry_f32",
 _BWD_FN = {torch.float32: "repro_rglru_scan_bwd_f32",
            torch.bfloat16: "repro_rglru_scan_bwd_bf16"}
 MAX_B = 65535   # the grid's y (forward) and z (backward) extent
+# The forward's TMA path, as the source has it: channels a CTA (kTmaCh),
+# steps a box (kTmaSteps), boxes of a and b in flight (kTmaStages) and
+# staged tiles of h (kTmaOut).
+TMA_CH, TMA_STEPS, TMA_STAGES, TMA_OUT = 32, 64, 4, 2
 BWD_CHUNK = ref.RGLRU_BWD_CHUNK   # steps a chunk of the backward
 MAX_CHUNKS = 65535   # the backward grid's y extent
 
@@ -47,18 +55,46 @@ def _check(name: str, tensors: dict):
     return dtype
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a, b: (B, S, W) -> h: (B, S, W) with h_t = a_t h_{t-1} + b_t."""
-    global launches
+def fwd_plan(shape, dtype: torch.dtype, aligned: bool = True) -> dict:
+    """The forward's launch at a (B, S, W) shape: the TMA path where a row
+    of W elements is a multiple of 16 bytes (W % 4 == 0 in f32, W % 8 == 0
+    in bf16) and every pointer is 16-byte aligned (``aligned``), a CTA of
+    two warps on TMA_CH channels of one batch row with TMA_STAGES boxes of
+    TMA_STEPS steps of a and b in flight and TMA_OUT tiles of h, and its
+    dynamic shared memory (``TmaCfg`` of the source, which asserts the same
+    227 KB limit); else the direct path, a thread a channel in CTAs of 64,
+    no shared memory."""
+    B, S, W = shape
+    size = torch.empty((), dtype=dtype).element_size()
+    if aligned and (W * size) % 16 == 0:
+        box = TMA_CH * TMA_STEPS * size
+        return {"path": "tma", "threads": 64, "ctas": -(-W // TMA_CH) * B,
+                "stages": TMA_STAGES,
+                "smem_bytes": 128 + box * (2 * TMA_STAGES + TMA_OUT)
+                + 16 * TMA_STAGES}
+    return {"path": "direct", "threads": 64, "ctas": -(-W // 64) * B,
+            "stages": 0, "smem_bytes": 0}
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
+               direct: bool = False) -> torch.Tensor:
+    """a, b: (B, S, W) -> h: (B, S, W) with h_t = a_t h_{t-1} + b_t, by
+    the path :func:`fwd_plan` chooses (its name is left in ``last_path``);
+    ``direct`` takes the direct path at any shape, to compare the two."""
+    global launches, last_path
     dtype = _check("rglru_scan", {"a": a, "b": b})
     B, S, W = a.shape
     h = torch.empty_like(a)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a, b, h))
+    chosen = "direct" if direct else fwd_plan(a.shape, dtype,
+                                               aligned)["path"]
     lib = _build.load()
     err = getattr(lib, _FN[dtype])(
         a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, W,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        int(chosen == "tma"), torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "rglru_scan")
     launches += 1
+    last_path = chosen
     return h
 
 

@@ -119,7 +119,9 @@ def test_backward_sources_ship_as_package_data():
 
 def test_kernel_constants_match_their_python_copies():
     """The rglru_scan backward's chunk length, which the plain copy and the
-    workspace's shape take from ``ref.RGLRU_BWD_CHUNK``, the f32
+    workspace's shape take from ``ref.RGLRU_BWD_CHUNK``, the rglru_scan
+    forward's TMA boxes and stages, which ``rglru_scan.fwd_plan``
+    restates, the f32
     attention forward's tiles, which ``flash_attention.launch_plan``
     restates, and the f32 attention backward's tiles, stages and
     query-head groups, which ``flash_attention.bwd_plan`` restates, are
@@ -136,6 +138,9 @@ def test_kernel_constants_match_their_python_copies():
     assert const("rglru_scan.cu", "kChunk") == t_ref.RGLRU_BWD_CHUNK \
         == t_rg.BWD_CHUNK
     assert t_rg.bwd_workspace_shape((2, 4096, 4096)) == (2, 2, 64, 4096)
+    assert tuple(const("rglru_scan.cu", name) for name in (
+        "kTmaCh", "kTmaSteps", "kTmaStages", "kTmaOut")) == (
+        t_rg.TMA_CH, t_rg.TMA_STEPS, t_rg.TMA_STAGES, t_rg.TMA_OUT)
     assert t_rg.bwd_workspace_shape((3, 65, 5)) == (2, 3, 2, 5)
     fwd = {name: const("flash_attention.cu", name)
            for name in ("kBQ32", "kBK32", "kStages32", "kT32")}

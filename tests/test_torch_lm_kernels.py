@@ -228,6 +228,36 @@ def test_rglru_scan_plain_sequential_semantics():
     np.testing.assert_allclose(got[0, :, 0].numpy(), want, rtol=1e-7)
 
 
+@pytest.mark.parametrize("b,s,w,dtype,path", [
+    (2, 4096, 4096, "float32", "tma"), (4, 4096, 4096, "float32", "tma"),
+    (3, 77, 100, "float32", "tma"), (1, 1, 4, "float32", "tma"),
+    (2, 65, 8, "bfloat16", "tma"), (3, 77, 100, "bfloat16", "direct"),
+    (2, 1, 33, "float32", "direct"), (1, 33, 1, "bfloat16", "direct"),
+    (2, 1000, 70, "float32", "direct"), (1, 40, 12, "bfloat16", "direct")])
+def test_rglru_scan_fwd_plan_path_and_shared_memory(b, s, w, dtype, path):
+    """The forward takes the TMA path where a row of W elements is a
+    multiple of 16 bytes (W % 4 in f32, W % 8 in bf16), with CTAs of two
+    warps on 32 channels of one batch row and 4 stages of 64-step boxes
+    within one CTA's 227 KB (two CTAs an SM in f32); the direct path
+    otherwise and wherever a tensor is off a 16-byte boundary."""
+    plan = t_rg.fwd_plan((b, s, w), T_DTYPE[dtype])
+    assert plan["path"] == path
+    assert plan["smem_bytes"] <= t_fa.MAX_SMEM
+    if path == "tma":
+        size = 4 if dtype == "float32" else 2
+        assert (plan["threads"], plan["stages"]) == (64, 4)
+        assert plan["ctas"] == -(-w // 32) * b
+        assert plan["smem_bytes"] == 128 + 32 * 64 * size * 10 + 64
+        if dtype == "float32":
+            assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+        assert t_rg.fwd_plan((b, s, w), T_DTYPE[dtype],
+                             aligned=False)["path"] == "direct"
+    else:
+        assert plan["smem_bytes"] == 0 and plan["ctas"] == -(-w // 64) * b
+    if (b, s, w) == (2, 4096, 4096):
+        assert plan["ctas"] == 256 >= 132
+
+
 # ---------------------------------------------------------------------------
 # Dispatch and wrappers.
 # ---------------------------------------------------------------------------
@@ -255,6 +285,8 @@ def test_lm_kernel_wrappers_refuse_cpu_tensors():
         t_fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensor"):
         t_rg.rglru_scan(a, a)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_rg.rglru_scan(a, a, direct=True)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         t_fa.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -285,17 +317,42 @@ def _rel_frob(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
+def _near_one_key(bh, bh_kv, s, d, causal, window, seed, alpha=1.0):
+    """q, k, v, dO (f32, numpy) with each query row ``alpha`` times one
+    key row it sees, so that its softmax sits nearly on that key (the
+    key's score ~ alpha sqrt(D), the others' ~ alpha N(0, 1)), and V_j ~
+    O_i."""
+    rng = np.random.default_rng(seed)
+    k, v = (rng.normal(size=(bh_kv, s, d)).astype(np.float32)
+            for _ in range(2))
+    do = rng.normal(size=(bh, s, d)).astype(np.float32)
+    pos = np.arange(s)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(s, int)
+    hi = pos + 1 if causal else np.full(s, s)
+    pick = rng.integers(lo, hi, size=(bh, s))
+    q = alpha * k[np.arange(bh)[:, None] // (bh // bh_kv), pick]
+    return q.astype(np.float32), k, v, do
+
+
+@pytest.mark.parametrize("inputs", ["random", "near_one_key"])
 @pytest.mark.parametrize("bh,bh_kv,s,d,causal,window", [
     (4, 4, 40, 16, True, 0), (8, 2, 64, 32, True, 24),
     (16, 1, 48, 16, True, 16), (4, 2, 33, 16, False, 0),
     (4, 1, 50, 32, False, 20)])
 def test_flash_attention_function_grads_match_autograd_and_reference(
-        bh, bh_kv, s, d, causal, window):
-    rng = np.random.default_rng(11)
-    q = rng.normal(size=(bh, s, d)).astype(np.float32)
-    k, v = (rng.normal(size=(bh_kv, s, d)).astype(np.float32)
-            for _ in range(2))
-    do = rng.normal(size=(bh, s, d)).astype(np.float32)
+        bh, bh_kv, s, d, causal, window, inputs):
+    """The CPU backward (``ref.attention_bwd_plain``: dQ from dS = P .*
+    dO (V - O)) against autograd through the plain forward and
+    ``jax.grad`` of the reference's attention, on random inputs and on
+    inputs whose rows sit nearly on one key."""
+    if inputs == "random":
+        rng = np.random.default_rng(11)
+        q = rng.normal(size=(bh, s, d)).astype(np.float32)
+        k, v = (rng.normal(size=(bh_kv, s, d)).astype(np.float32)
+                for _ in range(2))
+        do = rng.normal(size=(bh, s, d)).astype(np.float32)
+    else:
+        q, k, v, do = _near_one_key(bh, bh_kv, s, d, causal, window, seed=11)
     kw = dict(causal=causal, window=window)
     before = tops.launch_counts()
     leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
@@ -334,6 +391,129 @@ def test_flash_attention_function_saves_the_log_sum_exp():
     assert torch.allclose(lse, want, atol=1e-5, rtol=1e-6)
     assert torch.equal(out, tref.attention_plain(q, k, v, causal=True,
                                                  window=8))
+
+
+def _worst_grad_row(g, plain):
+    """``chip_smoke.worst_grad_row``: the largest over rows of ||g -
+    plain|| / max(||plain||, 1e-2 median row norm)."""
+    rows = plain.double().norm(dim=-1)
+    floor = 1e-2 * float(rows.median())
+    diff = (g.double() - plain.double()).norm(dim=-1)
+    return float((diff / rows.clamp_min(floor)).max())
+
+
+def _dq_delta_form(q, k, v, o, lse, do, causal, window):
+    """dQ by the earlier f32 form, dS = P .* (dO V^T - Delta) with Delta =
+    rowsum(dO .* O): the sum over D first, then the difference."""
+    rep = q.shape[0] // k.shape[0]
+    ke, ve = (t.repeat_interleave(rep, dim=0) for t in (k, v))
+    scale = 1.0 / np.sqrt(q.shape[2])
+    pos = torch.arange(q.shape[1])
+    ok = torch.ones(q.shape[1], q.shape[1], dtype=torch.bool)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window > 0:
+        ok &= pos[None, :] > pos[:, None] - window
+    p = torch.where(ok, torch.exp(torch.einsum("bqd,bkd->bqk", q, ke) * scale
+                                  - lse[..., None]), 0.0)
+    delta = (do * o).sum(-1)
+    ds = p * (torch.einsum("bqd,bkd->bqk", do, ve) - delta[..., None])
+    return torch.einsum("bqk,bkd->bqd", ds, ke) * scale
+
+
+@pytest.mark.parametrize("bh,bh_kv,s,d,causal,window", [
+    (4, 2, 128, 64, True, 0), (4, 2, 128, 64, True, 32),
+    (8, 1, 96, 32, True, 0), (4, 4, 64, 128, True, 16)])
+def test_attention_bwd_plain_dq_holds_rows_near_one_key(bh, bh_kv, s, d,
+                                                        causal, window):
+    """Where each row's softmax sits nearly on one key, dP_ij - Delta_i
+    cancels in f32: dQ by that form misses the f64 plain backward (on the
+    same f32 out and lse) row by row beyond the card's 2e-5 gate, while
+    ``attention_bwd_plain``'s dS = P .* dO (V - O) in f32 stays within
+    it (dS less its row's P-weighted mean, as the kernel)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _near_one_key(
+        bh, bh_kv, s, d, causal, window, seed=21))
+    kw = dict(causal=causal, window=window)
+    o, lse = tref.attention_plain(q, k, v, lse=True, **kw)
+    want = tref.attention_bwd_plain(*(t.double() for t in (q, k, v, o, lse,
+                                                           do)), **kw)[0]
+    got = tref.attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert _worst_grad_row(got[0], want) <= 2e-5
+    assert _worst_grad_row(_dq_delta_form(q, k, v, o, lse, do, **kw),
+                           want) > 2e-5
+
+
+def test_attention_bwd_plain_dq_does_not_follow_the_saved_outs_rounding():
+    """dQ subtracts each row's P-weighted mean of dS, 0 in exact
+    arithmetic: a saved out perturbed by 1e-6 of itself (the size of an
+    f32 forward's rounding against a recomputed P) leaves dQ as it was
+    (in f64, to 1e-12 a row), where dS K alone moves by more than 1e-8."""
+    rng = np.random.default_rng(23)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=sh))
+                   for sh in ((4, 64, 32), (2, 64, 32), (2, 64, 32),
+                              (4, 64, 32)))
+    kw = dict(causal=True, window=24)
+    o, lse = tref.attention_plain(q, k, v, lse=True, **kw)
+    o, lse = o.double(), lse.double()
+    o2 = o * (1 + 1e-6 * torch.from_numpy(rng.normal(size=o.shape)))
+    dq, dq2 = (tref.attention_bwd_plain(q, k, v, t, lse, do, **kw)[0]
+               for t in (o, o2))
+    assert _worst_grad_row(dq2, dq) <= 1e-12
+
+    def ds_k(o):
+        ke, ve = (t.repeat_interleave(2, dim=0) for t in (k, v))
+        pos = torch.arange(64)
+        ok = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                               - 24)
+        p = torch.where(ok, torch.exp(q @ ke.transpose(1, 2) / np.sqrt(32)
+                                      - lse[..., None]), 0.0)
+        g = torch.einsum("bqd,bqkd->bqk", do,
+                         ve[:, None] - o[:, :, None])
+        return (p * g) @ ke / np.sqrt(32)
+
+    assert _worst_grad_row(ds_k(o2), ds_k(o)) > 1e-8
+
+
+def test_attention_bwd_plain_bf16_dq_is_the_bf16_kernels_form():
+    """In bf16 the plain dQ is the bf16 kernel's: dS = P .* (dO V^T -
+    Delta) from the saved bf16 out, uncentred (its rounding of O is part
+    of the function the bf16 kernel computes); dK and dV as in f32."""
+    rng = np.random.default_rng(24)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+                   .bfloat16() for sh in ((4, 48, 16), (2, 48, 16),
+                                          (2, 48, 16), (4, 48, 16)))
+    kw = dict(causal=True, window=20)
+    o, lse = tref.attention_plain(q, k, v, lse=True, **kw)
+    got = tref.attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    want = _dq_delta_form(*(t.float() for t in (q, k, v, o)), lse,
+                          do.float(), **kw)
+    assert torch.equal(got[0], want.bfloat16())
+    f32 = tref.attention_bwd_plain(*(t.float() for t in (q, k, v, o)), lse,
+                                   do.float(), **kw)
+    for g, w in zip(got[1:], f32[1:]):
+        assert torch.equal(g, w.bfloat16())
+
+
+def test_attention_bwd_plain_chunks_the_difference(monkeypatch):
+    """dO_i . (V_j - O_i) over chunks of a few query rows (the keys each
+    chunk may see) is the whole difference at once (to rounding: the
+    product's sum order may follow the chunk's shape)."""
+    rng = np.random.default_rng(22)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+                   for sh in ((8, 40, 16), (2, 40, 16), (2, 40, 16),
+                              (8, 40, 16)))
+    for causal, window in ((True, 0), (True, 12), (False, 0), (False, 9)):
+        kw = dict(causal=causal, window=window)
+        o, lse = tref.attention_plain(q, k, v, lse=True, **kw)
+        whole = tref.attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(tref, "ATTN_DIFF_ELEMENTS", 8 * 16 * 3)
+            chunked = tref.attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        for a, b in zip(whole, chunked):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6,
+                                       atol=1e-6)
 
 
 @pytest.mark.parametrize("b,s,w", [(1, 37, 8), (2, 64, 16)])
@@ -424,7 +604,8 @@ def test_rglru_scan_bwd_plain_chunk_is_the_kernels():
 def test_flash_attention_bwd_plan_f32_fits_one_cta(d):
     """The f32 backward's launches fit one CTA's 227 KB of shared memory
     at the smoke head dimension, 128 and the training shape's 256: dq on
-    64 q rows with 16-row kv tiles in pairs, dkdv on 32 kv rows with
+    48 q rows (Q, dO and O staged) with 16-row kv tiles in pairs, dkdv on
+    32 kv rows with
     32-row q tiles in pairs; one kv head per 16 query
     heads splits into two query-head groups (a cluster of two CTAs a kv
     block), since 128 kv blocks of 2 kv heads alone would leave the 132
@@ -433,17 +614,17 @@ def test_flash_attention_bwd_plan_f32_fits_one_cta(d):
     assert plan["dq_smem_bytes"] <= t_fa.MAX_SMEM
     assert plan["dkdv_smem_bytes"] <= t_fa.MAX_SMEM
     assert (plan["bq"], plan["bk"], plan["bkv"], plan["bqt"],
-            plan["stages"], plan["groups"]) == (64, 16, 32, 32, 2, 2)
+            plan["stages"], plan["groups"]) == (48, 16, 32, 32, 2, 2)
     assert plan["dp"] >= d and plan["threads"] == 256
-    assert plan["dq_ctas"] == 64 * 32 and plan["dkdv_ctas"] == 128 * 2 * 2
+    assert plan["dq_ctas"] == 86 * 32 and plan["dkdv_ctas"] == 128 * 2 * 2
     assert plan["ws_shape"] == (32, 4096)
     if d == 256:
         # K, V at 32 rows, a pair of Q, dO (32 rows), lse and Delta, P^T
         # and dS^T (32 rows of 68), rows of 260 floats
         assert plan["dkdv_smem_bytes"] == 217600
-        # Q, dO at 64 rows, a pair of K and of V tiles (16 rows), P and
-        # dS (64 rows of 36)
-        assert plan["dq_smem_bytes"] == 208896
+        # Q, dO and O at 48 rows, a pair of K and of V tiles (16 rows), P
+        # and dS (48 rows of 36 each)
+        assert plan["dq_smem_bytes"] == 230144
     # one query head per kv head, or kv blocks enough for two waves: one
     # group
     for q_shape, k_shape in (((4, 4096, d), (4, 4096, d)),
