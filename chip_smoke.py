@@ -80,6 +80,38 @@ launches for the Mamba-2 prefill, and none for decode.  The smoke configs
 (f32) are also served on the card and on the CPU, whose plain path the
 CPU tests hold to the JAX package.
 
+The uniform attention stack: the smoke configs (f32) of Yi-6B, Gemma-7B,
+GLM-4-9B, gemma3-1b (local and global layers, head dimension 12, which
+the attention wrapper zero-pads to 16), OLMoE-1B-7B and Mixtral-8x22B
+(``moe_ep``, two virtual experts) served on the card and on the CPU as
+above (the MoE ones with the CPU run's routing fed to the card's: left
+padding gives rows whose hidden states differ in the last bits, and
+which of them a chunk edge migrates follows the rounding); then Yi-6B
+(32 layers, d_model 4096, GQA 32 x 128 over 4 kv
+heads, global attention) and OLMoE-1B-7B (16 layers, d_model 2048, 16 x
+128 heads, 64 experts top-8 routed by the DyDD schedule) at full width
+in bf16 through runs (a) to (e) on the same traffic; 32 and 16
+``flash_attention`` launches a prefill.  Yi's (c) within 2e-2 in logits
+and trunk and 5e-2 at the worst position.  OLMoE's kernel and plain
+routes send some tokens to other experts (a difference in attention
+moves the router, and left padding ties tokens): the share of (token,
+expert) assignments that differ is printed, each plain run records its
+routing and the runs held to it replay it; with it fed, OLMoE's random
+bf16 layers still amplify rounding, as Mamba-2's do (one ulp on every
+attention output moves its logits past 2e-2), so its (c) and (e) run on
+an f32 copy at Mamba-2's f32 limits; in bf16 it is held end to end
+within twice a control that moves every attention output by up to a bf16
+ulp, on the weights of two seeds, and each attention call of (d) within
+about one ulp (Frobenius) and a quarter ulp of bias of its plain version,
+which run (f), a bias of one to two ulps planted in every call, must
+trip.  The profiles print the MoE's device time (dispatch, experts,
+combine) and its share.
+Each of these prefills' first attention call is a ``kernels`` row of its
+own, and ``flash_attention`` forward and backward run at head dimensions
+off a multiple of 8 (``PADDED_ATTN``) in both dtypes.  The serve and
+train CLIs run the six smoke configs as child processes, all at once
+(``clis``).
+
 Each kernel is then held against its plain version on the card, on the
 main path's own inputs, on random values at the same shapes and at
 ragged shapes (``flash_attention`` also with k and v at fewer rows than
@@ -105,22 +137,26 @@ call are timed one by one.
 
 Training (``train``): ``repro_torch.runtime.steps.make_train_step`` on
 one ``BalancedLoader`` batch, AdamW with f32 moments, remat "block", the
-chunked loss (512), three runs: Mamba-2 1.3B at full size (48 layers,
-batch 4 x seq 2048, loader dp 4) and RecurrentGemma-9B at full width
-with its depth cut to 18 layers (six (R, R, A) periods, batch 2 x seq
-4096, dp 2; its 38 layers would need ~102 GB at 12 bytes a parameter),
-both in bf16, then RecurrentGemma-9B in f32 at full width, 6 layers
-(two periods, ~2.2 B parameters, ~36 GB at 16 bytes a parameter), batch
-2 x seq 4096, through the f32 attention backward.  Step 0's loss and
-global grad norm through the kernels are held to the plain route on the
-same batch (within 1e-3 and 2e-2 relative; Mamba-2 on an f32 copy of
-its weights, as its serving gates), the loss must fall over 4 steps on
-the repeated batch, and every step must launch each forward kernel
+chunked loss (512), four runs: OLMoE-1B-7B at full width with its depth
+cut to 10 of 16 layers (batch 4 x 2048, dp 4, step 0 on an f32 copy;
+its first attention call, cast to bf16, gives a forward and a backward
+row at the training shape), Mamba-2 1.3B at full size (48 layers, batch
+4 x seq 2048, loader dp 4) and RecurrentGemma-9B at full width with its
+depth cut to 18 layers (six (R, R, A) periods, batch 2 x seq 4096, dp
+2; its 38 layers would need ~102 GB at 12 bytes a parameter), in bf16,
+then RecurrentGemma-9B in f32 at full width, 6 layers (two periods, ~2.2
+B parameters, ~36 GB at 16 bytes a parameter), batch 2 x seq 4096,
+through the f32 attention backward.  Step 0's loss and global grad norm
+through the kernels are held to the plain route on the same batch
+(within 1e-3 and 2e-2 relative; Mamba-2 and OLMoE on an f32 copy of
+their weights, as their serving gates), the loss must fall over 4 steps
+on the repeated batch, and every step must launch each forward kernel
 twice a layer (remat recomputes it) and each backward kernel once; it
 prints the step time p50, tokens a second and peak memory.  The
-training CLI then runs the f32 RecurrentGemma smoke config on the card
-(``train_cli``, no ``--device``) and must exit 0.  ``train_kernels``
-holds each backward kernel (``flash_attention_bwd`` in bf16 and in f32,
+training CLI then runs the f32 RecurrentGemma and Mamba-2 smoke configs
+on the card (``train_cli``, no ``--device``) and must exit 0.
+``train_kernels`` holds each backward kernel (``flash_attention_bwd`` in
+bf16 and in f32,
 ``rglru_scan_bwd``, ``ssd_scan_bwd``) to autograd through its plain
 version at the first training layer's inputs, random inputs at the same
 shapes and ragged shapes (f32 within 1e-4, bf16 within 2e-2 relative
@@ -142,8 +178,10 @@ the launches' dynamic shared memory, and times the f32 forward kernels
 multiple of 16 bytes and its direct path elsewhere: at the prefill and
 training shapes and at ragged shapes that reach both, each call prints
 its path and must equal the direct path bitwise, and both paths are
-timed in the same run.  The ``kernels`` line has eleven rows: the six
-forward kernels, the f32 attention forward, and the four backward ones.
+timed in the same run.  The ``kernels`` line has fifteen rows: the six
+forward kernels, the f32 attention forward, the four backward ones, and
+flash_attention at Yi's and OLMoE's prefill and OLMoE's training shape,
+forward and backward.
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
@@ -837,17 +875,20 @@ def phase_profile(cfg, scenario: str, m: int, cycles: int) -> None:
     device_report(prof, wall_ms, 10)
 
 
-def device_report(prof, wall_ms: float, top: int) -> None:
+def device_report(prof, wall_ms: float, top: int) -> float:
     """Print the device's busy time and share of ``wall_ms``, and the
-    ``top`` device operations by time, from a ``torch.profiler`` run."""
+    ``top`` device operations by time, from a ``torch.profiler`` run;
+    returns the busy time in ms."""
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
     # Device-side entries only (kernels, copies): the host ops that
-    # launched them carry the same time again.
+    # launched them carry the same time again, and so do the device spans
+    # of the MoE ranges (:func:`moe_ranges`).
     events = sorted((e for e in prof.key_averages()
-                     if str(e.device_type).endswith("CUDA")),
+                     if str(e.device_type).endswith("CUDA")
+                     and e.key not in MOE_RANGES),
                     key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     print(f"  device busy {busy_ms:.1f} ms = {busy_ms / wall_ms:.3f} of "
@@ -856,6 +897,7 @@ def device_report(prof, wall_ms: float, top: int) -> None:
     for e in events[:top]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms device  {e.count:6d} calls  "
               f"{e.key[:70]}")
+    return busy_ms
 
 
 def kernel_cases(packed, x_loc, dtype):
@@ -1052,7 +1094,41 @@ LM_PATHS = {
         "block": "_ssd_prefill_block", "fault": "ssd_scan",
         "gate_dtype": torch.float32,
         "gates": {"logits": 1e-4, "frob": 2e-3, "rows": 2e-2}},
+    # Yi-6B's worst position reads 1.06e-2 kernel vs plain and 0.189 under
+    # run (e), which RecurrentGemma's 0.2 would not catch: 5e-2.
+    "yi-6b": {
+        "launches": {"flash_attention": 32},
+        "smoke_launches": {"flash_attention": 2},
+        "block": "_attn_prefill_block", "fault": "flash_attention",
+        "gates": {"logits": 2e-2, "frob": 2e-2, "rows": 5e-2}},
+    # ``moe``: each plain run records every layer's routing and the runs
+    # held to it replay it (:func:`moe_routes`).  With each route's own
+    # routing, 31 % of OLMoE's (token, expert) assignments differ and the
+    # logits by 0.79; with (c)'s routing fed, the bf16 logits still
+    # differ by 6.0e-2: its 16 random bf16 layers amplify rounding, as
+    # Mamba-2's do, and the plain route against itself with every
+    # attention output moved by up to one bf16 ulp (``control_scale``)
+    # reads 5.2e-2, so no bf16 kernel short of the plain version's own
+    # rounding holds 2e-2 end to end.  (c) and (e) compare an f32 copy at
+    # Mamba-2's f32 limits; bf16 is held end to end within CONTROL_K of
+    # that control, on the weights of seed 0 and of each
+    # ``control_seeds``, and call by call on its own path (``call_gates``:
+    # :func:`bf16_call_gate`).
+    "olmoe-1b-7b": {
+        "launches": {"flash_attention": 16},
+        "smoke_launches": {"flash_attention": 2},
+        "block": "_attn_prefill_block", "fault": "flash_attention",
+        "moe": True, "gate_dtype": torch.float32, "control_scale": 2.0 ** -8,
+        "control_seeds": (1,),
+        "call_gates": {"frob": 2.0 ** -8, "bias": 2.0 ** -10},
+        "gates": {"logits": 1e-4, "frob": 2e-3, "rows": 2e-2}},
 }
+# The uniform attention stack's smoke configs (f32) that phase_lm_small and
+# the CLIs run on the card: every layer one flash_attention launch a
+# prefill (gemma3-1b's smoke config at head dimension 12, zero-padded to
+# 16 by the wrapper).
+UNIFORM_ARCHS = ("yi-6b", "gemma-7b", "glm4-9b", "gemma3-1b", "olmoe-1b-7b",
+                 "mixtral-8x22b")
 # Mamba-2's runs (c) and (e) compare an f32 copy of the weights: with
 # random weights its 48 bf16 layers amplify rounding flips, so that the
 # plain route against itself with every SSD output scaled by 1 + 1e-6
@@ -1064,6 +1140,9 @@ LM_PATHS = {
 # In bf16 the kernel route is held to that control instead
 # (:func:`bf16_control_gate`); (d) holds every bf16 layer.
 CONTROL_K = 2
+# Run (f) of :func:`bf16_call_gate`: the relative bias planted in every
+# output of the path's bf16 kernel.
+BF16_CALL_FAULT = 2.0 ** -7
 
 
 @contextlib.contextmanager
@@ -1119,17 +1198,45 @@ def agreement(name, out, plain):
     return err, err / scale / LM_TOL[plain.dtype]
 
 
-def compare_calls(errs: dict, name: str):
+def call_stats(out, plain):
+    """(Frobenius ratio, scale bias) of a call's output against its plain
+    version's, in f64: ||out - plain|| / ||plain|| and <out - plain,
+    plain> / <plain, plain>.  bf16 rounding of two f32 computations moves
+    a share of the elements by an ulp either way and reads near 0 in the
+    bias; a kernel off by a relative c everywhere reads c in both."""
+    o, p = out.double(), plain.double()
+    pp = float((p * p).sum()) or 1.0
+    return (float((o - p).norm()) / pp ** 0.5,
+            float(((o - p) * p).sum()) / pp)
+
+
+def compare_calls(errs: dict, name: str, stats: dict | None = None):
     """Wrap a kernel op so every call's output is also held against the
     op's plain version on the same inputs; ``errs[name]`` gets each
-    call's :func:`agreement`."""
+    call's :func:`agreement` and ``stats[name]``, where given, its
+    :func:`call_stats`."""
     def wrap(fn):
         def run(*args, **kwargs):
             out = fn(*args, **kwargs)
             kw = {k: v for k, v in kwargs.items() if k != "mode"}
-            errs.setdefault(name, []).append(
-                agreement(name, out, lm_plain(name)(*args, **kw)))
+            plain = lm_plain(name)(*args, **kw)
+            errs.setdefault(name, []).append(agreement(name, out, plain))
+            if stats is not None:
+                stats.setdefault(name, []).append(call_stats(out, plain))
             return out
+        return run
+    return wrap
+
+
+def scale_output(scale: float):
+    """Wrap a kernel op so its output (the first of a tuple) comes out
+    multiplied by ``scale``, in the output's dtype."""
+    def wrap(fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if isinstance(out, tuple):
+                return (out[0] * scale, *out[1:])
+            return out * scale
         return run
     return wrap
 
@@ -1192,29 +1299,62 @@ def phase_lm_small(arch: str) -> None:
     from repro_torch.runtime import steps
 
     print(f"== lm_serve: {arch} smoke config, card vs CPU")
-    path = LM_PATHS[arch]
+    path = smoke_path(arch)
     cfg = configs.get_smoke_config(arch)
     cpu = transformer.init_params(cfg, 0, device="cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in (40, 29, 17)]
-    (_, logits_card), toks_card, _, counts = serve_run(
-        cfg, _to_device(cpu, DEVICE), prompts, path)
+    moe = {"moe": bool(cfg.num_experts)}
+    routes_card, routes_cpu = [], []
+    with moe_routes(moe, routes_card, record=True):
+        (_, logits_card), toks_card, _, counts = serve_run(
+            cfg, _to_device(cpu, DEVICE), prompts, path)
     kept = []
-    with wrapped(steps, "make_prefill_step", keep_prefill(kept)):
+    with wrapped(steps, "make_prefill_step", keep_prefill(kept)), \
+            moe_routes(moe, routes_cpu, record=True):
         reqs, _ = serve.serve_batch(
             cfg, cpu, [serve.Request(rid=i, prompt=p, max_new=MAX_NEW)
                        for i, p in enumerate(prompts)],
             max_seq=max(map(len, prompts)) + MAX_NEW)
+    if moe["moe"]:
+        # Left padding gives rows of one token whose hidden states differ
+        # in the last bits, so which of them a chunk edge migrates or
+        # drops follows the rounding: the card's run is held to the CPU's
+        # with the CPU's routing fed to it.
+        differ = sum(int((ea.cpu() != ec).any(-1).sum())
+                     for (ea, _), (ec, _) in zip(routes_card, routes_cpu))
+        orders = sum(int((oa.cpu() != oc).any(-1).sum())
+                     for (_, oa), (_, oc) in zip(routes_card, routes_cpu))
+        diff = float((logits_card.cpu() - kept[0][1]).abs().max())
+        print(f"  card with its own routing: {differ} tokens' experts and "
+              f"{orders} rows' orders differ from the CPU's over "
+              f"{len(routes_cpu)} MoE calls; prefill logits max abs diff "
+              f"{diff:.3e}")
+        with moe_routes(moe, routes_cpu):
+            (_, logits_card), toks_card, _, counts = serve_run(
+                cfg, _to_device(cpu, DEVICE), prompts, path)
     diff = float((logits_card.cpu() - kept[0][1]).abs().max())
-    check(diff <= 1e-4, f"smoke prefill logits, card kernels vs CPU plain: "
-          f"max abs diff {diff:.3e} <= 1e-4")
+    fed = ", the CPU's routing fed to the card" if moe["moe"] else ""
+    check(diff <= 1e-4, f"smoke prefill logits, card kernels vs CPU plain"
+          f"{fed}: max abs diff {diff:.3e} <= 1e-4")
     check(toks_card == [r.out for r in reqs],
           f"smoke greedy tokens equal on the card and the CPU "
           f"({len(prompts)} x {MAX_NEW})")
     want = path["smoke_launches"]
     check(all(v == want.get(k, 0) for k, v in counts.items()),
           f"smoke prefill ran {want} launches, decode none: {counts}")
+
+
+def smoke_path(arch: str) -> dict:
+    """``LM_PATHS[arch]``, or for a smoke-only uniform arch its launches:
+    one flash_attention a layer."""
+    from repro_torch import configs
+    if arch in LM_PATHS:
+        return LM_PATHS[arch]
+    layers = configs.get_smoke_config(arch).num_layers
+    return {"launches": {"flash_attention": layers},
+            "smoke_launches": {"flash_attention": layers}}
 
 
 def _to_device(tree, device):
@@ -1267,7 +1407,9 @@ def phase_lm_serve(arch: str):
     ``gate_dtype``, (c) and (e) compare a kernel-route prefill of the
     weights cast to it instead of (a).  The tight check of the kernels
     is (d), a kernel-route prefill whose every kernel call is held
-    against the plain version on that call's inputs."""
+    against the plain version on that call's inputs; where the path
+    names ``call_gates``, also in Frobenius and bias, and run (f) plants
+    a bias that must trip them (:func:`bf16_call_gate`)."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
@@ -1285,9 +1427,7 @@ def phase_lm_serve(arch: str):
     print(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s:"
           f" {n / 1e9:.3f} B parameters ({n * 2 / 1e9:.2f} GB bf16; "
           f"param_count() {cfg.param_count() / 1e9:.3f} B)")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, k).astype(np.int32)
-               for k in PROMPT_LENS]
+    prompts = draw_prompts(cfg, 0)
 
     runs = {}
     inputs: dict = {}
@@ -1321,6 +1461,8 @@ def phase_lm_serve(arch: str):
     gp = params
     if gate_dtype is not None:
         bf16_control_gate(cfg, params, batch, path, la, ha)
+        for seed in path.get("control_seeds", ()):
+            bf16_control_seed(cfg, path, seed)
         gp = _cast(params, gate_dtype)
         ops.reset_counts()
         la, ha = prefill_trunk(cfg, gp, batch, path["block"])
@@ -1332,11 +1474,16 @@ def phase_lm_serve(arch: str):
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
-    lc, hc = prefill_trunk(cfg, gp, batch, path["block"], mode="plain")
+    routes_c: list = []
+    with moe_routes(path, routes_c, record=True):
+        lc, hc = prefill_trunk(cfg, gp, batch, path["block"], mode="plain")
     cc = ops.launch_counts()
     check(all(v == 0 for v in cc.values()), f"(c{tag}) ran no kernel: {cc}")
     print(f"  max memory allocated, weights and run (c{tag}): "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if path.get("moe"):
+        la, ha = moe_route_gate(cfg, gp, batch, path, la, ha, lc, hc,
+                                routes_c)
     rel = float((la.float() - lc.float()).abs().max()
                 / lc.float().abs().max())
     agree = float((la.argmax(-1) == lc.argmax(-1)).float().mean())
@@ -1370,7 +1517,7 @@ def phase_lm_serve(arch: str):
             return out
         return run
 
-    with wrapped(ops, fault, zero_tail):
+    with wrapped(ops, fault, zero_tail), moe_routes(path, routes_c):
         le, he = prefill_trunk(cfg, gp, batch, path["block"])
     rel_e = float((le.float() - lc.float()).abs().max()
                   / lc.float().abs().max())
@@ -1382,10 +1529,11 @@ def phase_lm_serve(arch: str):
     del emb, tc, hc, he, ha, gp
 
     errs: dict = {}
+    stats = {} if "call_gates" in path else None
     with contextlib.ExitStack() as stack:
         for name in want:
             stack.enter_context(wrapped(ops, name,
-                                        compare_calls(errs, name)))
+                                        compare_calls(errs, name, stats)))
         prefill_trunk(cfg, params, batch, path["block"])
     worst = {}
     for name, calls in errs.items():
@@ -1395,7 +1543,132 @@ def phase_lm_serve(arch: str):
               f"inputs of each of its {len(calls)} layers: max abs err "
               f"{worst[name]:.3e}, worst error over its allowance "
               f"{ratio:.3e} <= 1")
+    if stats is not None:
+        bf16_call_gate(cfg, params, batch, path, stats[fault])
     return ca, params, cfg, batch, inputs, worst
+
+
+def draw_prompts(cfg, seed: int) -> list:
+    """The served traffic: one prompt of each of PROMPT_LENS tokens."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, k).astype(np.int32)
+            for k in PROMPT_LENS]
+
+
+def bf16_control_seed(cfg, path, seed: int) -> None:
+    """:func:`bf16_control_gate` again on weights and prompts drawn from
+    ``seed``: the kernel route (a) prefilled on them, then held to the
+    plain route and to the control as run (a) is."""
+    from repro_torch.models import transformer
+
+    params = transformer.init_params(cfg, seed, device=DEVICE)
+    prompts = draw_prompts(cfg, seed)
+    toks = np.zeros((len(prompts), max(PROMPT_LENS)), np.int64)
+    for i, p in enumerate(prompts):            # left-padded, as served
+        toks[i, toks.shape[1] - len(p):] = p
+    batch = {"tokens": torch.as_tensor(toks, device=DEVICE)}
+    print(f"  weights and prompts of seed {seed}:")
+    la, ha = prefill_trunk(cfg, params, batch, path["block"])
+    bf16_control_gate(cfg, params, batch, path, la, ha,
+                      tag=f", seed {seed}")
+    del params, la, ha
+    torch.cuda.empty_cache()
+
+
+def bf16_call_gate(cfg, params, batch, path, stats) -> None:
+    """The bf16 kernel held call by call on the path's own inputs: every
+    call of (d) (``stats``: each call's :func:`call_stats` against the
+    plain version on that call's inputs) within the path's
+    ``call_gates``, a Frobenius ratio of about one bf16 ulp and a bias of
+    a quarter of one.  Run (f) repeats (d) with every kernel output
+    scaled by 1 + BF16_CALL_FAULT, a bias of one to two bf16 ulps, and
+    must trip them: a kernel off by that much can pass the end-to-end
+    control gate, whose reading the random layers' amplification of
+    rounding sets."""
+    from repro_torch.kernels import ops
+
+    gates, name = path["call_gates"], path["fault"]
+
+    def worst(calls):
+        return (max(f for f, _ in calls), max(abs(b) for _, b in calls))
+
+    frob, bias = worst(stats)
+    check(frob <= gates["frob"] and bias <= gates["bias"],
+          f"(d) {name}, bf16, each of its {len(stats)} calls against its "
+          f"plain version: Frobenius ratio {frob:.3e} <= {gates['frob']:.3e}"
+          f", |bias| {bias:.3e} <= {gates['bias']:.3e} (worst call)")
+    faulted: dict = {}
+    with wrapped(ops, name, lambda fn: compare_calls({}, name, faulted)(
+            scale_output(1 + BF16_CALL_FAULT)(fn))):
+        prefill_trunk(cfg, params, batch, path["block"])
+    frob_f, bias_f = worst(faulted[name])
+    check(frob_f > gates["frob"] or bias_f > gates["bias"],
+          f"(f) {name}'s output scaled by 1 + {BF16_CALL_FAULT:.3g} trips "
+          f"the call gates: Frobenius ratio {frob_f:.3e}, |bias| "
+          f"{bias_f:.3e}")
+
+
+@contextlib.contextmanager
+def moe_routes(path: dict, routes: list, record: bool = False):
+    """For a MoE path: record each ``moe.route`` call's decisions (each
+    layer's experts and order) into ``routes``, or replay them in order in
+    place of the routes the run would take; nothing for other paths."""
+    from repro_torch.models import moe
+    if not path.get("moe"):
+        yield
+        return
+    replay = iter(routes)
+
+    def wrap(route):
+        def run(cfg, probs):
+            if not record:
+                return tuple(t.to(probs.device) for t in next(replay))
+            out = route(cfg, probs)
+            routes.append(out)
+            return out
+        return run
+
+    with wrapped(moe, "route", wrap):
+        yield
+
+
+def moe_route_gate(cfg, params, batch, path, la, ha, lc, hc, routes_c):
+    """The MoE path's kernel route against the plain route (c): a bf16
+    difference in attention moves the router's logits, and a token whose
+    k-th and (k+1)-th experts nearly tie changes experts, which moves the
+    trunk discontinuously.  Re-run the kernel route recording its routes
+    (bitwise equal to run (a)), print the share of (token, expert)
+    assignments that differ from (c)'s and the logits and trunk
+    differences with each route's own routing; then run the kernel route
+    with (c)'s routing fed to it and return its logits and trunk, which
+    the gates hold to (c)."""
+    from repro_torch.models import transformer
+
+    routes_a: list = []
+    with moe_routes(path, routes_a, record=True):
+        la2, ha2 = prefill_trunk(cfg, params, batch, path["block"])
+    check(torch.equal(la2, la) and torch.equal(ha2, ha),
+          "(a) re-run recording its routes: logits and trunk bitwise (a)'s")
+    e = cfg.num_experts
+    differ = total = 0
+    for (ea, _), (ec, _) in zip(routes_a, routes_c):
+        a = torch.nn.functional.one_hot(ea, e).sum(-2)
+        c = torch.nn.functional.one_hot(ec, e).sum(-2)
+        differ += int((a > c).sum())
+        total += int(a.sum())
+    emb = transformer._embed_tokens(cfg, params, batch["tokens"]).float()
+    rel = float((la.float() - lc.float()).abs().max() / lc.float().abs().max())
+    print(f"  (a) vs (c), each with its own routing: {differ} of {total} "
+          f"(token, expert) assignments differ over {len(routes_a)} MoE "
+          f"layers ({differ / total:.3e}); last-position logits max abs "
+          f"diff / max abs {rel:.3e}")
+    trunk_diff("(a) vs (c), each with its own routing", ha.float() - emb,
+               hc.float() - emb)
+    with moe_routes(path, routes_c):
+        la, ha = prefill_trunk(cfg, params, batch, path["block"])
+    print(f"  (a, (c)'s routing) the kernel route with the plain route's "
+          f"routing fed to it: the gates below hold it to (c)")
+    return la, ha
 
 
 def _cast(tree, dtype):
@@ -1404,36 +1677,40 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def bf16_control_gate(cfg, params, batch, path, la, ha) -> None:
+def bf16_control_gate(cfg, params, batch, path, la, ha, tag="") -> None:
     """Hold the kernel route (run (a): logits ``la``, trunk ``ha``) to the
     plain route in the served dtype against a control: the plain route
     against itself with every output of the path's fault kernel op scaled
-    by 1 + 1e-6, a change below bf16's resolution.  The kernel route's
+    by 1 + 1e-6, a change below bf16's resolution (1 + the path's
+    ``control_scale`` where the op's output is bf16: 2^-8 moves each
+    element by up to one bf16 ulp).  On a MoE path the plain route's
+    routing is fed to the kernel route and to the control
+    (:func:`moe_route_gate`).  The kernel route's
     logits and trunk Frobenius differences must stay within CONTROL_K
     times the control's.  The worst position is printed only: CONTROL_K
     times the control's reading there (0.72) would admit unrelated
-    outputs."""
+    outputs.  ``tag`` names the weights in the check's line."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
 
-    def scaled(fn):
-        def run(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            if isinstance(out, tuple):
-                return (out[0] * (1 + 1e-6), *out[1:])
-            return out * (1 + 1e-6)
-        return run
-
-    lc, hc = prefill_trunk(cfg, params, batch, path["block"], mode="plain")
-    with wrapped(ops, path["fault"], scaled):
+    scale = 1 + path.get("control_scale", 1e-6)
+    routes: list = []
+    with moe_routes(path, routes, record=True):
+        lc, hc = prefill_trunk(cfg, params, batch, path["block"],
+                               mode="plain")
+    if path.get("moe"):
+        la, ha = moe_route_gate(cfg, params, batch, path, la, ha, lc, hc,
+                                routes)
+    with wrapped(ops, path["fault"], scale_output(scale)), \
+            moe_routes(path, routes):
         lp, hp = prefill_trunk(cfg, params, batch, path["block"],
                                mode="plain")
     emb = transformer._embed_tokens(cfg, params, batch["tokens"]).float()
     tc = hc.float() - emb
     read = []
     for label, lx, hx in (("(a) vs (c), bf16", la, ha),
-                          ("control: (c) scaled by 1 + 1e-6 vs (c), bf16",
-                           lp, hp)):
+                          (f"control: (c) scaled by 1 + {scale - 1:.3g} vs "
+                           f"(c), bf16", lp, hp)):
         rel = float((lx.float() - lc.float()).abs().max()
                     / lc.float().abs().max())
         print(f"  {label}: last-position logits max abs diff / max abs "
@@ -1441,7 +1718,7 @@ def bf16_control_gate(cfg, params, batch, path, la, ha) -> None:
         read.append((rel, trunk_diff(label, hx.float() - emb, tc)[0]))
     (rel_a, frob_a), (rel_c, frob_c) = read
     check(rel_a <= CONTROL_K * rel_c and frob_a <= CONTROL_K * frob_c,
-          f"(a) vs (c), bf16, within {CONTROL_K}x the control: logits "
+          f"(a) vs (c), bf16{tag}, within {CONTROL_K}x the control: logits "
           f"{rel_a:.3e} <= {CONTROL_K * rel_c:.3e}, trunk Frobenius "
           f"{frob_a:.3e} <= {CONTROL_K * frob_c:.3e}")
 
@@ -1474,8 +1751,10 @@ def phase_lm_profile(cfg, params, batch) -> None:
     B, S = batch["tokens"].shape
     print(f"== profile: one {cfg.name} prefill ({B} x {S} tokens)")
     step = steps.make_prefill_step(cfg, max_seq=max(PROMPT_LENS) + MAX_NEW)
-    (logits, cache), prof, wall_ms = profiled(lambda: step(params, batch))
-    device_report(prof, wall_ms, 15)
+    with moe_ranges(cfg):
+        (logits, cache), prof, wall_ms = profiled(lambda: step(params,
+                                                               batch))
+    moe_share(prof, device_report(prof, wall_ms, 15))
 
     print(f"== profile: one {cfg.name} decode step ({B} tokens) after that "
           f"prefill")
@@ -1489,8 +1768,58 @@ def phase_lm_profile(cfg, params, batch) -> None:
     torch.cuda.synchronize()
     print(f"  decode step without the profiler: "
           f"{(time.perf_counter() - t0) / 3 * 1e3:.3f} ms")
-    _, prof, wall_ms = profiled(lambda: serve(params, cache, cur, S))
-    device_report(prof, wall_ms, 8)
+    with moe_ranges(cfg):
+        _, prof, wall_ms = profiled(lambda: serve(params, cache, cur, S))
+    moe_share(prof, device_report(prof, wall_ms, 8))
+
+
+# The MoE layer's parts, each traced as a range of its own.
+MOE_PARTS = ("_dispatch", "_experts", "_combine")
+MOE_RANGES = tuple("moe" + name for name in MOE_PARTS)
+
+
+@contextlib.contextmanager
+def moe_ranges(cfg):
+    """For a MoE config, wrap the MoE layer's parts (router, schedule and
+    dispatch; the expert products; the combine) in ``record_function``
+    ranges named ``moe<part>``; nothing otherwise."""
+    from repro_torch.models import moe
+    from torch.profiler import record_function
+
+    def ranged(name):
+        def wrap(fn):
+            def run(*args, **kwargs):
+                with record_function("moe" + name):
+                    return fn(*args, **kwargs)
+            return run
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        if cfg.num_experts:
+            for name in MOE_PARTS:
+                stack.enter_context(wrapped(moe, name, ranged(name)))
+        yield
+
+
+def moe_share(prof, busy_ms: float) -> None:
+    """Print the device time of each MoE range of a profile (the kernels
+    launched inside its host range) and their share of the device's busy
+    time."""
+    def dev_us(e):
+        if hasattr(e, "device_time_total"):
+            return e.device_time_total
+        return e.cuda_time_total
+
+    parts = {name: sum(dev_us(e) for e in prof.events()
+                       if e.name == "moe" + name
+                       and str(e.device_type).endswith("CPU")) / 1e3
+             for name in MOE_PARTS}
+    if not any(parts.values()):
+        return
+    total = sum(parts.values())
+    print(f"  MoE device time {total:.3f} ms = {total / busy_ms:.3f} of the "
+          f"busy time: " + ", ".join(
+              f"{name[1:]} {ms:.3f} ms" for name, ms in parts.items()))
 
 
 def visible_scores(s: int, causal: bool, window: int) -> int:
@@ -1766,6 +2095,139 @@ def phase_lm_kernels(inputs: dict, layer_errs: dict, counts: dict,
                   randn(*shape, dtype=dtype).mul(0.1))
             rglru_compare(ab, f"ragged {shape}")
     return rows
+
+
+def attention_shape_row(name: str, label: str, args, kwargs, launches: int,
+                        heads: int, layer_err: float = 0.0) -> dict:
+    """A ``kernels`` row for flash_attention at a shape of a later path
+    (``name``): the path's first call ``args`` and random values at the
+    same shape held against the plain version (:func:`lm_compare`: LM_TOL
+    and the worst row within ATTN_ROW_TOL; the row's max_abs_err is the
+    largest of these and ``layer_err``, the worst layer of the path's run
+    (d)), two launches bitwise equal; the kernel, the plain version and
+    SDPA timed (library_ms: SDPA with the same mask, or with
+    ``is_causal=True`` where the mask is plain causal, the same function;
+    the other printed beside it) and the bound."""
+    shape, dtype = tuple(args[0].shape), args[0].dtype
+    err = max(layer_err, lm_compare("flash_attention", args, kwargs,
+                                    f"{label} input {shape}"))
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    rand = tuple(torch.randn(t.shape, generator=gen, device=DEVICE).to(dtype)
+                 for t in args)
+    err = max(err, lm_compare("flash_attention", rand, kwargs,
+                              f"{label} random {shape}"))
+    del rand
+    kernel = lambda: lm_kernel("flash_attention")(*args, **kwargs)  # noqa
+    check(torch.equal(kernel(), kernel()),
+          f"flash_attention {label}: two launches bitwise equal")
+    bound, by = lm_bound("flash_attention", args, kwargs)
+    masked, causal_only = sdpa_calls(*args, heads=heads, **kwargs)
+    sdpa_masked, sdpa_causal = time_ms(masked, 10), time_ms(causal_only, 10)
+    same = kwargs["causal"] and kwargs["window"] <= 0
+    row = {
+        "name": name, "ok": True, "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], "launches": launches,
+        "max_abs_err": err, "ms": time_ms(kernel, 20),
+        "plain_ms": time_ms(
+            lambda: lm_plain("flash_attention")(*args, **kwargs), 2),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": sdpa_causal if same else sdpa_masked,
+        "sdpa_masked_ms": sdpa_masked, "sdpa_causal_ms": sdpa_causal,
+        "shape": list(shape), "kv_shape": list(args[1].shape),
+        "dtype": str(dtype)[6:], "window": int(kwargs["window"]),
+    }
+    print(f"  flash_attention {label} {shape}, k, v {row['kv_shape']}, "
+          f"window {row['window']}: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms "
+          f"({'is_causal' if same else 'same mask'}; with the mask "
+          f"{sdpa_masked:.4f} ms, is_causal {sdpa_causal:.4f} ms), bound "
+          f"{bound:.4f} ms ({by}), share of the bound "
+          f"{bound / row['ms']:.3f}, {launches} launches a path run")
+    return row
+
+
+def attention_bwd_shape_row(name: str, label: str, args, kwargs,
+                            launches: int, heads: int) -> dict:
+    """A ``kernels`` row for the flash_attention backward at a shape of a
+    later path: :func:`bwd_compare` on ``args`` and on random values at
+    the shape (the forward outputs it reads at the forward's gates, the
+    gradients against autograd through the plain version within
+    GRAD_TOL, dK, dV and dQ row by row), two launches bitwise equal; the
+    kernel (median of 7), the plain backward and SDPA's backward timed
+    beside the bound (library_ms: SDPA's causal path where the mask is
+    plain causal, the same function, else the same mask; both printed)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    shape, dtype = tuple(args[0].shape), args[0].dtype
+    err, _, kernel, plain, dout, _ = bwd_compare(
+        "flash_attention", args, kwargs, gen, f"{label} {shape}", True)
+    rand = tuple(torch.randn(t.shape, generator=gen, device=DEVICE).to(dtype)
+                 for t in args)
+    err = max(err, bwd_compare("flash_attention", rand, kwargs, gen,
+                               f"{label} random {shape}", True)[0])
+    del rand
+    g1, g2 = kernel(), kernel()
+    check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
+          f"flash_attention backward {label}: two launches bitwise equal")
+    del g1, g2
+    bound, by = bwd_bound("flash_attention", args, kwargs)
+    masked = median_ms(sdpa_backward(*args, dout, heads=heads, **kwargs), 5)
+    same = kwargs["causal"] and kwargs["window"] <= 0
+    causal = (median_ms(sdpa_backward(*args, dout, heads=heads,
+                                      is_causal=True, **kwargs), 5)
+              if same else None)
+    row = {
+        "name": name, "ok": True, "route": "cuda",
+        "source": BWD_SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], "pass": "backward",
+        "launches": launches, "max_abs_err": err,
+        "ms": median_ms(kernel, 7), "plain_ms": median_ms(plain, 3),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": causal if same else masked,
+        "sdpa_masked_ms": masked, "sdpa_causal_ms": causal,
+        "shape": list(shape), "kv_shape": list(args[1].shape),
+        "dtype": str(dtype)[6:], "window": int(kwargs["window"]),
+    }
+    print(f"  flash_attention backward {label} {shape}: kernel "
+          f"{row['ms']:.4f} ms (median), plain {row['plain_ms']:.4f} ms, "
+          f"SDPA backward {row['library_ms']:.4f} ms "
+          f"({'is_causal' if same else 'same mask'}; with the mask "
+          f"{masked:.4f} ms), bound "
+          f"{bound:.4f} ms ({by}), share of the bound "
+          f"{bound / row['ms']:.3f}, {launches} launches a training step")
+    print_bwd_build("flash_attention", args, kwargs)
+    return row
+
+
+# flash_attention at head dimensions the kernels read zero-padded (BH,
+# BH_kv, S, D, causal, window): gemma3-1b's smoke 12 (to 16) at its window
+# and MQA, 20 (to 24; 32 in the bf16 backward), and 40, which the forward
+# reads as it is and the bf16 backward pads to 48.
+PADDED_ATTN = ((4, 1, 77, 12, True, 16), (8, 2, 300, 12, True, 0),
+               (3, 3, 64, 20, False, 0), (6, 2, 200, 40, True, 64))
+
+
+def phase_padded_head_dim() -> None:
+    """flash_attention forward and backward at PADDED_ATTN's head
+    dimensions in f32 and bf16, against the plain version at the true
+    D's scale (:func:`lm_compare`, :func:`bwd_compare`)."""
+    from repro_torch.kernels import flash_attention
+    print("== kernels: flash_attention at head dimensions off a multiple of "
+          "8 (16 in the bf16 backward), zero-padded in the wrapper")
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        for bh, bh_kv, s, d, causal, window in PADDED_ATTN:
+            qkv = tuple(torch.randn(r, s, d, generator=gen, device=DEVICE)
+                        .to(dtype) for r in (bh, bh_kv, bh_kv))
+            kw = {"causal": causal, "window": window}
+            pads = (flash_attention.launch_plan(qkv[0].shape, qkv[1].shape,
+                                                qkv[2].shape, dtype)["d_pad"],
+                    flash_attention.bwd_plan(qkv[0].shape, qkv[1].shape,
+                                             dtype)["d_pad"])
+            label = (f"({bh}, {bh_kv}, {s}, {d}) padded to {pads[0]} "
+                     f"(backward {pads[1]}) causal={causal} window={window}")
+            lm_compare("flash_attention", qkv, kw, label)
+            bwd_compare("flash_attention", qkv, kw, gen, label)
 
 
 # Ragged rglru_scan forward cases (B, S, W) that reach both paths: S = 1,
@@ -2045,10 +2507,21 @@ def phase_ssd_kernels(first_call, layer_err: float, counts: dict) -> dict:
 # reference's, through the f32 flash_attention backward: full width, the
 # depth cut to two (R, R, A) periods, 6 layers: ~1.05 B of embedding and
 # 6 x ~0.197 B of layers, ~2.2 B parameters at 16 bytes each (f32 params,
-# grads, m and v) are ~36 GB before activations.  ``keep``: the kernel ops
-# whose first call's arguments the train_kernels phase reads, stored
-# under the op's name plus ``suffix``, as the run's launch counts are.
+# grads, m and v) are ~36 GB before activations.
+# OLMoE-1B-7B at full width, 10 of its 16 layers (~4.40 B parameters,
+# ~53 GB of bf16 weights and grads and f32 moments; 16 layers would need
+# ~83 GB before activations), step 0 on an f32 copy as Mamba-2's; it runs
+# first: alone on the card 8 layers peaked at 47.01 GB and 12 at 67.64
+# GB, but after the other runs step 0's f32 backward ran out of memory at
+# 12 layers and at 10, 13.8 GB of the cache left in fragments (NVIDIA
+# H100 80GB HBM3, 700.00 W).  ``keep``: the kernel ops whose first call's
+# arguments the train_kernels phase reads, stored under the op's name
+# plus ``suffix``, as the run's launch counts are.
 TRAIN_RUNS = {
+    "olmoe-1b-7b": {"arch": "olmoe-1b-7b", "layers": 10, "dtype": None,
+                    "batch": 4, "seq": 2048, "dp": 4,
+                    "gate_dtype": torch.float32, "suffix": "_olmoe",
+                    "keep": ("flash_attention",)},
     "recurrentgemma-9b": {"arch": "recurrentgemma-9b", "layers": 18,
                           "dtype": None, "batch": 2, "seq": 4096, "dp": 2,
                           "gate_dtype": torch.bfloat16, "suffix": "",
@@ -2090,6 +2563,9 @@ def expected_train_launches(cfg) -> dict:
     if cfg.attn_pattern == ("ssd",):
         return {"ssd_scan": mult * cfg.num_layers,
                 "ssd_scan_bwd": cfg.num_layers}
+    if "rglru" not in cfg.attn_pattern:     # uniform: every layer attention
+        return {"flash_attention": mult * cfg.num_layers,
+                "flash_attention_bwd": cfg.num_layers}
     period = len(cfg.attn_pattern)
     attn = cfg.num_layers // period
     rec = cfg.num_layers - attn
@@ -2276,6 +2752,47 @@ def phase_train_cli(arch: str) -> None:
         print(f"  | {line}")
     check(out.returncode == 0, f"the training CLI at the {arch} smoke "
           f"config exits 0 on the card (got {out.returncode})")
+
+
+def phase_clis(archs) -> None:
+    """The serving and training CLIs on the card (no ``--device``) at the
+    smoke config of each of ``archs``, all started together as child
+    processes: serve 3 requests of under 24 prompt tokens, 4 new tokens,
+    in waves of 2; train 3 steps at batch 8 x seq 32, loader dp 2 (8
+    rows, so Mixtral's 8 accumulated microbatches a step are a row each).
+    Each must exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    cmds = []
+    for arch in archs:
+        cmds.append([sys.executable, "-m", "repro_torch.launch.serve",
+                     "--arch", arch, "--smoke", "--batch", "3",
+                     "--prompt-len", "24", "--max-new", "4", "--slots",
+                     "2"])
+        cmds.append([sys.executable, "-m", "repro_torch.launch.train",
+                     "--arch", arch, "--smoke", "--steps", "3", "--seq",
+                     "32", "--batch", "8", "--dp", "2"])
+    print(f"== clis: the serve and train CLIs at {len(archs)} smoke configs, "
+          f"{len(cmds)} child processes at once")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"  all ended in {time.perf_counter() - t0:.1f} s")
+    for c, p, out in zip(cmds, procs, outs):
+        tail = out.strip().splitlines()[-2:]
+        print(f"  $ {' '.join(c[2:])} -> exit {p.returncode}")
+        for line in tail:
+            print(f"  | {line}")
+    bad = [" ".join(c[2:]) for c, p in zip(cmds, procs) if p.returncode]
+    check(not bad, f"the serve and train CLIs exit 0 on the card at the "
+          f"smoke configs of {', '.join(archs)} (failed: {bad})")
 
 
 def median_ms(fn, reps: int) -> float:
@@ -2642,19 +3159,22 @@ def print_bwd_build(key: str, args, kwargs) -> None:
               f"{smem['row']} B; head splits {splits}")
 
 
-def sdpa_backward(q, k, v, dout, causal: bool, window: int, heads: int):
+def sdpa_backward(q, k, v, dout, causal: bool, window: int, heads: int,
+                  is_causal: bool = False):
     """SDPA's backward with the same mask on k and v expanded to every
     query head, as a callable: the library's yardstick (the port never
-    calls it)."""
+    calls it); with ``is_causal``, SDPA's own causal path and no mask,
+    the same function where the mask is plain causal."""
     bh, s, d = q.shape
     rep = bh // k.shape[0]
-    mask = attention_masks(s, causal, window, q.device)[0]
+    mask = None if is_causal else attention_masks(s, causal, window,
+                                                  q.device)[0]
     shape = (bh // heads, heads, s, d)
     leaves = [t.detach().view(shape).clone().requires_grad_()
               for t in (q, k.repeat_interleave(rep, dim=0),
                         v.repeat_interleave(rep, dim=0))]
     out = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, attn_mask=mask)
+        *leaves, attn_mask=mask, is_causal=is_causal)
     dview = dout.view(shape)
     return lambda: torch.autograd.grad(out, leaves, dview, retain_graph=True)
 
@@ -2773,7 +3293,7 @@ def attention_f32_launch_times(args, fwd, dout, kwargs, kernel,
         def one(part=part):
             _build.check(lib.repro_flash_attention_bwd_f32_part(
                 *(t.data_ptr() for t in (q, k, v, o, dout, lse, ws, *grads)),
-                q.shape[0], k.shape[0], q.shape[1], q.shape[2],
+                q.shape[0], k.shape[0], q.shape[1], q.shape[2], q.shape[2],
                 int(bool(kwargs["causal"])), int(kwargs["window"]), part,
                 torch.cuda.current_stream(q.device).cuda_stream),
                 "flash_attention_bwd_f32_part")
@@ -2940,6 +3460,10 @@ def main() -> int:
     from repro_torch.assim import EngineConfig
 
     t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        print(f"== {time.perf_counter() - t_start:.1f} s: {what} done")
+
     smi = phase_environment()
     phase_build()
 
@@ -2962,6 +3486,7 @@ def main() -> int:
     rows = phase_kernels([("ex4_p8", main_1d), ("shelf2d", main_2d)],
                          counts_1d)
     phase_profile(paper, "drifting_swarm", 2000, 6)
+    stamp("the DA paths")
 
     phase_lm_small("recurrentgemma-9b")
     counts_lm, params, cfg, batch, inputs, layer_errs = phase_lm_serve(
@@ -2970,6 +3495,7 @@ def main() -> int:
     rows += phase_lm_kernels(inputs, layer_errs, counts_lm, cfg.num_heads)
     del params, batch, inputs   # free the 17 GB of RecurrentGemma weights
     torch.cuda.empty_cache()
+    stamp("RecurrentGemma-9B serving")
 
     phase_lm_small("mamba2-1.3b")
     counts_m, params, cfg, batch, inputs, layer_errs = phase_lm_serve(
@@ -2980,13 +3506,49 @@ def main() -> int:
     rows.append(phase_ssd_kernels(inputs["ssd_scan"], layer_errs["ssd_scan"],
                                   counts_m))
     del inputs
+    stamp("Mamba-2 serving")
+
+    # The uniform attention stack: the six smoke configs, then Yi-6B and
+    # OLMoE-1B-7B served at full width, each prefill's attention as a row.
+    for arch in UNIFORM_ARCHS:
+        phase_lm_small(arch)
+    for arch, tag in (("yi-6b", "yi_6b_prefill"),
+                      ("olmoe-1b-7b", "olmoe_prefill")):
+        counts_u, params, cfg, batch, inputs, layer_errs = phase_lm_serve(
+            arch)
+        phase_lm_profile(cfg, params, batch)
+        del params, batch
+        torch.cuda.empty_cache()
+        args, kwargs = inputs["flash_attention"]
+        kwargs = {k: v for k, v in kwargs.items() if k != "mode"}
+        rows.append(attention_shape_row(
+            f"flash_attention_{tag}", f"{arch} prefill", args, kwargs,
+            counts_u["flash_attention"], cfg.num_heads,
+            layer_errs["flash_attention"]))
+        del inputs, args
+        torch.cuda.empty_cache()
+    phase_padded_head_dim()
+    stamp("the uniform stack's serving")
 
     kept, train_counts = {}, {}
     for run in TRAIN_RUNS:
         train_counts.update(phase_train(run, smi, kept))
     phase_train_cli("recurrentgemma-9b")
     phase_train_cli("mamba2-1.3b")
+    phase_clis(UNIFORM_ARCHS)
+    stamp("training and the CLIs")
     rows += phase_train_kernels(kept, train_counts)
+    # OLMoE's training attention in bf16, the run's dtype (its first call
+    # was kept from step 0's f32 copy)
+    args, kwargs = kept.pop("flash_attention_olmoe")
+    args = tuple(a.detach().to(torch.bfloat16) for a in args)
+    kwargs = {k: v for k, v in kwargs.items() if k in ("causal", "window")}
+    rows.append(attention_shape_row(
+        "flash_attention_olmoe_train", "olmoe-1b-7b training", args, kwargs,
+        train_counts["flash_attention_olmoe"], 16))
+    rows.append(attention_bwd_shape_row(
+        "flash_attention_bwd_olmoe_train", "olmoe-1b-7b training", args,
+        kwargs, train_counts["flash_attention_bwd_olmoe"], 16))
     print(f"== done in {time.perf_counter() - t_start:.1f} s "
           f"(2D launches {counts_2d})")
     print(f"card: {smi}")

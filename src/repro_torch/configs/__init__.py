@@ -1,6 +1,7 @@
 """Architecture configs, as in ``repro.configs``: the same ``ARCHS`` and
-``ARCH_IDS``.  The port serves ``recurrentgemma-9b`` and ``mamba2-1.3b``;
-the other archs wait for ROADMAP Queue 1 item 7."""
+``ARCH_IDS``.  The port serves and trains the eight archs of ``PORTED``;
+whisper's encoder-decoder and the phi3-vision stub wait for ROADMAP
+Queue 1 item 7b."""
 from __future__ import annotations
 
 import importlib
@@ -28,15 +29,16 @@ ARCH_IDS.update({
     "phi3-vision-4.2b": "phi3_vision_4_2b",
 })
 
-PORTED = ("recurrentgemma_9b", "mamba2_1_3b")
+PORTED = ("recurrentgemma_9b", "mamba2_1_3b", "yi_6b", "gemma_7b",
+          "glm4_9b", "gemma3_1b", "olmoe_1b_7b", "mixtral_8x22b")
 
 
 def _module(arch: str):
     name = ARCH_IDS[arch]
     if name not in PORTED:
         raise NotImplementedError(
-            f"{arch}: the port serves {', '.join(PORTED)} only; the other "
-            f"archs are ROADMAP Queue 1 item 7")
+            f"{arch}: the port serves {', '.join(PORTED)} only; whisper's "
+            f"encoder-decoder and the VLM stub are ROADMAP Queue 1 item 7b")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

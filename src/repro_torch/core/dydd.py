@@ -22,9 +22,11 @@ p x p solve is microseconds, cheaper than any device round trip.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.obs import meters as meters_mod
 
@@ -251,6 +253,61 @@ def incidence_matrix(p: int, edges: Sequence[Edge]) -> np.ndarray:
         M[k, i] = 1.0
         M[k, j] = -1.0
     return M
+
+
+# ---------------------------------------------------------------------------
+# Tensor scheduling (fixed graph, on the device): the MoE balancer.
+# ---------------------------------------------------------------------------
+
+def ring_operators(p: int, device=None):
+    """The ring's scheduling operators as f64 tensors on ``device``: (M,
+    den, incidence).  ``den`` = 12 p and M = den pinv(L) is integer valued:
+    a ring's Laplacian pseudo-inverse has the entries (p^2 - 1) / (12 p) -
+    k (p - k) / (2 p), k the ring distance of i and j (a 2-node ring is a
+    single edge, whose L / 4 fits too), and M's rows sum to exactly 0.
+    ``incidence`` is the (E, p) signed incidence of ``ring_edges(p)``.
+    Built once per (p, device) and shared: the callers only read them, so
+    a MoE layer's call makes no host work and no copy to the device."""
+    return _ring_operators(p, torch.device("cpu" if device is None
+                                           else device))
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_operators(p: int, device: torch.device):
+    edges = ring_edges(p)
+    pinv = np.linalg.pinv(laplacian(p, edges))
+    den = 12 * p
+    M = np.rint(den * pinv)
+    if np.abs(M / den - pinv).max() > 1e-9 or M.sum(1).any():
+        raise ValueError(f"ring_operators: 12 p pinv(L) of the {p}-ring is "
+                         f"not an integer matrix")
+    with torch.inference_mode(False):    # shared by serving and training
+        return (torch.as_tensor(M, device=device), den,
+                torch.as_tensor(incidence_matrix(p, edges), device=device))
+
+
+def schedule_tensor(loads, ops):
+    """The counterpart of ``repro.core.dydd.schedule_jnp`` on the ring, on
+    tensors: the per-edge migrations rint(incidence @ lambda), lambda =
+    pinv(L) (loads - mean), over any leading axes of integer-valued
+    ``loads`` (..., p) -> (..., E) f64.  ``ops`` is the ring's (M, den,
+    incidence) of :func:`ring_operators`.  The numerators incidence @ (M @
+    loads) (the mean drops out, M's rows summing to 0) are integers below
+    2^53, exact in f64 in any order, and each is divided by ``den`` and
+    rounded half to even exactly, as ``rint`` of the exact migration.  A
+    migration of exactly a half-integer is common (two tokens on an 8-ring
+    give flows of 1/2); float sums of pinv(L) (loads - mean), as
+    ``schedule_jnp`` has them, round it by the last bit of their order.
+
+    For integer-valued f64 numerators below 2^52 / den in magnitude the
+    quotient's floor is exact, since num / den is an integer or lies at
+    least 1 / den away from one."""
+    M, den, incidence = ops
+    num = (loads.to(torch.float64) @ M.T) @ incidence.T
+    q = torch.floor(num / den)
+    twice = 2 * (num - q * den)
+    up = (twice > den) | ((twice == den) & (torch.remainder(q, 2) == 1))
+    return q + up.to(q.dtype)
 
 
 @dataclasses.dataclass

@@ -944,8 +944,8 @@ bool encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D) {
 
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                void* lse, int BH, int BH_kv, int S, int D, int causal,
-                int window, cudaStream_t stream) {
+                void* lse, int BH, int BH_kv, int S, int D, int Dh,
+                int causal, int window, cudaStream_t stream) {
   const size_t bytes = Bf16Cfg<DP>::kSmem;
   CUtensorMap tq, tk, tv, to;
   if (!encode_map(&tq, q, BH, S, D) || !encode_map(&tk, k, BH_kv, S, D) ||
@@ -958,7 +958,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const unsigned grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
   // 2^(c s) = e^(scale s): the scale and log2 e folded into one factor.
   const float c = static_cast<float>(
-      1.4426950408889634 / std::sqrt(static_cast<double>(D)));
+      1.4426950408889634 / std::sqrt(static_cast<double>(Dh)));
   flash_bf16_kernel<DP><<<grid, kThreads, bytes, stream>>>(
       tq, tk, tv, to, static_cast<float*>(lse), BH, BH / BH_kv, S, c, causal,
       window);
@@ -967,8 +967,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               void* lse, int BH, int BH_kv, int S, int D, int causal,
-               int window, cudaStream_t stream) {
+               void* lse, int BH, int BH_kv, int S, int D, int Dh,
+               int causal, int window, cudaStream_t stream) {
   const size_t bytes = F32Cfg<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -978,14 +978,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_f32_kernel<DP><<<grid, kT32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), BH, S, D, BH / BH_kv, softmax_scale(D),
+      static_cast<float*>(lse), BH, S, D, BH / BH_kv, softmax_scale(Dh),
       causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int BH, int BH_kv, int S, int D) {
+bool bad_shape(int BH, int BH_kv, int S, int D, int Dh) {
   return BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || D <= 0 ||
-         D % 8 != 0 || D > 256;
+         D % 8 != 0 || D > 256 || Dh <= 0 || Dh > D;
 }
 
 }  // namespace
@@ -993,40 +993,42 @@ bool bad_shape(int BH, int BH_kv, int S, int D) {
 // q, o: (BH, S, D); k, v: (BH_kv, S, D) with BH_kv dividing BH; lse: (BH, S)
 // f32, each row's log-sum-exp of its scaled scores; contiguous, 16-byte
 // aligned, one dtype, on the stream's device; D a multiple of 8 and at most
-// 256.  Returns the cudaError_t of the launch (0 on success);
-// cudaErrorInvalidValue for a shape the kernels do not take.
+// 256; Dh (at most D) sets the softmax scale 1 / sqrt(Dh): a head dimension
+// that is not a multiple of 8, zero-padded to D by the caller.  Returns the
+// cudaError_t of the launch (0 on success); cudaErrorInvalidValue for a
+// shape the kernels do not take.
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o,
                                           void* lse, int BH, int BH_kv, int S,
-                                          int D, int causal, int window,
-                                          void* stream) {
+                                          int D, int Dh, int causal,
+                                          int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(BH, BH_kv, S, D))
+  if (bad_shape(BH, BH_kv, S, D, Dh))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
-    return launch_bf16<64>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+    return launch_bf16<64>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
                            window, st);
   if (D <= 128)
-    return launch_bf16<128>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+    return launch_bf16<128>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
                             window, st);
-  return launch_bf16<256>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+  return launch_bf16<256>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
                           window, st);
 }
 
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          int BH, int BH_kv, int S, int D,
-                                         int causal, int window,
+                                         int Dh, int causal, int window,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(BH, BH_kv, S, D))
+  if (bad_shape(BH, BH_kv, S, D, Dh))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
-    return launch_f32<64>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+    return launch_f32<64>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
                           window, st);
   if (D <= 128)
-    return launch_f32<128>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+    return launch_f32<128>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
                            window, st);
-  return launch_f32<256>(q, k, v, o, lse, BH, BH_kv, S, D, causal,
+  return launch_f32<256>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
                          window, st);
 }

@@ -924,14 +924,14 @@ int dkdv_groups(int rep, int n_kv_blocks) {
 template <int DP>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* ws, void* dq, void* dk,
-           void* dv, int BH, int BH_kv, int S, int D, int causal, int window,
-           cudaStream_t stream) {
+           void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+           int window, cudaStream_t stream) {
   const int rep = BH / BH_kv;
   const int S_pad = (S + kPad - 1) / kPad * kPad;
   float* lse2 = static_cast<float*>(ws);
   float* delta = lse2 + size_t(BH) * S_pad;
   const float scale =
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(Dh)));
   const float c = scale * kLog2e;   // 2^(c s) = e^(scale s)
 
   CUtensorMap tq, tdo, tk_dq, tv_dq, tdq, tk, tv;
@@ -995,24 +995,25 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // q, o, dout, dq: (BH, S, D) bf16; k, v, dk, dv: (BH_kv, S, D) bf16 with
 // BH_kv dividing BH; lse (the forward's): (BH, S) f32; the workspace ws:
 // (2, BH, S_pad) f32 with S_pad = S rounded up to 128.  Contiguous, 16-byte
-// aligned, on the stream's device; D a multiple of 16 and at most 256.
+// aligned, on the stream's device; D a multiple of 16 and at most 256; Dh
+// (at most D) sets the softmax scale 1 / sqrt(Dh), as in the forward.
 // Three launches on the stream; returns the first nonzero cudaError_t (0
 // on success), cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
-    void* dv, int BH, int BH_kv, int S, int D, int causal, int window,
-    void* stream) {
+    void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+    int window, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || D <= 0 ||
-      D % 16 != 0 || D > 256)
+      D % 16 != 0 || D > 256 || Dh <= 0 || Dh > D)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
     return launch<64>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D,
-                      causal, window, st);
+                      Dh, causal, window, st);
   if (D <= 128)
     return launch<128>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
-                       D, causal, window, st);
+                       D, Dh, causal, window, st);
   return launch<256>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D,
-                     causal, window, st);
+                     Dh, causal, window, st);
 }

@@ -700,11 +700,11 @@ int dkdv_groups(int rep, int n_kv_blocks) {
 template <int DP>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* delta, float* dq,
-           float* dk, float* dv, int BH, int BH_kv, int S, int D, int causal,
-           int window, int part, cudaStream_t stream) {
+           float* dk, float* dv, int BH, int BH_kv, int S, int D, int Dh,
+           int causal, int window, int part, cudaStream_t stream) {
   const int rep = BH / BH_kv;
   const float scale =
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(Dh)));
   cudaError_t err = cudaFuncSetAttribute(
       fa32_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Cfg<DP>::kDqSmem));
@@ -755,24 +755,24 @@ int launch(const float* q, const float* k, const float* v, const float* o,
 
 int run(const void* q, const void* k, const void* v, const void* o,
         const void* dout, const void* lse, void* ws, void* dq, void* dk,
-        void* dv, int BH, int BH_kv, int S, int D, int causal, int window,
-        int part, void* stream) {
+        void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+        int window, int part, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || D <= 0 ||
-      D % 8 != 0 || D > 256 || part > 2)
+      D % 8 != 0 || D > 256 || Dh <= 0 || Dh > D || part > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto w = [](void* p) { return static_cast<float*>(p); };
   if (D <= 64)
     return launch<64>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws), w(dq),
-                      w(dk), w(dv), BH, BH_kv, S, D, causal, window, part,
+                      w(dk), w(dv), BH, BH_kv, S, D, Dh, causal, window, part,
                       st);
   if (D <= 128)
     return launch<128>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws),
-                       w(dq), w(dk), w(dv), BH, BH_kv, S, D, causal, window,
-                       part, st);
+                       w(dq), w(dk), w(dv), BH, BH_kv, S, D, Dh, causal,
+                       window, part, st);
   return launch<256>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws), w(dq),
-                     w(dk), w(dv), BH, BH_kv, S, D, causal, window, part,
+                     w(dk), w(dv), BH, BH_kv, S, D, Dh, causal, window, part,
                      st);
 }
 
@@ -781,16 +781,17 @@ int run(const void* q, const void* k, const void* v, const void* o,
 // q, o, dout, dq: (BH, S, D) f32; k, v, dk, dv: (BH_kv, S, D) f32 with
 // BH_kv dividing BH; lse (the forward's): (BH, S) f32; the workspace ws:
 // (BH, S) f32 (Delta).  Contiguous, 16-byte aligned, on the stream's
-// device; D a multiple of 8 and at most 256.  Three launches on the
+// device; D a multiple of 8 and at most 256; Dh (at most D) sets the
+// softmax scale 1 / sqrt(Dh), as in the forward.  Three launches on the
 // stream; returns the first nonzero cudaError_t (0 on success),
 // cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int repro_flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
-    void* dv, int BH, int BH_kv, int S, int D, int causal, int window,
-    void* stream) {
-  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, causal,
-             window, -1, stream);
+    void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+    int window, void* stream) {
+  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, Dh,
+             causal, window, -1, stream);
 }
 
 // One launch of the above alone, so that each can be timed between CUDA
@@ -799,9 +800,9 @@ extern "C" int repro_flash_attention_bwd_f32(
 extern "C" int repro_flash_attention_bwd_f32_part(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
-    void* dv, int BH, int BH_kv, int S, int D, int causal, int window,
-    int part, void* stream) {
+    void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+    int window, int part, void* stream) {
   if (part < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, causal,
-             window, part, stream);
+  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, Dh,
+             causal, window, part, stream);
 }

@@ -10,7 +10,12 @@ read in place.  f32 accumulation, the output in the input type.  bf16
 runs on the tensor cores (``wgmma`` fed by TMA, three warpgroups a CTA),
 f32 in exact f32 arithmetic (register-tiled FMA, K and V copied by
 cp.async in pairs of tiles).  The forward also writes each row's
-log-sum-exp (BH, S) in f32, which the backward reads.
+log-sum-exp (BH, S) in f32, which the backward reads.  A head
+dimension D that is not a multiple of 8 (gemma3-1b's smoke config has
+12) is zero-padded in the wrapper to the next one (16 in the bf16
+backward): q . k is unchanged, v's extra output columns are 0 and are
+sliced away, and the kernels take the true D apart from the padded one
+for the softmax scale 1 / sqrt(D) (:func:`launch_plan`).
 
 The backward (no TPU counterpart) has an entry for each dtype, three
 CUDA launches each: a small launch for Delta = rowsum(dO .* O), one for
@@ -32,7 +37,10 @@ calls: the kernels for CUDA tensors, the plain versions of
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
@@ -62,19 +70,34 @@ def _f32_row(dp: int) -> int:
     return max(dp, 128) + 4
 
 
+def padded_head_dim(d: int, multiple: int = 8) -> int:
+    """D rounded up to a multiple of ``multiple``: the head dimension the
+    kernels read (8 for the forward and the f32 backward, 16 for the bf16
+    backward)."""
+    return -(-d // multiple) * multiple
+
+
+def pad_head_dim(t: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """``t`` (..., D) with zero columns up to ``d_pad``; ``t`` itself when
+    D is ``d_pad``."""
+    return t if t.shape[-1] == d_pad else F.pad(t, (0, d_pad - t.shape[-1]))
+
+
 def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype) -> dict:
-    """Shape checks and the launch of one call: the head dimension DP the
-    kernel is compiled for, the q rows a CTA owns (BQ), the kv rows a tile
-    holds (BK), the tiles in flight (the bf16 ring's stages, the f32
-    pair), the dynamic shared memory in bytes, threads a CTA and CTAs.
-    The tiles are ``Bf16Cfg`` and ``F32Cfg`` of the source, which
-    asserts the same 227 KB limit when it compiles."""
+    """Shape checks and the launch of one call: the padded head dimension
+    the kernel reads (D_PAD) and the softmax scale of the true D, the head
+    dimension DP the kernel is compiled for, the q rows a CTA owns (BQ),
+    the kv rows a tile holds (BK), the tiles in flight (the bf16 ring's
+    stages, the f32 pair), the dynamic shared memory in bytes, threads a
+    CTA and CTAs.  The tiles are ``Bf16Cfg`` and ``F32Cfg`` of the
+    source, which asserts the same 227 KB limit when it compiles."""
     rep = attention_shapes("flash_attention", q_shape, k_shape, v_shape)
     bh, s, d = q_shape
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: D must be a multiple of 8 and "
-                         f"at most {MAX_HEAD_DIM} (got {d})")
-    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: D must be at most "
+                         f"{MAX_HEAD_DIM} (got {d})")
+    d_pad = padded_head_dim(d)
+    dp = 64 if d_pad <= 64 else 128 if d_pad <= 128 else 256
     if dtype == torch.bfloat16:
         bq, bk, threads = 128, 64, 384
         stages = 2 if dp == 256 else 4
@@ -87,9 +110,9 @@ def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype) -> dict:
         # Q, a pair of K and of V tiles, P (a pair's keys + 4 a row)
         ld = _f32_row(dp)
         smem = 4 * (bq * ld + 2 * stages * bk * ld + bq * (stages * bk + 4))
-    return {"dp": dp, "bq": bq, "bk": bk, "stages": stages,
-            "smem_bytes": smem, "threads": threads, "rep": rep,
-            "ctas": -(-s // bq) * bh}
+    return {"d_pad": d_pad, "scale": 1.0 / math.sqrt(d), "dp": dp, "bq": bq,
+            "bk": bk, "stages": stages, "smem_bytes": smem,
+            "threads": threads, "rep": rep, "ctas": -(-s // bq) * bh}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -100,18 +123,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     dtype = _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v},
                                 dtypes=_build.LM_DTYPES)
-    launch_plan(q.shape, k.shape, v.shape, dtype)
+    d_pad = launch_plan(q.shape, k.shape, v.shape, dtype)["d_pad"]
     _build.check_aligned("flash_attention", {"q": q, "k": k, "v": v})
     bh, s, d = q.shape
+    q, k, v = (pad_head_dim(t, d_pad) for t in (q, k, v))
     out = torch.empty_like(q)
     lse_out = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     lib = _build.load()
     err = getattr(lib, _FN[dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse_out.data_ptr(), bh, k.shape[0], s, d, int(bool(causal)),
+        lse_out.data_ptr(), bh, k.shape[0], s, d_pad, d, int(bool(causal)),
         int(window), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     launches += 1
+    if d_pad != d:
+        out = out[..., :d].contiguous()
     return (out, lse_out) if lse else out
 
 
@@ -132,18 +158,22 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
     16 rows in pairs;
     dkdv: 32 kv rows a CTA (a cluster of ``groups`` CTAs, by the bf16
     rule), q tiles of 32 rows in pairs; staged rows of max(D_pad, 128) +
-    4 floats, and a (BH, S) workspace (Delta)."""
+    4 floats, and a (BH, S) workspace (Delta).  ``d_pad``: the head
+    dimension the launches read, D rounded up to a multiple of 8 (f32) or
+    16 (bf16)."""
     bh, s, d = q_shape
     bh_kv = k_shape[0]
     rep = bh // bh_kv
-    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    d_pad = padded_head_dim(d, 8 if dtype == torch.float32 else 16)
+    dp = 64 if d_pad <= 64 else 128 if d_pad <= 128 else 256
     if dtype == torch.float32:
         ld = _f32_row(dp)
         bq, bk = F32_BWD_BQ, F32_BWD_BK
         bkv, bqt, stages = F32_BWD_BKV, F32_BWD_BQT, F32_BWD_STAGES
         nkb = -(-s // bkv)
         groups = 2 if rep >= 2 and nkb * bh_kv < 2 * _build.NUM_SMS else 1
-        return {"dp": dp, "bq": bq, "bk": bk, "bkv": bkv, "bqt": bqt,
+        return {"d_pad": d_pad, "dp": dp, "bq": bq, "bk": bk, "bkv": bkv,
+                "bqt": bqt,
                 "stages": stages, "groups": groups, "threads": 256,
                 # Q, dO, O; a pair of K and of V tiles; P and dS (a
                 # pair's keys + 4 a row)
@@ -163,7 +193,8 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
     kv_stages = 2 if dp == 256 else 4
     nkb = -(-s // 64)
     groups = 2 if rep >= 2 and nkb * bh_kv < 2 * _build.NUM_SMS else 1
-    return {"dp": dp, "bq": 128, "bk": bk, "dq_stages": dq_stages,
+    return {"d_pad": d_pad, "dp": dp, "bq": 128, "bk": bk,
+            "dq_stages": dq_stages,
             "bkv": 64, "bqt": 64, "kv_stages": kv_stages, "groups": groups,
             # q and dO tiles of both consumers, the k and v rings,
             # 1 + 4 stages mbarriers
@@ -188,19 +219,16 @@ _BWD_FN = {torch.float32: "repro_flash_attention_bwd_f32",
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0) -> tuple:
     """The gradients (dq, dk, dv) of :func:`flash_attention` from its
-    inputs, its output ``o``, its ``lse`` and ``do``; f32 (exact FMA, D a
-    multiple of 8) or bf16 (``wgmma``, D a multiple of 16), all in one
-    dtype but the f32 ``lse``.  Three CUDA launches (Delta, dq, then dk
-    and dv)."""
+    inputs, its output ``o``, its ``lse`` and ``do``; f32 (exact FMA, D
+    zero-padded to a multiple of 8) or bf16 (``wgmma``, D zero-padded to a
+    multiple of 16), all in one dtype but the f32 ``lse``.  Three CUDA
+    launches (Delta, dq, then dk and dv)."""
     global bwd_launches
     dtype = _build.check_inputs("flash_attention_bwd",
                                 {"q": q, "k": k, "v": v, "o": o, "do": do},
                                 dtypes=_build.LM_DTYPES)
     launch_plan(q.shape, k.shape, v.shape, dtype)
     bh, s, d = q.shape
-    if dtype == torch.bfloat16 and d % 16:
-        raise ValueError(f"flash_attention_bwd: D must be a multiple of 16 "
-                         f"in bf16 (got {d})")
     _build.check_shape("flash_attention_bwd", "o", o, q.shape)
     _build.check_shape("flash_attention_bwd", "do", do, q.shape)
     _build.check_inputs("flash_attention_bwd", {"lse": lse},
@@ -208,20 +236,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     _build.check_shape("flash_attention_bwd", "lse", lse, (bh, s))
     _build.check_aligned("flash_attention_bwd",
                          {"q": q, "k": k, "v": v, "o": o, "do": do})
+    plan = bwd_plan(q.shape, k.shape, dtype)
+    d_pad = plan["d_pad"]
+    q, k, v, o, do = (pad_head_dim(t, d_pad) for t in (q, k, v, o, do))
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    ws = torch.empty(bwd_plan(q.shape, k.shape, dtype)["ws_shape"],
-                     dtype=torch.float32, device=q.device)
+    ws = torch.empty(plan["ws_shape"], dtype=torch.float32, device=q.device)
     lib = _build.load()
     err = getattr(lib, _BWD_FN[dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], s, d,
+        dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], s, d_pad, d,
         int(bool(causal)), int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     bwd_launches += 1
+    if d_pad != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -73,21 +73,22 @@ def _visible(s: int, causal: bool, window: int, device):
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                    lse: bool = False):
+                    lse: bool = False, scale: float | None = None):
     """Softmax attention with f32 scores.  q: (BH, S, D), k, v:
     (BH_kv, S, D) with BH_kv dividing BH, expanded along dim 0 in
     ``repeat_interleave``'s order -> (BH, S, D) in q's dtype; a key is
     visible when (causal) it is not after the query and (window > 0) it
     is less than ``window`` before it; masked scores are -1e30.  With
     ``lse`` also the log-sum-exp of each row's scaled scores, (BH, S) in
-    f32, which the backward reads."""
+    f32, which the backward reads.  ``scale`` defaults to 1 / sqrt(D); a
+    head dimension zero-padded to D keeps its own."""
     rep = attention_shapes("attention_plain", q.shape, k.shape, v.shape)
     if rep > 1:
         k = k.repeat_interleave(rep, dim=0)
         v = v.repeat_interleave(rep, dim=0)
     s, d = q.shape[1], q.shape[2]
-    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (
-        1.0 / math.sqrt(d))
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     ok = _visible(s, causal, window, q.device)
     scores = torch.where(ok[None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
@@ -121,7 +122,7 @@ def _dq_scores(dof, ve, of, causal: bool, window: int):
 
 
 def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, scale: float | None = None):
     """The gradients (dq, dk, dv) of :func:`attention_plain` by the FA2
     formulas the kernels evaluate: P = exp(s / sqrt(D) - lse) on visible
     keys, Delta = rowsum(dO .* O), dS = P .* (dO V^T - Delta), dK = dS^T
@@ -135,7 +136,8 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     lse against P (it would otherwise reach dQ as m_i times the
     P-weighted mean of K, far larger than the dQ of a row whose dS nearly
     cancels); f32 inside (f64 for f64 inputs), each gradient in its
-    input's dtype."""
+    input's dtype.  ``scale`` (1 / sqrt(D) by default) as in
+    :func:`attention_plain`."""
     rep = attention_shapes("attention_bwd_plain", q.shape, k.shape,
                            v.shape)
     bh_kv, s, d = k.shape
@@ -143,7 +145,7 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     ke = k.to(wide).repeat_interleave(rep, dim=0)
     ve = v.to(wide).repeat_interleave(rep, dim=0)
     qf, dof, of = q.to(wide), do.to(wide), o.to(wide)
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     scores = torch.einsum("bqd,bkd->bqk", qf, ke) * scale
     ok = _visible(s, causal, window, q.device)[None]
     p = torch.where(ok, torch.exp(scores - lse.to(wide)[..., None]), 0.0)

@@ -9,8 +9,10 @@ open-ended request stream runs under a bounded decode batch.
 
 Weights are random, drawn on the card from a seeded generator
 (:func:`repro_torch.models.transformer.init_params`).  The prefill runs
-the ``rglru_scan`` and ``flash_attention`` kernels (RecurrentGemma) or
-the ``ssd_scan`` kernel (Mamba-2) on the card.  For Mamba-2 the longest
+the ``rglru_scan`` and ``flash_attention`` kernels (RecurrentGemma), the
+``ssd_scan`` kernel (Mamba-2) or ``flash_attention`` in every layer (the
+uniform attention stack: Yi, Gemma, GLM-4, gemma3, and the MoE models
+OLMoE and Mixtral) on the card.  For Mamba-2 the longest
 prompt of a batch must be a multiple of the SSD chunk or shorter than
 it, as in the reference (the CLI draws lengths below ``--prompt-len``).
 For both models it must have at least 3 tokens, the conv width minus
@@ -18,8 +20,9 @@ one; a shorter one raises ``ValueError`` (the CLI draws 4 or more).
 
 Usage (the card by default; ``--device cpu`` for a CPU run):
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch recurrentgemma-9b|mamba2-1.3b [--smoke] --batch 4 \
-      --prompt-len 32 --max-new 16 [--slots 2] [--seed 0] [--device cpu]
+      --arch recurrentgemma-9b|mamba2-1.3b|yi-6b|olmoe-1b-7b|... [--smoke] \
+      --batch 4 --prompt-len 32 --max-new 16 [--slots 2] [--seed 0] \
+      [--device cpu]
 """
 from __future__ import annotations
 

@@ -17,8 +17,9 @@ the reference's from the same seed), unless ``init_params`` gives them.
 
 Usage (the card by default; ``--device cpu`` for a CPU run):
   PYTHONPATH=src python -m repro_torch.launch.train \
-      --arch recurrentgemma-9b|mamba2-1.3b [--smoke] --steps 100 \
-      --seq 128 --batch 8 [--dp 4] [--ckpt-dir DIR] [--device cpu]
+      --arch recurrentgemma-9b|mamba2-1.3b|olmoe-1b-7b|... [--smoke] \
+      --steps 100 --seq 128 --batch 8 [--dp 4] [--ckpt-dir DIR] \
+      [--device cpu]
 """
 from __future__ import annotations
 
@@ -51,13 +52,15 @@ def train(cfg, *, steps: int, seq: int, global_batch: int, dp: int,
     """Train ``steps`` steps (resuming from ``ckpt_dir``'s newest
     checkpoint if there is one); returns (params, opt, losses of the
     steps run here).  ``init_params`` (a tree like ``init_params`` gives,
-    on ``device``) replaces the random weights."""
+    on ``device``) replaces the random weights.  Each step accumulates
+    the gradients of ``cfg.train_accum`` microbatches (Mixtral's 8), so
+    ``global_batch`` must be a multiple of it."""
     if mesh is not None:
         raise NotImplementedError(
             "train(mesh=...): sharded training is not ported (ROADMAP "
             "Queue 1 item 13)")
     dev = device_mod.resolve(device)
-    opt_cfg = AdamWConfig(lr=lr)
+    opt_cfg = AdamWConfig(lr=lr, accum_steps=cfg.train_accum)
     schedule = make_schedule("cosine", lr, warmup_steps=max(steps // 20, 1),
                              total_steps=steps)
     step_fn = steps_mod.make_train_step(cfg, opt_cfg, lr_schedule=schedule)

@@ -1,26 +1,30 @@
-"""The RecurrentGemma and Mamba-2 models: init, training forward and
-loss, prefill and decode.
+"""The decoder LMs: init, training forward and loss, prefill and decode.
 
-The counterpart of ``repro.models.transformer``'s ``"periods"`` branch
-(the hybrid: periods of (rglru, rglru, local attention) plus a tail of
-RG-LRU layers) and of its ``("ssd",)`` branch (Mamba-2: a stack of SSD
-blocks).  Parameters are a nested dict of tensors with the reference's
-keys and its stacked leading layer axis, so the reference's weights
-carry across leaf by leaf
-(:func:`repro_torch.convert.lm_params_from_numpy`).  The reference's
-``lax.scan`` over layers is a Python loop over that axis.
+The counterpart of ``repro.models.transformer`` for three families: its
+``"periods"`` branch (the hybrid RecurrentGemma: periods of (rglru,
+rglru, local attention) plus a tail of RG-LRU layers), its ``("ssd",)``
+branch (Mamba-2: a stack of SSD blocks) and its uniform attention stack
+(``"blocks"``: Yi, Gemma, GLM-4, gemma3's local and global mixture, and
+the MoE models OLMoE and Mixtral, whose MLP is :mod:`repro_torch.models.moe`).
+Parameters are a nested dict of tensors with the reference's keys and
+its stacked leading layer axis, so the reference's weights carry across
+leaf by leaf (:func:`repro_torch.convert.lm_params_from_numpy`).  The
+reference's ``lax.scan`` over layers is a Python loop over that axis.
+Each attention layer of the uniform stack gets its own window and rope
+theta (:func:`layer_statics`): 0, unbounded, on a global layer.
 
 Training (``forward``, ``loss_fn``) and the prefill run the kernels
 through :mod:`repro_torch.kernels.ops`: ``rglru_scan`` in every RG-LRU
-layer, ``flash_attention`` in every local-attention layer and
-``ssd_scan`` in every SSD layer (by the tensors' device: the CUDA
-kernels, and for training their backward kernels, on the card; the plain
-versions on the CPU; ``mode="plain"`` forces the plain versions).
-``cfg.remat`` recomputes each scan body (an RG-LRU period or tail
-layer, an SSD layer) in the backward under ``torch.utils.checkpoint``,
-as the reference's ``jax.checkpoint`` does.  Decode runs no kernel: it is the O(1) recurrences
-and the cached attention, as in the reference.  Other model families
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+layer, ``flash_attention`` in every attention layer and ``ssd_scan`` in
+every SSD layer (by the tensors' device: the CUDA kernels, and for
+training their backward kernels, on the card; the plain versions on the
+CPU; ``mode="plain"`` forces the plain versions).  ``cfg.remat``
+recomputes each scan body (an RG-LRU period or tail layer, an SSD or
+attention layer) in the backward under ``torch.utils.checkpoint``, as
+the reference's ``jax.checkpoint`` does.  Decode runs no kernel: it is
+the O(1) recurrences and the cached attention, as in the reference.
+Whisper's encoder-decoder and the VLM stub raise ``NotImplementedError``
+(ROADMAP Queue 1 item 7b).
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import device as device_mod
-from repro_torch.models import attention, nn, rglru, ssd
+from repro_torch.models import attention, moe, nn, rglru, ssd
 from repro_torch.models.config import ModelConfig
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -44,14 +48,16 @@ def _is_ssd(cfg: ModelConfig) -> bool:
     return cfg.attn_pattern == ("ssd",)
 
 
+def _is_uniform(cfg: ModelConfig) -> bool:
+    return not (_is_hybrid(cfg) or _is_ssd(cfg))
+
+
 def _require_ported(cfg: ModelConfig) -> None:
-    if _is_ssd(cfg):
-        return
-    if not _is_hybrid(cfg):
+    if cfg.is_encoder_decoder or cfg.frontend == "vision_stub":
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the hybrid RG-LRU + local-attention "
-            f"and the Mamba-2 SSD families only; the other families are "
-            f"ROADMAP Queue 1 item 7")
+            f"{cfg.name}: whisper's encoder-decoder and the VLM stub are "
+            f"ROADMAP Queue 1 item 7b; the port runs the hybrid, SSD and "
+            f"uniform attention families")
     if cfg.attn_softcap > 0:
         raise NotImplementedError(
             f"{cfg.name}: attention soft-capping is not in the flash kernel")
@@ -77,11 +83,15 @@ class _Stacked:
 
 
 def _attn_block(b, cfg: ModelConfig):
-    return {"norm1": nn.make_norm_params(b, cfg.d_model, cfg.norm),
-            "attn": attention.make_attn_params(b, cfg),
-            "norm2": nn.make_norm_params(b, cfg.d_model, cfg.norm),
-            "mlp": nn.make_mlp_params(b, cfg.d_model, cfg.d_ff,
-                                      cfg.gated_mlp)}
+    p = {"norm1": nn.make_norm_params(b, cfg.d_model, cfg.norm),
+         "attn": attention.make_attn_params(b, cfg),
+         "norm2": nn.make_norm_params(b, cfg.d_model, cfg.norm)}
+    if cfg.num_experts > 0:
+        p["moe"] = moe.make_moe_params(b, cfg)
+    elif cfg.d_ff > 0:
+        p["mlp"] = nn.make_mlp_params(b, cfg.d_model, cfg.d_ff,
+                                      cfg.gated_mlp)
+    return p
 
 
 def _rglru_block(b, cfg: ModelConfig):
@@ -116,6 +126,9 @@ def _build(cfg: ModelConfig, b: nn.Builder):
         params["unembed"] = b.param((v, d), ("vocab", "embed_table"))
     if _is_ssd(cfg):
         params["blocks"] = _ssd_block(_Stacked(b, cfg.num_layers), cfg)
+        return params
+    if _is_uniform(cfg):
+        params["blocks"] = _attn_block(_Stacked(b, cfg.num_layers), cfg)
         return params
     n_full = _n_full(cfg)
     params["periods"] = {
@@ -192,13 +205,38 @@ def _apply_rglru_block(cfg, lp, h, mode):
     return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
 
 
-def _apply_attn_block(cfg, lp, h, positions, mode):
+def layer_statics(cfg: ModelConfig):
+    """Each layer's attention window and rope theta, the reference's
+    ``_layer_statics_py``: a local layer has ``cfg.window`` and, in a
+    mixed local and global pattern (gemma3), theta 10000; a global layer
+    has window 0 (unbounded) and ``cfg.rope_theta``."""
+    mixed = len(set(cfg.attn_pattern)) > 1
+    windows, thetas = [], []
+    for i in range(cfg.num_layers):
+        if cfg.layer_type(i) == "local":
+            windows.append(cfg.window)
+            thetas.append(10000.0 if mixed else cfg.rope_theta)
+        else:
+            windows.append(0)
+            thetas.append(cfg.rope_theta)
+    return windows, thetas
+
+
+def _ffn(cfg, lp, h):
+    """The block's second half: the MoE or the MLP on the normed h."""
+    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
+    if cfg.num_experts > 0:
+        return h + moe.apply_moe(cfg, lp["moe"], f_in)
+    if cfg.d_ff > 0:
+        return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+    return h
+
+
+def _apply_attn_block(cfg, lp, h, positions, window, theta, mode):
     a_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
     h = h + attention.attention(cfg, lp["attn"], a_in, positions,
-                                window=cfg.window,
-                                rope_theta=cfg.rope_theta, mode=mode)
-    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
-    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+                                window=window, rope_theta=theta, mode=mode)
+    return _ffn(cfg, lp, h)
 
 
 def _apply_ssd_block(cfg, lp, h, mode):
@@ -210,8 +248,9 @@ def _scan_layers(cfg: ModelConfig, body, h, layers: list):
     """``body(h, lp)`` over the per-layer trees ``layers`` in order; under
     remat ("block" or "group") each body runs in ``torch.utils.checkpoint``
     and is recomputed in the backward.  The values do not depend on it;
-    "group"'s coarser residuals are the reference's memory trade for MoE
-    models, which the port does not run."""
+    "group"'s coarser residuals, the reference's memory trade for
+    Mixtral-8x22B at full size on a mesh, are not ported (no config of
+    the port sets it)."""
     for lp in layers:
         if cfg.remat in ("block", "group"):
             h = torch.utils.checkpoint.checkpoint(body, h, lp,
@@ -228,18 +267,24 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = _embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=h.device).expand(B, S)
     if _is_ssd(cfg):
         h = _scan_layers(
             cfg, lambda h, lp: _apply_ssd_block(cfg, lp, h, mode), h,
             _unstack(params["blocks"]))
+    elif _is_uniform(cfg):
+        windows, thetas = layer_statics(cfg)
+        h = _scan_layers(
+            cfg, lambda h, lps: _apply_attn_block(cfg, lps[0], h, positions,
+                                                  lps[1], lps[2], mode),
+            h, list(zip(_unstack(params["blocks"]), windows, thetas)))
     else:
-        positions = torch.arange(S, device=h.device).expand(B, S)
-
         def period(h, lps):
             r1, r2, at = lps
             h = _apply_rglru_block(cfg, r1, h, mode)
             h = _apply_rglru_block(cfg, r2, h, mode)
-            return _apply_attn_block(cfg, at, h, positions, mode)
+            return _apply_attn_block(cfg, at, h, positions, cfg.window,
+                                     cfg.rope_theta, mode)
 
         periods = params["periods"]
         h = _scan_layers(cfg, period, h, list(zip(
@@ -293,6 +338,14 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
     if _is_ssd(cfg):
         return stacked(ssd.init_ssd_cache(cfg, batch, dtype, dev),
                        cfg.num_layers)
+    if _is_uniform(cfg):
+        # one stack per cache kind ("full" for global layers, "ring" for
+        # local ones), each in layer order
+        per: dict = {}
+        for spec in _layer_specs(cfg, max_seq):
+            per.setdefault(spec.kind, []).append(
+                attention.init_cache(cfg, spec, batch, dtype, dev))
+        return {k: _stack(v) for k, v in per.items()}
     spec = attention.CacheSpec("ring", min(cfg.window, max_seq))
     n_full = _n_full(cfg)
     cache = {
@@ -307,6 +360,13 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
         cache["tail"] = stacked(rglru.init_rglru_cache(cfg, batch, dtype,
                                                        dev), _n_tail(cfg))
     return cache
+
+
+def _layer_specs(cfg: ModelConfig, max_seq: int) -> list:
+    """Each layer's cache: a "ring" of the window for a local layer, a
+    "full" one of ``max_seq`` for a global one."""
+    return [attention.cache_spec(cfg, cfg.layer_type(i), max_seq)
+            for i in range(cfg.num_layers)]
 
 
 def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int):
@@ -326,6 +386,10 @@ def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int):
             new.append(c)
         h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
         return logits_fn(cfg, params, h), _stack(new)
+    if _is_uniform(cfg):
+        h, new_cache = _decode_uniform(cfg, params, cache, h, pos)
+        h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        return logits_fn(cfg, params, h), new_cache
     spec = attention.CacheSpec("ring", int(cache["attn"]["k"].shape[2]))
     periods = params["periods"]
     new = {"r1": [], "r2": [], "attn": []}
@@ -365,9 +429,26 @@ def _decode_attn_block(cfg, lp, c, spec, h, pos, window, theta):
     out, nc = attention.decode_attention(cfg, lp["attn"], c, spec, a_in,
                                          pos, window=window,
                                          rope_theta=theta)
-    h = h + out
-    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
-    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp), nc
+    return _ffn(cfg, lp, h + out), nc
+
+
+def _decode_uniform(cfg, params, cache, h, pos):
+    """Decode through the uniform stack in layer order; layer i reads and
+    writes its slot of its kind's stack (gemma3's local and global layers
+    interleave)."""
+    windows, thetas = layer_statics(cfg)
+    kinds = [spec.kind for spec in _layer_specs(cfg, 1 << 30)]
+    specs = {k: attention.CacheSpec(k, int(c["k"].shape[2]))
+             for k, c in cache.items()}
+    new = {k: [] for k in cache}
+    for i in range(cfg.num_layers):
+        kind = kinds[i]
+        h, c = _decode_attn_block(
+            cfg, _index(params["blocks"], i),
+            _index(cache[kind], len(new[kind])), specs[kind], h, pos,
+            windows[i], thetas[i])
+        new[kind].append(c)
+    return h, {k: _stack(v) for k, v in new.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +478,16 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None, *,
         return _logits_last(cfg, params, h), _stack(per)
     max_seq = max_seq or S
     positions = torch.arange(S, device=h.device).expand(B, S)
+    if _is_uniform(cfg):
+        windows, thetas = layer_statics(cfg)
+        per: dict = {}
+        for i, spec in enumerate(_layer_specs(cfg, max_seq)):
+            h, c = _attn_prefill_block(
+                cfg, _index(params["blocks"], i), h, positions, spec,
+                windows[i], thetas[i], mode)
+            per.setdefault(spec.kind, []).append(c)
+        return _logits_last(cfg, params, h), {k: _stack(v)
+                                              for k, v in per.items()}
     spec = attention.CacheSpec("ring", min(cfg.window, max_seq))
     periods = params["periods"]
     per = {"r1": [], "r2": [], "attn": []}
@@ -435,9 +526,7 @@ def _attn_prefill_block(cfg, lp, h, positions, spec, window, theta,
     out, k, v = attention.attention(cfg, lp["attn"], a_in, positions,
                                     window=window, rope_theta=theta,
                                     mode=mode, return_kv=True)
-    h = h + out
-    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
-    h = h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+    h = _ffn(cfg, lp, h + out)
     cache = attention.prefill_cache(cfg, spec, k, v,
                                     torch.arange(h.shape[1], device=h.device))
     return h, cache

@@ -13,7 +13,7 @@ density.  Either way the stream continues from the saved cursor — no
 completed cycle is ever replayed.
 
 The model half (``remesh``, ``named_shardings``) waits for the port of
-the LM training stack (ROADMAP.md Queue 1 item 7), and a device mesh
+the LM sharding layer (ROADMAP.md Queue 1 item 7c), and a device mesh
 for multi-process solves (``mesh=``) for item 13.
 """
 from __future__ import annotations

@@ -11,6 +11,8 @@ kv heads, read in place); the JAX package gets the same arrays
 expanded.  The CUDA kernels themselves run only on the card
 (``chip_smoke.py``).
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -172,12 +174,54 @@ def test_attention_launch_plan_fits_one_cta(dtype):
                 # rows of 68), rows of 260 floats
                 assert plan["smem_bytes"] == 217088
     assert seen == {64, 128, 256}
-    with pytest.raises(ValueError, match="multiple of 8"):
-        t_fa.launch_plan((2, 16, 12), (2, 16, 12), (2, 16, 12),
-                         T_DTYPE[dtype])
+    # a head dimension off the multiple of 8 is zero-padded to one, the
+    # softmax scale staying the true D's
+    plan = t_fa.launch_plan((2, 16, 12), (2, 16, 12), (2, 16, 12),
+                            T_DTYPE[dtype])
+    assert (plan["d_pad"], plan["dp"]) == (16, 64)
+    assert plan["scale"] == 1.0 / math.sqrt(12)
     with pytest.raises(ValueError, match="at most 256"):
         t_fa.launch_plan((2, 16, 264), (2, 16, 264), (2, 16, 264),
                          T_DTYPE[dtype])
+
+
+@pytest.mark.parametrize("d", [3, 12, 20, 24])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_padded_head_dim_keeps_the_scale(d, dtype):
+    """What the wrappers hand the kernels at a head dimension the kernels
+    do not read as it is (forward: D off a multiple of 8; bf16 backward:
+    off 16): q, k, v (and o, dO) zero-padded to the plan's ``d_pad`` with
+    the true D's scale give the unpadded function's output, lse and
+    gradients in the first D columns and zeros past them."""
+    dt = T_DTYPE[dtype]
+    gen = torch.Generator().manual_seed(d)
+    q, k, v, do = (torch.randn(4, 33, d, generator=gen).to(dt)
+                   for _ in range(4))
+    k, v = k[:2], v[:2]
+    plan = t_fa.launch_plan(q.shape, k.shape, v.shape, dt)
+    assert plan["d_pad"] == -(-d // 8) * 8 and plan["d_pad"] % 8 == 0
+    kw = dict(causal=True, window=16)
+    pad = lambda t, n: t_fa.pad_head_dim(t, n)  # noqa: E731
+    out, lse = tref.attention_plain(q, k, v, lse=True, **kw)
+    dp = plan["d_pad"]
+    out_p, lse_p = tref.attention_plain(pad(q, dp), pad(k, dp), pad(v, dp),
+                                        lse=True, scale=plan["scale"], **kw)
+    assert torch.equal(lse_p, lse)
+    assert torch.equal(out_p[..., :d], out)
+    assert not out_p[..., d:].any()
+    bplan = t_fa.bwd_plan(q.shape, k.shape, dt)
+    assert bplan["d_pad"] == -(-d // (8 if dtype == "float32" else 16)) * (
+        8 if dtype == "float32" else 16)
+    bp = bplan["d_pad"]
+    want = tref.attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    got = tref.attention_bwd_plain(*(pad(t, bp) for t in (q, k, v, out)),
+                                   lse, pad(do, bp), scale=plan["scale"],
+                                   **kw)
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    for g, w in zip(got, want):
+        assert not g[..., d:].float().any()
+        np.testing.assert_allclose(g[..., :d].float().numpy(),
+                                   w.float().numpy(), rtol=0, atol=tol)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,16 @@ smoke config (f32, 5 layers = one (rglru, rglru, local) period plus a
 2-layer RG-LRU tail, window 16), carried across with
 ``convert.lm_params_from_numpy``.  Prompts are made with numpy.
 
+The uniform attention stack (``UNIFORM``: Yi, Gemma, GLM-4, gemma3's
+local and global mixture, OLMoE and Mixtral, each on its smoke config)
+runs the same checks: the param tree, prefill logits and caches, chained
+decode steps, greedy tokens through ``serve_batch`` and the CLI.  The
+MoE configs run the reference with its DyDD schedule rounded exactly
+(``_torch_exact_schedule``: at a migration of exactly a half-integer the
+reference's float rounding lands on either side), as the port rounds.
+A global layer takes no window: Yi's and OLMoE's smoke configs with
+``window=8`` still match the reference at S = 32.
+
 Tolerance: max-abs 1e-4 at f32 on logits (magnitude ~70) and on every
 cache leaf; the two packages sum in other orders (the reference scans
 with an associative scan and blocked softmax, the port one step at a
@@ -23,6 +33,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_exact_schedule import exact_reference_schedule  # noqa: E402,F401
 from repro import configs as jconfigs  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.models import attention as jattention  # noqa: E402
@@ -91,7 +102,7 @@ def test_configs_and_param_tree(model):
     assert cfg_t == type(cfg_t)(**vars(cfg_j))
     assert tconfigs.get_config(ARCH).param_count() == \
         jconfigs.get_config(ARCH).param_count()
-    for arch in ("gemma-7b",):
+    for arch in ("whisper-large-v3", "phi3-vision-4.2b"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             tconfigs.get_config(arch)
     # The port's own initializer builds the reference's tree.
@@ -296,3 +307,138 @@ def test_cli_runs_on_the_cpu(capsys):
                  "20", "--max-new", "3", "--slots", "2", "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.count("req ") == 3 and "tok/s" in out
+
+
+# ---------------------------------------------------------------------------
+# The uniform attention stack, dense and MoE.
+# ---------------------------------------------------------------------------
+
+UNIFORM = ("yi-6b", "gemma-7b", "glm4-9b", "gemma3-1b", "olmoe-1b-7b",
+           "mixtral-8x22b")
+
+
+def _pair(arch, **over):
+    cfg_j = jconfigs.get_smoke_config(arch)
+    cfg_t = tconfigs.get_smoke_config(arch)
+    if over:
+        cfg_j = cfg_j.scaled(**over)
+        cfg_t = cfg_t.scaled(**over)
+    params_j = jtransformer.init_params(cfg_j, jax.random.PRNGKey(0))
+    params_t = convert.lm_params_from_numpy(
+        jax.tree.map(np.asarray, params_j), device="cpu")
+    return cfg_j, cfg_t, params_j, params_t
+
+
+@pytest.fixture(scope="module", params=UNIFORM)
+def uniform(request):
+    return _pair(request.param)
+
+
+def test_uniform_configs_and_param_tree(uniform):
+    cfg_j, cfg_t, params_j, params_t = uniform
+    assert cfg_t == type(cfg_t)(**vars(cfg_j))
+    assert tconfigs.get_config(cfg_t.name).param_count() == \
+        jconfigs.get_config(cfg_j.name).param_count()
+    fresh = ttransformer.init_params(cfg_t, 0, device="cpu")
+    ref = dict(_leaves(jtransformer.param_shapes(cfg_j)))
+    got = dict(_leaves(fresh))
+    assert sorted(ref) == sorted(got)
+    assert ("/blocks/moe/router" in got) == (cfg_t.num_experts > 0)
+    for path, s in ref.items():
+        assert tuple(got[path].shape) == tuple(s.shape), path
+        assert got[path].dtype == torch.float32, path
+    # the reference's weights carry across and back leaf for leaf
+    back = convert.lm_params_to_numpy(params_t)
+    for path, a in _leaves(jax.tree.map(np.asarray, params_j)):
+        np.testing.assert_array_equal(dict(_leaves(back))[path], a)
+
+
+def test_uniform_prefill_matches_reference(uniform, exact_reference_schedule):
+    cfg_j, cfg_t, params_j, params_t = uniform
+    tokens = _prompts(2, PROMPT, seed=3)
+    logits_j, cache_j = _ref_prefill(cfg_j, params_j, tokens)
+    before = tops.launch_counts()
+    logits_t, cache_t = tsteps.make_prefill_step(cfg_t, max_seq=MAX_SEQ)(
+        params_t, {"tokens": torch.as_tensor(tokens)})
+    assert tops.launch_counts() == before
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
+                               rtol=0, atol=ATOL)
+    _assert_tree_close(cache_j, cache_t)
+    _assert_tree_close(jtransformer.init_decode_cache(cfg_j, 2, MAX_SEQ),
+                       ttransformer.init_decode_cache(cfg_t, 2, MAX_SEQ,
+                                                      device="cpu"))
+
+
+def test_uniform_chained_serve_steps_match_reference(
+        uniform, exact_reference_schedule):
+    cfg_j, cfg_t, params_j, params_t = uniform
+    tokens = _prompts(2, PROMPT, seed=4)
+    logits_j, cache_j = _ref_prefill(cfg_j, params_j, tokens)
+    _, cache_t = tsteps.make_prefill_step(cfg_t, max_seq=MAX_SEQ)(
+        params_t, {"tokens": torch.as_tensor(tokens)})
+    serve_j = jax.jit(functools.partial(jtransformer.serve_step, cfg_j))
+    serve_t = tsteps.make_serve_step(cfg_t)
+    cur = np.array(jnp.argmax(logits_j, -1))[:, None]
+    for step in range(4):
+        logits_j, cache_j = serve_j(params_j, cache_j,
+                                    jnp.asarray(cur, jnp.int32),
+                                    jnp.asarray(PROMPT + step, jnp.int32))
+        logits_t, cache_t = serve_t(params_t, cache_t, torch.as_tensor(cur),
+                                    PROMPT + step)
+        np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
+                                   rtol=0, atol=ATOL)
+        _assert_tree_close(cache_j, cache_t)
+        cur = np.array(jnp.argmax(logits_j, -1))
+
+
+def test_uniform_serve_batch_greedy_tokens_match_reference(
+        uniform, exact_reference_schedule):
+    cfg_j, cfg_t, params_j, params_t = uniform
+    lengths, max_new = (40, 23, 31), (6, 6, 6)
+    ref, _ = jserve.serve_batch(cfg_j, params_j,
+                                _requests(jserve.Request, lengths, max_new),
+                                max_seq=MAX_SEQ)
+    got, _ = tserve.serve_batch(
+        cfg_t, params_t, _requests(tserve.Request, lengths, max_new),
+        max_seq=MAX_SEQ)
+    assert [r.out for r in got] == [r.out for r in ref]
+
+
+@pytest.mark.parametrize("arch", UNIFORM)
+def test_uniform_cli_runs_on_the_cpu(arch, capsys):
+    tserve.main(["--arch", arch, "--smoke", "--batch", "3", "--prompt-len",
+                 "20", "--max-new", "3", "--slots", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("req ") == 3 and "tok/s" in out
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "olmoe-1b-7b"])
+def test_global_layers_take_no_window(arch, exact_reference_schedule):
+    """A global layer attends to every earlier position whatever
+    ``cfg.window`` says: the smoke config with window 8 at S = 32 still
+    matches the reference in the forward, the prefill and a decode step,
+    and differs from a local layer's result."""
+    cfg_j, cfg_t, params_j, params_t = _pair(arch, window=8)
+    tokens = _prompts(2, 32, seed=5)
+    h_j = jtransformer.forward(cfg_j, params_j,
+                               {"tokens": jnp.asarray(tokens, jnp.int32)})
+    h_t = ttransformer.forward(cfg_t, params_t,
+                               {"tokens": torch.as_tensor(tokens)})
+    np.testing.assert_allclose(h_t.detach().numpy(), np.asarray(h_j),
+                               rtol=0, atol=ATOL)
+    local = cfg_t.scaled(attn_pattern=("local",))
+    h_l = ttransformer.forward(local, params_t,
+                               {"tokens": torch.as_tensor(tokens)})
+    assert float((h_l - h_t).abs().max()) > 100 * ATOL
+    logits_j, cache_j = _ref_prefill(cfg_j, params_j, tokens)
+    logits_t, cache_t = tsteps.make_prefill_step(cfg_t, max_seq=MAX_SEQ)(
+        params_t, {"tokens": torch.as_tensor(tokens)})
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
+                               rtol=0, atol=ATOL)
+    cur = np.array(jnp.argmax(logits_j, -1))[:, None]
+    lj, _ = jtransformer.serve_step(cfg_j, params_j, cache_j,
+                                    jnp.asarray(cur, jnp.int32),
+                                    jnp.asarray(32, jnp.int32))
+    lt, _ = tsteps.make_serve_step(cfg_t)(params_t, cache_t,
+                                          torch.as_tensor(cur), 32)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=ATOL)

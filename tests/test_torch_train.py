@@ -29,6 +29,16 @@ and one numpy batch go to both packages:
   the steps taken, 2 lr a step;
 * prefill + one decode step equals the training forward on the extended
   sequence (the reference's ``test_decode_matches_forward``), 1e-4.
+
+The uniform attention stack (``UNIFORM``: the smoke configs of Yi, Gemma,
+GLM-4, gemma3, OLMoE and Mixtral) gets the loss and every gradient leaf,
+one train step (Mixtral's with ``accum_steps`` = 2, through the
+microbatch loop) and prefill + decode against the forward, at the same
+tolerances.  The MoE configs run the reference with its DyDD schedule
+rounded exactly (``_torch_exact_schedule``), as the port rounds; for
+decode against the forward they turn balancing off and raise the
+capacity, as the reference's own test does, since a token's route
+depends on the other tokens of its sequence.
 """
 import dataclasses
 
@@ -40,6 +50,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_exact_schedule import exact_reference_schedule  # noqa: E402,F401
+from _torch_exact_schedule import tied_migrations  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
 from repro.models import nn as jnn  # noqa: E402
@@ -48,7 +60,9 @@ from repro.optim import adamw as jadamw  # noqa: E402
 from repro.runtime import steps as jsteps  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert as tconvert  # noqa: E402
+from repro_torch.data import pipeline as tpipeline  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import nn as tnn  # noqa: E402
 from repro_torch.models import transformer as ttransformer  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
@@ -253,3 +267,115 @@ def test_decode_matches_forward(arch):
         ref = ttransformer.logits_fn(cfg_t, pt, h[:, -1:, :])[:, 0]
     err = float((logits2[:, 0] - ref).abs().max() / ref.abs().max())
     assert err < 1e-4, err
+
+
+# ---------------------------------------------------------------------------
+# The uniform attention stack, dense and MoE.
+# ---------------------------------------------------------------------------
+
+UNIFORM = ("yi_6b", "gemma_7b", "glm4_9b", "gemma3_1b", "olmoe_1b_7b",
+           "mixtral_8x22b")
+
+
+@pytest.mark.parametrize("arch,remat", [(a, "none") for a in UNIFORM]
+                         + [("gemma3_1b", "block"),
+                            ("olmoe_1b_7b", "block")])
+def test_uniform_loss_and_grads_match_reference(arch, remat,
+                                                exact_reference_schedule):
+    test_loss_and_grads_match_reference(arch, 32, remat)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "mixtral_8x22b"])
+def test_moe_loss_and_grads_match_unpatched_reference_off_ties(
+        arch, monkeypatch):
+    """The MoE models' loss and grads against the reference with its own
+    ``schedule_jnp``, unpatched, on the first batch (seeds 0, 1, ...)
+    whose every DyDD schedule in the port's run has no migration of
+    exactly a half-integer: off those ties float ``rint`` and the port's
+    exact rounding agree, so this parity rests on the unmodified
+    reference alone."""
+    cfg_j, cfg_t = _cfgs(arch)
+    pj, pt = _params(cfg_j)
+    seen = []
+    target = tmoe.dydd_target_counts
+
+    def spy(counts, ops, capacity):
+        seen.append(counts.reshape(-1, counts.shape[-1]).numpy().copy())
+        return target(counts, ops, capacity)
+
+    monkeypatch.setattr(tmoe, "dydd_target_counts", spy)
+    loss_fn = tsteps.make_loss_fn(cfg_t)
+    for seed in range(20):
+        seen.clear()
+        batch = _batch(cfg_j, 2, 32, seed)
+        lt, gt = tsteps.value_and_grad(loss_fn, pt, _t(batch))
+        assert len(seen) == cfg_t.num_layers
+        if not any(tied_migrations(c).any() for c in seen):
+            break
+    else:
+        pytest.fail("every batch has a tied migration")
+    lj, gj = jax.value_and_grad(
+        lambda p: jtransformer.loss_fn(cfg_j, p, _j(batch)))(pj)
+    assert abs(float(lt) - float(lj)) <= LOSS_RTOL * abs(float(lj))
+    pairs = _pairs(gt, gj)
+    assert len(pairs) == len(tadamw.leaves(gt))
+    for path, a, b in pairs:
+        assert _frob(a, b) <= GRAD_RTOL, (path, _frob(a, b))
+
+
+@pytest.mark.parametrize("arch", UNIFORM)
+def test_uniform_train_step_matches_reference(arch,
+                                              exact_reference_schedule):
+    test_train_step_matches_reference(
+        arch, 2 if arch == "mixtral_8x22b" else 1)
+
+
+@pytest.mark.parametrize("arch", UNIFORM)
+def test_uniform_decode_matches_forward(arch):
+    cfg_j, cfg_t = _cfgs(arch)
+    over = ({"moe_dydd_balance": False, "capacity_factor": 4.0}
+            if cfg_t.num_experts else {})
+    cfg_t = dataclasses.replace(cfg_t, **over)
+    _, pt = _params(cfg_j)
+    B, S = 2, 16
+    toks = torch.from_numpy(_batch(cfg_j, B, S)["tokens"]).long()
+    with torch.no_grad():
+        logits_last, cache = ttransformer.prefill(cfg_t, pt, {"tokens": toks},
+                                                  max_seq=S + 8)
+        nxt = torch.argmax(logits_last, -1)[:, None]
+        logits2, _ = ttransformer.serve_step(cfg_t, pt, cache, nxt, S)
+        h = ttransformer.forward(cfg_t, pt,
+                                 {"tokens": torch.cat([toks, nxt], 1)})
+        ref = ttransformer.logits_fn(cfg_t, pt, h[:, -1:, :])[:, 0]
+    err = float((logits2[:, 0] - ref).abs().max() / ref.abs().max())
+    assert err < 1e-4, err
+
+
+def test_train_driver_takes_the_configs_accumulation(monkeypatch):
+    """``launch.train.train`` accumulates ``cfg.train_accum`` microbatches
+    a step (Mixtral's 8 at full size; 2 here): a step takes the gradients
+    of each half of the batch, and its loss is the mean of theirs."""
+    _, cfg_t = _cfgs("mixtral_8x22b", train_accum=2)
+    init = ttransformer.init_params(cfg_t, 0, device="cpu")
+    rows = []
+
+    def counted(loss_fn, params, batch):
+        rows.append(int(batch["tokens"].shape[0]))
+        return value_and_grad(loss_fn, params, batch)
+
+    value_and_grad = tsteps.value_and_grad
+    monkeypatch.setattr(tsteps, "value_and_grad", counted)
+    _, _, losses = ttrain.train(
+        cfg_t, steps=1, seq=16, global_batch=4, dp=2, log_every=100,
+        ckpt_dir=None, device="cpu",
+        init_params=tadamw.tree_map(torch.clone, init))
+    assert rows == [2, 2]
+    loader = tpipeline.BalancedLoader(vocab_size=cfg_t.vocab_size, dp=2,
+                                      batch_per_shard=2, seq=16, seed=0)
+    batch = ttrain.batch_on("cpu", *loader.next_batch())
+    loss_fn = tsteps.make_loss_fn(cfg_t)
+    with torch.no_grad():
+        halves = [float(loss_fn(init, {k: v[2 * i:2 * i + 2]
+                                       for k, v in batch.items()}))
+                  for i in range(2)]
+    assert abs(losses[0] - np.mean(halves)) <= LOSS_RTOL * abs(losses[0])
