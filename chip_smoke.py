@@ -2156,10 +2156,13 @@ def attention_bwd_shape_row(name: str, label: str, args, kwargs,
     GRAD_TOL, dK, dV and dQ row by row), two launches bitwise equal; the
     kernel (median of 7), the plain backward and SDPA's backward timed
     beside the bound (library_ms: SDPA's causal path where the mask is
-    plain causal, the same function, else the same mask; both printed)."""
+    plain causal, the same function, else the same mask; both printed),
+    and the device time of each of its CUDA launches (the
+    profiler's, :func:`launch_times`; where it drops them, each launch
+    alone between CUDA events, :func:`attention_launch_times`)."""
     gen = torch.Generator(device=DEVICE).manual_seed(8)
     shape, dtype = tuple(args[0].shape), args[0].dtype
-    err, _, kernel, plain, dout, _ = bwd_compare(
+    err, fwd, kernel, plain, dout, _ = bwd_compare(
         "flash_attention", args, kwargs, gen, f"{label} {shape}", True)
     rand = tuple(torch.randn(t.shape, generator=gen, device=DEVICE).to(dtype)
                  for t in args)
@@ -2195,8 +2198,69 @@ def attention_bwd_shape_row(name: str, label: str, args, kwargs,
           f"{masked:.4f} ms), bound "
           f"{bound:.4f} ms ({by}), share of the bound "
           f"{bound / row['ms']:.3f}, {launches} launches a training step")
+    parts, how = launch_times(kernel, BWD_KERNELS["flash_attention"]), \
+        "the profiler's"
+    from repro_torch.kernels import flash_attention
+    launches = flash_attention.bwd_plan(args[0].shape, args[1].shape,
+                                        dtype)["launches"]
+    if len(parts) != len(launches):
+        parts = attention_launch_times(args, fwd, dout, kwargs, kernel,
+                                       row["ms"])
+        how = "each launch alone between CUDA events"
+    row["launch_ms"] = {k: ms for k, ms in parts}
+    print(f"  flash_attention backward {label} launches, device time a call "
+          f"({how}): " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in parts))
     print_bwd_build("flash_attention", args, kwargs)
     return row
+
+
+# The bf16 attention's design at head dimension 128 (128-key tiles on a
+# persistent grid; the backward's dkdv on 128-row kv blocks) on the card,
+# (BH, BH_kv, S, causal, window): S off a multiple of 128, GQA rep 8 and 16
+# (also in two query-head groups a kv block), windows of 512 and 4096 at S
+# = 8192, non-causal with and without a window; the backward on most.
+D128_FWD = ((8, 8, 1000, True, 0), (8, 8, 4095, True, 0),
+            (16, 2, 1000, True, 0), (32, 2, 4095, True, 0),
+            (2, 1, 8192, True, 512), (2, 1, 8192, True, 4096),
+            (4, 4, 1000, False, 0), (4, 1, 4095, False, 0),
+            (4, 2, 300, False, 64), (3, 1, 77, True, 0))
+D128_BWD = ((8, 8, 1000, True, 0), (16, 2, 1000, True, 0),
+            (16, 1, 4095, True, 0), (2, 1, 8192, True, 4096),
+            (2, 2, 8192, True, 512), (4, 4, 1000, False, 0),
+            (6, 3, 300, True, 512), (3, 3, 77, True, 0))
+
+
+def phase_attention_d128() -> None:
+    """The bf16 flash_attention forward and backward at D = 128 on
+    D128_FWD's and D128_BWD's shapes, each held to its plain version
+    (:func:`lm_compare`, :func:`bwd_compare` with the rows of dQ, dK and
+    dV), two launches bitwise equal."""
+    from repro_torch.kernels import flash_attention
+    print("== kernels: flash_attention bf16 at D = 128 (ragged S, GQA, "
+          "windows, non-causal)")
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    for cases, bwd in ((D128_FWD, False), (D128_BWD, True)):
+        for bh, bh_kv, s, causal, window in cases:
+            qkv = tuple(torch.randn(r, s, 128, generator=gen, device=DEVICE)
+                        .to(torch.bfloat16) for r in (bh, bh_kv, bh_kv))
+            kw = {"causal": causal, "window": window}
+            label = (f"D 128 ({bh}, {bh_kv}, {s}) causal={causal} "
+                     f"window={window}")
+            if bwd:
+                kernel = bwd_compare("flash_attention", qkv, kw, gen, label,
+                                     True)[2]
+            else:
+                lm_compare("flash_attention", qkv, kw, label)
+
+                def kernel():
+                    return flash_attention.flash_attention(*qkv, lse=True,
+                                                           **kw)
+            one, two = kernel(), kernel()
+            check(all(torch.equal(a, b) for a, b in zip(one, two)),
+                  f"flash_attention{' backward' if bwd else ''} {label}: two "
+                  f"launches bitwise equal")
+            del qkv, kernel, one, two
+    torch.cuda.empty_cache()
 
 
 # flash_attention at head dimensions the kernels read zero-padded (BH,
@@ -2349,7 +2413,7 @@ def launch_times(fn, pattern: str, calls: int = 3) -> list:
     calls) of the f32 attention backward in most runs of the whole
     script, with 57 of 85 GB of device memory free, and not in runs of
     its kernels alone (PERF.md §7; the cause is not known), so that
-    kernel's launches are timed by ``attention_f32_launch_times``
+    kernel's launches are timed by ``attention_launch_times``
     instead.  It takes a CUDA-only session whose schedule skips a call
     and warms up on another and, where that matched nothing, one of CPU
     and CUDA activities after a warm-up call, as a training step's
@@ -3146,10 +3210,11 @@ def print_bwd_build(key: str, args, kwargs) -> None:
     if key.startswith("flash_attention"):
         plan = flash_attention.bwd_plan(args[0].shape, args[1].shape,
                                         args[0].dtype)
-        print(f"  dynamic shared memory: dq {plan['dq_smem_bytes']} B, dkdv "
-              f"{plan['dkdv_smem_bytes']} B; CTAs dq {plan['dq_ctas']}, "
-              f"dkdv {plan['dkdv_ctas']} ({plan['groups']} query-head "
-              f"groups a kv block)")
+        print(f"  launches {', '.join(plan['launches'])}; dynamic shared "
+              f"memory and CTAs: dq {plan['dq_smem_bytes']} B, "
+              f"{plan['dq_ctas']} CTAs; dkdv {plan['dkdv_smem_bytes']} B, "
+              f"{plan['dkdv_ctas']} CTAs ({plan['groups']} query-head groups "
+              f"a kv block)")
     elif key == "ssd_scan":
         smem = ssd_scan.bwd_smem_bytes()
         x, _, _, B, _ = args
@@ -3270,40 +3335,51 @@ def attention_f32_row(args, kwargs, heads: int, launches: int) -> dict:
     return out
 
 
-def attention_f32_launch_times(args, fwd, dout, kwargs, kernel,
-                               whole_ms: float) -> list:
-    """(name, ms) of each CUDA launch of one f32 flash_attention backward
-    at ``args``: prep, dq and dkdv, each run alone through the C entry
-    ``repro_flash_attention_bwd_f32_part`` (which only this script calls)
-    and timed between CUDA events, the median of 7 (prep first, so that
-    dq and dkdv read its Delta).  The profiler keeps no record of these
-    kernels in most runs of the whole script (:func:`launch_times`).
-    Checks that the three launches alone give ``kernel``'s dQ, dK and dV
-    bitwise, so the launches timed are the path's, and that their times
-    add up to the whole call's median ``whole_ms`` within 10%."""
-    from repro_torch.kernels import _build
+def attention_launch_times(args, fwd, dout, kwargs, kernel,
+                           whole_ms: float) -> list:
+    """(name, ms) of each CUDA launch of one flash_attention backward at
+    ``args`` (f32 or bf16, D a multiple of 16): prep (none in bf16 at D <=
+    128, whose dq launch does its work), dq and dkdv, each run alone
+    through the C entry ``repro_flash_attention_bwd_{f32,bf16}_part``
+    (which only this script calls) and timed between CUDA events, the
+    median of 7 (in order, so that each reads what the one before left in
+    the workspace).
+    The profiler keeps no record of the f32 kernels in most runs of the
+    whole script (:func:`launch_times`), and this is the bf16 rows'
+    fallback where it drops theirs.  Checks that the launches alone
+    give ``kernel``'s dQ, dK and dV bitwise, so the launches timed are the
+    path's, and (f32) that their times add up to the whole call's median
+    ``whole_ms`` within 10%."""
+    from repro_torch.kernels import _build, flash_attention
 
     q, k, v = args
     o, lse = fwd
-    ws = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    kind = "f32" if q.dtype == torch.float32 else "bf16"
+    ws = torch.empty(flash_attention.bwd_plan(q.shape, k.shape,
+                                              q.dtype)["ws_shape"],
+                     dtype=torch.float32, device=q.device)
     grads = [torch.empty_like(t) for t in (q, k, v)]
-    lib = _build.load()
+    entry = getattr(_build.load(), f"repro_flash_attention_bwd_{kind}_part")
+    names = flash_attention.bwd_plan(q.shape, k.shape, q.dtype)["launches"]
     out = []
-    for part, name in enumerate(("prep", "dq", "dkdv")):
-        def one(part=part):
-            _build.check(lib.repro_flash_attention_bwd_f32_part(
+    for name in names:
+        def one(part=("prep", "dq", "dkdv").index(name)):
+            _build.check(entry(
                 *(t.data_ptr() for t in (q, k, v, o, dout, lse, ws, *grads)),
                 q.shape[0], k.shape[0], q.shape[1], q.shape[2], q.shape[2],
                 int(bool(kwargs["causal"])), int(kwargs["window"]), part,
                 torch.cuda.current_stream(q.device).cuda_stream),
-                "flash_attention_bwd_f32_part")
+                f"flash_attention_bwd_{kind}_part")
         out.append((name, median_ms(one, 7)))
     total = sum(ms for _, ms in out)
-    check(all(torch.equal(a, b) for a, b in zip(grads, kernel()))
-          and abs(total - whole_ms) <= 0.1 * whole_ms,
-          f"flash_attention_f32 backward's launches alone: dQ, dK and dV "
+    # A bf16 call's median holds its host time (60-100 us against ~0.5 ms
+    # on the card at D = 128), so its sum is printed, not gated.
+    near = kind == "bf16" or abs(total - whole_ms) <= 0.1 * whole_ms
+    check(all(torch.equal(a, b) for a, b in zip(grads, kernel())) and near,
+          f"flash_attention {kind} backward's launches alone: dQ, dK and dV "
           f"bitwise the whole call's, their times' sum {total:.4f} ms "
-          f"within 10% of its {whole_ms:.4f} ms")
+          + ("beside" if kind == "bf16" else "within 10% of")
+          + f" its {whole_ms:.4f} ms")
     return out
 
 
@@ -3339,7 +3415,7 @@ def phase_train_kernels(kept: dict, counts: dict) -> list:
     the bound, the plain backward and, for flash_attention, SDPA's
     backward with the same mask, and each CUDA launch's device time (the
     profiler's; the f32 attention's each run alone between CUDA events,
-    ``attention_f32_launch_times``); the f32 attention forward as a row
+    ``attention_launch_times``); the f32 attention forward as a row
     of its own (``attention_f32_row``) and the f32 rglru_scan forward
     timed at their training shapes.
     ``counts``: each kernel's launches a step of the train phases' main
@@ -3412,10 +3488,13 @@ def phase_train_kernels(kept: dict, counts: dict) -> list:
               + ("" if earlier is None else
                  f"; first design {earlier:.4f} ms (PERF.md)"))
         if key == "flash_attention_f32":
-            parts = attention_f32_launch_times(args, fwd, dout, kwargs,
+            parts = attention_launch_times(args, fwd, dout, kwargs,
                                                kernel, row["ms"])
         else:
             parts = launch_times(kernel, BWD_KERNELS[key])
+            if not parts and key == "flash_attention":
+                parts = attention_launch_times(args, fwd, dout, kwargs,
+                                               kernel, row["ms"])
         print(f"  {key} backward launches, device time a call: " + (
             ", ".join(f"{k} {ms:.4f} ms" for k, ms in parts)
             or "not traced"))
@@ -3528,6 +3607,7 @@ def main() -> int:
         del inputs, args
         torch.cuda.empty_cache()
     phase_padded_head_dim()
+    phase_attention_d128()
     stamp("the uniform stack's serving")
 
     kept, train_counts = {}, {}

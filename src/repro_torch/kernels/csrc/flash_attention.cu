@@ -16,49 +16,72 @@
 // Bound on this card: operations for bf16 at long S (4 flops per visible
 // score entry per head dimension against one read of q, k, v and one
 // write of o; at the RecurrentGemma-9B prefill shape, q (64, 4096, 256)
-// and one kv row per batch row, window 2048: ~412 GFLOP against ~290 MB),
-// bytes for short S.
+// and one kv row per batch row, window 2048: ~412 GFLOP against ~290 MB;
+// at Yi-6B's, q (128, 4096, 128), k, v (16, 4096, 128), causal: ~550
+// GFLOP, 0.556 ms at 989 TFLOP/s), bytes for short S.
 //
-// bf16 design: warp-specialised wgmma with TMA loads, one CTA of three
-// warpgroups per (q head, 128-row q block).
+// bf16 design, common to both head-dimension groups: warp-specialised
+// wgmma with TMA loads, CTAs of three warpgroups on 128-row q blocks.
 // * Warpgroup 0 is the producer.  Under setmaxnreg.dec it gives up its
-//   registers; one thread issues every TMA load: the q tile once, then the
-//   k and v tiles (64 rows) of each kv block the q block visits, through a
-//   ring of stages in shared memory with full and empty mbarriers per
-//   stage and per tile (2 stages at D <= 256, 4 at D <= 128).  The tensor
-//   maps are 3-D (D, S, heads), so rows past S are zero-filled by TMA and
-//   never read from the next head; boxes are 64 columns (128 B) by 64 rows
-//   with the 128-byte swizzle, the layout wgmma reads without bank
-//   conflicts.
+//   registers; one thread issues every TMA load through rings of stages
+//   in shared memory with full and empty mbarriers.  The tensor maps are
+//   3-D (D, S, heads), so rows past S are zero-filled by TMA and never
+//   read from the next head; boxes are 64 columns (128 B) wide with the
+//   128-byte swizzle, the layout wgmma reads without bank conflicts.
 // * Warpgroups 1 and 2 are consumers, 64 q rows each, under
-//   setmaxnreg.inc.  S = Q K^T is wgmma m64n64k16 with both operands in
-//   shared memory (K-major), D / 16 steps a tile.  The online softmax runs
-//   on the S fragment in registers (running max m and sum l per row,
-//   reduced over the 4 lanes that share a row, in the base-2 domain with
-//   the scale folded in); masks are evaluated only on tiles that cross the
-//   diagonal, the window's edge or S (the loop over tiles runs as masked,
-//   unmasked and masked stretches, so no branch sits between a product
-//   and its wait).  P is rounded to bf16 in registers and is the A operand
-//   of O += P V, wgmma m64n{D}k16 with V read from shared memory as an
-//   MN-major (transposed) B operand; the f32 O accumulator (64 x D per
-//   warpgroup) stays in registers.
+//   setmaxnreg.inc.  The online softmax runs on the S fragment in
+//   registers (running max m and sum l per row, reduced over the 4 lanes
+//   that share a row, in the base-2 domain with the scale folded in);
+//   masks are evaluated only on tiles that cross the diagonal, the
+//   window's edge or S (the tiles run as masked, unmasked and masked
+//   stretches, so no branch sits between a product and its wait).  P is
+//   rounded to bf16 in registers and is the A operand of O += P V, with V
+//   read from shared memory as an MN-major (transposed) B operand; the f32
+//   O accumulator (64 x D a warpgroup) stays in registers.
 // * Schedule (FA3's): a consumer issues tile i's S together with tile
 //   i - 1's P V and runs tile i's softmax while P V is in flight; the two
 //   consumers take turns issuing their products (named barriers), so one's
-//   softmax overlaps the other's products.  Each consumer runs every tile
-//   of the q block, also one that none of its rows sees, whose masked
-//   softmax adds exactly 0.  On the card this schedule gave bitwise the
-//   same outputs as issuing and waiting on each product in turn, in less
-//   time at D = 64, 128 and 256.
-// * Epilogue: O / max(l, 1e-30) in bf16 is written into the warpgroup's
-//   own (now free) q tile in the swizzled layout and stored by TMA, which
-//   drops the rows past S.  Each row's log-sum-exp of the scaled scores,
-//   scale m + ln max(l, 1e-30), goes to a (BH, S) f32 output that the
-//   backward (flash_attention_bwd.cu) reads instead of re-running the
-//   forward.
-// * CTAs are ordered heaviest q block first, and within a q block by q
-//   head, so the q heads that share a kv head run side by side and find
-//   its tiles in L2.
+//   softmax overlaps the other's products.
+// * Epilogue: O / max(l, 1e-30) in bf16 is written in the swizzled layout
+//   and stored by TMA, which drops the rows past S.  Each row's
+//   log-sum-exp of the scaled scores, scale m + ln max(l, 1e-30), goes to
+//   a (BH, S) f32 output that the backward (flash_attention_bwd.cu) reads
+//   instead of re-running the forward.
+//
+// D = 64 and 128 (the uniform attention stack's D = 128: Yi, GLM-4,
+// OLMoE, Mixtral):
+// * kv tiles of 128 keys (kBK2) on three stages of K and V (32 KB each at
+//   D = 128) and the q tiles of both consumers: 225 KB.  S is m64n128k16
+//   with Q's fragments in registers (ldmatrix once an item, after which
+//   the q tiles take the next item's) and K from shared memory (K-major).
+//   A thread holds o[64], s[64], p[32] and Q's 32 words under
+//   setmaxnreg's 240.
+// * A persistent grid: one CTA an SM takes work items, (q block, q head)
+//   pairs, from a counter (one int32, zeroed before the launch) as it
+//   finishes; the items run kv head by kv head, heaviest q block first
+//   within one, its q heads side by side, so that the CTAs at work read
+//   the k and v of few kv heads (L2).  The producer fetches the next
+//   item's index with its q tile while this item runs; a consumer's tiles
+//   run as one stream over its items: the step that starts an item issues
+//   its tile 0's S with the last item's last P V, and the last item's O
+//   is stored from registers while the next runs.  The ring's phases run
+//   on over the items.
+// * Per row, the max and sum over a thread's 32 entries run as four
+//   chains.
+// * What holds it back: at Yi's prefill shape it reaches 0.58-0.59 of the
+//   bound, and a non-causal call 0.61-0.63, SDPA's causal kernel's rate;
+//   neither the softmax's chains, the q tile's reads from shared memory,
+//   the ring's depth (2 or 3), the items' boundaries nor half the kv
+//   loads moved it: the limit is the consumers' own pipeline; the turns
+//   of the two consumers (named barriers) are worth 2.5% (NVIDIA H100
+//   80GB HBM3, 700 W).
+//
+// D = 256 (RecurrentGemma): kv tiles of 64 keys, two stages, S m64n64k16
+// with both operands in shared memory, one CTA a (q head, q block),
+// heaviest q block first and its q heads side by side; the epilogue writes
+// O into the consumer's own q tile and stores it by TMA.  Each consumer
+// runs every tile of the q block, also one that none of its rows sees,
+// whose masked softmax adds exactly 0.
 //
 // f32 design: exact f32 FMA, no tensor cores (no TF32), so the bound is
 // the FMA rate (4 D flops a visible pair; at the f32 training shape, q (32,
@@ -121,14 +144,14 @@ constexpr int kThreads = 384;      // producer + two consumer warpgroups
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
-// Shared memory at head dimension DP (64, 128 or 256): the q tiles of both
+// Shared memory at head dimension DP (256): the q tiles of both
 // consumers, the k ring, the v ring, then the mbarriers (full q; full k,
 // full v, empty k and empty v per stage), after up to 1 KB of padding that
 // aligns the tiles to the 1024-byte period of the 128-byte swizzle.
 template <int DP>
 struct Bf16Cfg {
   static constexpr int kNB = DP / 64;       // 64-column boxes in a row
-  static constexpr int kStages = DP == 256 ? 2 : 4;
+  static constexpr int kStages = 2;
   static constexpr int kTile = kNB * kBox;  // one 64-row tile
   static constexpr size_t kSmem =
       1024 + size_t(2 + 2 * kStages) * kTile + 8 * (1 + 4 * kStages);
@@ -357,22 +380,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
 // sum l, returns the rescale factor alpha of each row, and leaves
 // P = 2^(c (s - m)) (c = scale * log2 e) in s.  kMask evaluates visible()
 // per entry; masked entries become exactly 0.
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(float (&s)[32],
+template <bool kMask, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N],
                                              float (&m_run)[2],
                                              float (&l_run)[2],
                                              float (&alpha)[2], float c,
                                              int r0, int k0, int S,
                                              int causal, int window) {
-  float mx[2] = {m_run[0], m_run[1]};
+  // Each row's max and sum over the thread's entries in kC chains (one
+  // at N = 32; four at N = 64, the 128-key tiles, whose chains of 32
+  // would sit on the consumer's path between its products).
+  constexpr int kC = N == 64 ? 4 : 1;
+  float mx4[2][kC];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int j = 0; j < kC; ++j) mx4[0][j] = m_run[0], mx4[1][j] = m_run[1];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
     if (kMask && !visible(r0 + 8 * ((i >> 1) & 1),
                           k0 + 8 * (i >> 2) + (i & 1), S, causal, window))
       s[i] = kNegInf;
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float& m = mx4[(i >> 1) & 1][(i >> 2) % kC];
+    m = fmaxf(m, s[i]);
   }
-  float mc[2], sum[2] = {0.0f, 0.0f};
+  float mx[2], mc[2], sum4[2][kC] = {}, sum[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = mx4[h][0];
+#pragma unroll
+    for (int j = 1; j < kC; ++j) mx[h] = fmaxf(mx[h], mx4[h][j]);
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
@@ -382,14 +418,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32],
     mc[h] = mx[h] * c;
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int h = (i >> 1) & 1;
     s[i] = (!kMask || s[i] > 0.5f * kNegInf) ? ex2(fmaf(s[i], c, -mc[h]))
                                              : 0.0f;
-    sum[h] += s[i];
+    sum4[h][(i >> 2) % kC] += s[i];
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
+    if constexpr (kC == 4)
+      sum[h] = (sum4[h][0] + sum4[h][1]) + (sum4[h][2] + sum4[h][3]);
+    else
+      sum[h] = sum4[h][0];
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
     l_run[h] = l_run[h] * alpha[h] + sum[h];
@@ -676,6 +716,480 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at head dimension 64 and 128: 128-key tiles on a persistent grid.
+// ---------------------------------------------------------------------------
+
+constexpr int kBK2 = 128;             // kv rows per tile
+constexpr int kKVBox = kBK2 * 128;    // one 64-column box of a kv tile
+
+// Shared memory at head dimension DP (64 or 128): the q tiles of both
+// consumers (read into registers when an item starts, then free for the
+// next item's), the k ring, the v ring (kv tiles as [box][128 rows][128
+// B]), the mbarriers (full and empty q; full k, full v, empty k and empty
+// v per stage), then the q tiles' work item.
+template <int DP>
+struct Bf16Cfg2 {
+  static constexpr int kNB = DP / 64;
+  static constexpr int kStages = 3;
+  static constexpr int kQTile = kNB * kBox;      // 64 rows
+  static constexpr int kKVTile = kNB * kKVBox;   // 128 rows
+  static constexpr size_t kSmem = 1024 + size_t(2) * kQTile +
+                                  size_t(2 * kStages) * kKVTile +
+                                  8 * (2 + 4 * kStages) + 16;
+  static_assert(kSmem <= 232448, "bf16 tiles exceed 227 KB");
+};
+
+template <int kStages>
+struct Barriers2 {
+  uint32_t base;
+  __device__ uint32_t full_q() const { return base; }
+  __device__ uint32_t empty_q() const { return base + 8; }
+  __device__ uint32_t full_k(int s) const { return base + 8 * (2 + s); }
+  __device__ uint32_t full_v(int s) const {
+    return base + 8 * (2 + kStages + s);
+  }
+  __device__ uint32_t empty_k(int s) const {
+    return base + 8 * (2 + 2 * kStages + s);
+  }
+  __device__ uint32_t empty_v(int s) const {
+    return base + 8 * (2 + 3 * kStages + s);
+  }
+};
+
+// d (+)= A B over one k16 step, A from registers (the m64k16 fragment), B
+// (128 rows) K-major from shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The warp's 16 rows of a 64-row tile in the 128-byte-swizzled layout
+// ([box][64 rows][128 B]) as wgmma A fragments, one per k16 step, by
+// ldmatrix: lanes 8 m + r address row r of 8 x 8 matrix m (rows 8 (m &
+// 1) + r, the step's columns 8 (m >> 1) ..), which lands as a[kk][m].
+template <int DP>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[DP / 16][4],
+                                             const unsigned char* tile,
+                                             int warp, int lane) {
+  const int r = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int chunk = (kk % 4) * 2 + (lane >> 4);
+    const uint32_t addr = smem_u32(tile + (kk / 4) * kBox + r * 128 +
+                                   ((chunk ^ (r & 7)) << 4));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
+        : "r"(addr)
+        : "memory");
+  }
+}
+
+// S = Q K^T over one 128-key tile: DP / 16 k16 steps of m64n128k16, Q's
+// fragments from registers, K's step kk in box kk / 4 (kKVBox apart) at a
+// 32-byte column step kk % 4.
+template <int DP>
+__device__ __forceinline__ void issue_qk2(float (&s)[64],
+                                          const uint32_t (&qa)[DP / 16][4],
+                                          uint64_t k_desc) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_rs_n128(s, qa[kk],
+                  k_desc + (((kk / 4) * kKVBox + (kk % 4) * 32) >> 4),
+                  kk > 0);
+}
+
+// O += P V over one 128-key tile's eight k16 steps: V's 64-column boxes
+// kKVBox apart (leading offset), 8-key groups 1024 B apart; step j starts
+// 16 keys (2048 B) further, P's fragment p[4j .. 4j + 3].
+template <int DP>
+__device__ __forceinline__ void issue_pv2(float (&o)[DP / 2],
+                                          const uint32_t (&p)[32],
+                                          uint64_t v_desc) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    wgmma_rs(o, p + 4 * j, v_desc + ((j * 2048) >> 4));
+}
+
+template <int DP>
+__device__ __forceinline__ void rescale_pack2(float (&o)[DP / 2],
+                                              uint32_t (&p)[32],
+                                              const float (&s)[64],
+                                              const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    o[4 * n] *= alpha[0];
+    o[4 * n + 1] *= alpha[0];
+    o[4 * n + 2] *= alpha[1];
+    o[4 * n + 3] *= alpha[1];
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j) p[j] = pack2(s[2 * j], s[2 * j + 1]);
+}
+
+// Whether every (q, key) pair of a 64-row warpgroup block and a 128-key
+// tile is visible.
+__device__ __forceinline__ bool tile_full2(int k_start, int q0, int S,
+                                           int causal, int window) {
+  return k_start + kBK2 <= S && (!causal || k_start + kBK2 - 1 <= q0) &&
+         (window <= 0 || k_start > q0 + 63 - window);
+}
+
+// Work item idx of the persistent grid, a (128-row q block, q head) pair:
+// kv head by kv head, and within one its q blocks heaviest first (last
+// under causal), the q heads that share it side by side, so that the
+// CTAs at work at one time read the k and v of few kv heads (L2).  The
+// CTAs take items in this order from a counter as they finish their last
+// one; each output is written by one CTA whatever the order, so the
+// order does not touch the result.
+struct Item {
+  int bh, q_start, kb_lo, n_tiles;
+};
+
+__device__ __forceinline__ Item item_of(int idx, int rep, int S, int causal,
+                                        int window) {
+  const int nqb = (S + kBQ - 1) / kBQ;
+  const int per_kv = nqb * rep;
+  const int w = idx % per_kv;
+  Item it;
+  it.bh = (idx / per_kv) * rep + w % rep;
+  it.q_start = (nqb - 1 - w / rep) * kBQ;
+  const int nk = (S + kBK2 - 1) / kBK2;
+  const int kb_end =
+      causal ? min(nk, (it.q_start + kBQ - 1) / kBK2 + 1) : nk;
+  it.kb_lo = window > 0 ? max(0, it.q_start - window + 1) / kBK2 : 0;
+  it.n_tiles = kb_end - it.kb_lo;
+  return it;
+}
+
+// One step i >= 1 of an item (`it`: the tile's index on the ring, counted
+// over the CTA's items): tile i's S and tile i - 1's O += P V issued in
+// this consumer's turn, tile i's softmax while P V runs, O rescaled and
+// tile i's P packed.
+template <int DP>
+struct OverlapStep2 {
+  static constexpr int kStages = Bf16Cfg2<DP>::kStages;
+  static constexpr int kKVTile = Bf16Cfg2<DP>::kKVTile;
+  uint32_t k_ring, v_ring;
+  Barriers2<kStages> bars;
+  float c;
+  int r0, S, causal, window, h, lane;
+
+  template <bool kMask>
+  __device__ __forceinline__ void run(float (&o)[DP / 2], float (&s)[64],
+                                      uint32_t (&p)[32],
+                                      const uint32_t (&qa)[DP / 16][4],
+                                      float (&m_run)[2], float (&l_run)[2],
+                                      int it, int k0) const {
+    const int st = it % kStages, parity = (it / kStages) & 1;
+    const int pst = (it - 1) % kStages, ppar = ((it - 1) / kStages) & 1;
+    float alpha[2];
+    bar_wait(bars.full_k(st), parity);
+    bar_wait(bars.full_v(pst), ppar);
+    named_sync(3 + h, 256);
+    wgmma_fence();
+    issue_qk2<DP>(s, qa, sw128_desc(k_ring + st * kKVTile, 16, 1024));
+    wgmma_commit();
+    issue_pv2<DP>(o, p, sw128_desc(v_ring + pst * kKVTile, kKVBox, 1024));
+    wgmma_commit();
+    named_arrive(4 - h, 256);
+    wgmma_wait<1>();
+    fence_regs(s);
+    softmax_tile<kMask>(s, m_run, l_run, alpha, c, r0, k0, S, causal,
+                        window);
+    release(bars.empty_k(st), lane);
+    wgmma_wait<0>();
+    fence_regs(o);
+    release(bars.empty_v(pst), lane);
+    rescale_pack2<DP>(o, p, s, alpha);
+  }
+};
+
+// Tile 0's softmax of an item from a fresh running max and sum, masked
+// unless every pair of the tile is visible.
+__device__ __forceinline__ void softmax_first(float (&s)[64], float (&m)[2],
+                                              float (&l)[2], float c, int r0,
+                                              int q0, int k0, int t, int S,
+                                              int causal, int window) {
+  float alpha[2];
+  m[0] = m[1] = kNegInf;
+  l[0] = l[1] = 0.0f;
+  if (tile_full2(k0, q0, S, causal, window))
+    softmax_tile<false>(s, m, l, alpha, c, r0, 0, S, causal, window);
+  else
+    softmax_tile<true>(s, m, l, alpha, c, r0, k0 + 2 * t, S, causal, window);
+}
+
+// The epilogue of this thread's rows r0 and r0 + 8 of head bh: each
+// row's lse, and O / l in bf16 stored from registers (a row's four lanes
+// write 16 contiguous bytes; rows past S and columns past D dropped), so
+// that no shared memory waits on the store.
+template <int DP>
+__device__ __forceinline__ void store_rows(
+    const float (&o)[DP / 2], const float (&m)[2], const float (&l)[2],
+    float c, float* lse, __nv_bfloat16* out, int bh, int r0, int S, int D,
+    int t) {
+  const float d[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+  const float ln2 = 0.6931471805599453f;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + 8 * hr;
+    if (r >= S) continue;
+    if (t == 0)
+      lse[static_cast<size_t>(bh) * S + r] =
+          (m[hr] * c + log2f(d[hr])) * ln2;
+    __nv_bfloat16* orow = out + (static_cast<size_t>(bh) * S + r) * D;
+#pragma unroll
+    for (int nn = 0; nn < DP / 8; ++nn) {
+      const int col = 8 * nn + 2 * t;
+      if (col < D)
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            pack2(o[4 * nn + 2 * hr] / d[hr], o[4 * nn + 2 * hr + 1] / d[hr]);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
+                             __grid_constant__ const CUtensorMap tk,
+                             __grid_constant__ const CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int* __restrict__ next,
+                             int BH, int rep, int S, int D, float c,
+                             int causal, int window) {
+  using Cfg = Bf16Cfg2<DP>;
+  constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages;
+  constexpr int kQTile = Cfg::kQTile, kKVTile = Cfg::kKVTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = base;              // [consumer][box][64][128 B]
+  unsigned char* Ks = Qs + 2 * kQTile;   // [stage][box][128][128 B]
+  unsigned char* Vs = Ks + kStages * kKVTile;
+  unsigned char* bar_mem = Vs + kStages * kKVTile;
+  const Barriers2<kStages> bars{smem_u32(bar_mem)};
+  volatile int* q_item =
+      reinterpret_cast<volatile int*>(bar_mem + 8 * (2 + 4 * kStages));
+  const int total = ((S + kBQ - 1) / kBQ) * BH;
+
+  if (threadIdx.x == 0) {
+    bar_init(bars.full_q(), 1);
+    bar_init(bars.empty_q(), 8);   // lane 0 of each consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(bars.full_k(s), 1);
+      bar_init(bars.full_v(s), 1);
+      bar_init(bars.empty_k(s), 8);
+      bar_init(bars.empty_v(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: item k's index from the counter with its q tiles (once
+    // the consumers hold item k - 1's q in registers), then its kv tiles
+    // through the ring, whose stages and phases run on over the items; an
+    // index past the last item ends the CTA's consumers.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int k = 0;; ++k) {
+        if (k >= 1) bar_wait(bars.empty_q(), (k - 1) & 1);
+        const int idx = atomicAdd(next, 1);
+        *q_item = idx;
+        if (idx >= total) {
+          bar_arrive(bars.full_q());
+          break;
+        }
+        const Item item = item_of(idx, rep, S, causal, window);
+        bar_arrive_tx(bars.full_q(), 2 * kQTile);
+        for (int h = 0; h < 2; ++h)
+          for (int j = 0; j < kNB; ++j)
+            tma_load(Qs + (h * kNB + j) * kBox, &tq, 64 * j,
+                     item.q_start + 64 * h, item.bh, bars.full_q());
+        const int bkv = item.bh / rep;
+        for (int i = 0; i < item.n_tiles; ++i, ++it) {
+          const int st = it % kStages, parity = ((it / kStages) & 1) ^ 1;
+          const int row = (item.kb_lo + i) * kBK2;
+          bar_wait(bars.empty_k(st), parity);
+          bar_arrive_tx(bars.full_k(st), kKVTile);
+          for (int j = 0; j < kNB; ++j)
+            tma_load(Ks + st * kKVTile + j * kKVBox, &tk, 64 * j, row, bkv,
+                     bars.full_k(st));
+          bar_wait(bars.empty_v(st), parity);
+          bar_arrive_tx(bars.full_v(st), kKVTile);
+          for (int j = 0; j < kNB; ++j)
+            tma_load(Vs + st * kKVTile + j * kKVBox, &tv, 64 * j, row, bkv,
+                     bars.full_v(st));
+        }
+      }
+    }
+  } else {
+    // Consumers: 64 q rows of each item each, taking turns (named
+    // barriers 3 and 4) over the CTA's items, whose tiles run as one
+    // stream: the step that starts an item issues its tile 0's S together
+    // with the last item's last P V, runs tile 0's softmax while P V
+    // runs, and then stores the last item's output.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    const int h = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t k_ring = smem_u32(Ks), v_ring = smem_u32(Vs);
+    const int row = 16 * warp + g;
+    if (h == 1) named_arrive(3, 256);   // consumer 0 goes first
+
+    float o[DP / 2];
+    float s[64] = {};   // written by the first k16 step of every tile
+    uint32_t p[32];
+    uint32_t qa[DP / 16][4];   // the item's Q as A fragments
+    float m_run[2], l_run[2];
+
+    int it = 0;   // the ring's tile of the current item's tile 0
+    bar_wait(bars.full_q(), 0);
+    int idx = *q_item;
+    if (idx < total) {
+      // The CTA's first item: tile 0's S alone.
+      Item item = item_of(idx, rep, S, causal, window);
+      int q0 = item.q_start + 64 * h;
+      load_a_frags<DP>(qa, Qs + h * kQTile, warp, lane);
+      release(bars.empty_q(), lane);
+      {
+        const int st = it % kStages;
+        bar_wait(bars.full_k(st), (it / kStages) & 1);
+        named_sync(3 + h, 256);
+        wgmma_fence();
+        issue_qk2<DP>(s, qa, sw128_desc(k_ring + st * kKVTile, 16, 1024));
+        wgmma_commit();
+        named_arrive(4 - h, 256);
+        wgmma_wait<0>();
+        fence_regs(s);
+        softmax_first(s, m_run, l_run, c, q0 + row, q0, item.kb_lo * kBK2, t,
+                      S, causal, window);
+        release(bars.empty_k(st), lane);
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) p[j] = pack2(s[2 * j], s[2 * j + 1]);
+      }
+      for (int k = 0;; ++k) {
+        const int n = item.n_tiles;
+        const int k_lo = item.kb_lo * kBK2;
+        const int r0 = q0 + row;         // this thread's rows: r0, r0 + 8
+
+        // Tiles 1 .. n - 1 in three runs: masked, unmasked [f0, f1),
+        // masked.
+        int f0 = n, f1 = n;
+        for (int i = n - 1; i >= 1; --i)
+          if (tile_full2(k_lo + i * kBK2, q0, S, causal, window)) {
+            if (f1 == n) f1 = i + 1;
+            f0 = i;
+          }
+        const OverlapStep2<DP> step{k_ring, v_ring, bars, c, r0, S, causal,
+                                    window, h, lane};
+        for (int i = 1; i < f0; ++i)
+          step.template run<true>(o, s, p, qa, m_run, l_run, it + i,
+                                  k_lo + i * kBK2 + 2 * t);
+        for (int i = f0; i < f1; ++i)
+          step.template run<false>(o, s, p, qa, m_run, l_run, it + i, 0);
+        for (int i = f1; i < n; ++i)
+          step.template run<true>(o, s, p, qa, m_run, l_run, it + i,
+                                  k_lo + i * kBK2 + 2 * t);
+
+        const int last = it + n - 1;     // the ring's tile of the last P V
+        const int lst = last % kStages;
+        it += n;
+        bar_wait(bars.full_q(), (k + 1) & 1);
+        idx = *q_item;
+        if (idx >= total) {
+          // The CTA's last item: its last P V alone, then its output.
+          bar_wait(bars.full_v(lst), (last / kStages) & 1);
+          wgmma_fence();
+          issue_pv2<DP>(o, p,
+                        sw128_desc(v_ring + lst * kKVTile, kKVBox, 1024));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o);
+          release(bars.empty_v(lst), lane);
+          store_rows<DP>(o, m_run, l_run, c, lse, out, item.bh, r0, S, D, t);
+          break;
+        }
+        // The next item's tile 0 S with this item's last P V.
+        const Item next = item_of(idx, rep, S, causal, window);
+        const int nq0 = next.q_start + 64 * h;
+        load_a_frags<DP>(qa, Qs + h * kQTile, warp, lane);
+        release(bars.empty_q(), lane);
+        const int st = it % kStages;
+        bar_wait(bars.full_k(st), (it / kStages) & 1);
+        bar_wait(bars.full_v(lst), (last / kStages) & 1);
+        named_sync(3 + h, 256);
+        wgmma_fence();
+        issue_qk2<DP>(s, qa, sw128_desc(k_ring + st * kKVTile, 16, 1024));
+        wgmma_commit();
+        issue_pv2<DP>(o, p, sw128_desc(v_ring + lst * kKVTile, kKVBox, 1024));
+        wgmma_commit();
+        named_arrive(4 - h, 256);
+        wgmma_wait<1>();
+        fence_regs(s);
+        // The next item's softmax, from a fresh max and sum, while P V
+        // runs; then this item's output.
+        float m_new[2], l_new[2];
+        softmax_first(s, m_new, l_new, c, nq0 + row, nq0, next.kb_lo * kBK2,
+                      t, S, causal, window);
+        release(bars.empty_k(st), lane);
+        wgmma_wait<0>();
+        fence_regs(o);
+        release(bars.empty_v(lst), lane);
+        store_rows<DP>(o, m_run, l_run, c, lse, out, item.bh, r0, S, D, t);
+        m_run[0] = m_new[0], m_run[1] = m_new[1];
+        l_run[0] = l_new[0], l_run[1] = l_new[1];
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) p[j] = pack2(s[2 * j], s[2 * j + 1]);
+        item = next;
+        q0 = nq0;
+      }
+    }
+    if (h == 0) named_sync(3, 256);   // consumer 1's last arrival
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32 with exact FMA arithmetic.
 // ---------------------------------------------------------------------------
 
@@ -927,14 +1441,16 @@ float softmax_scale(int D) {
   return static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
 }
 
-// A (heads, S, D) bf16 tensor as a 3-D map of 64 x 64 boxes, 128-byte
-// swizzle; elements outside the tensor read as zero and are not written.
-bool encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D) {
+// A (heads, S, D) bf16 tensor as a 3-D map of boxes of 64 columns by
+// `rows` rows, 128-byte swizzle; elements outside the tensor read as zero
+// and are not written.
+bool encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D,
+                int rows = 64) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(heads)};
   const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(S) * D * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {64, cuuint32_t(rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -962,6 +1478,47 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   flash_bf16_kernel<DP><<<grid, kThreads, bytes, stream>>>(
       tq, tk, tv, to, static_cast<float*>(lse), BH, BH / BH_kv, S, c, causal,
       window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The current device's SMs.
+int num_sms() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || n <= 0)
+    return 132;
+  return n;
+}
+
+// D <= 128: one persistent CTA an SM, at most one a work item; `next`
+// is the work items' counter, one int32 of scratch, zeroed here on the
+// stream.
+template <int DP>
+int launch_bf16_persistent(const void* q, const void* k, const void* v,
+                           void* o, void* lse, void* next, int BH, int BH_kv,
+                           int S, int D, int Dh, int causal, int window,
+                           cudaStream_t stream) {
+  const size_t bytes = Bf16Cfg2<DP>::kSmem;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, BH, S, D) ||
+      !encode_map(&tk, k, BH_kv, S, D, kBK2) ||
+      !encode_map(&tv, v, BH_kv, S, D, kBK2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_persistent_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(next, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items = static_cast<long long>((S + kBQ - 1) / kBQ) * BH;
+  const int sms = num_sms();
+  const unsigned grid = static_cast<unsigned>(items < sms ? items : sms);
+  const float c = static_cast<float>(
+      1.4426950408889634 / std::sqrt(static_cast<double>(Dh)));
+  flash_bf16_persistent_kernel<DP><<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      static_cast<int*>(next), BH, BH / BH_kv, S, D, c, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -994,23 +1551,26 @@ bool bad_shape(int BH, int BH_kv, int S, int D, int Dh) {
 // f32, each row's log-sum-exp of its scaled scores; contiguous, 16-byte
 // aligned, one dtype, on the stream's device; D a multiple of 8 and at most
 // 256; Dh (at most D) sets the softmax scale 1 / sqrt(Dh): a head dimension
-// that is not a multiple of 8, zero-padded to D by the caller.  Returns the
-// cudaError_t of the launch (0 on success); cudaErrorInvalidValue for a
-// shape the kernels do not take.
+// that is not a multiple of 8, zero-padded to D by the caller.  bf16 only:
+// `work`, one int32 of scratch on the device (the persistent grid's work
+// counter at D <= 128, zeroed on the stream before the launch; unused, and
+// may be null, at D = 256).  Returns the cudaError_t of the launch (0 on
+// success); cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o,
-                                          void* lse, int BH, int BH_kv, int S,
-                                          int D, int Dh, int causal,
-                                          int window, void* stream) {
+                                          void* lse, void* work, int BH,
+                                          int BH_kv, int S, int D, int Dh,
+                                          int causal, int window,
+                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(BH, BH_kv, S, D, Dh))
+  if (bad_shape(BH, BH_kv, S, D, Dh) || (D <= 128 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
-    return launch_bf16<64>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
-                           window, st);
+    return launch_bf16_persistent<64>(q, k, v, o, lse, work, BH, BH_kv, S,
+                                      D, Dh, causal, window, st);
   if (D <= 128)
-    return launch_bf16<128>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
-                            window, st);
+    return launch_bf16_persistent<128>(q, k, v, o, lse, work, BH, BH_kv, S,
+                                       D, Dh, causal, window, st);
   return launch_bf16<256>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
                           window, st);
 }

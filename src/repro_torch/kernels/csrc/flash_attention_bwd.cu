@@ -9,23 +9,25 @@
 //
 // Layout as the forward: q, o, dO, dQ (BH, S, D); k, v, dK, dV (BH_kv, S,
 // D), kv row bh / rep serving query row bh (MQA and GQA read in place).
-// FA2's formulas, three launches on the stream:
+// FA2's formulas, three launches on the stream (two at D <= 128):
 //   1. prep  per row: Delta = rowsum(dO .* O) (f32) and lse log2 e, into a
 //            (2, BH, S_pad) f32 workspace, S_pad = S rounded up to 128,
 //            zero past S (whole tiles for the bulk copies of launch 3).
+//            At D <= 128 the dq launch does this for its own rows, from
+//            the dO tile it holds and an O tile loaded beside it.
 //   2. dq    per (q head, 128-row q block): S = Q K^T, P = 2^(c S -
 //            lse2), dP = dO V^T, dS = P .* (dP - Delta), dQ += dS K.
-//   3. dkdv  per (kv block of 64 rows, kv head, group of the query heads
-//            that share it): S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and
-//            dK += dS^T Q over every q tile of each head that sees the
-//            block.
+//   3. dkdv  per (kv block, kv head, group of the query heads that share
+//            it): S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T
+//            Q over every 64-row q tile of each head that sees the block.
 //
-// Bound on this card: operations.  At the RecurrentGemma-9B training shape
-// (q (32, 4096, 256), one kv head per 16 q heads, window 2048) the visible
-// (q, key) pairs are 6.29 M a head and the function needs 2 D flops a pair
-// for each of S, dP, dV, dQ and dK (~515 GFLOP, 0.52 ms at 989 TFLOP/s);
-// the two main launches compute S and dP once each (FA2: dQ outside the
-// dK/dV launch keeps every sum in a fixed order, no atomics), 7 products.
+// Bound on this card: operations.  The function needs 2 D flops a visible
+// (q, key) pair for each of S, dP, dV, dQ and dK: at OLMoE-1B-7B's
+// training shape, q, k, v (64, 2048, 128), causal, ~172 GFLOP, 0.174 ms at
+// 989 TFLOP/s; at the RecurrentGemma-9B training shape (q (32, 4096, 256),
+// one kv head per 16 q heads, window 2048) ~515 GFLOP, 0.52 ms.  The two
+// main launches compute S and dP once each (FA2: dQ outside the dK/dV
+// launch keeps every sum in a fixed order, no atomics), 7 products.
 //
 // Both main launches are the forward's machinery: one CTA of three
 // warpgroups, a producer (under setmaxnreg.dec; one thread issues every
@@ -34,40 +36,53 @@
 // setmaxnreg.inc) that run every product on wgmma, bf16 in and f32
 // accumulate, with P and dS rounded to bf16 as register A operands (as FA2
 // and FA3 do) and the f32 accumulators of dQ, dK and dV in registers.
-// Each consumer issues a product and waits for it before it uses the
-// result; the two consumers overlap each other.  Masks are evaluated per
-// entry as selects, so no branch sits between a product and its wait.
+// Masks are evaluated per entry as selects, so no branch sits between a
+// product and its wait; dkdv skips them on tiles that are wholly visible.
 //
-// dq: each consumer owns 64 q rows (dQ 64 x D in registers, 128 floats a
-// thread at D = 256); the kv tiles are 32 rows at D = 256 (Q and dO of
-// both consumers take 128 KB, so three stages of K and V fit in 227 KB)
-// and 64 below.  S = Q K^T and dP = dO V^T are wgmma m64nBKk16 with both
-// operands in shared memory; dQ += dS K is m64nDk16 with dS from
-// registers and K read as an MN-major (transposed) operand.  dQ is scaled,
-// rounded and stored by TMA from the consumer's own q tile.
+// dq: each consumer owns 64 q rows (dQ 64 x D in registers); kv tiles of
+// 64 rows on 4 stages (32 rows on 3 at D = 256, where Q and dO of both
+// consumers take 128 KB).  dQ += dS K is m64nDk16 with dS from registers
+// and K read as an MN-major (transposed) operand; dQ is scaled, rounded
+// and stored by TMA from the consumer's own q tile.  At D <= 128, Q and dO
+// are held as A fragments in registers (ldmatrix once a CTA), so S = Q
+// K^T and dP = dO V^T read only K and V from shared memory (with both
+// operands there, m64n64 products need all of its 128 bytes a clock); tile
+// i's S and dP are issued behind tile i - 1's dQ product, one wait for the
+// three; and the CTA computes its rows' Delta (from the dO tile and an O
+// tile loaded beside it) and lse2, and writes them for dkdv, so that no
+// prep launch runs.  At D = 256, S and dP are m64n32k16 with both operands
+// in shared memory, each product waited for in turn.
 //
-// dkdv: D = 256 is the squeeze.  dK and dV of 64 kv rows over all of D are
-// 2 x 64 x 256 f32, 256 registers a thread of one warpgroup, so the two
-// consumers split the work by gradient, not by columns of D: consumer 0
-// computes S^T = K Q^T (64 x 64 q) and P^T, hands P^T (f32) to consumer 1
-// through a double buffer in shared memory (named barriers), and
-// accumulates dV += P^T dO; consumer 1 computes dP^T = V dO^T, reads P^T,
-// forms dS^T and accumulates dK += dS^T Q.  S^T and dP^T are computed
-// once, each of the four products once per (kv block, q tile).  K and V
-// stay in shared memory; the producer streams Q, dO, lse2 and Delta of
-// each visible q tile of each head (bulk copies for the row terms).
-// One kv head serves 16 query heads at the training shape, and 64 kv
-// blocks x 2 kv heads are 128 CTAs, fewer than the 132 SMs: the query
-// heads are split into two groups, and the two CTAs of a kv block run as a
-// cluster that sums their f32 dK and dV through distributed shared memory
-// (CTA rank 0 finishes dV, rank 1 dK; a sum of two is the same in either
-// order), 256 CTAs.  Shared memory at D = 256: K, V 64 KB; two stages of
-// Q and dO 128 KB; the P buffers 32 KB; lse2 and Delta 1 KB.
+// dkdv at D <= 128: 128 kv rows a CTA, 64 a consumer, which holds dK and
+// dV of its rows (128 floats a thread at D = 128) and computes its own
+// S^T, P^T, dP^T and dS^T (m64n64k16, both operands in shared memory); its
+// dV product runs while dS^T is formed.  Q, dO, lse2 and Delta of each
+// visible q tile of each head stream through 4 stages; K and V stay.
+//
+// dkdv at D = 256 is the squeeze: dK and dV of 64 kv rows over all of D
+// are 2 x 64 x 256 f32, 256 registers a thread of one warpgroup, so the
+// two consumers split the work by gradient: consumer 0 computes S^T and
+// P^T, hands P^T (f32) to consumer 1 through a double buffer in shared
+// memory (named barriers), and accumulates dV += P^T dO; consumer 1
+// computes dP^T, reads P^T, forms dS^T and accumulates dK += dS^T Q.
+//
+// Query-head groups: where the kv blocks of the kv heads alone would leave
+// SMs idle for two waves (RecurrentGemma: one kv head serves 16 query
+// heads), the query heads of a kv head are split into two groups, and the
+// two CTAs of a kv block run as a cluster that sums their f32 dK and dV
+// through distributed shared memory (CTA rank 0 finishes dV, rank 1 dK;
+// rank 0's part first in either), the exchange in the (now free) ring.
 //
 // What holds it back (chip_smoke.py prints each launch's time; PERF.md
-// keeps them): a consumer issues a product and waits for it, so its
-// tensor-core work never overlaps its own elementwise passes (FA3 overlaps
-// them within a warpgroup), and the dq launch recomputes S and dP.
+// keeps them): at OLMoE-1B-7B's training shape dq takes ~0.21 ms and dkdv
+// ~0.28 ms, each ~520 TFLOP/s on the products it runs (NVIDIA H100 80GB
+// HBM3, 700 W); the dq launch recomputes S and dP (7 products where the
+// bound counts 5); dkdv's S^T and dP^T read both operands from shared
+// memory; each CTA's prologue and epilogue run alone on its SM (one CTA an
+// SM, no persistence).  dQ formed in dkdv (5 products) and summed over the
+// kv blocks in a fixed order through a semaphore a (q head, q tile) was
+// right and bitwise repeatable but ~11 times slower: each hand-over (a
+// fence, a signal, a poll) sits on the path of every later kv block.
 //
 // Every sum runs in a fixed order with no atomics: two runs are bitwise
 // equal.
@@ -343,6 +358,53 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (+)= A B over one k16 step, A from registers (the m64k16 fragment), B
+// (64 rows) K-major from shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_kb(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The warp's 16 rows of a 64-row tile in the 128-byte-swizzled layout
+// ([box][64 rows][128 B]) as wgmma A fragments, one per k16 step, by
+// ldmatrix: lanes 8 m + r address row r of 8 x 8 matrix m (rows 8 (m &
+// 1) + r, the step's columns 8 (m >> 1) ..), which lands as a[kk][m].
+template <int DP>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[DP / 16][4],
+                                             const unsigned char* tile,
+                                             int warp, int lane) {
+  const int r = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int chunk = (kk % 4) * 2 + (lane >> 4);
+    const uint32_t addr = smem_u32(tile + (kk / 4) * kBox + r * 128 +
+                                   ((chunk ^ (r & 7)) << 4));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
+        : "r"(addr)
+        : "memory");
+  }
+}
+
 // The S-like products of one tile: D / 16 k16 steps of A (64 rows) times
 // B^T (N rows), both K-major in 64-column boxes of aBox and bBox bytes;
 // step kk lies in box kk / 4 at a 32-byte column step kk % 4.
@@ -444,10 +506,11 @@ struct DqCfg {
   static constexpr int kNB = DP / 64;
   static constexpr int kBK = DP == 256 ? 32 : 64;
   static constexpr int kStages = DP == 256 ? 3 : 4;
+  static constexpr bool kPrep = DP <= 128;         // Delta and lse2 here
   static constexpr int kQTile = kNB * kBox;        // 64 rows
   static constexpr int kKBox = kBK * 128;          // one box of a kv tile
   static constexpr int kKTile = kNB * kKBox;
-  static constexpr size_t kSmem = 1024 + size_t(4) * kQTile +
+  static constexpr size_t kSmem = 1024 + size_t(kPrep ? 6 : 4) * kQTile +
                                   size_t(2) * kStages * kKTile +
                                   8 * (1 + 4 * kStages);
   static_assert(kSmem <= 232448, "dq tiles exceed 227 KB");
@@ -457,22 +520,25 @@ template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
                  __grid_constant__ const CUtensorMap tdo,
+                 __grid_constant__ const CUtensorMap to,
                  __grid_constant__ const CUtensorMap tk,
                  __grid_constant__ const CUtensorMap tv,
                  __grid_constant__ const CUtensorMap tdq,
-                 const float* __restrict__ lse2,
-                 const float* __restrict__ delta, int BH, int rep, int S,
+                 const float* __restrict__ lse, float* __restrict__ lse2,
+                 float* __restrict__ delta, int BH, int rep, int S,
                  int S_pad, float c, float scale, int causal, int window) {
   using Cfg = DqCfg<DP>;
   constexpr int kNB = Cfg::kNB, kBK = Cfg::kBK, kStages = Cfg::kStages;
   constexpr int kQTile = Cfg::kQTile, kKBox = Cfg::kKBox;
   constexpr int kKTile = Cfg::kKTile;
+  constexpr bool kPrep = Cfg::kPrep;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* Qs = base;                  // [consumer][box][64][128 B]
   unsigned char* dOs = Qs + 2 * kQTile;
-  unsigned char* Ks = dOs + 2 * kQTile;      // [stage][box][BK][128 B]
+  unsigned char* Os = dOs + 2 * kQTile;      // at D <= 128
+  unsigned char* Ks = Os + (kPrep ? 2 : 0) * kQTile;   // [stage][box][BK]
   unsigned char* Vs = Ks + kStages * kKTile;
   const uint32_t bars = smem_u32(Vs + kStages * kKTile);
   const uint32_t full_q = bars;
@@ -510,13 +576,16 @@ fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
         kProducerRegs));
     if (threadIdx.x == 0) {
       const int bkv = bh / rep;
-      bar_arrive_tx(full_q, 4 * kQTile);
+      bar_arrive_tx(full_q, (kPrep ? 6 : 4) * kQTile);
       for (int h = 0; h < 2; ++h)
         for (int j = 0; j < kNB; ++j) {
           tma_load(Qs + h * kQTile + j * kBox, &tq, 64 * j,
                    q_start + 64 * h, bh, full_q);
           tma_load(dOs + h * kQTile + j * kBox, &tdo, 64 * j,
                    q_start + 64 * h, bh, full_q);
+          if (kPrep)
+            tma_load(Os + h * kQTile + j * kBox, &to, 64 * j,
+                     q_start + 64 * h, bh, full_q);
         }
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages, parity = ((i / kStages) & 1) ^ 1;
@@ -548,8 +617,11 @@ fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
     const uint64_t do_desc = sw128_desc(smem_u32(dOs + h * kQTile), 16, 1024);
     const uint32_t k_ring = smem_u32(Ks), v_ring = smem_u32(Vs);
     const size_t rows = size_t(bh) * S_pad;
-    const float l2[2] = {lse2[rows + r0], lse2[rows + r0 + 8]};
-    const float dl[2] = {delta[rows + r0], delta[rows + r0 + 8]};
+    float l2[2], dl[2];   // each row's lse log2 e and Delta
+    if constexpr (!kPrep) {
+      l2[0] = lse2[rows + r0], l2[1] = lse2[rows + r0 + 8];
+      dl[0] = delta[rows + r0], dl[1] = delta[rows + r0 + 8];
+    }
 
     float dq[DP / 2];
 #pragma unroll
@@ -557,41 +629,132 @@ fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
     float s[kBK / 2], dp[kBK / 2];
     uint32_t ds[kBK / 4];
 
-    bar_wait(full_q, 0);
-    for (int i = 0; i < n_tiles; ++i) {
-      const int st = i % kStages, parity = (i / kStages) & 1;
-      const int k0 = (kb_lo + i) * kBK;
-      bar_wait(full_k(st), parity);
-      bar_wait(full_v(st), parity);
-      wgmma_fence();
-      issue_ss<DP, kBK>(s, q_desc, kBox,
-                        sw128_desc(k_ring + st * kKTile, 16, 1024), kKBox);
-      issue_ss<DP, kBK>(dp, do_desc, kBox,
-                        sw128_desc(v_ring + st * kKTile, 16, 1024), kKBox);
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(s);
-      fence_regs(dp);
-      release(empty_v(st), lane);
-      // dS = P .* (dP - Delta), P = 2^(c s - lse2); masked entries 0.
-#pragma unroll
-      for (int e = 0; e < kBK / 2; ++e) {
+    // dS = P .* (dP - Delta), P = 2^(c s - lse2), masked entries 0, of
+    // the tile at k0, packed into ds (s and dp are only read: an
+    // accumulator written outside wgmma would serialize the chained
+    // products, ptxas C7515).
+    auto ds_tile = [&](int k0) {
+      auto ds_at = [&](int e) {
         const int hr = (e >> 1) & 1;
         const int kpos = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
         const float p = visible(r0 + 8 * hr, kpos, S, causal, window)
                             ? ex2(fmaf(s[e], c, -l2[hr]))
                             : 0.0f;
-        s[e] = p * (dp[e] - dl[hr]);
-      }
+        return p * (dp[e] - dl[hr]);
+      };
 #pragma unroll
-      for (int j = 0; j < kBK / 4; ++j) ds[j] = pack2(s[2 * j], s[2 * j + 1]);
-      wgmma_fence();
-      issue_rs<DP, kBK>(dq, ds,
-                        sw128_desc(k_ring + st * kKTile, kKBox, 1024));
-      wgmma_commit();
+      for (int j = 0; j < kBK / 4; ++j)
+        ds[j] = pack2(ds_at(2 * j), ds_at(2 * j + 1));
+    };
+    auto issue_sdp = [&](int st) {
+      issue_ss<DP, kBK>(s, q_desc, kBox,
+                        sw128_desc(k_ring + st * kKTile, 16, 1024), kKBox);
+      issue_ss<DP, kBK>(dp, do_desc, kBox,
+                        sw128_desc(v_ring + st * kKTile, 16, 1024), kKBox);
+    };
+
+    bar_wait(full_q, 0);
+    if constexpr (kPrep) {
+      // This CTA's rows of the prep: Delta = dO . O from the tiles, each
+      // row over its four lanes (DP / 32 16-byte chunks a lane), and lse
+      // log2 e, kept here and written to the workspace for dkdv (rows
+      // past S: zero-filled tiles give Delta 0; lse2 0).
+      unsigned char* dOh = dOs + h * kQTile;
+      unsigned char* Oh = Os + h * kQTile;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * warp + g + 8 * hr;   // the tile's row
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < DP / 32; ++i) {
+          const int ch = (DP / 32) * t + i;   // 16-byte chunk of the row
+          const int off = (ch / 8) * kBox + r * 128 + (((ch % 8) ^ g) << 4);
+          const uint4 a = *reinterpret_cast<const uint4*>(dOh + off);
+          const uint4 b = *reinterpret_cast<const uint4*>(Oh + off);
+          const auto* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+          const auto* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 fa = __bfloat1622float2(pa[j]);
+            const float2 fb = __bfloat1622float2(pb[j]);
+            acc = fmaf(fa.x, fb.x, acc);
+            acc = fmaf(fa.y, fb.y, acc);
+          }
+        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        const int qr = r0 + 8 * hr;
+        dl[hr] = acc;
+        l2[hr] = qr < S ? lse[size_t(bh) * S + qr] * kLog2e : 0.0f;
+        if (t == 0) {
+          delta[rows + qr] = dl[hr];
+          lse2[rows + qr] = l2[hr];
+        }
+      }
+    }
+    if constexpr (DP <= 128) {
+      // Q and dO as A fragments in registers (loaded once), so that S and
+      // dP read only K and V from shared memory; tile i's S and dP are
+      // issued behind tile i - 1's dQ += dS K, and one wait covers the
+      // three.
+      uint32_t qa[DP / 16][4], da[DP / 16][4];
+      load_a_frags<DP>(qa, Qh, warp, lane);
+      load_a_frags<DP>(da, dOs + h * kQTile, warp, lane);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages, parity = (i / kStages) & 1;
+        bar_wait(full_k(st), parity);
+        bar_wait(full_v(st), parity);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = ((kk / 4) * kKBox + (kk % 4) * 32) >> 4;
+          wgmma_rs_kb(s, qa[kk],
+                      sw128_desc(k_ring + st * kKTile, 16, 1024) + off,
+                      kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = ((kk / 4) * kKBox + (kk % 4) * 32) >> 4;
+          wgmma_rs_kb(dp, da[kk],
+                      sw128_desc(v_ring + st * kKTile, 16, 1024) + off,
+                      kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(s);
+        fence_regs(dp);
+        release(empty_v(st), lane);
+        if (i > 0) release(empty_k((i - 1) % kStages), lane);
+        ds_tile((kb_lo + i) * kBK);
+        wgmma_fence();
+        issue_rs<DP, kBK>(dq, ds,
+                          sw128_desc(k_ring + st * kKTile, kKBox, 1024));
+        wgmma_commit();
+      }
       wgmma_wait0();
       fence_regs(dq);
-      release(empty_k(st), lane);
+      if (n_tiles > 0) release(empty_k((n_tiles - 1) % kStages), lane);
+    } else {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages, parity = (i / kStages) & 1;
+        bar_wait(full_k(st), parity);
+        bar_wait(full_v(st), parity);
+        wgmma_fence();
+        issue_sdp(st);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(s);
+        fence_regs(dp);
+        release(empty_v(st), lane);
+        ds_tile((kb_lo + i) * kBK);
+        wgmma_fence();
+        issue_rs<DP, kBK>(dq, ds,
+                          sw128_desc(k_ring + st * kKTile, kKBox, 1024));
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(dq);
+        release(empty_k(st), lane);
+      }
     }
 
     // Epilogue: dQ scale in bf16 into this warpgroup's q tile (swizzled as
@@ -618,7 +781,7 @@ fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
 template <int DP>
 struct KvCfg {
   static constexpr int kNB = DP / 64;
-  static constexpr int kStages = DP == 256 ? 2 : 4;
+  static constexpr int kStages = 2;
   static constexpr int kTile = kNB * kBox;           // 64 rows
   static constexpr int kRowBytes = kBQT * 4;          // lse2 or Delta
   static constexpr int kPBuf = kBKV * kBQT * 4;
@@ -684,7 +847,7 @@ constexpr int kBarDone = 5;
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
+fa_bwd_dkdvsplit_kernel(__grid_constant__ const CUtensorMap tq,
                    __grid_constant__ const CUtensorMap tdo,
                    __grid_constant__ const CUtensorMap tk,
                    __grid_constant__ const CUtensorMap tv,
@@ -895,6 +1058,268 @@ fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// 3'. dkdv at head dimension 64 and 128: each consumer owns 64 kv rows.
+// ---------------------------------------------------------------------------
+
+constexpr int kBKV2 = 128;   // kv rows of a CTA, 64 a consumer
+
+// The K and V tiles of the CTA's 128 rows (two 64-row tiles each), the
+// ring of Q and dO tiles with lse2 and Delta, the mbarriers (full K/V;
+// full and empty per stage), after up to 1 KB of padding.
+template <int DP>
+struct KvCfg2 {
+  static constexpr int kNB = DP / 64;
+  static constexpr int kStages = 4;
+  static constexpr int kTile = kNB * kBox;            // 64 rows
+  static constexpr int kRowBytes = kBQT * 4;          // lse2 or Delta
+  static constexpr size_t kSmem =
+      1024 + size_t(4) * kTile +
+      size_t(kStages) * (2 * kTile + 2 * kRowBytes) + 8 * (1 + 2 * kStages);
+  static_assert(kSmem <= 232448, "dkdv tiles exceed 227 KB");
+  // The exchange of the cluster's partial sums (one gradient of 128 rows
+  // in f32) reuses the ring.
+  static_assert(size_t(kStages) * 2 * kTile >= size_t(kBKV2) * DP * 4,
+                "dkdv exchange buffer exceeds the ring");
+};
+
+// A consumer's accumulator into the exchange buffer, and the peer CTA's
+// copy of the same accumulator added to it, rank 0's part first.
+template <int DP>
+__device__ __forceinline__ void put_partial(float4* xb,
+                                            const float (&acc)[DP / 2],
+                                            int h, int tid) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+    xb[(h * (DP / 8) + j) * 128 + tid] = make_float4(
+        acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+}
+
+template <int DP>
+__device__ __forceinline__ void add_partial(float (&acc)[DP / 2],
+                                            const float4* xb, int h, int tid,
+                                            uint32_t rank) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const float4 r =
+        ld_remote4(smem_u32(xb + (h * (DP / 8) + j) * 128 + tid), rank ^ 1u);
+    if (rank == 0) {
+      acc[4 * j] += r.x;
+      acc[4 * j + 1] += r.y;
+      acc[4 * j + 2] += r.z;
+      acc[4 * j + 3] += r.w;
+    } else {
+      acc[4 * j] = r.x + acc[4 * j];
+      acc[4 * j + 1] = r.y + acc[4 * j + 1];
+      acc[4 * j + 2] = r.z + acc[4 * j + 2];
+      acc[4 * j + 3] = r.w + acc[4 * j + 3];
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
+                   __grid_constant__ const CUtensorMap tdo,
+                   __grid_constant__ const CUtensorMap tk,
+                   __grid_constant__ const CUtensorMap tv,
+                   const float* __restrict__ lse2,
+                   const float* __restrict__ delta, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int BH_kv, int rep, int groups,
+                   int S, int S_pad, int D, float c, float scale, int causal,
+                   int window) {
+  using Cfg = KvCfg2<DP>;
+  constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages, kTile = Cfg::kTile;
+  constexpr int kRowBytes = Cfg::kRowBytes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = base;                       // [consumer][box][64][128 B]
+  unsigned char* Vs = Ks + 2 * kTile;
+  unsigned char* Qs = Vs + 2 * kTile;             // [stage][box][64][128 B]
+  unsigned char* dOs = Qs + kStages * kTile;
+  float* L2s = reinterpret_cast<float*>(dOs + kStages * kTile);  // [stage][64]
+  float* Dls = L2s + kStages * kBQT;
+  const uint32_t bars = smem_u32(Dls + kStages * kBQT);
+  const uint32_t full_kv = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+
+  // Block order: kv blocks from the first (the heaviest under causal and
+  // window), the kv heads, then the groups of query heads (a cluster).
+  const int grp = blockIdx.x % groups;
+  const int bkv = (blockIdx.x / groups) % BH_kv;
+  const int k_start = (blockIdx.x / groups / BH_kv) * kBKV2;
+  const int k_last = min(S - 1, k_start + kBKV2 - 1);
+  const int qt_lo = (causal ? k_start : 0) / kBQT;
+  const int qt_hi =
+      (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / kBQT;
+  const int n_qt = qt_hi - qt_lo + 1;
+  const int h_lo = bkv * rep + (grp * rep) / groups;
+  const int h_hi = bkv * rep + ((grp + 1) * rep) / groups;
+  const int n_items = (h_hi - h_lo) * n_qt;
+
+  if (threadIdx.x == 0) {
+    bar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full(s), 1);
+      bar_init(empty(s), 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x == 0) {
+      bar_arrive_tx(full_kv, 4 * kTile);
+      for (int h = 0; h < 2; ++h)
+        for (int j = 0; j < kNB; ++j) {
+          tma_load(Ks + h * kTile + j * kBox, &tk, 64 * j, k_start + 64 * h,
+                   bkv, full_kv);
+          tma_load(Vs + h * kTile + j * kBox, &tv, 64 * j, k_start + 64 * h,
+                   bkv, full_kv);
+        }
+      for (int i = 0; i < n_items; ++i) {
+        const int st = i % kStages, parity = ((i / kStages) & 1) ^ 1;
+        const int bh = h_lo + i / n_qt;
+        const int q0 = (qt_lo + i % n_qt) * kBQT;
+        bar_wait(empty(st), parity);
+        bar_arrive_tx(full(st), 2 * kTile + 2 * kRowBytes);
+        for (int j = 0; j < kNB; ++j) {
+          tma_load(Qs + st * kTile + j * kBox, &tq, 64 * j, q0, bh,
+                   full(st));
+          tma_load(dOs + st * kTile + j * kBox, &tdo, 64 * j, q0, bh,
+                   full(st));
+        }
+        const size_t row = size_t(bh) * S_pad + q0;
+        bulk_load(L2s + st * kBQT, lse2 + row, kRowBytes, full(st));
+        bulk_load(Dls + st * kBQT, delta + row, kRowBytes, full(st));
+      }
+    }
+    if (groups > 1) {   // the consumers' exchange (two cluster barriers)
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {
+    // Consumers: rows k_start + 64 h .. + 63 each, with their own dK and
+    // dV.  Per q tile: S^T = K Q^T and dP^T = V dO^T, then P^T and
+    // dV += P^T dO, whose product runs while dS^T = P^T .* (dP^T - Delta)
+    // is formed, then dK += dS^T Q.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    const int h = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int kh = k_start + 64 * h;
+    const int kr = kh + 16 * warp + g;   // this thread's kv rows kr, kr + 8
+    const uint32_t q_ring = smem_u32(Qs), do_ring = smem_u32(dOs);
+    const uint64_t k_desc = sw128_desc(smem_u32(Ks + h * kTile), 16, 1024);
+    const uint64_t v_desc = sw128_desc(smem_u32(Vs + h * kTile), 16, 1024);
+
+    float dkr[DP / 2], dvr[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dkr[i] = dvr[i] = 0.0f;
+    float s[32], dp[32];
+    uint32_t pk[16], pd[16];
+
+    // Whether every (q, key) pair of the q tile at q0 and this consumer's
+    // kv rows is visible, so that P^T needs no mask.
+    const bool rows_in = kh + 63 < S;
+    auto tile_full = [&](int q0) {
+      return rows_in && q0 + kBQT <= S && (!causal || kh + 63 <= q0) &&
+             (window <= 0 || kh > q0 + kBQT - 1 - window);
+    };
+
+    bar_wait(full_kv, 0);
+    for (int i = 0; i < n_items; ++i) {
+      const int st = i % kStages, parity = (i / kStages) & 1;
+      const int q0 = (qt_lo + i % n_qt) * kBQT;
+      bar_wait(full(st), parity);
+      wgmma_fence();
+      issue_ss<DP, 64>(s, k_desc, kBox,
+                       sw128_desc(q_ring + st * kTile, 16, 1024), kBox);
+      issue_ss<DP, 64>(dp, v_desc, kBox,
+                       sw128_desc(do_ring + st * kTile, 16, 1024), kBox);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+      // P^T = 2^(c S^T - lse2[q]), masked entries 0; dV += P^T dO.
+      const float* l2 = L2s + st * kBQT;
+      const float* dl = Dls + st * kBQT;
+      if (tile_full(q0)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          s[e] = ex2(fmaf(s[e], c, -l2[8 * (e >> 2) + 2 * t + (e & 1)]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int col = 8 * (e >> 2) + 2 * t + (e & 1);
+          const int kpos = kr + 8 * ((e >> 1) & 1);
+          s[e] = visible(q0 + col, kpos, S, causal, window)
+                      ? ex2(fmaf(s[e], c, -l2[col]))
+                      : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) pk[j] = pack2(s[2 * j], s[2 * j + 1]);
+      wgmma_fence();
+      issue_rs<DP, kBQT>(dvr, pk,
+                         sw128_desc(do_ring + st * kTile, kBox, 1024));
+      wgmma_commit();
+      // dS^T = P^T .* (dP^T - Delta[q]); dK += dS^T Q.
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * (j >> 1) + 2 * t;
+        pd[j] = pack2(s[2 * j] * (dp[2 * j] - dl[col]),
+                      s[2 * j + 1] * (dp[2 * j + 1] - dl[col + 1]));
+      }
+      wgmma_fence();
+      issue_rs<DP, kBQT>(dkr, pd,
+                         sw128_desc(q_ring + st * kTile, kBox, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dvr);
+      fence_regs(dkr);
+      release(empty(st), lane);
+    }
+
+    if (groups == 1) {
+      store_rows<DP>(dv + size_t(bkv) * S * D, dvr, 1.0f, kh, S, D, warp, g,
+                     t);
+      store_rows<DP>(dk + size_t(bkv) * S * D, dkr, scale, kh, S, D, warp,
+                     g, t);
+    } else {
+      // The cluster's two CTAs: rank 0 finishes dV, rank 1 dK.  Each
+      // leaves the partial the other finishes in its (now free) ring.
+      const uint32_t rank = cluster_rank();
+      float4* xb = reinterpret_cast<float4*>(Qs);
+      named_sync(kBarDone, 256);   // every consumer is past the ring
+      if (rank == 0)
+        put_partial<DP>(xb, dkr, h, tid);
+      else
+        put_partial<DP>(xb, dvr, h, tid);
+      cluster_sync();
+      if (rank == 0)
+        add_partial<DP>(dvr, xb, h, tid, rank);
+      else
+        add_partial<DP>(dkr, xb, h, tid, rank);
+      cluster_sync();   // the peer has read this CTA's partial
+      if (rank == 0)
+        store_rows<DP>(dv + size_t(bkv) * S * D, dvr, 1.0f, kh, S, D, warp,
+                       g, t);
+      else
+        store_rows<DP>(dk + size_t(bkv) * S * D, dkr, scale, kh, S, D, warp,
+                       g, t);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 // ---------------------------------------------------------------------------
 
@@ -921,11 +1346,34 @@ int dkdv_groups(int rep, int n_kv_blocks) {
   return rep >= 2 && n_kv_blocks < 2 * 132 ? 2 : 1;
 }
 
+// The dkdv launch at DP: at D <= 128 each consumer owns 64 of the CTA's
+// 128 kv rows; at D = 256 the two consumers share 64 kv rows, split by
+// gradient.
+template <int DP>
+struct Dkdv {
+  static constexpr int kRows = DP <= 128 ? kBKV2 : kBKV;
+  static auto kernel() {
+    if constexpr (DP <= 128)
+      return fa_bwd_dkdv_kernel<DP>;
+    else
+      return fa_bwd_dkdvsplit_kernel<DP>;
+  }
+  static size_t smem() {
+    if constexpr (DP <= 128)
+      return KvCfg2<DP>::kSmem;
+    else
+      return KvCfg<DP>::kSmem;
+  }
+};
+
+// The launches of one call: all (part < 0) or only prep (0; none at D <=
+// 128, where the dq launch does its work), dq (1) or dkdv (2), which reads
+// what the earlier ones wrote.
 template <int DP>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* ws, void* dq, void* dk,
            void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
-           int window, cudaStream_t stream) {
+           int window, int part, cudaStream_t stream) {
   const int rep = BH / BH_kv;
   const int S_pad = (S + kPad - 1) / kPad * kPad;
   float* lse2 = static_cast<float*>(ws);
@@ -934,44 +1382,54 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(Dh)));
   const float c = scale * kLog2e;   // 2^(c s) = e^(scale s)
 
-  CUtensorMap tq, tdo, tk_dq, tv_dq, tdq, tk, tv;
+  CUtensorMap tq, tdo, to{}, tk_dq, tv_dq, tdq, tk, tv;
   if (!encode_map(&tq, q, BH, S, D, 64) ||
       !encode_map(&tdo, dout, BH, S, D, 64) ||
+      (DqCfg<DP>::kPrep && !encode_map(&to, o, BH, S, D, 64)) ||
       !encode_map(&tk_dq, k, BH_kv, S, D, DqCfg<DP>::kBK) ||
       !encode_map(&tv_dq, v, BH_kv, S, D, DqCfg<DP>::kBK) ||
       !encode_map(&tdq, dq, BH, S, D, 64) ||
       !encode_map(&tk, k, BH_kv, S, D, 64) ||
       !encode_map(&tv, v, BH_kv, S, D, 64))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto dkdv = Dkdv<DP>::kernel();
+  const size_t dkdv_smem = Dkdv<DP>::smem();
   cudaError_t err = cudaFuncSetAttribute(
       fa_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(DqCfg<DP>::kSmem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<DP>,
+    err = cudaFuncSetAttribute(dkdv,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(KvCfg<DP>::kSmem));
+                               static_cast<int>(dkdv_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const long long prep_rows = static_cast<long long>(BH) * S_pad;
-  const unsigned prep_grid = static_cast<unsigned>(
-      (prep_rows + kPrepThreads / 32 - 1) / (kPrepThreads / 32));
-  fa_bwd_prep_kernel<<<prep_grid, kPrepThreads, 0, stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), lse2, delta, BH, S, S_pad, D);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // The prep launch at D = 256; at D <= 128 the dq launch does its work.
+  if (!DqCfg<DP>::kPrep && (part < 0 || part == 0)) {
+    const long long prep_rows = static_cast<long long>(BH) * S_pad;
+    const unsigned prep_grid = static_cast<unsigned>(
+        (prep_rows + kPrepThreads / 32 - 1) / (kPrepThreads / 32));
+    fa_bwd_prep_kernel<<<prep_grid, kPrepThreads, 0, stream>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), lse2, delta, BH, S, S_pad, D);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  if (part < 0 || part == 1) {
+    const unsigned dq_grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
+    fa_bwd_dq_kernel<DP><<<dq_grid, kThreads, DqCfg<DP>::kSmem, stream>>>(
+        tq, tdo, to, tk_dq, tv_dq, tdq, static_cast<const float*>(lse), lse2,
+        delta, BH, rep, S, S_pad, c, scale, causal, window);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  if (part >= 0 && part != 2) return 0;
 
-  const unsigned dq_grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
-  fa_bwd_dq_kernel<DP><<<dq_grid, kThreads, DqCfg<DP>::kSmem, stream>>>(
-      tq, tdo, tk_dq, tv_dq, tdq, lse2, delta, BH, rep, S, S_pad, c, scale,
-      causal, window);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  const int nkb = (S + kBKV - 1) / kBKV;
+  const int nkb = (S + Dkdv<DP>::kRows - 1) / Dkdv<DP>::kRows;
   const int groups = dkdv_groups(rep, nkb * BH_kv);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(nkb * BH_kv * groups));
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = KvCfg<DP>::kSmem;
+  cfg.dynamicSmemBytes = dkdv_smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -980,7 +1438,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fa_bwd_dkdv_kernel<DP>, tq, tdo, tk, tv,
+  err = cudaLaunchKernelEx(&cfg, dkdv, tq, tdo, tk, tv,
                            static_cast<const float*>(lse2),
                            static_cast<const float*>(delta),
                            static_cast<bf16*>(dk), static_cast<bf16*>(dv),
@@ -990,6 +1448,24 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+int run(const void* q, const void* k, const void* v, const void* o,
+        const void* dout, const void* lse, void* ws, void* dq, void* dk,
+        void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+        int window, int part, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || D <= 0 ||
+      D % 16 != 0 || D > 256 || Dh <= 0 || Dh > D || part > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64)
+    return launch<64>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D,
+                      Dh, causal, window, part, st);
+  if (D <= 128)
+    return launch<128>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
+                       D, Dh, causal, window, part, st);
+  return launch<256>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D,
+                     Dh, causal, window, part, st);
+}
+
 }  // namespace
 
 // q, o, dout, dq: (BH, S, D) bf16; k, v, dk, dv: (BH_kv, S, D) bf16 with
@@ -997,23 +1473,28 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // (2, BH, S_pad) f32 with S_pad = S rounded up to 128.  Contiguous, 16-byte
 // aligned, on the stream's device; D a multiple of 16 and at most 256; Dh
 // (at most D) sets the softmax scale 1 / sqrt(Dh), as in the forward.
-// Three launches on the stream; returns the first nonzero cudaError_t (0
-// on success), cudaErrorInvalidValue for a shape the kernels do not take.
+// Three launches on the stream (two at D <= 128); returns the first
+// nonzero cudaError_t (0 on success), cudaErrorInvalidValue for a shape
+// the kernels do not take.
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
     void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
     int window, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || D <= 0 ||
-      D % 16 != 0 || D > 256 || Dh <= 0 || Dh > D)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64)
-    return launch<64>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D,
-                      Dh, causal, window, st);
-  if (D <= 128)
-    return launch<128>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
-                       D, Dh, causal, window, st);
-  return launch<256>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D,
-                     Dh, causal, window, st);
+  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, Dh,
+             causal, window, -1, stream);
+}
+
+// One launch of the above alone, so that each can be timed between CUDA
+// events: prep (part 0; none at D <= 128), dq (1) or dkdv (2), on the
+// same arguments; dq (at D = 256) and dkdv read the lse2 and Delta that
+// an earlier prep or dq left in ws.
+extern "C" int repro_flash_attention_bwd_bf16_part(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* ws, void* dq, void* dk,
+    void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+    int window, int part, void* stream) {
+  if (part < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, Dh,
+             causal, window, part, stream);
 }

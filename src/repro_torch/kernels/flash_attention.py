@@ -7,10 +7,12 @@ the batch, and k, v of shape (BH_kv, S, D) with BH_kv dividing BH: row
 ``bh // (BH // BH_kv)`` of k and v serves query row ``bh``
 (``repeat_interleave``'s order), so an MQA or GQA layer's kv heads are
 read in place.  f32 accumulation, the output in the input type.  bf16
-runs on the tensor cores (``wgmma`` fed by TMA, three warpgroups a CTA),
-f32 in exact f32 arithmetic (register-tiled FMA, K and V copied by
-cp.async in pairs of tiles).  The forward also writes each row's
-log-sum-exp (BH, S) in f32, which the backward reads.  A head
+runs on the tensor cores (``wgmma`` fed by TMA, three warpgroups a CTA;
+at D <= 128 one persistent CTA an SM takes (q block, q head) items from
+a counter, on 128-key tiles), f32 in exact f32 arithmetic
+(register-tiled FMA, K and V copied by cp.async in pairs of tiles).  The
+forward also writes each row's log-sum-exp (BH, S) in f32, which the
+backward reads.  A head
 dimension D that is not a multiple of 8 (gemma3-1b's smoke config has
 12) is zero-padded in the wrapper to the next one (16 in the bf16
 backward): q . k is unchanged, v's extra output columns are 0 and are
@@ -20,8 +22,10 @@ for the softmax scale 1 / sqrt(D) (:func:`launch_plan`).
 The backward (no TPU counterpart) has an entry for each dtype, three
 CUDA launches each: a small launch for Delta = rowsum(dO .* O), one for
 dQ, one for dK and dV per kv block looping over the query heads that
-share it.  The f32 dQ takes dS_ij = P_ij dO_i . (V_j - O_i), the
-difference inside the sum, less each row's P-weighted mean of dS, so
+share it (bf16 at D <= 128: two, the dq launch computing Delta for its
+rows; dK and dV on 128-row kv blocks, 64 a consumer warpgroup).  The f32
+dQ takes dS_ij = P_ij dO_i . (V_j - O_i), the difference inside the sum,
+less each row's P-weighted mean of dS, so
 that neither a row whose softmax sits nearly on one key nor the rounding
 of the saved out and lse costs a row of small dQ its digits
 (``ref.attention_bwd_plain``).  bf16 (``csrc/flash_attention_bwd.cu``)
@@ -47,13 +51,19 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.ref import attention_shapes
 
 launches = 0       # forward launches since the last reset (ops.reset_counts)
-bwd_launches = 0   # backward calls (three CUDA launches each) since then
+bwd_launches = 0   # backward calls (2 or 3 CUDA launches each) since then
 
 _FN = {torch.float32: "repro_flash_attention_f32",
        torch.bfloat16: "repro_flash_attention_bf16"}
 MAX_HEAD_DIM = 256
 MAX_SMEM = 232448  # dynamic shared memory a CTA may use on an H100
 BOX_BYTES = 64 * 128   # one TMA box of the bf16 kernel: 64 rows of 64 bf16
+# The bf16 kernels' tiles at head dimension 64 and 128, as their sources
+# have them: the forward's kv rows a tile (kBK2; 64 at 256) on a ring of 3
+# stages, one persistent CTA an SM; the backward's dkdv kv rows a CTA
+# (kBKV2; 64 a consumer; 64 a CTA at 256).
+BF16_BK, BF16_STAGES = 128, 3
+BF16_BWD_BKV, BF16_BWD_KV_STAGES = 128, 4
 # The f32 kernels' tiles, as their sources have them: the forward's q rows a
 # CTA, kv rows a tile and tiles in flight, a pair (kBQ32, kBK32, kStages32);
 # the backward's dq launch q rows a CTA and kv rows a tile (kBQ, kBK), its
@@ -89,8 +99,11 @@ def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype) -> dict:
     dimension DP the kernel is compiled for, the q rows a CTA owns (BQ),
     the kv rows a tile holds (BK), the tiles in flight (the bf16 ring's
     stages, the f32 pair), the dynamic shared memory in bytes, threads a
-    CTA and CTAs.  The tiles are ``Bf16Cfg`` and ``F32Cfg`` of the
-    source, which asserts the same 227 KB limit when it compiles."""
+    CTA, work items (q blocks times q heads) and CTAs: one an item, except
+    the bf16 kernel at DP 64 and 128, whose persistent grid has one CTA an
+    SM walking over the items (``persistent``).  The tiles are
+    ``Bf16Cfg2``, ``Bf16Cfg`` and ``F32Cfg`` of the source, which asserts
+    the same 227 KB limit when it compiles."""
     rep = attention_shapes("flash_attention", q_shape, k_shape, v_shape)
     bh, s, d = q_shape
     if d > MAX_HEAD_DIM:
@@ -98,21 +111,33 @@ def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype) -> dict:
                          f"{MAX_HEAD_DIM} (got {d})")
     d_pad = padded_head_dim(d)
     dp = 64 if d_pad <= 64 else 128 if d_pad <= 128 else 256
-    if dtype == torch.bfloat16:
-        bq, bk, threads = 128, 64, 384
-        stages = 2 if dp == 256 else 4
-        # padding to the swizzle's 1 KB period, q tiles of both consumer
-        # warpgroups, the k and v rings, 1 + 4 * stages mbarriers
-        smem = (1024 + (2 + 2 * stages) * (dp // 64) * BOX_BYTES
+    boxes = dp // 64                 # 64-column boxes in a row
+    persistent = dtype == torch.bfloat16 and dp <= 128
+    if persistent:
+        bq, bk, threads, stages = 128, BF16_BK, 384, BF16_STAGES
+        # padding to the swizzle's 1 KB period, the q tiles of both
+        # consumer warpgroups (64 rows), the k and v rings (128 rows),
+        # 2 + 4 * stages mbarriers, the q tiles' work item
+        smem = (1024 + 2 * boxes * BOX_BYTES
+                + 2 * stages * boxes * 2 * BOX_BYTES + 8 * (2 + 4 * stages)
+                + 16)
+    elif dtype == torch.bfloat16:
+        bq, bk, threads, stages = 128, 64, 384, 2
+        # the q tiles of both consumer warpgroups, the k and v rings,
+        # 1 + 4 * stages mbarriers
+        smem = (1024 + (2 + 2 * stages) * boxes * BOX_BYTES
                 + 8 * (1 + 4 * stages))
     else:
         bq, bk, threads, stages = F32_BQ, F32_BK, 256, F32_STAGES
         # Q, a pair of K and of V tiles, P (a pair's keys + 4 a row)
         ld = _f32_row(dp)
         smem = 4 * (bq * ld + 2 * stages * bk * ld + bq * (stages * bk + 4))
+    items = -(-s // bq) * bh
     return {"d_pad": d_pad, "scale": 1.0 / math.sqrt(d), "dp": dp, "bq": bq,
             "bk": bk, "stages": stages, "smem_bytes": smem,
-            "threads": threads, "rep": rep, "ctas": -(-s // bq) * bh}
+            "threads": threads, "rep": rep, "items": items,
+            "persistent": persistent,
+            "ctas": min(items, _build.NUM_SMS) if persistent else items}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -123,17 +148,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     dtype = _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v},
                                 dtypes=_build.LM_DTYPES)
-    d_pad = launch_plan(q.shape, k.shape, v.shape, dtype)["d_pad"]
+    plan = launch_plan(q.shape, k.shape, v.shape, dtype)
+    d_pad = plan["d_pad"]
     _build.check_aligned("flash_attention", {"q": q, "k": k, "v": v})
     bh, s, d = q.shape
     q, k, v = (pad_head_dim(t, d_pad) for t in (q, k, v))
     out = torch.empty_like(q)
-    lse_out = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    # lse, and past it one word of scratch for the bf16 kernel (the
+    # persistent grid's work counter, which the launcher zeroes)
+    lse_buf = torch.empty(bh * s + 4, dtype=torch.float32, device=q.device)
+    lse_out = lse_buf[:bh * s].view(bh, s)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_buf.data_ptr()]
+    if dtype == torch.bfloat16:
+        ptrs.append(lse_buf.data_ptr() + 4 * bh * s)
     lib = _build.load()
     err = getattr(lib, _FN[dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse_out.data_ptr(), bh, k.shape[0], s, d_pad, d, int(bool(causal)),
-        int(window), torch.cuda.current_stream(q.device).cuda_stream)
+        *ptrs, bh, k.shape[0], s, d_pad, d, int(bool(causal)), int(window),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     launches += 1
     if d_pad != d:
@@ -148,8 +180,12 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The backward's launches at ``dtype``.  bf16 as
     ``csrc/flash_attention_bwd.cu`` has them: the dq launch's q rows a CTA
     (BQ, 64 a consumer warpgroup), kv rows a tile (BK) and stages; the
-    dkdv launch's kv rows a CTA (BKV), q rows a tile (BQT), stages and
-    query-head groups (a cluster of that many CTAs a kv block); dynamic
+    dkdv launch's kv rows a CTA (BKV: 128 at DP 64 and 128, 64 a consumer
+    warpgroup holding its rows' dK and dV, ``dkdv_split`` "rows"; 64 at
+    256, the consumers split by gradient), q rows a tile (BQT), stages and
+    query-head groups (a cluster of that many CTAs a kv block), the CUDA
+    launches of a call (``launches``: the dq launch does the prep's work
+    at DP 64 and 128); dynamic
     shared memory of each (after up to 1 KB of padding to the swizzle's
     period) and CTAs; and the f32 workspace's shape (lse log2 e and Delta,
     (2, BH, S_pad)).  f32 as ``csrc/flash_attention_bwd_f32.cu`` (its
@@ -173,7 +209,7 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
         nkb = -(-s // bkv)
         groups = 2 if rep >= 2 and nkb * bh_kv < 2 * _build.NUM_SMS else 1
         return {"d_pad": d_pad, "dp": dp, "bq": bq, "bk": bk, "bkv": bkv,
-                "bqt": bqt,
+                "bqt": bqt, "launches": ("prep", "dq", "dkdv"),
                 "stages": stages, "groups": groups, "threads": 256,
                 # Q, dO, O; a pair of K and of V tiles; P and dS (a
                 # pair's keys + 4 a row)
@@ -190,22 +226,35 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
     tile = (dp // 64) * BOX_BYTES           # 64 rows of D
     bk = 32 if dp == 256 else 64
     dq_stages = 3 if dp == 256 else 4
-    kv_stages = 2 if dp == 256 else 4
-    nkb = -(-s // 64)
+    if dp <= 128:
+        # each consumer owns 64 of the CTA's kv rows: k and v of both,
+        # the ring of q and dO with lse2 and Delta (64 f32 each), 1 + 2
+        # stages mbarriers
+        bkv, kv_stages, split = BF16_BWD_BKV, BF16_BWD_KV_STAGES, "rows"
+        dkdv_smem = (1024 + 4 * tile + kv_stages * (2 * tile + 2 * 256)
+                     + 8 * (1 + 2 * kv_stages))
+    else:
+        # the two consumers share 64 kv rows, split by gradient: k and v,
+        # the ring, two 64 x 64 f32 buffers of P^T, the mbarriers
+        bkv, kv_stages, split = 64, 2, "gradient"
+        dkdv_smem = (1024 + 2 * tile + kv_stages * (2 * tile + 2 * 256)
+                     + 2 * 64 * 64 * 4 + 8 * (1 + 2 * kv_stages))
+    nkb = -(-s // bkv)
     groups = 2 if rep >= 2 and nkb * bh_kv < 2 * _build.NUM_SMS else 1
+    # at DP <= 128 the dq launch also does the prep's work (Delta and
+    # lse2 of its rows), with an o tile beside each consumer's q and dO
+    prep = dp == 256
     return {"d_pad": d_pad, "dp": dp, "bq": 128, "bk": bk,
             "dq_stages": dq_stages,
-            "bkv": 64, "bqt": 64, "kv_stages": kv_stages, "groups": groups,
-            # q and dO tiles of both consumers, the k and v rings,
+            "bkv": bkv, "bqt": 64, "kv_stages": kv_stages, "groups": groups,
+            "dkdv_split": split,
+            "launches": (("prep",) if prep else ()) + ("dq", "dkdv"),
+            # q and dO (and o) tiles of both consumers, the k and v rings,
             # 1 + 4 stages mbarriers
-            "dq_smem_bytes": (1024 + 4 * tile
+            "dq_smem_bytes": (1024 + (4 if prep else 6) * tile
                               + 2 * dq_stages * tile * bk // 64
                               + 8 * (1 + 4 * dq_stages)),
-            # k and v, the ring of q and dO with lse2 and Delta (64 f32
-            # each), two 64 x 64 f32 buffers of P^T, 1 + 2 stages mbarriers
-            "dkdv_smem_bytes": (1024 + 2 * tile
-                                + kv_stages * (2 * tile + 2 * 256)
-                                + 2 * 64 * 64 * 4 + 8 * (1 + 2 * kv_stages)),
+            "dkdv_smem_bytes": dkdv_smem,
             "dq_ctas": -(-s // 128) * bh,
             "dkdv_ctas": nkb * bh_kv * groups,
             "s_pad": -(-s // BWD_PAD) * BWD_PAD,
@@ -222,7 +271,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     inputs, its output ``o``, its ``lse`` and ``do``; f32 (exact FMA, D
     zero-padded to a multiple of 8) or bf16 (``wgmma``, D zero-padded to a
     multiple of 16), all in one dtype but the f32 ``lse``.  Three CUDA
-    launches (Delta, dq, then dk and dv)."""
+    launches (Delta, dq, then dk and dv; two in bf16 at D <= 128, whose dq
+    launch computes Delta)."""
     global bwd_launches
     dtype = _build.check_inputs("flash_attention_bwd",
                                 {"q": q, "k": k, "v": v, "o": o, "do": do},

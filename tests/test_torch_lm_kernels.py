@@ -150,9 +150,11 @@ def test_attention_kv_shape_checks(q_shape, k_shape, v_shape):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_attention_launch_plan_fits_one_cta(dtype):
     """Every head dimension the kernels take fits the card's 227 KB of
-    shared memory a CTA; bf16 runs one CTA of three warpgroups (384
-    threads) on 128 q rows with 64-row kv tiles, f32 one CTA of 8 warps
-    (256 threads) on 64 q rows with 32-row kv tiles in pairs, head
+    shared memory a CTA; bf16 runs CTAs of three warpgroups (384 threads)
+    on 128 q rows: at head dimension 64 and 128 with 128-row kv tiles on
+    three stages, one persistent CTA an SM; at 256
+    with 64-row kv tiles, one CTA a q block and head; f32 one CTA of 8
+    warps (256 threads) on 64 q rows with 32-row kv tiles in pairs, head
     dimension padded to 64, 128 or 256."""
     seen = set()
     for d in range(8, t_fa.MAX_HEAD_DIM + 1, 8):
@@ -161,10 +163,21 @@ def test_attention_launch_plan_fits_one_cta(dtype):
         assert plan["smem_bytes"] <= t_fa.MAX_SMEM == 232448
         assert plan["dp"] >= d and plan["rep"] == 16
         seen.add(plan["dp"])
-        if dtype == "bfloat16":
-            assert (plan["threads"], plan["bq"], plan["bk"]) == (384, 128, 64)
+        assert plan["items"] == 64 * 4096 // plan["bq"]
+        if dtype == "bfloat16" and plan["dp"] <= 128:
+            assert (plan["threads"], plan["bq"], plan["bk"],
+                    plan["stages"]) == (384, 128, 128, 3)
+            assert plan["persistent"] and plan["ctas"] == 132
+            if plan["dp"] == 128:
+                # q at 2 x 64 rows, three stages of 128-row k and v tiles:
+                # 32 + 192 KB, the padding, 14 mbarriers and the q tiles'
+                # work item
+                assert plan["smem_bytes"] == 1024 + 224 * 1024 + 112 + 16
+        elif dtype == "bfloat16":
+            assert (plan["threads"], plan["bq"], plan["bk"],
+                    plan["stages"]) == (384, 128, 64, 2)
+            assert not plan["persistent"]
             assert plan["ctas"] == 64 * 4096 // 128
-            assert plan["stages"] >= 2
         else:
             assert (plan["threads"], plan["bq"], plan["bk"],
                     plan["stages"]) == (256, 64, 32, 2)
@@ -719,6 +732,11 @@ def test_flash_attention_bwd_plan_fits_one_cta():
     assert (plan["dp"], plan["bk"]) == (256, 32)
     assert plan["dq_smem_bytes"] <= t_fa.MAX_SMEM
     assert plan["dkdv_smem_bytes"] <= t_fa.MAX_SMEM
+    # the dkdv launch: 64 kv rows a CTA, the consumers split by gradient;
+    # a prep launch for Delta before the dq launch
+    assert (plan["bkv"], plan["kv_stages"], plan["dkdv_split"]) == (
+        64, 2, "gradient")
+    assert plan["launches"] == ("prep", "dq", "dkdv")
     # one kv head per 16 query heads: two groups of query heads (a
     # cluster of two CTAs a kv block) fill the 132 SMs
     assert plan["groups"] == 2
@@ -729,3 +747,66 @@ def test_flash_attention_bwd_plan_fits_one_cta():
         assert small["groups"] == 1 and small["s_pad"] == 1024
         assert max(small["dq_smem_bytes"],
                    small["dkdv_smem_bytes"]) <= t_fa.MAX_SMEM
+        # 128 kv rows a dkdv CTA, 64 a consumer with their own dK and dV,
+        # on four stages of q and dO tiles; the dq launch's 64-key tiles
+        assert (small["bkv"], small["kv_stages"], small["dkdv_split"],
+                small["bk"], small["dq_stages"]) == (128, 4, "rows", 64, 4)
+        assert small["dkdv_ctas"] == 8 * 4
+        # the dq launch computes Delta and lse2 of its rows: two launches
+        assert small["launches"] == ("dq", "dkdv")
+    # D = 128: k and v of 128 rows (64 KB), four stages of q and dO (32
+    # KB) with lse2 and Delta (512 B), the padding and 9 mbarriers
+    plan = t_fa.bwd_plan((64, 2048, 128), (64, 2048, 128))
+    assert plan["dkdv_smem_bytes"] == 1024 + 64 * 1024 + 4 * (
+        32 * 1024 + 512) + 72
+    assert plan["groups"] == 1 and plan["dkdv_ctas"] == 16 * 64
+    # dq: q, dO and o tiles of both consumers (96 KB), four stages of 64-row
+    # k and v tiles (128 KB), the padding and 17 mbarriers
+    assert plan["dq_smem_bytes"] == 1024 + 96 * 1024 + 128 * 1024 + 136 \
+        <= t_fa.MAX_SMEM
+
+
+# The D = 128 attention of the uniform stack's full-size configs at a
+# prefill of 4 x 4096 tokens: (arch, query heads, kv heads, window).
+UNIFORM_D128 = (("yi-6b", 32, 4, 0), ("glm4-9b", 32, 2, 0),
+                ("olmoe-1b-7b", 16, 16, 0), ("mixtral-8x22b", 48, 8, 4096))
+
+
+@pytest.mark.parametrize("arch,heads,kv_heads,window", UNIFORM_D128)
+def test_attention_plans_at_the_uniform_stacks_d128_shapes(
+        arch, heads, kv_heads, window):
+    """The bf16 forward and backward plans at each D = 128 family's
+    prefill shape: the configs' heads and window, the persistent forward
+    on 128-key tiles with one CTA an SM, the backward's dkdv on 128-row kv
+    blocks (a cluster of two CTAs a kv block while the kv blocks of the kv
+    heads are under two waves), every launch within one CTA's shared
+    memory, and the sources' tiles the plans restate."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    cfg = get_config(arch)
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (
+        heads, kv_heads, 128)
+    # a global layer runs with no window, a local one at the config's
+    assert set(cfg.attn_pattern) == ({"local"} if window else {"global"})
+    assert window in (0, cfg.window)
+    q_shape, kv_shape = (4 * heads, 4096, 128), (4 * kv_heads, 4096, 128)
+    plan = t_fa.launch_plan(q_shape, kv_shape, kv_shape, torch.bfloat16)
+    assert plan["rep"] == heads // kv_heads
+    assert (plan["dp"], plan["bq"], plan["bk"], plan["stages"]) == (
+        128, 128, 128, 3)
+    assert plan["persistent"] and plan["items"] == 32 * 4 * heads
+    assert plan["ctas"] == _build.NUM_SMS <= plan["items"]
+    assert plan["smem_bytes"] <= t_fa.MAX_SMEM
+    bwd = t_fa.bwd_plan(q_shape, kv_shape, torch.bfloat16)
+    assert (bwd["bkv"], bwd["dkdv_split"]) == (128, "rows")
+    kv_blocks = 32 * 4 * kv_heads
+    assert bwd["groups"] == (2 if heads > kv_heads
+                             and kv_blocks < 2 * _build.NUM_SMS else 1)
+    assert bwd["dkdv_ctas"] == kv_blocks * bwd["groups"]
+    assert max(bwd["dq_smem_bytes"], bwd["dkdv_smem_bytes"]) \
+        <= t_fa.MAX_SMEM
+    fwd_src = (_build.CSRC / "flash_attention.cu").read_text()
+    bwd_src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert f"constexpr int kBK2 = {t_fa.BF16_BK};" in fwd_src
+    assert f"constexpr int kBKV2 = {t_fa.BF16_BWD_BKV};" in bwd_src
