@@ -2,6 +2,7 @@
 
   python3 attention_probe.py check [--root DIR]
   python3 attention_probe.py time [--root DIR] [--tag NAME] [--only NAME]
+  python3 attention_probe.py hashes [--root DIR] [--tag NAME]
 
 `check` builds the kernels, prints their -Xptxas -v lines and holds the
 forward and backward at ragged S, GQA, windows, non-causal and D 48 to
@@ -11,10 +12,15 @@ prefill shapes, OLMoE's training shape, RecurrentGemma's prefill shape
 and a non-causal Yi shape beside SDPA, and the backward at OLMoE's and
 RecurrentGemma's training shapes beside SDPA's backward, with each
 launch's device time and the host time of a call; one JSON line a row.
---root names another checkout (an unpacked `git archive` of another
-commit) whose chip_smoke.py and src/ are imported instead, so that two
-commits are compared in one run: parent, change, change, parent.  Needs
-a CUDA device; results also go to chiprun_out/ beside this script."""
+`hashes` prints the sha256 of the forward's out and lse and of the
+backward's dQ, dK and dV, f32 and bf16, at D 64, 96, 128 and 256 on
+seeded inputs with S_kv = S (the shapes of PERF.md rows 4, 7 and 10
+among them), one JSON line a case: two commits whose lines are equal
+compute those outputs bitwise alike.  --root names another checkout
+(an unpacked `git archive` of another commit) whose chip_smoke.py and
+src/ are imported instead, so that two commits are compared in one run:
+parent, change, change, parent.  Needs a CUDA device; results also go
+to chiprun_out/ beside this script."""
 import argparse
 import json
 import os
@@ -114,6 +120,46 @@ if a.role == "check":
     print(json.dumps({"tag": a.tag, "fails": fails}))
     sys.exit(1 if fails else 0)
 
+if a.role == "hashes":
+    import hashlib
+
+    # (dtype, D, BH, BH_kv, S, causal, window): Yi-6B's prefill and
+    # OLMoE-1B-7B's training (bf16, D 128), RecurrentGemma-9B's prefill and
+    # training (bf16, D 256; f32 at the f32 training shape), D 64 ragged,
+    # GQA, windowed and non-causal, and D 96.
+    HASH_CASES = [("bf16", 128, 128, 16, 4096, True, 0),
+                  ("bf16", 128, 64, 64, 2048, True, 0),
+                  ("bf16", 256, 64, 4, 4096, True, 2048),
+                  ("bf16", 256, 32, 2, 4096, True, 2048),
+                  ("bf16", 64, 16, 4, 1000, True, 64),
+                  ("bf16", 64, 8, 8, 777, False, 0),
+                  ("bf16", 96, 8, 8, 1000, True, 0),
+                  ("f32", 256, 32, 2, 4096, True, 2048),
+                  ("f32", 64, 8, 2, 1000, True, 64),
+                  ("f32", 96, 8, 8, 1000, True, 0),
+                  ("f32", 128, 6, 3, 300, False, 0)]
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                              .numpy().tobytes()).hexdigest()[:16]
+
+    for i, (dt, d, bh, bkv, s, causal, window) in enumerate(HASH_CASES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        q, k, v, dout = (torch.randn(r, s, d, generator=g, device=dev)
+                         .to(dtype) for r in (bh, bkv, bkv, bh))
+        kw = {"causal": causal, "window": window}
+        o, lse = fa.flash_attention(q, k, v, lse=True, **kw)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+        print(json.dumps({"tag": a.tag, "case": [dt, d, bh, bkv, s, causal,
+                                                 window],
+                          "out": digest(o), "lse": digest(lse),
+                          "dq": digest(grads[0]), "dk": digest(grads[1]),
+                          "dv": digest(grads[2])}), flush=True)
+        del q, k, v, dout, o, lse, grads
+        torch.cuda.empty_cache()
+    sys.exit(0)
+
 # role time
 rows = []
 FWD_T = [("yi_prefill", 128, 16, 4096, 128, True, 0, 32),
@@ -178,8 +224,8 @@ for name, bh, bkv, s, d, causal, window, heads in BWD_T:
                          dtype=torch.float32, device=q.device)
         g = [torch.empty_like(t) for t in (q, k, v)]
         cargs = [*(t.data_ptr() for t in (q, k, v, o, dout, lse, ws, *g)),
-                 q.shape[0], k.shape[0], q.shape[1], 128, 128, 1, 0,
-                 torch.cuda.current_stream().cuda_stream]
+                 q.shape[0], k.shape[0], q.shape[1], k.shape[1], 128, 128,
+                 1, 0, torch.cuda.current_stream().cuda_stream]
         def host(fn, n=50):
             torch.cuda.synchronize()
             th = time.perf_counter()
@@ -211,8 +257,8 @@ for name, bh, bkv, s, d, causal, window, heads in BWD_T:
         oo = torch.empty_like(q)
         fargs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), oo.data_ptr(),
                  lse_buf.data_ptr(), lse_buf.data_ptr() + 4 * q.shape[0] * q.shape[1],
-                 q.shape[0], k.shape[0], q.shape[1], 128, 128, 1, 0,
-                 torch.cuda.current_stream().cuda_stream]
+                 q.shape[0], k.shape[0], q.shape[1], k.shape[1], 128, 128,
+                 1, 0, torch.cuda.current_stream().cuda_stream]
         fc_us = host(lambda: fwd_c(*fargs))
         print(json.dumps({"tag": a.tag, "host_split_us": {
             "bwd_c_entry": c_us, "bwd_python": py_us, "fwd_c_entry": fc_us}}), flush=True)

@@ -1,7 +1,8 @@
 """Architecture configs, as in ``repro.configs``: the same ``ARCHS`` and
-``ARCH_IDS``.  The port serves and trains the eight archs of ``PORTED``;
-whisper's encoder-decoder and the phi3-vision stub wait for ROADMAP
-Queue 1 item 7b."""
+``ARCH_IDS``.  The port serves and trains all ten (``PORTED``): the
+hybrid, SSD and uniform attention families, whisper's encoder-decoder
+(trained through ``runtime.steps.make_train_step`` on batches that hold
+its frames) and the phi3-vision stub."""
 from __future__ import annotations
 
 import importlib
@@ -30,15 +31,15 @@ ARCH_IDS.update({
 })
 
 PORTED = ("recurrentgemma_9b", "mamba2_1_3b", "yi_6b", "gemma_7b",
-          "glm4_9b", "gemma3_1b", "olmoe_1b_7b", "mixtral_8x22b")
+          "glm4_9b", "gemma3_1b", "olmoe_1b_7b", "mixtral_8x22b",
+          "whisper_large_v3", "phi3_vision_4_2b")
 
 
 def _module(arch: str):
     name = ARCH_IDS[arch]
     if name not in PORTED:
         raise NotImplementedError(
-            f"{arch}: the port serves {', '.join(PORTED)} only; whisper's "
-            f"encoder-decoder and the VLM stub are ROADMAP Queue 1 item 7b")
+            f"{arch}: the port serves {', '.join(PORTED)} only")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -44,12 +44,12 @@ SIGNATURES = {
     "repro_schwarz_bwd_f64": (_P,) * 10 + (_I, _I, _I, _P),
     "repro_schwarz_bwd_f32": (_P,) * 10 + (_I, _I, _I, _P),
     "repro_schwarz_bwd_splits": (),
-    "repro_flash_attention_f32": (_P,) * 5 + (_I,) * 7 + (_P,),
-    "repro_flash_attention_bf16": (_P,) * 6 + (_I,) * 7 + (_P,),
-    "repro_flash_attention_bwd_bf16": (_P,) * 10 + (_I,) * 7 + (_P,),
-    "repro_flash_attention_bwd_f32": (_P,) * 10 + (_I,) * 7 + (_P,),
-    "repro_flash_attention_bwd_f32_part": (_P,) * 10 + (_I,) * 8 + (_P,),
-    "repro_flash_attention_bwd_bf16_part": (_P,) * 10 + (_I,) * 8 + (_P,),
+    "repro_flash_attention_f32": (_P,) * 5 + (_I,) * 8 + (_P,),
+    "repro_flash_attention_bf16": (_P,) * 6 + (_I,) * 8 + (_P,),
+    "repro_flash_attention_bwd_bf16": (_P,) * 10 + (_I,) * 8 + (_P,),
+    "repro_flash_attention_bwd_f32": (_P,) * 10 + (_I,) * 8 + (_P,),
+    "repro_flash_attention_bwd_f32_part": (_P,) * 10 + (_I,) * 9 + (_P,),
+    "repro_flash_attention_bwd_bf16_part": (_P,) * 10 + (_I,) * 9 + (_P,),
     "repro_rglru_scan_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_rglru_scan_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_rglru_scan_bwd_carry_f32": (_P,) * 3 + (_I, _I, _I, _P),

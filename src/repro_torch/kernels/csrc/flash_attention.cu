@@ -6,11 +6,16 @@
 // and the online-softmax state (m, l, acc) lives in VMEM scratch across it.
 //
 // q and o are (BH, S, D) with heads folded into the batch; k and v are
-// (BH_kv, S, D), and row bh / (BH / BH_kv) of k and v serves query row bh
-// (repeat_interleave's order: an MQA or GQA layer's kv heads are read in
-// place, never expanded).  window <= 0 means unbounded; a key is visible
-// to a query when key < S, (causal) key <= query, and (window) key >
-// query - window.  kv blocks that lie wholly after the q block (causal) or
+// (BH_kv, S_kv, D), and row bh / (BH / BH_kv) of k and v serves query row
+// bh (repeat_interleave's order: an MQA or GQA layer's kv heads are read in
+// place, never expanded).  S_kv differs from S only in non-causal attention
+// with no window (a cross-attention, whisper's decoder reading the
+// encoder's frames; the TPU kernel takes one S).  window <= 0 means
+// unbounded; a key is visible to a query when key < S_kv, (causal) key <=
+// query, and (window) key > query - window.  Every bound on keys (the kv
+// tiles, the masks, the k and v tensor maps, whose rows past S_kv TMA
+// zero-fills) is S_kv; every bound on queries (the q blocks, lse and the
+// output) is S.  kv blocks that lie wholly after the q block (causal) or
 // wholly before its window are skipped, as the TPU kernel skips them.
 //
 // Bound on this card: operations for bf16 at long S (4 flops per visible
@@ -116,9 +121,9 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
-                                        int window) {
-  bool ok = kpos < S;
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Skv,
+                                        int causal, int window) {
+  bool ok = kpos < Skv;
   if (causal) ok = ok && kpos <= qpos;
   if (window > 0) ok = ok && kpos > qpos - window;
   return ok;
@@ -379,13 +384,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
 // the S fragment, in place: updates the running max m (raw scores) and
 // sum l, returns the rescale factor alpha of each row, and leaves
 // P = 2^(c (s - m)) (c = scale * log2 e) in s.  kMask evaluates visible()
-// per entry; masked entries become exactly 0.
+// per entry (keys below Skv); masked entries become exactly 0.
 template <bool kMask, int N>
 __device__ __forceinline__ void softmax_tile(float (&s)[N],
                                              float (&m_run)[2],
                                              float (&l_run)[2],
                                              float (&alpha)[2], float c,
-                                             int r0, int k0, int S,
+                                             int r0, int k0, int Skv,
                                              int causal, int window) {
   // Each row's max and sum over the thread's entries in kC chains (one
   // at N = 32; four at N = 64, the 128-key tiles, whose chains of 32
@@ -397,7 +402,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N],
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     if (kMask && !visible(r0 + 8 * ((i >> 1) & 1),
-                          k0 + 8 * (i >> 2) + (i & 1), S, causal, window))
+                          k0 + 8 * (i >> 2) + (i & 1), Skv, causal, window))
       s[i] = kNegInf;
     float& m = mx4[(i >> 1) & 1][(i >> 2) % kC];
     m = fmaxf(m, s[i]);
@@ -494,9 +499,9 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
 
 // Whether every (q, key) pair of a 64-row warpgroup block and a kv tile is
 // visible, so that its softmax needs no mask.
-__device__ __forceinline__ bool tile_full(int k_start, int q0, int S,
+__device__ __forceinline__ bool tile_full(int k_start, int q0, int Skv,
                                           int causal, int window) {
-  return k_start + kBK <= S && (!causal || k_start + kBK - 1 <= q0) &&
+  return k_start + kBK <= Skv && (!causal || k_start + kBK - 1 <= q0) &&
          (window <= 0 || k_start > q0 + 63 - window);
 }
 
@@ -511,7 +516,7 @@ struct OverlapStep {
   Barriers<kStages> bars;
   uint64_t q_desc;
   float c;
-  int r0, S, causal, window, h, lane;
+  int r0, Skv, causal, window, h, lane;
 
   template <bool kMask>
   __device__ __forceinline__ void run(float (&o)[DP / 2], float (&s)[32],
@@ -532,7 +537,7 @@ struct OverlapStep {
     named_arrive(4 - h, 256);
     wgmma_wait<1>();
     fence_regs(s);
-    softmax_tile<kMask>(s, m_run, l_run, alpha, c, r0, k0, S, causal,
+    softmax_tile<kMask>(s, m_run, l_run, alpha, c, r0, k0, Skv, causal,
                         window);
     release(bars.empty_k(st), lane);
     wgmma_wait<0>();
@@ -548,8 +553,8 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
                   __grid_constant__ const CUtensorMap tk,
                   __grid_constant__ const CUtensorMap tv,
                   __grid_constant__ const CUtensorMap to,
-                  float* __restrict__ lse, int BH, int rep, int S, float c,
-                  int causal, int window) {
+                  float* __restrict__ lse, int BH, int rep, int S, int Skv,
+                  float c, int causal, int window) {
   using Cfg = Bf16Cfg<DP>;
   constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages, kTile = Cfg::kTile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -566,7 +571,7 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
   const int nqb = (S + kBQ - 1) / kBQ;
   const int bh = blockIdx.x % BH;
   const int q_start = (nqb - 1 - static_cast<int>(blockIdx.x) / BH) * kBQ;
-  const int nk = (S + kBK - 1) / kBK;
+  const int nk = (Skv + kBK - 1) / kBK;
   const int kb_end = causal ? min(nk, (q_start + kBQ - 1) / kBK + 1) : nk;
   int kb_lo = 0;
   while (kb_lo < kb_end &&
@@ -648,19 +653,19 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(s);
       softmax_tile<true>(s, m_run, l_run, alpha, c, r0, kb_lo * kBK + 2 * t,
-                         S, causal, window);
+                         Skv, causal, window);
       release(bars.empty_k(0), lane);
       rescale_pack<DP>(o, p, s, alpha);
 
       // Tiles 1 .. n_tiles - 1 in three runs: masked, unmasked [f0, f1),
-      // masked (the diagonal, S's edge).
+      // masked (the diagonal, S_kv's edge).
       int f0 = n_tiles, f1 = n_tiles;
       for (int i = n_tiles - 1; i >= 1; --i)
-        if (tile_full((kb_lo + i) * kBK, q0, S, causal, window)) {
+        if (tile_full((kb_lo + i) * kBK, q0, Skv, causal, window)) {
           if (f1 == n_tiles) f1 = i + 1;
           f0 = i;
         }
-      const OverlapStep<DP> step{k_ring, v_ring, bars, q_desc, c, r0, S,
+      const OverlapStep<DP> step{k_ring, v_ring, bars, q_desc, c, r0, Skv,
                                  causal, window, h, lane};
       for (int i = 1; i < f0; ++i)
         step.template run<true>(o, s, p, m_run, l_run, i,
@@ -859,9 +864,9 @@ __device__ __forceinline__ void rescale_pack2(float (&o)[DP / 2],
 
 // Whether every (q, key) pair of a 64-row warpgroup block and a 128-key
 // tile is visible.
-__device__ __forceinline__ bool tile_full2(int k_start, int q0, int S,
+__device__ __forceinline__ bool tile_full2(int k_start, int q0, int Skv,
                                            int causal, int window) {
-  return k_start + kBK2 <= S && (!causal || k_start + kBK2 - 1 <= q0) &&
+  return k_start + kBK2 <= Skv && (!causal || k_start + kBK2 - 1 <= q0) &&
          (window <= 0 || k_start > q0 + 63 - window);
 }
 
@@ -876,15 +881,15 @@ struct Item {
   int bh, q_start, kb_lo, n_tiles;
 };
 
-__device__ __forceinline__ Item item_of(int idx, int rep, int S, int causal,
-                                        int window) {
+__device__ __forceinline__ Item item_of(int idx, int rep, int S, int Skv,
+                                        int causal, int window) {
   const int nqb = (S + kBQ - 1) / kBQ;
   const int per_kv = nqb * rep;
   const int w = idx % per_kv;
   Item it;
   it.bh = (idx / per_kv) * rep + w % rep;
   it.q_start = (nqb - 1 - w / rep) * kBQ;
-  const int nk = (S + kBK2 - 1) / kBK2;
+  const int nk = (Skv + kBK2 - 1) / kBK2;
   const int kb_end =
       causal ? min(nk, (it.q_start + kBQ - 1) / kBK2 + 1) : nk;
   it.kb_lo = window > 0 ? max(0, it.q_start - window + 1) / kBK2 : 0;
@@ -903,7 +908,7 @@ struct OverlapStep2 {
   uint32_t k_ring, v_ring;
   Barriers2<kStages> bars;
   float c;
-  int r0, S, causal, window, h, lane;
+  int r0, Skv, causal, window, h, lane;
 
   template <bool kMask>
   __device__ __forceinline__ void run(float (&o)[DP / 2], float (&s)[64],
@@ -925,7 +930,7 @@ struct OverlapStep2 {
     named_arrive(4 - h, 256);
     wgmma_wait<1>();
     fence_regs(s);
-    softmax_tile<kMask>(s, m_run, l_run, alpha, c, r0, k0, S, causal,
+    softmax_tile<kMask>(s, m_run, l_run, alpha, c, r0, k0, Skv, causal,
                         window);
     release(bars.empty_k(st), lane);
     wgmma_wait<0>();
@@ -939,15 +944,16 @@ struct OverlapStep2 {
 // unless every pair of the tile is visible.
 __device__ __forceinline__ void softmax_first(float (&s)[64], float (&m)[2],
                                               float (&l)[2], float c, int r0,
-                                              int q0, int k0, int t, int S,
+                                              int q0, int k0, int t, int Skv,
                                               int causal, int window) {
   float alpha[2];
   m[0] = m[1] = kNegInf;
   l[0] = l[1] = 0.0f;
-  if (tile_full2(k0, q0, S, causal, window))
-    softmax_tile<false>(s, m, l, alpha, c, r0, 0, S, causal, window);
+  if (tile_full2(k0, q0, Skv, causal, window))
+    softmax_tile<false>(s, m, l, alpha, c, r0, 0, Skv, causal, window);
   else
-    softmax_tile<true>(s, m, l, alpha, c, r0, k0 + 2 * t, S, causal, window);
+    softmax_tile<true>(s, m, l, alpha, c, r0, k0 + 2 * t, Skv, causal,
+                       window);
 }
 
 // The epilogue of this thread's rows r0 and r0 + 8 of head bh: each
@@ -986,7 +992,7 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
                              __grid_constant__ const CUtensorMap tv,
                              __nv_bfloat16* __restrict__ out,
                              float* __restrict__ lse, int* __restrict__ next,
-                             int BH, int rep, int S, int D, float c,
+                             int BH, int rep, int S, int Skv, int D, float c,
                              int causal, int window) {
   using Cfg = Bf16Cfg2<DP>;
   constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages;
@@ -1033,7 +1039,7 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
           bar_arrive(bars.full_q());
           break;
         }
-        const Item item = item_of(idx, rep, S, causal, window);
+        const Item item = item_of(idx, rep, S, Skv, causal, window);
         bar_arrive_tx(bars.full_q(), 2 * kQTile);
         for (int h = 0; h < 2; ++h)
           for (int j = 0; j < kNB; ++j)
@@ -1084,7 +1090,7 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
     int idx = *q_item;
     if (idx < total) {
       // The CTA's first item: tile 0's S alone.
-      Item item = item_of(idx, rep, S, causal, window);
+      Item item = item_of(idx, rep, S, Skv, causal, window);
       int q0 = item.q_start + 64 * h;
       load_a_frags<DP>(qa, Qs + h * kQTile, warp, lane);
       release(bars.empty_q(), lane);
@@ -1099,7 +1105,7 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
         wgmma_wait<0>();
         fence_regs(s);
         softmax_first(s, m_run, l_run, c, q0 + row, q0, item.kb_lo * kBK2, t,
-                      S, causal, window);
+                      Skv, causal, window);
         release(bars.empty_k(st), lane);
 #pragma unroll
         for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
@@ -1115,11 +1121,11 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
         // masked.
         int f0 = n, f1 = n;
         for (int i = n - 1; i >= 1; --i)
-          if (tile_full2(k_lo + i * kBK2, q0, S, causal, window)) {
+          if (tile_full2(k_lo + i * kBK2, q0, Skv, causal, window)) {
             if (f1 == n) f1 = i + 1;
             f0 = i;
           }
-        const OverlapStep2<DP> step{k_ring, v_ring, bars, c, r0, S, causal,
+        const OverlapStep2<DP> step{k_ring, v_ring, bars, c, r0, Skv, causal,
                                     window, h, lane};
         for (int i = 1; i < f0; ++i)
           step.template run<true>(o, s, p, qa, m_run, l_run, it + i,
@@ -1149,7 +1155,7 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
           break;
         }
         // The next item's tile 0 S with this item's last P V.
-        const Item next = item_of(idx, rep, S, causal, window);
+        const Item next = item_of(idx, rep, S, Skv, causal, window);
         const int nq0 = next.q_start + 64 * h;
         load_a_frags<DP>(qa, Qs + h * kQTile, warp, lane);
         release(bars.empty_q(), lane);
@@ -1169,7 +1175,7 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
         // runs; then this item's output.
         float m_new[2], l_new[2];
         softmax_first(s, m_new, l_new, c, nq0 + row, nq0, next.kb_lo * kBK2,
-                      t, S, causal, window);
+                      t, Skv, causal, window);
         release(bars.empty_k(st), lane);
         wgmma_wait<0>();
         fence_regs(o);
@@ -1250,8 +1256,8 @@ template <int DP>
 __global__ void __launch_bounds__(kT32, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int BH, int S, int D, int rep,
-                 float scale, int causal, int window) {
+                 float* __restrict__ lse, int BH, int S, int Skv, int D,
+                 int rep, float scale, int causal, int window) {
   using C = F32Cfg<DP>;
   constexpr int kPair = 2 * kBK32;              // keys of a pair
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1264,14 +1270,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / BH)) * kBQ32;
   const int bh = static_cast<int>(blockIdx.x % BH);
   const size_t off = static_cast<size_t>(bh) * S * D;
-  const size_t off_kv = static_cast<size_t>(bh / rep) * S * D;
+  const size_t off_kv = static_cast<size_t>(bh / rep) * Skv * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 16, j16 = lane % 16;
   const int sr = 8 * warp + 4 * g;              // score rows sr + i
   float* Pw = Ps + 8 * warp * kPL32;
 
   // The kv tiles the q block sees: one contiguous range, in pairs.
-  const int nk = (S + kBK32 - 1) / kBK32;
+  const int nk = (Skv + kBK32 - 1) / kBK32;
   int lo = 0, hi = nk - 1;
   while (lo < nk && !block_runs(q0, lo * kBK32, kBQ32, kBK32, causal, window))
     ++lo;
@@ -1280,9 +1286,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_pairs = hi >= lo ? (hi - lo + 2) / 2 : 0;
 
   stage_f32<DP, kBQ32>(Qs, q + off, q0, S, D);
-  if (n_pairs > 0) stage_f32<DP, kPair>(Ks, k + off_kv, lo * kBK32, S, D);
+  if (n_pairs > 0) stage_f32<DP, kPair>(Ks, k + off_kv, lo * kBK32, Skv, D);
   fa32::commit();
-  if (n_pairs > 0) stage_f32<DP, kPair>(Vs, v + off_kv, lo * kBK32, S, D);
+  if (n_pairs > 0) stage_f32<DP, kPair>(Vs, v + off_kv, lo * kBK32, Skv, D);
   fa32::commit();
 
   float acc[8][C::kNC][4];
@@ -1322,7 +1328,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();   // every warp is past this pair's K
     if (more) {
-      stage_f32<DP, kPair>(Ks, k + off_kv, (t0 + 2) * kBK32, S, D);
+      stage_f32<DP, kPair>(Ks, k + off_kv, (t0 + 2) * kBK32, Skv, D);
       fa32::commit();
     }
 
@@ -1338,7 +1344,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int b = 0; b < 2; ++b) {
           const int c = 2 * tt + b;
-          x[b] = visible(qpos, t0 * kBK32 + j16 + 16 * c, S, causal, window)
+          x[b] = visible(qpos, t0 * kBK32 + j16 + 16 * c, Skv, causal,
+                         window)
                      ? s[i][c] * scale
                      : kNegInf;
         }
@@ -1407,7 +1414,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();   // every warp is past this pair's V and P
     if (more) {
-      stage_f32<DP, kPair>(Vs, v + off_kv, (t0 + 2) * kBK32, S, D);
+      stage_f32<DP, kPair>(Vs, v + off_kv, (t0 + 2) * kBK32, Skv, D);
       fa32::commit();
     }
   }
@@ -1460,12 +1467,12 @@ bool encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D,
 
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                void* lse, int BH, int BH_kv, int S, int D, int Dh,
+                void* lse, int BH, int BH_kv, int S, int Skv, int D, int Dh,
                 int causal, int window, cudaStream_t stream) {
   const size_t bytes = Bf16Cfg<DP>::kSmem;
   CUtensorMap tq, tk, tv, to;
-  if (!encode_map(&tq, q, BH, S, D) || !encode_map(&tk, k, BH_kv, S, D) ||
-      !encode_map(&tv, v, BH_kv, S, D) || !encode_map(&to, o, BH, S, D))
+  if (!encode_map(&tq, q, BH, S, D) || !encode_map(&tk, k, BH_kv, Skv, D) ||
+      !encode_map(&tv, v, BH_kv, Skv, D) || !encode_map(&to, o, BH, S, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1476,8 +1483,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const float c = static_cast<float>(
       1.4426950408889634 / std::sqrt(static_cast<double>(Dh)));
   flash_bf16_kernel<DP><<<grid, kThreads, bytes, stream>>>(
-      tq, tk, tv, to, static_cast<float*>(lse), BH, BH / BH_kv, S, c, causal,
-      window);
+      tq, tk, tv, to, static_cast<float*>(lse), BH, BH / BH_kv, S, Skv, c,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1497,13 +1504,13 @@ int num_sms() {
 template <int DP>
 int launch_bf16_persistent(const void* q, const void* k, const void* v,
                            void* o, void* lse, void* next, int BH, int BH_kv,
-                           int S, int D, int Dh, int causal, int window,
-                           cudaStream_t stream) {
+                           int S, int Skv, int D, int Dh, int causal,
+                           int window, cudaStream_t stream) {
   const size_t bytes = Bf16Cfg2<DP>::kSmem;
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, q, BH, S, D) ||
-      !encode_map(&tk, k, BH_kv, S, D, kBK2) ||
-      !encode_map(&tv, v, BH_kv, S, D, kBK2))
+      !encode_map(&tk, k, BH_kv, Skv, D, kBK2) ||
+      !encode_map(&tv, v, BH_kv, Skv, D, kBK2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bf16_persistent_kernel<DP>,
@@ -1518,13 +1525,13 @@ int launch_bf16_persistent(const void* q, const void* k, const void* v,
       1.4426950408889634 / std::sqrt(static_cast<double>(Dh)));
   flash_bf16_persistent_kernel<DP><<<grid, kThreads, bytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      static_cast<int*>(next), BH, BH / BH_kv, S, D, c, causal, window);
+      static_cast<int*>(next), BH, BH / BH_kv, S, Skv, D, c, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               void* lse, int BH, int BH_kv, int S, int D, int Dh,
+               void* lse, int BH, int BH_kv, int S, int Skv, int D, int Dh,
                int causal, int window, cudaStream_t stream) {
   const size_t bytes = F32Cfg<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1535,19 +1542,23 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_f32_kernel<DP><<<grid, kT32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), BH, S, D, BH / BH_kv, softmax_scale(Dh),
+      static_cast<float*>(lse), BH, S, Skv, D, BH / BH_kv, softmax_scale(Dh),
       causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int BH, int BH_kv, int S, int D, int Dh) {
-  return BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || D <= 0 ||
-         D % 8 != 0 || D > 256 || Dh <= 0 || Dh > D;
+// S_kv differs from S only in non-causal attention with no window.
+bool bad_shape(int BH, int BH_kv, int S, int Skv, int D, int Dh, int causal,
+               int window) {
+  return BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || Skv <= 0 ||
+         (Skv != S && (causal || window > 0)) || D <= 0 || D % 8 != 0 ||
+         D > 256 || Dh <= 0 || Dh > D;
 }
 
 }  // namespace
 
-// q, o: (BH, S, D); k, v: (BH_kv, S, D) with BH_kv dividing BH; lse: (BH, S)
+// q, o: (BH, S, D); k, v: (BH_kv, S_kv, D) with BH_kv dividing BH and S_kv
+// = S unless causal is 0 and window <= 0; lse: (BH, S)
 // f32, each row's log-sum-exp of its scaled scores; contiguous, 16-byte
 // aligned, one dtype, on the stream's device; D a multiple of 8 and at most
 // 256; Dh (at most D) sets the softmax scale 1 / sqrt(Dh): a head dimension
@@ -1559,36 +1570,37 @@ bool bad_shape(int BH, int BH_kv, int S, int D, int Dh) {
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o,
                                           void* lse, void* work, int BH,
-                                          int BH_kv, int S, int D, int Dh,
-                                          int causal, int window,
+                                          int BH_kv, int S, int S_kv, int D,
+                                          int Dh, int causal, int window,
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(BH, BH_kv, S, D, Dh) || (D <= 128 && work == nullptr))
+  if (bad_shape(BH, BH_kv, S, S_kv, D, Dh, causal, window) ||
+      (D <= 128 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
     return launch_bf16_persistent<64>(q, k, v, o, lse, work, BH, BH_kv, S,
-                                      D, Dh, causal, window, st);
+                                      S_kv, D, Dh, causal, window, st);
   if (D <= 128)
     return launch_bf16_persistent<128>(q, k, v, o, lse, work, BH, BH_kv, S,
-                                       D, Dh, causal, window, st);
-  return launch_bf16<256>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
+                                       S_kv, D, Dh, causal, window, st);
+  return launch_bf16<256>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh, causal,
                           window, st);
 }
 
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
-                                         int BH, int BH_kv, int S, int D,
-                                         int Dh, int causal, int window,
-                                         void* stream) {
+                                         int BH, int BH_kv, int S, int S_kv,
+                                         int D, int Dh, int causal,
+                                         int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(BH, BH_kv, S, D, Dh))
+  if (bad_shape(BH, BH_kv, S, S_kv, D, Dh, causal, window))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
-    return launch_f32<64>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
+    return launch_f32<64>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh, causal,
                           window, st);
   if (D <= 128)
-    return launch_f32<128>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
-                           window, st);
-  return launch_f32<256>(q, k, v, o, lse, BH, BH_kv, S, D, Dh, causal,
+    return launch_f32<128>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh,
+                           causal, window, st);
+  return launch_f32<256>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh, causal,
                          window, st);
 }

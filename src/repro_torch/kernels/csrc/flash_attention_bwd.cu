@@ -7,8 +7,12 @@
 // writes each row's log-sum-exp lse = ln sum_j exp(scale s_j) (BH, S) f32;
 // the backward reads it and never re-runs the forward.
 //
-// Layout as the forward: q, o, dO, dQ (BH, S, D); k, v, dK, dV (BH_kv, S,
-// D), kv row bh / rep serving query row bh (MQA and GQA read in place).
+// Layout as the forward: q, o, dO, dQ (BH, S, D); k, v, dK, dV (BH_kv,
+// S_kv, D), kv row bh / rep serving query row bh (MQA and GQA read in
+// place); S_kv = S unless the attention is non-causal with no window (a
+// cross-attention).  The dq launch runs over S query rows and streams
+// kv tiles over S_kv keys; the dkdv launch runs over S_kv key rows and
+// streams q tiles over S query rows; the workspace follows S.
 // FA2's formulas, three launches on the stream (two at D <= 128):
 //   1. prep  per row: Delta = rowsum(dO .* O) (f32) and lse log2 e, into a
 //            (2, BH, S_pad) f32 workspace, S_pad = S rounded up to 128,
@@ -110,9 +114,9 @@ constexpr int kBQT = 64;           // q rows of a dkdv tile
 constexpr int kPad = 128;          // S_pad: S rounded up to this
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
-                                        int window) {
-  bool ok = qpos < S && kpos < S;
+__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int Skv,
+                                        int causal, int window) {
+  bool ok = qpos < S && kpos < Skv;
   if (causal) ok = ok && kpos <= qpos;
   if (window > 0) ok = ok && kpos > qpos - window;
   return ok;
@@ -526,7 +530,8 @@ fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
                  __grid_constant__ const CUtensorMap tdq,
                  const float* __restrict__ lse, float* __restrict__ lse2,
                  float* __restrict__ delta, int BH, int rep, int S,
-                 int S_pad, float c, float scale, int causal, int window) {
+                 int Skv, int S_pad, float c, float scale, int causal,
+                 int window) {
   using Cfg = DqCfg<DP>;
   constexpr int kNB = Cfg::kNB, kBK = Cfg::kBK, kStages = Cfg::kStages;
   constexpr int kQTile = Cfg::kQTile, kKBox = Cfg::kKBox;
@@ -553,7 +558,7 @@ fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
   const int bh = blockIdx.x % BH;
   const int q_start = (nqb - 1 - static_cast<int>(blockIdx.x) / BH) * kBQ;
   const int q_last = min(S - 1, q_start + kBQ - 1);
-  const int nk = (S + kBK - 1) / kBK;
+  const int nk = (Skv + kBK - 1) / kBK;
   const int kb_end = causal ? min(nk, q_last / kBK + 1) : nk;
   const int kb_lo = window > 0 ? max(0, q_start - window + 1) / kBK : 0;
   const int n_tiles = max(0, kb_end - kb_lo);
@@ -637,7 +642,7 @@ fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
       auto ds_at = [&](int e) {
         const int hr = (e >> 1) & 1;
         const int kpos = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
-        const float p = visible(r0 + 8 * hr, kpos, S, causal, window)
+        const float p = visible(r0 + 8 * hr, kpos, S, Skv, causal, window)
                             ? ex2(fmaf(s[e], c, -l2[hr]))
                             : 0.0f;
         return p * (dp[e] - dl[hr]);
@@ -854,8 +859,8 @@ fa_bwd_dkdvsplit_kernel(__grid_constant__ const CUtensorMap tq,
                    const float* __restrict__ lse2,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int BH_kv, int rep, int groups,
-                   int S, int S_pad, int D, float c, float scale, int causal,
-                   int window) {
+                   int S, int Skv, int S_pad, int D, float c, float scale,
+                   int causal, int window) {
   using Cfg = KvCfg<DP>;
   constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages, kTile = Cfg::kTile;
   constexpr int kRowBytes = Cfg::kRowBytes, kPBuf = Cfg::kPBuf;
@@ -880,7 +885,7 @@ fa_bwd_dkdvsplit_kernel(__grid_constant__ const CUtensorMap tq,
   const int grp = blockIdx.x % groups;
   const int bkv = (blockIdx.x / groups) % BH_kv;
   const int k_start = (blockIdx.x / groups / BH_kv) * kBKV;
-  const int k_last = min(S - 1, k_start + kBKV - 1);
+  const int k_last = min(Skv - 1, k_start + kBKV - 1);
   const int qt_lo = (causal ? k_start : 0) / kBQT;
   const int qt_hi =
       (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / kBQT;
@@ -973,7 +978,7 @@ fa_bwd_dkdvsplit_kernel(__grid_constant__ const CUtensorMap tq,
         for (int e = 0; e < 32; ++e) {
           const int col = 8 * (e >> 2) + 2 * t + (e & 1);
           const int kpos = kr + 8 * ((e >> 1) & 1);
-          s[e] = visible(q0 + col, kpos, S, causal, window)
+          s[e] = visible(q0 + col, kpos, S, Skv, causal, window)
                      ? ex2(fmaf(s[e], c, -l2[col]))
                      : 0.0f;
         }
@@ -1015,10 +1020,10 @@ fa_bwd_dkdvsplit_kernel(__grid_constant__ const CUtensorMap tq,
       for (int i = max(0, n_items - 2); i < n_items; ++i)
         named_sync(kBarPEmpty + (i & 1), 256);
 
-    bf16* out = (h == 0 ? dv : dk) + size_t(bkv) * S * D;
+    bf16* out = (h == 0 ? dv : dk) + size_t(bkv) * Skv * D;
     const float sc = h == 0 ? 1.0f : scale;
     if (groups == 1) {
-      store_rows<DP>(out, acc, sc, k_start, S, D, warp, g, t);
+      store_rows<DP>(out, acc, sc, k_start, Skv, D, warp, g, t);
     } else {
       // The cluster's two CTAs: rank 0 finishes dV, rank 1 dK.  Each
       // leaves the partial the other finishes in its (now free) ring.
@@ -1052,7 +1057,7 @@ fa_bwd_dkdvsplit_kernel(__grid_constant__ const CUtensorMap tq,
         }
       }
       cluster_sync();   // the peer has read this CTA's partial
-      if (mine) store_rows<DP>(out, acc, sc, k_start, S, D, warp, g, t);
+      if (mine) store_rows<DP>(out, acc, sc, k_start, Skv, D, warp, g, t);
     }
   }
 }
@@ -1125,8 +1130,8 @@ fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
                    const float* __restrict__ lse2,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int BH_kv, int rep, int groups,
-                   int S, int S_pad, int D, float c, float scale, int causal,
-                   int window) {
+                   int S, int Skv, int S_pad, int D, float c, float scale,
+                   int causal, int window) {
   using Cfg = KvCfg2<DP>;
   constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages, kTile = Cfg::kTile;
   constexpr int kRowBytes = Cfg::kRowBytes;
@@ -1149,7 +1154,7 @@ fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
   const int grp = blockIdx.x % groups;
   const int bkv = (blockIdx.x / groups) % BH_kv;
   const int k_start = (blockIdx.x / groups / BH_kv) * kBKV2;
-  const int k_last = min(S - 1, k_start + kBKV2 - 1);
+  const int k_last = min(Skv - 1, k_start + kBKV2 - 1);
   const int qt_lo = (causal ? k_start : 0) / kBQT;
   const int qt_hi =
       (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / kBQT;
@@ -1228,7 +1233,7 @@ fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
 
     // Whether every (q, key) pair of the q tile at q0 and this consumer's
     // kv rows is visible, so that P^T needs no mask.
-    const bool rows_in = kh + 63 < S;
+    const bool rows_in = kh + 63 < Skv;
     auto tile_full = [&](int q0) {
       return rows_in && q0 + kBQT <= S && (!causal || kh + 63 <= q0) &&
              (window <= 0 || kh > q0 + kBQT - 1 - window);
@@ -1260,7 +1265,7 @@ fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
         for (int e = 0; e < 32; ++e) {
           const int col = 8 * (e >> 2) + 2 * t + (e & 1);
           const int kpos = kr + 8 * ((e >> 1) & 1);
-          s[e] = visible(q0 + col, kpos, S, causal, window)
+          s[e] = visible(q0 + col, kpos, S, Skv, causal, window)
                       ? ex2(fmaf(s[e], c, -l2[col]))
                       : 0.0f;
         }
@@ -1289,9 +1294,9 @@ fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
     }
 
     if (groups == 1) {
-      store_rows<DP>(dv + size_t(bkv) * S * D, dvr, 1.0f, kh, S, D, warp, g,
-                     t);
-      store_rows<DP>(dk + size_t(bkv) * S * D, dkr, scale, kh, S, D, warp,
+      store_rows<DP>(dv + size_t(bkv) * Skv * D, dvr, 1.0f, kh, Skv, D, warp,
+                     g, t);
+      store_rows<DP>(dk + size_t(bkv) * Skv * D, dkr, scale, kh, Skv, D, warp,
                      g, t);
     } else {
       // The cluster's two CTAs: rank 0 finishes dV, rank 1 dK.  Each
@@ -1310,11 +1315,11 @@ fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
         add_partial<DP>(dkr, xb, h, tid, rank);
       cluster_sync();   // the peer has read this CTA's partial
       if (rank == 0)
-        store_rows<DP>(dv + size_t(bkv) * S * D, dvr, 1.0f, kh, S, D, warp,
-                       g, t);
+        store_rows<DP>(dv + size_t(bkv) * Skv * D, dvr, 1.0f, kh, Skv, D,
+                       warp, g, t);
       else
-        store_rows<DP>(dk + size_t(bkv) * S * D, dkr, scale, kh, S, D, warp,
-                       g, t);
+        store_rows<DP>(dk + size_t(bkv) * Skv * D, dkr, scale, kh, Skv, D,
+                       warp, g, t);
     }
   }
 }
@@ -1372,8 +1377,8 @@ struct Dkdv {
 template <int DP>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* ws, void* dq, void* dk,
-           void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
-           int window, int part, cudaStream_t stream) {
+           void* dv, int BH, int BH_kv, int S, int Skv, int D, int Dh,
+           int causal, int window, int part, cudaStream_t stream) {
   const int rep = BH / BH_kv;
   const int S_pad = (S + kPad - 1) / kPad * kPad;
   float* lse2 = static_cast<float*>(ws);
@@ -1386,11 +1391,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (!encode_map(&tq, q, BH, S, D, 64) ||
       !encode_map(&tdo, dout, BH, S, D, 64) ||
       (DqCfg<DP>::kPrep && !encode_map(&to, o, BH, S, D, 64)) ||
-      !encode_map(&tk_dq, k, BH_kv, S, D, DqCfg<DP>::kBK) ||
-      !encode_map(&tv_dq, v, BH_kv, S, D, DqCfg<DP>::kBK) ||
+      !encode_map(&tk_dq, k, BH_kv, Skv, D, DqCfg<DP>::kBK) ||
+      !encode_map(&tv_dq, v, BH_kv, Skv, D, DqCfg<DP>::kBK) ||
       !encode_map(&tdq, dq, BH, S, D, 64) ||
-      !encode_map(&tk, k, BH_kv, S, D, 64) ||
-      !encode_map(&tv, v, BH_kv, S, D, 64))
+      !encode_map(&tk, k, BH_kv, Skv, D, 64) ||
+      !encode_map(&tv, v, BH_kv, Skv, D, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto dkdv = Dkdv<DP>::kernel();
   const size_t dkdv_smem = Dkdv<DP>::smem();
@@ -1418,13 +1423,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     const unsigned dq_grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
     fa_bwd_dq_kernel<DP><<<dq_grid, kThreads, DqCfg<DP>::kSmem, stream>>>(
         tq, tdo, to, tk_dq, tv_dq, tdq, static_cast<const float*>(lse), lse2,
-        delta, BH, rep, S, S_pad, c, scale, causal, window);
+        delta, BH, rep, S, Skv, S_pad, c, scale, causal, window);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
   }
   if (part >= 0 && part != 2) return 0;
 
-  const int nkb = (S + Dkdv<DP>::kRows - 1) / Dkdv<DP>::kRows;
+  const int nkb = (Skv + Dkdv<DP>::kRows - 1) / Dkdv<DP>::kRows;
   const int groups = dkdv_groups(rep, nkb * BH_kv);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(nkb * BH_kv * groups));
@@ -1442,34 +1447,36 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                            static_cast<const float*>(lse2),
                            static_cast<const float*>(delta),
                            static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                           BH_kv, rep, groups, S, S_pad, D, c, scale, causal,
-                           window);
+                           BH_kv, rep, groups, S, Skv, S_pad, D, c, scale,
+                           causal, window);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 int run(const void* q, const void* k, const void* v, const void* o,
         const void* dout, const void* lse, void* ws, void* dq, void* dk,
-        void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
-        int window, int part, void* stream) {
+        void* dv, int BH, int BH_kv, int S, int Skv, int D, int Dh,
+        int causal, int window, int part, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || D <= 0 ||
-      D % 16 != 0 || D > 256 || Dh <= 0 || Dh > D || part > 2)
+  if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || Skv <= 0 ||
+      (Skv != S && (causal || window > 0)) || D <= 0 || D % 16 != 0 ||
+      D > 256 || Dh <= 0 || Dh > D || part > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
-    return launch<64>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D,
-                      Dh, causal, window, part, st);
+    return launch<64>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
+                      Skv, D, Dh, causal, window, part, st);
   if (D <= 128)
     return launch<128>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
-                       D, Dh, causal, window, part, st);
-  return launch<256>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D,
-                     Dh, causal, window, part, st);
+                       Skv, D, Dh, causal, window, part, st);
+  return launch<256>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
+                     Skv, D, Dh, causal, window, part, st);
 }
 
 }  // namespace
 
-// q, o, dout, dq: (BH, S, D) bf16; k, v, dk, dv: (BH_kv, S, D) bf16 with
-// BH_kv dividing BH; lse (the forward's): (BH, S) f32; the workspace ws:
+// q, o, dout, dq: (BH, S, D) bf16; k, v, dk, dv: (BH_kv, S_kv, D) bf16
+// with BH_kv dividing BH and S_kv = S unless causal is 0 and window <= 0;
+// lse (the forward's): (BH, S) f32; the workspace ws:
 // (2, BH, S_pad) f32 with S_pad = S rounded up to 128.  Contiguous, 16-byte
 // aligned, on the stream's device; D a multiple of 16 and at most 256; Dh
 // (at most D) sets the softmax scale 1 / sqrt(Dh), as in the forward.
@@ -1479,10 +1486,10 @@ int run(const void* q, const void* k, const void* v, const void* o,
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
-    void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+    void* dv, int BH, int BH_kv, int S, int S_kv, int D, int Dh, int causal,
     int window, void* stream) {
-  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, Dh,
-             causal, window, -1, stream);
+  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, S_kv, D,
+             Dh, causal, window, -1, stream);
 }
 
 // One launch of the above alone, so that each can be timed between CUDA
@@ -1492,9 +1499,9 @@ extern "C" int repro_flash_attention_bwd_bf16(
 extern "C" int repro_flash_attention_bwd_bf16_part(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
-    void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+    void* dv, int BH, int BH_kv, int S, int S_kv, int D, int Dh, int causal,
     int window, int part, void* stream) {
   if (part < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, Dh,
-             causal, window, part, stream);
+  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, S_kv, D,
+             Dh, causal, window, part, stream);
 }

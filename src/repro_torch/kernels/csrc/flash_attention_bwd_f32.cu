@@ -9,8 +9,11 @@
 // arithmetic (fmaf, no tensor cores, no TF32), as the f32 forward of
 // flash_attention.cu computes.
 //
-// Layout as the forward: q, o, dO, dQ (BH, S, D); k, v, dK, dV (BH_kv, S,
-// D), kv row bh / rep serving query row bh (MQA and GQA read in place).
+// Layout as the forward: q, o, dO, dQ (BH, S, D); k, v, dK, dV (BH_kv,
+// S_kv, D), kv row bh / rep serving query row bh (MQA and GQA read in
+// place); S_kv = S unless the attention is non-causal with no window (a
+// cross-attention): dq streams kv tiles over S_kv keys, dkdv runs over S_kv
+// key rows and streams q tiles over S query rows.
 // Three launches on the stream:
 //   1. prep  a thread a row: Delta = rowsum(dO .* O) into a (BH, S) f32
 //            workspace, summed in the order of dkdv's dP sums (below).
@@ -114,9 +117,9 @@ struct Cfg {
   static_assert(2 * kStages * kBQT * kLD >= kBKV * kDW, "exchange too big");
 };
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
-                                        int window) {
-  bool ok = qpos < S && kpos < S;
+__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int Skv,
+                                        int causal, int window) {
+  bool ok = qpos < S && kpos < Skv;
   if (causal) ok = ok && kpos <= qpos;
   if (window > 0) ok = ok && kpos > qpos - window;
   return ok;
@@ -239,8 +242,8 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ o,
                    const float* __restrict__ dout,
                    const float* __restrict__ lse, float* __restrict__ dq,
-                   int BH, int rep, int S, int D, float scale, int causal,
-                   int window) {
+                   int BH, int rep, int S, int Skv, int D, float scale,
+                   int causal, int window) {
   using C = Cfg<DP>;
   constexpr int kPair = kStages * kBK;   // keys of a pair
   constexpr int kRows = kBQ / 16;        // S rows a lane (3)
@@ -258,7 +261,7 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / BH)) * kBQ;
   const int bh = static_cast<int>(blockIdx.x % BH);
   const size_t q_off = static_cast<size_t>(bh) * S * D;
-  const size_t kv_off = static_cast<size_t>(bh / rep) * S * D;
+  const size_t kv_off = static_cast<size_t>(bh / rep) * Skv * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool group_b = warp >= 4;
   const int tg = threadIdx.x % kGroup;      // thread within its group
@@ -266,7 +269,7 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int sr = 12 * (warp % 4) + kRows * g;   // S rows sr + i
 
   // The kv tiles the q block sees: one contiguous range, in pairs.
-  const int nk = (S + kBK - 1) / kBK;
+  const int nk = (Skv + kBK - 1) / kBK;
   int lo = 0, hi = nk - 1;
   while (lo < nk && !tile_runs(q0, lo * kBK, kBQ, kBK, causal, window)) ++lo;
   while (hi >= lo && !tile_runs(q0, hi * kBK, kBQ, kBK, causal, window)) --hi;
@@ -278,7 +281,7 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* y_src = (group_b ? v : k) + kv_off;
   stage<DP, kBQ, kGroup>(X, (group_b ? dout : q) + q_off, q0, S, D, tg);
   if (group_b) stage<DP, kBQ, kGroup>(Os, o + q_off, q0, S, D, tg);
-  if (n_pairs > 0) stage<DP, kPair, kGroup>(Y, y_src, lo * kBK, S, D, tg);
+  if (n_pairs > 0) stage<DP, kPair, kGroup>(Y, y_src, lo * kBK, Skv, D, tg);
   commit();
   // Group A reads each row's lse.
   float row_lse[kRows];
@@ -333,7 +336,8 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           Ps[(sr + i) * kPK + j8 + 8 * c] =
-              visible(q0 + sr + i, t0 * kBK + j8 + 8 * c, S, causal, window)
+              visible(q0 + sr + i, t0 * kBK + j8 + 8 * c, S, Skv, causal,
+                      window)
                   ? expf(s[i][c] * scale - row_lse[i])
                   : 0.0f;
     } else {
@@ -361,7 +365,7 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();   // P is in; group B is past this pair's V
     if (group_b) {
       if (more) {
-        stage<DP, kPair, kGroup>(Vs, y_src, (t0 + 2) * kBK, S, D, tg);
+        stage<DP, kPair, kGroup>(Vs, y_src, (t0 + 2) * kBK, Skv, D, tg);
         commit();
       }
 #pragma unroll
@@ -409,7 +413,7 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (more) {
       __syncthreads();   // every warp is past this pair's K, P and dS
       if (!group_b) {
-        stage<DP, kPair, kGroup>(Ks, y_src, (t0 + 2) * kBK, S, D, tg);
+        stage<DP, kPair, kGroup>(Ks, y_src, (t0 + 2) * kBK, Skv, D, tg);
         commit();
       }
     }
@@ -483,7 +487,8 @@ fa32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int BH_kv, int rep, int groups,
-                     int S, int D, float scale, int causal, int window) {
+                     int S, int Skv, int D, float scale, int causal,
+                     int window) {
   using C = Cfg<DP>;
   constexpr int kPairQ = kStages * kBQT;   // q rows of a pair of items
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -500,7 +505,7 @@ fa32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int grp = static_cast<int>(blockIdx.x % groups);
   const int hkv = static_cast<int>((blockIdx.x / groups) % BH_kv);
   const int k0 = static_cast<int>(blockIdx.x / (groups * BH_kv)) * kBKV;
-  const size_t kv_off = static_cast<size_t>(hkv) * S * D;
+  const size_t kv_off = static_cast<size_t>(hkv) * Skv * D;
   const int hq_lo = grp * rep / groups, hq_hi = (grp + 1) * rep / groups;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gw = warp % 4;                  // warp within its group
@@ -541,8 +546,8 @@ fa32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 tg, S);
   };
 
-  stage<DP, kBKV, kThreads>(Ks, k + kv_off, k0, S, D, threadIdx.x);
-  stage<DP, kBKV, kThreads>(Vs, v + kv_off, k0, S, D, threadIdx.x);
+  stage<DP, kBKV, kThreads>(Ks, k + kv_off, k0, Skv, D, threadIdx.x);
+  stage<DP, kBKV, kThreads>(Vs, v + kv_off, k0, Skv, D, threadIdx.x);
   for (int half = 0; half < kStages && half < n_items; ++half)
     stage_half(half, half);
   commit();
@@ -592,7 +597,8 @@ fa32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           Ps[(sr + i) * kPQ + j] =
-              half < items && visible(qpos, k0 + sr + i, S, causal, window)
+              half < items &&
+                      visible(qpos, k0 + sr + i, S, Skv, causal, window)
                   ? expf(s[i][c] * scale - Lp[j])
                   : 0.0f;
       }
@@ -677,7 +683,7 @@ fa32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int a = 0; a < 8; ++a) {
     const int kpos = k0 + 8 * gw + a;
-    if (kpos >= S) continue;
+    if (kpos >= Skv) continue;
 #pragma unroll
     for (int h = 0; h < C::kNC; ++h) {
       const int col = 4 * (lane + 32 * h);
@@ -700,8 +706,8 @@ int dkdv_groups(int rep, int n_kv_blocks) {
 template <int DP>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* delta, float* dq,
-           float* dk, float* dv, int BH, int BH_kv, int S, int D, int Dh,
-           int causal, int window, int part, cudaStream_t stream) {
+           float* dk, float* dv, int BH, int BH_kv, int S, int Skv, int D,
+           int Dh, int causal, int window, int part, cudaStream_t stream) {
   const int rep = BH / BH_kv;
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(Dh)));
@@ -726,13 +732,14 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   if (part < 0 || part == 1) {
     const unsigned dq_grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
     fa32_bwd_dq_kernel<DP><<<dq_grid, kThreads, Cfg<DP>::kDqSmem, stream>>>(
-        q, k, v, o, dout, lse, dq, BH, rep, S, D, scale, causal, window);
+        q, k, v, o, dout, lse, dq, BH, rep, S, Skv, D, scale, causal,
+        window);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
   }
   if (part >= 0 && part != 2) return 0;
 
-  const int nkb = (S + kBKV - 1) / kBKV;
+  const int nkb = (Skv + kBKV - 1) / kBKV;
   const int groups = dkdv_groups(rep, nkb * BH_kv);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(nkb * BH_kv * groups));
@@ -748,50 +755,52 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, fa32_bwd_dkdv_kernel<DP>, q, k, v, dout, lse,
                            static_cast<const float*>(delta), dk, dv, BH_kv,
-                           rep, groups, S, D, scale, causal, window);
+                           rep, groups, S, Skv, D, scale, causal, window);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 int run(const void* q, const void* k, const void* v, const void* o,
         const void* dout, const void* lse, void* ws, void* dq, void* dk,
-        void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
-        int window, int part, void* stream) {
+        void* dv, int BH, int BH_kv, int S, int Skv, int D, int Dh,
+        int causal, int window, int part, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || D <= 0 ||
-      D % 8 != 0 || D > 256 || Dh <= 0 || Dh > D || part > 2)
+  if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || Skv <= 0 ||
+      (Skv != S && (causal || window > 0)) || D <= 0 || D % 8 != 0 ||
+      D > 256 || Dh <= 0 || Dh > D || part > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto w = [](void* p) { return static_cast<float*>(p); };
   if (D <= 64)
     return launch<64>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws), w(dq),
-                      w(dk), w(dv), BH, BH_kv, S, D, Dh, causal, window, part,
-                      st);
+                      w(dk), w(dv), BH, BH_kv, S, Skv, D, Dh, causal, window,
+                      part, st);
   if (D <= 128)
     return launch<128>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws),
-                       w(dq), w(dk), w(dv), BH, BH_kv, S, D, Dh, causal,
+                       w(dq), w(dk), w(dv), BH, BH_kv, S, Skv, D, Dh, causal,
                        window, part, st);
   return launch<256>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws), w(dq),
-                     w(dk), w(dv), BH, BH_kv, S, D, Dh, causal, window, part,
-                     st);
+                     w(dk), w(dv), BH, BH_kv, S, Skv, D, Dh, causal, window,
+                     part, st);
 }
 
 }  // namespace
 
-// q, o, dout, dq: (BH, S, D) f32; k, v, dk, dv: (BH_kv, S, D) f32 with
-// BH_kv dividing BH; lse (the forward's): (BH, S) f32; the workspace ws:
-// (BH, S) f32 (Delta).  Contiguous, 16-byte aligned, on the stream's
-// device; D a multiple of 8 and at most 256; Dh (at most D) sets the
-// softmax scale 1 / sqrt(Dh), as in the forward.  Three launches on the
+// q, o, dout, dq: (BH, S, D) f32; k, v, dk, dv: (BH_kv, S_kv, D) f32 with
+// BH_kv dividing BH and S_kv = S unless causal is 0 and window <= 0; lse
+// (the forward's): (BH, S) f32; the workspace ws: (BH, S) f32 (Delta).
+// Contiguous, 16-byte aligned, on the stream's device; D a multiple of 8
+// and at most 256; Dh (at most D) sets the softmax scale 1 / sqrt(Dh), as
+// in the forward.  Three launches on the
 // stream; returns the first nonzero cudaError_t (0 on success),
 // cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int repro_flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
-    void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+    void* dv, int BH, int BH_kv, int S, int S_kv, int D, int Dh, int causal,
     int window, void* stream) {
-  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, Dh,
-             causal, window, -1, stream);
+  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, S_kv, D,
+             Dh, causal, window, -1, stream);
 }
 
 // One launch of the above alone, so that each can be timed between CUDA
@@ -800,9 +809,9 @@ extern "C" int repro_flash_attention_bwd_f32(
 extern "C" int repro_flash_attention_bwd_f32_part(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
-    void* dv, int BH, int BH_kv, int S, int D, int Dh, int causal,
+    void* dv, int BH, int BH_kv, int S, int S_kv, int D, int Dh, int causal,
     int window, int part, void* stream) {
   if (part < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, D, Dh,
-             causal, window, part, stream);
+  return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, S_kv, D,
+             Dh, causal, window, part, stream);
 }

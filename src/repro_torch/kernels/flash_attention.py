@@ -1,12 +1,17 @@
-"""Causal / sliding-window flash attention on the card.
+"""Causal / sliding-window flash attention, and cross-attention, on the card.
 
 Wrapper of the CUDA kernels in ``csrc/flash_attention.cu`` (the Hopper
 counterpart of the TPU kernel ``repro.kernels.flash_attention``): online
 softmax attention over q of shape (BH, S, D) with the heads folded into
-the batch, and k, v of shape (BH_kv, S, D) with BH_kv dividing BH: row
+the batch, and k, v of shape (BH_kv, S_kv, D) with BH_kv dividing BH: row
 ``bh // (BH // BH_kv)`` of k and v serves query row ``bh``
 (``repeat_interleave``'s order), so an MQA or GQA layer's kv heads are
-read in place.  f32 accumulation, the output in the input type.  bf16
+read in place.  S_kv differs from S only in a non-causal call with no
+window: a cross-attention (whisper's decoder reading the encoder's
+frames), which the TPU kernel does not take and the reference computes
+in jnp; causal or windowed attention keeps S_kv = S
+(``ref.attention_shapes``).  f32 accumulation, the output in the input
+type.  bf16
 runs on the tensor cores (``wgmma`` fed by TMA, three warpgroups a CTA;
 at D <= 128 one persistent CTA an SM takes (q block, q head) items from
 a counter, on 128-key tiles), f32 in exact f32 arithmetic
@@ -93,18 +98,22 @@ def pad_head_dim(t: torch.Tensor, d_pad: int) -> torch.Tensor:
     return t if t.shape[-1] == d_pad else F.pad(t, (0, d_pad - t.shape[-1]))
 
 
-def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype) -> dict:
-    """Shape checks and the launch of one call: the padded head dimension
-    the kernel reads (D_PAD) and the softmax scale of the true D, the head
-    dimension DP the kernel is compiled for, the q rows a CTA owns (BQ),
-    the kv rows a tile holds (BK), the tiles in flight (the bf16 ring's
-    stages, the f32 pair), the dynamic shared memory in bytes, threads a
-    CTA, work items (q blocks times q heads) and CTAs: one an item, except
-    the bf16 kernel at DP 64 and 128, whose persistent grid has one CTA an
-    SM walking over the items (``persistent``).  The tiles are
-    ``Bf16Cfg2``, ``Bf16Cfg`` and ``F32Cfg`` of the source, which asserts
-    the same 227 KB limit when it compiles."""
-    rep = attention_shapes("flash_attention", q_shape, k_shape, v_shape)
+def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype, *,
+                causal: bool = True, window: int = 0) -> dict:
+    """Shape checks (S_kv may differ from S only when ``causal`` is
+    false and ``window`` is 0) and the launch of one call: the padded head
+    dimension the kernel reads (D_PAD) and the softmax scale of the true
+    D, the head dimension DP the kernel is compiled for, the key rows
+    (S_KV), the q rows a CTA owns (BQ), the kv rows a tile holds (BK), the
+    tiles in flight (the bf16 ring's stages, the f32 pair), the dynamic
+    shared memory in bytes, threads a CTA, work items (q blocks times q
+    heads) and CTAs: one an item, except the bf16 kernel at DP 64 and 128,
+    whose persistent grid has one CTA an SM walking over the items
+    (``persistent``).  The tiles are ``Bf16Cfg2``, ``Bf16Cfg`` and
+    ``F32Cfg`` of the source, which asserts the same 227 KB limit when it
+    compiles."""
+    rep = attention_shapes("flash_attention", q_shape, k_shape, v_shape,
+                           causal=causal, window=window)
     bh, s, d = q_shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: D must be at most "
@@ -134,7 +143,8 @@ def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype) -> dict:
         smem = 4 * (bq * ld + 2 * stages * bk * ld + bq * (stages * bk + 4))
     items = -(-s // bq) * bh
     return {"d_pad": d_pad, "scale": 1.0 / math.sqrt(d), "dp": dp, "bq": bq,
-            "bk": bk, "stages": stages, "smem_bytes": smem,
+            "bk": bk, "s_kv": k_shape[1], "stages": stages,
+            "smem_bytes": smem,
             "threads": threads, "rep": rep, "items": items,
             "persistent": persistent,
             "ctas": min(items, _build.NUM_SMS) if persistent else items}
@@ -142,13 +152,15 @@ def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype) -> dict:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, lse: bool = False):
-    """q (BH, S, D), k, v (BH_kv, S, D) -> (BH, S, D); ``window <= 0`` is
-    unbounded.  With ``lse`` also each row's log-sum-exp of its scaled
-    scores, (BH, S) f32."""
+    """q (BH, S, D), k, v (BH_kv, S_kv, D) -> (BH, S, D); ``window <= 0``
+    is unbounded; S_kv = S unless ``causal`` is false and ``window`` 0.
+    With ``lse`` also each row's log-sum-exp of its scaled scores, (BH, S)
+    f32."""
     global launches
     dtype = _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v},
                                 dtypes=_build.LM_DTYPES)
-    plan = launch_plan(q.shape, k.shape, v.shape, dtype)
+    plan = launch_plan(q.shape, k.shape, v.shape, dtype, causal=causal,
+                       window=window)
     d_pad = plan["d_pad"]
     _build.check_aligned("flash_attention", {"q": q, "k": k, "v": v})
     bh, s, d = q.shape
@@ -164,7 +176,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ptrs.append(lse_buf.data_ptr() + 4 * bh * s)
     lib = _build.load()
     err = getattr(lib, _FN[dtype])(
-        *ptrs, bh, k.shape[0], s, d_pad, d, int(bool(causal)), int(window),
+        *ptrs, bh, k.shape[0], s, k.shape[1], d_pad, d, int(bool(causal)),
+        int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     launches += 1
@@ -196,9 +209,10 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
     rule), q tiles of 32 rows in pairs; staged rows of max(D_pad, 128) +
     4 floats, and a (BH, S) workspace (Delta).  ``d_pad``: the head
     dimension the launches read, D rounded up to a multiple of 8 (f32) or
-    16 (bf16)."""
+    16 (bf16).  The dq launch runs over the S query rows, the dkdv launch
+    over the S_kv rows of k (``k_shape``); the workspace follows S."""
     bh, s, d = q_shape
-    bh_kv = k_shape[0]
+    bh_kv, s_kv = k_shape[0], k_shape[1]
     rep = bh // bh_kv
     d_pad = padded_head_dim(d, 8 if dtype == torch.float32 else 16)
     dp = 64 if d_pad <= 64 else 128 if d_pad <= 128 else 256
@@ -206,7 +220,7 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
         ld = _f32_row(dp)
         bq, bk = F32_BWD_BQ, F32_BWD_BK
         bkv, bqt, stages = F32_BWD_BKV, F32_BWD_BQT, F32_BWD_STAGES
-        nkb = -(-s // bkv)
+        nkb = -(-s_kv // bkv)
         groups = 2 if rep >= 2 and nkb * bh_kv < 2 * _build.NUM_SMS else 1
         return {"d_pad": d_pad, "dp": dp, "bq": bq, "bk": bk, "bkv": bkv,
                 "bqt": bqt, "launches": ("prep", "dq", "dkdv"),
@@ -239,7 +253,7 @@ def bwd_plan(q_shape, k_shape, dtype: torch.dtype = torch.bfloat16) -> dict:
         bkv, kv_stages, split = 64, 2, "gradient"
         dkdv_smem = (1024 + 2 * tile + kv_stages * (2 * tile + 2 * 256)
                      + 2 * 64 * 64 * 4 + 8 * (1 + 2 * kv_stages))
-    nkb = -(-s // bkv)
+    nkb = -(-s_kv // bkv)
     groups = 2 if rep >= 2 and nkb * bh_kv < 2 * _build.NUM_SMS else 1
     # at DP <= 128 the dq launch also does the prep's work (Delta and
     # lse2 of its rows), with an o tile beside each consumer's q and dO
@@ -268,7 +282,8 @@ _BWD_FN = {torch.float32: "repro_flash_attention_bwd_f32",
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0) -> tuple:
     """The gradients (dq, dk, dv) of :func:`flash_attention` from its
-    inputs, its output ``o``, its ``lse`` and ``do``; f32 (exact FMA, D
+    inputs (k, v and so dk, dv with S_kv rows), its output ``o``, its
+    ``lse`` and ``do``; f32 (exact FMA, D
     zero-padded to a multiple of 8) or bf16 (``wgmma``, D zero-padded to a
     multiple of 16), all in one dtype but the f32 ``lse``.  Three CUDA
     launches (Delta, dq, then dk and dv; two in bf16 at D <= 128, whose dq
@@ -277,7 +292,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dtype = _build.check_inputs("flash_attention_bwd",
                                 {"q": q, "k": k, "v": v, "o": o, "do": do},
                                 dtypes=_build.LM_DTYPES)
-    launch_plan(q.shape, k.shape, v.shape, dtype)
+    launch_plan(q.shape, k.shape, v.shape, dtype, causal=causal,
+                window=window)
     bh, s, d = q.shape
     _build.check_shape("flash_attention_bwd", "o", o, q.shape)
     _build.check_shape("flash_attention_bwd", "do", do, q.shape)
@@ -297,8 +313,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     err = getattr(lib, _BWD_FN[dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], s, d_pad, d,
-        int(bool(causal)), int(window),
+        dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], s, k.shape[1], d_pad,
+        d, int(bool(causal)), int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     bwd_launches += 1

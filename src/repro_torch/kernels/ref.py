@@ -41,30 +41,40 @@ def schwarz_bwd_plain(A, r, b, Ax, u, x, muov, mask):
     return (torch.einsum("pmw,pm->pw", A, t) + muov * x) * mask
 
 
-def attention_shapes(name: str, q_shape, k_shape, v_shape) -> int:
-    """Raise ``ValueError`` unless q is (BH, S, D) and k, v are both
-    (BH_kv, S, D) with BH_kv dividing BH; returns BH // BH_kv."""
+def attention_shapes(name: str, q_shape, k_shape, v_shape, *,
+                     causal: bool = False, window: int = 0) -> int:
+    """Raise ``ValueError`` unless q is (BH, S_q, D) and k, v are both
+    (BH_kv, S_kv, D) with BH_kv dividing BH; S_kv may differ from S_q only
+    in non-causal attention with no window (a cross-attention: the
+    reference asks for no causal or windowed one).  Returns BH // BH_kv."""
     q_shape, k_shape = tuple(q_shape), tuple(k_shape)
     if len(q_shape) != 3 or min(q_shape) < 1:
         raise ValueError(f"{name}: q must be (BH, S, D) with BH, S, D >= 1 "
                          f"(got {q_shape})")
     bh = q_shape[0]
-    if (len(k_shape) != 3 or k_shape[1:] != q_shape[1:] or k_shape[0] < 1
-            or bh % k_shape[0]):
-        raise ValueError(f"{name}: k must be (BH_kv, S, D) with BH_kv "
+    if (len(k_shape) != 3 or k_shape[2] != q_shape[2] or k_shape[0] < 1
+            or k_shape[1] < 1 or bh % k_shape[0]):
+        raise ValueError(f"{name}: k must be (BH_kv, S_kv, D) with BH_kv "
                          f"dividing BH = {bh} (got {k_shape} for q "
                          f"{q_shape})")
+    if k_shape[1] != q_shape[1] and (causal or window > 0):
+        raise ValueError(f"{name}: k has S_kv = {k_shape[1]} rows against "
+                         f"S = {q_shape[1]} query rows; S_kv may differ from "
+                         f"S only when causal is false and window is 0 "
+                         f"(causal {causal}, window {window})")
     if tuple(v_shape) != k_shape:
         raise ValueError(f"{name}: v has shape {tuple(v_shape)}, expected "
                          f"k's {k_shape}")
     return bh // k_shape[0]
 
 
-def _visible(s: int, causal: bool, window: int, device):
-    """(S, S) bool: key k visible to query q."""
+def _visible(s: int, causal: bool, window: int, device, s_kv: int | None
+             = None):
+    """(S, S_kv) bool (S_kv defaults to S): key k visible to query q."""
+    s_kv = s if s_kv is None else s_kv
     qpos = torch.arange(s, device=device)[:, None]
-    kpos = torch.arange(s, device=device)[None, :]
-    ok = torch.ones((s, s), dtype=torch.bool, device=device)
+    kpos = torch.arange(s_kv, device=device)[None, :]
+    ok = torch.ones((s, s_kv), dtype=torch.bool, device=device)
     if causal:
         ok &= kpos <= qpos
     if window > 0:
@@ -75,21 +85,24 @@ def _visible(s: int, causal: bool, window: int, device):
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                     lse: bool = False, scale: float | None = None):
     """Softmax attention with f32 scores.  q: (BH, S, D), k, v:
-    (BH_kv, S, D) with BH_kv dividing BH, expanded along dim 0 in
+    (BH_kv, S_kv, D) with BH_kv dividing BH, expanded along dim 0 in
     ``repeat_interleave``'s order -> (BH, S, D) in q's dtype; a key is
     visible when (causal) it is not after the query and (window > 0) it
-    is less than ``window`` before it; masked scores are -1e30.  With
-    ``lse`` also the log-sum-exp of each row's scaled scores, (BH, S) in
-    f32, which the backward reads.  ``scale`` defaults to 1 / sqrt(D); a
-    head dimension zero-padded to D keeps its own."""
-    rep = attention_shapes("attention_plain", q.shape, k.shape, v.shape)
+    is less than ``window`` before it; masked scores are -1e30.  S_kv
+    differs from S only in a non-causal call with no window
+    (:func:`attention_shapes`).  With ``lse`` also the log-sum-exp of each
+    row's scaled scores, (BH, S) in f32, which the backward reads.
+    ``scale`` defaults to 1 / sqrt(D); a head dimension zero-padded to D
+    keeps its own."""
+    rep = attention_shapes("attention_plain", q.shape, k.shape, v.shape,
+                           causal=causal, window=window)
     if rep > 1:
         k = k.repeat_interleave(rep, dim=0)
         v = v.repeat_interleave(rep, dim=0)
     s, d = q.shape[1], q.shape[2]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
-    ok = _visible(s, causal, window, q.device)
+    ok = _visible(s, causal, window, q.device, k.shape[1])
     scores = torch.where(ok[None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
@@ -105,16 +118,18 @@ ATTN_DIFF_ELEMENTS = 1 << 27
 
 
 def _dq_scores(dof, ve, of, causal: bool, window: int):
-    """(BH, S, S): dO_i . (V_j - O_i), the difference taken inside the sum
-    over D, for the keys each chunk of query rows may see (0 elsewhere)."""
+    """(BH, S, S_kv): dO_i . (V_j - O_i), the difference taken inside the
+    sum over D, for the keys each chunk of query rows may see (0
+    elsewhere)."""
     bh, s, d = dof.shape
-    span = min(s, window) if window > 0 else s
+    s_kv = ve.shape[1]
+    span = min(s_kv, window) if window > 0 else s_kv
     rows = max(1, ATTN_DIFF_ELEMENTS // (bh * d * span))
-    out = dof.new_zeros((bh, s, s))
+    out = dof.new_zeros((bh, s, s_kv))
     for i0 in range(0, s, rows):
         i1 = min(s, i0 + rows)
         k0 = max(0, i0 - window + 1) if window > 0 else 0
-        k1 = i1 if causal else s
+        k1 = i1 if causal else s_kv
         diff = ve[:, None, k0:k1] - of[:, i0:i1, None]   # (BH, r, keys, D)
         out[:, i0:i1, k0:k1] = torch.matmul(diff,
                                             dof[:, i0:i1, :, None])[..., 0]
@@ -139,15 +154,15 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     input's dtype.  ``scale`` (1 / sqrt(D) by default) as in
     :func:`attention_plain`."""
     rep = attention_shapes("attention_bwd_plain", q.shape, k.shape,
-                           v.shape)
-    bh_kv, s, d = k.shape
+                           v.shape, causal=causal, window=window)
+    bh_kv, s_kv, d = k.shape
     wide = torch.promote_types(q.dtype, torch.float32)
     ke = k.to(wide).repeat_interleave(rep, dim=0)
     ve = v.to(wide).repeat_interleave(rep, dim=0)
     qf, dof, of = q.to(wide), do.to(wide), o.to(wide)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     scores = torch.einsum("bqd,bkd->bqk", qf, ke) * scale
-    ok = _visible(s, causal, window, q.device)[None]
+    ok = _visible(q.shape[1], causal, window, q.device, s_kv)[None]
     p = torch.where(ok, torch.exp(scores - lse.to(wide)[..., None]), 0.0)
     del scores
     delta = (dof * of).sum(-1)
@@ -162,8 +177,8 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
         mean = ds.sum(-1) / p.sum(-1).clamp_min(torch.finfo(wide).tiny)
         dq = (torch.einsum("bqk,bkd->bqd", ds, ke)
               - mean[..., None] * torch.einsum("bqk,bkd->bqd", p, ke)) * scale
-    dk = dk.view(bh_kv, rep, s, d).sum(1)
-    dv = dv.view(bh_kv, rep, s, d).sum(1)
+    dk = dk.view(bh_kv, rep, s_kv, d).sum(1)
+    dv = dv.view(bh_kv, rep, s_kv, d).sum(1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

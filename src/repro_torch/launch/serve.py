@@ -11,16 +11,22 @@ Weights are random, drawn on the card from a seeded generator
 (:func:`repro_torch.models.transformer.init_params`).  The prefill runs
 the ``rglru_scan`` and ``flash_attention`` kernels (RecurrentGemma), the
 ``ssd_scan`` kernel (Mamba-2) or ``flash_attention`` in every layer (the
-uniform attention stack: Yi, Gemma, GLM-4, gemma3, and the MoE models
-OLMoE and Mixtral) on the card.  For Mamba-2 the longest
+uniform attention stack: Yi, Gemma, GLM-4, gemma3, the MoE models OLMoE
+and Mixtral, and phi-3-vision; whisper's encoder, decoder and
+cross-attention) on the card.  Whisper's prefill reads the batch's frame
+embeddings (B, 1500, 1280) and phi-3-vision's its patch embeddings (B,
+144, 3072), prepended, so that its caches and decode positions run P =
+144 past the prompt's; as in the reference, they are zeros unless the
+caller passes them (``extras``).  For Mamba-2 the longest
 prompt of a batch must be a multiple of the SSD chunk or shorter than
 it, as in the reference (the CLI draws lengths below ``--prompt-len``).
-For both models it must have at least 3 tokens, the conv width minus
-one; a shorter one raises ``ValueError`` (the CLI draws 4 or more).
+For both recurrent models it must have at least 3 tokens, the conv
+width minus one; a shorter one raises ``ValueError`` (the CLI draws 4 or more).
 
 Usage (the card by default; ``--device cpu`` for a CPU run):
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch recurrentgemma-9b|mamba2-1.3b|yi-6b|olmoe-1b-7b|... [--smoke] \
+      --arch recurrentgemma-9b|whisper-large-v3|phi3-vision-4.2b|... \
+      [--smoke] \
       --batch 4 --prompt-len 32 --max-new 16 [--slots 2] [--seed 0] \
       [--device cpu]
 """
@@ -48,13 +54,31 @@ class Request:
     out: list = dataclasses.field(default_factory=list)
 
 
+def modality_inputs(cfg, batch: int, device) -> dict:
+    """The batch's inputs besides its tokens, zeros as the reference
+    serves them: whisper's frame embeddings (B, encoder_seq, d_model),
+    phi-3-vision's patch embeddings (B, num_patches, d_model), nothing
+    for a text-only model."""
+    dtype = transformer.DTYPES[cfg.dtype]
+    if cfg.frontend == "audio_stub":
+        return {"frames": torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                      dtype=dtype, device=device)}
+    if cfg.frontend == "vision_stub":
+        return {"patches": torch.zeros((batch, cfg.num_patches,
+                                        cfg.d_model), dtype=dtype,
+                                       device=device)}
+    return {}
+
+
 def serve_batch(cfg, params, requests, *, max_seq: int, greedy: bool = True,
-                seed: int = 0):
+                seed: int = 0, extras: dict | None = None):
     """Run a batch of requests to completion on the device of the
     weights.  Returns the requests with ``out`` filled, plus timing
     stats (host wall times that end in a wait for the device).
     ``greedy=False`` samples from a ``torch.Generator`` seeded with
-    ``seed``."""
+    ``seed``.  ``extras``: the batch's frames or patches (one row a
+    request), :func:`modality_inputs`' zeros by default; patches run the
+    cache and the decode positions ``num_patches`` further."""
     dev = params["embed"].device
     B = len(requests)
     S = max(len(r.prompt) for r in requests)
@@ -63,9 +87,11 @@ def serve_batch(cfg, params, requests, *, max_seq: int, greedy: bool = True,
     for i, r in enumerate(requests):
         toks[i, S - len(r.prompt):] = r.prompt
     batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    batch.update(modality_inputs(cfg, B, dev) if extras is None else extras)
+    P_off = cfg.num_patches if cfg.frontend == "vision_stub" else 0
 
     t0 = time.perf_counter()
-    prefill = steps_mod.make_prefill_step(cfg, max_seq=max_seq)
+    prefill = steps_mod.make_prefill_step(cfg, max_seq=max_seq + P_off)
     logits, cache = device_mod.block(prefill(params, batch))
     prefill_s = time.perf_counter() - t0
 
@@ -79,7 +105,7 @@ def serve_batch(cfg, params, requests, *, max_seq: int, greedy: bool = True,
         for i, r in enumerate(requests):
             if step < r.max_new:
                 r.out.append(int(ids[i]))
-        logits, cache = serve(params, cache, cur, S + step)
+        logits, cache = serve(params, cache, cur, P_off + S + step)
         if greedy:
             cur = torch.argmax(logits, -1)
         else:

@@ -3,6 +3,11 @@
 The counterpart of ``repro.launch.train``: config -> DyDD-balanced data
 loader -> train step -> straggler monitor -> async checkpoints with
 auto-resume, on one device (the card unless asked otherwise).  The
+loader's batches are text: phi-3-vision trains on them without patches,
+as the reference's driver does, and whisper, whose encoder needs frames,
+is refused before any step (``ValueError``; the reference fails in its
+first step with ``KeyError: 'frames'``) unless the caller of
+:func:`train` gives frames (``extras``; the CLI gives none).  The
 training forward runs the ``rglru_scan``, ``flash_attention`` and
 ``ssd_scan`` kernels and their backward kernels on the card
 (:mod:`repro_torch.kernels.ops`); the optimizer is the reference's AdamW
@@ -48,17 +53,28 @@ def batch_on(device, tokens, labels, mask) -> dict:
 def train(cfg, *, steps: int, seq: int, global_batch: int, dp: int,
           ckpt_dir: str | None, ckpt_every: int = 50, lr: float = 3e-4,
           seed: int = 0, log_every: int = 10, mesh=None, device=None,
-          init_params=None):
+          init_params=None, extras=None):
     """Train ``steps`` steps (resuming from ``ckpt_dir``'s newest
     checkpoint if there is one); returns (params, opt, losses of the
     steps run here).  ``init_params`` (a tree like ``init_params`` gives,
     on ``device``) replaces the random weights.  Each step accumulates
     the gradients of ``cfg.train_accum`` microbatches (Mixtral's 8), so
-    ``global_batch`` must be a multiple of it."""
+    ``global_batch`` must be a multiple of it.  ``extras`` (tensors on
+    ``device`` with ``global_batch`` rows: whisper's ``"frames"``,
+    phi-3-vision's ``"patches"``) joins every batch; whisper trains only
+    with frames."""
     if mesh is not None:
         raise NotImplementedError(
             "train(mesh=...): sharded training is not ported (ROADMAP "
             "Queue 1 item 13)")
+    extras = extras or {}
+    if cfg.is_encoder_decoder and "frames" not in extras:
+        # The reference's loader batch has no frames either: its trainer
+        # fails in the first step with KeyError: 'frames'.
+        raise ValueError(
+            f"{cfg.name}: the loader's batches hold tokens only, and the "
+            f"encoder reads batch['frames']; give train() frames "
+            f"(extras={{'frames': ...}})")
     dev = device_mod.resolve(device)
     opt_cfg = AdamWConfig(lr=lr, accum_steps=cfg.train_accum)
     schedule = make_schedule("cosine", lr, warmup_steps=max(steps // 20, 1),
@@ -88,7 +104,7 @@ def train(cfg, *, steps: int, seq: int, global_batch: int, dp: int,
     monitor = StragglerMonitor()
     losses = []
     for s in range(start_step, steps):
-        batch = batch_on(dev, *loader.next_batch())
+        batch = {**batch_on(dev, *loader.next_batch()), **extras}
         t0 = time.perf_counter()
         loss, params, opt = step_fn(params, opt, batch)
         loss = float(loss)

@@ -1,10 +1,14 @@
 """Attention: MHA/GQA/MQA, global + sliding-window, KV caches for decode.
 
-The counterpart of ``repro.models.attention`` for causal self-attention.
-Training and prefill run :func:`attention`, whose core is
+The counterpart of ``repro.models.attention``: causal and non-causal
+self-attention and cross-attention (whisper's decoder reading the
+encoder's frames, ``kv_override``).  Training and prefill run
+:func:`attention`, whose core is
 :func:`repro_torch.kernels.ops.flash_attention` (the flash kernel and its
-backward on the card, the plain versions on the CPU); the reference's
-blocked jnp attention computes the same function.  Decode uses a
+backward on the card, the plain versions on the CPU), also where k and v
+have another length than q; the reference's blocked jnp attention
+computes the same function.  Decode runs no kernel: the cached softmax
+of :func:`decode_attention` and :func:`cross_attention_cached`.  Decode uses a
 static-shape KV cache; sliding-window layers use a ring buffer of
 exactly ``window`` slots, so decode state stays O(window).  A token at
 absolute position ``pos`` is written to slot ``pos % length`` and each
@@ -57,31 +61,53 @@ def _mask(seq_q: int, seq_k: int, window: int, causal: bool,
 
 
 def attention(cfg: ModelConfig, params, x, positions, *, window: int,
-              rope_theta: float | None = None, mode: str = "auto",
-              return_kv: bool = False):
-    """Causal (sliding-window) self-attention for training and prefill.
-    x: (B, S, D) -> (B, S, D); with ``return_kv`` also k and v (B, S, KV,
-    hd) after rope, which the prefill caches.  ``mode`` goes to
+              causal: bool = True, rope_theta: float | None = None,
+              kv_override=None, mode: str = "auto", return_kv: bool = False):
+    """Training and prefill attention.  x: (B, S, D) -> (B, S, D); with
+    ``return_kv`` also k and v (B, S_kv, KV, hd) after rope, which the
+    prefill caches.  ``kv_override``: (k, v) of shape (B, S_kv, KV, hd)
+    from an encoder (cross-attention), which turns off rope, the causal
+    mask and the window, as in the reference.  ``mode`` goes to
     :func:`ops.flash_attention`."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
-    theta = rope_theta if rope_theta is not None else cfg.rope_theta
-    if theta > 0:
-        q = nn.rope(q, positions, theta)
-        k = nn.rope(k, positions, theta)
+    if kv_override is None:
+        k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+        theta = rope_theta if rope_theta is not None else cfg.rope_theta
+        if theta > 0:
+            q = nn.rope(q, positions, theta)
+            k = nn.rope(k, positions, theta)
+    else:
+        k, v = kv_override
+        causal, window = False, 0
     B, S, H, K = q.shape
 
     def fold(t):   # (B, S, heads, K) -> (B * heads, S, K), contiguous
-        return t.permute(0, 2, 1, 3).reshape(-1, S, K).contiguous()
+        return t.permute(0, 2, 1, 3).reshape(-1, t.shape[1], K).contiguous()
 
     # k and v keep their kv heads: the kernel reads row bh // q_per_kv for
     # query row bh, and with one kv head fold() is a view, not a copy.
-    out = ops.flash_attention(fold(q), fold(k), fold(v), causal=True,
+    out = ops.flash_attention(fold(q), fold(k), fold(v), causal=causal,
                               window=window, mode=mode)
     out = out.view(B, H, S, K).permute(0, 2, 1, 3)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return (out, k, v) if return_kv else out
+
+
+def cross_attention_cached(cfg: ModelConfig, params, x, k, v):
+    """Decode's cross-attention: x (B, 1, D) against the cached encoder k
+    and v (B, S_kv, KV, hd), every key visible, the f32 softmax of
+    :func:`decode_attention` (no kernel).  Returns (B, 1, D)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    kk = _expand_kv(k, cfg.q_per_kv)
+    vv = _expand_kv(v, cfg.q_per_kv)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    scores = torch.einsum("bqhk,bshk->bhqs", q, kk).float() * scale
+    if cfg.attn_softcap > 0:
+        scores = nn.softcap(scores, cfg.attn_softcap)
+    probs = torch.softmax(scores, dim=-1).to(vv.dtype)
+    out = torch.einsum("bhqs,bshk->bqhk", probs, vv)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 
 # ---------------------------------------------------------------------------

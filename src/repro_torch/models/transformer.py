@@ -1,11 +1,17 @@
-"""The decoder LMs: init, training forward and loss, prefill and decode.
+"""The LMs: init, training forward and loss, prefill and decode.
 
-The counterpart of ``repro.models.transformer`` for three families: its
+The counterpart of ``repro.models.transformer`` for every family: its
 ``"periods"`` branch (the hybrid RecurrentGemma: periods of (rglru,
 rglru, local attention) plus a tail of RG-LRU layers), its ``("ssd",)``
-branch (Mamba-2: a stack of SSD blocks) and its uniform attention stack
-(``"blocks"``: Yi, Gemma, GLM-4, gemma3's local and global mixture, and
-the MoE models OLMoE and Mixtral, whose MLP is :mod:`repro_torch.models.moe`).
+branch (Mamba-2: a stack of SSD blocks), its uniform attention stack
+(``"blocks"``: Yi, Gemma, GLM-4, gemma3's local and global mixture, the
+MoE models OLMoE and Mixtral, whose MLP is :mod:`repro_torch.models.moe`,
+and phi-3-vision, whose batch may hold ``"patches"``, precomputed patch
+embeddings prepended to the sequence, the loss taken over the text tail
+alone) and its encoder-decoder branch (whisper: an encoder over the
+batch's ``"frames"``, precomputed frame embeddings, and a decoder whose
+layers add a cross-attention to the encoder's output; learned positions,
+no rope).
 Parameters are a nested dict of tensors with the reference's keys and
 its stacked leading layer axis, so the reference's weights carry across
 leaf by leaf (:func:`repro_torch.convert.lm_params_from_numpy`).  The
@@ -21,10 +27,13 @@ training their backward kernels, on the card; the plain versions on the
 CPU; ``mode="plain"`` forces the plain versions).  ``cfg.remat``
 recomputes each scan body (an RG-LRU period or tail layer, an SSD or
 attention layer) in the backward under ``torch.utils.checkpoint``, as
-the reference's ``jax.checkpoint`` does.  Decode runs no kernel: it is
-the O(1) recurrences and the cached attention, as in the reference.
-Whisper's encoder-decoder and the VLM stub raise ``NotImplementedError``
-(ROADMAP Queue 1 item 7b).
+the reference's ``jax.checkpoint`` does (whisper: each encoder and each
+decoder layer).  Whisper's attention runs the kernel in all three of its
+kinds: the encoder's non-causal self-attention, the decoder's causal
+self-attention and its cross-attention, whose k and v have the encoder's
+length.  Decode runs no kernel: it is the O(1) recurrences and the cached
+attention (whisper's cross-attention over the cached encoder k and v), as
+in the reference.
 """
 from __future__ import annotations
 
@@ -48,16 +57,19 @@ def _is_ssd(cfg: ModelConfig) -> bool:
     return cfg.attn_pattern == ("ssd",)
 
 
+def _is_encdec(cfg: ModelConfig) -> bool:
+    return cfg.is_encoder_decoder
+
+
 def _is_uniform(cfg: ModelConfig) -> bool:
-    return not (_is_hybrid(cfg) or _is_ssd(cfg))
+    return not (_is_hybrid(cfg) or _is_ssd(cfg) or _is_encdec(cfg))
+
+
+def _has_patches(cfg: ModelConfig, batch) -> bool:
+    return cfg.frontend == "vision_stub" and "patches" in batch
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder or cfg.frontend == "vision_stub":
-        raise NotImplementedError(
-            f"{cfg.name}: whisper's encoder-decoder and the VLM stub are "
-            f"ROADMAP Queue 1 item 7b; the port runs the hybrid, SSD and "
-            f"uniform attention families")
     if cfg.attn_softcap > 0:
         raise NotImplementedError(
             f"{cfg.name}: attention soft-capping is not in the flash kernel")
@@ -107,6 +119,23 @@ def _ssd_block(b, cfg: ModelConfig):
             "ssd": ssd.make_ssd_params(b, cfg)}
 
 
+def _cross_block(b, cfg: ModelConfig):
+    """Whisper decoder block: self-attn + cross-attn + mlp."""
+    return {"norm1": nn.make_norm_params(b, cfg.d_model, cfg.norm),
+            "self_attn": attention.make_attn_params(b, cfg),
+            "norm_x": nn.make_norm_params(b, cfg.d_model, cfg.norm),
+            "cross_attn": attention.make_attn_params(b, cfg),
+            "norm2": nn.make_norm_params(b, cfg.d_model, cfg.norm),
+            "mlp": nn.make_mlp_params(b, cfg.d_model, cfg.d_ff,
+                                      cfg.gated_mlp)}
+
+
+# Rows of whisper's learned decoder positions: its real context is 448;
+# the reference extends the table to cover its 32k decode and prefill
+# shapes.
+DEC_POS_ROWS = 40960
+
+
 def _n_full(cfg: ModelConfig) -> int:
     return cfg.num_layers // len(cfg.attn_pattern)
 
@@ -129,6 +158,15 @@ def _build(cfg: ModelConfig, b: nn.Builder):
         return params
     if _is_uniform(cfg):
         params["blocks"] = _attn_block(_Stacked(b, cfg.num_layers), cfg)
+        return params
+    if _is_encdec(cfg):
+        params["enc_pos"] = b.param((cfg.encoder_seq, d), (None, "embed"),
+                                    scale=0.02)
+        params["dec_pos"] = b.param((DEC_POS_ROWS, d), (None, "embed"),
+                                    scale=0.02)
+        params["encoder"] = _attn_block(_Stacked(b, cfg.encoder_layers), cfg)
+        params["enc_final_norm"] = nn.make_norm_params(b, d, cfg.norm)
+        params["decoder"] = _cross_block(_Stacked(b, cfg.num_layers), cfg)
         return params
     n_full = _n_full(cfg)
     params["periods"] = {
@@ -184,6 +222,28 @@ def _embed_tokens(cfg: ModelConfig, params, tokens):
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                              device=h.device)
     return h
+
+
+def trunk_input(cfg: ModelConfig, params, batch):
+    """The residual stream that enters the first layer (B, S, D): the
+    token embeddings, after the batch's ``"patches"`` (phi-3-vision's
+    stub, prepended) or plus the learned decoder positions (whisper)."""
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    if _has_patches(cfg, batch):
+        h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
+    if _is_encdec(cfg):
+        h = h + params["dec_pos"][:h.shape[1]][None]
+    return h
+
+
+def _frames(cfg: ModelConfig, batch):
+    """Whisper's ``batch["frames"]``, which its encoder reads."""
+    if "frames" not in batch:
+        raise ValueError(
+            f"{cfg.name}: the encoder-decoder reads batch['frames'], its "
+            f"precomputed frame embeddings (B, {cfg.encoder_seq}, "
+            f"{cfg.d_model}); the batch holds {sorted(batch)}")
+    return batch["frames"]
 
 
 def _out_table(cfg, params):
@@ -260,15 +320,64 @@ def _scan_layers(cfg: ModelConfig, body, h, layers: list):
     return h
 
 
+def _encode(cfg: ModelConfig, params, frames, mode: str = "auto"):
+    """Whisper's encoder over the precomputed frame embeddings (B,
+    encoder_seq, D): non-causal self-attention, no rope, each layer
+    recomputed in the backward under remat."""
+    h = frames.to(DTYPES[cfg.dtype]) + params["enc_pos"][None]
+
+    def body(h, lp):
+        a_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+        h = h + attention.attention(cfg, lp["attn"], a_in, None, window=0,
+                                    causal=False, rope_theta=0.0, mode=mode)
+        f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
+        return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+
+    h = _scan_layers(cfg, body, h, _unstack(params["encoder"]))
+    return nn.apply_norm(params["enc_final_norm"], h, cfg.norm, cfg.norm_eps)
+
+
+def _cross_kv(enc, lp):
+    """A decoder layer's cross-attention k and v (B, S_enc, KV, hd) of the
+    encoder's output."""
+    return (torch.einsum("bsd,dhk->bshk", enc, lp["cross_attn"]["wk"]),
+            torch.einsum("bsd,dhk->bshk", enc, lp["cross_attn"]["wv"]))
+
+
+def _apply_cross_block(cfg, lp, h, kv, mode, return_kv=False):
+    """A whisper decoder layer: causal self-attention (no rope), the
+    cross-attention to ``kv``, the MLP; with ``return_kv`` also the
+    self-attention's k and v, which the prefill caches."""
+    a_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+    out, k, v = attention.attention(cfg, lp["self_attn"], a_in, None,
+                                    window=0, rope_theta=0.0, mode=mode,
+                                    return_kv=True)
+    h = h + out
+    x_in = nn.apply_norm(lp["norm_x"], h, cfg.norm, cfg.norm_eps)
+    h = h + attention.attention(cfg, lp["cross_attn"], x_in, None, window=0,
+                                kv_override=kv, mode=mode)
+    f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
+    h = h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+    return (h, k, v) if return_kv else h
+
+
 def forward(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
     """Final hidden states (B, S, D) of the trunk over batch["tokens"]
-    (B, S).  ``mode`` goes to the kernel ops."""
+    (B, S) (phi-3-vision with ``"patches"``: (B, P + S, D); whisper reads
+    ``"frames"``).  ``mode`` goes to the kernel ops."""
     _require_ported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    h = _embed_tokens(cfg, params, tokens)
+    h = trunk_input(cfg, params, batch)
+    B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device).expand(B, S)
-    if _is_ssd(cfg):
+    if _is_encdec(cfg):
+        enc = _encode(cfg, params, _frames(cfg, batch), mode)
+        # each layer's cross k and v inside its body (the weights differ),
+        # so remat recomputes them
+        h = _scan_layers(
+            cfg, lambda h, lp: _apply_cross_block(cfg, lp, h,
+                                                  _cross_kv(enc, lp), mode),
+            h, _unstack(params["decoder"]))
+    elif _is_ssd(cfg):
         h = _scan_layers(
             cfg, lambda h, lp: _apply_ssd_block(cfg, lp, h, mode), h,
             _unstack(params["blocks"]))
@@ -300,12 +409,15 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
 def loss_fn(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
     """Mean next-token cross-entropy (f32 scalar).  batch: "tokens" (B,
     S) and optionally "labels" (default: the next token, 0 at the end)
-    and "mask" (default: all but the last position).  Uses the
+    and "mask" (default: all but the last position); phi-3-vision's
+    "patches" take no loss, whisper's "frames" feed the encoder.  Uses the
     sequence-chunked loss when ``cfg.loss_chunk`` divides S (never
     materializes (B, S, V))."""
     h = forward(cfg, params, batch, mode=mode)
     tokens = batch["tokens"]
     S = tokens.shape[1]
+    if _has_patches(cfg, batch):
+        h = h[:, -S:]                      # loss only over the text tail
     labels = batch.get("labels")
     if labels is None:
         labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
@@ -338,6 +450,14 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
     if _is_ssd(cfg):
         return stacked(ssd.init_ssd_cache(cfg, batch, dtype, dev),
                        cfg.num_layers)
+    if _is_encdec(cfg):
+        spec = attention.CacheSpec("full", max_seq)
+        kvh = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads,
+               cfg.head_dim)
+        return {"self": stacked(attention.init_cache(cfg, spec, batch, dtype,
+                                                     dev), cfg.num_layers),
+                "cross_k": torch.zeros(kvh, dtype=dtype, device=dev),
+                "cross_v": torch.zeros(kvh, dtype=dtype, device=dev)}
     if _is_uniform(cfg):
         # one stack per cache kind ("full" for global layers, "ring" for
         # local ones), each in layer order
@@ -390,6 +510,10 @@ def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int):
         h, new_cache = _decode_uniform(cfg, params, cache, h, pos)
         h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
         return logits_fn(cfg, params, h), new_cache
+    if _is_encdec(cfg):
+        h, new_cache = _decode_encdec(cfg, params, cache, h, pos)
+        h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        return logits_fn(cfg, params, h), new_cache
     spec = attention.CacheSpec("ring", int(cache["attn"]["k"].shape[2]))
     periods = params["periods"]
     new = {"r1": [], "r2": [], "attn": []}
@@ -432,6 +556,30 @@ def _decode_attn_block(cfg, lp, c, spec, h, pos, window, theta):
     return _ffn(cfg, lp, h + out), nc
 
 
+def _decode_encdec(cfg, params, cache, h, pos):
+    """Decode through whisper's decoder: the learned position of ``pos``,
+    then each layer's cached self-attention, its cross-attention over the
+    cached encoder k and v, and its MLP."""
+    spec = attention.CacheSpec("full", int(cache["self"]["k"].shape[2]))
+    h = h + params["dec_pos"][pos][None, None]
+    new = []
+    for i in range(cfg.num_layers):
+        lp = _index(params["decoder"], i)
+        a_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
+        out, c = attention.decode_attention(
+            cfg, lp["self_attn"], _index(cache["self"], i), spec, a_in, pos,
+            window=0, rope_theta=0.0)
+        h = h + out
+        x_in = nn.apply_norm(lp["norm_x"], h, cfg.norm, cfg.norm_eps)
+        h = h + attention.cross_attention_cached(
+            cfg, lp["cross_attn"], x_in, cache["cross_k"][i],
+            cache["cross_v"][i])
+        f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
+        h = h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+        new.append(c)
+    return h, dict(cache, self=_stack(new))
+
+
 def _decode_uniform(cfg, params, cache, h, pos):
     """Decode through the uniform stack in layer order; layer i reads and
     writes its slot of its kind's stack (gemma3's local and global layers
@@ -459,16 +607,17 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None, *,
             mode: str = "auto"):
     """Run the trunk over a prompt and build the decode caches.
 
-    batch: {"tokens": (B, S) int}.  Returns (logits_last (B, V), cache).
+    batch: {"tokens": (B, S) int}, with ``"patches"`` (phi-3-vision,
+    prepended: the caches then hold P + S positions) or ``"frames"``
+    (whisper's encoder input).  Returns (logits_last (B, V), cache).
     ``mode`` goes to the kernel ops (``"plain"`` forces the plain
     versions on the card, for comparisons).  For Mamba-2, S must be a
     multiple of ``min(cfg.ssm_chunk, S)``, as in the reference.  S must
-    be at least the conv width minus one (3 for both families): a
-    shorter prompt raises ``ValueError``."""
+    be at least the conv width minus one (3 for both recurrent
+    families): a shorter prompt raises ``ValueError``."""
     _require_ported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    h = _embed_tokens(cfg, params, tokens)
+    h = trunk_input(cfg, params, batch)
+    B, S = h.shape[:2]                  # S includes prepended patches
     if _is_ssd(cfg):
         per = []
         for i in range(cfg.num_layers):
@@ -478,6 +627,18 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None, *,
         return _logits_last(cfg, params, h), _stack(per)
     max_seq = max_seq or S
     positions = torch.arange(S, device=h.device).expand(B, S)
+    if _is_encdec(cfg):
+        enc = _encode(cfg, params, _frames(cfg, batch), mode)
+        spec = attention.CacheSpec("full", max_seq)
+        per = {"self": [], "cross_k": [], "cross_v": []}
+        for i in range(cfg.num_layers):
+            h, (c, ck, cv) = _cross_prefill_block(
+                cfg, _index(params["decoder"], i), h, enc, spec, mode)
+            per["self"].append(c)
+            per["cross_k"].append(ck)
+            per["cross_v"].append(cv)
+        return _logits_last(cfg, params, h), {k: _stack(v)
+                                              for k, v in per.items()}
     if _is_uniform(cfg):
         windows, thetas = layer_statics(cfg)
         per: dict = {}
@@ -530,6 +691,16 @@ def _attn_prefill_block(cfg, lp, h, positions, spec, window, theta,
     cache = attention.prefill_cache(cfg, spec, k, v,
                                     torch.arange(h.shape[1], device=h.device))
     return h, cache
+
+
+def _cross_prefill_block(cfg, lp, h, enc, spec, mode="auto"):
+    """A whisper decoder layer of the prefill: returns h and (its self
+    cache, the cross k and v of the encoder's output ``enc``)."""
+    kv = _cross_kv(enc, lp)
+    h, k, v = _apply_cross_block(cfg, lp, h, kv, mode, return_kv=True)
+    cache = attention.prefill_cache(cfg, spec, k, v,
+                                    torch.arange(h.shape[1], device=h.device))
+    return h, (cache, *kv)
 
 
 def _rglru_prefill_block(cfg, lp, h, positions, mode="auto"):

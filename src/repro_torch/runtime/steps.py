@@ -58,20 +58,22 @@ def check_trainable(cfg: ModelConfig, dtype: torch.dtype, device) -> None:
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    lr_schedule=None, mesh=None):
+                    lr_schedule=None, mesh=None, *, mode: str = "auto"):
     """Returns ``train_step(params, opt_state, batch) -> (loss, params,
-    opt_state)``; the update is in place.  With ``opt_cfg.accum_steps``
+    opt_state)``; the update is in place.  The batch holds what the
+    model reads: whisper's ``"frames"`` beside its tokens, phi-3-vision's
+    optional ``"patches"``.  With ``opt_cfg.accum_steps``
     = k > 1 the batch splits into k microbatches along its leading axis
     and their grads are summed in f32 and divided by k, as the
     reference's microbatch scan does.  Each step first refuses what
     :func:`check_trainable` refuses: on the card, params in a dtype that
     no kernel takes (f32 and bf16 train there, attention layers
-    included)."""
+    included).  ``mode`` goes to the kernel ops."""
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step(mesh=...): sharded training is not ported "
             "(ROADMAP Queue 1 item 13)")
-    loss_fn = make_loss_fn(cfg)
+    loss_fn = make_loss_fn(cfg, mode=mode)
     accum = opt_cfg.accum_steps
 
     def step(params, opt_state, batch):

@@ -810,3 +810,150 @@ def test_attention_plans_at_the_uniform_stacks_d128_shapes(
     bwd_src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     assert f"constexpr int kBK2 = {t_fa.BF16_BK};" in fwd_src
     assert f"constexpr int kBKV2 = {t_fa.BF16_BWD_BKV};" in bwd_src
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention: k and v with S_kv rows against q's S (whisper's decoder
+# reading the encoder's frames), non-causal with no window.  The reference
+# computes it in jnp (``repro.models.attention._full_attention``); the port
+# runs it through the flash kernel, whose plain versions are held here.
+# ---------------------------------------------------------------------------
+
+# (BH, BH_kv, S_q, S_kv, D): one query row, fewer and more query rows than
+# keys, keys below one kv tile of either kernel (5 < 32), grouped kv heads,
+# and whisper's encoder length.
+CROSS = ((4, 4, 1, 37, 16), (4, 4, 9, 50, 16), (6, 3, 70, 24, 32),
+         (4, 2, 33, 5, 16), (2, 2, 16, 1500, 64))
+
+
+def _cross_inputs(bh, bh_kv, s_q, s_kv, d, seed=21):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(bh, s_q, d)).astype(np.float32)
+    k, v = (rng.normal(size=(bh_kv, s_kv, d)).astype(np.float32)
+            for _ in range(2))
+    do = rng.normal(size=(bh, s_q, d)).astype(np.float32)
+    return q, k, v, do
+
+
+def _ref_cross(q, k, v, rep):
+    """The reference's ``_full_attention`` (non-causal, no window) on the
+    folded layout: (BH, S, D) as (1, S, BH, D), kv heads expanded."""
+    from types import SimpleNamespace
+
+    from repro.models import attention as jattention
+
+    cfg = SimpleNamespace(head_dim=q.shape[-1], attn_softcap=0.0)
+    fold = lambda t: jnp.swapaxes(t, 0, 1)[None]          # noqa: E731
+    out = jattention._full_attention(
+        cfg, fold(q), fold(jnp.repeat(k, rep, 0)), fold(jnp.repeat(v, rep, 0)),
+        window=0, causal=False)
+    return jnp.swapaxes(out[0], 0, 1)
+
+
+@pytest.mark.parametrize("bh,bh_kv,s_q,s_kv,d", CROSS)
+def test_cross_attention_plain_matches_reference(bh, bh_kv, s_q, s_kv, d):
+    """``attention_plain`` with S_kv != S_q against the reference's jnp
+    attention, f32 and bf16, and its lse against logsumexp of the scaled
+    scores."""
+    q, k, v, _ = _cross_inputs(bh, bh_kv, s_q, s_kv, d)
+    rep = bh // bh_kv
+    want = _ref_cross(*(jnp.asarray(a) for a in (q, k, v)), rep)
+    for dtype in ("float32", "bfloat16"):
+        (qt, qj), (kt, kj), (vt, vj) = (_both(a, dtype) for a in (q, k, v))
+        got = tops.flash_attention(qt, kt, vt, causal=False)
+        assert got.shape == (bh, s_q, d) and got.dtype == T_DTYPE[dtype]
+        _close(got, _ref_cross(qj, kj, vj, rep) if dtype == "bfloat16"
+               else want, dtype)
+    out, lse = tref.attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    causal=False, lse=True)
+    s = torch.einsum("bqd,bkd->bqk", torch.from_numpy(q),
+                     torch.from_numpy(k).repeat_interleave(rep, 0))
+    assert lse.shape == (bh, s_q)
+    assert torch.allclose(lse, torch.logsumexp(s / math.sqrt(d), -1),
+                          atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("bh,bh_kv,s_q,s_kv,d", CROSS)
+def test_cross_attention_grads_match_autograd_and_reference(bh, bh_kv, s_q,
+                                                            s_kv, d):
+    """The CPU backward (``ref.attention_bwd_plain``) at S_kv != S_q: dQ
+    (BH, S_q, D), dK and dV (BH_kv, S_kv, D), against autograd through the
+    plain forward (1e-5) and ``jax.grad`` of the reference's attention
+    (1e-4)."""
+    q, k, v, do = _cross_inputs(bh, bh_kv, s_q, s_kv, d, seed=22)
+    rep = bh // bh_kv
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(tops.flash_attention(*leaves, causal=False),
+                              leaves, torch.from_numpy(do))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    want = torch.autograd.grad(
+        tops.flash_attention(*leaves, causal=False, mode="plain"), leaves,
+        torch.from_numpy(do))
+    ref = jax.grad(
+        lambda q, k, v: jnp.sum(_ref_cross(q, k, v, rep) * jnp.asarray(do)),
+        argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    for g, w, r, a in zip(got, want, ref, (q, k, v)):
+        assert tuple(g.shape) == a.shape and g.dtype == torch.float32
+        assert _rel_frob(g, w) <= 1e-5
+        assert _rel_frob(g, r) <= 1e-4
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 8),
+                                           (True, 8)])
+def test_cross_attention_needs_non_causal_with_no_window(causal, window):
+    """S_kv != S_q is a cross-attention: a causal or windowed call with
+    k and v of another length raises ``ValueError`` naming the rule, in
+    the plain versions and in the kernels' launch plan."""
+    q = torch.zeros(4, 16, 16)
+    k = torch.zeros(4, 24, 16)
+    with pytest.raises(ValueError, match="S_kv may differ from S only"):
+        tops.flash_attention(q, k, k, causal=causal, window=window)
+    with pytest.raises(ValueError, match="S_kv may differ from S only"):
+        tref.attention_bwd_plain(q, k, k, q, torch.zeros(4, 16), q,
+                                 causal=causal, window=window)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="S_kv may differ from S only"):
+            t_fa.launch_plan(q.shape, k.shape, k.shape, dtype, causal=causal,
+                             window=window)
+    # the same k and v at q's length, or non-causal with no window, pass
+    t_fa.launch_plan(q.shape, q.shape, q.shape, torch.bfloat16,
+                     causal=causal, window=window)
+    assert t_fa.launch_plan(q.shape, k.shape, k.shape, torch.bfloat16,
+                            causal=False)["s_kv"] == 24
+
+
+# The attention calls of whisper-large-v3 (20 heads of 64, 4 requests, a
+# prompt of 416 and 1500 encoder frames; training at 448) and of
+# phi-3-vision-4.2b (32 heads of 96, 4 requests of 4096 positions; training
+# 2 x 2192): (q shape, kv shape, causal).
+WHISPER_PHI3 = (((80, 1500, 64), (80, 1500, 64), False),
+                ((80, 416, 64), (80, 416, 64), True),
+                ((80, 416, 64), (80, 1500, 64), False),
+                ((80, 448, 64), (80, 1500, 64), False),
+                ((128, 4096, 96), (128, 4096, 96), True),
+                ((64, 2192, 96), (64, 2192, 96), True))
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,causal", WHISPER_PHI3)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_plans_at_whisper_and_phi3_shapes(q_shape, kv_shape,
+                                                     causal, dtype):
+    """The forward and backward plans at the two models' shapes fit one
+    CTA's shared memory: the forward's q blocks over S_q, the backward's
+    dkdv kv blocks over S_kv and its dq launch and workspace over S_q;
+    head dimension 96 pads to no column (a multiple of 16) and runs the
+    kernels compiled for 128."""
+    plan = t_fa.launch_plan(q_shape, kv_shape, kv_shape, dtype,
+                            causal=causal)
+    assert plan["smem_bytes"] <= t_fa.MAX_SMEM
+    assert plan["items"] == -(-q_shape[1] // plan["bq"]) * q_shape[0]
+    assert plan["s_kv"] == kv_shape[1] and plan["d_pad"] == q_shape[2]
+    assert plan["dp"] == (64 if q_shape[2] == 64 else 128)
+    bwd = t_fa.bwd_plan(q_shape, kv_shape, dtype)
+    assert bwd["d_pad"] == q_shape[2]
+    assert max(bwd["dq_smem_bytes"], bwd["dkdv_smem_bytes"]) <= t_fa.MAX_SMEM
+    assert bwd["dq_ctas"] == -(-q_shape[1] // bwd["bq"]) * q_shape[0]
+    assert bwd["dkdv_ctas"] == (-(-kv_shape[1] // bwd["bkv"]) * kv_shape[0]
+                                * bwd["groups"])
+    s_pad = q_shape[1] if dtype == torch.float32 else bwd["s_pad"]
+    assert bwd["ws_shape"][-1] == s_pad >= q_shape[1]

@@ -102,9 +102,13 @@ def test_configs_and_param_tree(model):
     assert cfg_t == type(cfg_t)(**vars(cfg_j))
     assert tconfigs.get_config(ARCH).param_count() == \
         jconfigs.get_config(ARCH).param_count()
+    # whisper's encoder-decoder and the phi3-vision stub are ported too
+    # (tests/test_torch_whisper.py, tests/test_torch_vlm.py)
     for arch in ("whisper-large-v3", "phi3-vision-4.2b"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            tconfigs.get_config(arch)
+        for get in ("get_config", "get_smoke_config"):
+            want = getattr(jconfigs, get)(arch)
+            assert getattr(tconfigs, get)(arch) == type(
+                tconfigs.get_config(ARCH))(**vars(want))
     # The port's own initializer builds the reference's tree.
     fresh = ttransformer.init_params(cfg_t, 0, device="cpu")
     shapes = jtransformer.param_shapes(cfg_j)
