@@ -36,6 +36,26 @@ nothing, (a) launches ``schwarz_fwd`` and ``schwarz_bwd`` k C fine +
 cycles), and (d) is bitwise (b).  It prints the wall times, k, the
 correction norms and the peak device memory of each run.
 
+The distributed solve (``shardmap``): ``repro_torch.runtime.mesh.launch``
+spawns 8 ranks that share the card over gloo (NCCL refuses two ranks on
+one GPU), their collectives through pinned host copies; each runs the
+engine with ``solver="shardmap"`` on its own subdomain: (a) ``ex4_p8``
+(allreduce exchange) and (b) the 2D shelf on the ("row", "col") mesh
+with both exchanges, 2 cycles each, then (c) ``TimeParEngine`` at
+``PINT`` cut to 4 cycles on the auto ("time": 4, "sub": 2) mesh.  It
+fails unless every rank's analyses and deterministic journal are the
+same, (a) and (b) are within 1e-13 of the single-process vmapped engine
+on the same stream, every cycle within 1e-10 of the direct solve, their
+host decisions equal, each rank launched ``gram`` once and each Schwarz
+kernel 120 times a cycle, each rank's block of the first packing equals
+the single-process packing's rows bitwise, the m-vector's scatter and
+psum paths agree within 1e-13 and the neighbour exchange journals fewer
+bytes, and (c) converges in the single-process run's iterations within
+1e-6 of its sequential chain.  It prints each rank's walls, the
+transport and the card; a correctness run of ranks that time-slice one
+card, not a speed-up.  Its kernels are held and timed at a rank's block
+(1, 6094, 1553).
+
 Fleet (``fleet``): ``repro_torch.assim.serving.FleetServer`` at
 ``ex4_p8``'s width over five streams of 4 cycles (three on DyDD:
 ``drifting_swarm``, ``bursty_clusters``, ``storm_front``; two static
@@ -202,13 +222,15 @@ the launches' dynamic shared memory, and times the f32 forward kernels
 multiple of 16 bytes and its direct path elsewhere: at the prefill and
 training shapes and at ragged shapes that reach both, each call prints
 its path and must equal the direct path bitwise, and both paths are
-timed in the same run.  The ``kernels`` line has twenty-two rows: the
-six forward kernels, the f32 attention forward, the four backward ones,
-flash_attention at Yi's and OLMoE's prefill and OLMoE's training shape,
-forward and backward, at whisper's encoder, decoder self-attention and
-cross-attention calls and phi-3-vision's call of their prefills, its
-backward at whisper's training cross-attention in bf16, and its forward
-and backward there in f32.
+timed in the same run.  The ``kernels`` line has twenty-seven rows: the
+six forward kernels, the f32 attention forward, the four backward ones
+(the bf16 and f32 attention's each), flash_attention at Yi's and OLMoE's
+prefill and OLMoE's training shape, forward and backward, at whisper's
+encoder, decoder self-attention and cross-attention calls and
+phi-3-vision's call of their prefills, its backward at whisper's three
+training calls in bf16, its forward and backward at whisper's training
+cross-attention in f32, and ``gram``, ``schwarz_fwd`` and
+``schwarz_bwd`` at a rank's block (``*_per_rank``).
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
@@ -605,6 +627,280 @@ def phase_pint(smi: str) -> None:
     check(all(torch.equal(u, v) for u, v in zip(xb, xd))
           and jb.deterministic_json() == jd.deterministic_json(),
           "(d) time_windows=1 bitwise equal to (b)")
+
+
+# The distributed solve: ranks sharing the one card over gloo (NCCL
+# refuses two ranks on one GPU), collectives through pinned host copies.
+SHARDMAP = {"ranks": 8, "backend": "gloo", "cycles": 2, "mvec_iters": 12}
+# Parareal on the ranks: PINT cut to 4 cycles, one a window.  Every rank
+# prepares and keeps every cycle's ex4_p8 packing (the coarse sweeps need
+# them all); at 8 cycles, 8 ranks need more than the card's 80 GB.
+SHARDMAP_PINT = dict(PINT, cycles=4)
+SHARDMAP_RUNS = (
+    ("ex4_p8", dict(n=2048, p=8, iters=120), "drifting_swarm", 2000,
+     ("allreduce",)),
+    ("shelf2d", dict(ndim=2, nx=64, ny=32, pr=2, pc=4, overlap=1,
+                     damping=0.7, iters=120), "rotating_swarm", 2000,
+     ("allreduce", "neighbour")),
+)
+
+
+def _sha(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def shardmap_rank(device, runs, cycles: int, pint: dict) -> dict:
+    """One rank of ``phase_shardmap`` (spawned: importable by name).  Each
+    engine run starts with the launch counts at 0 and reads them at its
+    end; the packing each run solved first is kept for the checks."""
+    from repro_torch.assim import (AssimilationEngine, EngineConfig,
+                                   TimeParEngine)
+    from repro_torch.core import ddkf
+    from repro_torch.kernels import ops
+
+    out = {}
+    for tag, kw, scenario, m, comms in runs:
+        for comm in comms:
+            cfg = EngineConfig(solver="shardmap", comm=comm,
+                               track_reference=True, **kw)
+            eng = AssimilationEngine(cfg, device=device)
+            xs, first = [], []
+            eng.on_analysis = lambda cycle, x: xs.append(x.cpu())
+            solve_input = eng.solve_input
+
+            def keep_first(prep, solve_input=solve_input, first=first):
+                got = solve_input(prep)
+                if not first:
+                    first.append(got[0])
+                return got
+
+            eng.solve_input = keep_first
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            journal = eng.run_scenario(scenario, m=m, cycles=cycles)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            pk = first[0]
+            res = {"analyses": xs, "journal": journal.deterministic_dict(),
+                   "records": journal.to_dict()["records"],
+                   "counts": counts, "wall": wall,
+                   "mesh": eng.mesh.describe(),
+                   "collectives": dict(eng.mesh.counts),
+                   "first": pk.first, "shape": list(pk.A_loc.shape),
+                   "sha": {"A_loc": _sha(pk.A_loc), "L_loc": _sha(pk.L_loc)}}
+            if comm == "allreduce":
+                # The m-vector paths held to each other on the first
+                # packing, at SHARDMAP["mvec_iters"] iterations.
+                solve = dict(axis=eng.mesh_axis, damping=cfg.damping,
+                             iters=SHARDMAP["mvec_iters"])
+                t0 = time.perf_counter()
+                xs_ = ddkf.solve_shardmap(pk, eng.mesh, mvec="scatter",
+                                          **solve)
+                xp_ = ddkf.solve_shardmap(pk, eng.mesh, mvec="psum", **solve)
+                res["mvec_diff"] = float((xs_ - xp_).abs().max())
+                res["mvec_wall"] = time.perf_counter() - t0
+            out[(tag, comm)] = res
+            del eng, pk, first
+    cfg = EngineConfig(n=pint["n"], p=pint["p"], iters=120,
+                       track_reference=True, time_windows=pint["windows"])
+    tp = TimeParEngine(cfg, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    journal = tp.run_scenario("drifting_swarm", m=pint["m"],
+                              cycles=pint["cycles"])
+    torch.cuda.synchronize()
+    out["pint"] = {"analyses": [torch.as_tensor(a) for a in tp.analyses],
+                   "pint": journal.meta["pint"],
+                   "records": journal.to_dict()["records"],
+                   "journal": journal.deterministic_dict(),
+                   "wall": time.perf_counter() - t0,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return out
+
+
+def pint_single(pint: dict) -> tuple:
+    """(sequential chain, Parareal iterations) of one process at ``pint``
+    on the card: what the ranks' Parareal run is held to."""
+    from repro_torch.assim import (AssimilationEngine, EngineConfig,
+                                   TimeParEngine)
+
+    cfg = EngineConfig(n=pint["n"], p=pint["p"], iters=120,
+                       time_windows=pint["windows"])
+    tp = TimeParEngine(cfg)
+    tp.run_scenario("drifting_swarm", m=pint["m"], cycles=pint["cycles"])
+    seq = AssimilationEngine(dataclasses.replace(cfg, time_windows=1))
+    chain = []
+    seq.on_analysis = lambda cycle, x: chain.append(x)
+    seq.run_scenario("drifting_swarm", m=pint["m"], cycles=pint["cycles"])
+    return chain, tp.journal.meta["pint"]["iters"]
+
+
+def phase_shardmap(smi: str) -> tuple:
+    """The parallel DD-KF over ``torch.distributed``: 8 ranks on the one
+    card (gloo, host transport), each running the engine with
+    ``solver="shardmap"`` on its own subdomain, then ``TimeParEngine`` on
+    the auto ("time", "sub") mesh.  (a) ex4_p8 and (b) the 2D shelf (both
+    exchanges), 2 cycles each, are held to the single-process vmapped
+    engine on the same stream and seed; (c) Parareal at
+    ``SHARDMAP_PINT`` to one process's sequential chain and iteration
+    count at the same config.  A correctness
+    run of ranks that share one card, not a speed-up.  Returns rank 0's
+    first ex4_p8 packing's inputs and its launch counts, for the
+    per-rank kernel rows."""
+    from repro_torch.assim import EngineConfig
+    from repro_torch.runtime import mesh
+
+    ranks, cycles = SHARDMAP["ranks"], SHARDMAP["cycles"]
+    print(f"== shardmap: {ranks} ranks on one card over "
+          f"{SHARDMAP['backend']}, {cycles} cycles a run ({smi})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = mesh.launch(shardmap_rank, ranks, backend=SHARDMAP["backend"],
+                      args=(SHARDMAP_RUNS, cycles, SHARDMAP_PINT))
+    wall = time.perf_counter() - t0
+    print(f"  {ranks} ranks spawned, ran and joined in {wall:.2f} s "
+          f"({smi})")
+    for key in out[0]:
+        walls = [round(o[key]["wall"], 3) for o in out]
+        mvec = [round(o[key].get("mvec_wall", 0.0), 3) for o in out]
+        print(f"  {key} walls per rank, s: {walls}; the two mvec solves "
+              f"{mvec}")
+    first_1d = None
+    for tag, kw, scenario, m, comms in SHARDMAP_RUNS:
+        single, xv, cv, _, packed = run_engine(
+            EngineConfig(track_reference=True, **kw), scenario, m, cycles)
+        for comm in comms:
+            res = [o[(tag, comm)] for o in out]
+            r0 = res[0]
+            label = f"({tag}, {comm})"
+            print(f"  {label} single-process vmapped launches {cv}; mesh "
+                  f"{r0['mesh']}; collectives a rank {r0['collectives']}")
+            check(r0["mesh"]["transport"] == "host"
+                  and r0["mesh"]["backend"] == "gloo",
+                  f"{label} gloo with host transport: {r0['mesh']}")
+            check(all(len(r["analyses"]) == cycles and all(
+                torch.equal(a, b) for a, b in zip(r["analyses"],
+                                                  r0["analyses"]))
+                for r in res), f"{label} every rank's analysis bitwise "
+                f"the same")
+            check(all(r["journal"] == r0["journal"] for r in res),
+                  f"{label} every rank's deterministic journal the same")
+            diff = max(float((a - b.cpu()).abs().max())
+                       for a, b in zip(r0["analyses"], xv))
+            check(diff <= 1e-13, f"{label} vs the single-process vmapped "
+                  f"engine: max abs diff {diff:.3e} <= 1e-13")
+            errs = [rec["error_vs_direct"] for rec in r0["records"]]
+            check(all(e <= 1e-10 for e in errs), f"{label} every cycle "
+                  f"within 1e-10 of the direct solve: {max(errs):.3e}")
+            check(all(rec[f] == getattr(want, f)
+                      for rec, want in zip(r0["records"], single.records)
+                      for f in HOST_FIELDS),
+                f"{label} loads and repartition decisions equal")
+            want = {"gram": cycles, "schwarz_fwd": cycles * kw["iters"],
+                    "schwarz_bwd": cycles * kw["iters"]}
+            check(all({k: r["counts"][k] for k in want} == want
+                      for r in res),
+                  f"{label} launches per rank {want}: "
+                  f"{[r['counts']['schwarz_fwd'] for r in res]}")
+            same = {f: [r["sha"][f] == _sha(getattr(packed, f)[
+                r["first"]:r["first"] + 1]) for r in res]
+                for f in ("A_loc", "L_loc")}
+            check(all(same["A_loc"] + same["L_loc"])
+                  and [r["first"] for r in res] == list(range(ranks)),
+                  f"{label} each rank's block (A_loc {r0['shape']}, L_loc) "
+                  f"bitwise the rows of the single-process packing: {same}")
+            if "mvec_diff" in r0:
+                d = max(r["mvec_diff"] for r in res)
+                check(d <= 1e-13,
+                      f"{label} mvec scatter vs psum {d:.3e} <= 1e-13")
+            if tag == "ex4_p8" and first_1d is None:
+                first_1d = (packed, xv[0], r0["counts"])
+        if len(comms) == 2:
+            a, n = (out[0][(tag, c)]["records"] for c in comms)
+            check(all(y["comm_bytes_per_cycle"] < x["comm_bytes_per_cycle"]
+                      for x, y in zip(a, n)),
+                  f"({tag}) neighbour comm bytes below allreduce: "
+                  f"{[y['comm_bytes_per_cycle'] for y in n]} < "
+                  f"{[x['comm_bytes_per_cycle'] for x in a]}")
+    xs_seq, k_seq = pint_single(SHARDMAP_PINT)
+    res = [o["pint"] for o in out]
+    r0 = res[0]
+    pint = r0["pint"]
+    peaks = [round(r["peak_gib"], 2) for r in res]
+    print(f"  (pint) peak memory a rank {peaks} GiB; {pint['iters']} "
+          f"Parareal iterations, correction norms "
+          f"{pint['correction_norms']}")
+    check(pint["mesh"] == {"time": 4, "sub": 2},
+          f"(pint) auto mesh {pint['mesh']}")
+    check(pint["converged"] and pint["iters"] == k_seq,
+          f"(pint) converged in {pint['iters']} iterations, as the "
+          f"single-process run ({k_seq})")
+    check(all(r["journal"] == r0["journal"] and all(
+        torch.equal(a, b) for a, b in zip(r["analyses"], r0["analyses"]))
+        for r in res), "(pint) every rank's chain and journal the same")
+    diff = max(float((a - b.cpu()).abs().max())
+               for a, b in zip(r0["analyses"], xs_seq))
+    check(len(r0["analyses"]) == SHARDMAP_PINT["cycles"] and diff <= 1e-6,
+          f"(pint) chain vs the sequential engine {diff:.3e} <= 1e-6")
+    errs = [rec["error_vs_direct"] for rec in r0["records"]]
+    check(all(e <= 1e-10 for e in errs),
+          f"(pint) every cycle within 1e-10 of the direct solve: "
+          f"{max(errs):.3e}")
+    return first_1d
+
+
+def shardmap_rows(first_1d) -> list:
+    """``gram``, ``schwarz_fwd`` and ``schwarz_bwd`` at a rank's shape
+    (1, m, w): rank 0's block of the ex4_p8 run's first packing, with the
+    m-vector all the ranks reduce, against the plain versions there and on
+    random values, timed beside the bound, the plain version and cuBLAS;
+    ``launches`` is rank 0's count in the ``shardmap`` run."""
+    packed, x_glob, counts = first_1d
+    from repro_torch.core import ddkf
+    print("== kernels at a rank's block (ex4_p8, rank 0)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    whole = kernel_cases(packed, ddkf.gather_local(packed, x_glob),
+                         torch.float64)
+    A, r, b, Ax, u, x, muov, mask = whole["schwarz_bwd"]
+    one = slice(0, 1)
+    cases = {"gram": (A[one].contiguous(), whole["gram"][1][one]),
+             "schwarz_fwd": (A[one].contiguous(), x[one], packed.wdiv[one]),
+             "schwarz_bwd": (A[one].contiguous(), r, b, Ax, u[one], x[one],
+                             muov[one], mask[one])}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shape = tuple(cases["gram"][0].shape)
+    rows = []
+    for name, args in cases.items():
+        err = compare(name, args, torch.float64, f"rank 0 {shape}")
+        rand = random_case(*shape, 0, torch.float64, gen)[name]
+        err = max(err, compare(name, rand, torch.float64,
+                               f"random {shape}"))
+        if name == "gram":
+            n1, n2 = _kernel(name)(*args), _kernel(name)(*args)
+            check(torch.equal(n1, n2),
+                  f"gram rank 0 {shape}: two launches bitwise equal")
+            del n1, n2
+        reps = 5 if name == "gram" else 20
+        bound, by = _bound(name, args)
+        row = {"name": f"{name}_per_rank", "ok": True, "route": "cuda",
+               "source": SOURCES[name], "replaces": REPLACES[name],
+               "launches": counts[name], "max_abs_err": err,
+               "ms": time_ms(lambda: _kernel(name)(*args), reps),
+               "plain_ms": time_ms(lambda: _plain(name)(*args), reps),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": time_ms(_library(name, args), reps),
+               "shape": list(shape), "dtype": "float64"}
+        print(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+              f"ms, bound {bound:.4f} ms ({by}), {counts[name]} launches "
+              f"on rank 0")
+        rows.append(row)
+    return rows
 
 
 # The multi-tenant fleet at ex4_p8's width: (sid, scenario, seed, DyDD).
@@ -4154,11 +4450,14 @@ def main() -> int:
 
     phase_kf(smi)
     phase_pint(smi)
+    first_rank = phase_shardmap(smi)
     phase_fleet(smi)
     phase_resume(smi)
 
     rows = phase_kernels([("ex4_p8", main_1d), ("shelf2d", main_2d)],
                          counts_1d)
+    rows += shardmap_rows(first_rank)
+    del first_rank
     phase_profile(paper, "drifting_swarm", 2000, 6)
     stamp("the DA paths")
 

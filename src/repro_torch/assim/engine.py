@@ -12,8 +12,11 @@ The engine consumes an observation stream cycle by cycle and, per cycle:
      (``ddkf.pack_operator``, the ``gram`` kernel);
   3. injects the cycle's right-hand side (background carried forward from
      the previous analysis + fresh observation data) and runs the DD-KF
-     solve on one device (``ddkf.solve_vmapped``, the fused Schwarz
-     kernels);
+     solve: on one device (``ddkf.solve_vmapped``, the fused Schwarz
+     kernels), or with ``solver="shardmap"`` one rank per subdomain of a
+     :class:`~repro_torch.runtime.mesh.ProcessMesh`
+     (``ddkf.solve_shardmap``: every rank runs this engine, packs and
+     solves its own subdomain, and keeps the whole journal);
   4. journals loads, imbalance, migration volume and timings
      (:mod:`repro_torch.assim.metrics`).
 
@@ -49,6 +52,7 @@ from repro_torch.core import kdtree as kdtree_mod
 from repro_torch.obs import meters as meters_mod
 from repro_torch.obs import trace as trace_mod
 from repro_torch.runtime import chaos as chaos_mod
+from repro_torch.runtime import mesh as mesh_mod
 from repro_torch.runtime.straggler import StragglerConfig, StragglerMonitor
 from repro_torch.assim import streams as streams_mod
 from repro_torch.assim.metrics import CycleMetrics, Journal, imbalance_ratio
@@ -63,12 +67,6 @@ def _phase(phases: dict, name: str, **args):
     with trace_mod.span(name, **args):
         yield
     phases[name] = phases.get(name, 0.0) + (time.perf_counter() - t0)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
-        f"item {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +84,13 @@ class EngineConfig:
     engine overrides all of these.
 
     Solver: ``solver="vmapped"`` batches subdomains on a leading axis of
-    one device (the only solver ported so far).  ``overlap`` (>= 0) is the
+    one device; ``solver="shardmap"`` runs one rank per subdomain on a
+    process mesh shaped like the domain's processor graph — the engine
+    builds it when the process group has p ranks, or takes an explicit
+    ``mesh=``; a rank-count mismatch is rejected up front.  ``comm``
+    picks the sharded solve's overlap exchange (``"allreduce"`` or
+    ``"neighbour"``) and the modelled traffic the journal records.
+    ``overlap`` (>= 0) is the
     Schwarz halo width, with ``mu`` the overlap regularization of eq.
     25-26.  ``solver_kernel`` picks the local step ("auto": the fused
     CUDA kernels on the card, the plain composition on the CPU) and
@@ -125,9 +129,10 @@ class EngineConfig:
     smooth: float = 0.25              # H0 second-difference weight
     obs_noise: float = 1e-3           # observation data noise
     truth_drift: float = 0.05         # per-cycle truth random-walk scale
-    solver: str = "vmapped"           # "vmapped" ("shardmap": not ported)
-    comm: str = "allreduce"           # modelled overlap exchange:
-                                      # "allreduce" | "neighbour"
+    solver: str = "vmapped"           # "vmapped" | "shardmap"
+    comm: str = "allreduce"           # overlap exchange (sharded solve,
+                                      # comm model): "allreduce" |
+                                      # "neighbour"
     halo_weight: float = 0.0          # overlap-aware DyDD: work units per
                                       # halo column
     record_residuals: bool = False    # journal the per-iteration Schwarz
@@ -283,7 +288,11 @@ class AssimilationEngine:
 
         eng = AssimilationEngine(cfg, device="cpu")   # on the CPU
 
-    ``device=None`` means the card and raises when there is none.  The
+    ``device=None`` means the card and raises when there is none.  With
+    ``solver="shardmap"`` every rank of the process group builds this
+    engine with its own device (``mesh`` / ``mesh_axis`` as the
+    reference's: an explicit :class:`~repro_torch.runtime.mesh.
+    ProcessMesh` and the axes the subdomains run over).  The
     analysis of cycle t is carried as the background of cycle t+1
     (persistence forecast by default; pass ``forecast`` to override).
     ``eng.analysis`` holds the latest analysis state (a tensor on the
@@ -298,13 +307,11 @@ class AssimilationEngine:
                  forecast: Optional[Callable] = None,
                  domain: Optional[domain_mod.Domain] = None,
                  straggler_config: Optional[StragglerConfig] = None,
-                 chaos=None):
+                 chaos=None, mesh=None, mesh_axis=None):
         self.cfg = config
         self.device = device_mod.resolve(device)
         self.forecast = forecast or (lambda x: x)
-        if config.solver == "shardmap":
-            raise _not_ported("solver='shardmap'", "13")
-        if config.solver != "vmapped":
+        if config.solver not in ("vmapped", "shardmap"):
             raise ValueError(f"unknown solver {config.solver!r}")
         if config.comm not in ("allreduce", "neighbour"):
             raise ValueError(f"comm must be 'allreduce' or 'neighbour' "
@@ -349,7 +356,15 @@ class AssimilationEngine:
             else _domain_from_config(config)
         self.n = self.domain.n
         self.p = self.domain.p
+        self.mesh, self.mesh_axis = self._resolve_mesh(mesh, mesh_axis)
+        # The subdomains this process packs: its own on the sharded path.
+        self._subdomains = None
+        if self.mesh is not None:
+            i = self.mesh.index(self.mesh_axis)
+            self._subdomains = range(i, i + 1)
         self.journal = Journal(meta=self.domain.describe())
+        if self.mesh is not None:
+            self.journal.meta["mesh"] = self.mesh.describe()
         self.analysis: Optional[torch.Tensor] = None
         self._H0 = cls_mod.state_operator(self.n, smooth=config.smooth)
         self._rng = np.random.default_rng(config.seed)
@@ -371,6 +386,45 @@ class AssimilationEngine:
         self._restored_cursor: Optional[dict] = None
         # Optional per-cycle analysis hook: ``on_analysis(cycle, x)``.
         self.on_analysis: Optional[Callable] = None
+
+    # -- mesh resolution for the sharded solver ----------------------------
+
+    def _resolve_mesh(self, mesh, mesh_axis):
+        """Validate or build the process mesh for ``solver='shardmap'``.
+
+        The solver needs one rank per subdomain, laid out as the domain's
+        processor graph (``domain.mesh_axes()``: a (p,) chain in 1D, a
+        (pr, pc) grid in 2D).  A mismatched rank count is rejected here,
+        up front, with the fix spelled out."""
+        if self.cfg.solver != "shardmap":
+            return mesh, mesh_axis
+        names, shape = self.domain.mesh_axes()
+        if mesh is None:
+            world = (torch.distributed.get_world_size()
+                     if torch.distributed.is_initialized() else 0)
+            if world != self.p:
+                raise ValueError(
+                    f"solver='shardmap' requires a mesh with one device "
+                    f"per subdomain: p={self.p} but the process group has "
+                    f"{world} rank(s)" + ("" if world else
+                                          " (none is initialised)")
+                    + f".  Start {self.p} ranks (repro_torch.runtime.mesh."
+                    f"launch, or torch.distributed.init_process_group), "
+                    f"pass mesh= explicitly, or match the config's p/pr*pc "
+                    f"to the ranks")
+            mesh = mesh_mod.ProcessMesh(shape, names, device=self.device)
+            return mesh, (names if len(names) > 1 else names[0])
+        n_mesh = int(np.prod(list(mesh.shape.values())))
+        if n_mesh != self.p:
+            raise ValueError(
+                f"solver='shardmap' requires a mesh with one device per "
+                f"subdomain: p={self.p} but the given mesh has {n_mesh} "
+                f"device(s) (shape {dict(mesh.shape)}).  Rebuild the mesh "
+                f"to match, or change p/pr/pc")
+        if mesh_axis is None:
+            axes = tuple(mesh.shape.keys())
+            mesh_axis = axes if len(axes) > 1 else axes[0]
+        return mesh, mesh_axis
 
     # -- rebalance trigger policy ------------------------------------------
 
@@ -467,7 +521,8 @@ class AssimilationEngine:
             r = np.ones((A.shape[0],))
             packed_op = ddkf_mod.pack_operator(
                 A, r, dec, mu=cfg.mu, gram_mode=cfg.gram_mode,
-                solver_kernel=cfg.solver_kernel, device=self.device)
+                solver_kernel=cfg.solver_kernel, device=self.device,
+                subdomains=self._subdomains)
             device_mod.block(packed_op.L_loc)
 
         with _phase(phases, "data", cycle=cycle):
@@ -527,9 +582,12 @@ class AssimilationEngine:
         return packed, background
 
     def _solve(self, prep: _Prepared):
-        """Returns (analysis, background, residual_hist, device_times);
-        ``device_times`` is empty on this single-device path (the caller
-        substitutes the whole-solve time)."""
+        """Returns (analysis, background, residual_hist, device_times).
+
+        ``device_times`` is each rank's solve time in subdomain order on
+        the sharded path (every rank holds all p, all-gathered), and
+        empty on the single-device path (the caller substitutes the
+        whole-solve time)."""
         cfg = self.cfg
         # The solve mutates no engine state until complete_cycle, so a
         # fault raised here leaves the cycle cleanly retryable.
@@ -537,16 +595,29 @@ class AssimilationEngine:
             self._chaos.check("solve", prep.cycle)
         packed, background = self.solve_input(prep)
         hist = None
+        device_times: list = []
         with trace_mod.span("solve", cycle=prep.cycle,
                             solver=cfg.solver) as sp:
-            out = ddkf_mod.solve_vmapped(
-                packed, iters=cfg.iters, damping=cfg.damping,
-                residual_history=cfg.record_residuals)
-            x = out[0] if cfg.record_residuals else out
+            t0 = time.perf_counter()
+            if cfg.solver == "shardmap":
+                out = ddkf_mod.solve_shardmap(
+                    packed, self.mesh, axis=self.mesh_axis,
+                    iters=cfg.iters, damping=cfg.damping, comm=cfg.comm,
+                    halo=prep.halo, residual_history=cfg.record_residuals,
+                    return_per_device=True)
+                device_times = out[-1]
+                for i, dt in enumerate(device_times):
+                    trace_mod.emit("solve", t0, dt, track=f"device {i}",
+                                   cycle=prep.cycle)
+            else:
+                out = ddkf_mod.solve_vmapped(
+                    packed, iters=cfg.iters, damping=cfg.damping,
+                    residual_history=cfg.record_residuals)
+            x = out[0] if isinstance(out, tuple) else out
             if cfg.record_residuals:
                 hist = out[1]
             sp.fence(x)
-        return x, background, hist, []
+        return x, background, hist, device_times
 
     def _reference_error(self, prep: _Prepared, background: np.ndarray,
                          x: torch.Tensor) -> float:

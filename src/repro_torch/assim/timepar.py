@@ -19,9 +19,12 @@ paper (PAPERS.md: arXiv:2312.00007, arXiv:1807.07107):
   3. **Fine sweeps across windows** — each Parareal iteration propagates
      every window from its current boundary state with the *full*
      solver, windows in lockstep: the per-cycle packings are
-     width-padded (:func:`ddkf.pad_packed_width`), stacked
-     (:func:`ddkf.stack_packed`) and solved by :func:`ddkf.solve_fleet`,
-     one member after another on the one device.  With
+     width-padded (:func:`ddkf.pad_packed_width`) and solved together:
+     stacked (:func:`ddkf.stack_packed`) and solved by
+     :func:`ddkf.solve_fleet`, one member after another on one device,
+     or on a ``("time", "sub")`` process mesh by
+     :func:`ddkf.solve_window_stack` (windows over ``time``, subdomains
+     over ``sub``; every rank runs this engine).  With
      ``pint_fine_iters > 0`` each fine solve warm-starts from the coarse
      trajectory of the same cycle and runs only that many Schwarz
      iterations.
@@ -31,8 +34,10 @@ paper (PAPERS.md: arXiv:2312.00007, arXiv:1807.07107):
      ``pint_tol`` (in at most W iterations by Parareal's finite
      termination).
 
-Every coarse and fine Schwarz iteration runs the ``schwarz_fwd`` and
-``schwarz_bwd`` kernels on the card (``solver_kernel="auto"``).
+Every coarse and single-device fine Schwarz iteration runs the
+``schwarz_fwd`` and ``schwarz_bwd`` kernels on the card
+(``solver_kernel="auto"``); the mesh's fine sweeps run the reference's
+batched composition, as its ``solve_window_stack`` does.
 
 Contract: **tolerance, not bitwise** — the windowed analysis chain
 matches the sequential engine's within ``pint_tol`` (plus reduction-
@@ -45,9 +50,12 @@ engine snapshot at every k-th window boundary, from the host state
 stashed there during the prepare sweep, with a ``"pint"`` window
 descriptor in its metadata; the sequential engine resumes from it.
 
-The port of ``repro.assim.timepar`` on one device: the reference's
-``("time", "sub")`` device mesh (``resolve_time_mesh``,
-``ddkf.solve_window_stack``) is ROADMAP.md Queue 1 item 13.
+The mesh: when the process group is initialised, every rank runs the
+same engine — the prepare sweep, the coarse sweeps and the corrections
+(deterministic, so every rank holds the same boundary states) — and the
+fine sweeps split over a ``("time", "sub")`` mesh built over the ranks
+(:func:`resolve_time_mesh`) or given as ``mesh=``.  Without a process
+group the fine sweeps run on one device.
 """
 from __future__ import annotations
 
@@ -63,9 +71,10 @@ from repro_torch.core import ddkf as ddkf_mod
 from repro_torch.obs import meters as meters_mod
 from repro_torch.obs import trace as trace_mod
 from repro_torch.runtime import chaos as chaos_mod
+from repro_torch.runtime import mesh as mesh_mod
 from repro_torch.assim import streams as streams_mod
 from repro_torch.assim.engine import (AssimilationEngine, CycleStep,
-                                      EngineConfig, _not_ported, _to_numpy)
+                                      EngineConfig, _to_numpy)
 from repro_torch.assim.metrics import Journal
 
 
@@ -76,6 +85,29 @@ def window_bounds(cycles: int, windows: int) -> list:
     cycle are deterministic."""
     W = max(1, min(int(windows), int(cycles)))
     return [cycles * w // W for w in range(W + 1)]
+
+
+def resolve_time_mesh(time_windows: int, p: int, time_axis: str = "time",
+                      sub_axis: str = "sub", device=None):
+    """Build a ``("time", "sub")`` process mesh over every rank of the
+    process group, or None when there is no process group or the world
+    size does not factor (the fine sweeps then run on one device).
+
+    Picks the largest time-axis size kt such that kt divides the world
+    size, kt covers at most ``time_windows`` windows, and the remaining
+    ks = world / kt divides p (:func:`ddkf.solve_window_stack` needs both
+    axes to divide their problem dimension).  Every rank must call it."""
+    if not torch.distributed.is_initialized():
+        return None
+    world = torch.distributed.get_world_size()
+    for kt in range(min(int(time_windows), world), 0, -1):
+        if world % kt:
+            continue
+        ks = world // kt
+        if p % ks == 0:
+            return mesh_mod.ProcessMesh((kt, ks), (time_axis, sub_axis),
+                                        device=device)
+    return None
 
 
 class TimeParEngine:
@@ -90,7 +122,10 @@ class TimeParEngine:
         journal.meta["pint"]  # iterations, correction norms, convergence
 
     ``device=None`` means the card and raises when there is none
-    (``device="cpu"`` runs on the CPU).  The inner engine journals every
+    (``device="cpu"`` runs on the CPU).  ``mesh`` (optional) must carry
+    the ``time_axis`` and ``sub_axis`` axes; by default, when a process
+    group is initialised, one is built over its ranks
+    (:func:`resolve_time_mesh`).  The inner engine journals every
     cycle exactly as the sequential engine does (same phases, same comm
     accounting, window-tagged records); ``journal.meta["pint"]`` carries
     the Parareal evidence.  With ``time_windows=1`` or
@@ -100,10 +135,11 @@ class TimeParEngine:
 
     def __init__(self, config: EngineConfig, device=None, *,
                  forecast: Optional[Callable] = None,
-                 domain=None, mesh=None, chaos=None):
-        if mesh is not None:
-            raise _not_ported("the ('time', 'sub') device mesh", "13")
+                 domain=None, mesh=None, time_axis: str = "time",
+                 sub_axis: str = "sub", chaos=None):
         self.cfg = config
+        self.time_axis = time_axis
+        self.sub_axis = sub_axis
         self._degenerate = (config.time_windows <= 1
                             or config.pint_max_iters == 0)
         # The windowed path dispatches its fine solves itself; the inner
@@ -112,6 +148,19 @@ class TimeParEngine:
             config, solver="vmapped")
         self.engine = AssimilationEngine(eng_cfg, device, forecast=forecast,
                                          domain=domain, chaos=chaos)
+        if mesh is not None:
+            for ax in (time_axis, sub_axis):
+                if ax not in mesh.shape:
+                    raise ValueError(
+                        f"mesh is missing the {ax!r} axis (has "
+                        f"{tuple(mesh.shape)})")
+            if self.engine.p % int(mesh.shape[sub_axis]):
+                raise ValueError(
+                    f"p={self.engine.p} subdomains do not divide over "
+                    f"the {int(mesh.shape[sub_axis])}-device "
+                    f"'{sub_axis}' mesh axis")
+        self.mesh = mesh if not self._degenerate else None
+        self._auto_mesh = mesh is None
         self.analyses: list = []
         # Host state at each window boundary of the last windowed run.
         self.window_host: dict = {}
@@ -199,10 +248,22 @@ class TimeParEngine:
         window's solve — set only when ``pint_fine_iters`` trims the
         fine iteration count."""
         cfg = self.cfg
+        iters = cfg.pint_fine_iters or cfg.iters
+        if self.mesh is not None:
+            # Pad the group to a multiple of the time axis with copies of
+            # its first window; each rank stacks only its own share.
+            pad = (-len(packs)) % int(self.mesh.shape[self.time_axis])
+            x0 = (None if x0s is None
+                  else torch.stack(list(x0s) + [x0s[0]] * pad))
+            xs = ddkf_mod.solve_window_stack(
+                packs + [packs[0]] * pad, self.mesh,
+                time_axis=self.time_axis, sub_axis=self.sub_axis,
+                iters=iters, damping=cfg.damping, x0=x0)
+            return xs[:len(packs)]
         x0 = None if x0s is None else torch.stack(x0s)
         return ddkf_mod.solve_fleet(
-            ddkf_mod.stack_packed(packs), iters=cfg.pint_fine_iters or
-            cfg.iters, damping=cfg.damping, x0=x0)
+            ddkf_mod.stack_packed(packs), iters=iters, damping=cfg.damping,
+            x0=x0)
 
     def _fine_sweep(self, bounds, b_in, coarse_traj=None):
         """Propagate every window from its boundary state with the full
@@ -264,6 +325,9 @@ class TimeParEngine:
         bounds = window_bounds(C, cfg.time_windows)
         W = len(bounds) - 1
         lens = [bounds[w + 1] - bounds[w] for w in range(W)]
+        if self._auto_mesh:
+            self.mesh = resolve_time_mesh(W, eng.p, self.time_axis,
+                                          self.sub_axis, device=eng.device)
         eng.reset_clock()
         m = meters_mod.get_meters()
 
@@ -292,9 +356,13 @@ class TimeParEngine:
         w_max = max(p.packed_op.w for p in self._preps)
         # Width-padded operators, built once: both sweeps re-solve each
         # cycle every Parareal iteration, and padding is boundary-state
-        # independent.
-        self._padded_ops = [ddkf_mod.pad_packed_width(p.packed_op, w_max)
-                            for p in self._preps]
+        # independent.  Only the padded copy is kept: the journal reads
+        # nothing of the packing.
+        self._padded_ops = []
+        for p in self._preps:
+            self._padded_ops.append(ddkf_mod.pad_packed_width(
+                p.packed_op, w_max))
+            p.packed_op = None
 
         # -- 2. coarse init sweep ----------------------------------------
         b = [None] * (W + 1)
@@ -350,7 +418,8 @@ class TimeParEngine:
             "correction_norms": [float(v) for v in correction_norms],
             "converged": bool(converged),
             "tol": float(cfg.pint_tol),
-            "mesh": None,
+            "mesh": (None if self.mesh is None else
+                     {str(a): int(k) for a, k in self.mesh.shape.items()}),
         }
 
         # -- 5. ordered completion: journal every cycle with the last

@@ -10,13 +10,23 @@ inter-subdomain coupling per iteration is
 plus the boundary/overlap averaging folded into the assembly — the
 communication structure the paper counts in its overhead T^p_oh.
 
-This module ports the single-device paths of ``repro.core.ddkf``
-(``solve_vmapped``: subdomains on the leading axis of a batch;
-``solve_fleet``: independent problems on a leading axis, solved one
-after another, with ``stack_packed`` and ``pad_packed_width`` to build
-the stack).  The
-setup builds the local normal matrices with the ``gram`` kernel and the
-iteration runs the fused ``schwarz_fwd``/``schwarz_bwd`` kernels (see
+This module ports the paths of ``repro.core.ddkf``:
+
+  * ``solve_vmapped`` — subdomains on the leading axis of a batch on one
+    device;
+  * ``solve_fleet`` — independent problems on a leading axis, solved one
+    after another, with ``stack_packed`` and ``pad_packed_width`` to
+    build the stack;
+  * ``solve_shardmap`` — one rank per subdomain of a
+    :class:`~repro_torch.runtime.mesh.ProcessMesh`: each rank runs the
+    same host program on its own block and the ranks meet in collectives
+    (the all-reduce of the m-vector each iteration, and the overlap
+    exchange: a global assembly or neighbour-only rounds);
+  * ``solve_window_stack`` — independent Parareal windows by subdomains
+    on a ``("time", "sub")`` mesh.
+
+The setup builds the local normal matrices with the ``gram`` kernel and
+the iteration runs the fused ``schwarz_fwd``/``schwarz_bwd`` kernels (see
 :mod:`repro_torch.kernels.ops`); the Cholesky factors and triangular
 solves stay ``torch.linalg``, as the reference left them outside its
 kernels.
@@ -28,6 +38,7 @@ right-hand side, so their solution stays exactly zero.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -47,7 +58,13 @@ class PackedDD:
     """Host-side packing of a Decomposition into padded device tensors.
 
     The :data:`HOST_FIELDS` stay numpy arrays: they keep the reference's
-    fields for comparison and for building ``owner_slots``."""
+    fields for comparison and for building ``owner_slots``.
+
+    A per-rank packing (``pack_operator(..., subdomains=...)``) holds the
+    device blocks of a run of subdomains only: ``A_loc``, ``L_loc``,
+    ``mask``, ``muov``, ``wdiv`` and ``gather_cols`` have one row per
+    subdomain held, starting at subdomain ``first``; every other field,
+    and ``n``, ``p`` and ``w``, are those of the whole packing."""
 
     A_loc: torch.Tensor      # (p, m, w) local column blocks, zero-padded
     L_loc: torch.Tensor      # (p, w, w) Cholesky of local normal matrices
@@ -75,6 +92,7 @@ class PackedDD:
     w: int
     solve_kernel: str = "plain"   # resolved iteration path: "plain" |
                                   # "fused"
+    first: int = 0                # subdomain of the first device row
 
     @property
     def m(self) -> int:
@@ -237,16 +255,20 @@ def _factor_batched(A_loc: torch.Tensor, r: torch.Tensor,
     The factors are returned row-major: ``cholesky`` gives each one in
     column-major strides, and ``stack_packed`` (``torch.stack``) copies
     them row-major, where the triangular solves round differently — so
-    a fleet member would not solve bit for bit as the packing alone."""
+    a fleet member would not solve bit for bit as the packing alone.
+    Each matrix is factored alone: on the card a batch of several goes
+    to another cuSOLVER routine than one, and a rank's packing of its
+    own block must equal the same row of the whole packing bit for
+    bit."""
     p = A_loc.shape[0]
     N = ops_mod.gram(A_loc, r.expand(p, -1).contiguous(), mode=gram_mode)
-    return torch.linalg.cholesky(
-        N + torch.diag_embed(diag_add.to(N.dtype))).contiguous()
+    N = N + torch.diag_embed(diag_add.to(N.dtype))
+    return torch.stack([torch.linalg.cholesky(Ni) for Ni in N])
 
 
 def pack_operator(A, r, dec: dd_mod.Decomposition, mu: float = 1.0,
                   gram_mode: str = "auto", solver_kernel: str = "auto",
-                  device=None) -> PackedDD:
+                  device=None, subdomains: range | None = None) -> PackedDD:
     """Pack the *operator* part of a decomposed CLS problem.
 
     ``A`` (m, n) and ``r`` (m,) are host arrays.  The host slices the p
@@ -262,6 +284,11 @@ def pack_operator(A, r, dec: dd_mod.Decomposition, mu: float = 1.0,
     ``solver_kernel`` the per-iteration step path the solves will run
     (:data:`SOLVER_KERNELS`, resolved here from the device).
 
+    ``subdomains`` (a ``range`` of consecutive subdomains) packs a rank's
+    share only: the host slices, uploads and factors just those blocks,
+    which equal the same rows of the whole packing bit for bit (see
+    :class:`PackedDD`).
+
     The returned ``PackedDD`` carries a zero rhs; pass it through
     :func:`with_rhs` before solving.
     """
@@ -274,6 +301,12 @@ def pack_operator(A, r, dec: dd_mod.Decomposition, mu: float = 1.0,
     m, n = A_np.shape
     p = dec.p
     w = max(1, max(int(np.asarray(c).shape[0]) for c in dec.col_sets))
+    subs = range(p) if subdomains is None else subdomains
+    if (len(subs) < 1 or subs.step != 1 or subs.start < 0
+            or subs.stop > p):
+        raise ValueError(f"subdomains must be a nonempty range of "
+                         f"consecutive subdomains of 0..{p - 1} (got "
+                         f"{subdomains!r})")
 
     # Per-column multiplicity is the decomposition's source of truth: the
     # halo columns (multiplicity > 1) carry the mu-regularization and the
@@ -281,14 +314,15 @@ def pack_operator(A, r, dec: dd_mod.Decomposition, mu: float = 1.0,
     counts = dec.column_multiplicity
     halo_mu = dec.has_overlap and mu > 0.0
 
-    A_loc = np.zeros((p, m, w), dtype=A_np.dtype)
+    A_loc = np.zeros((len(subs), m, w), dtype=A_np.dtype)
     cols = -np.ones((p, w), dtype=np.int64)
     mask = np.zeros((p, w), dtype=A_np.dtype)
     muov = np.zeros((p, w), dtype=A_np.dtype)
     for i, c in enumerate(dec.col_sets):
         c = np.asarray(c)
         k = c.shape[0]
-        A_loc[i, :, :k] = A_np[:, c]
+        if i in subs:
+            A_loc[i - subs.start, :, :k] = A_np[:, c]
         cols[i, :k] = c
         mask[i, :k] = 1.0
         if halo_mu:
@@ -302,21 +336,24 @@ def pack_operator(A, r, dec: dd_mod.Decomposition, mu: float = 1.0,
     def dev(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
+    rows = slice(subs.start, subs.stop)
     A_loc_t = dev(A_loc)
     ftype = A_loc_t.dtype
     r_t = dev(np.asarray(r), ftype)
     # mu on overlap slots; identity on padded slots (mask == 0).
-    L_loc = _factor_batched(A_loc_t, r_t, dev(muov + (1.0 - mask)),
+    L_loc = _factor_batched(A_loc_t, r_t, dev((muov + (1.0 - mask))[rows]),
                             gram_mode=gram_mode)
     return PackedDD(A_loc=A_loc_t, L_loc=L_loc, cols=cols,
-                    mask=dev(mask), muov=dev(muov), wdiv=dev(wdiv),
+                    mask=dev(mask[rows]), muov=dev(muov[rows]),
+                    wdiv=dev(wdiv[rows]),
                     mult=dev(np.maximum(counts, 1), ftype),
                     mult_loc=mult_loc.astype(A_np.dtype),
                     scatter_cols=scatter_cols,
-                    gather_cols=dev(gather_cols),
+                    gather_cols=dev(gather_cols[rows]),
                     owner_slots=dev(owner_slots(scatter_cols, n)),
                     r=r_t, b=torch.zeros((m,), dtype=ftype, device=device),
-                    n=n, p=p, w=w, solve_kernel=solve_kernel)
+                    n=n, p=p, w=w, solve_kernel=solve_kernel,
+                    first=subs.start)
 
 
 def with_rhs(packed: PackedDD, b) -> PackedDD:
@@ -346,8 +383,8 @@ def pad_packed_width(packed: PackedDD, w_new: int) -> PackedDD:
     if w_new == packed.w:
         return packed
     pad = w_new - packed.w
-    p, w = packed.p, packed.w
-    L = packed.L_loc.new_zeros((p, w_new, w_new))
+    rows, w = packed.A_loc.shape[0], packed.w
+    L = packed.L_loc.new_zeros((rows, w_new, w_new))
     L[:, :w, :w] = packed.L_loc
     diag = torch.arange(w, w_new, device=packed.device)
     L[:, diag, diag] = 1.0
@@ -519,6 +556,293 @@ def solve_fleet(stacked: PackedDD, iters: int = 60, damping: float = 1.0,
         return torch.stack(outs)
     return (torch.stack([x for x, _ in outs]),
             torch.stack([h for _, h in outs]))
+
+
+# ---------------------------------------------------------------------------
+# Distributed paths: subdomains (and Parareal windows) over the ranks of a
+# ProcessMesh.  Every rank runs this code on its own share; the ranks meet
+# in the mesh's collectives.
+# ---------------------------------------------------------------------------
+
+# Dense-network regime switch: when the stacked row count m is at least
+# this multiple of n, the (m,) observation-space product dominates the
+# per-iteration traffic and the sharded solve reduce-scatters it along
+# the innermost mesh axis instead of a plain psum.
+MVEC_SCATTER_RATIO = 2.0
+
+
+def _mesh_axes(mesh, axis) -> tuple:
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    for a in axes:
+        if a not in mesh.shape:
+            raise ValueError(f"mesh has no axis {a!r} (has "
+                             f"{tuple(mesh.shape)})")
+    return axes
+
+
+def _block(packed: PackedDD, i: int) -> dict:
+    """Subdomain i's device block of a whole or per-rank packing, as
+    (1, ...) rows, plus its index maps on the device."""
+    j = i - packed.first
+    rows = int(packed.A_loc.shape[0])
+    if not 0 <= j < rows:
+        raise ValueError(
+            f"this rank solves subdomain {i} but the packing holds "
+            f"subdomains {packed.first}..{packed.first + rows - 1}")
+    dev = packed.device
+    return {
+        "A": packed.A_loc[j:j + 1], "L": packed.L_loc[j:j + 1],
+        "mask": packed.mask[j:j + 1], "muov": packed.muov[j:j + 1],
+        "wdiv": packed.wdiv[j:j + 1], "gath": packed.gather_cols[j],
+        "scat": torch.as_tensor(packed.scatter_cols[i], device=dev),
+        "mloc": torch.as_tensor(packed.mult_loc[i],
+                                dtype=packed.A_loc.dtype, device=dev)}
+
+
+def solve_shardmap(packed: PackedDD, mesh, axis="sub", iters: int = 60,
+                   damping: float = 1.0, comm: str = "allreduce",
+                   halo: "dd_mod.HaloExchange | None" = None,
+                   mvec: str = "auto", residual_history: bool = False,
+                   return_per_device: bool = False):
+    """The additive-Schwarz DD-KF with one rank per subdomain.
+
+    Every rank of ``mesh`` (a :class:`repro_torch.runtime.mesh.
+    ProcessMesh`) calls this with the same arguments; ``axis`` names the
+    mesh axis, or the tuple of axes, the subdomains run over — rank
+    ``r * pc + c`` of a ``("row", "col")`` mesh solves subdomain
+    ``r * pc + c``.  ``packed`` is the whole packing or this rank's
+    per-rank packing (``pack_operator(..., subdomains=range(i, i + 1))``);
+    either way the rank uploads nothing more and solves its own (1, m, w)
+    block with the packing's step path: the ``schwarz_fwd`` kernel, the
+    all-reduce of its m-vector, ``schwarz_bwd`` and two triangular solves
+    (``"fused"``), or the reference's ``_local_update`` composition
+    (``"plain"``).
+
+    Per iteration the ranks all-reduce the (m,) product — ``mvec="psum"``
+    as a plain psum, ``"scatter"`` as a reduce-scatter and all-gather on
+    the innermost axis; ``"auto"`` picks scatter when m >=
+    :data:`MVEC_SCATTER_RATIO` n — and then make the overlap consistent:
+
+      * ``comm="allreduce"`` — assemble the (n,) estimate (reduce-scatter
+        and all-gather) and gather the rank's slots back;
+      * ``comm="neighbour"`` — ``halo.rounds`` point-to-point rounds over
+        the decomposition's coloured edge schedule (``halo`` =
+        ``dec.halo_exchange``), moving only the halo slots; slot ``w`` of
+        the padded local vector is the dump.
+
+    One full assembly after the last iteration gives every rank the same
+    (n,) estimate, bit for bit.  The paths agree with
+    :func:`solve_vmapped` up to the order of the sums.
+
+    Returns ``x``; with ``residual_history`` also ``hist`` (the psum'd
+    global update norm per iteration, the same on every rank), as
+    ``(x, hist)``; with ``return_per_device`` also ``times``, appended
+    last: ``times[i]`` is rank i's seconds from the start of its solve to
+    a fence after its last iteration, all-gathered in subdomain order so
+    every rank holds all p.
+    """
+    axes = _mesh_axes(mesh, axis)
+    sizes = [int(mesh.shape[a]) for a in axes]
+    if int(np.prod(sizes)) != packed.p:
+        raise ValueError(
+            f"mesh axes {axes} have {int(np.prod(sizes))} devices but the "
+            f"packing has p={packed.p} subdomains")
+    if comm not in ("allreduce", "neighbour"):
+        raise ValueError(f"comm must be 'allreduce' or 'neighbour' "
+                         f"(got {comm!r})")
+    if comm == "neighbour":
+        if halo is None:
+            raise ValueError(
+                "comm='neighbour' needs the halo-exchange schedule: pass "
+                "halo=dec.halo_exchange (cached on the Decomposition)")
+        if halo.p != packed.p or halo.w != packed.w:
+            raise ValueError(
+                f"halo schedule shape (p={halo.p}, w={halo.w}) does not "
+                f"match the packing (p={packed.p}, w={packed.w})")
+    if mvec == "auto":
+        mvec = ("scatter" if packed.m >= MVEC_SCATTER_RATIO * packed.n
+                else "psum")
+    if mvec not in ("psum", "scatter"):
+        raise ValueError(f"mvec must be 'auto', 'psum' or 'scatter' "
+                         f"(got {mvec!r})")
+    n, m, w = packed.n, packed.m, packed.w
+    # The innermost axis carries the scatters: pad the reduced vectors so
+    # they split evenly (the n-vector keeps one extra slot as the dump).
+    ks = sizes[-1]
+    n_pad = -(-(n + 1) // ks) * ks
+    m_pad = -(-m // ks) * ks
+    i = mesh.index(axes)
+    blk = _block(packed, i)
+    A, L, mask, muov, wdiv = (blk[k] for k in
+                              ("A", "L", "mask", "muov", "wdiv"))
+    if comm == "neighbour":
+        pack_i = torch.as_tensor(halo.pack_idx[i], dtype=torch.long,
+                                 device=packed.device)
+        unpack_i = torch.as_tensor(halo.unpack_idx[i], dtype=torch.long,
+                                   device=packed.device)
+
+    def mvec_allreduce(part):
+        if mvec == "psum":
+            return mesh.psum(part, axes)
+        if m_pad > m:
+            part = torch.cat([part, part.new_zeros(m_pad - m)])
+        return mesh.axis_allreduce(part, axes)[:m]
+
+    def assemble_all(x1):
+        # Padding parks on slot n (< n_pad) with value zero.
+        part = x1.new_zeros(n_pad)
+        part[blk["scat"]] = (x1 * mask)[0]
+        return mesh.axis_allreduce(part, axes)[:n] / packed.mult
+
+    def exchange_allreduce(x1):
+        return assemble_all(x1)[blk["gath"]][None] * mask
+
+    def exchange_neighbour(x1):
+        # Own contribution plus the halo slots received over the directed
+        # rounds, divided by the local multiplicity: exactly halo.rounds
+        # exchanges however many edges meet here.
+        xm_pad = torch.cat([(x1 * mask)[0], x1.new_zeros(1)])
+        acc = xm_pad.clone()
+        for rnd in range(halo.rounds):
+            got = mesh.ppermute(xm_pad[pack_i[rnd]], halo.perms[rnd], axes)
+            acc.index_add_(0, unpack_i[rnd], got)
+        return (acc[:w] / blk["mloc"])[None]
+
+    exchange = (exchange_neighbour if comm == "neighbour"
+                else exchange_allreduce)
+
+    def step(x1):
+        if packed.solve_kernel == "fused":
+            y, u = ops_mod.schwarz_fwd(A, x1, wdiv)
+            Ax = mvec_allreduce(y[0])
+            rhs = ops_mod.schwarz_bwd(A, packed.r, packed.b, Ax, u, x1,
+                                      muov, mask)
+        else:
+            A0, x0 = A[0], x1[0]
+            Ax = mvec_allreduce(A0 @ (x0 * wdiv[0]))
+            resid = packed.b - Ax + A0 @ x0
+            rhs = ((A0.T @ (packed.r * resid) + muov[0] * x0)
+                   * mask[0])[None]
+        new = _chol_solve(L, rhs) * mask
+        return exchange((1.0 - damping) * x1 + damping * new)
+
+    t0 = time.perf_counter()
+    x1 = torch.zeros((1, w), dtype=packed.A_loc.dtype, device=packed.device)
+    hist = []
+    for _ in range(iters):
+        nxt = step(x1)
+        if residual_history:
+            d2 = mesh.psum(((nxt - x1) ** 2).sum().reshape(1), axes)
+            hist.append(torch.sqrt(d2[0]))
+        x1 = nxt
+    device_mod.block(x1)
+    elapsed = time.perf_counter() - t0
+    # One full assembly at the end (both paths): the global estimate.
+    out = [assemble_all(x1)]
+    if residual_history:
+        out.append(torch.stack(hist) if hist else
+                   x1.new_zeros((0,)))
+    if return_per_device:
+        times = mesh.all_gather(torch.tensor([elapsed], dtype=torch.float64),
+                                axes)
+        out.append([float(t) for t in times])
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def solve_window_stack(windows, mesh, time_axis: str = "time",
+                       sub_axis: str = "sub", iters: int = 60,
+                       damping: float = 1.0, x0=None) -> torch.Tensor:
+    """Solve K independent Parareal windows on a ``("time", "sub")`` mesh.
+
+    ``windows`` is the list of K rhs-injected whole packings of one shape
+    (the reference takes them stacked; here each rank stacks only its
+    own share, which keeps ranks that share a card from holding K copies
+    each).  Rank (t, s) holds windows ``t * Kl ... (t + 1) * Kl - 1`` and
+    subdomains ``s * pl ... (s + 1) * pl - 1`` (Kl = K / kt, pl = p / ks)
+    and runs the reference's batched additive-Schwarz composition on
+    them; every collective (the psum of the (m,) products, the
+    reduce-scatter and all-gather of the overlap assembly) runs on the
+    rank's ``sub`` group, so windows never communicate.  Each rank
+    assembles its subdomains' part of a window in ascending slot order
+    before the reduction.
+
+    ``x0`` is an optional (K, n) stack of global warm starts.  Returns the
+    (K, n) per-window estimates, all-gathered over ``time`` (the same on
+    every rank); they agree with standalone :func:`solve_vmapped` calls
+    up to the order of the sums.
+    """
+    windows = list(windows)
+    ref, K = windows[0], len(windows)
+    _mesh_axes(mesh, (time_axis, sub_axis))
+    kt, ks = int(mesh.shape[time_axis]), int(mesh.shape[sub_axis])
+    if K % kt:
+        raise ValueError(
+            f"window count {K} does not divide over the {kt}-device "
+            f"'{time_axis}' mesh axis — pad the stack to a multiple")
+    if ref.p % ks:
+        raise ValueError(
+            f"p={ref.p} subdomains do not divide over the "
+            f"{ks}-device '{sub_axis}' mesh axis")
+    n, p, w = ref.n, ref.p, ref.w
+    Kl, pl = K // kt, p // ks
+    t, s = mesh.coords[time_axis], mesh.coords[sub_axis]
+    wins, subs = slice(t * Kl, (t + 1) * Kl), slice(s * pl, (s + 1) * pl)
+    local = windows[wins]
+    for pk in local:
+        if _stack_key(pk) != _stack_key(ref) or pk.A_loc.shape[0] != p:
+            raise ValueError(
+                "solve_window_stack needs whole packings of one shape "
+                f"({_stack_key(ref)}); got {_stack_key(pk)} holding "
+                f"{pk.A_loc.shape[0]} subdomains")
+
+    def field(name, per_sub=True):
+        return torch.stack([getattr(pk, name)[subs] if per_sub
+                            else getattr(pk, name) for pk in local])
+
+    scat = np.stack([pk.scatter_cols[subs] for pk in local])
+    A, L, mask, muov, wdiv, gath = (field(k) for k in (
+        "A_loc", "L_loc", "mask", "muov", "wdiv", "gather_cols"))
+    mult, r, b = (field(k, per_sub=False) for k in ("mult", "r", "b"))
+    dev, dt = A.device, A.dtype
+    # Each window's owner slots over this rank's pl * w local slots, padded
+    # with the dump slot pl * w: the local part assembles in a fixed order.
+    own = [owner_slots(sc, n) for sc in scat]
+    kmax = max(o.shape[1] for o in own)
+    own = torch.as_tensor(np.stack([np.pad(
+        o, ((0, 0), (0, kmax - o.shape[1])), constant_values=pl * w)
+        for o in own]), device=dev).reshape(Kl, -1)
+    gath = gath.reshape(Kl, -1)
+    n_pad = -(-(n + 1) // ks) * ks
+
+    def assemble_glob(x):
+        flat = torch.cat([(x * mask).reshape(Kl, -1),
+                          x.new_zeros((Kl, 1))], dim=1)
+        got = torch.gather(flat, 1, own).reshape(Kl, n, kmax)
+        part = got[..., 0]
+        for k in range(1, kmax):
+            part = part + got[..., k]
+        part = torch.nn.functional.pad(part, (0, n_pad - n))
+        glob = mesh.axis_allreduce(part.reshape(-1), sub_axis)
+        return glob.reshape(Kl, n_pad)[:, :n] / mult
+
+    def to_local(xg):
+        return torch.gather(xg, 1, gath).reshape(Kl, pl, w) * mask
+
+    def step(x):
+        Ax = mesh.psum(torch.einsum("kpmw,kpw->km", A, x * wdiv), sub_axis)
+        resid = (b[:, None, :] - Ax[:, None, :]
+                 + torch.einsum("kpmw,kpw->kpm", A, x))
+        rhs = (torch.einsum("kpmw,kpm->kpw", A, r[:, None, :] * resid)
+               + muov * x) * mask
+        new = _chol_solve(L, rhs) * mask
+        return to_local(assemble_glob((1.0 - damping) * x + damping * new))
+
+    x0 = (torch.zeros((K, n), dtype=dt, device=dev) if x0 is None
+          else torch.as_tensor(x0, dtype=dt, device=dev))
+    x = to_local(x0[wins])
+    for _ in range(iters):
+        x = step(x)
+    return mesh.all_gather(assemble_glob(x), time_axis)
 
 
 def assemble(packed: PackedDD, x_loc: torch.Tensor) -> torch.Tensor:

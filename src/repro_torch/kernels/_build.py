@@ -17,6 +17,7 @@ pointer and the stream travel as ``c_void_p`` and every int as
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -128,11 +129,23 @@ def _run_all(cmds: list) -> None:
 
 
 def build() -> pathlib.Path:
-    """Compile and link the library unless it exists; returns its path."""
+    """Compile and link the library unless it exists; returns its path.
+
+    Processes that find no library build it one at a time (an advisory
+    lock beside it, released when its holder exits): the ranks of a
+    distributed run wait for the first and load its library."""
     lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib.parent / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            _compile(lib)
+    return lib
+
+
+def _compile(lib: pathlib.Path) -> None:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
         objs = [pathlib.Path(tmp) / (s.stem + ".o") for s in _sources()]
@@ -141,10 +154,9 @@ def build() -> pathlib.Path:
         part = pathlib.Path(tmp) / lib.name
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs),
                    "-o", str(part)]])
-        # Atomic publish: a concurrent builder either sees no library or
+        # Atomic publish: a concurrent reader either sees no library or
         # a whole one.
         os.replace(part, lib)
-    return lib
 
 
 def load() -> ctypes.CDLL:

@@ -1,3 +1,4 @@
 """Runtime support: straggler detection, the serving slot scheduler, the
-train/prefill/serve step factories, chaos injection and the assimilation
-engine's elastic resume."""
+train/prefill/serve step factories, chaos injection, the assimilation
+engine's elastic resume, and the process meshes of the distributed
+solve."""

@@ -2,8 +2,9 @@
 checkout: the wheel ships every CUDA source as package data, and the
 build goes to the user's cache directory when the package lies outside
 a checkout (to the checkout's git-ignored ``build/`` inside one).  The
-wrappers' shared alignment check is tested here too, and that the ctypes
-signatures match the C launchers the sources export."""
+wrappers' shared alignment check is tested here too, that concurrent
+builds compile once, and that the ctypes signatures match the C
+launchers the sources export."""
 import ctypes
 import pathlib
 import re
@@ -44,6 +45,34 @@ def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
     (tmp_path / "h.cuh").write_text("// two\n")
     assert _build.library_path() != first
     assert [p.name for p in _build._sources()] == ["a.cu"]
+
+
+def test_concurrent_builds_compile_once(tmp_path, monkeypatch):
+    """Processes or threads that find no library build it one at a time:
+    the first compiles, the others wait on the lock and load its library
+    (the ranks of a distributed run on one card)."""
+    import threading
+    import time
+
+    lib = tmp_path / "h" / "librepro_torch_kernels.so"
+    monkeypatch.setattr(_build, "library_path", lambda: lib)
+    compiled = []
+
+    def compile_once(path):
+        compiled.append(path)
+        time.sleep(0.2)
+        path.write_bytes(b"lib")
+
+    monkeypatch.setattr(_build, "_compile", compile_once)
+    got = []
+    workers = [threading.Thread(target=lambda: got.append(_build.build()))
+               for _ in range(6)]
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in workers)
+    assert compiled == [lib] and got == [lib] * 6
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

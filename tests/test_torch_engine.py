@@ -82,11 +82,40 @@ def test_engine_config_matches_reference_fields():
     assert j_fields <= t_fields
 
 
-@pytest.mark.parametrize("kw,item", [(dict(solver="shardmap"), "item 13")])
-def test_unported_paths_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+class _Mesh:
+    """A stand-in for a mesh: the engine's up-front checks read only its
+    ``shape`` (the sharded runs are in ``test_torch_shardmap.py``)."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+
+
+@pytest.mark.parametrize("kw,mesh,match", [
+    (dict(solver="shardmap"), None,
+     "p=4 but the process group has 0 rank"),
+    (dict(solver="shardmap"), _Mesh(sub=1),
+     "p=4 but the given mesh has 1 device"),
+    (dict(solver="shardmap", ndim=2, n=64, pr=2, pc=2),
+     _Mesh(row=2, col=4), "p=4 but the given mesh has 8 device")])
+def test_unported_paths_raise(kw, mesh, match):
+    """``solver="shardmap"`` runs one rank per subdomain, and refuses up
+    front a process group or a mesh with another number of ranks."""
+    with pytest.raises(ValueError, match=match):
         t_engine.AssimilationEngine(t_engine.EngineConfig(**kw),
-                                    device="cpu")
+                                    device="cpu", mesh=mesh)
+
+
+def test_shardmap_mesh_check_matches_reference():
+    """A mesh of the wrong size is refused with the reference's words."""
+    import jax
+    with pytest.raises(ValueError) as ref:
+        j_engine.AssimilationEngine(
+            j_engine.EngineConfig(solver="shardmap"),
+            mesh=jax.make_mesh((1,), ("sub",)))
+    with pytest.raises(ValueError) as port:
+        t_engine.AssimilationEngine(t_engine.EngineConfig(solver="shardmap"),
+                                    device="cpu", mesh=_Mesh(sub=1))
+    assert str(port.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("kw", [dict(time_windows=2),

@@ -6,7 +6,8 @@
   ``chip_smoke.py`` or in ``attention_probe.py`` (including those inside
   functions) names ``jax`` or ``repro``.
 * Entry points built without a device want the card and raise here:
-  the assimilation engines (sequential and Parareal), the fleet server,
+  the assimilation engines (sequential and Parareal), the ranks'
+  launcher, the fleet server,
   the engine's restore and elastic resume, the assimilation CLI, the LM
   weights (and so ``serve_batch``), the serving CLI, and the training
   driver (``train`` and its CLI).
@@ -110,6 +111,16 @@ def test_timepar_engine_defaults_to_the_card():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_timepar.TimeParEngine(t_engine.EngineConfig(time_windows=4))
+
+
+def test_rank_launch_defaults_to_the_card():
+    """``runtime.mesh.launch`` puts its ranks on the card unless asked
+    for the CPU, and raises before it spawns any."""
+    from repro_torch.runtime import mesh as t_mesh
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_mesh.launch(print, 2, backend="gloo")
 
 
 def test_fleet_server_defaults_to_the_card():

@@ -16,9 +16,11 @@
   1.8e-15; the sequential engines agree to 1e-12) and within 1e-6 of the
   port's own sequential chain (the reference's bound).
 * Both degenerate settings are the port's sequential engine, bitwise.
-* The device mesh raises the error that names ROADMAP.md Queue 1 item
-  13; fault injection retries bitwise and window checkpoints are saved
-  (their resume is held in ``tests/test_torch_chaos.py``).
+* The ("time", "sub") mesh is checked up front (its runs are in
+  ``tests/test_torch_shardmap.py``); ``solve_fleet(mesh=...)`` raises the
+  error that names ROADMAP.md Queue 1 item 13; fault injection retries
+  bitwise and window checkpoints are saved (their resume is held in
+  ``tests/test_torch_chaos.py``).
 """
 import dataclasses
 import os
@@ -286,14 +288,28 @@ def test_degenerate_is_bitwise_sequential(degenerate_kw):
     assert all(np.array_equal(a, b) for a, b in zip(tp.analyses, chain))
 
 
+class _Mesh:
+    """A stand-in for a mesh: the engine's up-front checks read only its
+    ``shape`` (the runs on a process mesh are in
+    ``test_torch_shardmap.py``)."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+
+
 def test_unported_options_name_their_items(tmp_path):
-    """The device mesh still names ROADMAP.md Queue 1 item 13; fault
-    injection and window checkpoints (item 10) now run: a retried pack
-    fault leaves the journal bitwise, and each window boundary saves."""
+    """The ("time", "sub") mesh is checked up front (both axes, p over
+    ``sub``); fault injection and window checkpoints now run: a retried
+    pack fault leaves the journal bitwise, and each window boundary
+    saves."""
     from repro_torch.runtime import chaos as t_chaos
     cfg = t_engine.EngineConfig(n=32, p=2, iters=10, time_windows=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_timepar.TimeParEngine(cfg, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="missing the 'time' axis"):
+        t_timepar.TimeParEngine(cfg, device="cpu", mesh=_Mesh(sub=2))
+    with pytest.raises(ValueError,
+                       match="do not divide over the 4-device 'sub'"):
+        t_timepar.TimeParEngine(cfg, device="cpu",
+                                mesh=_Mesh(time=2, sub=4))
     base = t_timepar.TimeParEngine(cfg, device="cpu")
     base.run(t_streams.make_stream("drifting_swarm", 50, 2))
     inj = t_chaos.ChaosInjector(t_chaos.ChaosConfig(pack_fault_cycles=(1,)))
