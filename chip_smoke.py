@@ -162,7 +162,18 @@ beside it and is no yardstick of the same function); ``gram``,
 bitwise equal outputs over two launches at the main shape.
 ``flash_attention`` is also held row by row (the worst row's difference
 norm over its norm), a limit that one-tile faults planted in its plain
-version at the main shape must exceed.
+version at the main shape must exceed.  ``schwarz_fwd`` and
+``schwarz_bwd`` (f64 and f32) must give bitwise equal outputs over two
+launches, blocks 0 and p - 1 of ex4_p8's packing launched alone bitwise
+their rows of the batched launch, the packing as a member of a 4-problem
+stack bitwise its standalone launch, rank 0's block alone bitwise row 0
+of the whole packing's launch, and views one element past a 16-byte
+boundary at the ragged, wide and rank shapes within the tolerance of
+the plain version and bitwise the aligned launch; their rows also carry
+the time with the calls queued ahead of the card (``device_ms``), with
+the L2 refilled with other data before each call (``cold_ms``) and of
+the forward and backward alternating on one A (``pair_ms``,
+``pair_device_ms``).
 ``ssd_scan``'s ``bound_ms`` counts the flops the function needs at the
 TF32 tensor-core peak beside its bytes; the text line also prints the
 time of the kernel's own 3xTF32 arithmetic and of exact f32 FMA.  The
@@ -885,6 +896,18 @@ def shardmap_rows(first_1d) -> list:
             check(torch.equal(n1, n2),
                   f"gram rank 0 {shape}: two launches bitwise equal")
             del n1, n2
+        else:
+            # rank 0's block alone: bitwise the batched launch's row 0,
+            # twice; at an element offset, bitwise the aligned launch
+            batch = _outs(_kernel(name)(*whole[name]))
+            for _ in range(2):
+                got = _outs(_kernel(name)(*args))
+                check(all(torch.equal(a[0], b[0])
+                          for a, b in zip(got, batch)),
+                      f"{name} rank 0 {shape}: bitwise row 0 of the "
+                      f"batched launch at {tuple(whole[name][0].shape)}")
+            schwarz_offset(name, args, torch.float64, f"rank 0 {shape}")
+            del batch, got
         reps = 5 if name == "gram" else 20
         bound, by = _bound(name, args)
         row = {"name": f"{name}_per_rank", "ok": True, "route": "cuda",
@@ -900,6 +923,8 @@ def shardmap_rows(first_1d) -> list:
               f"ms, bound {bound:.4f} ms ({by}), {counts[name]} launches "
               f"on rank 0")
         rows.append(row)
+    schwarz_times(cases, {r["name"][:-len("_per_rank")]: r for r in rows},
+                  f"rank 0 {shape}", 20)
     return rows
 
 
@@ -1336,6 +1361,172 @@ def compare(name, args, dtype, label):
     return err
 
 
+# Rows too wide for the Schwarz kernels' usual launch: the forward reads
+# xs through L1 (no room to stage it beside a row a stage), the backward
+# cuts a row into segments of TILE_BYTES (schwarz_step.fwd_plan, bwd_plan).
+SCHWARZ_WIDE = ((2, 33, 15000, 7), (1, 300, 2500, 0))
+SCHWARZ = ("schwarz_fwd", "schwarz_bwd")
+SCHWARZ_PTXAS = (r"(schwarz_(?:fwd|bwd_partial|bwd_finish)_kernel"
+                 r"I[df](?:Lb[01])?)")
+# Problems of the stack whose member is held to its standalone launch.
+SCHWARZ_STACK = 4
+L2_FLUSH_BYTES = 512 << 20   # read before a cold call: 10 x the L2
+QUEUE_SLEEP_CYCLES = 20_000_000   # ≈ 10 ms of the card's clock
+
+
+def _outs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def schwarz_block(name, args, rows: slice):
+    """The Schwarz kernel's inputs of subdomains ``rows`` alone (contiguous
+    copies; the backward's m-vectors r, b, Ax are every subdomain's)."""
+    shared = (1, 2, 3) if name == "schwarz_bwd" else ()
+    return tuple(a if k in shared else a[rows].contiguous()
+                 for k, a in enumerate(args))
+
+
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element into a fresh
+    buffer: 8 bytes (f64) or 4 (f32) past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def schwarz_bitwise(cases: dict, dtype, label: str) -> None:
+    """A subdomain's bits independent of the batch, for both Schwarz
+    kernels: two launches equal; blocks 0 and p - 1 launched alone equal
+    their rows of the batched launch; the packing as member
+    ``SCHWARZ_STACK // 2`` of a stack of ``SCHWARZ_STACK`` problems (every
+    input a view of the stack, as ``ddkf._member`` gives the fleet; the
+    other members zero) equals its standalone launch."""
+    tag = f"{label} {str(dtype)[6:]}"
+    for name in SCHWARZ:
+        args = cases[name]
+        p = args[0].shape[0]
+        whole = _outs(_kernel(name)(*args))
+        again = _outs(_kernel(name)(*args))
+        check(all(torch.equal(a, b) for a, b in zip(whole, again)),
+              f"{name} {tag}: two launches bitwise equal")
+        for blk in sorted({0, p - 1}):
+            alone = _outs(_kernel(name)(*schwarz_block(
+                name, args, slice(blk, blk + 1))))
+            check(all(torch.equal(a[0], b[blk])
+                      for a, b in zip(alone, whole)),
+                  f"{name} {tag}: block {blk} of {p} alone bitwise its row "
+                  f"of the batched launch")
+        member = SCHWARZ_STACK // 2
+        views = []
+        for a in args:
+            stack = torch.zeros((SCHWARZ_STACK,) + tuple(a.shape),
+                                dtype=a.dtype, device=a.device)
+            stack[member] = a
+            views.append(stack[member])
+        got = _outs(_kernel(name)(*views))
+        check(all(torch.equal(a, b) for a, b in zip(got, whole)),
+              f"{name} {tag}: member {member} of a {SCHWARZ_STACK}-problem "
+              f"stack bitwise its standalone launch")
+        del whole, again, views, got
+        torch.cuda.empty_cache()
+
+
+def schwarz_offset(name, args, dtype, label: str) -> None:
+    """The kernel on views one element past a 16-byte boundary: within
+    REL_TOL of the plain version and bitwise its launch on aligned
+    copies."""
+    views = tuple(offset_view(a) for a in args)
+    assert all(v.data_ptr() % 16 for v in views)
+    compare(name, views, dtype, f"{label} at a {views[0].element_size()}-"
+            f"byte offset")
+    got = _outs(_kernel(name)(*views))
+    want = _outs(_kernel(name)(*args))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{name} {label} {str(dtype)[6:]}: the offset views bitwise the "
+          f"aligned launch")
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls that the
+    host queued while the card slept (``torch.cuda._sleep``): the launches
+    run one after another with no wait for the host between them, so a
+    call whose host time exceeds its device time (the wrappers' checks,
+    allocations and launches at p = 1) is timed by its device time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` with the L2 cache refilled before each
+    call by a read of ``L2_FLUSH_BYTES`` (a read, so that no dirty line is
+    written back during the call; CUDA events around the call alone)."""
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=DEVICE)
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.sum()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        pairs.append((t0, t1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def schwarz_times(cases: dict, rows: dict, label: str, reps: int) -> None:
+    """Adds to each Schwarz row its device time a call with the calls
+    queued ahead (``device_ms``, :func:`queued_ms`: the back-to-back
+    ``ms`` also holds the host's time between calls where that is the
+    longer, as at p = 1), its cold time (``cold_ms``: the L2 refilled
+    with other data before each call) and the forward-backward pair
+    alternating on one A, as the solve launches them (``pair_ms`` back to
+    back, ``pair_device_ms`` queued).  A is 75.7 MB a subdomain against
+    50 MB of L2, so a time under the byte bound would read A partly from
+    L2."""
+    fwd, bwd = (_kernel(n) for n in SCHWARZ)
+
+    def pair():
+        fwd(*cases["schwarz_fwd"])
+        bwd(*cases["schwarz_bwd"])
+
+    pair_ms, pair_dev = time_ms(pair, reps), queued_ms(pair, reps)
+    for name in SCHWARZ:
+        row = rows[name]
+        row["device_ms"] = queued_ms(lambda: _kernel(name)(*cases[name]),
+                                     reps)
+        row["cold_ms"] = cold_ms(lambda: _kernel(name)(*cases[name]), reps)
+        row["pair_ms"], row["pair_device_ms"] = pair_ms, pair_dev
+        plan = schwarz_plan(name, cases[name][0])
+        dev, cold = row["device_ms"], row["cold_ms"]
+        print(f"  {row['name']} {label}: back to back {row['ms']:.4f} ms "
+              f"({row['bound_ms'] / row['ms']:.3f} of the bound), queued "
+              f"{dev:.4f} ms ({row['bound_ms'] / dev:.3f}), cold "
+              f"{cold:.4f} ms ({row['bound_ms'] / cold:.3f}); the pair fwd "
+              f"+ bwd {pair_ms:.4f} ms, queued {pair_dev:.4f}, against 2 "
+              f"bounds {2 * row['bound_ms']:.4f}; grid {plan['grid']}, "
+              f"{plan['smem_bytes']} B dynamic shared memory")
+
+
+def schwarz_plan(name, A) -> dict:
+    from repro_torch.kernels import schwarz_step
+    plan = (schwarz_step.fwd_plan if name == "schwarz_fwd"
+            else schwarz_step.bwd_plan)
+    return plan(tuple(A.shape), A.dtype)
+
+
 def phase_kernels(main_cases, counts):
     """Kernel vs plain at the main path's shapes (f64, f32): the engine's
     first packing, and random values with random positive r at the same
@@ -1344,6 +1535,8 @@ def phase_kernels(main_cases, counts):
     of the two main-shape cases."""
     print("== kernels")
     torch.backends.cuda.matmul.allow_tf32 = False
+    for line in ptxas_report(SCHWARZ_PTXAS):
+        print(f"  ptxas {line}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for label, (packed, x_loc) in main_cases:
@@ -1360,6 +1553,8 @@ def phase_kernels(main_cases, counts):
                 if timed and dtype == torch.float64:
                     rows[name] = {"max_abs_err": err}
             cases = kernel_cases(packed, x_loc, dtype)
+            if timed:
+                schwarz_bitwise(cases, dtype, f"{label} {shape}")
             for name, args in cases.items():
                 err = compare(name, args, dtype, f"{label} {shape}")
                 if not timed or dtype != torch.float64:
@@ -1387,10 +1582,19 @@ def phase_kernels(main_cases, counts):
                       f"plain {rows[name]['plain_ms']:.4f} ms, library "
                       f"{rows[name]['library_ms']:.4f} ms, bound "
                       f"{bound:.4f} ms ({by})")
+            if timed and dtype == torch.float64:
+                schwarz_times(cases, rows, f"{label} {shape}", 20)
     for dtype in (torch.float64, torch.float32):
         for p, m, w, pad in RAGGED:
             for name, args in random_case(p, m, w, pad, dtype, gen).items():
                 compare(name, args, dtype, f"ragged {(p, m, w)}")
+                if name in SCHWARZ:
+                    schwarz_offset(name, args, dtype, f"ragged {(p, m, w)}")
+        for p, m, w, pad in SCHWARZ_WIDE:
+            case = random_case(p, m, w, pad, dtype, gen)
+            for name in SCHWARZ:
+                compare(name, case[name], dtype, f"wide {(p, m, w)}")
+                schwarz_offset(name, case[name], dtype, f"wide {(p, m, w)}")
     return [rows[k] for k in ("gram", "schwarz_fwd", "schwarz_bwd")]
 
 

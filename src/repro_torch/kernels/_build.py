@@ -42,9 +42,8 @@ SIGNATURES = {
     "repro_gram_f32": (_P, _P, _P, _I, _I, _I, _P),
     "repro_schwarz_fwd_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_schwarz_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "repro_schwarz_bwd_f64": (_P,) * 10 + (_I, _I, _I, _P),
-    "repro_schwarz_bwd_f32": (_P,) * 10 + (_I, _I, _I, _P),
-    "repro_schwarz_bwd_splits": (),
+    "repro_schwarz_bwd_f64": (_P,) * 10 + (_I,) * 4 + (_P,),
+    "repro_schwarz_bwd_f32": (_P,) * 10 + (_I,) * 4 + (_P,),
     "repro_flash_attention_f32": (_P,) * 5 + (_I,) * 8 + (_P,),
     "repro_flash_attention_bf16": (_P,) * 6 + (_I,) * 8 + (_P,),
     "repro_flash_attention_bwd_bf16": (_P,) * 10 + (_I,) * 8 + (_P,),

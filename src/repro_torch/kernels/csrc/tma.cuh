@@ -2,7 +2,8 @@
 // shared memory with Hopper's Tensor Memory Accelerator: mbarriers in
 // shared memory (init, arrive, arrive with an expected transfer count,
 // wait on a phase's parity), 3-D tensor copies between device and shared
-// memory, and cuTensorMapEncodeTiled from the driver through the runtime
+// memory, 1-D bulk copies of a byte range into shared memory, and
+// cuTensorMapEncodeTiled from the driver through the runtime
 // (no -lcuda).  Shipped beside the sources, which include it.
 #pragma once
 
@@ -66,6 +67,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(bar)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16) from device memory at `src`
+// into shared memory at `dst`, both 16-byte aligned, completing on `bar`.
+// It needs no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -153,8 +153,10 @@ def test_kernel_constants_match_their_python_copies():
     restates, the f32
     attention forward's tiles, which ``flash_attention.launch_plan``
     restates, and the f32 attention backward's tiles, stages and
-    query-head groups, which ``flash_attention.bwd_plan`` restates, are
-    the sources' own."""
+    query-head groups, which ``flash_attention.bwd_plan`` restates, and
+    the Schwarz kernels' chunks, parts, stages and row segments, which
+    ``schwarz_step.fwd_plan`` and ``bwd_plan`` restate, are the sources'
+    own."""
     from repro_torch.kernels import flash_attention as t_fa
     from repro_torch.kernels import ref as t_ref
     from repro_torch.kernels import rglru_scan as t_rg
@@ -196,3 +198,20 @@ def test_kernel_constants_match_their_python_copies():
                      text)
     assert rule and int(rule.group(1)) == _build.NUM_SMS
     assert plan["groups"] == 2 and plan["dkdv_ctas"] == 128 * 2 * 2
+    # the Schwarz kernels' rows a chunk and a part, CTAs a launch aims at,
+    # stages and row segments, which schwarz_step.fwd_plan and bwd_plan
+    # restate
+    from repro_torch.kernels import schwarz_step as t_sch
+    sch = {name: const("schwarz_step.cu", name)
+           for name in ("kWarps", "kFill", "kParts", "kMinRows", "kMaxRows",
+                        "kMinCols", "kStageBytes", "kStages", "kTileBytes",
+                        "kFinishThreads", "kSmemMax", "kHead")}
+    assert sch == {"kWarps": t_sch.WARPS, "kFill": t_sch.FILL,
+                   "kParts": t_sch.PARTS, "kMinRows": t_sch.MIN_ROWS,
+                   "kMaxRows": t_sch.MAX_ROWS, "kMinCols": t_sch.MIN_COLS,
+                   "kStageBytes": t_sch.STAGE_BYTES,
+                   "kStages": t_sch.STAGES, "kTileBytes": t_sch.TILE_BYTES,
+                   "kFinishThreads": t_sch.FINISH_THREADS,
+                   "kSmemMax": t_sch.SMEM_MAX, "kHead": t_sch.HEAD}
+    assert sch["kFill"] == 2 * _build.NUM_SMS
+    assert t_sch.THREADS == 32 * sch["kWarps"] + 32
