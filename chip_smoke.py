@@ -40,8 +40,9 @@ The distributed solve (``shardmap``): ``repro_torch.runtime.mesh.launch``
 spawns 8 ranks that share the card over gloo (NCCL refuses two ranks on
 one GPU), their collectives through pinned host copies; each runs the
 engine with ``solver="shardmap"`` on its own subdomain: (a) ``ex4_p8``
-(allreduce exchange) and (b) the 2D shelf on the ("row", "col") mesh
-with both exchanges, 2 cycles each, then (c) ``TimeParEngine`` at
+(allreduce exchange; 4 cycles with a snapshot every 2, the run the mesh
+resume is held to) and (b) the 2D shelf on the ("row", "col") mesh
+with both exchanges, 2 cycles, then (c) ``TimeParEngine`` at
 ``PINT`` cut to 4 cycles on the auto ("time": 4, "sub": 2) mesh.  It
 fails unless every rank's analyses and deterministic journal are the
 same, (a) and (b) are within 1e-13 of the single-process vmapped engine
@@ -54,7 +55,31 @@ bytes, and (c) converges in the single-process run's iterations within
 1e-6 of its sequential chain.  It prints each rank's walls, the
 transport and the card; a correctness run of ranks that time-slice one
 card, not a speed-up.  Its kernels are held and timed at a rank's block
-(1, 6094, 1553).
+(1, 6094, 1553).  Rank 0 alone must have written each step of (a), and
+every rank's snapshot of it must hash the same.
+
+The DA paths on a process mesh, in the same launch and two more, at
+``EXAMPLE4``'s ``ex4_p8`` (``configs/cls_paper.py``): (a) the fleet:
+``FleetServer(mesh=...)`` on an 8-rank ("fleet",) mesh over three
+streams of 2 cycles (two on DyDD, one static), a snapshot every 2
+cycles, a transient pack fault and a transient cohort-solve fault; each
+stream's journal and final analysis on every rank must equal the stream
+run alone in this process bitwise, every cycle within 1e-10 of the
+direct solve, every cohort's capacity 8, each retry taken once on every
+rank, rank 0 alone writing the snapshots, and each rank's launches
+those of its slice (``gram`` once a stream and cycle: every rank packs
+every stream; each Schwarz kernel 120 times for its one slot of each
+cohort solve).  (c) ``compressed_psum`` of a (4096, 4096) f32 and bf16
+gradient a rank: every rank's mean must be bitwise one process's int32
+sum times the max scale over 8, and each rank's new error its own
+(g + e) - q * scale.  (b) resume onto a mesh (``mesh resume``): 8 ranks
+run ex4_p8 with ``solver="shardmap"`` and are SIGKILLed by their
+injectors at the end of cycle 1; the launch must raise naming the
+signal within the collective timeout, the newest verified step must be
+2; resumed on 8 ranks, the journal and final analysis must be bitwise
+(a)'s uninterrupted run's; resumed at p = 4 on 4 ranks, each remaining
+cycle within 1e-10 of the direct solve.  Each prints its walls and peak
+memory per rank beside the card's name and power limit.
 
 Fleet (``fleet``): ``repro_torch.assim.serving.FleetServer`` at
 ``ex4_p8``'s width over five streams of 4 cycles (three on DyDD:
@@ -661,21 +686,27 @@ def _sha(t: torch.Tensor) -> str:
     return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
 
 
-def shardmap_rank(device, runs, cycles: int, pint: dict) -> dict:
+def shardmap_rank(device, runs, cycles: int, pint: dict, tmp: str) -> dict:
     """One rank of ``phase_shardmap`` (spawned: importable by name).  Each
     engine run starts with the launch counts at 0 and reads them at its
-    end; the packing each run solved first is kept for the checks."""
+    end; the packing each run solved first is kept for the checks.  The
+    ex4_p8 run is ``MESH_RESUME``'s uninterrupted run, with its snapshots
+    under ``tmp``; the fleet on a ("fleet",) mesh and ``compressed_psum``
+    follow the Parareal run."""
     from repro_torch.assim import (AssimilationEngine, EngineConfig,
-                                   TimeParEngine)
+                                   TimeParEngine, streams)
     from repro_torch.core import ddkf
     from repro_torch.kernels import ops
 
+    writes = keep_writes()
     out = {}
     for tag, kw, scenario, m, comms in runs:
         for comm in comms:
             cfg = EngineConfig(solver="shardmap", comm=comm,
                                track_reference=True, **kw)
             eng = AssimilationEngine(cfg, device=device)
+            digests = keep_digests(eng)
+            del writes[:]
             xs, first = [], []
             eng.on_analysis = lambda cycle, x: xs.append(x.cpu())
             solve_input = eng.solve_input
@@ -688,9 +719,19 @@ def shardmap_rank(device, runs, cycles: int, pint: dict) -> dict:
 
             eng.solve_input = keep_first
             torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             ops.reset_counts()
             t0 = time.perf_counter()
-            journal = eng.run_scenario(scenario, m=m, cycles=cycles)
+            if tag == MESH_RESUME["tag"]:
+                r = MESH_RESUME
+                journal = eng.run(
+                    streams.ResumableStream(scenario, m, r["cycles"],
+                                            seed=0),
+                    checkpoint_dir=os.path.join(tmp, "uninterrupted"),
+                    snapshot_every=r["snapshot_every"])
+            else:
+                journal = eng.run_scenario(scenario, m=m, cycles=cycles)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = ops.launch_counts()
@@ -698,6 +739,8 @@ def shardmap_rank(device, runs, cycles: int, pint: dict) -> dict:
             res = {"analyses": xs, "journal": journal.deterministic_dict(),
                    "records": journal.to_dict()["records"],
                    "counts": counts, "wall": wall,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "digests": digests, "writes": list(writes),
                    "mesh": eng.mesh.describe(),
                    "collectives": dict(eng.mesh.counts),
                    "first": pk.first, "shape": list(pk.A_loc.shape),
@@ -730,6 +773,172 @@ def shardmap_rank(device, runs, cycles: int, pint: dict) -> dict:
                    "journal": journal.deterministic_dict(),
                    "wall": time.perf_counter() - t0,
                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del tp, journal, writes[:]
+    out["fleet"] = mesh_fleet_rank(device, os.path.join(tmp, "fleet"),
+                                   writes)
+    out["compress"] = compress_rank(device)
+    return out
+
+
+# -- the DA fleet, resume and compressed_psum on a process mesh ---------------
+
+def ex4_p8():
+    """``EXAMPLE4``'s ``ex4_p8`` of the port's ``configs/cls_paper.py``:
+    n = 2048, p = 8 on a chain, m = 2000 observations a cycle."""
+    from repro_torch.configs.cls_paper import EXAMPLE4
+    return next(c for c in EXAMPLE4 if c.name == "ex4_p8")
+
+
+def keep_writes() -> list:
+    """This rank's log of the checkpoint steps it writes: wraps
+    ``checkpoint.manager.save_pytree``, which the engine calls through
+    the module."""
+    from repro_torch.checkpoint import manager as ckpt
+    log, save = [], ckpt.save_pytree
+
+    def logged(tree, directory, step, metadata=None):
+        log.append((os.path.basename(directory), int(step)))
+        return save(tree, directory, step, metadata)
+
+    ckpt.save_pytree = logged
+    return log
+
+
+def keep_digests(eng) -> list:
+    """The ``snapshot_digest`` of each snapshot ``eng`` takes."""
+    from repro_torch.assim.engine import snapshot_digest
+    log, snap = [], eng.snapshot
+
+    def kept(*a, **kw):
+        tree, meta = snap(*a, **kw)
+        log.append(snapshot_digest(tree, meta))
+        return tree, meta
+
+    eng.snapshot = kept
+    return log
+
+
+# The fleet on an 8-rank ("fleet",) mesh at ex4_p8's width: (sid, scenario,
+# seed, DyDD), two on DyDD and one static, 2 cycles each (3 in the CPU
+# test; cut for the script's time), a snapshot every 2; a transient pack
+# fault of one stream at cycle 1 and a transient cohort-solve fault of
+# the server at round 1.
+MESH_FLEET = {"iters": 120, "cycles": 2, "pack_workers": 4,
+              "snapshot_every": 2, "pack_fault": ("drift", 1),
+              "solve_fault_round": 1}
+MESH_FLEET_STREAMS = (("drift", "drifting_swarm", 0, True),
+                      ("storm", "storm_front", 2, True),
+                      ("static", "drifting_swarm", 3, False))
+
+
+def mesh_fleet_config(dydd: bool):
+    from repro_torch.assim import EngineConfig
+    case = ex4_p8()
+    return EngineConfig(n=case.n, p=case.p, iters=MESH_FLEET["iters"],
+                        rebalance=dydd, track_reference=True)
+
+
+def mesh_fleet_stream(name: str, seed: int):
+    from repro_torch.assim import streams
+    return streams.ResumableStream(name, ex4_p8().m, MESH_FLEET["cycles"],
+                                   seed=seed)
+
+
+def mesh_fleet_rank(device, tmp: str, writes: list) -> dict:
+    """``FleetServer(mesh=...)`` over ``MESH_FLEET_STREAMS`` on a mesh of
+    every rank; launch counts from 0 over the serve."""
+    from repro_torch.assim.serving import FleetServer
+    from repro_torch.assim.engine import AssimilationEngine
+    from repro_torch.kernels import ops
+    from repro_torch.obs import meters
+    from repro_torch.runtime.chaos import ChaosConfig, ChaosInjector
+    from repro_torch.runtime.mesh import ProcessMesh
+
+    f = MESH_FLEET
+    mesh = ProcessMesh((torch.distributed.get_world_size(),), ("fleet",),
+                       device=device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reg = meters.Meters()
+    prev = meters.set_meters(reg)
+    digests = {}
+    try:
+        server = FleetServer(
+            mesh=mesh, mesh_axis="fleet", device=device,
+            pack_workers=f["pack_workers"], gather_window=1.0,
+            chaos=ChaosInjector(ChaosConfig(
+                solve_fault_cycles=(f["solve_fault_round"],))))
+        for sid, name, seed, dydd in MESH_FLEET_STREAMS:
+            chaos = (ChaosInjector(ChaosConfig(
+                pack_fault_cycles=(f["pack_fault"][1],)))
+                if sid == f["pack_fault"][0] else None)
+            eng = AssimilationEngine(mesh_fleet_config(dydd), device,
+                                     chaos=chaos)
+            digests[sid] = keep_digests(eng)
+            server.add_stream(sid, eng.cfg, mesh_fleet_stream(name, seed),
+                              engine=eng,
+                              checkpoint_dir=os.path.join(tmp, sid),
+                              snapshot_every=f["snapshot_every"])
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        journals = server.serve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        meters.set_meters(prev)
+    snap = reg.snapshot()
+    return {"journals": {k: j.deterministic_dict()
+                         for k, j in journals.items()},
+            "errors": {k: [r.error_vs_direct for r in j.records]
+                       for k, j in journals.items()},
+            "analysis": {k: e.analysis.cpu()
+                         for k, e in server.engines.items()},
+            "cohorts": [(e["size"], e["capacity"], e["w"])
+                        for e in snap["events"]
+                        if e["name"] == "fleet.cohort"],
+            "retries": sorted((e["site"], str(e.get("sid")))
+                              for e in snap["events"]
+                              if e["name"] == "chaos.retry"),
+            "counts": counts, "wall": wall,
+            "rounds": server.stats["rounds"], "digests": digests,
+            "writes": list(writes), "objects": mesh.counts["objects"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+# compressed_psum on the 8 ranks: each rank's gradient and error buffer
+# drawn on the card from seed + rank.
+COMPRESS = {"shape": (4096, 4096), "seed": 28}
+
+
+def compress_inputs(dtype, rank: int, device):
+    gen = torch.Generator(device=device).manual_seed(COMPRESS["seed"] + rank)
+    g = torch.randn(COMPRESS["shape"], generator=gen, device=device)
+    e = 1e-2 * torch.randn(COMPRESS["shape"], generator=gen, device=device)
+    return g.to(dtype), e
+
+
+def compress_rank(device) -> dict:
+    """``compressed_psum`` of this rank's gradients on a ("data",) mesh:
+    the hashes of the mean and the new error, and the wall."""
+    from repro_torch.optim import compress
+    from repro_torch.runtime.mesh import ProcessMesh
+
+    mesh = ProcessMesh((torch.distributed.get_world_size(),), ("data",),
+                       device=device)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g, e = compress_inputs(dtype, mesh.rank, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mean, err = compress.compressed_psum(g, e, "data", mesh=mesh)
+        torch.cuda.synchronize()
+        out[str(dtype)] = {"mean": _sha(mean.float()), "error": _sha(err),
+                           "wall": time.perf_counter() - t0,
+                           "peak_gib": torch.cuda.max_memory_allocated()
+                           / 2**30}
     return out
 
 
@@ -754,37 +963,53 @@ def phase_shardmap(smi: str) -> tuple:
     """The parallel DD-KF over ``torch.distributed``: 8 ranks on the one
     card (gloo, host transport), each running the engine with
     ``solver="shardmap"`` on its own subdomain, then ``TimeParEngine`` on
-    the auto ("time", "sub") mesh.  (a) ex4_p8 and (b) the 2D shelf (both
-    exchanges), 2 cycles each, are held to the single-process vmapped
-    engine on the same stream and seed; (c) Parareal at
-    ``SHARDMAP_PINT`` to one process's sequential chain and iteration
-    count at the same config.  A correctness
-    run of ranks that share one card, not a speed-up.  Returns rank 0's
-    first ex4_p8 packing's inputs and its launch counts, for the
-    per-rank kernel rows."""
+    the auto ("time", "sub") mesh.  (a) ex4_p8 (``MESH_RESUME``'s 4
+    cycles, a snapshot every 2: the uninterrupted run that the mesh
+    resume is held to) and (b) the 2D shelf (both exchanges, 2 cycles)
+    are held to the single-process vmapped engine on the same stream and
+    seed; (c) Parareal at ``SHARDMAP_PINT`` to one process's sequential
+    chain and iteration count at the same config.  The same ranks then
+    serve the fleet on a ("fleet",) mesh (``check_mesh_fleet``) and run
+    ``compressed_psum`` (``check_compress``).  A correctness run of
+    ranks that share one card, not a speed-up.  Returns rank 0's first
+    ex4_p8 packing's inputs and its launch counts, for the per-rank
+    kernel rows, and the ranks' ex4_p8 runs."""
+    import tempfile
     from repro_torch.assim import EngineConfig
     from repro_torch.runtime import mesh
 
     ranks, cycles = SHARDMAP["ranks"], SHARDMAP["cycles"]
     print(f"== shardmap: {ranks} ranks on one card over "
-          f"{SHARDMAP['backend']}, {cycles} cycles a run ({smi})")
+          f"{SHARDMAP['backend']}, {cycles} cycles a run, ex4_p8 "
+          f"{MESH_RESUME['cycles']} ({smi})")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    out = mesh.launch(shardmap_rank, ranks, backend=SHARDMAP["backend"],
-                      args=(SHARDMAP_RUNS, cycles, SHARDMAP_PINT))
-    wall = time.perf_counter() - t0
-    print(f"  {ranks} ranks spawned, ran and joined in {wall:.2f} s "
-          f"({smi})")
-    for key in out[0]:
-        walls = [round(o[key]["wall"], 3) for o in out]
-        mvec = [round(o[key].get("mvec_wall", 0.0), 3) for o in out]
-        print(f"  {key} walls per rank, s: {walls}; the two mvec solves "
-              f"{mvec}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = mesh.launch(shardmap_rank, ranks,
+                          backend=SHARDMAP["backend"],
+                          args=(SHARDMAP_RUNS, cycles, SHARDMAP_PINT, tmp),
+                          timeout=MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        print(f"  {ranks} ranks spawned, ran and joined in {wall:.2f} s "
+              f"({smi})")
+        for key in out[0]:
+            if "wall" not in out[0][key]:
+                continue
+            walls = [round(o[key]["wall"], 3) for o in out]
+            mvec = [round(o[key].get("mvec_wall", 0.0), 3) for o in out]
+            peak = [round(o[key].get("peak_gib", 0.0), 2) for o in out]
+            print(f"  {key} walls per rank, s: {walls}; the two mvec "
+                  f"solves {mvec}; peak memory per rank, GiB: {peak}")
+        check_mesh_fleet([o["fleet"] for o in out], tmp, smi)
+    check_compress([o["compress"] for o in out], smi)
     first_1d = None
     for tag, kw, scenario, m, comms in SHARDMAP_RUNS:
+        run_cycles = (MESH_RESUME["cycles"] if tag == MESH_RESUME["tag"]
+                      else cycles)
         single, xv, cv, _, packed = run_engine(
-            EngineConfig(track_reference=True, **kw), scenario, m, cycles)
+            EngineConfig(track_reference=True, **kw), scenario, m,
+            run_cycles)
         for comm in comms:
             res = [o[(tag, comm)] for o in out]
             r0 = res[0]
@@ -794,7 +1019,7 @@ def phase_shardmap(smi: str) -> tuple:
             check(r0["mesh"]["transport"] == "host"
                   and r0["mesh"]["backend"] == "gloo",
                   f"{label} gloo with host transport: {r0['mesh']}")
-            check(all(len(r["analyses"]) == cycles and all(
+            check(all(len(r["analyses"]) == run_cycles and all(
                 torch.equal(a, b) for a, b in zip(r["analyses"],
                                                   r0["analyses"]))
                 for r in res), f"{label} every rank's analysis bitwise "
@@ -812,8 +1037,9 @@ def phase_shardmap(smi: str) -> tuple:
                       for rec, want in zip(r0["records"], single.records)
                       for f in HOST_FIELDS),
                 f"{label} loads and repartition decisions equal")
-            want = {"gram": cycles, "schwarz_fwd": cycles * kw["iters"],
-                    "schwarz_bwd": cycles * kw["iters"]}
+            want = {"gram": run_cycles,
+                    "schwarz_fwd": run_cycles * kw["iters"],
+                    "schwarz_bwd": run_cycles * kw["iters"]}
             check(all({k: r["counts"][k] for k in want} == want
                       for r in res),
                   f"{label} launches per rank {want}: "
@@ -829,8 +1055,10 @@ def phase_shardmap(smi: str) -> tuple:
                 d = max(r["mvec_diff"] for r in res)
                 check(d <= 1e-13,
                       f"{label} mvec scatter vs psum {d:.3e} <= 1e-13")
-            if tag == "ex4_p8" and first_1d is None:
+            if tag == MESH_RESUME["tag"] and first_1d is None:
                 first_1d = (packed, xv[0], r0["counts"])
+                uninterrupted = res
+                check_single_writer(res, label)
         if len(comms) == 2:
             a, n = (out[0][(tag, c)]["records"] for c in comms)
             check(all(y["comm_bytes_per_cycle"] < x["comm_bytes_per_cycle"]
@@ -862,7 +1090,126 @@ def phase_shardmap(smi: str) -> tuple:
     check(all(e <= 1e-10 for e in errs),
           f"(pint) every cycle within 1e-10 of the direct solve: "
           f"{max(errs):.3e}")
-    return first_1d
+    return first_1d, uninterrupted
+
+
+def check_single_writer(res: list, label: str) -> None:
+    """Rank 0 alone wrote each step of the ranks' checkpointed run, and
+    every rank's snapshot of each step hashed the same before the
+    write."""
+    r = MESH_RESUME
+    steps = list(range(r["snapshot_every"], r["cycles"] + 1,
+                       r["snapshot_every"]))
+    print(f"  {label} steps written by rank: "
+          f"{[x['writes'] for x in res]}; snapshot sha256 rank 0 "
+          f"{[d[:12] for d in res[0]['digests']]}")
+    check(res[0]["writes"] == [("uninterrupted", s) for s in steps]
+          and all(x["writes"] == [] for x in res[1:]),
+          f"{label} rank 0 alone wrote steps {steps}")
+    check(all(x["digests"] == res[0]["digests"] for x in res)
+          and len(res[0]["digests"]) == len(steps),
+          f"{label} every rank's snapshot of each step the same")
+
+
+def check_mesh_fleet(res: list, tmp: str, smi: str) -> None:
+    """(a) of the mesh phases: the ranks' fleet against each stream run
+    alone in this process on the card."""
+    from repro_torch.assim import AssimilationEngine
+    from repro_torch.checkpoint import manager as ckpt
+
+    f, r0 = MESH_FLEET, res[0]
+    print(f"  (fleet mesh) {len(MESH_FLEET_STREAMS)} streams x "
+          f"{f['cycles']} cycles at ex4_p8 width on {len(res)} ranks: "
+          f"walls per rank {[round(x['wall'], 3) for x in res]} s, peak "
+          f"memory per rank {[round(x['peak_gib'], 2) for x in res]} GiB, "
+          f"{r0['rounds']} rounds, cohorts (size/capacity, w) "
+          + ", ".join(f"{a}/{c} w{w}" for a, c, w in r0["cohorts"])
+          + f"; launches per rank {[x['counts']['schwarz_fwd'] for x in res]}"
+          f" schwarz_fwd; {r0['objects']} agreements a rank ({smi})")
+    alone_wall = 0.0
+    for sid, name, seed, dydd in MESH_FLEET_STREAMS:
+        eng = AssimilationEngine(mesh_fleet_config(dydd))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        journal = eng.run(mesh_fleet_stream(name, seed))
+        torch.cuda.synchronize()
+        alone_wall += time.perf_counter() - t0
+        want = journal.deterministic_dict()
+        check(all(x["journals"][sid] == want and torch.equal(
+            x["analysis"][sid], eng.analysis.cpu()) for x in res),
+            f"(fleet mesh) {sid}: every rank's journal and final analysis "
+            f"bitwise the stream run alone")
+        errs = r0["errors"][sid]
+        check(len(errs) == f["cycles"] and max(errs) <= 1e-10,
+              f"(fleet mesh) {sid}: every cycle within 1e-10 of the direct "
+              f"solve ({max(errs):.3e})")
+        check(all(x["digests"][sid] == r0["digests"][sid] for x in res)
+              and ckpt.verify(ckpt.latest_checkpoint(
+                  os.path.join(tmp, "fleet", sid))),
+              f"(fleet mesh) {sid}: every rank's snapshot the same, the "
+              f"step verified")
+    print(f"  (fleet mesh) the streams alone one after another: "
+          f"{alone_wall:.2f} s")
+    check(all(x["cohorts"] == r0["cohorts"] for x in res)
+          and all(c == len(res) for _, c, _ in r0["cohorts"]),
+          f"(fleet mesh) every cohort's capacity {len(res)}, the same "
+          f"cohorts on every rank")
+    check(all(x["retries"] == [("pack", f["pack_fault"][0]),
+                               ("solve", "None")] for x in res),
+          "(fleet mesh) the pack and solve faults retried once on every "
+          "rank")
+    steps = [(sid, s) for sid, _, _, _ in MESH_FLEET_STREAMS
+             for s in range(f["snapshot_every"], f["cycles"] + 1,
+                            f["snapshot_every"])]
+    check(sorted(r0["writes"]) == sorted(steps)
+          and all(x["writes"] == [] for x in res[1:]),
+          f"(fleet mesh) rank 0 alone wrote the streams' steps: "
+          f"{[x['writes'] for x in res]}")
+    prepared = len(MESH_FLEET_STREAMS) * f["cycles"]
+    want = [{"gram": prepared,
+             "schwarz_fwd": f["iters"] * len(x["cohorts"]),
+             "schwarz_bwd": f["iters"] * len(x["cohorts"])} for x in res]
+    check(all({k: x["counts"][k] for k in w} == w
+              for x, w in zip(res, want))
+          and sum(a for a, _, _ in r0["cohorts"]) == prepared,
+          f"(fleet mesh) launches per rank: gram {prepared} (every rank "
+          f"prepares every stream), each Schwarz kernel {f['iters']} for "
+          f"its one slot of each of the {len(r0['cohorts'])} cohort "
+          f"solves: {want[0]}")
+
+
+def check_compress(res: list, smi: str) -> None:
+    """(c) of the mesh phases: every rank's mean the same bits, those of
+    one process's int32 sum times the max scale over the rank count, and
+    each rank's new error its own (g + e) - q * scale."""
+    from repro_torch.optim import compress
+
+    k = len(res)
+    for dtype in (torch.float32, torch.bfloat16):
+        qs = []
+        for r in range(k):
+            g, e = compress_inputs(dtype, r, DEVICE)
+            s = g.float() + e
+            q, scale = compress.quantize(s)
+            qs.append((q, scale, _sha(
+                (s.double() - q.double() * scale.double()).float())))
+            del g, e, s
+        total = sum(q.to(torch.int32) for q, _, _ in qs)
+        smax = max(sc for _, sc, _ in qs)
+        want = _sha((total.float() * smax / k).to(dtype).float())
+        got = [x[str(dtype)] for x in res]
+        print(f"  (compressed_psum) {str(dtype)} {COMPRESS['shape']} on "
+              f"{k} ranks: walls per rank "
+              f"{[round(x['wall'] * 1e3, 1) for x in got]} ms, peak memory "
+              f"per rank {[round(x['peak_gib'], 2) for x in got]} GiB "
+              f"({smi})")
+        check(all(x["mean"] == want for x in got),
+              f"(compressed_psum) {dtype}: every rank's mean bitwise the "
+              f"int32 sum x max scale / {k}")
+        check(all(x["error"] == q[2] for x, q in zip(got, qs)),
+              f"(compressed_psum) {dtype}: each rank's new error its own "
+              f"(g + e) - q * scale")
+        del qs, total
 
 
 def shardmap_rows(first_1d) -> list:
@@ -1082,6 +1429,152 @@ def phase_fleet(smi: str) -> None:
           f"{prepared}; schwarz_fwd/bwd {counts['schwarz_fwd']}/"
           f"{counts['schwarz_bwd']} = iters x cohort slots = {f['iters']} "
           f"x {slots} ({slots - members} padded)")
+
+
+# Resume onto a mesh at ex4_p8 (``phase_mesh_resume``): the ranks'
+# ``solver="shardmap"`` engine, 4 cycles, a snapshot every 2, every rank
+# killed at the end of cycle 1 (after the step-2 snapshot is published);
+# step 2 resumed on 8 ranks and elastically at p = 4 on 4.  Its
+# uninterrupted run is the ``shardmap`` phase's ex4_p8 run.  Cut from 6
+# cycles killed after cycle 3 for the script's time: each ex4_p8 cycle
+# costs ≈ 12 s a rank while 8 ranks share the card.
+MESH_RESUME = {"tag": "ex4_p8", "cycles": 4, "snapshot_every": 2,
+               "kill_cycle": 1, "elastic_p": 4}
+# The collective timeout of the mesh launches.
+MESH_TIMEOUT_S = 300
+
+
+def mesh_resume_config():
+    from repro_torch.assim import EngineConfig
+    case = ex4_p8()
+    return EngineConfig(n=case.n, p=case.p, iters=120, solver="shardmap",
+                        track_reference=True)
+
+
+def killed_mesh_rank(device, ck: str) -> None:
+    """The ranks' ex4_p8 run of ``MESH_RESUME``, killed by every rank's
+    injector at the end of cycle ``kill_cycle``."""
+    from repro_torch.assim import AssimilationEngine, streams
+    from repro_torch.runtime.chaos import ChaosConfig, ChaosInjector
+
+    r = MESH_RESUME
+    eng = AssimilationEngine(mesh_resume_config(), device,
+                             chaos=ChaosInjector(ChaosConfig(
+                                 kill_cycles=(r["kill_cycle"],))))
+    eng.run(streams.ResumableStream("drifting_swarm", ex4_p8().m,
+                                    r["cycles"], seed=0),
+            checkpoint_dir=ck, snapshot_every=r["snapshot_every"])
+    raise SmokeFailure("the injector did not kill this rank")
+
+
+def resume_mesh_rank(device, path: str, p) -> dict:
+    """``resume_assim_engine`` of ``path`` on this launch's ranks (at ``p``
+    when given), run to the stream's end; launch counts from 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import elastic
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    eng, stream = elastic.resume_assim_engine(path, p=p)
+    pos = stream.pos
+    journal = eng.run(stream)
+    torch.cuda.synchronize()
+    return {"pos": pos, "journal": journal.deterministic_dict(),
+            "records": journal.to_dict()["records"],
+            "resume": journal.meta["resume"], "mesh": eng.mesh.describe(),
+            "analysis": eng.analysis.cpu(), "counts": ops.launch_counts(),
+            "wall": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_mesh_resume(smi: str, uninterrupted: list) -> None:
+    """(b) of the mesh phases: ``MESH_RESUME``'s run on 8 ranks killed at
+    the end of cycle ``kill_cycle`` (the launch must raise naming the
+    signal, within the collective timeout; the newest verified step the
+    one after it), resumed on 8 ranks bitwise the ``shardmap`` phase's
+    uninterrupted run, and elastically at p = 4 on 4 ranks, each
+    remaining cycle within 1e-10 of the direct solve."""
+    import tempfile
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.runtime import mesh
+
+    r, case = MESH_RESUME, ex4_p8()
+    at = r["kill_cycle"] + 1
+    rest = r["cycles"] - at
+    iters = mesh_resume_config().iters
+    print(f"== mesh resume: ex4_p8 (n={case.n}, p={case.p}, m={case.m}) "
+          f"with solver='shardmap' on {case.p} ranks, {r['cycles']} cycles, "
+          f"a snapshot every {r['snapshot_every']}, killed after cycle "
+          f"{r['kill_cycle']}; resumed on {case.p} ranks and at p="
+          f"{r['elastic_p']} ({smi})")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            mesh.launch(killed_mesh_rank, case.p, backend="gloo",
+                        args=(tmp,), timeout=MESH_TIMEOUT_S)
+            died = "the launch returned"
+        except Exception as exc:     # the ranks' kill must fail the launch
+            died = f"{type(exc).__name__}: {exc}"
+        wall = time.perf_counter() - t0
+        print(f"  killed launch ended in {wall:.2f} s: {died.strip()[:200]}")
+        step = os.path.join(tmp, "step_%08d" % at)
+        check("SIGKILL" in died and wall < MESH_TIMEOUT_S,
+              f"the launch raised naming SIGKILL within the "
+              f"{MESH_TIMEOUT_S} s collective timeout")
+        check(ckpt.latest_checkpoint(tmp) == step and ckpt.verify(step),
+              f"the newest verified step is {at}")
+        for label, p, ranks, want in (
+                (f"same p={case.p}", None, case.p, uninterrupted),
+                (f"elastic p={r['elastic_p']}", r["elastic_p"],
+                 r["elastic_p"], None)):
+            t0 = time.perf_counter()
+            res = mesh.launch(resume_mesh_rank, ranks, backend="gloo",
+                              args=(tmp, p), timeout=MESH_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            x0 = res[0]
+            print(f"  ({label}) launch {wall:.2f} s; walls per rank "
+                  f"{[round(x['wall'], 3) for x in res]} s, peak memory per "
+                  f"rank {[round(x['peak_gib'], 2) for x in res]} GiB, mesh "
+                  f"{x0['mesh']['shape']}, resume {x0['resume']} ({smi})")
+            check(all(x["pos"] == at and x["journal"] == x0["journal"]
+                      and torch.equal(x["analysis"], x0["analysis"])
+                      for x in res),
+                  f"({label}) every rank resumed at cycle {at} with the "
+                  f"same journal and analysis")
+            check(all({k: x["counts"][k] for k in want_counts(rest, iters)}
+                      == want_counts(rest, iters) for x in res),
+                  f"({label}) launches per rank {want_counts(rest, iters)}: "
+                  f"{[x['counts']['schwarz_fwd'] for x in res]}")
+            errs = [rec["error_vs_direct"] for rec in x0["records"][at:]]
+            check(len(errs) == rest and max(errs) <= 1e-10,
+                  f"({label}) cycles {at}-{r['cycles'] - 1} within 1e-10 "
+                  f"of the direct solve ({max(errs):.3e})")
+            if want is not None:
+                check(x0["journal"] == want[0]["journal"]
+                      and torch.equal(x0["analysis"],
+                                      want[0]["analyses"][-1]),
+                      f"({label}) journal and final analysis bitwise the "
+                      f"uninterrupted run's")
+            else:
+                check(x0["mesh"]["shape"] == {"sub": r["elastic_p"]}
+                      and all(len(rec["loads"]) == r["elastic_p"]
+                              for rec in x0["records"][at:])
+                      and x0["resume"][-1] == {"at_cycle": at,
+                                               "p": r["elastic_p"],
+                                               "remeshed": True},
+                      f"({label}) the remaining cycles on {r['elastic_p']} "
+                      f"subdomains, none replayed")
+
+
+def want_counts(cycles: int, iters: int) -> dict:
+    """A shardmap rank's launches over ``cycles`` cycles: one ``gram`` (its
+    block) and ``iters`` of each Schwarz kernel a cycle."""
+    return {"gram": cycles, "schwarz_fwd": cycles * iters,
+            "schwarz_bwd": cycles * iters}
 
 
 # The resume checks at ex4_p8: 6 cycles, a snapshot every 2, the process
@@ -4654,7 +5147,9 @@ def main() -> int:
 
     phase_kf(smi)
     phase_pint(smi)
-    first_rank = phase_shardmap(smi)
+    first_rank, uninterrupted = phase_shardmap(smi)
+    phase_mesh_resume(smi, uninterrupted)
+    del uninterrupted
     phase_fleet(smi)
     phase_resume(smi)
 

@@ -34,6 +34,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
+import json
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Optional
@@ -275,6 +278,27 @@ class CycleStep:
     solve_time: float = 0.0
     hist: object = None
     device_times: list = dataclasses.field(default_factory=list)
+
+
+# Snapshot metadata that each rank of a mesh fills from its own clock.
+_RANK_LOCAL_META = ("journal", "stragglers")
+
+
+def snapshot_digest(tree: dict, metadata: dict) -> str:
+    """sha256 of what a snapshot holds that every rank of a mesh must
+    hold alike: every array of the tree (key, dtype, shape, bytes), the
+    metadata but the straggler monitors, and the journal's deterministic
+    view (its wall times are each rank's own)."""
+    h = hashlib.sha256()
+    for key in sorted(tree):
+        arr = np.ascontiguousarray(tree[key])
+        h.update(f"{key}|{arr.dtype.str}|{arr.shape}|".encode())
+        h.update(arr.tobytes())
+    rest = {k: v for k, v in metadata.items() if k not in _RANK_LOCAL_META}
+    rest["journal"] = Journal.from_dict(
+        metadata["journal"]).deterministic_dict()
+    h.update(json.dumps(rest, sort_keys=True, default=str).encode())
+    return h.hexdigest()
 
 
 class AssimilationEngine:
@@ -937,14 +961,39 @@ class AssimilationEngine:
 
     def save_checkpoint(self, directory: str, step: int,
                         host_state: dict | None = None,
-                        extra_meta: dict | None = None) -> str:
+                        extra_meta: dict | None = None,
+                        mesh=None) -> str:
         """Atomic engine checkpoint via the hash-verified manager
         primitives; ``step`` is the completed-cycle count.  Returns the
-        final checkpoint path."""
+        final checkpoint path.
+
+        Under a process mesh — this engine's (``solver="shardmap"``), or
+        ``mesh`` for an engine that every rank of a mesh runs alike (a
+        fleet's stream, a Parareal window) — every rank calls this at the
+        same cycle boundary: the ranks first hold their snapshots equal
+        (:func:`snapshot_digest`; a mismatch raises on every rank), then
+        the mesh's first rank alone writes the step, and no rank returns
+        before it is published (a failed write raises on every rank)."""
+        mesh = mesh if mesh is not None else self.mesh
         tree, metadata = self.snapshot(host_state=host_state,
                                        extra_meta=extra_meta)
         t0 = time.perf_counter()
-        path = ckpt_mod.save_pytree(tree, directory, step, metadata)
+        if mesh is None:
+            path = ckpt_mod.save_pytree(tree, directory, step, metadata)
+        else:
+            digests = mesh.gather_objects(snapshot_digest(tree, metadata))
+            if len(set(digests)) != 1:
+                raise RuntimeError(
+                    f"the ranks' snapshots of step {step} differ (sha256 "
+                    f"by rank: {digests}); refusing to write it")
+            err = None
+            if mesh.index(mesh.axis_names) == 0:
+                try:
+                    ckpt_mod.save_pytree(tree, directory, step, metadata)
+                except Exception as exc:   # agreed below
+                    err = exc
+            mesh.raise_any(err)
+            path = os.path.join(directory, f"step_{step:08d}")
         m = meters_mod.get_meters()
         m.inc("engine.snapshots")
         m.observe("engine.snapshot_time", time.perf_counter() - t0)
@@ -954,6 +1003,7 @@ class AssimilationEngine:
     def restore(cls, checkpoint: str, device=None, *,
                 config: "EngineConfig | None" = None,
                 domain: Optional[domain_mod.Domain] = None,
+                mesh=None, mesh_axis=None,
                 forecast: Optional[Callable] = None,
                 straggler_config: Optional[StragglerConfig] = None,
                 chaos=None) -> "AssimilationEngine":
@@ -968,7 +1018,9 @@ class AssimilationEngine:
         (the caller, :func:`repro_torch.runtime.elastic.
         remesh_assim_domain`, derives the new tiling) while truth/rng/
         analysis/journal carry over, so the stream still continues
-        without replaying cycles.
+        without replaying cycles.  ``mesh``/``mesh_axis`` are the
+        constructor's: a ``solver="shardmap"`` snapshot resumes on a
+        process mesh of one rank per subdomain (every rank restores).
         """
         flat, manifest = ckpt_mod.restore_pytree(checkpoint)
         meta = manifest["metadata"]
@@ -977,7 +1029,8 @@ class AssimilationEngine:
             raise ValueError(f"unsupported engine snapshot version {ver}")
         cfg = config if config is not None else config_from_meta(meta)
         eng = cls(cfg, device, forecast=forecast, domain=domain,
-                  straggler_config=straggler_config, chaos=chaos)
+                  straggler_config=straggler_config, chaos=chaos,
+                  mesh=mesh, mesh_axis=mesh_axis)
         eng._load_snapshot(flat, meta, remeshed=domain is not None)
         return eng
 

@@ -18,16 +18,21 @@ this set.  Under DyDD the per-subdomain width ``w`` of a stream changes
 whenever its boundaries move, so cohort membership is recomputed every
 fleet round from the cycle's actual packing.
 
-Capacity quantization.  Each cohort's batch is rounded up to ``2**j``
-and pinned per key, as the reference does to bound its compiles; here
-the padding slots are copies of member 0 that are solved and discarded
-(each one runs the Schwarz kernels ``iters`` times).  Each member of a
-stack is solved on a contiguous view of its rows by the same
-:func:`~repro_torch.core.ddkf.solve_vmapped` a standalone engine runs,
-so fleet results equal sequential per-engine solves bitwise.
+Capacity quantization.  Each cohort's batch is rounded up to
+``k * 2**j`` (``k`` = the fleet mesh axis's rank count, 1 off-mesh) and
+pinned per key, as the reference does to bound its compiles; here the
+padding slots are copies of member 0 that are solved and discarded
+(each one runs the Schwarz kernels ``iters`` times).  Each member is
+solved by the same :func:`~repro_torch.core.ddkf.solve_vmapped` a
+standalone engine runs — on a contiguous view of its rows of the stack
+on one device, on its own packing on a mesh — so fleet results equal
+sequential per-engine solves bitwise.
 
-The port of ``repro.assim.fleet`` on one device: the reference's fleet
-mesh (members spread over a device axis) is ROADMAP.md Queue 1 item 13.
+On a process mesh (``CohortSolver(mesh=..., axis=...)``) every rank
+solves the same cohorts: the rank at index r of ``axis`` solves its
+contiguous slice of each padded cohort and the ranks all-gather the
+analyses (:func:`~repro_torch.core.ddkf.solve_fleet`), so no rank stacks
+the members of another.
 """
 from __future__ import annotations
 
@@ -76,16 +81,21 @@ class CohortResult:
 
 class CohortSolver:
     """Solves cohorts of rhs-injected packings with
-    :func:`~repro_torch.core.ddkf.solve_fleet` on their device.  Stateless
-    apart from the pinned capacities and telemetry."""
+    :func:`~repro_torch.core.ddkf.solve_fleet` on their device.
+
+    ``mesh``/``axis`` (a :class:`~repro_torch.runtime.mesh.ProcessMesh`
+    and one of its axes) spread each cohort's members over the ranks of
+    that axis; every rank must call :meth:`solve` with the same cohorts
+    in the same order.  Stateless apart from the pinned capacities and
+    telemetry."""
 
     def __init__(self, mesh=None, axis: str = "fleet"):
-        # ``axis`` names the reference's fleet mesh axis; it has no
-        # meaning without a mesh.
-        if mesh is not None:
-            raise NotImplementedError(
-                "CohortSolver(mesh=...) is not ported to repro_torch yet "
-                "(ROADMAP.md Queue 1 item 13)")
+        if mesh is not None and axis not in mesh.shape:
+            raise ValueError(f"mesh has no axis {axis!r} (has "
+                             f"{tuple(mesh.shape)})")
+        self.mesh = mesh
+        self.axis = axis
+        self.mult = int(mesh.shape[axis]) if mesh is not None else 1
         # Per-key pinned capacity (monotone), as the reference keeps: the
         # padded batch of a shape never shrinks between rounds.
         self._caps: Dict[tuple, int] = {}
@@ -95,7 +105,8 @@ class CohortSolver:
         """Run one cohort (all members sharing ``key``) to completion."""
         iters, damping, record_residuals = key[-3:]
         size = len(packs)
-        cap = max(quantize_capacity(size), self._caps.get(key, 1))
+        cap = max(quantize_capacity(size, self.mult),
+                  self._caps.get(key, 1))
         self._caps[key] = cap
         m = meters_mod.get_meters()
         with trace_mod.span("fleet.cohort", size=size, capacity=cap,
@@ -111,10 +122,12 @@ class CohortSolver:
                 hist = out[1][None] if record_residuals else None
             else:
                 padded = list(packs) + [packs[0]] * (cap - size)
-                stacked = ddkf_mod.stack_packed(padded)
+                # On a mesh each rank solves its own slice of the list.
                 out = ddkf_mod.solve_fleet(
-                    stacked, iters=iters, damping=damping,
-                    residual_history=record_residuals)
+                    padded if self.mesh is not None
+                    else ddkf_mod.stack_packed(padded), iters=iters,
+                    damping=damping, residual_history=record_residuals,
+                    mesh=self.mesh, axis=self.axis)
                 x = out[0] if record_residuals else out
                 hist = out[1] if record_residuals else None
             sp.fence(x)

@@ -1,4 +1,4 @@
-"""Multi-tenant assimilation serving: N streams on one device.
+"""Multi-tenant assimilation serving: N streams on one device or a mesh.
 
 :class:`FleetServer` runs many independent :class:`AssimilationEngine`
 streams concurrently by batching their per-cycle DD-KF solves into
@@ -35,14 +35,27 @@ Per-stream results are **bitwise identical** to running each engine's
 transitions go through the same ``prepare → solve_input →
 complete_cycle`` methods in the same per-stream order.
 
-The port of ``repro.assim.serving`` on one device: ``device`` (``None``
-means the card) is handed to every engine the server builds; the
-reference's fleet mesh is ROADMAP.md Queue 1 item 13.
+The port of ``repro.assim.serving``: ``device`` (``None`` means the
+card) is handed to every engine the server builds.  With ``mesh`` (a
+:class:`~repro_torch.runtime.mesh.ProcessMesh`) every rank runs the
+server — every stream's host decisions and engine state — and each
+cohort's members spread over the ``mesh_axis`` ranks
+(:class:`~repro_torch.assim.fleet.CohortSolver`).  The rounds are
+formed from thread timing, which differs between ranks, so the ranks
+agree on every decision before they act on it: a stream joins a round
+only once its prepare is done on every rank
+(:meth:`~repro_torch.runtime.mesh.ProcessMesh.gather_objects`), and a
+prepare, a cohort solve or a fault fails or is retried on every rank or
+on none (:meth:`~repro_torch.runtime.mesh.ProcessMesh.raise_any`).
+Cohorts, admissions and retirements follow from those in the same
+order on every rank, so every rank keeps the same journals; a stream's
+snapshot is written by one rank.
 """
 from __future__ import annotations
 
 import time
-from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+from concurrent.futures import (ALL_COMPLETED, FIRST_COMPLETED,
+                                ThreadPoolExecutor, wait)
 from typing import Callable, Dict, Iterable, Optional
 
 from repro_torch import device as device_mod
@@ -95,8 +108,12 @@ class FleetServer:
 
     ``device=None`` means the card and raises when there is none
     (``device="cpu"`` runs on the CPU); every engine the server builds
-    or restores runs there.  Only ``solver="vmapped"`` engines can ride
-    a fleet.
+    or restores runs there.  ``mesh``/``mesh_axis`` spread cohort
+    batches over the ranks of a process mesh axis (e.g. an 8-rank
+    ``("fleet",)`` mesh); every rank builds the same server, adds the
+    same streams and calls :meth:`serve`, and cohort sizes are padded to
+    a multiple of the axis size.  Only ``solver="vmapped"`` engines can
+    ride a fleet.
     """
 
     def __init__(self, mesh=None, mesh_axis: str = "fleet",
@@ -105,11 +122,12 @@ class FleetServer:
                  chaos: "chaos_mod.ChaosInjector | None" = None,
                  max_retries: int = 2, retry_backoff: float = 0.05,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FleetServer(mesh=...) is not ported to repro_torch yet "
-                "(ROADMAP.md Queue 1 item 13)")
         self.device = device_mod.resolve(device)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(
+                f"the mesh's ranks run on {mesh.device} but the server's "
+                f"engines on {self.device}: pass the mesh's device")
+        self.mesh = mesh
         if pack_workers < 1:
             raise ValueError(f"pack_workers must be >= 1 "
                              f"(got {pack_workers})")
@@ -130,7 +148,7 @@ class FleetServer:
         # An explicit solver carries its pinned cohort capacities across
         # server lifetimes.
         self.solver = solver if solver is not None \
-            else fleet_mod.CohortSolver(axis=mesh_axis)
+            else fleet_mod.CohortSolver(mesh=mesh, axis=mesh_axis)
         self.pack_workers = pack_workers
         self.journals: Dict[object, Journal] = {}
         self.engines: Dict[object, AssimilationEngine] = {}
@@ -291,31 +309,69 @@ class FleetServer:
             self.scheduler.retire(st.slot)
             st.slot = None
 
+    def _raise_any(self, err: Exception | None) -> None:
+        """Raise ``err`` — on a mesh, every rank raises where any rank's
+        part failed (:meth:`ProcessMesh.raise_any`)."""
+        if self.mesh is not None:
+            self.mesh.raise_any(err)
+        elif err is not None:
+            raise err
+
+    def _ready(self, active: list) -> list:
+        """The streams of this round: those whose prepare is done — on a
+        mesh, done on every rank.  Where no stream is done on every rank
+        yet, this rank waits for those done on some rank and the round
+        is empty (the caller goes round again)."""
+        done = [st.fut is not None and st.fut.done() for st in active]
+        if self.mesh is None:
+            return [st for st, d in zip(active, done) if d]
+        masks = self.mesh.gather_objects(done)
+        every = [all(col) for col in zip(*masks)]
+        if not any(every):
+            wait([st.fut for st, col in zip(active, zip(*masks))
+                  if any(col)], return_when=ALL_COMPLETED)
+        return [st for st, e in zip(active, every) if e]
+
     def _claim(self, st: _StreamState, pool: ThreadPoolExecutor):
         """Claim a finished prepare, retrying TransientFaults by
         resubmitting the same (cycle, obs) with exponential backoff —
         injected pack faults fire before any engine state mutation, so
         the retry is bitwise-equivalent.  Non-transient exceptions and
-        an exhausted retry budget propagate to the failure path."""
+        an exhausted retry budget propagate to the failure path.  On a
+        mesh the ranks agree on each attempt's outcome; a rank whose
+        prepare succeeded keeps it while another rank retries."""
         m = meters_mod.get_meters()
-        fut = st.fut
+        fut, prep = st.fut, None
         for attempt in range(self.max_retries + 1):
+            err = None
+            if prep is None:
+                try:
+                    prep = fut.result()
+                except Exception as exc:   # agreed in _raise_any
+                    err = exc
             try:
-                return fut.result()
+                self._raise_any(err)
+                return prep
             except chaos_mod.TransientFault:
                 if attempt >= self.max_retries:
                     raise
-                cycle, obs = st.pending
-                m.event("chaos.retry", site="pack", sid=st.sid,
-                        cycle=int(cycle), attempt=attempt + 1)
-                m.inc("chaos.retries")
-                time.sleep(self.retry_backoff * (2.0 ** attempt))
+            cycle, obs = st.pending
+            m.event("chaos.retry", site="pack", sid=st.sid,
+                    cycle=int(cycle), attempt=attempt + 1)
+            m.inc("chaos.retries")
+            time.sleep(self.retry_backoff * (2.0 ** attempt))
+            if prep is None:
                 fut = pool.submit(st.engine.prepare, cycle, obs)
 
     def _cohort_solve(self, key, packs, round_no: int):
         """One cohort dispatch behind the server-level fault injector."""
+        err = None
         if self.chaos is not None:
-            self.chaos.check("solve", round_no)
+            try:
+                self.chaos.check("solve", round_no)
+            except chaos_mod.TransientFault as exc:   # agreed below
+                err = exc
+        self._raise_any(err)
         return self.solver.solve(key, packs)
 
     def serve(self) -> Dict[object, Journal]:
@@ -342,8 +398,7 @@ class FleetServer:
                     # mid-DyDD-repack that misses the window simply
                     # rides the next round; nobody blocks on it.
                     wait(in_flight, timeout=self.gather_window)
-                ready = [st for st in active
-                         if st.fut is not None and st.fut.done()]
+                ready = self._ready(active)
                 if not ready:
                     continue
 
@@ -419,7 +474,8 @@ class FleetServer:
                     if st.exhausted and st.slot is None:
                         continue   # failed during its cohort solve
                     st.engine.save_checkpoint(st.checkpoint_dir,
-                                              step=prep.cycle + 1)
+                                              step=prep.cycle + 1,
+                                              mesh=self.mesh)
                     if st.engine._chaos is not None:
                         st.engine._chaos.maybe_kill("cycle_end",
                                                     prep.cycle)

@@ -433,9 +433,13 @@ class TimeParEngine:
             if (c + 1 == bounds[w + 1] and checkpoint_dir is not None
                     and snapshot_every > 0
                     and (w + 1) % snapshot_every == 0):
+                # On a mesh every rank completes the same chain: one
+                # writes each window's step (AssimilationEngine.
+                # save_checkpoint).
                 eng.save_checkpoint(
                     checkpoint_dir, step=base + c + 1,
                     host_state=self.window_host[w],
                     extra_meta={"pint": {"window": w,
-                                         "time_windows": W}})
+                                         "time_windows": W}},
+                    mesh=self.mesh)
         return eng.journal

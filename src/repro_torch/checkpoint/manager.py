@@ -254,7 +254,8 @@ def restore_pytree(directory_or_path: str, like=None, shardings=None,
     if shardings is not None:
         raise NotImplementedError(
             "restore_pytree(shardings=...) is not ported to repro_torch "
-            "yet (ROADMAP.md Queue 1 item 13)")
+            "yet (ROADMAP.md Queue 1 item 7c, the sharding layer of item "
+            "13's data-parallel training)")
     path = directory_or_path
     if step is not None:
         path = os.path.join(directory_or_path, f"step_{step:08d}")

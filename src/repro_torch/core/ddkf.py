@@ -532,8 +532,9 @@ def _member(stacked: PackedDD, s: int) -> PackedDD:
         if isinstance(getattr(stacked, f.name), (torch.Tensor, np.ndarray))})
 
 
-def solve_fleet(stacked: PackedDD, iters: int = 60, damping: float = 1.0,
-                residual_history: bool = False, mesh=None, x0=None):
+def solve_fleet(stacked, iters: int = 60, damping: float = 1.0,
+                residual_history: bool = False, mesh=None,
+                axis: str = "fleet", x0=None):
     """Solve every problem of a stacked cohort.
 
     On one device this is a loop of :func:`solve_vmapped` over the
@@ -541,21 +542,65 @@ def solve_fleet(stacked: PackedDD, iters: int = 60, damping: float = 1.0,
     member is a contiguous view of the stack, so the fleet results equal
     the standalone per-problem solves.  Returns the (S, n) stacked
     estimates, or ``(x, hist)`` with ``hist`` of shape (S, iters) under
-    ``residual_history=True``.  ``x0`` is an optional (S, n) stack of
-    global warm starts, one per problem (see :func:`solve_vmapped`).
+    ``residual_history=True``.  ``x0`` (single-device path only) is an
+    optional (S, n) stack of global warm starts, one per problem (see
+    :func:`solve_vmapped`).
+
+    With ``mesh`` (a :class:`repro_torch.runtime.mesh.ProcessMesh`) every
+    rank calls this with the same cohort, and the S members spread over
+    the k ranks of the ``axis`` mesh axis: the rank at index r of that
+    axis solves members ``r * S / k ... (r + 1) * S / k - 1`` and reads
+    only those, then every rank all-gathers the (S, n) estimates (and
+    the histories) over ``axis``.  ``stacked`` is then the stacked cohort
+    (the rank reads its members' rows) or the list of the S packings
+    themselves (the rank stacks nothing; the reference takes them
+    stacked, and ranks that share a card would each hold all S).  A
+    member's bits do not depend on the batch or the rank, so each equals
+    its standalone :func:`solve_vmapped` bitwise.  S must be a multiple
+    of k (the fleet server pads its cohorts with copies of member 0).  A
+    rank whose members fail makes every rank raise
+    (:meth:`~repro_torch.runtime.mesh.ProcessMesh.raise_any`).
     """
-    if mesh is not None:
+    if mesh is None:
+        outs = [solve_vmapped(_member(stacked, s), iters=iters,
+                              damping=damping,
+                              residual_history=residual_history,
+                              x0=None if x0 is None else x0[s])
+                for s in range(int(stacked.A_loc.shape[0]))]
+        if not residual_history:
+            return torch.stack(outs)
+        return (torch.stack([x for x, _ in outs]),
+                torch.stack([h for _, h in outs]))
+    if x0 is not None:
         raise NotImplementedError(
-            "solve_fleet(mesh=...) is not ported to repro_torch yet "
-            "(ROADMAP.md Queue 1 item 13)")
-    outs = [solve_vmapped(_member(stacked, s), iters=iters, damping=damping,
-                          residual_history=residual_history,
-                          x0=None if x0 is None else x0[s])
-            for s in range(int(stacked.A_loc.shape[0]))]
+            "solve_fleet warm start is single-device only (the sharded "
+            "fleet path has no x0 plumbing)")
+    _mesh_axes(mesh, axis)
+    k = int(mesh.shape[axis])
+    listed = not isinstance(stacked, PackedDD)
+    S = len(stacked) if listed else int(stacked.A_loc.shape[0])
+    if S % k:
+        raise ValueError(
+            f"cohort size {S} does not divide over the {k}-device "
+            f"'{axis}' mesh axis — pad the cohort to a multiple of {k}")
+    r = mesh.index(axis)
+    mine = range(r * (S // k), (r + 1) * (S // k))
+    err, xs, hs = None, [], []
+    try:
+        for s in mine:
+            pk = stacked[s] if listed else _member(stacked, s)
+            out = solve_vmapped(pk, iters=iters, damping=damping,
+                                residual_history=residual_history)
+            xs.append(out[0] if residual_history else out)
+            if residual_history:
+                hs.append(out[1])
+    except Exception as exc:   # agreed below: every rank raises
+        err = exc
+    mesh.raise_any(err)
+    x = mesh.all_gather(torch.stack(xs), axis)
     if not residual_history:
-        return torch.stack(outs)
-    return (torch.stack([x for x, _ in outs]),
-            torch.stack([h for _, h in outs]))
+        return x
+    return x, mesh.all_gather(torch.stack(hs), axis)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,8 @@ training forward runs the ``rglru_scan``, ``flash_attention`` and
 (:mod:`repro_torch.kernels.ops`); the optimizer is the reference's AdamW
 with f32 moments.  ``--ckpt-dir`` saves and resumes ``{"params", "opt"}``
 and the loader's state in the reference's on-disk format, so either
-package resumes the other's run.  The reference's mesh (``mesh=``) waits
-for ROADMAP Queue 1 item 13.
+package resumes the other's run.  The reference's mesh (``mesh=``,
+data-parallel training) waits for ROADMAP Queue 1 item 7c.
 
 Weights are random, drawn on the device from a seeded generator
 (:func:`repro_torch.models.transformer.init_params`; other numbers than
@@ -66,7 +66,7 @@ def train(cfg, *, steps: int, seq: int, global_batch: int, dp: int,
     if mesh is not None:
         raise NotImplementedError(
             "train(mesh=...): sharded training is not ported (ROADMAP "
-            "Queue 1 item 13)")
+            "Queue 1 item 7c)")
     extras = extras or {}
     if cfg.is_encoder_decoder and "frames" not in extras:
         # The reference's loader batch has no frames either: its trainer

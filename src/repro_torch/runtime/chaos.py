@@ -153,7 +153,12 @@ class ChaosInjector:
     def maybe_kill(self, site: str, cycle: int) -> None:
         """SIGKILL the process if a kill point is scheduled at this
         cycle.  SIGKILL on purpose: no atexit/finally runs, exactly
-        like the OOM-killer or a preempted host."""
+        like the OOM-killer or a preempted host.  Under a process mesh
+        every rank's injector draws the same schedule, so every rank
+        kills itself at the same cycle end — after the step's checkpoint
+        is published (the engine's ``save_checkpoint`` returns on no rank
+        before that) — and ``runtime.mesh.launch`` ends at once, raising
+        an error that names the signal."""
         if cycle not in self._kills:
             return
         self._log(site, cycle, kind="kill")

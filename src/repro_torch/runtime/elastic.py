@@ -12,9 +12,12 @@ at the quantiles of the journalled piecewise-constant observation
 density.  Either way the stream continues from the saved cursor — no
 completed cycle is ever replayed.
 
-The model half (``remesh``, ``named_shardings``) waits for the port of
-the LM sharding layer (ROADMAP.md Queue 1 item 7c), and a device mesh
-for multi-process solves (``mesh=``) for item 13.
+A ``solver="shardmap"`` snapshot resumes onto a process mesh: every
+rank of the new process group calls :func:`resume_assim_engine`, at the
+saved p or at a new one (the engine then runs on a mesh of new-p ranks
+shaped by ``domain.mesh_axes()``).  The model half (``remesh``,
+``named_shardings``) waits for the port of the LM sharding layer
+(ROADMAP.md Queue 1 item 7c).
 """
 from __future__ import annotations
 
@@ -182,7 +185,7 @@ def remesh_assim_domain(meta: dict, flat: dict, p: int,
 def resume_assim_engine(checkpoint: str, *, p: Optional[int] = None,
                         pr: Optional[int] = None,
                         pc: Optional[int] = None, device=None,
-                        mesh=None, forecast=None,
+                        mesh=None, mesh_axis=None, forecast=None,
                         straggler_config=None, chaos=None) -> tuple:
     """Restore an assimilation engine on ``device`` (elastically if
     ``p`` differs) and its stream continuation.
@@ -197,21 +200,23 @@ def resume_assim_engine(checkpoint: str, *, p: Optional[int] = None,
     :class:`~repro_torch.assim.streams.ResumableStream` (None if the
     snapshot was taken without a cursor-bearing stream); no completed
     cycle is replayed either way.
+
+    The solver comes from the snapshot's config.  A ``solver="shardmap"``
+    engine resumes on ``mesh``/``mesh_axis`` (default: a mesh over every
+    rank of the process group, shaped like the new domain's processor
+    graph), which must hold one rank per subdomain of the new p; every
+    rank calls this with the same arguments.
     """
     from repro_torch.assim.engine import AssimilationEngine
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "resume_assim_engine(mesh=...) is not ported to repro_torch "
-            "yet (ROADMAP.md Queue 1 item 13)")
     path = checkpoint
     if not os.path.basename(path).startswith("step_"):
         path = ckpt.latest_checkpoint(checkpoint)
         if path is None:
             raise FileNotFoundError(f"no verified checkpoint under "
                                     f"{checkpoint}")
-    kw = dict(forecast=forecast, straggler_config=straggler_config,
-              chaos=chaos)
+    kw = dict(mesh=mesh, mesh_axis=mesh_axis, forecast=forecast,
+              straggler_config=straggler_config, chaos=chaos)
     flat, manifest = ckpt.restore_pytree(path)
     meta = manifest["metadata"]
     saved_p = int(meta["domain"]["p"])

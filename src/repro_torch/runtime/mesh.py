@@ -17,11 +17,16 @@ module is the port's counterpart of the reference's mesh constructors
   row-major over named axes, as a JAX mesh lays out its devices, and
   builds one sub-group per set of axes.
 * Its methods are the collectives: :meth:`ProcessMesh.psum`,
-  :meth:`~ProcessMesh.axis_allreduce` (psum over the outer axes, then
-  reduce-scatter and all-gather on the innermost, the reference's
-  ``axis_allreduce``), :meth:`~ProcessMesh.ppermute` (one batch of
-  point-to-point sends per round) and :meth:`~ProcessMesh.all_gather`.
-  Every rank of a group ends with the same bits.
+  :meth:`~ProcessMesh.pmax`, :meth:`~ProcessMesh.axis_allreduce` (psum
+  over the outer axes, then reduce-scatter and all-gather on the
+  innermost, the reference's ``axis_allreduce``),
+  :meth:`~ProcessMesh.ppermute` (one batch of point-to-point sends per
+  round) and :meth:`~ProcessMesh.all_gather`.  Every rank of a group
+  ends with the same bits.
+* Host decisions that every rank must take alike (which streams join a
+  round, whether a step failed) meet in
+  :meth:`~ProcessMesh.gather_objects` and
+  :meth:`~ProcessMesh.raise_any`.
 
 Transport: with ``backend="nccl"`` tensors on the card go to the
 collective directly, and two ranks may not share a card (NCCL refuses
@@ -34,6 +39,7 @@ from __future__ import annotations
 import datetime
 import itertools
 import os
+import pickle
 import tempfile
 import warnings
 
@@ -44,7 +50,8 @@ import torch.distributed as dist
 from repro_torch import device as device_mod
 
 BACKENDS = ("gloo", "nccl")
-# How long a rank waits in a collective for the others before it fails.
+# How long a rank waits in a collective for the others before it fails
+# (``launch(timeout=...)`` sets another).
 TIMEOUT = datetime.timedelta(minutes=10)
 
 
@@ -88,7 +95,7 @@ def check_launch(nprocs: int, backend: str, device: torch.device) -> None:
 
 
 def _rank_entry(rank: int, nprocs: int, backend: str, device: str,
-                tmp: str) -> None:
+                tmp: str, timeout: datetime.timedelta) -> None:
     fn, args = torch.load(os.path.join(tmp, "call.pt"), weights_only=False)
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -97,7 +104,7 @@ def _rank_entry(rank: int, nprocs: int, backend: str, device: str,
     # The ranks share the host's cores.
     torch.set_num_threads(1)
     dist.init_process_group(backend, init_method=f"file://{tmp}/store",
-                            rank=rank, world_size=nprocs, timeout=TIMEOUT)
+                            rank=rank, world_size=nprocs, timeout=timeout)
     try:
         out = fn(dev, *args)
         part = os.path.join(tmp, f"rank{rank}.part")
@@ -109,7 +116,7 @@ def _rank_entry(rank: int, nprocs: int, backend: str, device: str,
 
 
 def launch(fn, nprocs: int, *, backend: str, device=None,
-           args: tuple = ()) -> list:
+           args: tuple = (), timeout: float | None = None) -> list:
     """Run ``fn(device, *args)`` on ``nprocs`` new ranks of one process
     group; returns the ranks' return values in rank order.
 
@@ -117,17 +124,22 @@ def launch(fn, nprocs: int, *, backend: str, device=None,
     forked).  ``device=None`` puts rank r on ``cuda:{r % device_count}``
     and raises without a card; ``device="cpu"`` runs the ranks on the CPU.
     Each rank runs one intra-op thread.  ``backend`` is ``"gloo"`` or
-    ``"nccl"`` and has no default.  A rank that raises fails the launch
-    (the others are stopped); what a rank returns travels back through
-    ``torch.save``, tensors and all."""
+    ``"nccl"`` and has no default.  ``timeout`` is how many seconds a
+    rank waits in a collective for the others before it fails (default
+    :data:`TIMEOUT`).  A rank that raises or dies fails the launch: the
+    others are stopped and the error names the rank and its exception
+    or signal.  What a rank returns travels back through ``torch.save``,
+    tensors and all."""
     dev = device_mod.resolve(device)
     check_launch(nprocs, backend, dev)
+    wait = (TIMEOUT if timeout is None
+            else datetime.timedelta(seconds=float(timeout)))
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
         # The call travels in a file: through the spawn pipe, each start
         # would wait for the previous child to read it.
         torch.save((fn, tuple(args)), os.path.join(tmp, "call.pt"))
         torch.multiprocessing.spawn(
-            _rank_entry, args=(nprocs, backend, dev.type, tmp),
+            _rank_entry, args=(nprocs, backend, dev.type, tmp, wait),
             nprocs=nprocs, join=True)
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            map_location="cpu", weights_only=False)
@@ -176,8 +188,8 @@ class ProcessMesh:
         self.device = dev
         self.backend = str(dist.get_backend())
         self.transport = transport_for(self.backend, self.device)
-        self.counts = {"psum": 0, "reduce_scatter": 0, "all_gather": 0,
-                       "ppermute": 0}
+        self.counts = {"psum": 0, "pmax": 0, "reduce_scatter": 0,
+                       "all_gather": 0, "ppermute": 0, "objects": 0}
         self._pinned: dict = {}
         # (axes) -> (group, its ranks in row-major order over the axes)
         self._groups: dict = {}
@@ -326,6 +338,15 @@ class ProcessMesh:
         rank of the group."""
         return self._unwire(self._psum(self._wire(t, copy=True), axes), t)
 
+    def pmax(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Elementwise maximum of ``t`` over the group of ``axes``."""
+        group, ranks = self._groups[self._axes(axes)]
+        self.counts["pmax"] += 1
+        buf = self._wire(t, copy=True)
+        if len(ranks) > 1:
+            dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+        return self._unwire(buf, t)
+
     def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
         """The group's tensors ``t`` concatenated along dim 0 in the row-
         major order of ``axes``."""
@@ -371,3 +392,39 @@ class ProcessMesh:
         if got is None:
             return torch.zeros_like(buf)
         return self._unwire(got, buf)
+
+    # -- host decisions ----------------------------------------------------
+
+    def gather_objects(self, obj, axes=None) -> list:
+        """Every rank's picklable ``obj`` over the group of ``axes`` (all
+        of the mesh's by default), in the group's row-major order, on
+        every rank of it: what the ranks decide on together."""
+        axes = self.axis_names if axes is None else axes
+        group, ranks = self._groups[self._axes(axes)]
+        self.counts["objects"] += 1
+        if len(ranks) == 1:
+            return [obj]
+        out = [None] * len(ranks)
+        dist.all_gather_object(out, obj, group=group)
+        return out
+
+    def raise_any(self, exc: BaseException | None, axes=None) -> None:
+        """Every rank of the group raises, or none does.  Each rank
+        passes the exception its own part of a step raised (or None);
+        where any rank failed, every rank raises: a failing rank its own
+        exception, the others the first failing rank's.  So the ranks
+        take the same retry or failure path, and none waits in a
+        collective that the others skip."""
+        axes = self.axis_names if axes is None else axes
+        try:
+            sent = pickle.loads(pickle.dumps(exc))
+        except Exception:     # an exception that does not travel
+            sent = RuntimeError(f"{type(exc).__name__}: {exc}")
+        got = self.gather_objects(sent, axes)
+        if exc is not None:
+            raise exc
+        for i, first in enumerate(got):
+            if first is not None:
+                raise first from RuntimeError(
+                    f"rank {self.group_ranks(axes)[i]} failed its part of "
+                    f"this step")

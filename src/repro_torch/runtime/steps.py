@@ -4,7 +4,7 @@ The counterparts of ``repro.runtime.steps.make_loss_fn``,
 ``make_train_step``, ``make_prefill_step`` and ``make_serve_step``:
 eager calls.  The reference's jit and buffer donation have no
 counterpart on one device (the AdamW update is in place); its mesh
-shardings wait for ROADMAP Queue 1 item 13.
+shardings (data-parallel training) wait for ROADMAP Queue 1 item 7c.
 """
 from __future__ import annotations
 
@@ -72,7 +72,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step(mesh=...): sharded training is not ported "
-            "(ROADMAP Queue 1 item 13)")
+            "(ROADMAP Queue 1 item 7c)")
     loss_fn = make_loss_fn(cfg, mode=mode)
     accum = opt_cfg.accum_steps
 

@@ -27,6 +27,7 @@ import os
 import signal
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -283,11 +284,30 @@ def test_restore_rejects_unknown_snapshot_version(tmp_path):
 
 
 def test_resume_names_the_mesh_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        elastic.resume_assim_engine(str(tmp_path), device="cpu",
-                                    mesh=object())
+    """Resume onto a mesh refuses, before any rank meets another, a mesh
+    whose rank count is not the new p (a mesh stands in here; the mesh
+    runs are ``tests/test_torch_mesh_resume.py``), at the saved p and at
+    a new one; an empty directory has nothing to resume."""
+    def mesh(k):
+        return types.SimpleNamespace(
+            shape={"sub": k}, device=torch.device("cpu"),
+            index=lambda axes: 0, describe=lambda: {"shape": {"sub": k}})
+
+    eng = t_engine.AssimilationEngine(
+        t_engine.EngineConfig(n=48, p=4, solver="shardmap"), device="cpu",
+        mesh=mesh(4))
+    tree, meta = eng.snapshot()
+    t_ckpt.save_pytree(tree, str(tmp_path / "ck"), 0, meta)
+    for p, k in ((None, 3), (2, 4), (2, 3)):
+        with pytest.raises(ValueError, match=f"p={p or 4} but the given "
+                                             f"mesh has {k} device"):
+            elastic.resume_assim_engine(str(tmp_path / "ck"), p=p,
+                                        device="cpu", mesh=mesh(k))
+    eng, _ = elastic.resume_assim_engine(str(tmp_path / "ck"), p=2,
+                                         device="cpu", mesh=mesh(2))
+    assert eng.p == 2 and eng.cfg.solver == "shardmap"
     with pytest.raises(FileNotFoundError):
-        elastic.resume_assim_engine(str(tmp_path), device="cpu")
+        elastic.resume_assim_engine(str(tmp_path / "none"), device="cpu")
 
 
 @settings(max_examples=10, deadline=None)

@@ -15,9 +15,11 @@ CPU (the cases of ``tests/test_fleet.py`` and of the fleet half of
   and frees the slot; retried pack and cohort-solve faults leave the
   journals bitwise; a crashed stream is readmitted from its snapshot and
   completes bitwise; a fleet snapshot resumes under the single engine.
-* The mesh options name ROADMAP.md Queue 1 item 13.
+* The mesh options' up-front checks (no rank meets another before
+  them; the mesh runs are ``tests/test_torch_mesh_fleet.py``).
 """
 import os
+import types
 
 import numpy as np
 import pytest
@@ -106,12 +108,27 @@ def test_cohort_solver_bitwise_vs_standalone(fresh_meters):
 
 
 def test_mesh_options_name_item_13(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        FleetServer(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fleet_mod.CohortSolver(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        elastic.resume_assim_engine(str(tmp_path), mesh=object())
+    """The fleet's mesh path checks what it is given before any rank
+    meets another (a mesh stands in here: nothing reaches a
+    collective): the axis exists, the server's engines run where the
+    mesh's ranks do, and a cohort divides over the axis."""
+    cpu8 = types.SimpleNamespace(shape={"fleet": 8},
+                                 device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="mesh has no axis 'data'"):
+        fleet_mod.CohortSolver(mesh=cpu8, axis="data")
+    assert fleet_mod.CohortSolver(mesh=cpu8).mult == 8
+    with pytest.raises(ValueError, match="ranks run on cuda but"):
+        FleetServer(mesh=types.SimpleNamespace(
+            shape={"fleet": 8}, device=torch.device("cuda")), device="cpu")
+    assert FleetServer(mesh=cpu8, device="cpu").solver.mult == 8
+    pk = _pack_problem()
+    with pytest.raises(ValueError, match="cohort size 3 does not divide "
+                                         "over the 8-device 'fleet'"):
+        ddkf.solve_fleet([pk] * 3, mesh=cpu8)
+    with pytest.raises(ValueError, match="cohort size 6 does not divide"):
+        ddkf.solve_fleet(ddkf.stack_packed([pk] * 6), mesh=cpu8)
+    with pytest.raises(FileNotFoundError):
+        elastic.resume_assim_engine(str(tmp_path), device="cpu", mesh=cpu8)
 
 
 # ---------------------------------------------------------------------------

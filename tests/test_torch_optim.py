@@ -4,8 +4,9 @@ JAX package's (``repro.optim``), on the same numpy trees.
 Tolerance: 1e-6 relative (the largest |difference| over the largest
 |reference| of each leaf) in f32: both run the same f32 arithmetic, in
 other orders and with other fusions.  ``compressed_psum`` is a
-multi-process all-reduce, which the port does not have yet: it raises
-and names ROADMAP Queue 1 item 13.
+multi-process all-reduce over a process mesh, held bitwise to the
+reference's ``shard_map`` in ``tests/test_torch_mesh_fleet.py``; here,
+without a mesh it names the missing argument.
 """
 import numpy as np
 import pytest
@@ -150,7 +151,10 @@ def test_quantize_dequantize_and_feedback_match_reference():
 
 
 def test_compressed_psum_names_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """``compressed_psum`` reduces over an axis of a process mesh (held
+    to the reference's on 8 ranks in ``tests/test_torch_mesh_fleet.py``);
+    without one it names the missing argument."""
+    with pytest.raises(ValueError, match="needs mesh=.*'data' axis"):
         tcompress.compressed_psum(torch.zeros(3), torch.zeros(3), "data")
 
 

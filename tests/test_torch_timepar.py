@@ -17,13 +17,16 @@
   port's own sequential chain (the reference's bound).
 * Both degenerate settings are the port's sequential engine, bitwise.
 * The ("time", "sub") mesh is checked up front (its runs are in
-  ``tests/test_torch_shardmap.py``); ``solve_fleet(mesh=...)`` raises the
-  error that names ROADMAP.md Queue 1 item 13; fault injection retries
+  ``tests/test_torch_shardmap.py``); ``solve_fleet(mesh=...)`` refuses
+  up front a cohort that does not divide over the axis, a warm start and
+  a missing axis (its runs are in ``tests/test_torch_mesh_fleet.py``);
+  fault injection retries
   bitwise and window checkpoints are saved (their resume is held in
   ``tests/test_torch_chaos.py``).
 """
 import dataclasses
 import os
+import types
 
 import numpy as np
 import pytest
@@ -180,8 +183,17 @@ def test_stack_packed_refuses_mixed_shapes():
         t_ddkf.stack_packed([a, dataclasses.replace(a, solve_kernel="fused")])
     with pytest.raises(ValueError, match="at least one"):
         t_ddkf.stack_packed([])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_ddkf.solve_fleet(t_ddkf.stack_packed([a]), mesh=object())
+    # The mesh path's up-front checks (a mesh stands in: nothing reaches
+    # a collective): the cohort divides over the axis, no warm start.
+    mesh = types.SimpleNamespace(shape={"fleet": 2})
+    with pytest.raises(ValueError, match="cohort size 3 does not divide "
+                                         "over the 2-device 'fleet'"):
+        t_ddkf.solve_fleet(t_ddkf.stack_packed([a] * 3), mesh=mesh)
+    with pytest.raises(NotImplementedError, match="single-device only"):
+        t_ddkf.solve_fleet([a, a], mesh=mesh, x0=torch.zeros(2, a.n))
+    with pytest.raises(ValueError, match="mesh has no axis 'fleet'"):
+        t_ddkf.solve_fleet([a, a], mesh=types.SimpleNamespace(
+            shape={"sub": 2}))
 
 
 def test_solver_warm_start_from_converged_state():
