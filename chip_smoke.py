@@ -258,15 +258,38 @@ the launches' dynamic shared memory, and times the f32 forward kernels
 multiple of 16 bytes and its direct path elsewhere: at the prefill and
 training shapes and at ragged shapes that reach both, each call prints
 its path and must equal the direct path bitwise, and both paths are
-timed in the same run.  The ``kernels`` line has twenty-seven rows: the
+timed in the same run.  The ``kernels`` line has twenty-nine rows: the
 six forward kernels, the f32 attention forward, the four backward ones
 (the bf16 and f32 attention's each), flash_attention at Yi's and OLMoE's
 prefill and OLMoE's training shape, forward and backward, at whisper's
 encoder, decoder self-attention and cross-attention calls and
 phi-3-vision's call of their prefills, its backward at whisper's three
 training calls in bf16, its forward and backward at whisper's training
-cross-attention in f32, and ``gram``, ``schwarz_fwd`` and
-``schwarz_bwd`` at a rank's block (``*_per_rank``).
+cross-attention in f32, ``gram``, ``schwarz_fwd`` and
+``schwarz_bwd`` at a rank's block (``*_per_rank``), and ``ssd_scan``
+and its backward at a data-parallel rank's shape (``*_per_rank``).
+
+Data-parallel training (``dp_train``): ``mesh.launch`` spawns 4 ranks
+that share the card over gloo (host transport) on the ("data": 2,
+"model": 2) mesh; each holds its blocks of the params and AdamW moments
+(``param_specs``, ``opt_specs``).  (a) The f32 smoke configs of
+gemma3-1b ("dp" profile) and yi-6b ("tp", GQA), B = 8 rows of 32
+tokens, two ``make_train_step(mesh=)`` steps at lr 1e-3: every rank's
+losses, grad norms and gathered params bitwise the same, and within the
+CPU tests' limits of the port's single-process step on the card (loss
+1e-5, grad norm 1e-4 relative, params 1e-5 absolute but for elements
+whose first moment was under 1e-7 after a step, 2 lr a step there);
+gemma3's state saved under the mesh (one writer) and ``remesh``ed onto
+("data": 4, "model": 1) and, in a launch of 2 ranks, ("data": 1,
+"model": 2), every block bitwise its slice of the saved arrays.  (b)
+Mamba-2 1.3B at full size in bf16 (the "tp" profile) through
+``train(mesh=)`` for 3 steps of 4 x 2048 tokens (2 rows a rank): step
+0's loss and global grad norm within 1e-3 and 2e-2 of one process's on
+the same batch and weights, every rank's ``ssd_scan`` and backward
+launches each step as ``expected_train_launches``, each rank's resting
+bytes of params and moments the specs' share, every rank's losses
+bitwise the same; it prints each rank's step walls and peak memory and
+the launch's wall.
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
@@ -5118,6 +5141,489 @@ def whisper_train_rows(kept: dict, counts: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Data-parallel training on a process mesh (``dp_train``).
+# ---------------------------------------------------------------------------
+
+# Four ranks share the card over gloo (NCCL refuses two ranks on one
+# GPU), their collectives through pinned host copies, on the ("data": 2,
+# "model": 2) mesh.  (a) The f32 smoke configs of gemma3-1b ("dp"
+# profile) and yi-6b ("tp", GQA), B = 8 rows of 32 tokens, two steps at
+# lr 1e-3, held to the port's single-process step on the card within the
+# limits of tests/test_torch_train.py (loss 1e-5 relative, grad norm 1e-4
+# relative, params 1e-5 absolute but for elements whose first moment was
+# under 1e-7 after a step, 2 lr a step there); the first one's state is
+# saved and remeshed onto ("data": 4, "model": 1) and, in a launch of two
+# ranks, ("data": 1, "model": 2).  (b) Mamba-2 1.3B at full size in bf16
+# through train(mesh=) for 3 steps of TRAIN_RUNS["mamba2-1.3b"]'s batch.
+DP = {"ranks": 4, "backend": "gloo", "shape": (2, 2),
+      "axes": ("data", "model")}
+DP_SMOKE = (("gemma3-1b", 8), ("yi-6b", 8))
+DP_SEQ = 32
+DP_LR = 1e-3
+DP_REMESH = ((4, 1), (1, 2))
+DP_FULL = {"arch": "mamba2-1.3b", "steps": 3,
+           **{k: TRAIN_RUNS["mamba2-1.3b"][k] for k in ("batch", "seq",
+                                                        "dp")}}
+DP_LOSS_RTOL, DP_NORM_RTOL, DP_PARAM_ATOL, DP_TINY_M = 1e-5, 1e-4, 1e-5, 1e-7
+
+
+def dp_smoke_batch(cfg, b: int, seed: int) -> dict:
+    """B rows of DP_SEQ tokens, the first half of the rows masked past the
+    middle: ranks whose rows differ in their mask counts, where a mean of
+    the ranks' means is another function than the global loss."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, (b, DP_SEQ)).astype(np.int32)
+    labels = np.zeros_like(toks)
+    labels[:, :-1] = toks[:, 1:]
+    mask = (rng.random((b, DP_SEQ)) < 0.9).astype(np.float32)
+    mask[:, -1] = 0.0
+    mask[: b // 2, DP_SEQ // 2:] = 0.0
+    return {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(
+        labels), "mask": torch.from_numpy(mask)}
+
+
+def _flat(tree) -> dict:
+    """{"a/b": leaf} of a nested dict."""
+    return {k[1:]: v for k, v in _leaves(tree)}
+
+
+def _cpu(tree):
+    from repro_torch.optim import adamw
+    return adamw.tree_map(lambda t: t.detach().cpu().clone(), tree)
+
+
+def dp_smoke_single(arch: str, b: int, tmp: str) -> dict:
+    """The single-process step on the card: the smoke config's weights
+    and two batches saved under ``tmp`` for the ranks, then two steps;
+    the losses, grad norms, params after them and first moments after
+    each step."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = configs.get_smoke_config(arch)
+    params = transformer.init_params(cfg, seed=0, device=DEVICE)
+    batches = [dp_smoke_batch(cfg, b, s) for s in range(2)]
+    torch.save({"params": _cpu(params), "batches": batches},
+               os.path.join(tmp, f"smoke_{arch}.pt"))
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(lr=DP_LR))
+    opt = adamw.adamw_init(params)
+    out = {"losses": [], "norms": [], "m": []}
+    for batch in batches:
+        loss, params, opt = step(params, opt, _to_device(batch, DEVICE))
+        out["losses"].append(float(loss))
+        out["norms"].append(float(step.last["grad_norm"]))
+        out["m"].append(_flat(_cpu(opt["m"])))
+    out["params"] = _flat(_cpu(params))
+    return out
+
+
+def dp_expected_bytes(cfg, mesh) -> int:
+    """Bytes of one rank's params (cfg.dtype) and f32 moments and step
+    under the mesh's specs: each leaf's elements over the product of the
+    sizes of the axes that shard it."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+
+    with sharding.use_mesh(mesh):
+        specs = adamw.leaves(transformer.param_specs(cfg))
+    total = 4          # the step
+    for p, spec in zip(adamw.leaves(transformer.param_shapes(cfg)), specs):
+        k = int(np.prod([mesh.shape[a] for a in sharding.spec_axes(spec)]))
+        total += p.numel() // k * (p.element_size() + 8)
+    return total
+
+
+def dp_remeshed(cfg, directory: str, shape, device) -> dict:
+    """This rank's blocks of ``directory``'s newest checkpoint remeshed
+    onto a ``shape`` mesh, each held bitwise to its slice of the saved
+    arrays (read here with numpy)."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.models import transformer
+    from repro_torch.runtime import elastic, sharding, steps
+    from repro_torch.runtime.mesh import ProcessMesh
+
+    mesh = ProcessMesh(shape, DP["axes"], device=device)
+    t0 = time.perf_counter()
+    params, opt, manifest = elastic.remesh(cfg, directory, mesh)
+    wall = time.perf_counter() - t0
+    saved, _ = manager.restore_pytree(manager.latest_checkpoint(directory))
+    with sharding.use_mesh(mesh):
+        shards = _flat({"params": sharding.named_shardings(
+            mesh, transformer.param_specs(cfg)),
+            "opt": sharding.named_shardings(mesh, steps.opt_specs(cfg))})
+    blocks = _flat({"params": params, "opt": opt})
+    bad = [k for k, arr in saved.items()
+           if not np.array_equal(blocks[k].cpu().numpy(),
+                                 arr[sharding.block_slices(shards[k],
+                                                           arr.shape)])]
+    return {"rank": mesh.rank, "step": manifest["step"], "wall": wall,
+            "leaves": len(saved), "bad": bad,
+            "device": str(blocks["params/embed"].device)}
+
+
+def dp_train_rank(device, tmp: str) -> dict:
+    """One rank of ``phase_dp_train`` (spawned: importable by name): (a)
+    the smoke configs' sharded steps, a checkpoint of the first one's
+    state under the mesh, its remesh onto (4, 1); (b) Mamba-2 at full
+    size through ``train(mesh=)``, each step timed to a synchronised end
+    with its launch counts, rank 0's first ``ssd_scan`` call kept."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import manager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.runtime.mesh import ProcessMesh
+
+    mesh = ProcessMesh(DP["shape"], DP["axes"], device=device)
+    out = {"rank": mesh.rank, "mesh": mesh.describe(), "smoke": {}}
+    for arch, _ in DP_SMOKE:
+        cfg = configs.get_smoke_config(arch)
+        inputs = torch.load(os.path.join(tmp, f"smoke_{arch}.pt"))
+        with sharding.use_mesh(mesh):
+            pshard = sharding.named_shardings(mesh,
+                                              transformer.param_specs(cfg))
+            oshard = sharding.named_shardings(mesh, steps.opt_specs(cfg))
+        params = adamw.tree_map(
+            lambda p, sh: sharding.local_block(p.to(device), sh).clone(),
+            inputs["params"], pshard)
+        opt = adamw.adamw_init(params)
+        step = steps.make_train_step(cfg, adamw.AdamWConfig(lr=DP_LR),
+                                     mesh=mesh)
+        res = {"losses": [], "norms": []}
+        for batch in inputs["batches"]:
+            loss, params, opt = step(params, opt, _to_device(batch, device))
+            res["losses"].append(loss.detach().cpu())
+            res["norms"].append(float(step.last["grad_norm"]))
+        state, shards = {"params": params, "opt": opt}, {"params": pshard,
+                                                         "opt": oshard}
+        res["whole"] = _flat(adamw.tree_map(
+            lambda b, sh: sharding.gather(b, sh).cpu(), state, shards))
+        out["smoke"][arch] = res
+        if arch == DP_SMOKE[0][0]:
+            mgr = manager.CheckpointManager(os.path.join(tmp, "ckpt"))
+            out["saved"] = mgr.save(state, step=2, shardings=shards)
+            mgr.close()
+            out["remesh"] = dp_remeshed(cfg, os.path.join(tmp, "ckpt"),
+                                        DP_REMESH[0], device)
+        del params, opt, state
+    torch.cuda.empty_cache()
+
+    # (b) full size through the trainer
+    cfg = configs.get_config(DP_FULL["arch"])
+    records, kept = [], {}
+    # host seconds in the step's parameter gathers and gradient
+    # reductions (each ended by a device wait)
+    spent = {"gather_s": 0.0, "reduce_s": 0.0}
+
+    def timer(key):
+        def wrap(fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                spent[key] += time.perf_counter() - t0
+                return res
+            return run
+        return wrap
+
+    def timed(make):
+        def make_timed(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(*a):
+                torch.cuda.synchronize()
+                before = dict(spent)
+                t0 = time.perf_counter()
+                res = step(*a)
+                loss = res[0].detach().cpu()
+                torch.cuda.synchronize()
+                records.append({"loss": loss, "wall":
+                                time.perf_counter() - t0,
+                                "norm": float(step.last["grad_norm"]),
+                                "counts": dict(ops.launch_counts()),
+                                **{k: v - before[k]
+                                   for k, v in spent.items()}})
+                return res
+            return run
+        return make_timed
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    with wrapped(train_mod.steps_mod, "make_train_step", timed), \
+            wrapped(ops, "ssd_scan", keep_first_call(kept, "ssd_scan")), \
+            wrapped(sharding, "gather", timer("gather_s")), \
+            wrapped(sharding, "reduce_block", timer("reduce_s")):
+        params, opt, losses = train_mod.train(
+            cfg, steps=DP_FULL["steps"], seq=DP_FULL["seq"],
+            global_batch=DP_FULL["batch"], dp=DP_FULL["dp"], ckpt_dir=None,
+            seed=0, log_every=100, mesh=mesh)
+    total = {k: v for k, v in ops.launch_counts().items() if v}
+    prev = {}
+    for rec in records:
+        rec["step_counts"] = {k: v - prev.get(k, 0)
+                              for k, v in rec["counts"].items()
+                              if v - prev.get(k, 0)}
+        prev = rec.pop("counts")
+    resting = sum(t.numel() * t.element_size() for t in
+                  adamw.leaves(params) + adamw.leaves(opt["m"])
+                  + adamw.leaves(opt["v"]) + [opt["step"]])
+    out["full"] = {"records": records, "total": total,
+                   "resting": resting,
+                   "want_resting": dp_expected_bytes(cfg, mesh),
+                   "params": sum(p.numel() for p in adamw.leaves(
+                       transformer.param_shapes(cfg))),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if mesh.rank == 0:
+        args, kwargs = kept["ssd_scan"]
+        torch.save(([a.detach().cpu() for a in args[:5]],
+                    {"chunk": kwargs["chunk"]}),
+                   os.path.join(tmp, "ssd_call.pt"))
+    return out
+
+
+def dp_remesh_rank(device, tmp: str, shape) -> dict:
+    """One rank of the second launch: the saved smoke state remeshed."""
+    from repro_torch import configs
+    return dp_remeshed(configs.get_smoke_config(DP_SMOKE[0][0]),
+                       os.path.join(tmp, "ckpt"), shape, device)
+
+
+def dp_full_single() -> tuple:
+    """Step 0 of DP_FULL in one process on the card, on the trainer's
+    first batch and weights (the loader and ``init_params`` from seed
+    0): (loss, global grad norm)."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = configs.get_config(DP_FULL["arch"])
+    params = transformer.init_params(cfg, seed=0, device=DEVICE)
+    loader = pipeline.BalancedLoader(
+        vocab_size=cfg.vocab_size, dp=DP_FULL["dp"],
+        batch_per_shard=DP_FULL["batch"] // DP_FULL["dp"],
+        seq=DP_FULL["seq"], seed=0)
+    batch = train_mod.batch_on(DEVICE, *loader.next_batch())
+    loss, grads = steps.value_and_grad(steps.make_loss_fn(cfg), params,
+                                       batch)
+    norm = float(adamw.global_norm(grads))
+    for p in adamw.leaves(params):
+        p.requires_grad_(False)
+    del params, grads, batch
+    torch.cuda.empty_cache()
+    return float(loss), norm
+
+
+def check_dp_smoke(out: list, single: dict, smi: str) -> None:
+    """(a): every rank's losses, grad norms and gathered params against
+    the single-process step, every rank the same bits."""
+    for arch, _ in DP_SMOKE:
+        ref = single[arch]
+        res = [o["smoke"][arch] for o in out]
+        r0 = res[0]
+        check(all(all(torch.equal(a, b) for a, b in zip(r["losses"],
+                                                        r0["losses"]))
+                  and r["norms"] == r0["norms"]
+                  and all(torch.equal(r["whole"][k], r0["whole"][k])
+                          for k in r0["whole"]) for r in res),
+              f"dp_train {arch}: every rank's loss, grad norm and gathered "
+              f"state bitwise the same")
+        loss = [float(x) for x in r0["losses"]]
+        rel_l = max(abs(a - b) / abs(b) for a, b in zip(loss, ref["losses"]))
+        rel_n = max(abs(a - b) / b for a, b in zip(r0["norms"],
+                                                   ref["norms"]))
+        worst, worst_tiny, n_tiny = 0.0, 0.0, 0
+        for k, want in ref["params"].items():
+            d = (r0["whole"]["params/" + k] - want).abs()
+            tiny = torch.zeros_like(d, dtype=torch.bool)
+            for m in ref["m"]:
+                tiny |= m[k].abs() < DP_TINY_M
+            worst = max(worst, float(d[~tiny].max()) if (~tiny).any()
+                        else 0.0)
+            if tiny.any():
+                worst_tiny = max(worst_tiny, float(d[tiny].max()))
+                n_tiny += int(tiny.sum())
+        print(f"  (a) {arch} smoke, {DP['shape']} mesh, 2 steps ({smi}): "
+              f"losses {loss} vs one process {ref['losses']} (rel "
+              f"{rel_l:.3e}); grad norms {r0['norms']} vs {ref['norms']} "
+              f"(rel {rel_n:.3e}); params max abs diff {worst:.3e}, "
+              f"{n_tiny} elements under the first-moment exception (max "
+              f"{worst_tiny:.3e})")
+        check(rel_l <= DP_LOSS_RTOL, f"dp_train {arch}: loss {rel_l:.3e} "
+              f"<= {DP_LOSS_RTOL:g} relative to one process")
+        check(rel_n <= DP_NORM_RTOL, f"dp_train {arch}: grad norm "
+              f"{rel_n:.3e} <= {DP_NORM_RTOL:g} relative")
+        check(worst <= DP_PARAM_ATOL and worst_tiny <= 2 * DP_LR * 2,
+              f"dp_train {arch}: params {worst:.3e} <= {DP_PARAM_ATOL:g} "
+              f"(first moment under {DP_TINY_M:g} after a step: "
+              f"{worst_tiny:.3e} <= 2 lr a step)")
+
+
+def check_dp_remesh(res: list, shape, saved: str) -> None:
+    walls = [round(r["wall"], 3) for r in res]
+    print(f"  (a) remesh of {saved} onto {shape}: {len(res)} ranks, "
+          f"{res[0]['leaves']} leaves each, walls {walls} s, on "
+          f"{res[0]['device']}")
+    check(all(r["step"] == 2 and not r["bad"] and r["device"] != "cpu"
+              for r in res),
+          f"dp_train remesh onto {shape}: every rank's blocks on the card "
+          f"bitwise slices of the saved arrays (mismatched: "
+          f"{[r['bad'] for r in res]})")
+
+
+def check_dp_full(out: list, single: tuple, wall: float, smi: str) -> None:
+    """(b): step 0 against one process, launches a step, resting bytes,
+    every rank's loss bits."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(DP_FULL["arch"])
+    want = expected_train_launches(cfg)
+    fulls = [o["full"] for o in out]
+    f0 = fulls[0]
+    loss0 = float(f0["records"][0]["loss"])
+    norm0 = f0["records"][0]["norm"]
+    lp, np_ = single
+    for o in out:
+        f = o["full"]
+        print(f"  (b) rank {o['rank']}: step walls "
+              f"{[round(r['wall'], 3) for r in f['records']]} s (in the "
+              f"gathers {[round(r['gather_s'], 3) for r in f['records']]},"
+              f" in the reductions "
+              f"{[round(r['reduce_s'], 3) for r in f['records']]}), losses "
+              f"{[round(float(r['loss']), 6) for r in f['records']]}, "
+              f"peak memory {f['peak_gb']:.2f} GB, resting params and "
+              f"moments {f['resting'] / 1e9:.4f} GB (specs' share "
+              f"{f['want_resting'] / 1e9:.4f} GB), launches a step "
+              f"{[r['step_counts'] for r in f['records']]}")
+    print(f"  (b) {DP_FULL['arch']} full size ({f0['params'] / 1e9:.3f} B "
+          f"parameters, {cfg.dtype}), {DP['ranks']} ranks on {DP['shape']}, "
+          f"batch {DP_FULL['batch']} x {DP_FULL['seq']}: launch wall "
+          f"{wall:.2f} s; step 0 loss {loss0:.6f} vs one process "
+          f"{lp:.6f}, grad norm {norm0:.6f} vs {np_:.6f} ({smi})")
+    check(abs(loss0 - lp) <= TRAIN_LOSS_TOL * abs(lp),
+          f"dp_train {DP_FULL['arch']} step 0 loss vs one process: "
+          f"{abs(loss0 - lp) / abs(lp):.3e} <= {TRAIN_LOSS_TOL:g}")
+    check(abs(norm0 - np_) <= TRAIN_NORM_TOL * np_,
+          f"dp_train {DP_FULL['arch']} step 0 grad norm vs one process: "
+          f"{abs(norm0 - np_) / np_:.3e} <= {TRAIN_NORM_TOL:g}")
+    check(all(r["step_counts"] == want for f in fulls
+              for r in f["records"]) and len(f0["records"]) == DP_FULL[
+                  "steps"],
+          f"dp_train {DP_FULL['arch']}: every rank's launches each step "
+          f"{want}")
+    check(all(f["resting"] == f["want_resting"] for f in fulls),
+          f"dp_train {DP_FULL['arch']}: each rank's resting bytes of "
+          f"params and moments equal to the specs' share")
+    check(all(torch.equal(r["loss"], r0["loss"]) and np.isfinite(
+        float(r["loss"])) for f in fulls
+        for r, r0 in zip(f["records"], f0["records"])),
+        f"dp_train {DP_FULL['arch']}: every rank's losses finite and "
+        f"bitwise the same")
+
+
+def dp_ssd_rows(first_call, launches: dict) -> list:
+    """``ssd_scan`` and its backward at a rank's shape (rank 0's first
+    call of the dp_train run, 2 of the 4 rows a rank): against the plain
+    versions there and on random values, timed beside the bound and the
+    plain version; ``launches`` is rank 0's count in that run."""
+    from repro_torch.kernels import ref, ssd_scan
+
+    args, kwargs = first_call
+    args = tuple(a.to(DEVICE) for a in args)
+    chunk = kwargs["chunk"]
+    x, _, _, B, _ = args
+    shape = tuple(x.shape)
+    print(f"== kernels at a dp_train rank's shape: ssd_scan x {shape}, "
+          f"B/C {tuple(B.shape)}, chunk {chunk}")
+    gen = torch.Generator(device=DEVICE).manual_seed(29)
+    rand = ssd_random(x.shape[0], B.shape[0], x.shape[1], x.shape[2],
+                      B.shape[2], gen)
+    err = max(ssd_compare(args, chunk, f"rank 0 {shape}"),
+              ssd_compare(rand, chunk, f"random {shape}"))
+    bound, by, ops_ms = ssd_bound(args, chunk)
+    fwd = {"name": "ssd_scan_per_rank", "ok": True, "route": "cuda",
+           "source": SOURCES["ssd_scan"], "replaces": REPLACES["ssd_scan"],
+           "launches": launches["ssd_scan"], "max_abs_err": err,
+           "ms": time_ms(lambda: ssd_scan.ssd_scan(*args, chunk=chunk), 10),
+           "plain_ms": time_ms(lambda: ref.ssd_scan_plain(
+               *args, chunk=chunk, state=True), 2),
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "shape": list(shape), "dtype": str(x.dtype)[6:]}
+    print(f"  ssd_scan_per_rank: kernel {fwd['ms']:.4f} ms, plain "
+          f"{fwd['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}), share "
+          f"{bound / fwd['ms']:.3f}, {fwd['launches']} launches on rank 0")
+    kw = {"chunk": chunk}
+    err_b, _, kernel, plain, _, _ = bwd_compare(
+        "ssd_scan", args, kw, gen, f"rank 0 {shape}")
+    err_b = max(err_b, bwd_compare("ssd_scan", rand, kw, gen,
+                                   f"random {shape}")[0])
+    bound_b, by_b = bwd_bound("ssd_scan", args, kw)
+    bwd = {"name": "ssd_scan_bwd_per_rank", "ok": True, "route": "cuda",
+           "source": BWD_SOURCES["ssd_scan"],
+           "replaces": REPLACES["ssd_scan"], "pass": "backward",
+           "launches": launches["ssd_scan_bwd"], "max_abs_err": err_b,
+           "ms": median_ms(kernel, 7), "plain_ms": median_ms(plain, 3),
+           "bound_ms": bound_b, "bound_by": by_b, "library_ms": None,
+           "shape": list(shape), "dtype": str(x.dtype)[6:]}
+    print(f"  ssd_scan_bwd_per_rank: kernel {bwd['ms']:.4f} ms (median), "
+          f"plain {bwd['plain_ms']:.4f} ms, bound {bound_b:.4f} ms "
+          f"({by_b}), share {bound_b / bwd['ms']:.3f}, {bwd['launches']} "
+          f"launches on rank 0")
+    del kernel, plain
+    torch.cuda.empty_cache()
+    return [fwd, bwd]
+
+
+def phase_dp_train(smi: str) -> list:
+    """Data-parallel training through ``make_train_step(mesh=)`` and
+    ``train(mesh=)``: one launch of DP["ranks"] ranks sharing the card
+    over gloo (host transport) for (a) and (b), one of two for the
+    (1, 2) remesh.  Returns the per-rank ``ssd_scan`` rows."""
+    import tempfile
+    from repro_torch.runtime import mesh
+
+    print(f"== dp_train: {DP['ranks']} ranks on one card over "
+          f"{DP['backend']}, mesh {dict(zip(DP['axes'], DP['shape']))} "
+          f"({smi})")
+    with tempfile.TemporaryDirectory() as tmp:
+        single = {arch: dp_smoke_single(arch, b, tmp)
+                  for arch, b in DP_SMOKE}
+        full = dp_full_single()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = mesh.launch(dp_train_rank, DP["ranks"], backend=DP["backend"],
+                          args=(tmp,), timeout=MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        print(f"  {DP['ranks']} ranks spawned, ran and joined in "
+              f"{wall:.2f} s; mesh {out[0]['mesh']}")
+        check(out[0]["mesh"]["transport"] == "host",
+              f"dp_train: gloo with host transport: {out[0]['mesh']}")
+        check_dp_smoke(out, single, smi)
+        check(len({o["saved"] for o in out}) == 1,
+              "dp_train: every rank saved the same checkpoint step")
+        check_dp_remesh([o["remesh"] for o in out], DP_REMESH[0],
+                        os.path.basename(out[0]["saved"]))
+        t0 = time.perf_counter()
+        two = mesh.launch(dp_remesh_rank, 2, backend=DP["backend"],
+                          args=(tmp, DP_REMESH[1]), timeout=MESH_TIMEOUT_S)
+        print(f"  2 ranks spawned, remeshed and joined in "
+              f"{time.perf_counter() - t0:.2f} s")
+        check_dp_remesh(two, DP_REMESH[1], os.path.basename(out[0]["saved"]))
+        check_dp_full(out, full, wall, smi)
+        first = torch.load(os.path.join(tmp, "ssd_call.pt"))
+    return dp_ssd_rows(first, out[0]["full"]["total"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this check runs "
@@ -5152,10 +5658,12 @@ def main() -> int:
     del uninterrupted
     phase_fleet(smi)
     phase_resume(smi)
+    dp_rows = phase_dp_train(smi)
+    stamp("data-parallel training")
 
     rows = phase_kernels([("ex4_p8", main_1d), ("shelf2d", main_2d)],
                          counts_1d)
-    rows += shardmap_rows(first_rank)
+    rows += shardmap_rows(first_rank) + dp_rows
     del first_rank
     phase_profile(paper, "drifting_swarm", 2000, 6)
     stamp("the DA paths")

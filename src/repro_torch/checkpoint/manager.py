@@ -20,6 +20,16 @@ tensor is written as the reference's ``np.save`` writes a bf16 array
 (numpy has no bf16 of its own): its raw 2-byte values as the ``|V2``
 dtype, with ``bfloat16`` as its dtype in the manifest.
 
+Sharded trees (one rank's blocks under a
+:class:`~repro_torch.runtime.mesh.ProcessMesh`, each leaf's layout a
+:class:`~repro_torch.runtime.sharding.NamedSharding`):
+``CheckpointManager.save(..., shardings=)`` gathers every leaf on every
+rank, the mesh's first rank alone writes the whole arrays, and no rank
+returns before the step is published (a failed write raises on every
+rank); ``restore_pytree(shardings=)`` gives each rank its block.  The
+files are the same either way, so a checkpoint restores onto any mesh
+shape and in either package.
+
 Two writers of the same step both return and leave one verified
 checkpoint: publishing renames the staged directory into place and, when
 the step already exists, first renames the old one aside under a
@@ -40,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.obs import meters as meters_mod
+from repro_torch.runtime import sharding as sharding_mod
 
 
 _SEP = "/"
@@ -247,15 +258,14 @@ def restore_pytree(directory_or_path: str, like=None, shardings=None,
     ``directory_or_path`` is a ``step_XXXX`` path, or a checkpoint
     directory whose newest verified step (or ``step``) is read.  With
     ``like`` omitted the tree is the flat ``{key: np.ndarray}`` dict;
-    otherwise ``like`` (a tree of tensors or arrays) gives the structure,
-    and each restored leaf takes its ``like`` leaf's dtype — and, for a
-    tensor, its device.
+    otherwise ``like`` (a tree of tensors or arrays of the whole shapes)
+    gives the structure, and each restored leaf takes its ``like`` leaf's
+    dtype — and, for a tensor, its device.  ``shardings`` (a tree like
+    ``like`` of ``NamedSharding``, or ``None`` leaves) gives each leaf as
+    this rank's block of it, on the mesh's device where the ``like`` leaf
+    is a ``meta`` tensor (a ``meta`` leaf without a sharding lands on the
+    CPU).
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_pytree(shardings=...) is not ported to repro_torch "
-            "yet (ROADMAP.md Queue 1 item 7c, the sharding layer of item "
-            "13's data-parallel training)")
     path = directory_or_path
     if step is not None:
         path = os.path.join(directory_or_path, f"step_{step:08d}")
@@ -273,16 +283,28 @@ def restore_pytree(directory_or_path: str, like=None, shardings=None,
     missing = set(flat_like) - set(flat)
     if missing:
         raise KeyError(f"checkpoint missing leaves: {sorted(missing)[:5]}")
+    flat_sh = {} if shardings is None else _flatten(shardings)
     leaves = {}
     for key, want in flat_like.items():
         arr = flat[key]
         if tuple(arr.shape) != tuple(want.shape):
             raise ValueError(f"{key}: shape {arr.shape} != {want.shape}")
+        sh = flat_sh.get(key)
         if isinstance(want, torch.Tensor):
-            leaves[key] = _to_tensor(arr).to(device=want.device,
-                                             dtype=want.dtype)
+            t, dev = _to_tensor(arr), want.device
+            if sh is not None:
+                t = sharding_mod.local_block(t, sh)
+                if dev.type == "meta":
+                    dev = sh.mesh.device
+            if dev.type == "meta":
+                dev = torch.device("cpu")
+            # a block is copied, so the whole array is not kept alive
+            leaves[key] = t.to(device=dev, dtype=want.dtype,
+                               copy=sh is not None)
         else:
-            leaves[key] = arr.astype(want.dtype)
+            arr = arr.astype(want.dtype)
+            leaves[key] = (arr if sh is None else np.ascontiguousarray(
+                arr[sharding_mod.block_slices(sh, arr.shape)]))
     return _unflatten(like, leaves), manifest
 
 
@@ -358,13 +380,41 @@ class CheckpointManager:
             meters_mod.get_meters().inc("checkpoint.stale_tmp_removed")
 
     def save(self, tree, step: int, metadata: dict | None = None,
-             blocking: bool = True):
+             blocking: bool = True, shardings=None):
+        """Save ``tree`` as step ``step`` (queued when not ``blocking``).
+        ``shardings`` (a tree like ``tree`` of ``NamedSharding``) makes
+        ``tree`` one rank's blocks: every rank of the mesh calls this, each
+        leaf is gathered whole, the mesh's first rank writes it at once,
+        and every rank returns once it is published (a failed write
+        raises on every rank)."""
+        if shardings is not None:
+            return self._save_sharded(tree, step, metadata, shardings)
         # Copy to the host now: the caller may overwrite live tensors as
         # soon as this returns (a CPU tensor's .numpy() shares memory).
         host_tree = _map(lambda x: np.array(_to_numpy(x)), tree)
         if blocking:
             return save_pytree(host_tree, self.directory, step, metadata)
         self._queue.put((host_tree, step, metadata))
+
+    def _save_sharded(self, tree, step: int, metadata, shardings) -> str:
+        flat, flat_sh = _flatten(tree), _flatten(shardings)
+        mesh = next(iter(flat_sh.values())).mesh
+        writer = mesh.index(mesh.axis_names) == 0
+        host = {}
+        for key in sorted(flat):
+            whole = sharding_mod.gather(flat[key], flat_sh[key])
+            if writer:
+                host[key] = np.array(_to_numpy(whole))
+            del whole
+        err = None
+        if writer:
+            try:
+                save_pytree(host, self.directory, step, metadata)
+                self._gc()
+            except Exception as exc:    # agreed below
+                err = exc
+        mesh.raise_any(err)
+        return os.path.join(self.directory, f"step_{step:08d}")
 
     def wait(self):
         self._queue.join()

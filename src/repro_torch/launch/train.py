@@ -13,8 +13,17 @@ training forward runs the ``rglru_scan``, ``flash_attention`` and
 (:mod:`repro_torch.kernels.ops`); the optimizer is the reference's AdamW
 with f32 moments.  ``--ckpt-dir`` saves and resumes ``{"params", "opt"}``
 and the loader's state in the reference's on-disk format, so either
-package resumes the other's run.  The reference's mesh (``mesh=``,
-data-parallel training) waits for ROADMAP Queue 1 item 7c.
+package resumes the other's run.
+
+``train(mesh=...)`` is data-parallel training on a
+:class:`~repro_torch.runtime.mesh.ProcessMesh` (every rank of it calls
+``train``): each rank holds its blocks of the params and moments, runs
+the loader with the same seed and hands the whole global batch to the
+sharded step (:func:`repro_torch.runtime.steps.make_train_step`), which
+takes its rows.  The mesh's first rank writes each checkpoint
+(``CheckpointManager.save(shardings=)``); a run resumes onto the same
+mesh or another mesh shape (:func:`repro_torch.runtime.elastic.remesh`).
+The CLI runs one process, as the reference's does.
 
 Weights are random, drawn on the device from a seeded generator
 (:func:`repro_torch.models.transformer.init_params`; other numbers than
@@ -38,7 +47,9 @@ from repro_torch import device as device_mod
 from repro_torch.checkpoint import manager as ckpt_mod
 from repro_torch.data import pipeline
 from repro_torch.models import transformer
-from repro_torch.optim import AdamWConfig, adamw_init, make_schedule
+from repro_torch.optim import AdamWConfig, adamw, adamw_init, make_schedule
+from repro_torch.runtime import elastic
+from repro_torch.runtime import sharding
 from repro_torch.runtime import steps as steps_mod
 from repro_torch.runtime.straggler import StragglerMonitor
 
@@ -62,11 +73,10 @@ def train(cfg, *, steps: int, seq: int, global_batch: int, dp: int,
     ``global_batch`` must be a multiple of it.  ``extras`` (tensors on
     ``device`` with ``global_batch`` rows: whisper's ``"frames"``,
     phi-3-vision's ``"patches"``) joins every batch; whisper trains only
-    with frames."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train(mesh=...): sharded training is not ported (ROADMAP "
-            "Queue 1 item 7c)")
+    with frames.  With ``mesh`` every rank of it calls ``train`` alike
+    (``init_params`` and ``extras`` whole, on the rank's device, which is
+    the mesh's), and the params and ``opt`` returned are this rank's
+    blocks (``param_specs`` and ``opt_specs`` on the mesh)."""
     extras = extras or {}
     if cfg.is_encoder_decoder and "frames" not in extras:
         # The reference's loader batch has no frames either: its trainer
@@ -75,11 +85,12 @@ def train(cfg, *, steps: int, seq: int, global_batch: int, dp: int,
             f"{cfg.name}: the loader's batches hold tokens only, and the "
             f"encoder reads batch['frames']; give train() frames "
             f"(extras={{'frames': ...}})")
-    dev = device_mod.resolve(device)
+    dev = device_mod.resolve(device) if mesh is None else mesh.device
     opt_cfg = AdamWConfig(lr=lr, accum_steps=cfg.train_accum)
     schedule = make_schedule("cosine", lr, warmup_steps=max(steps // 20, 1),
                              total_steps=steps)
-    step_fn = steps_mod.make_train_step(cfg, opt_cfg, lr_schedule=schedule)
+    step_fn = steps_mod.make_train_step(cfg, opt_cfg, lr_schedule=schedule,
+                                        mesh=mesh)
 
     loader = pipeline.BalancedLoader(
         vocab_size=cfg.vocab_size, dp=dp,
@@ -87,16 +98,26 @@ def train(cfg, *, steps: int, seq: int, global_batch: int, dp: int,
 
     params = (transformer.init_params(cfg, seed, device=dev)
               if init_params is None else init_params)
+    shardings = None
+    if mesh is not None:
+        with sharding.use_mesh(mesh):
+            pspecs = transformer.param_specs(cfg)
+            shardings = {
+                "params": sharding.named_shardings(mesh, pspecs),
+                "opt": sharding.named_shardings(mesh,
+                                                steps_mod.opt_specs(cfg))}
+        params = adamw.tree_map(
+            lambda p, sh: sharding.local_block(p, sh).clone(), params,
+            shardings["params"])
     opt = adamw_init(params)
     start_step = 0
 
     mgr = None
     if ckpt_dir:
         mgr = ckpt_mod.CheckpointManager(ckpt_dir, keep=3)
-        restored = mgr.restore_latest(like={"params": params, "opt": opt})
+        restored = _restore(mgr, cfg, mesh, params, opt)
         if restored is not None:
-            tree, manifest = restored
-            params, opt = tree["params"], tree["opt"]
+            params, opt, manifest = restored
             loader.load_state_dict(manifest["metadata"]["loader"])
             start_step = manifest["step"]
             print(f"resumed from step {start_step}")
@@ -118,13 +139,30 @@ def train(cfg, *, steps: int, seq: int, global_batch: int, dp: int,
         if mgr and (s + 1) % ckpt_every == 0:
             mgr.save({"params": params, "opt": opt}, step=s + 1,
                      metadata={"loader": loader.state_dict()},
-                     blocking=False)
+                     blocking=False, shardings=shardings)
     if mgr:
         mgr.save({"params": params, "opt": opt}, step=steps,
-                 metadata={"loader": loader.state_dict()}, blocking=True)
+                 metadata={"loader": loader.state_dict()}, blocking=True,
+                 shardings=shardings)
         mgr.wait()
         mgr.close()
     return params, opt, losses
+
+
+def _restore(mgr, cfg, mesh, params, opt):
+    """(params, opt, manifest) of the newest verified checkpoint, each
+    rank's blocks on a mesh (whatever mesh wrote it), or None."""
+    if mesh is None:
+        restored = mgr.restore_latest(like={"params": params, "opt": opt})
+        if restored is None:
+            return None
+        tree, manifest = restored
+        return tree["params"], tree["opt"], manifest
+    try:
+        return elastic.remesh(cfg, mgr.directory, mesh,
+                              dtype=adamw.leaves(params)[0].dtype)
+    except FileNotFoundError:
+        return None
 
 
 def main():

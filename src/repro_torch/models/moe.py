@@ -47,11 +47,19 @@ def make_moe_params(b: nn.Builder, cfg: ModelConfig):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     v = cfg.moe_virtual_experts if cfg.moe_ep else 1
     ev, fv = e * v, f // v
+    if cfg.moe_ep:
+        # whole (virtual) experts on the 'model' axis
+        ax_up = ("moe_expert", "embed", None)
+        ax_dn = ("moe_expert", None, "embed")
+    else:
+        # d_ff on 'model', experts replicated over it
+        ax_up = ("expert", "embed", "ff")
+        ax_dn = ("expert", "ff", "embed")
     return {
         "router": b.param((d, e), ("embed", "expert")),
-        "w_up": b.param((ev, d, fv), ("moe_expert", "embed", None)),
-        "w_gate": b.param((ev, d, fv), ("moe_expert", "embed", None)),
-        "w_down": b.param((ev, fv, d), ("moe_expert", None, "embed")),
+        "w_up": b.param((ev, d, fv), ax_up),
+        "w_gate": b.param((ev, d, fv), ax_up),
+        "w_down": b.param((ev, fv, d), ax_dn),
     }
 
 

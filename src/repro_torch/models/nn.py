@@ -1,14 +1,19 @@
 """Parameter builder and basic neural-net primitives.
 
-The counterpart of ``repro.models.nn``.  ``Builder`` in ``init`` mode
-draws every parameter from one explicit ``torch.Generator`` with the
-reference's scheme (fan-in-scaled normal, ``zeros``, ``ones``, an explicit
-``scale``); the two packages give different numbers from the same seed,
-so the parity tests carry the reference's weights across
+The counterpart of ``repro.models.nn``.  Every parameter is declared
+once through ``Builder.param`` with its shape, initializer and *logical*
+sharding axes; the same declaration code produces, by the builder's
+mode, (i) initialized tensors (``"init"``), (ii) ``meta``-device tensors
+of the right shape and dtype (``"shape"``) and (iii) partition specs
+(``"spec"``, :func:`repro_torch.runtime.sharding.param_spec`), so the
+three never drift.  ``"init"`` draws every parameter from one explicit
+``torch.Generator`` with the reference's scheme (fan-in-scaled normal,
+``zeros``, ``ones``, an explicit ``scale``); the two packages give
+different numbers from the same seed, so the parity tests carry the
+reference's weights across
 (:func:`repro_torch.convert.lm_params_from_numpy`).  The reference's
-sharding annotations are no-ops on one device and are dropped; ``param``
-still takes the logical axes so each declaration reads as the
-reference's.
+activation sharding constraints are no-ops here (no tensor-parallel
+compute) and are dropped.
 """
 from __future__ import annotations
 
@@ -18,19 +23,34 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.runtime import sharding
+
 
 class Builder:
-    """Declares parameters and initializes them on ``device`` in ``dtype``
-    (normal draws are made in f32, then cast)."""
+    """Collects parameter declarations in one of three modes: ``"init"``
+    initializes them on ``device`` in ``dtype`` from ``generator`` (normal
+    draws are made in f32, then cast), ``"shape"`` gives ``meta`` tensors
+    in ``dtype``, ``"spec"`` their partition specs under the ambient mesh
+    and sharding profile."""
 
-    def __init__(self, generator: torch.Generator, device, dtype):
+    def __init__(self, generator: torch.Generator | None = None,
+                 device=None, dtype=torch.float32, *, mode: str = "init"):
+        if mode not in ("init", "spec", "shape"):
+            raise ValueError(f"Builder mode must be 'init', 'spec' or "
+                             f"'shape' (got {mode!r})")
+        self.mode = mode
         self.generator = generator
-        self.device = torch.device(device)
+        if mode == "shape":
+            device = "meta"
+        self.device = None if device is None else torch.device(device)
         self.dtype = dtype
 
-    def param(self, shape, axes=None, init="normal", scale: float | None
-              = None):
+    def param(self, shape, axes, init="normal", scale: float | None = None):
         shape = tuple(shape)
+        if self.mode == "spec":
+            return sharding.param_spec(shape, *axes)
+        if self.mode == "shape":
+            return torch.empty(shape, dtype=self.dtype, device=self.device)
         if init == "zeros":
             return torch.zeros(shape, dtype=self.dtype, device=self.device)
         if init == "ones":
@@ -140,16 +160,26 @@ def softcap(x, cap: float):
 # Loss.
 # ---------------------------------------------------------------------------
 
-def cross_entropy(logits, labels, mask=None):
-    """Mean token cross-entropy in f32.  logits: (B, S, V), labels: (B, S)."""
+def _token_nll(logits, labels):
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - picked
+    return lse - picked
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in f32.  logits: (B, S, V), labels: (B, S)."""
     if mask is None:
-        return torch.mean(nll)
+        return torch.mean(_token_nll(logits, labels))
+    tot, cnt = cross_entropy_parts(logits, labels, mask)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def cross_entropy_parts(logits, labels, mask):
+    """(sum of the masked token cross-entropies, sum of the mask) in f32:
+    :func:`cross_entropy` with a mask is their quotient."""
     mask = mask.float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(_token_nll(logits, labels) * mask), torch.sum(mask)
 
 
 def _chunk_nll(hc, embed, yc, mc, softcap_val: float):
@@ -168,6 +198,15 @@ def chunked_loss(h_final, embed, labels, chunk: int, softcap_val: float,
     table.  Each chunk runs under ``torch.utils.checkpoint``, so the
     backward recomputes one chunk's logits at a time, as the reference's
     ``jax.checkpoint`` per chunk does."""
+    tot, cnt = chunked_loss_parts(h_final, embed, labels, chunk,
+                                  softcap_val, mask)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def chunked_loss_parts(h_final, embed, labels, chunk: int,
+                       softcap_val: float, mask=None):
+    """(sum of the masked token losses, sum of the mask) of
+    :func:`chunked_loss`, which is their quotient."""
     B, S, D = h_final.shape
     if S % chunk:
         raise ValueError(f"chunked_loss: S = {S} is not a multiple of the "
@@ -184,4 +223,4 @@ def chunked_loss(h_final, embed, labels, chunk: int, softcap_val: float,
             mask[:, sl].float(), softcap_val, use_reentrant=False)
         tot = tot + nll
         cnt = cnt + m
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt

@@ -45,6 +45,7 @@ import torch.utils.checkpoint
 from repro_torch import device as device_mod
 from repro_torch.models import attention, moe, nn, rglru, ssd
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import sharding
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -86,12 +87,12 @@ class _Stacked:
         self._b = b
         self._n = n
 
-    def param(self, shape, axes=None, init="normal", scale=None):
+    def param(self, shape, axes, init="normal", scale=None):
         if scale is None and init == "normal":
             fan_in = shape[0] if len(shape) > 1 else shape[-1]
             scale = 1.0 / math.sqrt(max(fan_in, 1))
-        return self._b.param((self._n,) + tuple(shape), axes, init=init,
-                             scale=scale)
+        return self._b.param((self._n,) + tuple(shape),
+                             (None,) + tuple(axes), init=init, scale=scale)
 
 
 def _attn_block(b, cfg: ModelConfig):
@@ -186,6 +187,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, dtype=None):
     dev = device_mod.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return _build(cfg, nn.Builder(gen, dev, dtype or DTYPES[cfg.dtype]))
+
+
+def param_shapes(cfg: ModelConfig, dtype=None):
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+    memory); ``dtype`` defaults to ``cfg.dtype``."""
+    return _build(cfg, nn.Builder(dtype=dtype or DTYPES[cfg.dtype],
+                                  mode="shape"))
+
+
+def param_specs(cfg: ModelConfig):
+    """Each parameter's partition spec under ``cfg.sharding_profile`` and
+    the ambient mesh (:func:`repro_torch.runtime.sharding.use_mesh`; the
+    production mesh outside one)."""
+    with sharding.profile(cfg.sharding_profile):
+        return _build(cfg, nn.Builder(mode="spec"))
 
 
 def _index(tree, i: int):
@@ -413,6 +429,15 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
     "patches" take no loss, whisper's "frames" feed the encoder.  Uses the
     sequence-chunked loss when ``cfg.loss_chunk`` divides S (never
     materializes (B, S, V))."""
+    tot, cnt = loss_parts(cfg, params, batch, mode=mode)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_parts(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
+    """(the masked sum of the token losses, the mask's sum), both f32
+    scalars: :func:`loss_fn` is their quotient.  A batch split over ranks
+    sums each part over the ranks before dividing (a mean of the ranks'
+    means is another function where their masks differ)."""
     h = forward(cfg, params, batch, mode=mode)
     tokens = batch["tokens"]
     S = tokens.shape[1]
@@ -428,9 +453,9 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
         mask[:, -1] = 0.0
     table = _out_table(cfg, params)
     if cfg.loss_chunk and S % cfg.loss_chunk == 0:
-        return nn.chunked_loss(h, table, labels, cfg.loss_chunk,
-                               cfg.logits_softcap, mask)
-    return nn.cross_entropy(logits_fn(cfg, params, h), labels, mask)
+        return nn.chunked_loss_parts(h, table, labels, cfg.loss_chunk,
+                                     cfg.logits_softcap, mask)
+    return nn.cross_entropy_parts(logits_fn(cfg, params, h), labels, mask)
 
 
 # ---------------------------------------------------------------------------

@@ -64,11 +64,14 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scales the grads in place by min(1, max_norm / norm), the factor
     cast to each grad's dtype as in the reference; returns (grads,
-    norm)."""
-    norm = global_norm(grads)
+    norm).  ``norm`` is the grads' global norm where they are one rank's
+    blocks of a sharded tree (the caller sums it over the ranks;
+    :func:`global_norm` of the blocks otherwise)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -90,11 +93,13 @@ def _update(cfg: AdamWConfig, g, m, v, p, lr: float, bc1, bc2) -> None:
 
 
 def adamw_step(cfg: AdamWConfig, grads, opt_state, params,
-               lr: float | None = None):
+               lr: float | None = None, norm=None):
     """One AdamW update, in place.  Returns (params, opt_state,
-    grad_norm); ``grads`` are clipped in place."""
+    grad_norm); ``grads`` are clipped in place (by ``norm``, their global
+    norm, where they are blocks of a sharded tree:
+    :func:`clip_by_global_norm`)."""
     lr = cfg.lr if lr is None else float(lr)
-    grads, norm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, norm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     step = opt_state["step"] + 1
     t = step.float()
     bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=t.device), t)

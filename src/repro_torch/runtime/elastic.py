@@ -1,7 +1,12 @@
-"""Elastic resume of an assimilation engine, possibly at a new p.
+"""Elastic scaling: resume a run on another population of ranks.
 
-The assimilation half of ``repro.runtime.elastic``:
-:func:`resume_assim_engine` restores an
+The counterpart of ``repro.runtime.elastic``.  Checkpoints hold whole
+arrays, so scaling a training run is: lay the new mesh out, recompute
+the partition specs, restore each rank's blocks (:func:`remesh`).  The
+global batch is re-split over the new data-parallel width by the
+training step itself.
+
+The assimilation half: :func:`resume_assim_engine` restores an
 :class:`~repro_torch.assim.engine.AssimilationEngine` from its snapshot
 (written by either package) and, when the requested subdomain count p′
 differs from the saved p, *re-derives the domain decomposition for p′*
@@ -15,9 +20,7 @@ completed cycle is ever replayed.
 A ``solver="shardmap"`` snapshot resumes onto a process mesh: every
 rank of the new process group calls :func:`resume_assim_engine`, at the
 saved p or at a new one (the engine then runs on a mesh of new-p ranks
-shaped by ``domain.mesh_axes()``).  The model half (``remesh``,
-``named_shardings``) waits for the port of the LM sharding layer
-(ROADMAP.md Queue 1 item 7c).
+shaped by ``domain.mesh_axes()``).
 """
 from __future__ import annotations
 
@@ -27,9 +30,45 @@ from typing import Optional
 
 import numpy as np
 
+import torch
+
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core import domain as domain_mod
 from repro_torch.core import kdtree as kdtree_mod
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+from repro_torch.runtime import sharding
+from repro_torch.runtime import steps as steps_mod
+from repro_torch.runtime.sharding import named_shardings
+
+
+def remesh(cfg: ModelConfig, checkpoint_dir: str, new_mesh, dtype=None):
+    """Restore (params, opt_state, manifest) onto ``new_mesh`` (a
+    ``ProcessMesh``): each rank gets its blocks of the newest verified
+    checkpoint under ``param_specs`` and ``opt_specs`` there, on its
+    device; params in ``dtype`` (default ``cfg.dtype``), moments f32.
+    Every rank of the mesh calls it.  Raises FileNotFoundError if no
+    valid checkpoint exists (the caller then cold-starts)."""
+    with sharding.use_mesh(new_mesh):
+        shapes = transformer.param_shapes(cfg, dtype=dtype)
+        pspecs = transformer.param_specs(cfg)
+        ospecs = steps_mod.opt_specs(cfg)
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32,  # noqa: E731
+                                device="meta")
+    like = {"params": shapes,
+            "opt": {"m": adamw.tree_map(f32, shapes),
+                    "v": adamw.tree_map(f32, shapes),
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device="meta")}}
+    shard_tree = {"params": named_shardings(new_mesh, pspecs),
+                  "opt": named_shardings(new_mesh, ospecs)}
+    path = ckpt.latest_checkpoint(checkpoint_dir)
+    if path is None:
+        raise FileNotFoundError(checkpoint_dir)
+    tree, manifest = ckpt.restore_pytree(path, like=like,
+                                         shardings=shard_tree)
+    return tree["params"], tree["opt"], manifest
 
 
 def rebalanced_edges(edges, loads, new_p: int) -> np.ndarray:

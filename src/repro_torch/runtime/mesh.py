@@ -21,7 +21,10 @@ module is the port's counterpart of the reference's mesh constructors
   over the outer axes, then reduce-scatter and all-gather on the
   innermost, the reference's ``axis_allreduce``),
   :meth:`~ProcessMesh.ppermute` (one batch of point-to-point sends per
-  round) and :meth:`~ProcessMesh.all_gather`.  Every rank of a group
+  round), :meth:`~ProcessMesh.all_gather` and
+  :meth:`~ProcessMesh.reduce_scatter` (both along dim 0: the sharded
+  training step's parameter gathers and gradient reductions build on
+  them, :mod:`repro_torch.runtime.sharding`).  Every rank of a group
   ends with the same bits.
 * Host decisions that every rank must take alike (which streams join a
   round, whether a step failed) meet in
@@ -306,7 +309,7 @@ class ProcessMesh:
             dist.all_reduce(buf, group=group)
         return buf
 
-    def _reduce_scatter(self, buf: torch.Tensor, axis: str) -> torch.Tensor:
+    def _reduce_scatter(self, buf: torch.Tensor, axis) -> torch.Tensor:
         """Chunk i (along dim 0) of the group's sum, on group rank i."""
         group, ranks = self._groups[self._axes(axis)]
         k = len(ranks)
@@ -351,6 +354,12 @@ class ProcessMesh:
         """The group's tensors ``t`` concatenated along dim 0 in the row-
         major order of ``axes``."""
         return self._unwire(self._all_gather(self._wire(t), axes), t)
+
+    def reduce_scatter(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Chunk i (along dim 0) of the sum of ``t`` over the group of
+        ``axes``, on the group's rank i (row-major order); the length
+        must split over the group."""
+        return self._unwire(self._reduce_scatter(self._wire(t), axes), t)
 
     def axis_allreduce(self, t: torch.Tensor, axes) -> torch.Tensor:
         """All-reduce a vector over every axis of ``axes``: a psum over the

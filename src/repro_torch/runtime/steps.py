@@ -1,10 +1,20 @@
-"""Train, prefill and serve step factories.
+"""Train, prefill and serve step factories, and the specs of their
+inputs.
 
-The counterparts of ``repro.runtime.steps.make_loss_fn``,
-``make_train_step``, ``make_prefill_step`` and ``make_serve_step``:
-eager calls.  The reference's jit and buffer donation have no
-counterpart on one device (the AdamW update is in place); its mesh
-shardings (data-parallel training) wait for ROADMAP Queue 1 item 7c.
+The counterparts of ``repro.runtime.steps``: ``make_loss_fn``,
+``make_train_step``, ``make_prefill_step``, ``make_serve_step``, and the
+partition specs ``batch_specs``, ``opt_specs`` and ``cache_specs_tree``
+(equal to the reference's as tuples).  Steps are eager calls; the AdamW
+update is in place, which is what the reference's buffer donation buys.
+
+``make_train_step(mesh=...)`` is data-parallel training on a
+:class:`~repro_torch.runtime.mesh.ProcessMesh`, the same function as the
+reference's GSPMD step: each rank holds its block of the parameters and
+of both AdamW moments as ``param_specs`` and ``opt_specs`` lay them out,
+gathers whole parameters for the step (no tensor-parallel compute), and
+computes the gradient of the global loss on its rows of the batch
+(:func:`make_train_step` says how).  Sharded prefill and serve steps are
+not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -14,6 +24,63 @@ from repro_torch.kernels._build import LM_DTYPES
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.runtime import sharding
+from repro_torch.runtime.sharding import P
+
+
+_BATCH_AXES = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "mask": ("batch", "seq"),
+    "frames": ("batch", "seq", "embed"),
+    "patches": ("batch", "seq", "embed"),
+}
+
+
+def batch_specs(cfg: ModelConfig, batch_shapes: dict) -> dict:
+    """Shape-aware specs of an input batch (values: anything with a
+    ``.shape``, e.g. ``meta`` tensors) under the ambient mesh."""
+    with sharding.profile(cfg.sharding_profile):
+        return {name: sharding.act_spec_shaped(tuple(s.shape),
+                                               *_BATCH_AXES[name])
+                for name, s in batch_shapes.items()}
+
+
+def opt_specs(cfg: ModelConfig) -> dict:
+    pspec = transformer.param_specs(cfg)
+    return {"m": pspec, "v": pspec, "step": P()}
+
+
+def cache_specs_tree(cfg: ModelConfig, cache_shapes):
+    """Specs of a decode cache: batch dim over ('pod', 'data'), kv-head
+    dim over 'model' where present (shape-aware fallbacks)."""
+    def spec_for(name, leaf):
+        nd = len(leaf.shape)
+        if name == "pos":
+            return P()
+        if name in ("k", "v", "cross_k", "cross_v"):
+            # (L, B, S, KV, D) stacked / (B, S, KV, D) unstacked.  Prefer
+            # kv-head sharding; fall back to sequence sharding of the
+            # cache when kv heads don't divide the model axis.
+            axes = ((None, "batch", None, "kv_heads", None) if nd == 5
+                    else ("batch", None, "kv_heads", None))
+            spec = sharding.act_spec_shaped(leaf.shape, *axes)
+            if spec[3 if nd == 5 else 2] is None:
+                axes = ((None, "batch", "kv_seq", None, None) if nd == 5
+                        else ("batch", "kv_seq", None, None))
+                spec = sharding.act_spec_shaped(leaf.shape, *axes)
+            return spec
+        # recurrent states: (L, B, ...) — batch-shard only
+        axes = [None, "batch"] + [None] * (nd - 2)
+        return sharding.act_spec_shaped(leaf.shape, *axes)
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return spec_for(name, node)
+
+    with sharding.profile(cfg.sharding_profile):
+        return walk(cache_shapes, "")
 
 
 def make_loss_fn(cfg: ModelConfig, *, mode: str = "auto"):
@@ -58,23 +125,43 @@ def check_trainable(cfg: ModelConfig, dtype: torch.dtype, device) -> None:
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    lr_schedule=None, mesh=None, *, mode: str = "auto"):
+                    lr_schedule=None, mesh=None, *,
+                    batch_shapes: dict | None = None, mode: str = "auto"):
     """Returns ``train_step(params, opt_state, batch) -> (loss, params,
-    opt_state)``; the update is in place.  The batch holds what the
-    model reads: whisper's ``"frames"`` beside its tokens, phi-3-vision's
-    optional ``"patches"``.  With ``opt_cfg.accum_steps``
-    = k > 1 the batch splits into k microbatches along its leading axis
-    and their grads are summed in f32 and divided by k, as the
-    reference's microbatch scan does.  Each step first refuses what
-    :func:`check_trainable` refuses: on the card, params in a dtype that
-    no kernel takes (f32 and bf16 train there, attention layers
-    included).  ``mode`` goes to the kernel ops."""
+    opt_state)``; the update is in place, and ``train_step.last
+    ["grad_norm"]`` is the last step's global gradient norm (before
+    clipping).  The batch holds what the model reads: whisper's
+    ``"frames"`` beside its tokens, phi-3-vision's optional
+    ``"patches"``.  With ``opt_cfg.accum_steps`` = k > 1 the batch splits
+    into k microbatches along its leading axis and their grads are summed
+    in f32 and divided by k, as the reference's microbatch scan does.
+    Each step first refuses what :func:`check_trainable` refuses: on the
+    card, params in a dtype that no kernel takes (f32 and bf16 train
+    there, attention layers included).  ``mode`` goes to the kernel ops.
+
+    With ``mesh`` (a ``ProcessMesh``) every rank calls the step with its
+    blocks of the params and of ``m`` and ``v`` (``param_specs`` and
+    ``opt_specs`` under the mesh) and the whole global batch, and the
+    step (a) gathers the whole params from the blocks; (b) takes this
+    rank's rows of each microbatch by ``batch_specs`` (``batch_shapes``,
+    anything with a ``.shape``, or the first batch's shapes: every batch
+    must have them), so ranks off the batch's mesh axes hold the same
+    rows; (c) computes the gradient of the global loss, the sum of the
+    masked token losses over the rows of every rank over the sum of their
+    mask; (d) sums the gradients over the batch's mesh axes alone, in
+    f32, into this rank's block, cast once to the dtype the
+    single-process step's gradients have (the params' without
+    accumulation, f32 with it); (e) clips by the global norm, each
+    leaf's squared block norms summed over the axes that shard it; (f)
+    runs AdamW in place on the blocks; (g) returns the global loss, the
+    same bits on every rank.  Ranks that hold the same block end with
+    the same bits."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): sharded training is not ported "
-            "(ROADMAP Queue 1 item 7c)")
+        return _sharded_train_step(cfg, opt_cfg, lr_schedule, mesh,
+                                   batch_shapes, mode)
     loss_fn = make_loss_fn(cfg, mode=mode)
     accum = opt_cfg.accum_steps
+    last = {"grad_norm": None}
 
     def step(params, opt_state, batch):
         leaf = adamw.leaves(params)[0]
@@ -84,10 +171,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         if accum > 1:
             grads, loss = None, 0.0
             for i in range(accum):
-                mb = {k: v.reshape((accum, v.shape[0] // accum)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                l, g = value_and_grad(loss_fn, params, mb)
+                l, g = value_and_grad(loss_fn, params,
+                                      _microbatch(batch, accum, i))
                 grads = (adamw.tree_map(lambda x: x.float(), g)
                          if grads is None else
                          adamw.tree_map(torch.add, grads, g))
@@ -96,11 +181,131 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
             loss = loss / accum
         else:
             loss, grads = value_and_grad(loss_fn, params, batch)
-        params, opt_state, _ = adamw.adamw_step(opt_cfg, grads, opt_state,
-                                                params, lr=lr)
+        params, opt_state, last["grad_norm"] = adamw.adamw_step(
+            opt_cfg, grads, opt_state, params, lr=lr)
         return loss, params, opt_state
 
+    step.last = last
     return step
+
+
+def _microbatch(batch: dict, accum: int, i: int) -> dict:
+    """Microbatch ``i`` of ``accum``: the global rows [i B / k, (i + 1) B
+    / k)."""
+    return {k: v.reshape((accum, v.shape[0] // accum)
+                         + tuple(v.shape[1:]))[i]
+            for k, v in batch.items()}
+
+
+def _row_plan(cfg: ModelConfig, mesh, shapes: dict, accum: int) -> tuple:
+    """(the specs of one microbatch's tensors, the mesh axes that split
+    its rows) under ``mesh``."""
+    micro = {}
+    for name, shape in shapes.items():
+        if shape[0] % accum:
+            raise ValueError(f"batch[{name!r}] has {shape[0]} rows, not a "
+                             f"multiple of accum_steps = {accum}")
+        micro[name] = torch.empty((shape[0] // accum,) + tuple(shape[1:]),
+                                  device="meta")
+    with sharding.use_mesh(mesh):
+        specs = batch_specs(cfg, micro)
+    rows = {sharding.dim_axes(spec[0]) for spec in specs.values()}
+    if len(rows) != 1:
+        raise ValueError(f"the batch's tensors split their rows over "
+                         f"different mesh axes: {specs}")
+    return specs, rows.pop()
+
+
+def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                        lr_schedule, mesh, batch_shapes, mode: str):
+    """The data-parallel step of :func:`make_train_step` on ``mesh``."""
+    accum = opt_cfg.accum_steps
+    with sharding.use_mesh(mesh):
+        shardings = adamw.leaves(sharding.named_shardings(
+            mesh, transformer.param_specs(cfg)))
+    plan = {}
+    if batch_shapes is not None:
+        plan["shapes"] = {k: tuple(v.shape) for k, v in batch_shapes.items()}
+    last = {"grad_norm": None}
+
+    def rows_of(batch: dict) -> tuple:
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        plan.setdefault("shapes", shapes)
+        if shapes != plan["shapes"]:
+            raise ValueError(f"batch shapes {shapes} differ from the "
+                             f"step's {plan['shapes']}")
+        if "specs" not in plan:
+            plan["specs"], plan["axes"] = _row_plan(cfg, mesh, shapes,
+                                                    accum)
+        return plan["specs"], plan["axes"]
+
+    def step(params, opt_state, batch):
+        blocks = adamw.leaves(params)
+        check_trainable(cfg, blocks[0].dtype, blocks[0].device)
+        specs, axes = rows_of(batch)
+        lr = (lr_schedule(int(opt_state["step"]))
+              if lr_schedule is not None else opt_cfg.lr)
+        full = [sharding.gather(b, sh).detach().requires_grad_(True)
+                for b, sh in zip(blocks, shardings)]
+        it = iter(full)
+        tree = adamw.tree_map(lambda _: next(it), params)
+        grads, loss = None, 0.0
+        for i in range(accum):
+            rows = {k: sharding.local_block(
+                v, sharding.NamedSharding(mesh, specs[k]))
+                for k, v in _microbatch(batch, accum, i).items()}
+            tot, cnt = transformer.loss_parts(cfg, tree, rows, mode=mode)
+            # the global batch's parts, summed over the ranks whose rows
+            # differ (the others hold the same rows)
+            parts = torch.stack([tot.detach(), cnt.detach()])
+            if axes:
+                parts = mesh.psum(parts, axes)
+            denom = torch.clamp(parts[1], min=1.0)
+            g = torch.autograd.grad(tot / denom, full)
+            if accum > 1:
+                g = [x.float() for x in g]
+            grads = (list(g) if grads is None else
+                     [a + b for a, b in zip(grads, g)])
+            loss = loss + parts[0] / denom
+        if accum > 1:
+            loss = loss / accum
+        del full, tree
+        out = []
+        for j, sh in enumerate(shardings):
+            g, grads[j] = grads[j], None
+            blk = sharding.reduce_block(g, sh, axes, torch.float32)
+            del g
+            out.append(blk / accum if accum > 1
+                       else blk.to(blocks[j].dtype))
+        norm = _global_norm(out, shardings, mesh)
+        it = iter(out)
+        params, opt_state, last["grad_norm"] = adamw.adamw_step(
+            opt_cfg, adamw.tree_map(lambda _: next(it), params), opt_state,
+            params, lr=lr, norm=norm)
+        return loss, params, opt_state
+
+    step.last = last
+    return step
+
+
+def _global_norm(blocks: list, shardings: list, mesh) -> torch.Tensor:
+    """The f32 global norm of a sharded tree from this rank's blocks: each
+    leaf's squared block norm summed over the mesh axes that shard that
+    leaf (its other ranks hold the same block), one collective for each
+    set of axes."""
+    sq = [torch.linalg.vector_norm(b, dtype=torch.float32) ** 2
+          for b in blocks]
+    by_axes: dict = {}
+    for j, sh in enumerate(shardings):
+        axes = tuple(a for a in mesh.axis_names
+                     if a in sharding.spec_axes(sh.spec))
+        by_axes.setdefault(axes, []).append(j)
+    for axes, idx in by_axes.items():
+        if axes:
+            summed = mesh.psum(torch.stack([sq[j] for j in idx]), axes)
+            for j, v in zip(idx, summed):
+                sq[j] = v
+    return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int | None = None, *,

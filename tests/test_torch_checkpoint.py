@@ -6,7 +6,8 @@
 * The ports of ``tests/test_checkpoint.py``: round trip, corruption and
   torn-leaf detection, ``latest_checkpoint``'s fallback, ``.tmp``
   directories skipped, the async manager's retention and stale-staging
-  sweep, and the shape check of ``restore_pytree(like=...)``.
+  sweep, and the shape check of ``restore_pytree(like=...)``; with
+  ``shardings=`` it gives each rank of a mesh its block of every leaf.
 * Four threads saving the same step all return and leave one verified
   checkpoint and no ``.tmp`` directory (the reference can raise
   ``OSError`` errno 39 there).
@@ -195,8 +196,62 @@ def test_restore_shape_mismatch_raises(tmp_path):
         t_ckpt.restore_pytree(path, like=bad)
     with pytest.raises(KeyError, match="missing"):
         t_ckpt.restore_pytree(path, like={"nope": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_ckpt.restore_pytree(path, like=_torch_tree(), shardings={})
+
+
+def _rank_mesh(shape: dict, rank: int):
+    """What a restore reads of a process mesh (its shape, coordinates and
+    device), for a rank of a mesh that no process group backs."""
+    import types
+    coords = dict(zip(shape, (int(c) for c in np.unravel_index(
+        rank, tuple(shape.values())))))
+    return types.SimpleNamespace(shape=dict(shape), axis_names=tuple(shape),
+                                 coords=coords, device=torch.device("cpu"))
+
+
+def test_restore_sharded_gives_each_rank_its_block(tmp_path):
+    """``restore_pytree(shardings=)`` (and ``restore_latest``) gives each
+    rank of a ("data": 2, "model": 2) mesh its block of every sharded
+    leaf, bitwise, and the blocks tile the saved arrays; ``meta``
+    like-leaves take their dtype and land on the mesh's device; leaves
+    without a sharding, or with an empty spec, stay whole."""
+    from repro_torch.runtime.sharding import NamedSharding, P
+    path = t_ckpt.save_pytree(_torch_tree(), str(tmp_path), step=1)
+    whole = _torch_tree()
+    like = _tree(lambda a: torch.empty(a.shape, dtype=torch.float32,
+                                       device="meta"))
+    like["opt"][0] = torch.empty((3, 2), dtype=torch.int64, device="meta")
+    blocks = {"w": [], "b": [], "i": []}
+    for rank in range(4):
+        mesh = _rank_mesh({"data": 2, "model": 2}, rank)
+        shard = {"params": {"w": NamedSharding(mesh, P("data", "model")),
+                            "b": NamedSharding(mesh, P(("data", "model")))},
+                 "opt": [NamedSharding(mesh, P(None, "model")), (None, None)],
+                 "step": NamedSharding(mesh, P()), "empty": None}
+        got, manifest = t_ckpt.restore_pytree(path, like=like,
+                                              shardings=shard)
+        latest, _ = t_ckpt.CheckpointManager(str(tmp_path)).restore_latest(
+            like=like, shardings=shard)
+        d, m = mesh.coords["data"], mesh.coords["model"]
+        for tree in (got, latest):
+            w = tree["params"]["w"]
+            assert w.dtype == torch.float32 and w.device.type == "cpu"
+            assert torch.equal(w, whole["params"]["w"][
+                2 * d:2 * d + 2, 4 * m:4 * m + 4].float())
+            k = 2 * d + m
+            assert torch.equal(tree["params"]["b"],
+                               whole["params"]["b"][2 * k:2 * k + 2].float())
+            assert torch.equal(tree["opt"][0], whole["opt"][0][:, m:m + 1])
+            assert torch.equal(tree["opt"][1][0], whole["opt"][1][0])
+            assert int(tree["step"]) == 7 and tree["empty"] is None
+        assert manifest["step"] == 1
+        for key, leaf in (("w", got["params"]["w"]),
+                          ("b", got["params"]["b"]), ("i", got["opt"][0])):
+            blocks[key].append(leaf)
+    tiles = torch.cat([torch.cat(blocks["w"][2 * d:2 * d + 2], dim=1)
+                       for d in range(2)])
+    assert torch.equal(tiles, whole["params"]["w"].float())
+    assert torch.equal(torch.cat(blocks["b"]), whole["params"]["b"].float())
+    assert torch.equal(torch.cat(blocks["i"][:2], dim=1), whole["opt"][0])
 
 
 @settings(max_examples=15, deadline=None)

@@ -67,7 +67,9 @@ for name in ("repro_torch.core.kalman", "repro_torch.assim.timepar",
              "repro_torch.assim.fleet", "repro_torch.assim.serving",
              "repro_torch.optim.adamw", "repro_torch.optim.schedule",
              "repro_torch.optim.compress", "repro_torch.core.balance",
-             "repro_torch.data.pipeline", "repro_torch.launch.train"):
+             "repro_torch.data.pipeline", "repro_torch.launch.train",
+             "repro_torch.runtime.sharding", "repro_torch.runtime.steps",
+             "repro_torch.configs.shapes", "repro_torch.launch.mesh"):
     assert name in names, name
 print(len(names))
 """
