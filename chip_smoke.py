@@ -291,6 +291,19 @@ bytes of params and moments the specs' share, every rank's losses
 bitwise the same; it prints each rank's step walls and peak memory and
 the launch's wall.
 
+Sharded serving (``serve_mesh``): (a) inside ``dp_train``'s launch, ten
+f32 smoke cases through ``make_prefill_step(mesh=)`` and
+``make_serve_step(mesh=, cache_shapes=)`` (kv heads split, slots split,
+rows alone), every rank's logits, tokens and cache blocks held to one
+process on the card (1e-4, pos bitwise), each rank's prefill launching
+one prefill's kernels and decode none; (b) after RecurrentGemma's
+serving, RecurrentGemma-9B at full width in bf16 on two ranks of
+("data": 1, "model": 2) through ``serve_batch(mesh=)``, its ring cache's
+slots split, held to a one-process ``serve_batch`` of the same weights
+and prompts (logits within the arch's gate, tokens to the first near
+tie); it prints each rank's gather, prefill and decode times, memory and
+launches.
+
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -5268,7 +5281,8 @@ def dp_remeshed(cfg, directory: str, shape, device) -> dict:
 def dp_train_rank(device, tmp: str) -> dict:
     """One rank of ``phase_dp_train`` (spawned: importable by name): (a)
     the smoke configs' sharded steps, a checkpoint of the first one's
-    state under the mesh, its remesh onto (4, 1); (b) Mamba-2 at full
+    state under the mesh, its remesh onto (4, 1); serve_mesh's (a)
+    (:func:`serve_mesh_smoke_rank`); (b) Mamba-2 at full
     size through ``train(mesh=)``, each step timed to a synchronised end
     with its launch counts, rank 0's first ``ssd_scan`` call kept."""
     from repro_torch import configs
@@ -5313,6 +5327,12 @@ def dp_train_rank(device, tmp: str) -> dict:
                                         DP_REMESH[0], device)
         del params, opt, state
     torch.cuda.empty_cache()
+
+    # serve_mesh (a): the smoke cases' sharded prefill and decode, timed
+    # apart from the launch wall that (b) reports
+    t0 = time.perf_counter()
+    out["serve"] = serve_mesh_smoke_rank(device, mesh, tmp)
+    out["serve_s"] = time.perf_counter() - t0
 
     # (b) full size through the trainer
     cfg = configs.get_config(DP_FULL["arch"])
@@ -5507,7 +5527,10 @@ def check_dp_full(out: list, single: tuple, wall: float, smi: str) -> None:
     print(f"  (b) {DP_FULL['arch']} full size ({f0['params'] / 1e9:.3f} B "
           f"parameters, {cfg.dtype}), {DP['ranks']} ranks on {DP['shape']}, "
           f"batch {DP_FULL['batch']} x {DP_FULL['seq']}: launch wall "
-          f"{wall:.2f} s; step 0 loss {loss0:.6f} vs one process "
+          f"{wall:.2f} s, of which serve_mesh (a) "
+          f"{max(o['serve_s'] for o in out):.2f} s (the slowest rank's), "
+          f"without it {wall - max(o['serve_s'] for o in out):.2f} s; "
+          f"step 0 loss {loss0:.6f} vs one process "
           f"{lp:.6f}, grad norm {norm0:.6f} vs {np_:.6f} ({smi})")
     check(abs(loss0 - lp) <= TRAIN_LOSS_TOL * abs(lp),
           f"dp_train {DP_FULL['arch']} step 0 loss vs one process: "
@@ -5597,6 +5620,7 @@ def phase_dp_train(smi: str) -> list:
     with tempfile.TemporaryDirectory() as tmp:
         single = {arch: dp_smoke_single(arch, b, tmp)
                   for arch, b in DP_SMOKE}
+        serve_single = serve_mesh_single(tmp)
         full = dp_full_single()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -5620,8 +5644,484 @@ def phase_dp_train(smi: str) -> list:
               f"{time.perf_counter() - t0:.2f} s")
         check_dp_remesh(two, DP_REMESH[1], os.path.basename(out[0]["saved"]))
         check_dp_full(out, full, wall, smi)
+        check_serve_mesh_smoke(out, serve_single, smi)
         first = torch.load(os.path.join(tmp, "ssd_call.pt"))
     return dp_ssd_rows(first, out[0]["full"]["total"])
+
+
+# serve_mesh: sharded prefill and decode on a process mesh
+# (make_prefill_step(mesh=), make_serve_step(mesh=, cache_shapes=),
+# serve_batch(mesh=)).  (a) runs inside dp_train's four-rank launch, (b)
+# in a two-rank launch of its own after RecurrentGemma's serving.
+
+# (a): the f32 smoke cases of tests/test_torch_serve_mesh.py, (name,
+# arch, batch, prompt, decode steps, max_seq, the split stacks' layouts)
+# on DP's ("data": 2, "model": 2) mesh: kv heads split (yi, olmoe, phi3),
+# slots split (gemma3 at B = 2, recurrentgemma, whisper at B = 2 with a
+# prompt of 8; gemma3_odd's full cache of 29 slots stays whole) or rows
+# alone (gemma3 and whisper at B = 4, the "dp" profile; mamba2).
+SERVE_MESH_SMOKE = (
+    ("yi", "yi-6b", 4, 16, 8, 24, {"full": "heads"}),
+    ("olmoe", "olmoe-1b-7b", 4, 16, 8, 24, {"full": "heads"}),
+    ("phi3", "phi3-vision-4.2b", 4, 16, 8, 32, {"full": "heads"}),
+    ("gemma3_dp", "gemma3-1b", 4, 20, 8, 28, {}),
+    ("gemma3_seq", "gemma3-1b", 2, 20, 8, 28, {"full": "seq",
+                                               "ring": "seq"}),
+    ("gemma3_odd", "gemma3-1b", 2, 20, 9, 29, {"ring": "seq"}),
+    ("recurrentgemma", "recurrentgemma-9b", 4, 20, 8, 28, {"attn": "seq"}),
+    ("mamba2", "mamba2-1.3b", 4, 16, 8, 24, {}),
+    ("whisper", "whisper-large-v3", 4, 16, 8, 24, {}),
+    ("whisper_seq", "whisper-large-v3", 2, 8, 8, 24, {"self": "seq",
+                                                      "cross_k": "seq"}))
+# The CPU test's gate on f32 logits and cache leaves, max abs.
+SERVE_MESH_ATOL = 1e-4
+# (b): RecurrentGemma-9B at full width in bf16 on ("data": 1, "model": 2):
+# its MQA ring of 2048 slots splits into two blocks of 1024; the serving
+# phase's prompts (PROMPT_LENS, seed 0), then ``steps`` greedy tokens.
+SERVE_MESH_FULL = {"arch": "recurrentgemma-9b", "shape": (1, 2),
+                   "steps": 8}
+
+
+def keep_outputs(store: list, made: list | None = None):
+    """Wrap a step factory so each call's first output lands in
+    ``store`` (and each step it makes in ``made``); the step's
+    attributes (``logits_sharding``, ``layouts``) stay on the wrapper."""
+    def wrap(make):
+        def make_and_keep(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(*a):
+                out = step(*a)
+                store.append(out[0])
+                return out
+            run.__dict__.update(step.__dict__)
+            if made is not None:
+                made.append(run)
+            return run
+        return make_and_keep
+    return wrap
+
+
+def serve_mesh_inputs(cfg, b: int, s: int, seed: int) -> dict:
+    """A smoke case's prefill batch: B prompts of S tokens, and frames or
+    patches at EXTRAS_SCALE, drawn with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int64))}
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = torch.from_numpy(EXTRAS_SCALE * rng.normal(
+            size=(b, cfg.encoder_seq, cfg.d_model))).float()
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = torch.from_numpy(EXTRAS_SCALE * rng.normal(
+            size=(b, cfg.num_patches, cfg.d_model))).float()
+    return batch
+
+
+def serve_mesh_decode(serve, params, cache, logits, start: int, steps: int,
+                      whole_logits=lambda x: x) -> dict:
+    """Greedy decode of ``steps`` tokens after a prefill's ``logits``:
+    each step's whole logits, tokens and cache (flat), on the CPU."""
+    out = {"logits": [], "tokens": [], "caches": []}
+    cur = torch.argmax(logits, -1)[:, None]
+    for i in range(steps):
+        blk, cache = serve(params, cache, cur, start + i)
+        whole = whole_logits(blk)
+        cur = torch.argmax(whole, -1)
+        out["logits"].append(whole.float().cpu())
+        out["tokens"].append(cur.cpu())
+        out["caches"].append({k: v.cpu() for k, v in _flat(cache).items()})
+    return out
+
+
+def serve_mesh_single(tmp: str) -> dict:
+    """Each smoke case in one process on the card: its weights (seed i)
+    and batch saved under ``tmp`` for the ranks, then the prefill's
+    logits, cache and kernel launches and each decode step's logits,
+    tokens and cache."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.runtime import steps
+
+    single = {}
+    for i, (name, arch, b, s, n, max_seq, _) in enumerate(SERVE_MESH_SMOKE):
+        cfg = configs.get_smoke_config(arch)
+        params = transformer.init_params(cfg, seed=i, device=DEVICE)
+        batch = serve_mesh_inputs(cfg, b, s, 100 + i)
+        torch.save({"params": _cpu(params), "batch": batch},
+                   os.path.join(tmp, f"serve_{name}.pt"))
+        batch = _to_device(batch, DEVICE)
+        ops.reset_counts()
+        logits, cache = steps.make_prefill_step(cfg, max_seq=max_seq)(
+            params, batch)
+        torch.cuda.synchronize()
+        res = {"launches": {k: v for k, v in ops.launch_counts().items()
+                            if v},
+               "prefill_logits": logits.cpu(),
+               "prefill_cache": {k: v.cpu() for k, v in _flat(cache).items()}}
+        res.update(serve_mesh_decode(steps.make_serve_step(cfg), params,
+                                     cache, logits, served_positions(batch),
+                                     n))
+        single[name] = res
+    return single
+
+
+def serve_mesh_smoke_rank(device, mesh, tmp: str) -> dict:
+    """(a) on one rank of dp_train's launch: each smoke case's sharded
+    prefill (its kernel launches counted) and greedy decode steps (none
+    launched), on the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding, steps
+
+    res = {}
+    for name, arch, b, s, n, max_seq, _ in SERVE_MESH_SMOKE:
+        cfg = configs.get_smoke_config(arch)
+        inputs = torch.load(os.path.join(tmp, f"serve_{name}.pt"))
+        with sharding.use_mesh(mesh):
+            pshard = sharding.named_shardings(mesh,
+                                              transformer.param_specs(cfg))
+        params = adamw.tree_map(
+            lambda p, sh: sharding.local_block(p.to(device), sh).clone(),
+            inputs["params"], pshard)
+        batch = _to_device(inputs["batch"], device)
+        ops.reset_counts()
+        prefill = steps.make_prefill_step(cfg, mesh, max_seq)
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        r = {"launches": {k: v for k, v in ops.launch_counts().items()
+                          if v},
+             "device": str(adamw.leaves(cache)[0].device),
+             "prefill_logits": logits.cpu(),
+             "prefill_cache": {k: v.cpu() for k, v in _flat(cache).items()}}
+        serve = steps.make_serve_step(cfg, mesh, prefill.cache_shapes)
+        r["layouts"] = {k: v.dim for k, v in serve.layouts.items()}
+        ops.reset_counts()
+        r.update(serve_mesh_decode(
+            serve, params, cache, logits, served_positions(batch), n,
+            lambda x: sharding.gather(x, serve.logits_sharding)))
+        torch.cuda.synchronize()
+        r["decode_launches"] = {k: v for k, v in ops.launch_counts().items()
+                                if v}
+        res[name] = r
+        del params, cache, prefill, serve
+    mesh.kept.clear()               # the smoke configs' whole params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _max_abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def check_serve_mesh_smoke(out: list, single: dict, smi: str) -> None:
+    """(a): every rank's whole logits, tokens and cache blocks against
+    the single process, the ranks' logits bits equal and ranks whose
+    specs give the same block the same bits, each rank's prefill
+    launches those of one single-process prefill and decode none."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.runtime import sharding, steps
+
+    print(f"== serve_mesh (a): the f32 smoke cases on {DP['ranks']} ranks "
+          f"of {dict(zip(DP['axes'], DP['shape']))} against one process "
+          f"on the card ({smi})")
+    mesh = sharding.AbstractMesh(DP["shape"], DP["axes"])
+    for name, arch, b, s, n, max_seq, layouts in SERVE_MESH_SMOKE:
+        cfg = configs.get_smoke_config(arch)
+        ref = single[name]
+        res = [o["serve"][name] for o in out]
+        pre = ref["prefill_cache"]
+        with sharding.use_mesh(mesh):
+            specs = _flat(steps.cache_specs_tree(
+                cfg, transformer.init_decode_cache(
+                    cfg, b, max_seq, device="meta")))
+        err_l, err_c, same = 0.0, 0.0, True
+        for rank, r in enumerate(res):
+            err_l = max([err_l, _max_abs(r["prefill_logits"],
+                                         ref["prefill_logits"])]
+                        + [_max_abs(a, c) for a, c in zip(r["logits"],
+                                                          ref["logits"])])
+            check(all(torch.equal(a, c) for a, c in zip(r["tokens"],
+                                                        ref["tokens"])),
+                  f"serve_mesh {name}: rank {rank}'s greedy tokens those "
+                  f"of one process")
+            for got, want in zip([r["prefill_cache"]] + r["caches"],
+                                 [pre] + ref["caches"]):
+                for k, blk in got.items():
+                    sl = sharding.block_slices(sharding.NamedSharding(
+                        mesh, specs[k]), want[k].shape, rank)
+                    w = want[k][sl]
+                    if k.endswith("pos"):
+                        same &= torch.equal(blk, w)
+                    else:
+                        err_c = max(err_c, _max_abs(blk, w))
+        held = {}
+        for rank, r in enumerate(res):
+            for k, blk in r["caches"][-1].items():
+                sl = str(sharding.block_slices(sharding.NamedSharding(
+                    mesh, specs[k]), ref["caches"][-1][k].shape, rank))
+                if (k, sl) in held:
+                    same &= torch.equal(held[(k, sl)], blk)
+                held[(k, sl)] = blk
+        print(f"  {name} ({arch}, B = {b}, prompt {s}, {n} steps, max_seq "
+              f"{max_seq}): layouts {res[0]['layouts']}; logits max abs "
+              f"{err_l:.3e}, cache blocks {err_c:.3e}; launches a rank "
+              f"{[r['launches'] for r in res]} (one process "
+              f"{ref['launches']}), decode {[r['decode_launches'] for r in res]}"
+              f"; cache on {res[0]['device']}")
+        check(all(r["layouts"] == layouts for r in res),
+              f"serve_mesh {name}: split stacks {layouts}")
+        check(err_l <= SERVE_MESH_ATOL and err_c <= SERVE_MESH_ATOL,
+              f"serve_mesh {name}: logits and cache blocks within "
+              f"{SERVE_MESH_ATOL:g} of one process")
+        check(same and all(
+            torch.equal(r["prefill_logits"], res[0]["prefill_logits"])
+            and all(torch.equal(a, c) for a, c in zip(r["logits"],
+                                                      res[0]["logits"]))
+            for r in res),
+            f"serve_mesh {name}: pos bitwise, every rank's logits and the "
+            f"blocks ranks share the same bits")
+        check(all(r["launches"] == ref["launches"] and ref["launches"]
+                  and not r["decode_launches"]
+                  and r["device"].startswith("cuda") for r in res),
+              f"serve_mesh {name}: each rank's prefill launched "
+              f"{ref['launches']}, one prefill's, and decode none")
+
+
+def serve_mesh_full_single(cfg, params) -> dict:
+    """(b)'s yardstick: ``serve_batch`` of the serving phase's prompts in
+    one process on the card, SERVE_MESH_FULL["steps"] greedy tokens; the
+    prefill's and each step's logits and the tokens, on the CPU."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime import steps
+
+    n = SERVE_MESH_FULL["steps"]
+    prompts = draw_prompts(cfg, 0)
+    reqs = [serve.Request(rid=i, prompt=p, max_new=n)
+            for i, p in enumerate(prompts)]
+    pre, dec = [], []
+    with wrapped(steps, "make_prefill_step", keep_outputs(pre)), \
+            wrapped(steps, "make_serve_step", keep_outputs(dec)):
+        reqs, stats = serve.serve_batch(cfg, params, reqs,
+                                        max_seq=max(map(len, prompts)) + n)
+    torch.cuda.synchronize()
+    print(f"== serve_mesh (b) yardstick: {cfg.name} in one process, "
+          f"prefill {stats['prefill_s']:.4f} s, decode "
+          f"{stats['decode_s'] / n * 1e3:.3f} ms a token")
+    return {"logits": [pre[0].float().cpu()]
+            + [x[:, 0].float().cpu() for x in dec],
+            "tokens": [r.out for r in reqs]}
+
+
+@contextlib.contextmanager
+def timed_transport(mesh, spent: dict):
+    """Time the mesh's transport steps for the block, each to a
+    synchronised end, into ``spent`` by name: ``_wire`` (the copy to a
+    pinned host buffer), ``_all_gather`` (gloo's collective) and
+    ``_unwire`` (the copy back to the card)."""
+    names = ("_wire", "_all_gather", "_unwire")
+
+    def wrap(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return got
+        return run
+
+    for name in names:
+        spent.setdefault(name, 0.0)
+        setattr(mesh, name, wrap(name, getattr(mesh, name)))
+    try:
+        yield
+    finally:
+        for name in names:
+            delattr(mesh, name)
+
+
+def serve_mesh_full_rank(device) -> dict:
+    """(b) on one rank: RecurrentGemma-9B's weights drawn as the serving
+    phase draws them, this rank's blocks kept, the whole tree gathered
+    once (timed), then ``serve_batch(mesh=)`` of the serving prompts."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.runtime.mesh import ProcessMesh
+
+    n = SERVE_MESH_FULL["steps"]
+    mesh = ProcessMesh(SERVE_MESH_FULL["shape"], DP["axes"], device=device)
+    cfg = configs.get_config(SERVE_MESH_FULL["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    with sharding.use_mesh(mesh):
+        pshard = sharding.named_shardings(mesh, transformer.param_specs(cfg))
+    full = transformer.init_params(cfg, 0, device=device)
+    params = adamw.tree_map(
+        lambda p, sh: sharding.local_block(p, sh).clone(), full, pshard)
+    del full
+    torch.cuda.empty_cache()
+    resting = sum(t.numel() * t.element_size() for t in adamw.leaves(params))
+    parts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed_transport(mesh, parts):
+        steps.whole_params(cfg, mesh)(params)   # the steps' shared gather
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    gathered_gb = torch.cuda.memory_allocated() / 1e9
+    prompts = draw_prompts(cfg, 0)
+    reqs = [serve.Request(rid=i, prompt=p, max_new=n)
+            for i, p in enumerate(prompts)]
+    pre, dec, made = [], [], []
+    ops.reset_counts()
+    before = dict(mesh.counts)
+    with wrapped(steps, "make_prefill_step", keep_outputs(pre)), \
+            wrapped(steps, "make_serve_step", keep_outputs(dec, made)):
+        reqs, stats = serve.serve_batch(
+            cfg, params, reqs, max_seq=max(map(len, prompts)) + n,
+            mesh=mesh)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    collectives = {k: v - before[k] for k, v in mesh.counts.items()
+                   if v != before[k]}
+    logits = [pre[0].float().cpu()] + [
+        sharding.gather(x, made[0].logits_sharding)[:, 0].float().cpu()
+        for x in dec]
+    # the same traffic again: the first prefill of a fresh process pays a
+    # start-up cost that a serving process pays once
+    again = [serve.Request(rid=i, prompt=p, max_new=n)
+             for i, p in enumerate(prompts)]
+    again, warm = serve.serve_batch(
+        cfg, params, again, max_seq=max(map(len, prompts)) + n, mesh=mesh)
+    mem = torch.cuda.memory_stats()
+    return {"rank": mesh.rank, "gather_s": gather_s, "gather_parts": parts,
+            "prefill_s": stats["prefill_s"],
+            "decode_ms": stats["decode_s"] / n * 1e3,
+            "resting_gb": resting / 1e9, "gathered_gb": gathered_gb,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "reserved_gb": mem["reserved_bytes.all.peak"] / 1e9,
+            "retries": mem["num_alloc_retries"],
+            "launches": launches, "collectives": collectives,
+            "layouts": {k: (v.dim, v.start, v.stop, v.size)
+                        for k, v in made[0].layouts.items()},
+            "logits": logits, "tokens": [r.out for r in reqs],
+            "warm": {"prefill_s": warm["prefill_s"],
+                     "decode_ms": warm["decode_s"] / n * 1e3,
+                     "tokens": [r.out for r in again]},
+            "device": str(adamw.leaves(params)[0].device)}
+
+
+def serve_mesh_smoke_alone_rank(device, tmp: str) -> dict:
+    """(a) in a launch of its own (``phase_serve_mesh(smoke=True)``)."""
+    from repro_torch.runtime.mesh import ProcessMesh
+    mesh = ProcessMesh(DP["shape"], DP["axes"], device=device)
+    return {"serve": serve_mesh_smoke_rank(device, mesh, tmp)}
+
+
+def phase_serve_mesh(smi: str, single: dict | None = None,
+                     smoke: bool = False) -> None:
+    """(b): RecurrentGemma-9B at full width in bf16 on two ranks sharing
+    the card over gloo, held to ``single`` (the one-process run of
+    :func:`serve_mesh_full_single`, drawn here when not given): the
+    prefill's and the first decode step's logits within the arch's
+    LM_PATHS logits gate, and each request's tokens equal up to the first
+    step whose one-process top-2 logits lie within that gate.  With
+    ``smoke`` (the phase run alone) (a) first, in a four-rank launch of
+    its own instead of dp_train's."""
+    import tempfile
+    from repro_torch.runtime import mesh
+
+    if smoke:
+        with tempfile.TemporaryDirectory() as tmp:
+            smoke_single = serve_mesh_single(tmp)
+            out = mesh.launch(serve_mesh_smoke_alone_rank, DP["ranks"],
+                              backend=DP["backend"], args=(tmp,),
+                              timeout=MESH_TIMEOUT_S)
+            check_serve_mesh_smoke(out, smoke_single, smi)
+    if single is None:
+        from repro_torch import configs
+        from repro_torch.models import transformer
+        cfg = configs.get_config(SERVE_MESH_FULL["arch"])
+        params = transformer.init_params(cfg, 0, device=DEVICE)
+        single = serve_mesh_full_single(cfg, params)
+        del params
+    arch = SERVE_MESH_FULL["arch"]
+    gate = LM_PATHS[arch]["gates"]["logits"]
+    want = LM_PATHS[arch]["launches"]
+    ranks = int(np.prod(SERVE_MESH_FULL["shape"]))
+    print(f"== serve_mesh (b): {arch} full width, bf16, {ranks} ranks on "
+          f"one card over {DP['backend']}, mesh "
+          f"{dict(zip(DP['axes'], SERVE_MESH_FULL['shape']))}, prompts "
+          f"{PROMPT_LENS}, {SERVE_MESH_FULL['steps']} greedy tokens ({smi})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = mesh.launch(serve_mesh_full_rank, ranks, backend=DP["backend"],
+                      timeout=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for r in out:
+        print(f"  rank {r['rank']}: blocks {r['resting_gb']:.4f} GB at "
+              f"rest, {r['gathered_gb']:.4f} GB allocated with the whole "
+              f"tree, peak {r['peak_gb']:.4f} GB (reserved "
+              f"{r['reserved_gb']:.4f} GB, {r['retries']} allocation "
+              f"retries); the one gather "
+              f"{r['gather_s']:.3f} s (copies to pinned host buffers "
+              f"{r['gather_parts']['_wire']:.3f} s, gloo's all-gathers "
+              f"{r['gather_parts']['_all_gather']:.3f} s, copies back "
+              f"{r['gather_parts']['_unwire']:.3f} s), prefill {r['prefill_s']:.4f} s, "
+              f"decode {r['decode_ms']:.3f} ms a token (run again: "
+              f"{r['warm']['prefill_s']:.4f} s, {r['warm']['decode_ms']:.3f} "
+              f"ms); launches in the first run "
+              f"{r['launches']}; collectives {r['collectives']}; layouts "
+              f"{r['layouts']}")
+    print(f"  {ranks} ranks spawned, ran and joined in {wall:.2f} s")
+    r0 = out[0]
+    check(all(r["launches"] == want and r["device"].startswith("cuda")
+              for r in out),
+          f"serve_mesh (b): each rank's params on the card and its prefill "
+          f"launched {want}, one prefill's, decode none")
+    blocks = sorted(r["layouts"]["attn"][1:] for r in out
+                    if list(r["layouts"]) == ["attn"])
+    check(len(blocks) == ranks and all(
+        r["layouts"]["attn"][0] == "seq" for r in out) and all(
+        a[1] == b[0] for a, b in zip(blocks, blocks[1:]))
+        and blocks[0][0] == 0 and blocks[-1][1] == blocks[-1][2],
+        f"serve_mesh (b): the ring cache's slots split over 'model', a "
+        f"block a rank: {blocks}")
+    check(all(all(torch.equal(a, b) for a, b in zip(r["logits"],
+                                                     r0["logits"]))
+              and r["tokens"] == r0["tokens"] == r["warm"]["tokens"]
+              for r in out),
+          "serve_mesh (b): every rank's logits and tokens the same bits, "
+          "the run again the same tokens")
+    rels = [float((a - c).abs().max() / c.abs().max())
+            for a, c in zip(r0["logits"], single["logits"])]
+    print(f"  logits max abs diff / max abs against one process, prefill "
+          f"then each step: {[f'{x:.3e}' for x in rels]}")
+    check(rels[0] <= gate and rels[1] <= gate,
+          f"serve_mesh (b): prefill and first decode logits within {gate:g} "
+          f"of one process ({rels[0]:.3e}, {rels[1]:.3e})")
+    held = []
+    for i, (got, ref) in enumerate(zip(r0["tokens"], single["tokens"])):
+        upto = len(ref)
+        for t, lg in enumerate(single["logits"][:len(ref)]):
+            top = torch.topk(lg[i], 2).values
+            if float(top[0] - top[1]) <= gate * float(lg.abs().max()):
+                upto = t
+                break
+        held.append(upto)
+        check(got[:upto] == ref[:upto],
+              f"serve_mesh (b): request {i}'s tokens equal to one "
+              f"process's up to step {upto} (the first near tie)")
+    print(f"  tokens held equal up to steps {held}; mesh {r0['tokens']}, "
+          f"one process {single['tokens']}")
 
 
 def main() -> int:
@@ -5673,9 +6173,13 @@ def main() -> int:
         "recurrentgemma-9b")
     phase_lm_profile(cfg, params, batch)
     rows += phase_lm_kernels(inputs, layer_errs, counts_lm, cfg.num_heads)
+    serve_full = serve_mesh_full_single(cfg, params)
     del params, batch, inputs   # free the 17 GB of RecurrentGemma weights
     torch.cuda.empty_cache()
     stamp("RecurrentGemma-9B serving")
+    phase_serve_mesh(smi, serve_full)
+    del serve_full
+    stamp("sharded serving")
 
     phase_lm_small("mamba2-1.3b")
     counts_m, params, cfg, batch, inputs, layer_errs = phase_lm_serve(

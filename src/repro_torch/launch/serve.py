@@ -23,6 +23,19 @@ it, as in the reference (the CLI draws lengths below ``--prompt-len``).
 For both recurrent models it must have at least 3 tokens, the conv
 width minus one; a shorter one raises ``ValueError`` (the CLI draws 4 or more).
 
+``serve_batch(mesh=...)`` and ``serve_queue(mesh=...)`` run the same
+loop on a :class:`~repro_torch.runtime.mesh.ProcessMesh`, as the
+reference's docstring says its loop runs under the production mesh:
+every rank runs it with its blocks of the params (``param_specs``) and
+the whole requests, through ``make_prefill_step(mesh=)`` and
+``make_serve_step(mesh=, cache_shapes=)``.  Each rank keeps its blocks
+of the cache (kv heads split over "model", slots split over "model", or
+rows alone) and never gathers it; the params are gathered once.  Greedy
+tokens come from the whole logits, gathered from the ranks' blocks;
+sampling draws from the same seeded generator on every rank, so every
+rank ends with the same ``out`` lists.  The CLI has no mesh flag, as the
+reference's has none.
+
 Usage (the card by default; ``--device cpu`` for a CPU run):
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch recurrentgemma-9b|whisper-large-v3|phi3-vision-4.2b|... \
@@ -42,6 +55,7 @@ import torch
 from repro_torch import configs
 from repro_torch import device as device_mod
 from repro_torch.models import transformer
+from repro_torch.runtime import sharding
 from repro_torch.runtime import steps as steps_mod
 from repro_torch.runtime.scheduler import SlotScheduler
 
@@ -71,14 +85,17 @@ def modality_inputs(cfg, batch: int, device) -> dict:
 
 
 def serve_batch(cfg, params, requests, *, max_seq: int, greedy: bool = True,
-                seed: int = 0, extras: dict | None = None):
+                seed: int = 0, extras: dict | None = None, mesh=None):
     """Run a batch of requests to completion on the device of the
     weights.  Returns the requests with ``out`` filled, plus timing
     stats (host wall times that end in a wait for the device).
     ``greedy=False`` samples from a ``torch.Generator`` seeded with
     ``seed``.  ``extras``: the batch's frames or patches (one row a
     request), :func:`modality_inputs`' zeros by default; patches run the
-    cache and the decode positions ``num_patches`` further."""
+    cache and the decode positions ``num_patches`` further.  With
+    ``mesh`` ``params`` are this rank's blocks and every rank of the
+    mesh calls this with the same requests (the whole params, gathered
+    on the first call, are kept by the mesh for later ones)."""
     dev = params["embed"].device
     B = len(requests)
     S = max(len(r.prompt) for r in requests)
@@ -91,11 +108,20 @@ def serve_batch(cfg, params, requests, *, max_seq: int, greedy: bool = True,
     P_off = cfg.num_patches if cfg.frontend == "vision_stub" else 0
 
     t0 = time.perf_counter()
-    prefill = steps_mod.make_prefill_step(cfg, max_seq=max_seq + P_off)
+    if mesh is None:
+        prefill = steps_mod.make_prefill_step(cfg, max_seq=max_seq + P_off)
+        serve = steps_mod.make_serve_step(cfg)
+        whole_logits = lambda x: x      # noqa: E731
+    else:
+        prefill = steps_mod.make_prefill_step(cfg, mesh, max_seq + P_off)
+        serve = steps_mod.make_serve_step(
+            cfg, mesh, transformer.init_decode_cache(
+                cfg, B, max_seq + P_off, device="meta"))
+        whole_logits = lambda x: sharding.gather(  # noqa: E731
+            x, serve.logits_sharding)
     logits, cache = device_mod.block(prefill(params, batch))
     prefill_s = time.perf_counter() - t0
 
-    serve = steps_mod.make_serve_step(cfg)
     gen = None if greedy else torch.Generator(device=dev).manual_seed(seed)
     cur = torch.argmax(logits, -1)[:, None]
     max_new = max(r.max_new for r in requests)
@@ -106,6 +132,7 @@ def serve_batch(cfg, params, requests, *, max_seq: int, greedy: bool = True,
             if step < r.max_new:
                 r.out.append(int(ids[i]))
         logits, cache = serve(params, cache, cur, P_off + S + step)
+        logits = whole_logits(logits)
         if greedy:
             cur = torch.argmax(logits, -1)
         else:
@@ -122,13 +149,15 @@ def serve_batch(cfg, params, requests, *, max_seq: int, greedy: bool = True,
 
 
 def serve_queue(cfg, params, requests, *, slots: int, max_seq: int,
-                greedy: bool = True, seed: int = 0):
+                greedy: bool = True, seed: int = 0, mesh=None):
     """Run an unbounded request list through a bounded decode batch.
 
     Requests are parked on a :class:`SlotScheduler` of ``slots`` slots
     and served in FIFO waves: admit up to ``slots``, run the wave with
     :func:`serve_batch`, retire, repeat until the queue drains.  Returns
-    the completed requests (arrival order) and aggregate stats.
+    the completed requests (arrival order) and aggregate stats.  With
+    ``mesh`` every rank runs every wave on its param blocks, gathered
+    once for all the waves.
     """
     sched = SlotScheduler(capacity=slots, meters_prefix="serve.")
     for r in requests:
@@ -140,7 +169,8 @@ def serve_queue(cfg, params, requests, *, slots: int, max_seq: int,
         wave = sched.admit()
         batch = [r for _, r in wave]
         batch, stats = serve_batch(cfg, params, batch, max_seq=max_seq,
-                                   greedy=greedy, seed=seed + waves)
+                                   greedy=greedy, seed=seed + waves,
+                                   mesh=mesh)
         for slot, _ in wave:
             sched.retire(slot)
         done.extend(batch)

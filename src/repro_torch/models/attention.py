@@ -14,6 +14,26 @@ exactly ``window`` slots, so decode state stays O(window).  A token at
 absolute position ``pos`` is written to slot ``pos % length`` and each
 slot keeps the absolute position it holds (-1 when empty), so masking
 stays right after wraparound, exactly as in the reference.
+
+On a process mesh (``runtime.steps.make_serve_step(mesh=...)``) each
+rank holds its block of every cache leaf, as ``cache_specs_tree`` lays
+it out, and decode takes the block's :class:`BlockLayout`.  There are
+three layouts, and none gathers the cache:
+
+* **kv heads split** (``dim="heads"``): the rank attends with the query
+  heads that read its kv heads (query head h reads kv head
+  h // q_per_kv), all-gathers the head outputs over the split's mesh
+  axes and runs the whole out-projection;
+* **sequence split** (``dim="seq"``, the ``kv_seq`` fallback): every
+  rank updates the replicated slot positions, the owner of the slot
+  writes the new k and v, each rank takes its slots' f32 maximum, sum
+  of exponentials and weighted sum of values, and the ranks combine them
+  (:func:`_combine_slots`: a ``pmax`` and one ``psum``);
+* **rows only** (no layout): the rank computes its rows, with no
+  collective (the "dp" profile; recurrent and SSD states are never
+  split further).
+
+With no layout the single-process path runs as it always has.
 """
 from __future__ import annotations
 
@@ -94,20 +114,99 @@ def attention(cfg: ModelConfig, params, x, positions, *, window: int,
     return (out, k, v) if return_kv else out
 
 
-def cross_attention_cached(cfg: ModelConfig, params, x, k, v):
-    """Decode's cross-attention: x (B, 1, D) against the cached encoder k
-    and v (B, S_kv, KV, hd), every key visible, the f32 softmax of
-    :func:`decode_attention` (no kernel).  Returns (B, 1, D)."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+@dataclasses.dataclass(frozen=True)
+class BlockLayout:
+    """Where a rank's block of one cache stack sits in the global cache:
+    ``dim`` is "heads" (the kv-head dimension split) or "seq" (the slots
+    split) over the mesh ``axes`` of ``mesh``; the rank holds kv heads or
+    slots [start, stop) of ``size``."""
+
+    dim: str
+    mesh: object
+    axes: tuple
+    start: int
+    stop: int
+    size: int
+
+
+def _q_heads(cfg: ModelConfig, params, layout):
+    """The query projection of the heads that read this rank's kv heads
+    (all heads outside a "heads" layout)."""
+    wq = params["wq"]
+    if layout is not None and layout.dim == "heads":
+        wq = wq[:, layout.start * cfg.q_per_kv:layout.stop * cfg.q_per_kv]
+    return wq
+
+
+def _kv_heads(params, name: str, layout):
+    w = params[name]
+    if layout is not None and layout.dim == "heads":
+        w = w[:, layout.start:layout.stop]
+    return w
+
+
+def _gather_heads(out, layout):
+    """(B, 1, H_r, hd) head outputs of this rank -> (B, 1, H, hd), all-
+    gathered over the layout's mesh axes (the blocks lie in the group's
+    row-major order)."""
+    parts = layout.mesh.all_gather(out.permute(2, 0, 1, 3), layout.axes)
+    return parts.permute(1, 2, 0, 3)
+
+
+def _combine_slots(scores, valid, v, layout):
+    """The softmax-weighted sum of values over slots split across ranks:
+    scores (B, H, 1, S_r) f32 and valid (S_r,) of this rank's slots, v
+    (B, S_r, H, hd) (kv heads expanded).  Each rank's maximum m_r over
+    its valid slots, then m = pmax(m_r); its l_r = sum exp(s - m) and
+    o_r = sum exp(s - m) v in f32 over valid slots alone (a rank with
+    none adds exact zeros), summed by one psum; returns o / l (B, 1, H,
+    hd) in f32."""
+    mesh, axes = layout.mesh, layout.axes
+    m = torch.where(valid, scores, NEG_INF).amax(dim=-1, keepdim=True)
+    m = mesh.pmax(m, axes)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    o = torch.einsum("bhqs,bshk->bqhk", p, v.float())
+    parts = torch.cat([p.sum(dim=-1).transpose(1, 2)[..., None], o], -1)
+    parts = mesh.psum(parts, axes)
+    return parts[..., 1:] / parts[..., :1]
+
+
+def _attend(cfg: ModelConfig, q, k, v, valid, layout):
+    """Single-token attention of q (B, 1, H_r, hd) over the cached k, v
+    (B, S_r, KV_r, hd) where ``valid`` (S_r,) allows, in f32 with the
+    output in v's dtype (B, 1, H_r, hd)."""
     kk = _expand_kv(k, cfg.q_per_kv)
     vv = _expand_kv(v, cfg.q_per_kv)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     scores = torch.einsum("bqhk,bshk->bhqs", q, kk).float() * scale
     if cfg.attn_softcap > 0:
         scores = nn.softcap(scores, cfg.attn_softcap)
+    if layout is not None and layout.dim == "seq":
+        return _combine_slots(scores, valid, vv, layout).to(vv.dtype)
+    if valid is not None:
+        scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(vv.dtype)
-    out = torch.einsum("bhqs,bshk->bqhk", probs, vv)
+    return torch.einsum("bhqs,bshk->bqhk", probs, vv)
+
+
+def _out_proj(params, out, layout):
+    if layout is not None and layout.dim == "heads":
+        out = _gather_heads(out, layout)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def cross_attention_cached(cfg: ModelConfig, params, x, k, v,
+                           layout: BlockLayout | None = None):
+    """Decode's cross-attention: x (B, 1, D) against the cached encoder k
+    and v (B, S_kv, KV, hd), every key visible, the f32 softmax of
+    :func:`decode_attention` (no kernel).  Returns (B, 1, D).  With a
+    ``layout``, k and v are this rank's block of the cross cache (its kv
+    heads or its slots of the encoder's positions)."""
+    q = torch.einsum("bsd,dhk->bshk", x, _q_heads(cfg, params, layout))
+    valid = None
+    if layout is not None and layout.dim == "seq":
+        valid = torch.ones(k.shape[1], dtype=torch.bool, device=k.device)
+    return _out_proj(params, _attend(cfg, q, k, v, valid, layout), layout)
 
 
 # ---------------------------------------------------------------------------
@@ -141,16 +240,19 @@ def init_cache(cfg: ModelConfig, spec: CacheSpec, batch: int, dtype, device):
 
 def decode_attention(cfg: ModelConfig, params, cache, spec: CacheSpec, x,
                      pos: int, *, window: int,
-                     rope_theta: float | None = None):
+                     rope_theta: float | None = None,
+                     layout: BlockLayout | None = None):
     """Single-token decode.  x: (B, 1, D); pos: the absolute position.
 
     Returns (out (B, 1, D), new_cache); the input cache is not modified.
     The cache slot is ``pos % length`` (ring) or ``pos`` (full); masking
-    uses the per-slot absolute positions."""
+    uses the per-slot absolute positions.  With a ``layout``, ``cache``
+    holds this rank's block of k and v (``spec.length`` stays the global
+    slot count) and the whole replicated ``"pos"``."""
     B = x.shape[0]
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    q = torch.einsum("bsd,dhk->bshk", x, _q_heads(cfg, params, layout))
+    k = torch.einsum("bsd,dhk->bshk", x, _kv_heads(params, "wk", layout))
+    v = torch.einsum("bsd,dhk->bshk", x, _kv_heads(params, "wv", layout))
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     if theta > 0:
@@ -161,24 +263,20 @@ def decode_attention(cfg: ModelConfig, params, cache, spec: CacheSpec, x,
     new_k = cache["k"].clone()
     new_v = cache["v"].clone()
     new_pos = cache["pos"].clone()
-    new_k[:, slot] = k[:, 0]
-    new_v[:, slot] = v[:, 0]
     new_pos[slot] = pos
-
-    kk = _expand_kv(new_k, cfg.q_per_kv)
-    vv = _expand_kv(new_v, cfg.q_per_kv)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    scores = torch.einsum("bqhk,bshk->bhqs", q, kk).float() * scale
-    if cfg.attn_softcap > 0:
-        scores = nn.softcap(scores, cfg.attn_softcap)
-    valid = (new_pos >= 0) & (new_pos <= pos)
+    lo, hi = ((layout.start, layout.stop)
+              if layout is not None and layout.dim == "seq"
+              else (0, spec.length))
+    if lo <= slot < hi:             # this rank holds the slot
+        new_k[:, slot - lo] = k[:, 0]
+        new_v[:, slot - lo] = v[:, 0]
+    held = new_pos[lo:hi]
+    valid = (held >= 0) & (held <= pos)
     if window > 0:
-        valid &= new_pos > pos - window
-    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(vv.dtype)
-    out = torch.einsum("bhqs,bshk->bqhk", probs, vv)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return out, {"k": new_k, "v": new_v, "pos": new_pos}
+        valid &= held > pos - window
+    out = _attend(cfg, q, new_k, new_v, valid, layout)
+    return (_out_proj(params, out, layout),
+            {"k": new_k, "v": new_v, "pos": new_pos})
 
 
 def prefill_cache(cfg: ModelConfig, spec: CacheSpec, k, v, positions):

@@ -266,8 +266,13 @@ def _out_table(cfg, params):
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
 
-def logits_fn(cfg: ModelConfig, params, h):
-    return nn.softcap(h @ _out_table(cfg, params).T, cfg.logits_softcap)
+def logits_fn(cfg: ModelConfig, params, h, vocab: tuple | None = None):
+    """The (soft-capped) logits of h; ``vocab`` = (v0, v1) gives those of
+    the output table's rows [v0, v1) alone."""
+    table = _out_table(cfg, params)
+    if vocab is not None:
+        table = table[vocab[0]:vocab[1]]
+    return nn.softcap(h @ table.T, cfg.logits_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +475,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dtype = dtype or DTYPES[cfg.dtype]
 
     def stacked(one, n):
-        return {k: torch.stack([t] * n) for k, t in one.items()}
+        # torch.stack([t] * n), without the stack: on ``meta`` (the cache's
+        # shapes alone) the stack imports Python meta kernels, seconds on a
+        # process's first call
+        return {k: t.new_empty((n,) + tuple(t.shape)).copy_(
+            t.expand((n,) + tuple(t.shape))) for k, t in one.items()}
 
     if _is_ssd(cfg):
         return stacked(ssd.init_ssd_cache(cfg, batch, dtype, dev),
@@ -488,9 +497,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
         # local ones), each in layer order
         per: dict = {}
         for spec in _layer_specs(cfg, max_seq):
-            per.setdefault(spec.kind, []).append(
-                attention.init_cache(cfg, spec, batch, dtype, dev))
-        return {k: _stack(v) for k, v in per.items()}
+            per.setdefault(spec.kind, [spec, 0])[1] += 1
+        return {k: stacked(attention.init_cache(cfg, spec, batch, dtype,
+                                                dev), n)
+                for k, (spec, n) in per.items()}
     spec = attention.CacheSpec("ring", min(cfg.window, max_seq))
     n_full = _n_full(cfg)
     cache = {
@@ -514,12 +524,21 @@ def _layer_specs(cfg: ModelConfig, max_seq: int) -> list:
             for i in range(cfg.num_layers)]
 
 
-def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int):
+def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int, *,
+               layouts: dict | None = None, vocab: tuple | None = None):
     """One decode step.  tokens: (B, 1) int; pos: the absolute position.
     Returns (logits (B, 1, V), new_cache); the input cache is not
-    modified."""
+    modified.
+
+    On a process mesh ``cache`` is this rank's block of every leaf and
+    ``layouts`` maps each attention cache stack ("full", "ring", "attn",
+    "self", "cross_k") whose kv heads or slots are split to its
+    :class:`~repro_torch.models.attention.BlockLayout` (a stack not named
+    holds whole heads and slots of its rows); tokens are the rank's rows;
+    ``vocab`` = (v0, v1) returns the logits of those vocab rows alone."""
     _require_ported(cfg)
     pos = int(pos)
+    layouts = layouts or {}
     h = _embed_tokens(cfg, params, tokens)
     if _is_ssd(cfg):
         new = []
@@ -530,16 +549,17 @@ def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int):
             h = h + out
             new.append(c)
         h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        return logits_fn(cfg, params, h), _stack(new)
+        return logits_fn(cfg, params, h, vocab), _stack(new)
     if _is_uniform(cfg):
-        h, new_cache = _decode_uniform(cfg, params, cache, h, pos)
+        h, new_cache = _decode_uniform(cfg, params, cache, h, pos, layouts)
         h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        return logits_fn(cfg, params, h), new_cache
+        return logits_fn(cfg, params, h, vocab), new_cache
     if _is_encdec(cfg):
-        h, new_cache = _decode_encdec(cfg, params, cache, h, pos)
+        h, new_cache = _decode_encdec(cfg, params, cache, h, pos, layouts)
         h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        return logits_fn(cfg, params, h), new_cache
-    spec = attention.CacheSpec("ring", int(cache["attn"]["k"].shape[2]))
+        return logits_fn(cfg, params, h, vocab), new_cache
+    layout = layouts.get("attn")
+    spec = attention.CacheSpec("ring", _slots(cache["attn"], layout))
     periods = params["periods"]
     new = {"r1": [], "r2": [], "attn": []}
     for i in range(_n_full(cfg)):
@@ -551,7 +571,7 @@ def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int):
         new["r2"].append(c)
         h, c = _decode_attn_block(cfg, _index(periods["attn"], i),
                                   _index(cache["attn"], i), spec, h, pos,
-                                  cfg.window, cfg.rope_theta)
+                                  cfg.window, cfg.rope_theta, layout)
         new["attn"].append(c)
     new_cache = {k: _stack(v) for k, v in new.items()}
     if "tail" in params:
@@ -562,7 +582,14 @@ def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int):
             tail.append(c)
         new_cache["tail"] = _stack(tail)
     h = nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-    return logits_fn(cfg, params, h), new_cache
+    return logits_fn(cfg, params, h, vocab), new_cache
+
+
+def _slots(stack, layout) -> int:
+    """The global slot count of a cache stack ((L, B, S, KV, hd) k) whose
+    block this rank holds."""
+    return layout.size if layout is not None and layout.dim == "seq" \
+        else int(stack["k"].shape[2])
 
 
 def _decode_rglru_block(cfg, lp, c, h):
@@ -573,19 +600,21 @@ def _decode_rglru_block(cfg, lp, c, h):
     return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp), nc
 
 
-def _decode_attn_block(cfg, lp, c, spec, h, pos, window, theta):
+def _decode_attn_block(cfg, lp, c, spec, h, pos, window, theta,
+                       layout=None):
     a_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
     out, nc = attention.decode_attention(cfg, lp["attn"], c, spec, a_in,
                                          pos, window=window,
-                                         rope_theta=theta)
+                                         rope_theta=theta, layout=layout)
     return _ffn(cfg, lp, h + out), nc
 
 
-def _decode_encdec(cfg, params, cache, h, pos):
+def _decode_encdec(cfg, params, cache, h, pos, layouts):
     """Decode through whisper's decoder: the learned position of ``pos``,
     then each layer's cached self-attention, its cross-attention over the
     cached encoder k and v, and its MLP."""
-    spec = attention.CacheSpec("full", int(cache["self"]["k"].shape[2]))
+    layout = layouts.get("self")
+    spec = attention.CacheSpec("full", _slots(cache["self"], layout))
     h = h + params["dec_pos"][pos][None, None]
     new = []
     for i in range(cfg.num_layers):
@@ -593,25 +622,25 @@ def _decode_encdec(cfg, params, cache, h, pos):
         a_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
         out, c = attention.decode_attention(
             cfg, lp["self_attn"], _index(cache["self"], i), spec, a_in, pos,
-            window=0, rope_theta=0.0)
+            window=0, rope_theta=0.0, layout=layout)
         h = h + out
         x_in = nn.apply_norm(lp["norm_x"], h, cfg.norm, cfg.norm_eps)
         h = h + attention.cross_attention_cached(
             cfg, lp["cross_attn"], x_in, cache["cross_k"][i],
-            cache["cross_v"][i])
+            cache["cross_v"][i], layout=layouts.get("cross_k"))
         f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
         h = h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
         new.append(c)
     return h, dict(cache, self=_stack(new))
 
 
-def _decode_uniform(cfg, params, cache, h, pos):
+def _decode_uniform(cfg, params, cache, h, pos, layouts):
     """Decode through the uniform stack in layer order; layer i reads and
     writes its slot of its kind's stack (gemma3's local and global layers
     interleave)."""
     windows, thetas = layer_statics(cfg)
     kinds = [spec.kind for spec in _layer_specs(cfg, 1 << 30)]
-    specs = {k: attention.CacheSpec(k, int(c["k"].shape[2]))
+    specs = {k: attention.CacheSpec(k, _slots(c, layouts.get(k)))
              for k, c in cache.items()}
     new = {k: [] for k in cache}
     for i in range(cfg.num_layers):
@@ -619,7 +648,7 @@ def _decode_uniform(cfg, params, cache, h, pos):
         h, c = _decode_attn_block(
             cfg, _index(params["blocks"], i),
             _index(cache[kind], len(new[kind])), specs[kind], h, pos,
-            windows[i], thetas[i])
+            windows[i], thetas[i], layouts.get(kind))
         new[kind].append(c)
     return h, {k: _stack(v) for k, v in new.items()}
 

@@ -161,7 +161,8 @@ class ProcessMesh:
     others).  ``device`` is where this rank's tensors live (default: the
     card this rank uses; raises without one); :attr:`transport`
     says how they reach the collectives.  :attr:`counts` counts the
-    collective calls this rank has made, by kind."""
+    collective calls this rank has made, by kind; :attr:`kept` holds
+    state that steps on the mesh share."""
 
     def __init__(self, shape, axis_names, *, device=None):
         if not dist.is_initialized():
@@ -194,6 +195,9 @@ class ProcessMesh:
         self.counts = {"psum": 0, "pmax": 0, "reduce_scatter": 0,
                        "all_gather": 0, "ppermute": 0, "objects": 0}
         self._pinned: dict = {}
+        # state that steps on this mesh share, dropped with the mesh
+        # (runtime.steps.whole_params keeps the whole params here)
+        self.kept: dict = {}
         # (axes) -> (group, its ranks in row-major order over the axes)
         self._groups: dict = {}
         grid = np.arange(world).reshape(sizes)

@@ -19,10 +19,15 @@ the blocks) or an :class:`AbstractMesh` (axis sizes only, for specs at
 production sizes that no one launches).  Outside any mesh the specs are
 the production mesh's (``_DEFAULT_SIZES``), as in the reference.
 
-The port has no tensor-parallel compute: :func:`shard` is the identity,
-and a sharded training step gathers whole parameters from the blocks
-(:func:`gather`) before it computes.  :func:`local_block` is the block a
-rank holds; :class:`NamedSharding` pairs a mesh with a spec.
+:func:`shard` is the identity: a sharded step gathers whole parameters
+from the blocks (:func:`gather`) and computes its rows with them.  The
+one compute on blocks is decode's attention core, which runs on a
+rank's kv heads or cache slots (:mod:`repro_torch.models.attention`):
+:func:`dim_range` is where a rank's block of a dimension starts and
+ends, so the rank whose range holds slot ``pos % L`` of a
+sequence-split cache is the one that writes it.  Projections and MLPs
+are not tensor parallel.  :func:`local_block` is the block a rank
+holds; :class:`NamedSharding` pairs a mesh with a spec.
 """
 from __future__ import annotations
 
@@ -265,6 +270,14 @@ def block_slices(sharding: NamedSharding, shape, rank=None) -> tuple:
         mesh.axis_names, (int(c) for c in np.unravel_index(
             rank, tuple(mesh.shape.values()))))))
     return _slices(sharding.spec, tuple(shape), mesh.shape, coords)
+
+
+def dim_range(sharding: NamedSharding, shape, dim: int,
+              rank=None) -> tuple:
+    """(start, stop) of dimension ``dim`` of a full tensor of ``shape``
+    in the block that mesh rank ``rank`` (default: this rank) holds."""
+    sl = block_slices(sharding, shape, rank)[dim]
+    return sl.start, sl.stop
 
 
 def named_shardings(mesh, spec_tree):

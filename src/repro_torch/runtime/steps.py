@@ -13,15 +13,27 @@ reference's GSPMD step: each rank holds its block of the parameters and
 of both AdamW moments as ``param_specs`` and ``opt_specs`` lay them out,
 gathers whole parameters for the step (no tensor-parallel compute), and
 computes the gradient of the global loss on its rows of the batch
-(:func:`make_train_step` says how).  Sharded prefill and serve steps are
-not ported (ROADMAP).
+(:func:`make_train_step` says how).
+
+``make_prefill_step(mesh=...)`` and ``make_serve_step(mesh=...,
+cache_shapes=...)`` are the reference's sharded serving steps on a
+``ProcessMesh``.  Every rank passes its blocks of the params and the
+whole global inputs; the step computes the rank's rows with whole
+params (:func:`whole_params`: gathered once, kept while the blocks are
+unchanged) and returns the rank's blocks of the outputs.  The prefill
+returns the whole last-position logits on every rank and this rank's
+block of every cache leaf under ``cache_specs_tree``; the serve step
+takes and returns cache blocks and returns its block of the logits.  The
+cache is never gathered: decode's attention runs on the block, with its
+kv heads split over "model", its slots split over "model" (``kv_seq``)
+or its rows alone (:mod:`repro_torch.models.attention` says how).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels._build import LM_DTYPES
-from repro_torch.models import transformer
+from repro_torch.models import attention, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.runtime import sharding
@@ -209,11 +221,7 @@ def _row_plan(cfg: ModelConfig, mesh, shapes: dict, accum: int) -> tuple:
                                   device="meta")
     with sharding.use_mesh(mesh):
         specs = batch_specs(cfg, micro)
-    rows = {sharding.dim_axes(spec[0]) for spec in specs.values()}
-    if len(rows) != 1:
-        raise ValueError(f"the batch's tensors split their rows over "
-                         f"different mesh axes: {specs}")
-    return specs, rows.pop()
+    return specs, _row_axes(specs)
 
 
 def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -308,10 +316,71 @@ def _global_norm(blocks: list, shardings: list, mesh) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-def make_prefill_step(cfg: ModelConfig, max_seq: int | None = None, *,
+class WholeParams:
+    """The whole parameters of ``cfg`` on every rank of ``mesh``,
+    gathered from this rank's blocks (``param_specs`` under the mesh).
+
+    Calling it with the tree of blocks returns the tree of whole tensors.
+    Each leaf is gathered once and kept while its block is the same
+    tensor object at the same ``_version``: a decode loop gathers the
+    tree on its first call only.  An in-place edit of a block bumps its
+    version and brings that leaf's gather back on the next call (every
+    rank must edit the same blocks, as an SPMD program does: the gather
+    is a collective).  An inference tensor has no version counter, so
+    an in-place edit of one under ``torch.inference_mode`` goes unseen.
+    The steps take theirs from :func:`whole_params`."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        with sharding.use_mesh(mesh):
+            self.shardings = adamw.leaves(sharding.named_shardings(
+                mesh, transformer.param_specs(cfg)))
+        self._kept: list = [None] * len(self.shardings)
+
+    def __call__(self, params):
+        blocks = adamw.leaves(params)
+        if len(blocks) != len(self.shardings):
+            raise ValueError(f"{len(blocks)} param blocks, but the config "
+                             f"has {len(self.shardings)} leaves")
+        for j, (b, sh) in enumerate(zip(blocks, self.shardings)):
+            ver = None if b.is_inference() else b._version
+            kept = self._kept[j]
+            if kept is None or kept[0] is not b or kept[1] != ver:
+                self._kept[j] = None      # free the old leaf first
+                self._kept[j] = (b, ver, sharding.gather(b.detach(), sh))
+        it = iter(k[2] for k in self._kept)
+        return adamw.tree_map(lambda _: next(it), params)
+
+
+def whole_params(cfg: ModelConfig, mesh) -> WholeParams:
+    """The one :class:`WholeParams` of ``cfg`` on ``mesh``, kept in
+    ``mesh.kept`` and dropped with the mesh: the prefill and serve steps
+    of a config on a mesh (and ``serve_queue``'s waves) share it, so a
+    rank holds one whole tree.  ``mesh.kept.clear()`` frees it."""
+    kept = mesh.kept.setdefault("whole_params", {})
+    if cfg not in kept:
+        kept[cfg] = WholeParams(cfg, mesh)
+    return kept[cfg]
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None, max_seq: int | None = None,
+                      batch_shapes: dict | None = None, *,
                       mode: str = "auto"):
     """``step(params, batch) -> (logits_last (B, V), cache)``; ``mode``
-    goes to the prefill's kernel ops."""
+    goes to the prefill's kernel ops.
+
+    With ``mesh`` every rank passes its blocks of the params and the
+    whole global batch; the step takes this rank's rows by
+    ``batch_specs`` (``batch_shapes``, or the first batch's shapes: every
+    batch must have them), runs the single-process prefill on them with
+    the whole params (:func:`whole_params`) and returns the whole ``logits_last`` on every rank (gathered
+    over the batch's mesh axes) and this rank's block of every cache leaf
+    under ``cache_specs_tree`` of the global cache (its shapes:
+    ``transformer.init_decode_cache(cfg, B, max_seq)`` on ``meta``, which
+    the prefill's cache must have).  ``step.cache_shapes`` is the global
+    cache's shapes (``meta`` tensors, after the first call)."""
+    if mesh is not None:
+        return _sharded_prefill_step(cfg, mesh, max_seq, batch_shapes, mode)
+
     def step(params, batch):
         with torch.inference_mode():
             return transformer.prefill(cfg, params, batch, max_seq=max_seq,
@@ -319,9 +388,169 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int | None = None, *,
     return step
 
 
-def make_serve_step(cfg: ModelConfig):
-    """``step(params, cache, tokens, pos) -> (logits (B, 1, V), cache)``."""
+def make_serve_step(cfg: ModelConfig, mesh=None, cache_shapes=None):
+    """``step(params, cache, tokens, pos) -> (logits (B, 1, V), cache)``.
+
+    With ``mesh`` (``cache_shapes``, the global cache's shapes, then
+    required) every rank passes its blocks of the params, its blocks of
+    the cache (``cache_specs_tree``), the whole (B, 1) tokens and
+    ``pos``; the step decodes the rank's rows (the tokens' spec, as the
+    reference's) with the whole params (:func:`whole_params`) and returns this rank's block of the
+    logits, ``act_spec_shaped((B, 1, V), "batch", None, "vocab")``,
+    computed from the rank's vocab rows of the output table, and its new
+    cache blocks.  The cache is never gathered.  ``step.logits_sharding``
+    is the logits' :class:`~repro_torch.runtime.sharding.NamedSharding`
+    (``sharding.gather`` gives the whole logits)."""
+    if mesh is not None:
+        if cache_shapes is None:
+            raise ValueError("make_serve_step(mesh=...) needs cache_shapes, "
+                             "the global cache's shapes")
+        return _sharded_serve_step(cfg, mesh, cache_shapes)
+
     def step(params, cache, tokens, pos):
         with torch.inference_mode():
             return transformer.serve_step(cfg, params, cache, tokens, pos)
+    return step
+
+
+def _tree_shapes(tree):
+    return adamw.tree_map(lambda t: tuple(t.shape), tree)
+
+
+def _cache_shardings(cfg: ModelConfig, mesh, cache_shapes):
+    with sharding.use_mesh(mesh):
+        return sharding.named_shardings(
+            mesh, cache_specs_tree(cfg, cache_shapes))
+
+
+def _row_axes(specs: dict) -> tuple:
+    """The mesh axes that split the rows (dim 0) of every tensor of a
+    batch's specs."""
+    rows = {sharding.dim_axes(spec[0]) for spec in specs.values()}
+    if len(rows) != 1:
+        raise ValueError(f"the batch's tensors split their rows over "
+                         f"different mesh axes: {specs}")
+    return rows.pop()
+
+
+def _check_cache_rows(shards, rows: tuple) -> None:
+    """Every cache leaf with rows (dim 1 of the stacked leaves) splits
+    them over ``rows``, the axes of the step's rows."""
+    for sh in adamw.leaves(shards):
+        if len(sh.spec) > 1 and sharding.dim_axes(sh.spec[1]) != rows:
+            raise ValueError(f"a cache leaf splits its rows as "
+                             f"{sh.spec}, the batch over {rows}")
+
+
+def _sharded_prefill_step(cfg: ModelConfig, mesh, max_seq, batch_shapes,
+                          mode: str):
+    """The prefill of :func:`make_prefill_step` on ``mesh``."""
+    plan = {}
+    if batch_shapes is not None:
+        plan["shapes"] = {k: tuple(v.shape) for k, v in batch_shapes.items()}
+
+    def plan_for(batch: dict) -> dict:
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        plan.setdefault("shapes", shapes)
+        if shapes != plan["shapes"]:
+            raise ValueError(f"batch shapes {shapes} differ from the "
+                             f"step's {plan['shapes']}")
+        if "specs" in plan:
+            return plan
+        with sharding.use_mesh(mesh):
+            plan["specs"] = batch_specs(cfg, {
+                k: torch.empty(v, device="meta") for k, v in shapes.items()})
+        rows = _row_axes(plan["specs"])
+        B, S = shapes["tokens"]
+        if transformer._has_patches(cfg, shapes):
+            S += shapes["patches"][1]
+        meta = transformer.init_decode_cache(cfg, B, max_seq or S,
+                                             device="meta")
+        plan["cache"] = _cache_shardings(cfg, mesh, meta)
+        _check_cache_rows(plan["cache"], rows)
+        plan["cache_shapes"] = _tree_shapes(meta)
+        step.cache_shapes = meta
+        plan["logits"] = sharding.NamedSharding(mesh, P(rows or None, None))
+        return plan
+
+    def block_of(local, sh, shape):
+        """This rank's block of a cache leaf of the global ``shape`` from
+        the prefill's leaf of its rows (dim 1 of the stacked leaves)."""
+        sl = list(sharding.block_slices(sh, shape))
+        if len(shape) > 1:
+            rows = sl[1].stop - sl[1].start
+            if tuple(local.shape) != shape[:1] + (rows,) + shape[2:]:
+                raise ValueError(
+                    f"the prefill's cache leaf {tuple(local.shape)} is not "
+                    f"the rows {rows} of the global {shape}")
+            sl[1] = slice(None)
+        elif tuple(local.shape) != shape:
+            raise ValueError(f"the prefill's cache leaf "
+                             f"{tuple(local.shape)} is not {shape}")
+        return local[tuple(sl)].clone()
+
+    def step(params, batch):
+        p = plan_for(batch)
+        tree = whole_params(cfg, mesh)(params)
+        rows = {k: sharding.local_block(v, sharding.NamedSharding(
+            mesh, p["specs"][k])) for k, v in batch.items()}
+        with torch.inference_mode():
+            logits, cache = transformer.prefill(cfg, tree, rows,
+                                                max_seq=max_seq, mode=mode)
+            cache = adamw.tree_map(block_of, cache, p["cache"],
+                                   p["cache_shapes"])
+            logits = sharding.gather(logits, p["logits"])
+        return logits, cache
+
+    step.cache_shapes = None
+    return step
+
+
+def _layout(sh, shape) -> attention.BlockLayout | None:
+    """The decode layout of a stacked (L, B, S, KV, hd) k leaf's block:
+    its kv heads or slots split, or None (rows alone)."""
+    for dim, name in ((3, "heads"), (2, "seq")):
+        axes = sharding.dim_axes(sh.spec[dim]) if dim < len(sh.spec) else ()
+        if axes:
+            start, stop = sharding.dim_range(sh, shape, dim)
+            return attention.BlockLayout(name, sh.mesh, axes, start, stop,
+                                         shape[dim])
+    return None
+
+
+def _sharded_serve_step(cfg: ModelConfig, mesh, cache_shapes):
+    """The decode step of :func:`make_serve_step` on ``mesh``."""
+    shapes = _tree_shapes(cache_shapes)
+    shards = _cache_shardings(cfg, mesh, cache_shapes)
+    B = adamw.leaves(shapes)[0][1]       # the reference's choice of leaf
+    V = cfg.vocab_size
+    with sharding.use_mesh(mesh), sharding.profile(cfg.sharding_profile):
+        tspec = sharding.act_spec_shaped((B, 1), "batch", None)
+        lspec = sharding.act_spec_shaped((B, 1, V), "batch", None, "vocab")
+    _check_cache_rows(shards, sharding.dim_axes(tspec[0]))
+    tshard = sharding.NamedSharding(mesh, tspec)
+    lshard = sharding.NamedSharding(mesh, lspec)
+    vocab = sharding.dim_range(lshard, (B, 1, V), 2)
+    layouts = {}     # each attention stack whose heads or slots split
+    for key, node in shards.items():
+        if isinstance(node, dict) and "k" in node:
+            sh, shape = node["k"], shapes[key]["k"]
+        elif key == "cross_k":
+            sh, shape = node, shapes[key]
+        else:
+            continue
+        layout = _layout(sh, shape)
+        if layout is not None:
+            layouts[key] = layout
+
+    def step(params, cache, tokens, pos):
+        tree = whole_params(cfg, mesh)(params)
+        rows = sharding.local_block(tokens, tshard)
+        with torch.inference_mode():
+            return transformer.serve_step(
+                cfg, tree, cache, rows, pos, layouts=layouts,
+                vocab=None if vocab == (0, V) else vocab)
+
+    step.logits_sharding = lshard
+    step.layouts = layouts
     return step
