@@ -304,6 +304,19 @@ and prompts (logits within the arch's gate, tokens to the first near
 tie); it prints each rank's gather, prefill and decode times, memory and
 launches.
 
+Dry run (``dryrun``): ``repro_torch.launch.dryrun.lower_cell`` traces,
+on ``meta`` tensors, one step of each of five runs above (the trainer's
+Mamba-2 1.3B, OLMoE-1B-7B at 10 layers and RecurrentGemma-9B at 18
+layers in one process; a ``dp_train`` (b) rank and a ``serve_mesh`` (b)
+rank on a ``TracedMesh`` of their meshes' shape and rank), and each
+predicted peak (the trace's peak of live bytes plus what the card held
+besides the step's inputs when the run began) must lie within
+DRYRUN_TOL of the run's ``torch.cuda.max_memory_allocated``.  It then
+prints the single-pod dry run's ``fits`` column for the 40 cells at
+full width, which a process started at the beginning of the script
+computes on the host, niced and hidden from the card (the cells it
+finished where it did not finish in time).
+
 Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Exits nonzero
 on any failure, and when there is no card.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -321,14 +334,6 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-
-# NVIDIA H100 SXM data sheet, dense peaks: FP64 (tensor core) 67 TFLOP/s,
-# FP32 67 TFLOP/s outside the tensor cores, TF32 (tensor core) 495 TFLOP/s,
-# BF16 (tensor core) 989 TFLOP/s; HBM3 3.35 TB/s.
-PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
-              torch.bfloat16: 989e12}
-PEAK_TF32 = 495e12
-PEAK_BYTES = 3.35e12
 
 REPLACES = {
     "gram": "src/repro/kernels/gram.py:58",
@@ -1853,25 +1858,13 @@ def _library(name, args):
 
 
 def _bound(name, args):
-    """(bound_ms, bound_by): the larger of bytes moved (each input read
-    once, each output written once) over the HBM rate and the flops over
-    the dtype's peak."""
+    """(bound_ms, bound_by) of gram or a Schwarz kernel on ``args``
+    (``repro_torch.kernels.cost``: the larger of the bytes moved, each
+    input read once and each output written once, over the HBM rate and
+    the flops over the dtype's peak)."""
+    from repro_torch.kernels import cost
     A = args[0]
-    p, m, w = A.shape
-    it = A.element_size()
-    if name == "gram":
-        flops = p * m * w * (w + 1)            # symmetric half, 2 per FMA
-        elems = p * m * w + p * m + p * w * w
-    elif name == "schwarz_fwd":
-        flops = 4 * p * m * w
-        elems = p * m * w + 2 * p * w + 2 * p * m
-    else:
-        flops = 2 * p * m * w + 4 * p * m + 3 * p * w
-        elems = p * m * w + 3 * m + p * m + 3 * p * w + p * w
-    t_ops = flops / PEAK_FLOPS[A.dtype] * 1e3
-    t_bytes = elems * it / PEAK_BYTES * 1e3
-    return (max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    return getattr(cost, name)(A.shape, A.dtype).bound()
 
 
 def compare(name, args, dtype, label):
@@ -2256,10 +2249,16 @@ def keep_prefill(store: list):
 
 
 def keep_first_call(store: dict, name: str):
-    """Wrap a kernel op so its first call's arguments land in ``store``."""
+    """Wrap a kernel op so its first call's arguments land in ``store``,
+    detached: a kept argument with its autograd graph would keep the
+    graph's tensors (the step's whole params among them) alive for the
+    rest of the run, and every later step's peak memory would count
+    them."""
     def wrap(fn):
         def run(*args, **kwargs):
-            store.setdefault(name, (args, kwargs))
+            if name not in store:
+                store[name] = (tuple(a.detach() if torch.is_tensor(a)
+                                     else a for a in args), kwargs)
             return fn(*args, **kwargs)
         return run
     return wrap
@@ -3032,41 +3031,19 @@ def moe_share(prof, busy_ms: float) -> None:
               f"{name[1:]} {ms:.3f} ms" for name, ms in parts.items()))
 
 
-def visible_scores(s: int, causal: bool, window: int,
-                   s_kv: int | None = None) -> int:
-    """Score entries a (BH = 1) attention of S query rows leaves unmasked
-    (S_kv keys, S by default; S_kv differs only in a cross-attention,
-    where every key is visible)."""
-    if s_kv is not None and s_kv != s:
-        return s * s_kv
-    q = np.arange(s)
-    lo = np.zeros(s, np.int64) if window <= 0 else np.maximum(q - window + 1,
-                                                              0)
-    hi = q + 1 if causal else np.full(s, s)
-    return int((hi - lo).sum())
-
-
 def lm_bound(name, args, kwargs):
-    """(bound_ms, bound_by): bytes (inputs read once, output written
-    once) over the HBM rate against flops over the dtype's peak; the
-    attention's flops count the visible score entries only, its bytes k
-    and v at their own (kv head) rows."""
+    """(bound_ms, bound_by) of flash_attention or rglru_scan on ``args``
+    (``repro_torch.kernels.cost``): bytes (inputs read once, output
+    written once) over the HBM rate against flops over the dtype's peak;
+    the attention's flops count the visible score entries only, its
+    bytes k and v at their own (kv head) rows."""
+    from repro_torch.kernels import cost
     t = args[0]
-    it = t.element_size()
     if name == "flash_attention":
-        bh, s, d = t.shape
-        flops = 4 * d * bh * visible_scores(s, kwargs["causal"],
-                                            kwargs["window"],
-                                            args[1].shape[1])
-        # q read and o written at BH rows, k and v read once at BH_kv rows
-        nbytes = (2 * t.numel() + 2 * args[1].numel()) * it
-    else:
-        flops = 2 * t.numel()
-        nbytes = 3 * t.numel() * it
-    t_ops = flops / PEAK_FLOPS[t.dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+        return cost.flash_attention(
+            t.shape, args[1].shape, t.dtype, causal=kwargs["causal"],
+            window=kwargs["window"]).bound()
+    return cost.rglru_scan(t.shape, t.dtype).bound()
 
 
 def lm_kernel(name):
@@ -3680,29 +3657,17 @@ def ssd_compare(args, chunk: int, label: str) -> float:
 
 def ssd_bound(args, chunk: int):
     """The least time of one ssd_scan: (bound_ms, bound_by, ops) with
-    ops the operations' times (ms) of the function's flops at the TF32
-    tensor-core peak (495 TFLOP/s; the bound's side), of the kernel's
-    own arithmetic, each product as three TF32 products, and of exact
-    f32 FMA (67 TFLOP/s).  Flops at the least the function needs,
-    counting the causal triangle's chunk (chunk + 1) / 2 pairs: C B^T
-    once per (group, chunk), 2 N a pair, as the heads of a group share
-    it; per (head, chunk), (C B^T .* L) x, 2 P a pair, and the
-    inter-chunk term and the state update, 2 N P a row each.  Bytes: x,
-    dt, A, B, C read once, y and the final state written once, f32."""
-    x, dt, A, B, C = args
-    bh, s, p = x.shape
-    groups, _, n = B.shape
-    pairs = chunk * (chunk + 1) // 2
-    flops = (s // chunk) * (groups * 2 * pairs * n
-                            + bh * (2 * pairs * p + 4 * chunk * n * p))
-    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
-                  + C.numel() + bh * n * p)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_TF32 * 1e3
+    ops the operations' times (ms) of the function's flops
+    (``repro_torch.kernels.cost.ssd_scan``) at the TF32 tensor-core peak
+    (495 TFLOP/s; the bound's side), of the kernel's own arithmetic, each
+    product as three TF32 products, and of exact f32 FMA (67 TFLOP/s)."""
+    from repro_torch.kernels import cost
+    x, _, _, B, _ = args
+    work = cost.ssd_scan(x.shape, B.shape, chunk)
+    t_ops = work.flops / cost.PEAK_TF32 * 1e3
     ops = {"tf32": t_ops, "3xtf32": 3 * t_ops,
-           "fma": flops / PEAK_FLOPS[torch.float32] * 1e3}
-    return (max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", ops)
+           "fma": work.flops / cost.PEAK_FLOPS[torch.float32] * 1e3}
+    return (*work.bound(), ops)
 
 
 def launch_times(fn, pattern: str, calls: int = 3) -> list:
@@ -3985,7 +3950,8 @@ def expected_train_launches(cfg) -> dict:
             "flash_attention": mult * attn, "flash_attention_bwd": attn}
 
 
-def phase_train(run: str, smi: str, kept: dict) -> dict:
+def phase_train(run: str, smi: str, kept: dict,
+                peaks: dict | None = None) -> dict:
     """Train ``TRAIN_RUNS[run]`` through the port's entry points:
     step 0's loss and global grad norm through the kernels against the
     plain route on the loader's first batch; the trainer
@@ -4010,7 +3976,8 @@ def phase_train(run: str, smi: str, kept: dict) -> dict:
     run (its counts over TRAIN_STEPS), each under its name and the
     suffix, and those of each kind of attention call, forward and
     backward, under ``:`` and the kind (of the repeated steps in f32
-    under the f32 rows' names)."""
+    under the f32 rows' names).  The trainer's peak memory lands in
+    ``peaks`` under the run's name (:func:`keep_peak`)."""
     from repro_torch import configs
     from repro_torch.data import pipeline
     from repro_torch.kernels import ops
@@ -4106,6 +4073,9 @@ def phase_train(run: str, smi: str, kept: dict) -> dict:
         return make_timed
 
     ops.reset_counts()
+    # what the card holds besides the params the trainer takes
+    other = torch.cuda.memory_allocated() - sum(
+        p.numel() * p.element_size() for p in adamw.leaves(params))
     torch.cuda.reset_peak_memory_stats()
     # the main path's attention calls of each kind, forward and backward
     kinds: dict = {}
@@ -4118,6 +4088,9 @@ def phase_train(run: str, smi: str, kept: dict) -> dict:
             init_params=params, extras=extras or None)
     main_counts = {k: v for k, v in ops.launch_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 1e9
+    if peaks is not None:
+        keep_peak(peaks, run, arch, "train", B, S, other,
+                  layers=spec["layers"], dtype=spec["dtype"])
     p50 = float(np.median(times))
     total = {k: TRAIN_STEPS * v for k, v in want.items()}
     check(main_counts == total, f"train: kernel launches over "
@@ -4730,46 +4703,21 @@ def near_one_key_dq(args, kwargs) -> None:
 
 
 def bwd_bound(name, args, kwargs):
-    """(bound_ms, bound_by) of one backward call: the bytes it must move
-    (inputs, the forward's saved tensors it reads, output gradient read
-    once; gradients written once) over the HBM rate against the flops
-    the function needs at the type's peak (TF32 for f32, as
-    ``ssd_bound``).  flash_attention: 2 D flops a visible (q, key) pair
-    for each of S (recomputed from the saved lse), dP, dV, dQ and dK.
-    rglru_scan: 3 flops an element.  ssd_scan: per (head, chunk), the
-    causal triangle's chunk (chunk + 1) / 2 pairs: dy x^T and M^T dy
-    (2 P a pair), dG B and dG^T C (2 N a pair), and 4 chunk N P
-    multiply-adds for the state terms."""
+    """(bound_ms, bound_by) of one backward call
+    (``repro_torch.kernels.cost``): the bytes it must move (inputs, the
+    forward's saved tensors it reads, output gradient read once;
+    gradients written once) over the HBM rate against the flops the
+    function needs at the type's peak (TF32 for the scans)."""
+    from repro_torch.kernels import cost
     t = args[0]
-    it = t.element_size()
     if name == "flash_attention":
-        bh, s, d = t.shape
-        flops = 10 * d * bh * visible_scores(s, kwargs["causal"],
-                                             kwargs["window"],
-                                             args[1].shape[1])
-        nbytes = ((4 * t.numel() + 4 * args[1].numel()) * it
-                  + 4 * bh * s)
-        peak = PEAK_FLOPS[t.dtype]
-    elif name == "rglru_scan":
-        flops = 3 * t.numel()
-        nbytes = 5 * t.numel() * it
-        peak = PEAK_TF32
-    else:
-        x, dt, A, B, C = args
-        bh, s, p = x.shape
-        groups, _, n = B.shape
-        chunk = min(kwargs["chunk"], s)
-        nc = s // chunk
-        pairs = chunk * (chunk + 1) // 2
-        flops = 2 * nc * bh * (2 * pairs * (p + n) + 4 * chunk * n * p)
-        nbytes = (4 * (3 * x.numel() + 2 * dt.numel() + 2 * A.numel()
-                       + 4 * B.numel() + groups * nc * chunk * chunk
-                       + bh * nc * n * p) + 8 * dt.numel())
-        peak = PEAK_TF32
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+        return cost.flash_attention_bwd(
+            t.shape, args[1].shape, t.dtype, causal=kwargs["causal"],
+            window=kwargs["window"]).bound()
+    if name == "rglru_scan":
+        return cost.rglru_scan_bwd(t.shape, t.dtype).bound()
+    x, _, _, B, _ = args
+    return cost.ssd_scan_bwd(x.shape, B.shape, kwargs["chunk"]).bound()
 
 
 def print_bwd_build(key: str, args, kwargs) -> None:
@@ -5374,6 +5322,7 @@ def dp_train_rank(device, tmp: str) -> dict:
             return run
         return make_timed
 
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     with wrapped(train_mod.steps_mod, "make_train_step", timed), \
@@ -5399,7 +5348,9 @@ def dp_train_rank(device, tmp: str) -> dict:
                    "want_resting": dp_expected_bytes(cfg, mesh),
                    "params": sum(p.numel() for p in adamw.leaves(
                        transformer.param_shapes(cfg))),
-                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "peak": torch.cuda.max_memory_allocated(),
+                   "base": base}
     if mesh.rank == 0:
         args, kwargs = kept["ssd_scan"]
         torch.save(([a.detach().cpu() for a in args[:5]],
@@ -5606,11 +5557,12 @@ def dp_ssd_rows(first_call, launches: dict) -> list:
     return [fwd, bwd]
 
 
-def phase_dp_train(smi: str) -> list:
+def phase_dp_train(smi: str, peaks: dict | None = None) -> list:
     """Data-parallel training through ``make_train_step(mesh=)`` and
     ``train(mesh=)``: one launch of DP["ranks"] ranks sharing the card
     over gloo (host transport) for (a) and (b), one of two for the
-    (1, 2) remesh.  Returns the per-rank ``ssd_scan`` rows."""
+    (1, 2) remesh.  Returns the per-rank ``ssd_scan`` rows; rank 0's
+    peak memory in (b) lands in ``peaks`` as ``"dp_train"``."""
     import tempfile
     from repro_torch.runtime import mesh
 
@@ -5644,6 +5596,11 @@ def phase_dp_train(smi: str) -> list:
               f"{time.perf_counter() - t0:.2f} s")
         check_dp_remesh(two, DP_REMESH[1], os.path.basename(out[0]["saved"]))
         check_dp_full(out, full, wall, smi)
+        if peaks is not None:
+            f0 = out[0]["full"]
+            keep_peak(peaks, "dp_train", DP_FULL["arch"], "train",
+                      DP_FULL["batch"], DP_FULL["seq"], f0["base"],
+                      measured=f0["peak"], mesh=DP["shape"], rank=0)
         check_serve_mesh_smoke(out, serve_single, smi)
         first = torch.load(os.path.join(tmp, "ssd_call.pt"))
     return dp_ssd_rows(first, out[0]["full"]["total"])
@@ -5959,6 +5916,7 @@ def serve_mesh_full_rank(device) -> dict:
     n = SERVE_MESH_FULL["steps"]
     mesh = ProcessMesh(SERVE_MESH_FULL["shape"], DP["axes"], device=device)
     cfg = configs.get_config(SERVE_MESH_FULL["arch"])
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with sharding.use_mesh(mesh):
         pshard = sharding.named_shardings(mesh, transformer.param_specs(cfg))
@@ -6006,6 +5964,7 @@ def serve_mesh_full_rank(device) -> dict:
             "decode_ms": stats["decode_s"] / n * 1e3,
             "resting_gb": resting / 1e9, "gathered_gb": gathered_gb,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak": torch.cuda.max_memory_allocated(), "base": base,
             "reserved_gb": mem["reserved_bytes.all.peak"] / 1e9,
             "retries": mem["num_alloc_retries"],
             "launches": launches, "collectives": collectives,
@@ -6026,7 +5985,7 @@ def serve_mesh_smoke_alone_rank(device, tmp: str) -> dict:
 
 
 def phase_serve_mesh(smi: str, single: dict | None = None,
-                     smoke: bool = False) -> None:
+                     smoke: bool = False, peaks: dict | None = None) -> None:
     """(b): RecurrentGemma-9B at full width in bf16 on two ranks sharing
     the card over gloo, held to ``single`` (the one-process run of
     :func:`serve_mesh_full_single`, drawn here when not given): the
@@ -6034,7 +5993,8 @@ def phase_serve_mesh(smi: str, single: dict | None = None,
     LM_PATHS logits gate, and each request's tokens equal up to the first
     step whose one-process top-2 logits lie within that gate.  With
     ``smoke`` (the phase run alone) (a) first, in a four-rank launch of
-    its own instead of dp_train's."""
+    its own instead of dp_train's.  Rank 0's peak memory in (b) lands
+    in ``peaks`` as ``"serve_mesh"``."""
     import tempfile
     from repro_torch.runtime import mesh
 
@@ -6083,6 +6043,10 @@ def phase_serve_mesh(smi: str, single: dict | None = None,
               f"{r['layouts']}")
     print(f"  {ranks} ranks spawned, ran and joined in {wall:.2f} s")
     r0 = out[0]
+    if peaks is not None:
+        keep_peak(peaks, "serve_mesh", arch, "prefill", len(PROMPT_LENS),
+                  max(PROMPT_LENS), r0["base"], measured=r0["peak"],
+                  mesh=SERVE_MESH_FULL["shape"], rank=0)
     check(all(r["launches"] == want and r["device"].startswith("cuda")
               for r in out),
           f"serve_mesh (b): each rank's params on the card and its prefill "
@@ -6124,6 +6088,122 @@ def phase_serve_mesh(smi: str, single: dict | None = None,
           f"one process {single['tokens']}")
 
 
+# dryrun: the runs whose peak memory the trace predicts, each within
+# DRYRUN_TOL of the card's max_memory_allocated; the cells of the
+# single-pod report the phase traces and prints: Mixtral-8x22B's serving
+# cells, a few seconds each (the 40-cell sweep takes minutes of the host,
+# Mixtral's train_4k alone 60-80 s).
+DRYRUN_RUNS = ("mamba2-1.3b", "olmoe-1b-7b", "recurrentgemma-9b",
+               "dp_train", "serve_mesh")
+DRYRUN_TOL = 0.15
+DRYRUN_CELLS = tuple(("mixtral-8x22b", shape) for shape in
+                     ("prefill_32k", "decode_32k", "long_500k"))
+
+
+def keep_peak(peaks: dict, name: str, arch: str, kind: str, batch: int,
+              seq: int, other: int, *, measured: int | None = None,
+              layers: int | None = None, dtype: str | None = None,
+              mesh=None, rank: int = 0) -> None:
+    """File a run's peak memory (``measured``, this process's
+    ``max_memory_allocated`` by default) under ``name`` in ``peaks`` with
+    what the dry run needs to trace its step: the arch (cut to
+    ``layers``, in ``dtype``), the step's kind and batch, the mesh's
+    ("data", "model") shape and the rank (None: one process), and
+    ``other``, the bytes the card held when the run began besides the
+    step's own inputs."""
+    peaks[name] = {"arch": arch, "layers": layers, "dtype": dtype,
+                   "kind": kind, "batch": batch, "seq": seq, "mesh": mesh,
+                   "rank": rank, "other": int(other),
+                   "peak": int(torch.cuda.max_memory_allocated()
+                               if measured is None else measured)}
+
+
+def phase_dryrun(peaks: dict, smi: str) -> None:
+    """The dry run's predicted peak memory of each run of DRYRUN_RUNS
+    against the card's: ``lower_cell`` traces one step of the run's
+    configuration and batch on ``meta`` (no flop count), in one process
+    or on a ``TracedMesh`` of the run's mesh shape and rank, and the
+    prediction, its peak plus the bytes the card held besides the step's
+    inputs when the run began, must lie within DRYRUN_TOL of the run's
+    ``max_memory_allocated``.  Then the single-pod report's rows of
+    DRYRUN_CELLS (on ``meta``, no flop count): each one's peak a rank
+    with the report's ``fits`` (80 GB) and against this card's
+    ``total_memory``; none may fit."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    print(f"== dryrun: predicted peak memory against the card's ({smi})")
+    t0 = time.perf_counter()
+    for name, rel in dryrun_predictions(peaks):
+        check(abs(rel) <= DRYRUN_TOL,
+              f"dryrun {name}: predicted peak within {DRYRUN_TOL:g} of the "
+              f"card's ({rel:+.3f})")
+    mesh = make_production_mesh()
+    card = torch.cuda.get_device_properties(0).total_memory
+    print(f"  single-pod dry run at full width on the {dict(mesh.shape)} "
+          f"mesh, rank 0: peak a rank, fits (80 GB), fits this card "
+          f"({card / 1e9:.2f} GB)")
+    for arch, shape in DRYRUN_CELLS:
+        row = dryrun.run_cell(arch, shape, mesh, False, verbose=False,
+                              analysis=False)
+        m = row["memory"]
+        print(f"    {arch}|{shape}: {m['peak_per_device'] / 1e9:.2f} GB, fits "
+              f"{m['fits']}, fits this card {m['peak_per_device'] <= card} "
+              f"(trace {row['trace_s']} s)")
+        check(not m["fits"] and m["peak_per_device"] > card,
+              f"dryrun: {arch}|{shape} fits no card")
+    print(f"  dryrun phase {time.perf_counter() - t0:.1f} s")
+
+
+def dryrun_predictions(peaks: dict) -> list:
+    """Trace each run of DRYRUN_RUNS and print its prediction against
+    the card's peak; returns [(run, relative error)]."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCase
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime.mesh import TracedMesh
+    from repro_torch.runtime.sharding import AbstractMesh
+
+    held = []
+    for name in DRYRUN_RUNS:
+        p = peaks[name]
+        cfg = configs.get_config(p["arch"])
+        if p["layers"]:
+            cfg = dataclasses.replace(cfg, num_layers=p["layers"])
+        if p["dtype"]:
+            cfg = dataclasses.replace(cfg, dtype=p["dtype"])
+        mesh = (None if p["mesh"] is None else TracedMesh(
+            AbstractMesh(tuple(p["mesh"]), DP["axes"]), rank=p["rank"]))
+        case = ShapeCase(name, p["seq"], p["batch"], p["kind"])
+        t1 = time.perf_counter()
+        acc = dryrun.lower_cell(cfg, case, mesh, flops=False)
+        mem = acc["memory"]
+        pred = mem["peak_per_device"] + p["other"]
+        rel = (pred - p["peak"]) / p["peak"]
+        where = ("one process" if mesh is None else
+                 f"rank {p['rank']} of {dict(mesh.shape)}")
+        print(f"  {name}: {cfg.name}, {cfg.num_layers} layers, {cfg.dtype},"
+              f" {p['kind']} {p['batch']} x {p['seq']}, {where}: traced "
+              f"{mem['peak_per_device'] / 1e9:.3f} GB "
+              f"({time.perf_counter() - t1:.1f} s) + held besides "
+              f"{p['other'] / 1e9:.3f} GB = predicted {pred / 1e9:.3f} GB,"
+              f" measured {p['peak'] / 1e9:.3f} GB, {rel:+.3f}")
+        held.append((name, rel))
+    return held
+
+
+def phase_dryrun_alone(smi: str) -> None:
+    """The dryrun phase in a call of its own: the five runs whose peaks
+    it predicts (dp_train, serve_mesh (b), whose two ranks need the card
+    free, then the trainer's three of DRYRUN_RUNS), then the phase."""
+    peaks, kept = {}, {}
+    phase_dp_train(smi, peaks)
+    phase_serve_mesh(smi, peaks=peaks)
+    for run in DRYRUN_RUNS[:3]:
+        phase_train(run, smi, kept, peaks)
+    phase_dryrun(peaks, smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this check runs "
@@ -6158,7 +6238,8 @@ def main() -> int:
     del uninterrupted
     phase_fleet(smi)
     phase_resume(smi)
-    dp_rows = phase_dp_train(smi)
+    peaks: dict = {}
+    dp_rows = phase_dp_train(smi, peaks)
     stamp("data-parallel training")
 
     rows = phase_kernels([("ex4_p8", main_1d), ("shelf2d", main_2d)],
@@ -6177,7 +6258,7 @@ def main() -> int:
     del params, batch, inputs   # free the 17 GB of RecurrentGemma weights
     torch.cuda.empty_cache()
     stamp("RecurrentGemma-9B serving")
-    phase_serve_mesh(smi, serve_full)
+    phase_serve_mesh(smi, serve_full, peaks=peaks)
     del serve_full
     stamp("sharded serving")
 
@@ -6227,7 +6308,7 @@ def main() -> int:
 
     kept, train_counts = {}, {}
     for run in TRAIN_RUNS:
-        train_counts.update(phase_train(run, smi, kept))
+        train_counts.update(phase_train(run, smi, kept, peaks))
     phase_train_cli("recurrentgemma-9b")
     phase_train_cli("mamba2-1.3b")
     phase_clis(UNIFORM_ARCHS + MODALITY_ARCHS)
@@ -6245,6 +6326,7 @@ def main() -> int:
         "flash_attention_bwd_olmoe_train", "olmoe-1b-7b training", args,
         kwargs, train_counts["flash_attention_bwd_olmoe"], 16))
     rows += whisper_train_rows(kept, train_counts)
+    phase_dryrun(peaks, smi)
     print(f"== done in {time.perf_counter() - t_start:.1f} s "
           f"(2D launches {counts_2d})")
     print(f"card: {smi}")

@@ -59,8 +59,15 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> dict:
-    """``meta`` stand-ins for every input of this (arch, shape):
+def shape_case(shape) -> ShapeCase:
+    """``shape``'s :class:`ShapeCase`: a name of :data:`SHAPES`, or a case
+    itself (a cell at other sizes)."""
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def input_specs(cfg: ModelConfig, shape) -> dict:
+    """``meta`` stand-ins for every input of this (arch, shape) (a name of
+    :data:`SHAPES` or a :class:`ShapeCase`):
 
     train   -> {"tokens", "labels", "mask"} (+ modality stubs)
     prefill -> {"tokens"} (+ modality stubs)
@@ -69,7 +76,7 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
     """
     from repro_torch.models.transformer import DTYPES
 
-    case = SHAPES[shape]
+    case = shape_case(shape)
     B, S = case.global_batch, case.seq_len
     dt = DTYPES[cfg.dtype]
     extras = {}
@@ -86,10 +93,11 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
     return {"tokens": _meta((B, 1), torch.int32), **extras}
 
 
-def decode_cache_specs(cfg: ModelConfig, shape: str):
-    """The decode cache of this cell as ``meta`` tensors."""
+def decode_cache_specs(cfg: ModelConfig, shape):
+    """The decode cache of this cell (a name of :data:`SHAPES` or a
+    :class:`ShapeCase`) as ``meta`` tensors."""
     from repro_torch.models import transformer
 
-    case = SHAPES[shape]
+    case = shape_case(shape)
     return transformer.init_decode_cache(cfg, case.global_batch,
                                          case.seq_len, device=META)

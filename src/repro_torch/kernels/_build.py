@@ -182,7 +182,9 @@ def check(err: int, name: str) -> None:
 def check_inputs(name: str, tensors: dict, dtype=None,
                  dtypes: tuple = DTYPES) -> torch.dtype:
     """Validate what a kernel takes: one dtype (one of ``dtypes``), then
-    CUDA, contiguous, one device.  Returns the dtype."""
+    CUDA (or ``meta``: the wrapper's meta route, which allocates the
+    launch's tensors on ``meta`` and launches nothing), contiguous, one
+    device.  Returns the dtype."""
     first = next(iter(tensors.values()))
     dtype = first.dtype if dtype is None else dtype
     if dtype not in dtypes:
@@ -192,7 +194,7 @@ def check_inputs(name: str, tensors: dict, dtype=None,
         if t.dtype != dtype:
             raise TypeError(f"{name}: {k} is {t.dtype}, expected {dtype}")
     for k, t in tensors.items():
-        if not t.is_cuda:
+        if not (t.is_cuda or t.is_meta):
             raise ValueError(f"{name}: {k} must be a CUDA tensor (got "
                              f"{t.device}); the plain version serves CPU "
                              f"tensors through kernels.ops")

@@ -39,9 +39,14 @@ summed by a cluster of two CTAs, when the kv blocks alone would not fill
 the card), D a multiple of 16; f32 (``csrc/flash_attention_bwd_f32.cu``)
 is register-tiled exact f32 FMA on tiles copied by cp.async, as the f32
 forward, with the same split into two query-head groups, D a multiple
-of 8.  The wrappers take CUDA tensors only.  :class:`FlashAttention` is
-the autograd Function that :func:`repro_torch.kernels.ops.flash_attention`
-calls: the kernels for CUDA tensors, the plain versions of
+of 8.  The wrappers take CUDA tensors, and ``meta`` tensors, for which
+they allocate what a launch allocates on ``meta`` (the padded inputs,
+the outputs, the log-sum-exp and the workspace), add the call's work
+(:mod:`repro_torch.kernels.cost`) to the active recorder and launch
+nothing: a dry run's route, which never materialises the (BH, S, S_kv)
+scores of the plain version.  :class:`FlashAttention` is the autograd
+Function that :func:`repro_torch.kernels.ops.flash_attention` calls: the
+wrappers for CUDA and ``meta`` tensors, the plain versions of
 ``kernels/ref.py`` for CPU tensors.
 """
 from __future__ import annotations
@@ -51,7 +56,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import attention_shapes
 
@@ -174,13 +179,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lse_buf.data_ptr()]
     if dtype == torch.bfloat16:
         ptrs.append(lse_buf.data_ptr() + 4 * bh * s)
-    lib = _build.load()
-    err = getattr(lib, _FN[dtype])(
-        *ptrs, bh, k.shape[0], s, k.shape[1], d_pad, d, int(bool(causal)),
-        int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
-    launches += 1
+    if q.is_meta:
+        cost.record("flash_attention", cost.flash_attention(
+            (bh, s, d), (k.shape[0], k.shape[1], d), dtype, causal=causal,
+            window=window))
+    else:
+        lib = _build.load()
+        err = getattr(lib, _FN[dtype])(
+            *ptrs, bh, k.shape[0], s, k.shape[1], d_pad, d,
+            int(bool(causal)), int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "flash_attention")
+        launches += 1
     if d_pad != d:
         out = out[..., :d].contiguous()
     return (out, lse_out) if lse else out
@@ -309,15 +319,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     ws = torch.empty(plan["ws_shape"], dtype=torch.float32, device=q.device)
-    lib = _build.load()
-    err = getattr(lib, _BWD_FN[dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], s, k.shape[1], d_pad,
-        d, int(bool(causal)), int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_bwd")
-    bwd_launches += 1
+    if q.is_meta:
+        cost.record("flash_attention_bwd", cost.flash_attention_bwd(
+            (bh, s, d), (k.shape[0], k.shape[1], d), dtype, causal=causal,
+            window=window))
+    else:
+        lib = _build.load()
+        err = getattr(lib, _BWD_FN[dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], s, k.shape[1],
+            d_pad, d, int(bool(causal)), int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "flash_attention_bwd")
+        bwd_launches += 1
     if d_pad != d:
         dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
@@ -329,7 +344,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        if q.is_cuda:
+        if q.is_cuda or q.is_meta:
             out, lse = flash_attention(q, k, v, causal=causal,
                                        window=window, lse=True)
         else:
@@ -343,7 +358,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        fn = flash_attention_bwd if q.is_cuda else ref.attention_bwd_plain
+        fn = (flash_attention_bwd if q.is_cuda or q.is_meta
+              else ref.attention_bwd_plain)
         dq, dk, dv = fn(q, k, v, out, lse, do, causal=ctx.causal,
                         window=ctx.window)
         return dq, dk, dv, None, None

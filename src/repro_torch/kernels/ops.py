@@ -5,13 +5,19 @@ launches or raises — there is no fallback) and CPU tensors to the plain
 version.  ``mode="plain"`` forces the plain version on any device; it
 exists to compare the two.  The choice is made from the tensor's device
 alone, so the same call runs the kernel on the card and the plain
-version in the CPU tests.
+version in the CPU tests.  ``meta`` tensors take the kernel's wrapper
+too, on its meta route: it allocates on ``meta`` what a launch
+allocates (outputs, saved workspaces; in the backward the gradients),
+adds the call's flops and bytes (:mod:`repro_torch.kernels.cost`) to the
+active :class:`~repro_torch.kernels.cost.Recorder`, computes nothing and
+counts no launch.  The dry run (:mod:`repro_torch.launch.dryrun`) traces
+steps so.
 
 The three LM kernels are differentiable.  In ``"auto"`` mode they run as
 autograd Functions (``FlashAttention``, ``RglruScan``, ``SsdScan``) whose
-backward is a CUDA kernel too, on the card, and the plain backward of
-``kernels/ref.py`` on the CPU; ``"plain"`` runs the plain forward, which
-autograd differentiates.
+backward is a CUDA kernel too, on the card (its meta route on ``meta``),
+and the plain backward of ``kernels/ref.py`` on the CPU; ``"plain"``
+runs the plain forward, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ def _auto(mode: str) -> bool:
 
 
 def _use_kernel(t, mode: str) -> bool:
-    return _auto(mode) and t.is_cuda
+    return _auto(mode) and (t.is_cuda or t.is_meta)
 
 
 def gram(A, r, *, mode: str = "auto"):

@@ -10,16 +10,19 @@ the row stride is a multiple of 16 bytes and the pointers 16-byte aligned,
 direct loads otherwise, with the same sums in the same order; and its
 gradients from h and dh by a chunked reverse scan over S (three CUDA
 launches a call: each chunk's local scan, the carry across chunks, each
-chunk's scan again from its carry).  The wrappers take CUDA tensors only.  :class:`RglruScan` is the
-autograd Function that :func:`repro_torch.kernels.ops.rglru_scan` calls:
-the kernels for CUDA tensors, the plain versions of ``kernels/ref.py``
-for CPU tensors.
+chunk's scan again from its carry).  The wrappers take CUDA tensors, and
+``meta`` tensors, for which they allocate what a launch allocates on
+``meta``, add the call's work (:mod:`repro_torch.kernels.cost`) to the
+active recorder and launch nothing.  :class:`RglruScan` is the autograd
+Function that :func:`repro_torch.kernels.ops.rglru_scan` calls: the
+wrappers for CUDA and ``meta`` tensors, the plain versions of
+``kernels/ref.py`` for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels import ref
 
 launches = 0       # forward launches since the last reset (ops.reset_counts)
@@ -88,6 +91,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
     aligned = all(t.data_ptr() % 16 == 0 for t in (a, b, h))
     chosen = "direct" if direct else fwd_plan(a.shape, dtype,
                                                aligned)["path"]
+    if a.is_meta:
+        cost.record("rglru_scan", cost.rglru_scan(a.shape, dtype))
+        return h
     lib = _build.load()
     err = getattr(lib, _FN[dtype])(
         a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, W,
@@ -120,6 +126,9 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor,
         raise ValueError(f"rglru_scan_bwd: S must be at most "
                          f"{MAX_CHUNKS * BWD_CHUNK} (got {S})")
     ws = torch.empty(ws_shape, dtype=torch.float32, device=a.device)
+    if a.is_meta:
+        cost.record("rglru_scan_bwd", cost.rglru_scan_bwd(a.shape, dtype))
+        return torch.empty_like(a), torch.empty_like(a)
     lib = _build.load()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = getattr(lib, _CARRY_FN[dtype])(a.data_ptr(), dh.data_ptr(),
@@ -141,7 +150,8 @@ class RglruScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b):
-        h = rglru_scan(a, b) if a.is_cuda else ref.rglru_scan_plain(a, b)
+        h = (rglru_scan(a, b) if a.is_cuda or a.is_meta
+             else ref.rglru_scan_plain(a, b))
         ctx.save_for_backward(a, h)
         return h
 
@@ -149,6 +159,6 @@ class RglruScan(torch.autograd.Function):
     def backward(ctx, dh):
         a, h = ctx.saved_tensors
         dh = dh.contiguous()
-        if a.is_cuda:
+        if a.is_cuda or a.is_meta:
             return rglru_scan_bwd(a, h, dh)
         return ref.rglru_scan_bwd_plain(a, h, dh)

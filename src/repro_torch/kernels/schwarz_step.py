@@ -25,8 +25,11 @@ parts a second launch adds in order.  Every sum's order is fixed by
 or its pointer's alignment.  :func:`fwd_plan` and :func:`bwd_plan`
 restate the launches.
 
-Both take CUDA tensors only; :mod:`repro_torch.kernels.ops` routes CPU
-tensors to the plain versions.
+Both take CUDA tensors, and ``meta`` tensors, for which they allocate
+their outputs on ``meta``, add the call's work
+(:mod:`repro_torch.kernels.cost`) to the active recorder and launch
+nothing; :mod:`repro_torch.kernels.ops` routes CPU tensors to the plain
+versions.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 fwd_launches = 0   # kernel launches since the last reset
 bwd_launches = 0
@@ -172,6 +175,9 @@ def schwarz_fwd(A, x, wdiv):
                          f"shared memory of a CTA")
     y = torch.empty((p, m), dtype=dtype, device=A.device)
     u = torch.empty((p, m), dtype=dtype, device=A.device)
+    if A.is_meta:
+        cost.record("schwarz_fwd", cost.schwarz_fwd(A.shape, dtype))
+        return y, u
     lib = _build.load()
     fn = getattr(lib, f"repro_schwarz_fwd_{_SUFFIX[dtype]}")
     err = fn(A.data_ptr(), x.data_ptr(), wdiv.data_ptr(), y.data_ptr(),
@@ -196,9 +202,12 @@ def schwarz_bwd(A, r, b, Ax, u, x, muov, mask):
     for k, t in (("x", x), ("muov", muov), ("mask", mask)):
         _build.check_shape("schwarz_bwd", k, t, (p, w))
     plan = bwd_plan((p, m, w), dtype)
-    lib = _build.load()
     part = torch.empty(plan["scratch"], dtype=dtype, device=A.device)
     out = torch.empty((p, w), dtype=dtype, device=A.device)
+    if A.is_meta:
+        cost.record("schwarz_bwd", cost.schwarz_bwd(A.shape, dtype))
+        return out
+    lib = _build.load()
     fn = getattr(lib, f"repro_schwarz_bwd_{_SUFFIX[dtype]}")
     err = fn(A.data_ptr(), r.data_ptr(), b.data_ptr(), Ax.data_ptr(),
              u.data_ptr(), x.data_ptr(), muov.data_ptr(), mask.data_ptr(),

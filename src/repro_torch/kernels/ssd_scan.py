@@ -6,8 +6,11 @@ x (BH, S, P), dt (BH, S), A (BH,), and B, C (BH / rep, S, N), whose row
 ``bh // rep`` serves head ``bh``.  f32 only (the prefill casts to f32
 before the scan).  It returns y (BH, S, P) and the state after the last
 chunk (BH, N, P), the decode cache that the TPU kernel keeps in scratch.
-It takes CUDA tensors only; :func:`repro_torch.kernels.ops.ssd_scan`
-routes CPU tensors to the plain version.
+It takes CUDA tensors, and ``meta`` tensors, for which it allocates what
+a launch allocates on ``meta`` (outputs and workspaces), adds the call's
+work (:mod:`repro_torch.kernels.cost`) to the active recorder and
+launches nothing; :func:`repro_torch.kernels.ops.ssd_scan` routes CPU
+tensors to the plain version.
 
 One call is five CUDA launches on the current stream (cum, cb, states,
 pass, out; ``csrc/ssd_scan.cu``), and ``launches`` counts calls.  Their
@@ -21,16 +24,16 @@ ddt, dA, dB and dC of y in five CUDA launches (ychunk, rpass, col, row,
 dcum), every product in 3xTF32 on the tensor cores, from the forward's
 cum, C B^T and state workspaces (which :class:`SsdScan` saves) and an f32
 and an f64 workspace allocated here; f32, P at most 64, the chunk at
-most 256.  The wrappers take CUDA tensors only.  :class:`SsdScan` is the
-autograd Function that :func:`repro_torch.kernels.ops.ssd_scan` calls:
-the kernels for CUDA tensors, the plain versions of ``kernels/ref.py``
-for CPU tensors.
+most 256.  :class:`SsdScan` is the autograd Function that
+:func:`repro_torch.kernels.ops.ssd_scan` calls: the wrappers for CUDA and
+``meta`` tensors, the plain versions of ``kernels/ref.py`` for CPU
+tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import ssd_chunk
 
@@ -84,14 +87,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cb = torch.empty((groups, nc, chunk, chunk), dtype=x.dtype,
                      device=x.device)
     states = torch.empty((bh, nc, n, p), dtype=x.dtype, device=x.device)
-    lib = _build.load()
-    err = lib.repro_ssd_scan_f32(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), final.data_ptr(), cum.data_ptr(),
-        cb.data_ptr(), states.data_ptr(), bh, s, p, n, bh // groups, chunk,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "ssd_scan")
-    launches += 1
+    if x.is_meta:
+        cost.record("ssd_scan", cost.ssd_scan(x.shape, B.shape, chunk))
+    else:
+        lib = _build.load()
+        err = lib.repro_ssd_scan_f32(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), final.data_ptr(), cum.data_ptr(),
+            cb.data_ptr(), states.data_ptr(), bh, s, p, n, bh // groups,
+            chunk, torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "ssd_scan")
+        launches += 1
     if workspaces:
         return y, final, (cum, cb, states)
     return y, final
@@ -165,6 +171,10 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, saved, *, chunk: int = 256) -> tuple:
     n32, n64 = bwd_workspaces(bh, groups, s, p, n, chunk)
     ws = torch.empty(n32, dtype=torch.float32, device=x.device)
     ws64 = torch.empty(n64, dtype=torch.float64, device=x.device)
+    if x.is_meta:
+        cost.record("ssd_scan_bwd", cost.ssd_scan_bwd(x.shape, B.shape,
+                                                      chunk))
+        return dx, ddt, dA, dB, dC
     lib = _build.load()
     err = lib.repro_ssd_scan_bwd_f32(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
@@ -186,7 +196,7 @@ class SsdScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk: int):
-        if x.is_cuda:
+        if x.is_cuda or x.is_meta:
             y, final, saved = ssd_scan(x, dt, A, B, C, chunk=chunk,
                                        workspaces=True)
         else:
@@ -202,7 +212,7 @@ class SsdScan(torch.autograd.Function):
     def backward(ctx, dy, dfinal):
         x, dt, A, B, C, *saved = ctx.saved_tensors
         dy = dy.contiguous()
-        if x.is_cuda:
+        if x.is_cuda or x.is_meta:
             grads = ssd_scan_bwd(x, dt, A, B, C, dy, saved, chunk=ctx.chunk)
         else:
             grads = ref.ssd_scan_bwd_plain(x, dt, A, B, C, dy,

@@ -30,6 +30,12 @@ module is the port's counterpart of the reference's mesh constructors
   round, whether a step failed) meet in
   :meth:`~ProcessMesh.gather_objects` and
   :meth:`~ProcessMesh.raise_any`.
+* Every collective call is counted by method (``counts``) and recorded
+  by kind, result bytes and group size (``collectives``,
+  :func:`record_collective`).  :class:`TracedMesh` is one rank of a mesh
+  that no one launches: its collectives return ``meta`` tensors and only
+  count and record, so a step traced on it (the dry run,
+  :mod:`repro_torch.launch.dryrun`) reports what that rank would move.
 
 Transport: with ``backend="nccl"`` tensors on the card go to the
 collective directly, and two ranks may not share a card (NCCL refuses
@@ -39,6 +45,7 @@ The backend is the caller's choice; nothing here switches it.
 """
 from __future__ import annotations
 
+import collections
 import datetime
 import itertools
 import os
@@ -149,7 +156,166 @@ def launch(fn, nprocs: int, *, backend: str, device=None,
                 for r in range(nprocs)]
 
 
-class ProcessMesh:
+# The reference's HLO names of the collectives (``hlo_analysis`` reads
+# them); ``gather_objects`` moves host objects and is counted apart, as
+# ``counts["objects"]``.
+KINDS = {"psum": "all-reduce", "pmax": "all-reduce",
+         "all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
+         "ppermute": "collective-permute"}
+
+
+def record_collective(log: collections.Counter, name: str, nbytes: int,
+                      group: int) -> None:
+    """Count one collective call of method ``name`` (a key of
+    :data:`KINDS`) in ``log``, keyed by (kind, the bytes of its result on
+    this rank, its group size): what
+    :func:`repro_torch.launch.hlo_analysis.collective_bytes` reads."""
+    log[(KINDS[name], int(nbytes), int(group))] += 1
+
+
+def group_ranks_of(sizes, names, coords: dict, axes) -> list:
+    """The global ranks of the group over ``axes`` that holds the rank at
+    ``coords`` of a row-major grid of ``sizes`` over ``names``, in the
+    row-major order of the mesh."""
+    index = [range(s) if n in axes else (coords[n],)
+             for n, s in zip(names, sizes)]
+    return [int(np.ravel_multi_index(c, sizes))
+            for c in itertools.product(*index)]
+
+
+class _Mesh:
+    """What :class:`ProcessMesh` and :class:`TracedMesh` share: the grid
+    and its groups, the counts and records of collective calls, and the
+    collectives built on the primitives ``_wire``, ``_unwire``,
+    ``_psum``, ``_reduce_scatter`` and ``_all_gather``."""
+
+    def _setup(self, sizes: tuple, names: tuple, rank: int) -> None:
+        self.shape = dict(zip(names, sizes))
+        self.axis_names = names
+        self.rank = rank
+        self.coords = dict(zip(names, (int(c) for c in np.unravel_index(
+            rank, sizes))))
+        self.counts = {"psum": 0, "pmax": 0, "reduce_scatter": 0,
+                       "all_gather": 0, "ppermute": 0, "objects": 0}
+        # (kind, result bytes, group size) -> calls (record_collective)
+        self.collectives: collections.Counter = collections.Counter()
+        # state that steps on this mesh share, dropped with the mesh
+        # (runtime.steps.whole_params keeps the whole params here)
+        self.kept: dict = {}
+        # (axes) -> (group, its ranks in row-major order over the axes)
+        self._groups: dict = {}
+
+    def _count(self, name: str, nbytes: int, group: int) -> None:
+        self.counts[name] += 1
+        record_collective(self.collectives, name, nbytes, group)
+
+    def describe(self) -> dict:
+        """JSON-ready mesh shape, backend and transport."""
+        return {"shape": dict(self.shape), "backend": self.backend,
+                "transport": self.transport}
+
+    # -- groups ------------------------------------------------------------
+
+    def _axes(self, axes) -> tuple:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in axes:
+            if a not in self.shape:
+                raise ValueError(f"mesh has no axis {a!r} (has "
+                                 f"{self.axis_names})")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def _group(self, axes) -> tuple:
+        return self._groups[self._axes(axes)]
+
+    def group(self, axes):
+        """This rank's process group over ``axes`` (built with
+        ``dist.new_group``; the default group when ``axes`` are all the
+        mesh's)."""
+        return self._group(axes)[0]
+
+    def group_ranks(self, axes) -> list:
+        """The global ranks of this rank's group over ``axes``, in the
+        row-major order of the mesh (group index i = ranks[i])."""
+        return list(self._group(axes)[1])
+
+    def index(self, axes) -> int:
+        """This rank's row-major index within its group over ``axes``."""
+        return self.group_ranks(axes).index(self.rank)
+
+    # -- collectives -------------------------------------------------------
+
+    def psum(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Sum of ``t`` over the group of ``axes``; the same bits on every
+        rank of the group."""
+        return self._unwire(self._psum(self._wire(t, copy=True), axes), t)
+
+    def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The group's tensors ``t`` concatenated along dim 0 in the row-
+        major order of ``axes``."""
+        return self._unwire(self._all_gather(self._wire(t), axes), t)
+
+    def reduce_scatter(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Chunk i (along dim 0) of the sum of ``t`` over the group of
+        ``axes``, on the group's rank i (row-major order); the length
+        must split over the group."""
+        return self._unwire(self._reduce_scatter(self._wire(t), axes), t)
+
+    def axis_allreduce(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """All-reduce a vector over every axis of ``axes``: a psum over the
+        outer axes, then reduce-scatter plus all-gather over the innermost
+        (the reference's ``axis_allreduce``).  The length must split over
+        the innermost axis."""
+        axes = self._axes(axes)
+        buf = self._wire(t, copy=True)
+        if len(axes) > 1:
+            buf = self._psum(buf, axes[:-1])
+        buf = self._all_gather(self._reduce_scatter(buf, axes[-1]),
+                               axes[-1])
+        return self._unwire(buf, t)
+
+    def _scatter_len(self, buf: torch.Tensor, axis, k: int) -> int:
+        if buf.shape[0] % k:
+            raise ValueError(f"reduce_scatter: length {buf.shape[0]} does "
+                             f"not split over the {k} ranks of {axis!r}")
+        return buf.shape[0] // k
+
+    def _ppermute_arcs(self, perm, axes) -> tuple:
+        """(this rank's group's ranks, the group index it sends to, the
+        one it receives from), each a list of at most one."""
+        ranks = self.group_ranks(axes)
+        me = ranks.index(self.rank)
+        dst = [d for s, d in perm if s == me]
+        src = [s for s, d in perm if d == me]
+        if len(dst) > 1 or len(src) > 1:
+            raise ValueError(f"ppermute: rank index {me} is on more than "
+                             f"one arc of {perm}")
+        return ranks, dst, src
+
+    # -- host decisions ----------------------------------------------------
+
+    def raise_any(self, exc: BaseException | None, axes=None) -> None:
+        """Every rank of the group raises, or none does.  Each rank
+        passes the exception its own part of a step raised (or None);
+        where any rank failed, every rank raises: a failing rank its own
+        exception, the others the first failing rank's.  So the ranks
+        take the same retry or failure path, and none waits in a
+        collective that the others skip."""
+        axes = self.axis_names if axes is None else axes
+        try:
+            sent = pickle.loads(pickle.dumps(exc))
+        except Exception:     # an exception that does not travel
+            sent = RuntimeError(f"{type(exc).__name__}: {exc}")
+        got = self.gather_objects(sent, axes)
+        if exc is not None:
+            raise exc
+        for i, first in enumerate(got):
+            if first is not None:
+                raise first from RuntimeError(
+                    f"rank {self.group_ranks(axes)[i]} failed its part of "
+                    f"this step")
+
+
+class ProcessMesh(_Mesh):
     """The ranks of the default process group on a named row-major grid.
 
     ``shape`` is a dict from axis name to size, as a JAX mesh's, and its
@@ -161,8 +327,10 @@ class ProcessMesh:
     others).  ``device`` is where this rank's tensors live (default: the
     card this rank uses; raises without one); :attr:`transport`
     says how they reach the collectives.  :attr:`counts` counts the
-    collective calls this rank has made, by kind; :attr:`kept` holds
-    state that steps on the mesh share."""
+    collective calls this rank has made, by method, and
+    :attr:`collectives` records each call's kind, result bytes and group
+    size (:func:`record_collective`); :attr:`kept` holds state that
+    steps on the mesh share."""
 
     def __init__(self, shape, axis_names, *, device=None):
         if not dist.is_initialized():
@@ -181,25 +349,14 @@ class ProcessMesh:
                 f"mesh shape {dict(zip(names, sizes))} holds "
                 f"{int(np.prod(sizes))} ranks but the process group has "
                 f"{world}")
-        self.shape = dict(zip(names, sizes))
-        self.axis_names = names
-        self.rank = dist.get_rank()
-        self.coords = dict(zip(names, (int(c) for c in np.unravel_index(
-            self.rank, sizes))))
+        self._setup(sizes, names, dist.get_rank())
         dev = device_mod.resolve(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
         self.backend = str(dist.get_backend())
         self.transport = transport_for(self.backend, self.device)
-        self.counts = {"psum": 0, "pmax": 0, "reduce_scatter": 0,
-                       "all_gather": 0, "ppermute": 0, "objects": 0}
         self._pinned: dict = {}
-        # state that steps on this mesh share, dropped with the mesh
-        # (runtime.steps.whole_params keeps the whole params here)
-        self.kept: dict = {}
-        # (axes) -> (group, its ranks in row-major order over the axes)
-        self._groups: dict = {}
         grid = np.arange(world).reshape(sizes)
         for k in range(1, len(names) + 1):
             for axes in itertools.combinations(range(len(names)), k):
@@ -213,36 +370,6 @@ class ProcessMesh:
                     if self.rank in ranks:
                         self._groups[tuple(names[i] for i in axes)] = (
                             group, ranks)
-
-    def describe(self) -> dict:
-        """JSON-ready mesh shape, backend and transport."""
-        return {"shape": dict(self.shape), "backend": self.backend,
-                "transport": self.transport}
-
-    # -- groups ------------------------------------------------------------
-
-    def _axes(self, axes) -> tuple:
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        for a in axes:
-            if a not in self.shape:
-                raise ValueError(f"mesh has no axis {a!r} (has "
-                                 f"{self.axis_names})")
-        return tuple(a for a in self.axis_names if a in axes)
-
-    def group(self, axes):
-        """This rank's process group over ``axes`` (built with
-        ``dist.new_group``; the default group when ``axes`` are all the
-        mesh's)."""
-        return self._groups[self._axes(axes)][0]
-
-    def group_ranks(self, axes) -> list:
-        """The global ranks of this rank's group over ``axes``, in the
-        row-major order of the mesh (group index i = ranks[i])."""
-        return list(self._groups[self._axes(axes)][1])
-
-    def index(self, axes) -> int:
-        """This rank's row-major index within its group over ``axes``."""
-        return self.group_ranks(axes).index(self.rank)
 
     # -- transport ---------------------------------------------------------
     # Host transport copies each tensor to a pinned buffer and back; each
@@ -307,75 +434,43 @@ class ProcessMesh:
     # already on the wire, so a chain of them crosses to the host once.
 
     def _psum(self, buf: torch.Tensor, axes) -> torch.Tensor:
-        group, ranks = self._groups[self._axes(axes)]
-        self.counts["psum"] += 1
+        group, ranks = self._group(axes)
+        self._count("psum", buf.nbytes, len(ranks))
         if len(ranks) > 1:
             dist.all_reduce(buf, group=group)
         return buf
 
     def _reduce_scatter(self, buf: torch.Tensor, axis) -> torch.Tensor:
         """Chunk i (along dim 0) of the group's sum, on group rank i."""
-        group, ranks = self._groups[self._axes(axis)]
+        group, ranks = self._group(axis)
         k = len(ranks)
-        if buf.shape[0] % k:
-            raise ValueError(f"reduce_scatter: length {buf.shape[0]} does "
-                             f"not split over the {k} ranks of {axis!r}")
-        self.counts["reduce_scatter"] += 1
-        out = self._empty((buf.shape[0] // k,) + tuple(buf.shape[1:]), buf,
-                          "rs")
+        n = self._scatter_len(buf, axis, k)
+        out = self._empty((n,) + tuple(buf.shape[1:]), buf, "rs")
+        self._count("reduce_scatter", out.nbytes, k)
         if k == 1:
             return out.copy_(buf)
         _tensor_collective(dist.reduce_scatter_tensor, out, buf, group=group)
         return out
 
     def _all_gather(self, buf: torch.Tensor, axes) -> torch.Tensor:
-        group, ranks = self._groups[self._axes(axes)]
+        group, ranks = self._group(axes)
         k = len(ranks)
-        self.counts["all_gather"] += 1
         out = self._empty((k * buf.shape[0],) + tuple(buf.shape[1:]), buf,
                           "ag")
+        self._count("all_gather", out.nbytes, k)
         if k == 1:
             return out.copy_(buf)
         _tensor_collective(dist.all_gather_into_tensor, out, buf,
                            group=group)
         return out
 
-    def psum(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """Sum of ``t`` over the group of ``axes``; the same bits on every
-        rank of the group."""
-        return self._unwire(self._psum(self._wire(t, copy=True), axes), t)
-
     def pmax(self, t: torch.Tensor, axes) -> torch.Tensor:
         """Elementwise maximum of ``t`` over the group of ``axes``."""
-        group, ranks = self._groups[self._axes(axes)]
-        self.counts["pmax"] += 1
+        group, ranks = self._group(axes)
         buf = self._wire(t, copy=True)
+        self._count("pmax", buf.nbytes, len(ranks))
         if len(ranks) > 1:
             dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
-        return self._unwire(buf, t)
-
-    def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """The group's tensors ``t`` concatenated along dim 0 in the row-
-        major order of ``axes``."""
-        return self._unwire(self._all_gather(self._wire(t), axes), t)
-
-    def reduce_scatter(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """Chunk i (along dim 0) of the sum of ``t`` over the group of
-        ``axes``, on the group's rank i (row-major order); the length
-        must split over the group."""
-        return self._unwire(self._reduce_scatter(self._wire(t), axes), t)
-
-    def axis_allreduce(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """All-reduce a vector over every axis of ``axes``: a psum over the
-        outer axes, then reduce-scatter plus all-gather over the innermost
-        (the reference's ``axis_allreduce``).  The length must split over
-        the innermost axis."""
-        axes = self._axes(axes)
-        buf = self._wire(t, copy=True)
-        if len(axes) > 1:
-            buf = self._psum(buf, axes[:-1])
-        buf = self._all_gather(self._reduce_scatter(buf, axes[-1]),
-                               axes[-1])
         return self._unwire(buf, t)
 
     def ppermute(self, buf: torch.Tensor, perm, axes) -> torch.Tensor:
@@ -384,14 +479,8 @@ class ProcessMesh:
         a source and once as a destination), ``src``'s ``buf`` arrives at
         ``dst``.  Returns what this rank received, zeros where no arc ends
         here; a rank on no arc posts nothing."""
-        ranks = self.group_ranks(axes)
-        me = ranks.index(self.rank)
-        dst = [d for s, d in perm if s == me]
-        src = [s for s, d in perm if d == me]
-        if len(dst) > 1 or len(src) > 1:
-            raise ValueError(f"ppermute: rank index {me} is on more than "
-                             f"one arc of {perm}")
-        self.counts["ppermute"] += 1
+        ranks, dst, src = self._ppermute_arcs(perm, axes)
+        self._count("ppermute", buf.nbytes, len(ranks))
         ops = []
         if dst:
             ops.append(dist.P2POp(dist.isend, self._wire(buf),
@@ -413,7 +502,7 @@ class ProcessMesh:
         of the mesh's by default), in the group's row-major order, on
         every rank of it: what the ranks decide on together."""
         axes = self.axis_names if axes is None else axes
-        group, ranks = self._groups[self._axes(axes)]
+        group, ranks = self._group(axes)
         self.counts["objects"] += 1
         if len(ranks) == 1:
             return [obj]
@@ -421,23 +510,86 @@ class ProcessMesh:
         dist.all_gather_object(out, obj, group=group)
         return out
 
-    def raise_any(self, exc: BaseException | None, axes=None) -> None:
-        """Every rank of the group raises, or none does.  Each rank
-        passes the exception its own part of a step raised (or None);
-        where any rank failed, every rank raises: a failing rank its own
-        exception, the others the first failing rank's.  So the ranks
-        take the same retry or failure path, and none waits in a
-        collective that the others skip."""
+
+class TracedMesh(_Mesh):
+    """One rank of a mesh that no one launches, for a dry run.
+
+    ``mesh`` is anything with a ``shape`` dict and ``axis_names`` (an
+    :class:`~repro_torch.runtime.sharding.AbstractMesh`, as
+    ``launch.mesh.make_production_mesh`` gives, or a ``ProcessMesh``);
+    this is its rank ``rank``.  It needs no process group and has the
+    attributes that the steps read (``shape``, ``axis_names``,
+    ``coords``, ``rank``, ``device`` = ``meta``, ``kept``, ``counts``,
+    ``transport``, ``group_ranks``, ``index``).  Its collectives take
+    ``meta`` tensors, return new ``meta`` tensors of their results'
+    shapes and dtypes, and only count and record the call
+    (:attr:`collectives`, as a ``ProcessMesh`` records it), so a step
+    traced on it reports the collectives that this rank of a launched
+    mesh would make.  :meth:`gather_objects` returns ``[obj]`` times the
+    group's size and :meth:`raise_any` raises this rank's own
+    exception."""
+
+    backend = "none"
+    transport = "traced"
+
+    def __init__(self, mesh, rank: int = 0):
+        names = tuple(str(a) for a in mesh.axis_names)
+        sizes = tuple(int(mesh.shape[a]) for a in names)
+        if not 0 <= rank < int(np.prod(sizes)):
+            raise ValueError(f"rank {rank} is not on the mesh "
+                             f"{dict(zip(names, sizes))}")
+        self._setup(sizes, names, int(rank))
+        self.device = torch.device("meta")
+
+    def _group(self, axes) -> tuple:
+        axes = self._axes(axes)
+        if axes not in self._groups:
+            self._groups[axes] = (None, group_ranks_of(
+                tuple(self.shape.values()), self.axis_names, self.coords,
+                axes))
+        return self._groups[axes]
+
+    def _new(self, shape, like: torch.Tensor) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=like.dtype, device="meta")
+
+    def _wire(self, t: torch.Tensor, key: str = "in",
+              copy: bool = False) -> torch.Tensor:
+        return t
+
+    def _unwire(self, buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return buf
+
+    def _psum(self, buf: torch.Tensor, axes) -> torch.Tensor:
+        self._count("psum", buf.nbytes, len(self._group(axes)[1]))
+        return self._new(buf.shape, buf)
+
+    def _reduce_scatter(self, buf: torch.Tensor, axis) -> torch.Tensor:
+        k = len(self._group(axis)[1])
+        out = self._new((self._scatter_len(buf, axis, k),)
+                        + tuple(buf.shape[1:]), buf)
+        self._count("reduce_scatter", out.nbytes, k)
+        return out
+
+    def _all_gather(self, buf: torch.Tensor, axes) -> torch.Tensor:
+        k = len(self._group(axes)[1])
+        out = self._new((k * buf.shape[0],) + tuple(buf.shape[1:]), buf)
+        self._count("all_gather", out.nbytes, k)
+        return out
+
+    def pmax(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The shape of the elementwise maximum over the group."""
+        self._count("pmax", t.nbytes, len(self._group(axes)[1]))
+        return self._new(t.shape, t)
+
+    def ppermute(self, buf: torch.Tensor, perm, axes) -> torch.Tensor:
+        """The shape of what this rank receives in one exchange round."""
+        ranks, _, _ = self._ppermute_arcs(perm, axes)
+        self._count("ppermute", buf.nbytes, len(ranks))
+        return self._new(buf.shape, buf)
+
+    def gather_objects(self, obj, axes=None) -> list:
+        """``[obj]`` times the group's size: every rank decides as this
+        one."""
         axes = self.axis_names if axes is None else axes
-        try:
-            sent = pickle.loads(pickle.dumps(exc))
-        except Exception:     # an exception that does not travel
-            sent = RuntimeError(f"{type(exc).__name__}: {exc}")
-        got = self.gather_objects(sent, axes)
-        if exc is not None:
-            raise exc
-        for i, first in enumerate(got):
-            if first is not None:
-                raise first from RuntimeError(
-                    f"rank {self.group_ranks(axes)[i]} failed its part of "
-                    f"this step")
+        self.counts["objects"] += 1
+        return [obj] * len(self._group(axes)[1])

@@ -304,18 +304,28 @@ def local_block(full: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
 def gather(block: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """The full tensor on every rank, all-gathered from each rank's
     ``block`` over the spec's axes (one collective; ``block`` itself
-    where the spec shards nothing)."""
-    mesh, axes = sharding.mesh, spec_axes(sharding.spec)
+    where the spec shards nothing).  The group's blocks arrive in the
+    row-major order of the mesh's axes; one permutation puts each in its
+    place (a copy, or none where the order is already the tensor's)."""
+    mesh, spec = sharding.mesh, sharding.spec
+    axes = spec_axes(spec)
     if not axes:
         return block
     shape = full_shape(block.shape, sharding)
     # as bytes, so any dtype travels
     raw = block.contiguous()[None].view(torch.uint8)
     parts = mesh.all_gather(raw, axes).view(block.dtype)
-    out = torch.empty(tuple(shape), dtype=block.dtype, device=block.device)
-    for part, rank in zip(parts, mesh.group_ranks(axes)):
-        out[block_slices(sharding, shape, rank)] = part
-    return out
+    order = [a for a in mesh.axis_names if a in axes]
+    parts = parts.reshape([mesh.shape[a] for a in order]
+                          + list(block.shape))
+    # dimension d of the whole tensor: its mesh axes (major first), then
+    # the block's dimension d
+    perm = []
+    for d in range(block.dim()):
+        perm += [order.index(a) for a in
+                 (dim_axes(spec[d]) if d < len(spec) else ())]
+        perm.append(len(order) + d)
+    return parts.permute(perm).reshape(tuple(shape))
 
 
 def reduce_block(full: torch.Tensor, sharding: NamedSharding, axes,

@@ -377,7 +377,9 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, max_seq: int | None = None,
     under ``cache_specs_tree`` of the global cache (its shapes:
     ``transformer.init_decode_cache(cfg, B, max_seq)`` on ``meta``, which
     the prefill's cache must have).  ``step.cache_shapes`` is the global
-    cache's shapes (``meta`` tensors, after the first call)."""
+    cache's shapes (``meta`` tensors, after the first call, or after
+    ``step.plan(batch)``, which plans the step from the batch's shapes
+    alone and gathers nothing)."""
     if mesh is not None:
         return _sharded_prefill_step(cfg, mesh, max_seq, batch_shapes, mode)
 
@@ -503,6 +505,7 @@ def _sharded_prefill_step(cfg: ModelConfig, mesh, max_seq, batch_shapes,
         return logits, cache
 
     step.cache_shapes = None
+    step.plan = plan_for
     return step
 
 

@@ -6,6 +6,7 @@ subprocess of the test process, which hands both sides numpy inputs
 (``.npz`` files of flat ``{path: array}`` trees, ``p/...`` the params
 and ``b/...`` the batches) and checks what they return.
 """
+import collections
 import os
 import time
 
@@ -78,8 +79,9 @@ def gathered(tree, shards) -> dict:
 def run_case(device, mesh, path: str, arch: str, accum: int) -> tuple:
     """Two sharded steps of ``arch``'s smoke config from the inputs at
     ``path`` (weights ``p/...``, two batches ``b0/...``, ``b1/...``):
-    (the losses, grad norms, this rank's blocks and the whole state,
-    flat; the state; its (param, opt) shardings)."""
+    (the losses, grad norms, the first step's collectives as the mesh
+    records them, this rank's blocks and the whole state, flat; the
+    state; its (param, opt) shardings)."""
     cfg = configs.get_smoke_config(arch)
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
@@ -89,14 +91,16 @@ def run_case(device, mesh, path: str, arch: str, accum: int) -> tuple:
     opt = adamw.adamw_init(params)
     step = steps_mod.make_train_step(
         cfg, adamw.AdamWConfig(lr=LR, accum_steps=accum), mesh=mesh)
-    losses, norms = [], []
+    losses, norms, collectives = [], [], []
     for i in range(2):
         batch = _tensors(unflatten(flat, f"b{i}"), device)
+        before = collections.Counter(mesh.collectives)
         loss, params, opt = step(params, opt, batch)
+        collectives.append(dict(mesh.collectives - before))
         losses.append(_numpy(loss))
         norms.append(float(step.last["grad_norm"]))
     state = {"params": params, "opt": opt}
-    out = {"losses": losses, "norms": norms,
+    out = {"losses": losses, "norms": norms, "collectives": collectives[0],
            "blocks": {k: _numpy(v) for k, v in flatten(state).items()},
            "whole": gathered(state, {"params": pshard, "opt": oshard})}
     return out, state, (pshard, oshard)

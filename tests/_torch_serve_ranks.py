@@ -6,6 +6,7 @@ numpy inputs (``.npz`` files of flat ``{path: array}`` trees: ``p/...``
 the weights, ``b/...`` the prefill batch) and checks what they return
 against the reference, which runs in a subprocess of its own.
 """
+import collections
 import os
 
 import numpy as np
@@ -133,9 +134,11 @@ def run_case(device, mesh, path: str, case: dict) -> dict:
     params = param_blocks(cfg, mesh, _tensors(unflatten(flat, "p"), device))
     batch = _tensors(unflatten(flat, "b"), device)
     first = dict(mesh.counts)
+    recorded = collections.Counter(mesh.collectives)
     prefill = steps_mod.make_prefill_step(cfg, mesh, case["max_seq"])
     logits, cache = prefill(params, batch)
     out = {"prefill_counts": _delta(mesh, first),
+           "prefill_collectives": dict(mesh.collectives - recorded),
            "prefill_logits": _numpy(logits),
            "prefill_cache": {k: _numpy(v) for k, v in flatten(cache).items()}}
     shapes = prefill.cache_shapes
@@ -174,14 +177,19 @@ def run_case(device, mesh, path: str, case: dict) -> dict:
     serve(params, cache, tokens, positions[0])
     out["edited_counts"] = _delta(mesh, before)
     fresh = steps_mod.make_serve_step(cfg, mesh, shapes)
-    runs = []
+    runs, recorded = [], []
     for drop in (False, True, False):
         if drop:
             mesh.kept.clear()
         before = dict(mesh.counts)
+        records = collections.Counter(mesh.collectives)
         fresh(params, cache, tokens, positions[0])
         runs.append(_delta(mesh, before))
+        recorded.append(dict(mesh.collectives - records))
     out["fresh_counts"] = runs
+    # the collectives of a decode step that gathers the params, as the
+    # mesh records them
+    out["fresh_collectives"] = recorded[1]
     out["split_leaves"] = sum(1 for sh in shardings
                               if sharding.spec_axes(sh.spec))
 

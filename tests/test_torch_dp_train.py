@@ -422,3 +422,32 @@ def test_train_mesh_resumed_on_new_mesh_matches_reference_train(launched):
                                rtol=LOSS_RTOL)
     check_state(got["whole"], ref, "train/state/",
                 2 * 3e-4 * TRAIN["steps"])
+
+
+TRACED_CASE = "yi"     # the case whose collectives the dry run predicts
+
+
+@pytest.mark.parametrize("rank", range(RANKS))
+def test_step_collectives_match_dry_run(launched, rank):
+    """The collectives a rank's ``ProcessMesh`` recorded (kind, result
+    bytes, group size, calls) in the first sharded step of
+    ``TRACED_CASE`` equal what ``launch.dryrun.lower_cell`` records
+    tracing the same step on a ``TracedMesh`` of the same shape and
+    rank."""
+    import dataclasses
+    from repro_torch.configs.shapes import ShapeCase
+    from repro_torch.launch import dryrun as tdryrun
+    from repro_torch.runtime.sharding import AbstractMesh
+
+    out = launched[0]
+    _, arch, b, accum = next(c for c in CASES if c[0] == TRACED_CASE)
+    from repro_torch import configs as tconfigs
+    cfg = dataclasses.replace(tconfigs.get_smoke_config(arch),
+                              train_accum=accum)
+    traced = tdryrun.lower_cell(
+        cfg, ShapeCase(TRACED_CASE, SEQ, b, "train"),
+        t_mesh.TracedMesh(AbstractMesh(*ranks.MESH), rank=rank),
+        flops=False)
+    got = next(o for o in out if o["rank"] == rank)["cases"][TRACED_CASE]
+    assert got["collectives"] and traced["collectives"] == got[
+        "collectives"]

@@ -3,8 +3,8 @@
 * In a subprocess whose import system refuses ``jax`` and ``repro``,
   every module of ``repro_torch`` still imports.
 * No import statement anywhere in ``src/repro_torch``, in
-  ``chip_smoke.py`` or in ``attention_probe.py`` (including those inside
-  functions) names ``jax`` or ``repro``.
+  ``chip_smoke.py``, ``attention_probe.py`` or ``schwarz_probe.py``
+  (including those inside functions) names ``jax`` or ``repro``.
 * Entry points built without a device want the card and raise here:
   the assimilation engines (sequential and Parareal), the ranks'
   launcher, the fleet server,
@@ -95,7 +95,8 @@ def _imported_roots(path: pathlib.Path) -> set:
 
 def test_no_import_statement_names_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "attention_probe.py"]
+                                          ROOT / "attention_probe.py",
+                                          ROOT / "schwarz_probe.py"]
     assert len(files) > 25
     for f in files:
         assert not _imported_roots(f) & {"jax", "jaxlib", "repro"}, f

@@ -443,3 +443,36 @@ def test_sharded_serve_step_needs_the_cache_shapes():
     cfg = tconfigs.get_smoke_config("yi_6b")
     with pytest.raises(ValueError, match="cache_shapes"):
         tsteps.make_serve_step(cfg, object())
+
+
+# Cases whose collectives are held to the dry run's: kv heads split (an
+# all-gather of head outputs a layer) and slots split (a pmax and a psum
+# a layer).
+TRACED_CASES = ("yi", "recurrentgemma")
+
+
+@pytest.mark.parametrize("rank", range(RANKS))
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("name", TRACED_CASES)
+def test_collectives_match_dry_run(launched, name, kind, rank):
+    """The collectives a rank's ``ProcessMesh`` recorded (kind, result
+    bytes, group size, calls) in the prefill, and in a decode step that
+    gathers the params (a fresh serve step after ``mesh.kept.clear()``),
+    equal what ``launch.dryrun.lower_cell`` records tracing the same step
+    on a ``TracedMesh`` of the same shape and rank."""
+    from repro_torch.configs.shapes import ShapeCase
+    from repro_torch.launch import dryrun as tdryrun
+    from repro_torch.runtime.sharding import AbstractMesh
+
+    out, _, _ = launched
+    case = CASES[name]
+    cfg = tconfigs.get_smoke_config(case["arch"])
+    seq = case["seq"] if kind == "prefill" else case["max_seq"]
+    traced = tdryrun.lower_cell(
+        cfg, ShapeCase(name, seq, case["batch"], kind),
+        t_mesh.TracedMesh(AbstractMesh(*ranks.MESH), rank=rank),
+        flops=False)
+    r = next(o for o in out if o["rank"] == rank)["cases"][name]
+    got = r["prefill_collectives" if kind == "prefill"
+            else "fresh_collectives"]
+    assert got and traced["collectives"] == got
