@@ -5239,7 +5239,7 @@ def dp_train_rank(device, tmp: str) -> dict:
     from repro_torch.launch import train as train_mod
     from repro_torch.models import transformer
     from repro_torch.optim import adamw
-    from repro_torch.runtime import sharding, steps
+    from repro_torch.runtime import sharding, steps, tp
     from repro_torch.runtime.mesh import ProcessMesh
 
     mesh = ProcessMesh(DP["shape"], DP["axes"], device=device)
@@ -5285,9 +5285,11 @@ def dp_train_rank(device, tmp: str) -> dict:
     # (b) full size through the trainer
     cfg = configs.get_config(DP_FULL["arch"])
     records, kept = [], {}
-    # host seconds in the step's parameter gathers and gradient
-    # reductions (each ended by a device wait)
-    spent = {"gather_s": 0.0, "reduce_s": 0.0}
+    # host seconds in the step's per-layer parameter gathers, their
+    # gradients' reduce-scatters and the tensor-parallel psums (each ended
+    # by a device wait)
+    spent = {"gather_s": 0.0, "reduce_s": 0.0, "psum_s": 0.0}
+    at_start = {}
 
     def timer(key):
         def wrap(fn):
@@ -5307,6 +5309,13 @@ def dp_train_rank(device, tmp: str) -> dict:
 
             def run(*a):
                 torch.cuda.synchronize()
+                if not records:
+                    # the steps' peak, not the trainer's set-up (its f32
+                    # draw of the largest leaf, 3.35 GB, outweighs a
+                    # step), and what the card holds besides the step's
+                    # params and moments
+                    at_start["held"] = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
                 before = dict(spent)
                 t0 = time.perf_counter()
                 res = step(*a)
@@ -5322,13 +5331,12 @@ def dp_train_rank(device, tmp: str) -> dict:
             return run
         return make_timed
 
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     with wrapped(train_mod.steps_mod, "make_train_step", timed), \
             wrapped(ops, "ssd_scan", keep_first_call(kept, "ssd_scan")), \
-            wrapped(sharding, "gather", timer("gather_s")), \
-            wrapped(sharding, "reduce_block", timer("reduce_s")):
+            wrapped(tp.Gather, "forward", timer("gather_s")), \
+            wrapped(tp.Gather, "backward", timer("reduce_s")), \
+            wrapped(tp, "_psum", timer("psum_s")):
         params, opt, losses = train_mod.train(
             cfg, steps=DP_FULL["steps"], seq=DP_FULL["seq"],
             global_batch=DP_FULL["batch"], dp=DP_FULL["dp"], ckpt_dir=None,
@@ -5350,7 +5358,9 @@ def dp_train_rank(device, tmp: str) -> dict:
                        transformer.param_shapes(cfg))),
                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                    "peak": torch.cuda.max_memory_allocated(),
-                   "base": base}
+                   # held at the first step besides its params and
+                   # moments (the batch's few kB too)
+                   "base": at_start["held"] - resting}
     if mesh.rank == 0:
         args, kwargs = kept["ssd_scan"]
         torch.save(([a.detach().cpu() for a in args[:5]],
@@ -5467,9 +5477,12 @@ def check_dp_full(out: list, single: tuple, wall: float, smi: str) -> None:
         f = o["full"]
         print(f"  (b) rank {o['rank']}: step walls "
               f"{[round(r['wall'], 3) for r in f['records']]} s (in the "
-              f"gathers {[round(r['gather_s'], 3) for r in f['records']]},"
-              f" in the reductions "
-              f"{[round(r['reduce_s'], 3) for r in f['records']]}), losses "
+              f"per-layer gathers "
+              f"{[round(r['gather_s'], 3) for r in f['records']]}, in their"
+              f" reduce-scatters "
+              f"{[round(r['reduce_s'], 3) for r in f['records']]}, in the "
+              f"tensor-parallel psums "
+              f"{[round(r['psum_s'], 3) for r in f['records']]}), losses "
               f"{[round(float(r['loss']), 6) for r in f['records']]}, "
               f"peak memory {f['peak_gb']:.2f} GB, resting params and "
               f"moments {f['resting'] / 1e9:.4f} GB (specs' share "
@@ -5506,25 +5519,41 @@ def check_dp_full(out: list, single: tuple, wall: float, smi: str) -> None:
 
 def dp_ssd_rows(first_call, launches: dict) -> list:
     """``ssd_scan`` and its backward at a rank's shape (rank 0's first
-    call of the dp_train run, 2 of the 4 rows a rank): against the plain
-    versions there and on random values, timed beside the bound and the
-    plain version; ``launches`` is rank 0's count in that run."""
-    from repro_torch.kernels import ref, ssd_scan
-
+    call of the dp_train run: its 32 heads of Mamba-2's 64 a row, 2 of
+    the 4 rows a rank): against the plain versions there and on random
+    values, timed beside the bound and the plain version; ``launches``
+    is rank 0's count in that run."""
     args, kwargs = first_call
     args = tuple(a.to(DEVICE) for a in args)
-    chunk = kwargs["chunk"]
+    print(f"== kernels at a dp_train rank's shape: ssd_scan x "
+          f"{tuple(args[0].shape)}, B/C {tuple(args[3].shape)}, chunk "
+          f"{kwargs['chunk']}")
+    return ssd_rank_rows(args, kwargs["chunk"], launches, "per_rank",
+                         "rank 0")
+
+
+def ssd_rank_rows(args, chunk: int, launches: dict, tag: str,
+                  label: str) -> list:
+    """``ssd_scan_{tag}`` and ``ssd_scan_bwd_{tag}`` at ``args``' shape:
+    each against its plain version on ``args`` and on random values,
+    two launches bitwise equal, timed beside the bound and the plain
+    version."""
+    from repro_torch.kernels import ref, ssd_scan
+
     x, _, _, B, _ = args
     shape = tuple(x.shape)
-    print(f"== kernels at a dp_train rank's shape: ssd_scan x {shape}, "
-          f"B/C {tuple(B.shape)}, chunk {chunk}")
     gen = torch.Generator(device=DEVICE).manual_seed(29)
     rand = ssd_random(x.shape[0], B.shape[0], x.shape[1], x.shape[2],
                       B.shape[2], gen)
-    err = max(ssd_compare(args, chunk, f"rank 0 {shape}"),
+    err = max(ssd_compare(args, chunk, f"{label} {shape}"),
               ssd_compare(rand, chunk, f"random {shape}"))
+    y1, s1 = ssd_scan.ssd_scan(*args, chunk=chunk)
+    y2, s2 = ssd_scan.ssd_scan(*args, chunk=chunk)
+    check(torch.equal(y1, y2) and torch.equal(s1, s2),
+          f"ssd_scan {tag} {shape}: two launches bitwise equal")
+    del y1, y2, s1, s2
     bound, by, ops_ms = ssd_bound(args, chunk)
-    fwd = {"name": "ssd_scan_per_rank", "ok": True, "route": "cuda",
+    fwd = {"name": f"ssd_scan_{tag}", "ok": True, "route": "cuda",
            "source": SOURCES["ssd_scan"], "replaces": REPLACES["ssd_scan"],
            "launches": launches["ssd_scan"], "max_abs_err": err,
            "ms": time_ms(lambda: ssd_scan.ssd_scan(*args, chunk=chunk), 10),
@@ -5532,29 +5561,151 @@ def dp_ssd_rows(first_call, launches: dict) -> list:
                *args, chunk=chunk, state=True), 2),
            "bound_ms": bound, "bound_by": by, "library_ms": None,
            "shape": list(shape), "dtype": str(x.dtype)[6:]}
-    print(f"  ssd_scan_per_rank: kernel {fwd['ms']:.4f} ms, plain "
+    print(f"  ssd_scan_{tag}: kernel {fwd['ms']:.4f} ms, plain "
           f"{fwd['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}), share "
           f"{bound / fwd['ms']:.3f}, {fwd['launches']} launches on rank 0")
     kw = {"chunk": chunk}
     err_b, _, kernel, plain, _, _ = bwd_compare(
-        "ssd_scan", args, kw, gen, f"rank 0 {shape}")
+        "ssd_scan", args, kw, gen, f"{label} {shape}")
     err_b = max(err_b, bwd_compare("ssd_scan", rand, kw, gen,
                                    f"random {shape}")[0])
+    g1, g2 = kernel(), kernel()
+    check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
+          f"ssd_scan backward {tag} {shape}: two launches bitwise equal")
+    del g1, g2
     bound_b, by_b = bwd_bound("ssd_scan", args, kw)
-    bwd = {"name": "ssd_scan_bwd_per_rank", "ok": True, "route": "cuda",
+    bwd = {"name": f"ssd_scan_bwd_{tag}", "ok": True, "route": "cuda",
            "source": BWD_SOURCES["ssd_scan"],
            "replaces": REPLACES["ssd_scan"], "pass": "backward",
            "launches": launches["ssd_scan_bwd"], "max_abs_err": err_b,
            "ms": median_ms(kernel, 7), "plain_ms": median_ms(plain, 3),
            "bound_ms": bound_b, "bound_by": by_b, "library_ms": None,
            "shape": list(shape), "dtype": str(x.dtype)[6:]}
-    print(f"  ssd_scan_bwd_per_rank: kernel {bwd['ms']:.4f} ms (median), "
+    print(f"  ssd_scan_bwd_{tag}: kernel {bwd['ms']:.4f} ms (median), "
           f"plain {bwd['plain_ms']:.4f} ms, bound {bound_b:.4f} ms "
           f"({by_b}), share {bound_b / bwd['ms']:.3f}, {bwd['launches']} "
           f"launches on rank 0")
-    del kernel, plain
+    del kernel, plain, rand
     torch.cuda.empty_cache()
     return [fwd, bwd]
+
+
+# The kernels at a rank's share of the tensor-parallel paths beyond the
+# two-rank runs' (dp_train (b)'s 32 SSD heads and serve_mesh (b)'s 8 query
+# heads and 2048 RG-LRU channels come from those runs): RecurrentGemma-9B
+# (16 query heads of 256 on one kv head, window 2048; 4096 RG-LRU
+# channels) at 8 and 1 heads and 2048 and 256 channels a rank, Mamba-2
+# 1.3B (64 SSD heads of 64, state 128, chunk 256) at 4 heads a rank, the
+# shares of the 16-way "model" axis of the production mesh.  Prefill
+# shapes (4 rows of 4096) for the forwards, training shapes (2 rows of
+# 4096; Mamba-2 a rank's 2 rows of 2048) for the backwards.
+RANK_ATTN_HEADS = (8, 1)
+RANK_RGLRU_WIDTHS = (2048, 256)
+RANK_SSD = {"heads": 4, "rows": 2, "seq": 2048, "p": 64, "n": 128,
+            "chunk": 256}
+
+
+def phase_rank_kernels(launches: dict) -> list:
+    """Each on-path LM kernel, forward and backward, at the rank shares
+    of RANK_ATTN_HEADS, RANK_RGLRU_WIDTHS and RANK_SSD: against its plain
+    version on random values, two launches bitwise equal, timed beside
+    its bound (attention beside SDPA's time, the same mask).
+    ``launches`` is each kernel's launches on rank 0 of serve_mesh (b):
+    the rows at its share (the first of RANK_ATTN_HEADS and of
+    RANK_RGLRU_WIDTHS) carry that count, and ``launches_from`` names the
+    run; no run on the card launches the 16-way shares, so their rows
+    carry 0 launches and ``launches_from`` None."""
+    from repro_torch.kernels import ref, rglru_scan
+
+    served = "serve_mesh (b) rank 0, RecurrentGemma-9B on (1, 2)"
+
+    def ran(share, first, name):
+        return ({"launches": launches[name], "launches_from": served}
+                if share == first else
+                {"launches": 0, "launches_from": None})
+
+    rows = []
+    gen = torch.Generator(device=DEVICE).manual_seed(33)
+    kw = {"causal": True, "window": 2048}
+    print("== kernels at tensor-parallel rank shares")
+    for heads in RANK_ATTN_HEADS:
+        fwd = ran(heads, RANK_ATTN_HEADS[0], "flash_attention")
+        bwd = ran(heads, RANK_ATTN_HEADS[0], "flash_attention_bwd")
+
+        def draw(b):
+            return tuple(torch.randn(s, generator=gen, device=DEVICE).to(
+                torch.bfloat16) for s in ((b * heads, 4096, 256),
+                                          (b, 4096, 256), (b, 4096, 256)))
+        rows.append(attention_shape_row(
+            f"flash_attention_rank{heads}",
+            f"RecurrentGemma-9B prefill, {heads} of 16 heads a rank",
+            draw(4), kw, fwd["launches"], heads))
+        rows[-1]["launches_from"] = fwd["launches_from"]
+        rows.append(attention_bwd_shape_row(
+            f"flash_attention_bwd_rank{heads}",
+            f"RecurrentGemma-9B training, {heads} of 16 heads a rank",
+            draw(2), kw, bwd["launches"], heads))
+        rows[-1]["launches_from"] = bwd["launches_from"]
+        torch.cuda.empty_cache()
+    for width in RANK_RGLRU_WIDTHS:
+        def draw(b):
+            a = torch.rand((b, 4096, width), generator=gen, device=DEVICE)
+            return (0.5 + 0.5 * a, torch.randn((b, 4096, width),
+                                               generator=gen,
+                                               device=DEVICE))
+        args = draw(4)
+        err = rglru_compare(args, f"{width} channels a rank")
+        bound, by = lm_bound("rglru_scan", args, {})
+        rows.append({
+            "name": f"rglru_scan_rank{width}", "ok": True, "route": "cuda",
+            "source": SOURCES["rglru_scan"],
+            "replaces": REPLACES["rglru_scan"],
+            **ran(width, RANK_RGLRU_WIDTHS[0], "rglru_scan"),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: rglru_scan.rglru_scan(*args), 20),
+            "plain_ms": time_ms(lambda: ref.rglru_scan_plain(*args), 2),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": list(args[0].shape), "dtype": "float32",
+            "path": rglru_scan.last_path})
+        r = rows[-1]
+        print(f"  rglru_scan_rank{width} {tuple(args[0].shape)} "
+              f"({r['path']} path): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}), share "
+              f"{bound / r['ms']:.3f}")
+        args = draw(2)
+        err_b, _, kernel, plain, _, _ = bwd_compare(
+            "rglru_scan", args, {}, gen, f"{width} channels a rank")
+        g1, g2 = kernel(), kernel()
+        check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
+              f"rglru_scan backward at {width} channels a rank: two "
+              f"launches bitwise equal")
+        del g1, g2
+        bound, by = bwd_bound("rglru_scan", args, {})
+        rows.append({
+            "name": f"rglru_scan_bwd_rank{width}", "ok": True,
+            "route": "cuda", "source": BWD_SOURCES["rglru_scan"],
+            "replaces": REPLACES["rglru_scan"], "pass": "backward",
+            **ran(width, RANK_RGLRU_WIDTHS[0], "rglru_scan_bwd"),
+            "max_abs_err": err_b,
+            "ms": median_ms(kernel, 7), "plain_ms": median_ms(plain, 3),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": list(args[0].shape), "dtype": "float32"})
+        r = rows[-1]
+        print(f"  rglru_scan_bwd_rank{width} {tuple(args[0].shape)}: kernel"
+              f" {r['ms']:.4f} ms (median), plain {r['plain_ms']:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}), share {bound / r['ms']:.3f}")
+        del kernel, plain, args
+        torch.cuda.empty_cache()
+    c = RANK_SSD
+    args = ssd_random(c["rows"] * c["heads"], c["rows"], c["seq"], c["p"],
+                      c["n"], gen)
+    rows += ssd_rank_rows(args, c["chunk"],
+                          {"ssd_scan": 0, "ssd_scan_bwd": 0},
+                          f"rank{c['heads']}",
+                          f"{c['heads']} of 64 heads a rank")
+    for r in rows[-2:]:
+        r["launches_from"] = None
+    return rows
 
 
 def phase_dp_train(smi: str, peaks: dict | None = None) -> list:
@@ -5637,6 +5788,48 @@ SERVE_MESH_ATOL = 1e-4
 # phase's prompts (PROMPT_LENS, seed 0), then ``steps`` greedy tokens.
 SERVE_MESH_FULL = {"arch": "recurrentgemma-9b", "shape": (1, 2),
                    "steps": 8}
+# A rank's peak with every rank holding the whole tree beside its blocks
+# (NVIDIA H100 80GB HBM3, 700.00 W), and the most a rank of the
+# tensor-parallel path may take: the blocks (8.52 GB), the prefill's
+# activations and the caches.
+SERVE_MESH_WHOLE_TREE_PEAK_GB = 38.30
+SERVE_MESH_PEAK_GB = 22.0
+# After serving, (b)'s two ranks take one tensor-parallel train step of
+# RecurrentGemma-9B cut to one period (2 RG-LRU layers and an attention
+# layer) at full width in bf16 on 2 rows of 4096, the backward kernels at
+# a rank's 8 query heads and 2048 channels, held to one process.
+SERVE_MESH_TRAIN = {"layers": 3, "batch": 2, "seq": 4096, "seed": 5}
+
+
+def serve_mesh_train_batch(cfg) -> dict:
+    c = SERVE_MESH_TRAIN
+    rng = np.random.default_rng(c["seed"])
+    toks = rng.integers(1, cfg.vocab_size, (c["batch"], c["seq"]))
+    return {"tokens": torch.from_numpy(toks.astype(np.int64))}
+
+
+def serve_mesh_train_cfg():
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(SERVE_MESH_FULL["arch"]),
+                               num_layers=SERVE_MESH_TRAIN["layers"])
+
+
+def serve_mesh_train_single() -> tuple:
+    """The train step's loss and global grad norm in one process on the
+    card (weights from seed 0)."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = serve_mesh_train_cfg()
+    params = transformer.init_params(cfg, 0, device=DEVICE)
+    loss, grads = steps.value_and_grad(
+        steps.make_loss_fn(cfg), params,
+        _to_device(serve_mesh_train_batch(cfg), DEVICE))
+    norm = float(adamw.global_norm(grads))
+    del params, grads
+    torch.cuda.empty_cache()
+    return float(loss), norm
 
 
 def keep_outputs(store: list, made: list | None = None):
@@ -5910,14 +6103,13 @@ def serve_mesh_full_rank(device) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.optim import adamw
-    from repro_torch.runtime import sharding, steps
+    from repro_torch.runtime import sharding, steps, tp
     from repro_torch.runtime.mesh import ProcessMesh
 
     n = SERVE_MESH_FULL["steps"]
     mesh = ProcessMesh(SERVE_MESH_FULL["shape"], DP["axes"], device=device)
     cfg = configs.get_config(SERVE_MESH_FULL["arch"])
     base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     with sharding.use_mesh(mesh):
         pshard = sharding.named_shardings(mesh, transformer.param_specs(cfg))
     full = transformer.init_params(cfg, 0, device=device)
@@ -5925,14 +6117,24 @@ def serve_mesh_full_rank(device) -> dict:
         lambda p, sh: sharding.local_block(p, sh).clone(), full, pshard)
     del full
     torch.cuda.empty_cache()
+    # the peak of serving from the blocks (the whole weights drawn for
+    # them are gone)
+    torch.cuda.reset_peak_memory_stats()
     resting = sum(t.numel() * t.element_size() for t in adamw.leaves(params))
     parts = {}
+    gathered = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with timed_transport(mesh, parts):
-        steps.whole_params(cfg, mesh)(params)   # the steps' shared gather
+    with timed_transport(mesh, parts), wrapped(tp.Gather, "forward",
+                                               count_calls(gathered)):
+        # the steps' shared tensor-parallel share: the blocks gathered
+        # over their FSDP axes (none splits on ("data": 1, "model": 2))
+        share = steps.tp_share(cfg, mesh)(params)
     torch.cuda.synchronize()
     gather_s = time.perf_counter() - t0
+    share_bytes = sum(t.numel() * t.element_size()
+                      for t in adamw.leaves(share))
+    del share
     gathered_gb = torch.cuda.memory_allocated() / 1e9
     prompts = draw_prompts(cfg, 0)
     reqs = [serve.Request(rid=i, prompt=p, max_new=n)
@@ -5941,7 +6143,8 @@ def serve_mesh_full_rank(device) -> dict:
     ops.reset_counts()
     before = dict(mesh.counts)
     with wrapped(steps, "make_prefill_step", keep_outputs(pre)), \
-            wrapped(steps, "make_serve_step", keep_outputs(dec, made)):
+            wrapped(steps, "make_serve_step", keep_outputs(dec, made)), \
+            wrapped(tp.Gather, "forward", count_calls(gathered)):
         reqs, stats = serve.serve_batch(
             cfg, params, reqs, max_seq=max(map(len, prompts)) + n,
             mesh=mesh)
@@ -5959,22 +6162,74 @@ def serve_mesh_full_rank(device) -> dict:
     again, warm = serve.serve_batch(
         cfg, params, again, max_seq=max(map(len, prompts)) + n, mesh=mesh)
     mem = torch.cuda.memory_stats()
+    peak, peak_gb = (torch.cuda.max_memory_allocated(),
+                     torch.cuda.max_memory_allocated() / 1e9)
+    on = str(adamw.leaves(params)[0].device)
+    layouts = {k: (v.dim, v.start, v.stop, v.size)
+               for k, v in made[0].layouts.items()}
+    mesh.kept.clear()           # the serving share
+    del params, made, pre, dec
+    torch.cuda.empty_cache()
+    train = serve_mesh_train_rank(mesh, device)
     return {"rank": mesh.rank, "gather_s": gather_s, "gather_parts": parts,
+            "train": train,
+            "param_gathers": len(gathered), "share_gb": share_bytes / 1e9,
             "prefill_s": stats["prefill_s"],
             "decode_ms": stats["decode_s"] / n * 1e3,
             "resting_gb": resting / 1e9, "gathered_gb": gathered_gb,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "peak": torch.cuda.max_memory_allocated(), "base": base,
+            "peak_gb": peak_gb, "peak": peak, "base": base,
             "reserved_gb": mem["reserved_bytes.all.peak"] / 1e9,
             "retries": mem["num_alloc_retries"],
             "launches": launches, "collectives": collectives,
-            "layouts": {k: (v.dim, v.start, v.stop, v.size)
-                        for k, v in made[0].layouts.items()},
+            "layouts": layouts,
             "logits": logits, "tokens": [r.out for r in reqs],
             "warm": {"prefill_s": warm["prefill_s"],
                      "decode_ms": warm["decode_s"] / n * 1e3,
                      "tokens": [r.out for r in again]},
-            "device": str(adamw.leaves(params)[0].device)}
+            "device": on}
+
+
+def serve_mesh_train_rank(mesh, device) -> dict:
+    """One tensor-parallel train step of SERVE_MESH_TRAIN on this rank:
+    its loss, grad norm, wall and kernel launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding, steps
+
+    cfg = serve_mesh_train_cfg()
+    with sharding.use_mesh(mesh):
+        pshard = sharding.named_shardings(mesh, transformer.param_specs(cfg))
+    full = transformer.init_params(cfg, 0, device=device)
+    params = adamw.tree_map(
+        lambda p, sh: sharding.local_block(p, sh).clone(), full, pshard)
+    del full
+    torch.cuda.empty_cache()
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(), mesh=mesh)
+    batch = _to_device(serve_mesh_train_batch(cfg), device)
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, params, _ = step(params, adamw.adamw_init(params), batch)
+    loss = loss.detach().cpu()
+    torch.cuda.synchronize()
+    out = {"loss": loss, "norm": float(step.last["grad_norm"]),
+           "wall": time.perf_counter() - t0,
+           "launches": {k: v for k, v in ops.launch_counts().items() if v}}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def count_calls(store: list):
+    """Wrap a function so each call appends its first argument's type
+    name to ``store``."""
+    def wrap(fn):
+        def run(*args, **kwargs):
+            store.append(type(args[0]).__name__)
+            return fn(*args, **kwargs)
+        return run
+    return wrap
 
 
 def serve_mesh_smoke_alone_rank(device, tmp: str) -> dict:
@@ -5985,7 +6240,7 @@ def serve_mesh_smoke_alone_rank(device, tmp: str) -> dict:
 
 
 def phase_serve_mesh(smi: str, single: dict | None = None,
-                     smoke: bool = False, peaks: dict | None = None) -> None:
+                     smoke: bool = False, peaks: dict | None = None) -> dict:
     """(b): RecurrentGemma-9B at full width in bf16 on two ranks sharing
     the card over gloo, held to ``single`` (the one-process run of
     :func:`serve_mesh_full_single`, drawn here when not given): the
@@ -5994,7 +6249,10 @@ def phase_serve_mesh(smi: str, single: dict | None = None,
     step whose one-process top-2 logits lie within that gate.  With
     ``smoke`` (the phase run alone) (a) first, in a four-rank launch of
     its own instead of dp_train's.  Rank 0's peak memory in (b) lands
-    in ``peaks`` as ``"serve_mesh"``."""
+    in ``peaks`` as ``"serve_mesh"``.  Then (b)'s ranks take one
+    tensor-parallel train step (SERVE_MESH_TRAIN) held to one process.
+    Returns rank 0's kernel launches: the prefill's, and the train
+    step's forward and backward ones."""
     import tempfile
     from repro_torch.runtime import mesh
 
@@ -6012,6 +6270,8 @@ def phase_serve_mesh(smi: str, single: dict | None = None,
         params = transformer.init_params(cfg, 0, device=DEVICE)
         single = serve_mesh_full_single(cfg, params)
         del params
+        torch.cuda.empty_cache()
+    train_single = serve_mesh_train_single()
     arch = SERVE_MESH_FULL["arch"]
     gate = LM_PATHS[arch]["gates"]["logits"]
     want = LM_PATHS[arch]["launches"]
@@ -6028,10 +6288,13 @@ def phase_serve_mesh(smi: str, single: dict | None = None,
     wall = time.perf_counter() - t0
     for r in out:
         print(f"  rank {r['rank']}: blocks {r['resting_gb']:.4f} GB at "
-              f"rest, {r['gathered_gb']:.4f} GB allocated with the whole "
-              f"tree, peak {r['peak_gb']:.4f} GB (reserved "
+              f"rest, its tensor-parallel share {r['share_gb']:.4f} GB "
+              f"({r['param_gathers']} parameter gathers in all), "
+              f"{r['gathered_gb']:.4f} GB allocated after the share, peak "
+              f"{r['peak_gb']:.4f} GB against {SERVE_MESH_WHOLE_TREE_PEAK_GB} GB "
+              f"with the whole tree (reserved "
               f"{r['reserved_gb']:.4f} GB, {r['retries']} allocation "
-              f"retries); the one gather "
+              f"retries); the share "
               f"{r['gather_s']:.3f} s (copies to pinned host buffers "
               f"{r['gather_parts']['_wire']:.3f} s, gloo's all-gathers "
               f"{r['gather_parts']['_all_gather']:.3f} s, copies back "
@@ -6051,6 +6314,14 @@ def phase_serve_mesh(smi: str, single: dict | None = None,
               for r in out),
           f"serve_mesh (b): each rank's params on the card and its prefill "
           f"launched {want}, one prefill's, decode none")
+    check(all(r["param_gathers"] == 0 and abs(r["share_gb"] - r[
+        "resting_gb"]) < 1e-9 for r in out),
+        "serve_mesh (b): no parameter gathered (no FSDP axis splits on "
+        "(1, 2)); each rank's share its blocks, no whole tree")
+    check(all(r["peak_gb"] <= SERVE_MESH_PEAK_GB for r in out),
+          f"serve_mesh (b): each rank's peak "
+          f"{max(r['peak_gb'] for r in out):.2f} GB <= "
+          f"{SERVE_MESH_PEAK_GB} GB")
     blocks = sorted(r["layouts"]["attn"][1:] for r in out
                     if list(r["layouts"]) == ["attn"])
     check(len(blocks) == ranks and all(
@@ -6086,16 +6357,40 @@ def phase_serve_mesh(smi: str, single: dict | None = None,
               f"process's up to step {upto} (the first near tie)")
     print(f"  tokens held equal up to steps {held}; mesh {r0['tokens']}, "
           f"one process {single['tokens']}")
+    tcfg = serve_mesh_train_cfg()
+    lp, np_ = train_single
+    t0_ = r0["train"]
+    print(f"  train step ({tcfg.num_layers} layers at full width, bf16, "
+          f"{SERVE_MESH_TRAIN['batch']} x {SERVE_MESH_TRAIN['seq']}): "
+          f"walls {[round(r['train']['wall'], 3) for r in out]} s, loss "
+          f"{float(t0_['loss']):.6f} vs one process {lp:.6f}, grad norm "
+          f"{t0_['norm']:.6f} vs {np_:.6f}, launches a rank "
+          f"{[r['train']['launches'] for r in out]} ({smi})")
+    check(all(torch.equal(r["train"]["loss"], t0_["loss"])
+              and r["train"]["norm"] == t0_["norm"]
+              and r["train"]["launches"] == expected_train_launches(tcfg)
+              for r in out),
+          f"serve_mesh (b) train step: every rank's loss and grad norm the "
+          f"same bits, launches {expected_train_launches(tcfg)}")
+    check(abs(float(t0_["loss"]) - lp) <= TRAIN_LOSS_TOL * abs(lp)
+          and abs(t0_["norm"] - np_) <= TRAIN_NORM_TOL * np_,
+          f"serve_mesh (b) train step vs one process: loss "
+          f"{abs(float(t0_['loss']) - lp) / abs(lp):.3e} <= "
+          f"{TRAIN_LOSS_TOL:g}, grad norm {abs(t0_['norm'] - np_) / np_:.3e}"
+          f" <= {TRAIN_NORM_TOL:g}")
+    # the prefill's forward launches, the train step's backward ones
+    return dict(r0["train"]["launches"], **r0["launches"])
 
 
 # dryrun: the runs whose peak memory the trace predicts, each within
 # DRYRUN_TOL of the card's max_memory_allocated; the cells of the
 # single-pod report the phase traces and prints: Mixtral-8x22B's serving
 # cells, a few seconds each (the 40-cell sweep takes minutes of the host,
-# Mixtral's train_4k alone 60-80 s).
+# Mixtral's train_4k alone 100 s), which fit a rank's card with
+# tensor-parallel compute (372-1975 GB a rank with the whole tree).
 DRYRUN_RUNS = ("mamba2-1.3b", "olmoe-1b-7b", "recurrentgemma-9b",
                "dp_train", "serve_mesh")
-DRYRUN_TOL = 0.15
+DRYRUN_TOL = 0.05
 DRYRUN_CELLS = tuple(("mixtral-8x22b", shape) for shape in
                      ("prefill_32k", "decode_32k", "long_500k"))
 
@@ -6128,7 +6423,7 @@ def phase_dryrun(peaks: dict, smi: str) -> None:
     ``max_memory_allocated``.  Then the single-pod report's rows of
     DRYRUN_CELLS (on ``meta``, no flop count): each one's peak a rank
     with the report's ``fits`` (80 GB) and against this card's
-    ``total_memory``; none may fit."""
+    ``total_memory``; each must fit both."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
 
@@ -6150,8 +6445,8 @@ def phase_dryrun(peaks: dict, smi: str) -> None:
         print(f"    {arch}|{shape}: {m['peak_per_device'] / 1e9:.2f} GB, fits "
               f"{m['fits']}, fits this card {m['peak_per_device'] <= card} "
               f"(trace {row['trace_s']} s)")
-        check(not m["fits"] and m["peak_per_device"] > card,
-              f"dryrun: {arch}|{shape} fits no card")
+        check(m["fits"] and m["peak_per_device"] <= card,
+              f"dryrun: {arch}|{shape} fits a rank's card")
     print(f"  dryrun phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -6240,7 +6535,9 @@ def main() -> int:
     phase_resume(smi)
     peaks: dict = {}
     dp_rows = phase_dp_train(smi, peaks)
-    stamp("data-parallel training")
+    dp_launches = {r["name"].replace("_per_rank", ""): r["launches"]
+                   for r in dp_rows}
+    stamp("sharded training")
 
     rows = phase_kernels([("ex4_p8", main_1d), ("shelf2d", main_2d)],
                          counts_1d)
@@ -6258,9 +6555,10 @@ def main() -> int:
     del params, batch, inputs   # free the 17 GB of RecurrentGemma weights
     torch.cuda.empty_cache()
     stamp("RecurrentGemma-9B serving")
-    phase_serve_mesh(smi, serve_full, peaks=peaks)
+    tp_launches = phase_serve_mesh(smi, serve_full, peaks=peaks)
     del serve_full
-    stamp("sharded serving")
+    rows += phase_rank_kernels(tp_launches)
+    stamp("sharded serving and the kernels at rank shares")
 
     phase_lm_small("mamba2-1.3b")
     counts_m, params, cfg, batch, inputs, layer_errs = phase_lm_serve(

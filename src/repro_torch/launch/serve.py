@@ -30,7 +30,9 @@ every rank runs it with its blocks of the params (``param_specs``) and
 the whole requests, through ``make_prefill_step(mesh=)`` and
 ``make_serve_step(mesh=, cache_shapes=)``.  Each rank keeps its blocks
 of the cache (kv heads split over "model", slots split over "model", or
-rows alone) and never gathers it; the params are gathered once.  Greedy
+rows alone) and never gathers it; each rank computes its share of the
+heads, channels and vocab rows (tensor-parallel on "model"), its blocks
+gathered over their FSDP axes once into that share.  Greedy
 tokens come from the whole logits, gathered from the ranks' blocks;
 sampling draws from the same seeded generator on every rank, so every
 rank ends with the same ``out`` lists.  The CLI has no mesh flag, as the
@@ -94,8 +96,9 @@ def serve_batch(cfg, params, requests, *, max_seq: int, greedy: bool = True,
     request), :func:`modality_inputs`' zeros by default; patches run the
     cache and the decode positions ``num_patches`` further.  With
     ``mesh`` ``params`` are this rank's blocks and every rank of the
-    mesh calls this with the same requests (the whole params, gathered
-    on the first call, are kept by the mesh for later ones)."""
+    mesh calls this with the same requests (the rank's tensor-parallel
+    share of the params, gathered on the first call, is kept by the mesh
+    for later ones)."""
     dev = params["embed"].device
     B = len(requests)
     S = max(len(r.prompt) for r in requests)
@@ -157,7 +160,7 @@ def serve_queue(cfg, params, requests, *, slots: int, max_seq: int,
     :func:`serve_batch`, retire, repeat until the queue drains.  Returns
     the completed requests (arrival order) and aggregate stats.  With
     ``mesh`` every rank runs every wave on its param blocks, gathered
-    once for all the waves.
+    into its tensor-parallel share once for all the waves.
     """
     sched = SlotScheduler(capacity=slots, meters_prefix="serve.")
     for r in requests:

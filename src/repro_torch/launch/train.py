@@ -15,12 +15,13 @@ with f32 moments.  ``--ckpt-dir`` saves and resumes ``{"params", "opt"}``
 and the loader's state in the reference's on-disk format, so either
 package resumes the other's run.
 
-``train(mesh=...)`` is data-parallel training on a
+``train(mesh=...)`` is sharded training on a
 :class:`~repro_torch.runtime.mesh.ProcessMesh` (every rank of it calls
 ``train``): each rank holds its blocks of the params and moments, runs
 the loader with the same seed and hands the whole global batch to the
 sharded step (:func:`repro_torch.runtime.steps.make_train_step`), which
-takes its rows.  The mesh's first rank writes each checkpoint
+takes its rows, computes tensor-parallel on "model" and gathers each
+layer's blocks over their FSDP axes in the layer.  The mesh's first rank writes each checkpoint
 (``CheckpointManager.save(shardings=)``); a run resumes onto the same
 mesh or another mesh shape (:func:`repro_torch.runtime.elastic.remesh`).
 The CLI runs one process, as the reference's does.

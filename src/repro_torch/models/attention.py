@@ -15,23 +15,32 @@ absolute position ``pos`` is written to slot ``pos % length`` and each
 slot keeps the absolute position it holds (-1 when empty), so masking
 stays right after wraparound, exactly as in the reference.
 
-On a process mesh (``runtime.steps.make_serve_step(mesh=...)``) each
-rank holds its block of every cache leaf, as ``cache_specs_tree`` lays
-it out, and decode takes the block's :class:`BlockLayout`.  There are
-three layouts, and none gathers the cache:
+On a process mesh the projections are tensor parallel
+(:mod:`repro_torch.runtime.tp`): ``wq`` column-parallel over the rank's
+query heads [h0, h1), ``wk`` and ``wv`` over its kv heads where their
+spec splits them, ``wo`` row-parallel and its partial sums psummed
+(:func:`_sum_heads`).  Where kv heads do not split (GQA and MQA with
+fewer kv heads than ranks) ``wk`` and ``wv`` are whole on every rank:
+the rank computes the kv heads its query heads read (head h reads kv
+head h // q_per_kv) and their gradients are psummed.
 
-* **kv heads split** (``dim="heads"``): the rank attends with the query
-  heads that read its kv heads (query head h reads kv head
-  h // q_per_kv), all-gathers the head outputs over the split's mesh
-  axes and runs the whole out-projection;
+In serving (``runtime.steps.make_serve_step(mesh=...)``) each rank
+holds its block of every cache leaf, as ``cache_specs_tree`` lays it
+out, and decode takes the block's :class:`BlockLayout`.  There are three
+layouts, and none gathers the cache:
+
+* **kv heads split** (``dim="heads"``): the rank's query heads read its
+  kv heads alone; the row-parallel ``wo`` and one psum end the layer;
 * **sequence split** (``dim="seq"``, the ``kv_seq`` fallback): every
   rank updates the replicated slot positions, the owner of the slot
-  writes the new k and v, each rank takes its slots' f32 maximum, sum
-  of exponentials and weighted sum of values, and the ranks combine them
-  (:func:`_combine_slots`: a ``pmax`` and one ``psum``);
+  writes the new k and v (every kv head), the step's queries are
+  all-gathered over the heads' split, each rank takes its slots' f32
+  maximum, sum of exponentials and weighted sum of values, and the ranks
+  combine them (:func:`_combine_slots`: a ``pmax`` and one ``psum``);
+  the rank keeps its heads for ``wo``;
 * **rows only** (no layout): the rank computes its rows, with no
-  collective (the "dp" profile; recurrent and SSD states are never
-  split further).
+  collective beyond the projections' (the "dp" profile; recurrent and
+  SSD states are never split further).
 
 With no layout the single-process path runs as it always has.
 """
@@ -45,6 +54,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import nn
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import tp
 
 NEG_INF = -1e30
 
@@ -80,19 +90,79 @@ def _mask(seq_q: int, seq_k: int, window: int, causal: bool,
     return torch.where(ok, zero, NEG_INF)
 
 
+def _heads(cfg: ModelConfig, params):
+    """(h0, h1) of this rank's query heads where ``wq`` holds a share of
+    them (:func:`tp.share`), else None."""
+    return tp.share(params["wq"].shape[1], cfg.num_heads)
+
+
+def _kv_for(cfg: ModelConfig, heads, held: tuple):
+    """The kv heads that query heads [h0, h1) read, as an index of the
+    kv heads ``held`` = (k0, k1) that the tensors hold: a slice where the
+    heads read them in equal runs (the kernel's ``bh // (BH / BH_kv)``
+    rule then maps them), else one kv head a query head."""
+    h0, h1 = heads
+    want = [h // cfg.q_per_kv - held[0] for h in range(h0, h1)]
+    lo, hi = want[0], want[-1] + 1
+    rep = (h1 - h0) // (hi - lo)
+    if rep * (hi - lo) == h1 - h0 and all(
+            w == lo + j // rep for j, w in enumerate(want)):
+        return slice(lo, hi)
+    return torch.tensor(want)
+
+
+def _select(t, idx):
+    """Heads ``idx`` (a slice or an index tensor) of (B, S, KV, hd)."""
+    if isinstance(idx, slice):
+        return t[:, :, idx]
+    return t.index_select(2, idx.to(t.device))
+
+
+def _project_kv(cfg: ModelConfig, params, x, heads, all_kv: bool):
+    """k and v (B, S, KV', hd) of x, and the index of the kv heads the
+    rank's query heads read in them (None: all of them, in order).  With
+    ``wk`` split the kv heads are the rank's; with ``wk`` whole and
+    query heads split, every kv head where ``all_kv`` (the prefill
+    caches them), else only those read, and the gradients of ``wk`` and
+    ``wv`` are psummed (each rank's is a part)."""
+    wk, wv = params["wk"], params["wv"]
+    kv_split = wk.shape[1] < cfg.num_kv_heads
+    if heads is None or kv_split:
+        return (torch.einsum("bsd,dhk->bshk", x, wk),
+                torch.einsum("bsd,dhk->bshk", x, wv), None)
+    wk = tp.enter(wk, grad_dtype=torch.float32)
+    wv = tp.enter(wv, grad_dtype=torch.float32)
+    idx = _kv_for(cfg, heads, (0, cfg.num_kv_heads))
+    if not all_kv:
+        wk, wv = _select(wk[None], idx)[0], _select(wv[None], idx)[0]
+        idx = None
+    return (torch.einsum("bsd,dhk->bshk", x, wk),
+            torch.einsum("bsd,dhk->bshk", x, wv), idx)
+
+
+def _sum_heads(out):
+    """The psum over "model" of the rank's row-parallel ``wo`` product
+    (the end of the layer's tensor-parallel region)."""
+    return tp.exit(out)
+
+
 def attention(cfg: ModelConfig, params, x, positions, *, window: int,
               causal: bool = True, rope_theta: float | None = None,
               kv_override=None, mode: str = "auto", return_kv: bool = False):
     """Training and prefill attention.  x: (B, S, D) -> (B, S, D); with
     ``return_kv`` also k and v (B, S_kv, KV, hd) after rope, which the
-    prefill caches.  ``kv_override``: (k, v) of shape (B, S_kv, KV, hd)
-    from an encoder (cross-attention), which turns off rope, the causal
-    mask and the window, as in the reference.  ``mode`` goes to
+    prefill caches (on a mesh: the rank's kv heads where they split,
+    else every kv head).  ``kv_override``: (k, v) of shape (B, S_kv, KV,
+    hd) from an encoder (cross-attention), which turns off rope, the
+    causal mask and the window, as in the reference.  ``mode`` goes to
     :func:`ops.flash_attention`."""
+    heads = _heads(cfg, params)
+    if heads is not None:
+        x = tp.enter(x)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    idx = None
     if kv_override is None:
-        k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-        v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+        k, v, idx = _project_kv(cfg, params, x, heads, return_kv)
         theta = rope_theta if rope_theta is not None else cfg.rope_theta
         if theta > 0:
             q = nn.rope(q, positions, theta)
@@ -100,6 +170,8 @@ def attention(cfg: ModelConfig, params, x, positions, *, window: int,
     else:
         k, v = kv_override
         causal, window = False, 0
+        if heads is not None and k.shape[2] == cfg.num_kv_heads:
+            idx = _kv_for(cfg, heads, (0, cfg.num_kv_heads))
     B, S, H, K = q.shape
 
     def fold(t):   # (B, S, heads, K) -> (B * heads, S, K), contiguous
@@ -107,10 +179,13 @@ def attention(cfg: ModelConfig, params, x, positions, *, window: int,
 
     # k and v keep their kv heads: the kernel reads row bh // q_per_kv for
     # query row bh, and with one kv head fold() is a view, not a copy.
-    out = ops.flash_attention(fold(q), fold(k), fold(v), causal=causal,
+    ka, va = (k, v) if idx is None else (_select(k, idx), _select(v, idx))
+    out = ops.flash_attention(fold(q), fold(ka), fold(va), causal=causal,
                               window=window, mode=mode)
     out = out.view(B, H, S, K).permute(0, 2, 1, 3)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    if heads is not None:
+        out = _sum_heads(out)
     return (out, k, v) if return_kv else out
 
 
@@ -129,28 +204,11 @@ class BlockLayout:
     size: int
 
 
-def _q_heads(cfg: ModelConfig, params, layout):
-    """The query projection of the heads that read this rank's kv heads
-    (all heads outside a "heads" layout)."""
-    wq = params["wq"]
-    if layout is not None and layout.dim == "heads":
-        wq = wq[:, layout.start * cfg.q_per_kv:layout.stop * cfg.q_per_kv]
-    return wq
-
-
-def _kv_heads(params, name: str, layout):
-    w = params[name]
-    if layout is not None and layout.dim == "heads":
-        w = w[:, layout.start:layout.stop]
-    return w
-
-
-def _gather_heads(out, layout):
-    """(B, 1, H_r, hd) head outputs of this rank -> (B, 1, H, hd), all-
-    gathered over the layout's mesh axes (the blocks lie in the group's
-    row-major order)."""
-    parts = layout.mesh.all_gather(out.permute(2, 0, 1, 3), layout.axes)
-    return parts.permute(1, 2, 0, 3)
+def _gather_q(q, heads):
+    """(B, 1, H_r, hd) queries of this rank's heads -> every head's,
+    all-gathered over "model" (a sequence-split cache needs every head's
+    query on each rank's slots)."""
+    return q if heads is None else tp.all_gather(q, 2)
 
 
 def _combine_slots(scores, valid, v, layout):
@@ -175,8 +233,9 @@ def _attend(cfg: ModelConfig, q, k, v, valid, layout):
     """Single-token attention of q (B, 1, H_r, hd) over the cached k, v
     (B, S_r, KV_r, hd) where ``valid`` (S_r,) allows, in f32 with the
     output in v's dtype (B, 1, H_r, hd)."""
-    kk = _expand_kv(k, cfg.q_per_kv)
-    vv = _expand_kv(v, cfg.q_per_kv)
+    rep = q.shape[2] // k.shape[2]      # q_per_kv, or a rank's share
+    kk = _expand_kv(k, rep)
+    vv = _expand_kv(v, rep)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     scores = torch.einsum("bqhk,bshk->bhqs", q, kk).float() * scale
     if cfg.attn_softcap > 0:
@@ -189,10 +248,15 @@ def _attend(cfg: ModelConfig, q, k, v, valid, layout):
     return torch.einsum("bhqs,bshk->bqhk", probs, vv)
 
 
-def _out_proj(params, out, layout):
-    if layout is not None and layout.dim == "heads":
-        out = _gather_heads(out, layout)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+def _out_proj(params, out, heads, layout):
+    """The out-projection of the head outputs (B, 1, H', hd): with a
+    sequence-split cache and query heads split, every head's output is
+    on each rank and the rank keeps its own; the row-parallel ``wo``'s
+    partial sums are then psummed."""
+    if heads is not None and layout is not None and layout.dim == "seq":
+        out = out[:, :, heads[0]:heads[1]]
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return out if heads is None else _sum_heads(out)
 
 
 def cross_attention_cached(cfg: ModelConfig, params, x, k, v,
@@ -202,11 +266,17 @@ def cross_attention_cached(cfg: ModelConfig, params, x, k, v,
     :func:`decode_attention` (no kernel).  Returns (B, 1, D).  With a
     ``layout``, k and v are this rank's block of the cross cache (its kv
     heads or its slots of the encoder's positions)."""
-    q = torch.einsum("bsd,dhk->bshk", x, _q_heads(cfg, params, layout))
+    heads = _heads(cfg, params)
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     valid = None
     if layout is not None and layout.dim == "seq":
         valid = torch.ones(k.shape[1], dtype=torch.bool, device=k.device)
-    return _out_proj(params, _attend(cfg, q, k, v, valid, layout), layout)
+        q = _gather_q(q, heads)
+    elif heads is not None and k.shape[2] == cfg.num_kv_heads:
+        idx = _kv_for(cfg, heads, (0, cfg.num_kv_heads))
+        k, v = _select(k, idx), _select(v, idx)
+    return _out_proj(params, _attend(cfg, q, k, v, valid, layout), heads,
+                     layout)
 
 
 # ---------------------------------------------------------------------------
@@ -250,9 +320,10 @@ def decode_attention(cfg: ModelConfig, params, cache, spec: CacheSpec, x,
     holds this rank's block of k and v (``spec.length`` stays the global
     slot count) and the whole replicated ``"pos"``."""
     B = x.shape[0]
-    q = torch.einsum("bsd,dhk->bshk", x, _q_heads(cfg, params, layout))
-    k = torch.einsum("bsd,dhk->bshk", x, _kv_heads(params, "wk", layout))
-    v = torch.einsum("bsd,dhk->bshk", x, _kv_heads(params, "wv", layout))
+    heads = _heads(cfg, params)
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    seq = layout is not None and layout.dim == "seq"
+    k, v, idx = _project_kv(cfg, params, x, heads, True)
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     if theta > 0:
@@ -264,9 +335,7 @@ def decode_attention(cfg: ModelConfig, params, cache, spec: CacheSpec, x,
     new_v = cache["v"].clone()
     new_pos = cache["pos"].clone()
     new_pos[slot] = pos
-    lo, hi = ((layout.start, layout.stop)
-              if layout is not None and layout.dim == "seq"
-              else (0, spec.length))
+    lo, hi = (layout.start, layout.stop) if seq else (0, spec.length)
     if lo <= slot < hi:             # this rank holds the slot
         new_k[:, slot - lo] = k[:, 0]
         new_v[:, slot - lo] = v[:, 0]
@@ -274,8 +343,13 @@ def decode_attention(cfg: ModelConfig, params, cache, spec: CacheSpec, x,
     valid = (held >= 0) & (held <= pos)
     if window > 0:
         valid &= held > pos - window
-    out = _attend(cfg, q, new_k, new_v, valid, layout)
-    return (_out_proj(params, out, layout),
+    ck, cv = new_k, new_v
+    if seq:
+        q = _gather_q(q, heads)
+    elif idx is not None:
+        ck, cv = _select(ck, idx), _select(cv, idx)
+    out = _attend(cfg, q, ck, cv, valid, layout)
+    return (_out_proj(params, out, heads, layout),
             {"k": new_k, "v": new_v, "pos": new_pos})
 
 

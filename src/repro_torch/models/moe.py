@@ -26,6 +26,13 @@ in parallel: each slot of an expert's capacity holds at most one token
 exactly k entries of the sorted order, which the combine gathers back
 through the order's inverse and sums over k, so a call is bitwise
 repeatable on the card.  The expert products are batched matmuls.
+
+On a mesh whose "model" axis splits the experts (``moe_ep``: whole
+virtual experts a rank) or their d_ff (:mod:`repro_torch.runtime.tp`),
+the router, :func:`route` and the DyDD schedule run identically on every
+rank, each rank runs its experts' slots (or its d_ff columns of every
+expert), and the combine's partial sums are psummed; the router's
+gradient, a part on each rank, is psummed too.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.core import dydd
 from repro_torch.models import nn
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import tp
 
 
 def make_moe_params(b: nn.Builder, cfg: ModelConfig):
@@ -145,17 +153,40 @@ def _dispatch(cfg: ModelConfig, params, x):
     return disp.view(B, e, cap, D), (sorted_tok, slot, gate, order)
 
 
+def _virtual(cfg: ModelConfig) -> int:
+    return cfg.moe_virtual_experts if cfg.moe_ep else 1
+
+
+def _split(cfg: ModelConfig, params) -> bool:
+    """Whether the expert weights are this rank's share over "model"
+    (its virtual experts with ``moe_ep``, else its d_ff columns)."""
+    if cfg.moe_ep:
+        return tp.share(params["w_up"].shape[0],
+                        cfg.num_experts * _virtual(cfg)) is not None
+    return tp.share(params["w_up"].shape[2], cfg.d_ff) is not None
+
+
 def _experts(cfg: ModelConfig, params, disp):
     """The expert FFNs on the dispatched rows (B, E, C, D); with v
     virtual experts each row goes to the v shards of its expert and their
-    partial sums add up."""
-    v = cfg.moe_virtual_experts if cfg.moe_ep else 1
-    if v > 1:
-        disp = disp.repeat_interleave(v, dim=1)               # (B, E v, C, D)
+    partial sums add up.  Where the rank holds virtual experts [e0, e1)
+    of E v alone, it runs their slots and the others' rows stay zero."""
+    v = _virtual(cfg)
+    ev = params["w_up"].shape[0]
+    own = tp.share(ev, cfg.num_experts * v) if cfg.moe_ep else None
+    if own is not None:
+        experts = torch.arange(own[0], own[1], device=disp.device) // v
+        rows = disp.index_select(1, experts)        # (B, E_r, C, D)
+    elif v > 1:
+        rows = disp.repeat_interleave(v, dim=1)      # (B, E v, C, D)
+    else:
+        rows = disp
     act = F.silu if cfg.act == "silu" else nn.gelu
-    up = torch.einsum("becd,edf->becf", disp, params["w_up"])
-    h = act(torch.einsum("becd,edf->becf", disp, params["w_gate"])) * up
+    up = torch.einsum("becd,edf->becf", rows, params["w_up"])
+    h = act(torch.einsum("becd,edf->becf", rows, params["w_gate"])) * up
     out = torch.einsum("becf,efd->becd", h, params["w_down"])
+    if own is not None:
+        return disp.new_zeros(disp.shape).index_add(1, experts, out)
     if v > 1:
         B, EV, C, D = out.shape
         out = out.view(B, EV // v, v, C, D).sum(2)
@@ -180,8 +211,14 @@ def _combine(cfg: ModelConfig, out_e, aux, S: int):
 
 def apply_moe(cfg: ModelConfig, params, x):
     """x: (B, S, D) -> (B, S, D); each row routed on its own."""
+    split = _split(cfg, params)
+    if split:
+        x = tp.enter(x)
+        params = dict(params, router=tp.enter(params["router"],
+                                              grad_dtype=torch.float32))
     disp, aux = _dispatch(cfg, params, x)
-    return _combine(cfg, _experts(cfg, params, disp), aux, x.shape[1])
+    out = _combine(cfg, _experts(cfg, params, disp), aux, x.shape[1])
+    return tp.exit(out) if split else out
 
 
 def load_balance_stats(cfg: ModelConfig, params, x):

@@ -12,8 +12,9 @@ three never drift.  ``"init"`` draws every parameter from one explicit
 different numbers from the same seed, so the parity tests carry the
 reference's weights across
 (:func:`repro_torch.convert.lm_params_from_numpy`).  The reference's
-activation sharding constraints are no-ops here (no tensor-parallel
-compute) and are dropped.
+activation sharding constraints are dropped: on a mesh the partition is
+stated by hand (:mod:`repro_torch.runtime.tp`), here in the MLP (column-
+parallel up and gate, row-parallel down) and the vocab-parallel loss.
 """
 from __future__ import annotations
 
@@ -21,9 +22,8 @@ import math
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
-from repro_torch.runtime import sharding
+from repro_torch.runtime import sharding, tp
 
 
 class Builder:
@@ -142,14 +142,22 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(params, x, act: str, gated: bool):
+def apply_mlp(params, x, act: str, gated: bool, d_ff: int | None = None):
+    """The MLP of x (..., D).  Where ``w_up`` holds fewer than ``d_ff``
+    columns it is this rank's share of d_ff (:func:`tp.share`): up and
+    gate column-parallel, down row-parallel, the partial sums psummed."""
+    split = d_ff is not None and tp.share(params["w_up"].shape[-1],
+                                          d_ff) is not None
+    if split:
+        x = tp.enter(x)
     act_fn = F.silu if act == "silu" else gelu
     up = x @ params["w_up"]
     if gated:
         h = act_fn(x @ params["w_gate"]) * up
     else:
         h = act_fn(up)
-    return h @ params["w_down"]
+    out = h @ params["w_down"]
+    return tp.exit(out) if split else out
 
 
 def softcap(x, cap: float):
@@ -160,11 +168,26 @@ def softcap(x, cap: float):
 # Loss.
 # ---------------------------------------------------------------------------
 
-def _token_nll(logits, labels):
+def _token_nll(logits, labels, vocab: tuple | None = None):
+    """Each token's nll from its logits; ``vocab`` = (v0, v1): the logits
+    are this rank's vocab rows [v0, v1) of a table split over "model",
+    and the row maximum (a pmax), the sum of exponentials and the target's
+    logit (one psum) are the ranks' (:mod:`repro_torch.runtime.tp`)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return lse - picked
+    if vocab is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return lse - picked
+    v0, v1 = vocab
+    m = tp.pmax(logits.amax(dim=-1))
+    local = labels.long() - v0
+    mine = (local >= 0) & (local < v1 - v0)
+    picked = torch.gather(logits, -1,
+                          local.clamp(0, v1 - v0 - 1)[..., None])[..., 0]
+    parts = tp.exit(torch.stack([
+        torch.exp(logits - m[..., None]).sum(dim=-1),
+        torch.where(mine, picked, torch.zeros((), device=logits.device))]))
+    return m + torch.log(parts[0]) - parts[1]
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -175,19 +198,19 @@ def cross_entropy(logits, labels, mask=None):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def cross_entropy_parts(logits, labels, mask):
+def cross_entropy_parts(logits, labels, mask, vocab: tuple | None = None):
     """(sum of the masked token cross-entropies, sum of the mask) in f32:
-    :func:`cross_entropy` with a mask is their quotient."""
+    :func:`cross_entropy` with a mask is their quotient.  ``vocab``: the
+    logits are a rank's vocab rows (:func:`_token_nll`)."""
     mask = mask.float()
-    return torch.sum(_token_nll(logits, labels) * mask), torch.sum(mask)
+    return (torch.sum(_token_nll(logits, labels, vocab) * mask),
+            torch.sum(mask))
 
 
-def _chunk_nll(hc, embed, yc, mc, softcap_val: float):
+def _chunk_nll(hc, embed, yc, mc, softcap_val: float, vocab=None):
     """(sum of the masked nll, sum of the mask) of one sequence chunk."""
     logits = softcap(hc @ embed.T, softcap_val).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
-    return torch.sum((lse - picked) * mc), torch.sum(mc)
+    return torch.sum(_token_nll(logits, yc, vocab) * mc), torch.sum(mc)
 
 
 def chunked_loss(h_final, embed, labels, chunk: int, softcap_val: float,
@@ -204,9 +227,11 @@ def chunked_loss(h_final, embed, labels, chunk: int, softcap_val: float,
 
 
 def chunked_loss_parts(h_final, embed, labels, chunk: int,
-                       softcap_val: float, mask=None):
+                       softcap_val: float, mask=None,
+                       vocab: tuple | None = None):
     """(sum of the masked token losses, sum of the mask) of
-    :func:`chunked_loss`, which is their quotient."""
+    :func:`chunked_loss`, which is their quotient; ``vocab``: ``embed``
+    holds a rank's vocab rows [v0, v1) (:func:`_token_nll`)."""
     B, S, D = h_final.shape
     if S % chunk:
         raise ValueError(f"chunked_loss: S = {S} is not a multiple of the "
@@ -218,9 +243,9 @@ def chunked_loss_parts(h_final, embed, labels, chunk: int,
     cnt = torch.zeros((), device=h_final.device)
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        nll, m = torch.utils.checkpoint.checkpoint(
+        nll, m = tp.checkpoint(
             _chunk_nll, h_final[:, sl], embed, labels[:, sl],
-            mask[:, sl].float(), softcap_val, use_reentrant=False)
+            mask[:, sl].float(), softcap_val, vocab)
         tot = tot + nll
         cnt = cnt + m
     return tot, cnt

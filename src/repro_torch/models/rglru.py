@@ -14,6 +14,13 @@ by elementwise product and projected out.  The training and prefill
 recurrence runs through :func:`repro_torch.kernels.ops.rglru_scan` (the
 CUDA kernel and its backward on the card, the plain versions on the
 CPU); decode carries (h, conv_state), O(1) per step.
+
+On a mesh whose "model" axis splits the ``lru`` channels
+(:mod:`repro_torch.runtime.tp`) the conv, the gates and the decay act
+per channel, so a rank's channels are exact with no collective until
+``w_out``, row-parallel, whose partial sums are psummed.  The decode
+cache keeps every channel (its spec splits rows alone): the prefill and
+each decode step all-gather the rank's new state and conv rows.
 """
 from __future__ import annotations
 
@@ -25,13 +32,14 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models import nn
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import tp
 
 _C = 8.0
 
 
 def make_rglru_params(b: nn.Builder, cfg: ModelConfig):
     d = cfg.d_model
-    w = cfg.lru_width or d
+    w = _width(cfg)
     conv = 4
     return {
         "w_in_rec": b.param((d, w), ("embed", "lru")),
@@ -62,21 +70,36 @@ def _scan_inputs(params, rec_c):
     return a.float(), bx.float()
 
 
-def _prefill(params, x, mode: str = "auto"):
+def _width(cfg: ModelConfig) -> int:
+    return cfg.lru_width or cfg.d_model
+
+
+def _channels(cfg: ModelConfig, params):
+    """(c0, c1) of this rank's ``lru`` channels where the params hold a
+    share of them (:func:`tp.share`), else None."""
+    return tp.share(params["w_in_rec"].shape[1], _width(cfg))
+
+
+def _prefill(cfg: ModelConfig, params, x, mode: str = "auto"):
     """The block's prefill body: (out (B, S, D), the f32 states
-    hseq (B, S, W), the pre-conv branch rec (B, S, W)); the model's
-    prefill builds its decode cache from the last two."""
+    hseq (B, S, W'), the pre-conv branch rec (B, S, W')) over the rank's
+    channels W' (every channel off a mesh); the model's prefill builds
+    its decode cache from the last two."""
+    split = _channels(cfg, params) is not None
+    if split:
+        x = tp.enter(x)
     gate = nn.gelu(x @ params["w_in_gate"])
     rec = x @ params["w_in_rec"]
     rec_c = nn.causal_conv(rec, params["conv_w"], params["conv_b"])
     hseq = ops.rglru_scan(*_scan_inputs(params, rec_c), mode=mode)
-    return (hseq.to(x.dtype) * gate) @ params["w_out"], hseq, rec
+    out = (hseq.to(x.dtype) * gate) @ params["w_out"]
+    return (tp.exit(out) if split else out), hseq, rec
 
 
 def apply_rglru(cfg: ModelConfig, params, x, *, mode: str = "auto"):
     """Griffin recurrent block, training and prefill.  x: (B, S, D) ->
     (B, S, D); ``mode`` goes to :func:`ops.rglru_scan`."""
-    return _prefill(params, x, mode)[0]
+    return _prefill(cfg, params, x, mode)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +107,7 @@ def apply_rglru(cfg: ModelConfig, params, x, *, mode: str = "auto"):
 # ---------------------------------------------------------------------------
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device):
-    w = cfg.lru_width or cfg.d_model
+    w = _width(cfg)
     return {
         "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, 4 - 1, w), dtype=dtype, device=device),
@@ -92,21 +115,30 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device):
 
 
 def decode_rglru(cfg: ModelConfig, params, cache, x):
-    """x: (B, 1, D) -> (out (B, 1, D), new_cache)."""
+    """x: (B, 1, D) -> (out (B, 1, D), new_cache).  On a mesh that splits
+    the channels the rank steps its own and all-gathers the new state and
+    conv row into the whole cache."""
+    ch = _channels(cfg, params)
+    h_prev, conv_prev = cache["h"], cache["conv"]
+    if ch is not None:
+        h_prev, conv_prev = h_prev[:, ch[0]:ch[1]], conv_prev[..., ch[0]:ch[1]]
     xt = x[:, 0]
     gate = nn.gelu(xt @ params["w_in_gate"])
     rec = xt @ params["w_in_rec"]
 
     conv_w = params["conv_w"]
     width = conv_w.shape[0]
-    hist = torch.cat([cache["conv"], rec[:, None, :]], dim=1)
+    hist = torch.cat([conv_prev, rec[:, None, :]], dim=1)
     rec_c = sum(hist[:, i, :] * conv_w[i] for i in range(width))
     rec_c = rec_c + params["conv_b"]
-    new_conv = hist[:, 1:, :]
 
     a, b_scale = _decay(params, rec_c[:, None, :])
     a, b_scale = a[:, 0], b_scale[:, 0]
     bx = b_scale * torch.sigmoid(params["gate_x"]) * rec_c
-    h = a.float() * cache["h"] + bx.float()
+    h = a.float() * h_prev + bx.float()
     out = ((h.to(x.dtype) * gate) @ params["w_out"])[:, None, :]
-    return out, {"h": h, "conv": new_conv}
+    if ch is None:
+        return out, {"h": h, "conv": hist[:, 1:, :]}
+    h, rec = tp.gather_dims([(h, 1), (rec, 1)])
+    conv = torch.cat([cache["conv"][:, 1:], rec[:, None, :]], dim=1)
+    return tp.exit(out), {"h": h, "conv": conv}

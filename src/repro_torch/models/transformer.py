@@ -34,18 +34,30 @@ self-attention and its cross-attention, whose k and v have the encoder's
 length.  Decode runs no kernel: it is the O(1) recurrences and the cached
 attention (whisper's cross-attention over the cached encoder k and v), as
 in the reference.
+
+On a process mesh (the sharded steps of :mod:`repro_torch.runtime.steps`)
+the layers compute as the reference's GSPMD partition does
+(:mod:`repro_torch.runtime.tp`): each rank its heads, kv heads, d_ff
+columns, ``lru`` channels, SSD heads, experts and vocab rows, the partial
+sums psummed once a block; the embedding looks up the tokens of the
+rank's vocab rows and psums, and the loss takes the row maximum with a
+pmax and psums the exponentials' sum and the target's logit, so no rank
+forms the whole vocabulary's logits.  In the train step each layer's
+blocks are all-gathered over their FSDP axes inside the layer's body
+(under remat again in the backward, then freed) and their gradients
+reduce-scattered back (:func:`gather_plan`); the top-level leaves are
+gathered where the step begins.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.models import attention, moe, nn, rglru, ssd
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime import sharding
+from repro_torch.runtime import sharding, tp
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -204,6 +216,47 @@ def param_specs(cfg: ModelConfig):
         return _build(cfg, nn.Builder(mode="spec"))
 
 
+# The stacked subtrees (a leading layer axis) and the top-level leaves.
+STACKS = ("blocks", "periods", "tail", "encoder", "decoder")
+TOP = ("embed", "unembed", "final_norm", "enc_pos", "dec_pos",
+       "enc_final_norm")
+
+
+def gather_plan(cfg: ModelConfig, mesh, rows: tuple = (), *,
+                per_layer: bool = True):
+    """A tree like the params of :class:`~repro_torch.runtime.tp.Gather`
+    on ``mesh``: each leaf all-gathered over the axes other than "model"
+    that its spec shards (the FSDP axes), a stacked leaf per layer (its
+    plan without the layer axis; with ``per_layer`` False, the whole
+    stack at once), its gradient summed over those of the axes in
+    ``rows`` (the batch's: their ranks hold other rows).  The SSD block's
+    :data:`ssd.WHOLE_LEAVES` are gathered over "model" too, their
+    gradients summed there where the block's heads split; where its di
+    splits off the heads' boundaries (a smoke config on a wide mesh)
+    every SSD leaf is gathered whole and the block computed whole on
+    every rank, their gradients the same there and sliced."""
+    with sharding.use_mesh(mesh):
+        specs = param_specs(cfg)
+    heads_split = _is_ssd(cfg) and ssd.heads_split(
+        cfg, specs["blocks"]["ssd"]["norm"], mesh.shape.get(tp.AXIS, 1))
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        spec = (tuple(node)[1:] if per_layer and path[0] in STACKS
+                else tuple(node))
+        axes = [a for a in sharding.spec_axes(spec) if a != tp.AXIS]
+        summed = list(rows)
+        if path[-2:-1] == ("ssd",) and (path[-1] in ssd.WHOLE_LEAVES
+                                        or not heads_split):
+            axes.append(tp.AXIS)
+            if heads_split:
+                summed.append(tp.AXIS)
+        return tp.layer_plan(mesh, spec, tuple(axes), tuple(summed))
+
+    return walk(specs, ())
+
+
 def _index(tree, i: int):
     """Layer i of a stacked tree."""
     if isinstance(tree, dict):
@@ -233,7 +286,20 @@ def _stack(trees: list):
 # ---------------------------------------------------------------------------
 
 def _embed_tokens(cfg: ModelConfig, params, tokens):
-    h = params["embed"][tokens]
+    """The token embeddings; where the table holds a rank's vocab rows
+    (:func:`tp.share`) the rank looks up the tokens in them, zero rows for
+    the rest, and the ranks' rows are psummed (one term each: exact)."""
+    table = params["embed"]
+    rows = tp.share(table.shape[0], cfg.vocab_size)
+    if rows is None:
+        h = table[tokens]
+    else:
+        local = tokens.long() - rows[0]
+        mine = (local >= 0) & (local < rows[1] - rows[0])
+        h = table[local.clamp(0, rows[1] - rows[0] - 1)]
+        h = tp.exit(torch.where(mine[..., None], h,
+                                torch.zeros((), dtype=h.dtype,
+                                            device=h.device)))
     if cfg.scale_embeddings:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                              device=h.device)
@@ -266,11 +332,24 @@ def _out_table(cfg, params):
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
 
+def out_rows(cfg: ModelConfig, params) -> tuple | None:
+    """(v0, v1) of the vocab rows the output table holds where it is a
+    rank's share over "model", else None."""
+    return tp.share(_out_table(cfg, params).shape[0], cfg.vocab_size)
+
+
 def logits_fn(cfg: ModelConfig, params, h, vocab: tuple | None = None):
     """The (soft-capped) logits of h; ``vocab`` = (v0, v1) gives those of
-    the output table's rows [v0, v1) alone."""
+    the output table's rows [v0, v1) alone.  Where the table holds a
+    rank's vocab rows those are the logits (``vocab`` None or the same
+    rows)."""
     table = _out_table(cfg, params)
-    if vocab is not None:
+    rows = out_rows(cfg, params)
+    if rows is not None:
+        if vocab is not None and tuple(vocab) != rows:
+            raise ValueError(f"logits of vocab rows {vocab} from a table "
+                             f"holding {rows}")
+    elif vocab is not None:
         table = table[vocab[0]:vocab[1]]
     return nn.softcap(h @ table.T, cfg.logits_softcap)
 
@@ -283,7 +362,8 @@ def _apply_rglru_block(cfg, lp, h, mode):
     r_in = nn.apply_norm(lp["norm1"], h, cfg.norm, cfg.norm_eps)
     h = h + rglru.apply_rglru(cfg, lp["rglru"], r_in, mode=mode)
     f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
-    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp,
+                            cfg.d_ff)
 
 
 def layer_statics(cfg: ModelConfig):
@@ -309,7 +389,8 @@ def _ffn(cfg, lp, h):
     if cfg.num_experts > 0:
         return h + moe.apply_moe(cfg, lp["moe"], f_in)
     if cfg.d_ff > 0:
-        return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+        return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp,
+                            cfg.d_ff)
     return h
 
 
@@ -325,17 +406,24 @@ def _apply_ssd_block(cfg, lp, h, mode):
     return h + ssd.apply_ssd(cfg, lp["ssd"], s_in, mode=mode)
 
 
-def _scan_layers(cfg: ModelConfig, body, h, layers: list):
+def _scan_layers(cfg: ModelConfig, body, h, layers: list, plan=None):
     """``body(h, lp)`` over the per-layer trees ``layers`` in order; under
     remat ("block" or "group") each body runs in ``torch.utils.checkpoint``
-    and is recomputed in the backward.  The values do not depend on it;
-    "group"'s coarser residuals, the reference's memory trade for
+    and is recomputed in the backward.  With ``plan`` (a tree like one
+    item of ``layers`` of :class:`~repro_torch.runtime.tp.Gather`) the
+    body first gathers its layer's blocks, so under remat the backward
+    gathers them again and frees them after.  The values do not depend on
+    remat; "group"'s coarser residuals, the reference's memory trade for
     Mixtral-8x22B at full size on a mesh, are not ported (no config of
     the port sets it)."""
+    if plan is not None:
+        inner = body
+
+        def body(h, lp):
+            return inner(h, tp.gather_tree(lp, plan))
     for lp in layers:
         if cfg.remat in ("block", "group"):
-            h = torch.utils.checkpoint.checkpoint(body, h, lp,
-                                                  use_reentrant=False)
+            h = tp.checkpoint(body, h, lp)
         else:
             h = body(h, lp)
     return h
@@ -352,17 +440,23 @@ def _encode(cfg: ModelConfig, params, frames, mode: str = "auto"):
         h = h + attention.attention(cfg, lp["attn"], a_in, None, window=0,
                                     causal=False, rope_theta=0.0, mode=mode)
         f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
-        return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+        return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp,
+                            cfg.d_ff)
 
-    h = _scan_layers(cfg, body, h, _unstack(params["encoder"]))
+    h = _scan_layers(cfg, body, h, _unstack(params["encoder"]),
+                     tp.plan_of("encoder"))
     return nn.apply_norm(params["enc_final_norm"], h, cfg.norm, cfg.norm_eps)
 
 
-def _cross_kv(enc, lp):
-    """A decoder layer's cross-attention k and v (B, S_enc, KV, hd) of the
-    encoder's output."""
-    return (torch.einsum("bsd,dhk->bshk", enc, lp["cross_attn"]["wk"]),
-            torch.einsum("bsd,dhk->bshk", enc, lp["cross_attn"]["wv"]))
+def _cross_kv(cfg, enc, lp):
+    """A decoder layer's cross-attention k and v (B, S_enc, KV', hd) of
+    the encoder's output (on a mesh that splits the heads: the rank's kv
+    heads, or every kv head where they do not split)."""
+    heads = attention._heads(cfg, lp["cross_attn"])
+    if heads is not None:
+        enc = tp.enter(enc)
+    k, v, _ = attention._project_kv(cfg, lp["cross_attn"], enc, heads, True)
+    return k, v
 
 
 def _apply_cross_block(cfg, lp, h, kv, mode, return_kv=False):
@@ -378,7 +472,7 @@ def _apply_cross_block(cfg, lp, h, kv, mode, return_kv=False):
     h = h + attention.attention(cfg, lp["cross_attn"], x_in, None, window=0,
                                 kv_override=kv, mode=mode)
     f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
-    h = h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+    h = h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp, cfg.d_ff)
     return (h, k, v) if return_kv else h
 
 
@@ -387,6 +481,11 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
     (B, S) (phi-3-vision with ``"patches"``: (B, P + S, D); whisper reads
     ``"frames"``).  ``mode`` goes to the kernel ops."""
     _require_ported(cfg)
+    return _forward(cfg, tp.gather_top(params, TOP), batch, mode)
+
+
+def _forward(cfg: ModelConfig, params, batch, mode: str):
+    """:func:`forward` with the top-level leaves gathered."""
     h = trunk_input(cfg, params, batch)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device).expand(B, S)
@@ -395,19 +494,20 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
         # each layer's cross k and v inside its body (the weights differ),
         # so remat recomputes them
         h = _scan_layers(
-            cfg, lambda h, lp: _apply_cross_block(cfg, lp, h,
-                                                  _cross_kv(enc, lp), mode),
-            h, _unstack(params["decoder"]))
+            cfg, lambda h, lp: _apply_cross_block(
+                cfg, lp, h, _cross_kv(cfg, enc, lp), mode),
+            h, _unstack(params["decoder"]), tp.plan_of("decoder"))
     elif _is_ssd(cfg):
         h = _scan_layers(
             cfg, lambda h, lp: _apply_ssd_block(cfg, lp, h, mode), h,
-            _unstack(params["blocks"]))
+            _unstack(params["blocks"]), tp.plan_of("blocks"))
     elif _is_uniform(cfg):
         windows, thetas = layer_statics(cfg)
         h = _scan_layers(
             cfg, lambda h, lps: _apply_attn_block(cfg, lps[0], h, positions,
                                                   lps[1], lps[2], mode),
-            h, list(zip(_unstack(params["blocks"]), windows, thetas)))
+            h, list(zip(_unstack(params["blocks"]), windows, thetas)),
+            (tp.plan_of("blocks"), None, None))
     else:
         def period(h, lps):
             r1, r2, at = lps
@@ -419,11 +519,12 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
         periods = params["periods"]
         h = _scan_layers(cfg, period, h, list(zip(
             _unstack(periods["r1"]), _unstack(periods["r2"]),
-            _unstack(periods["attn"]))))
+            _unstack(periods["attn"]))), tuple(
+                tp.plan_of("periods", k) for k in ("r1", "r2", "attn")))
         if "tail" in params:
             h = _scan_layers(
                 cfg, lambda h, lp: _apply_rglru_block(cfg, lp, h, mode), h,
-                _unstack(params["tail"]))
+                _unstack(params["tail"]), tp.plan_of("tail"))
     return nn.apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
 
 
@@ -443,7 +544,9 @@ def loss_parts(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
     scalars: :func:`loss_fn` is their quotient.  A batch split over ranks
     sums each part over the ranks before dividing (a mean of the ranks'
     means is another function where their masks differ)."""
-    h = forward(cfg, params, batch, mode=mode)
+    _require_ported(cfg)
+    params = tp.gather_top(params, TOP)
+    h = _forward(cfg, params, batch, mode)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     if _has_patches(cfg, batch):
@@ -457,10 +560,14 @@ def loss_parts(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
                           device=tokens.device)
         mask[:, -1] = 0.0
     table = _out_table(cfg, params)
+    vocab = out_rows(cfg, params)
+    if vocab is not None:
+        h = tp.enter(h)
     if cfg.loss_chunk and S % cfg.loss_chunk == 0:
         return nn.chunked_loss_parts(h, table, labels, cfg.loss_chunk,
-                                     cfg.logits_softcap, mask)
-    return nn.cross_entropy_parts(logits_fn(cfg, params, h), labels, mask)
+                                     cfg.logits_softcap, mask, vocab)
+    return nn.cross_entropy_parts(logits_fn(cfg, params, h), labels, mask,
+                                  vocab)
 
 
 # ---------------------------------------------------------------------------
@@ -597,7 +704,8 @@ def _decode_rglru_block(cfg, lp, c, h):
     out, nc = rglru.decode_rglru(cfg, lp["rglru"], c, r_in)
     h = h + out
     f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
-    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp), nc
+    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp,
+                            cfg.d_ff), nc
 
 
 def _decode_attn_block(cfg, lp, c, spec, h, pos, window, theta,
@@ -629,7 +737,7 @@ def _decode_encdec(cfg, params, cache, h, pos, layouts):
             cfg, lp["cross_attn"], x_in, cache["cross_k"][i],
             cache["cross_v"][i], layout=layouts.get("cross_k"))
         f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
-        h = h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp)
+        h = h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp, cfg.d_ff)
         new.append(c)
     return h, dict(cache, self=_stack(new))
 
@@ -750,7 +858,7 @@ def _attn_prefill_block(cfg, lp, h, positions, spec, window, theta,
 def _cross_prefill_block(cfg, lp, h, enc, spec, mode="auto"):
     """A whisper decoder layer of the prefill: returns h and (its self
     cache, the cross k and v of the encoder's output ``enc``)."""
-    kv = _cross_kv(enc, lp)
+    kv = _cross_kv(cfg, enc, lp)
     h, k, v = _apply_cross_block(cfg, lp, h, kv, mode, return_kv=True)
     cache = attention.prefill_cache(cfg, spec, k, v,
                                     torch.arange(h.shape[1], device=h.device))
@@ -762,15 +870,19 @@ def _rglru_prefill_block(cfg, lp, h, positions, mode="auto"):
     out, st = _rglru_prefill(cfg, lp["rglru"], r_in, mode)
     h = h + out
     f_in = nn.apply_norm(lp["norm2"], h, cfg.norm, cfg.norm_eps)
-    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp), st
+    return h + nn.apply_mlp(lp["mlp"], f_in, cfg.act, cfg.gated_mlp,
+                            cfg.d_ff), st
 
 
 def _rglru_prefill(cfg, params, x, mode="auto"):
-    """``rglru.apply_rglru`` that also returns the decode cache."""
-    out, hseq, rec = rglru._prefill(params, x, mode)
-    cache = {"h": hseq[:, -1].float(),
-             "conv": _conv_cache(rec, params["conv_w"].shape[0])}
-    return out, cache
+    """``rglru.apply_rglru`` that also returns the decode cache (every
+    channel's: a rank's all-gathered where the channels split)."""
+    out, hseq, rec = rglru._prefill(cfg, params, x, mode)
+    h, conv = hseq[:, -1].float(), _conv_cache(rec,
+                                               params["conv_w"].shape[0])
+    if rglru._channels(cfg, params) is not None:
+        h, conv = tp.gather_dims([(h, 1), (conv, 2)])
+    return out, {"h": h, "conv": conv}
 
 
 def _ssd_prefill_block(cfg, lp, h, mode="auto"):
@@ -784,7 +896,9 @@ def _ssd_prefill(cfg, params, x, mode="auto"):
     decode cache: the last ``ssm_conv - 1`` rows of the pre-conv stream
     and the final ssm state (B, nh, N, hd) in f32."""
     out, xbc, state = ssd._prefill(cfg, params, x, pad=False, mode=mode)
-    return out, {"conv": _conv_cache(xbc, cfg.ssm_conv), "state": state}
+    conv, state = ssd.cache_rows(cfg, _conv_cache(xbc, cfg.ssm_conv), state,
+                                 cfg.ssm_conv - 1, ssd._heads(cfg, params))
+    return out, {"conv": conv, "state": state}
 
 
 def _conv_cache(seq, width: int):

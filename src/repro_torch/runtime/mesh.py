@@ -200,7 +200,7 @@ class _Mesh:
         # (kind, result bytes, group size) -> calls (record_collective)
         self.collectives: collections.Counter = collections.Counter()
         # state that steps on this mesh share, dropped with the mesh
-        # (runtime.steps.whole_params keeps the whole params here)
+        # (runtime.steps.tp_share keeps each rank's params share here)
         self.kept: dict = {}
         # (axes) -> (group, its ranks in row-major order over the axes)
         self._groups: dict = {}
@@ -372,9 +372,13 @@ class ProcessMesh(_Mesh):
                             group, ranks)
 
     # -- transport ---------------------------------------------------------
-    # Host transport copies each tensor to a pinned buffer and back; each
-    # copy is waited for on a blocking event, so a rank that waits sleeps
-    # instead of spinning on a core that its collectives' threads need.
+    # Host transport copies each tensor to a pinned buffer and back.  The
+    # copy to the host is waited for on a blocking event, so a rank that
+    # waits sleeps instead of spinning on a core that its collectives'
+    # threads need.  The copy back is not: a cached buffer is written
+    # again by gloo only after a later copy to the host on the same stream
+    # was waited for, which orders the two (a received buffer, which no
+    # copy to the host precedes, is waited for).
 
     def _on_host(self, t: torch.Tensor) -> bool:
         return self.transport == "host" and t.is_cuda
@@ -418,14 +422,16 @@ class ProcessMesh(_Mesh):
         dev = self.device if self.backend == "nccl" else like.device
         return torch.empty(tuple(shape), dtype=like.dtype, device=dev)
 
-    def _unwire(self, buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    def _unwire(self, buf: torch.Tensor, like: torch.Tensor,
+                wait: bool = False) -> torch.Tensor:
         """A collective's result where ``like`` lives (copied off a pinned
-        buffer, which the next call reuses)."""
+        buffer, which a later call reuses; ``wait``: that copy waited
+        for)."""
         if buf.device == like.device:
             return buf.clone() if buf.is_pinned() else buf
         out = torch.empty(buf.shape, dtype=buf.dtype, device=like.device)
         out.copy_(buf, non_blocking=buf.is_pinned())
-        if out.is_cuda:
+        if out.is_cuda and wait:
             self._wait()
         return out
 
@@ -493,7 +499,7 @@ class ProcessMesh(_Mesh):
             req.wait()
         if got is None:
             return torch.zeros_like(buf)
-        return self._unwire(got, buf)
+        return self._unwire(got, buf, wait=True)
 
     # -- host decisions ----------------------------------------------------
 
@@ -556,7 +562,8 @@ class TracedMesh(_Mesh):
               copy: bool = False) -> torch.Tensor:
         return t
 
-    def _unwire(self, buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    def _unwire(self, buf: torch.Tensor, like: torch.Tensor,
+                wait: bool = False) -> torch.Tensor:
         return buf
 
     def _psum(self, buf: torch.Tensor, axes) -> torch.Tensor:

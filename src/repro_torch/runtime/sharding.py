@@ -19,15 +19,19 @@ the blocks) or an :class:`AbstractMesh` (axis sizes only, for specs at
 production sizes that no one launches).  Outside any mesh the specs are
 the production mesh's (``_DEFAULT_SIZES``), as in the reference.
 
-:func:`shard` is the identity: a sharded step gathers whole parameters
-from the blocks (:func:`gather`) and computes its rows with them.  The
-one compute on blocks is decode's attention core, which runs on a
-rank's kv heads or cache slots (:mod:`repro_torch.models.attention`):
-:func:`dim_range` is where a rank's block of a dimension starts and
-ends, so the rank whose range holds slot ``pos % L`` of a
-sequence-split cache is the one that writes it.  Projections and MLPs
-are not tensor parallel.  :func:`local_block` is the block a rank
-holds; :class:`NamedSharding` pairs a mesh with a spec.
+The reference's activation sharding constraints have no counterpart: the
+port states the partition by hand (:mod:`repro_torch.runtime.tp`).  A
+sharded step computes tensor-parallel on "model" from each rank's share
+of the heads, kv heads, d_ff, vocab, ``lru`` and ``ssm_inner``
+dimensions, gathering the blocks over their FSDP axes ("data", "pod")
+layer by layer in training and once in serving; decode's attention core
+runs on a rank's kv heads or cache slots
+(:mod:`repro_torch.models.attention`): :func:`dim_range` is where a
+rank's block of a dimension starts and ends, so the rank whose range
+holds slot ``pos % L`` of a sequence-split cache is the one that writes
+it.  :func:`local_block` is the block a rank holds; :func:`gather` the
+whole tensor from the blocks (checkpoints, the FSDP gathers);
+:class:`NamedSharding` pairs a mesh with a spec.
 """
 from __future__ import annotations
 
@@ -218,12 +222,6 @@ def act_spec_shaped(shape, *axes) -> P:
     return _resolve(axes, _act_rules(), sizes, shape)
 
 
-def shard(x: torch.Tensor, *axes) -> torch.Tensor:
-    """The reference's sharding constraint: the identity here (no
-    tensor-parallel compute)."""
-    return x
-
-
 # ---------------------------------------------------------------------------
 # Blocks.
 # ---------------------------------------------------------------------------
@@ -326,32 +324,3 @@ def gather(block: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
                  (dim_axes(spec[d]) if d < len(spec) else ())]
         perm.append(len(order) + d)
     return parts.permute(perm).reshape(tuple(shape))
-
-
-def reduce_block(full: torch.Tensor, sharding: NamedSharding, axes,
-                 dtype=None) -> torch.Tensor:
-    """This rank's block of the sum of ``full`` over the ranks of the
-    mesh ``axes``, summed in ``dtype`` (default: ``full``'s): a
-    reduce-scatter over those of ``axes`` that shard the spec (each rank
-    of that group receives the sum of its own block), then a sum over the
-    rest, whose ranks hold the same block.  Each rank of a group ends
-    with the same bits."""
-    mesh = sharding.mesh
-    dtype = dtype or full.dtype
-    axes = tuple(a for a in mesh.axis_names if a in axes)
-    sharded = set(spec_axes(sharding.spec))
-    scatter = tuple(a for a in axes if a in sharded)
-    summed = tuple(a for a in axes if a not in sharded)
-    if scatter:
-        # chunk i: the block of the scatter group's rank i
-        slices = [block_slices(sharding, full.shape, r)
-                  for r in mesh.group_ranks(scatter)]
-        chunks = torch.empty(
-            (len(slices),) + tuple(full[slices[0]].shape), dtype=dtype,
-            device=full.device)
-        for chunk, sl in zip(chunks, slices):
-            chunk.copy_(full[sl])
-        block = mesh.reduce_scatter(chunks, scatter)[0]
-    else:
-        block = local_block(full, sharding).to(dtype, copy=True)
-    return mesh.psum(block, summed) if summed else block

@@ -7,26 +7,31 @@ partition specs ``batch_specs``, ``opt_specs`` and ``cache_specs_tree``
 (equal to the reference's as tuples).  Steps are eager calls; the AdamW
 update is in place, which is what the reference's buffer donation buys.
 
-``make_train_step(mesh=...)`` is data-parallel training on a
+``make_train_step(mesh=...)`` is sharded training on a
 :class:`~repro_torch.runtime.mesh.ProcessMesh`, the same function as the
 reference's GSPMD step: each rank holds its block of the parameters and
 of both AdamW moments as ``param_specs`` and ``opt_specs`` lay them out,
-gathers whole parameters for the step (no tensor-parallel compute), and
-computes the gradient of the global loss on its rows of the batch
+computes tensor-parallel on "model" (its heads, d_ff columns, channels,
+experts and vocab rows; :mod:`repro_torch.runtime.tp`), gathers each
+layer's blocks over their FSDP axes inside the layer and reduce-scatters
+the layer's gradient back into its block, never holding the whole tree,
+and computes the gradient of the global loss on its rows of the batch
 (:func:`make_train_step` says how).
 
 ``make_prefill_step(mesh=...)`` and ``make_serve_step(mesh=...,
 cache_shapes=...)`` are the reference's sharded serving steps on a
 ``ProcessMesh``.  Every rank passes its blocks of the params and the
-whole global inputs; the step computes the rank's rows with whole
-params (:func:`whole_params`: gathered once, kept while the blocks are
-unchanged) and returns the rank's blocks of the outputs.  The prefill
-returns the whole last-position logits on every rank and this rank's
-block of every cache leaf under ``cache_specs_tree``; the serve step
-takes and returns cache blocks and returns its block of the logits.  The
-cache is never gathered: decode's attention runs on the block, with its
-kv heads split over "model", its slots split over "model" (``kv_seq``)
-or its rows alone (:mod:`repro_torch.models.attention` says how).
+whole global inputs; the step computes the rank's rows, tensor-parallel
+on "model", with the rank's share of the params (:func:`tp_share`: its
+blocks gathered over their FSDP axes once and kept while the blocks are
+unchanged; no rank holds the whole tree) and returns the rank's blocks
+of the outputs.  The prefill returns the whole last-position logits on
+every rank and this rank's block of every cache leaf under
+``cache_specs_tree``; the serve step takes and returns cache blocks and
+returns its block of the logits.  The cache is never gathered: decode's
+attention runs on the block, with its kv heads split over "model", its
+slots split over "model" (``kv_seq``) or its rows alone
+(:mod:`repro_torch.models.attention` says how).
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from repro_torch.kernels._build import LM_DTYPES
 from repro_torch.models import attention, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
-from repro_torch.runtime import sharding
+from repro_torch.runtime import sharding, tp
 from repro_torch.runtime.sharding import P
 
 
@@ -154,20 +159,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     With ``mesh`` (a ``ProcessMesh``) every rank calls the step with its
     blocks of the params and of ``m`` and ``v`` (``param_specs`` and
     ``opt_specs`` under the mesh) and the whole global batch, and the
-    step (a) gathers the whole params from the blocks; (b) takes this
-    rank's rows of each microbatch by ``batch_specs`` (``batch_shapes``,
-    anything with a ``.shape``, or the first batch's shapes: every batch
-    must have them), so ranks off the batch's mesh axes hold the same
-    rows; (c) computes the gradient of the global loss, the sum of the
-    masked token losses over the rows of every rank over the sum of their
-    mask; (d) sums the gradients over the batch's mesh axes alone, in
-    f32, into this rank's block, cast once to the dtype the
-    single-process step's gradients have (the params' without
-    accumulation, f32 with it); (e) clips by the global norm, each
-    leaf's squared block norms summed over the axes that shard it; (f)
-    runs AdamW in place on the blocks; (g) returns the global loss, the
-    same bits on every rank.  Ranks that hold the same block end with
-    the same bits."""
+    step (a) takes this rank's rows of each microbatch by
+    ``batch_specs`` (``batch_shapes``, anything with a ``.shape``, or
+    the first batch's shapes: every batch must have them), so ranks off
+    the batch's mesh axes hold the same rows; (b) computes the gradient
+    of the global loss, the sum of the masked token losses over the rows
+    of every rank over the sum of their mask, tensor-parallel on
+    "model", each layer's blocks all-gathered over their FSDP axes in
+    the layer (:func:`transformer.gather_plan`) and its gradient reduce-
+    scattered back over the batch's axes among them, in f32, into the
+    block; (c) sums each leaf's gradient over the batch's other mesh
+    axes, in f32, cast once to the dtype the single-process step's
+    gradients have (the params' without accumulation, f32 with it); (d)
+    clips by the global norm, each leaf's squared block norms summed over
+    the axes that shard it; (e) runs AdamW in place on the blocks; (f)
+    returns the global loss, the same bits on every rank.  Ranks that
+    hold the same block end with the same bits."""
     if mesh is not None:
         return _sharded_train_step(cfg, opt_cfg, lr_schedule, mesh,
                                    batch_shapes, mode)
@@ -226,7 +233,7 @@ def _row_plan(cfg: ModelConfig, mesh, shapes: dict, accum: int) -> tuple:
 
 def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                         lr_schedule, mesh, batch_shapes, mode: str):
-    """The data-parallel step of :func:`make_train_step` on ``mesh``."""
+    """The sharded step of :func:`make_train_step` on ``mesh``."""
     accum = opt_cfg.accum_steps
     with sharding.use_mesh(mesh):
         shardings = adamw.leaves(sharding.named_shardings(
@@ -236,55 +243,64 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         plan["shapes"] = {k: tuple(v.shape) for k, v in batch_shapes.items()}
     last = {"grad_norm": None}
 
-    def rows_of(batch: dict) -> tuple:
+    def plan_for(batch: dict) -> dict:
         shapes = {k: tuple(v.shape) for k, v in batch.items()}
         plan.setdefault("shapes", shapes)
         if shapes != plan["shapes"]:
             raise ValueError(f"batch shapes {shapes} differ from the "
                              f"step's {plan['shapes']}")
         if "specs" not in plan:
-            plan["specs"], plan["axes"] = _row_plan(cfg, mesh, shapes,
-                                                    accum)
-        return plan["specs"], plan["axes"]
+            plan["specs"], axes = _row_plan(cfg, mesh, shapes, accum)
+            plan["axes"] = axes
+            gathers = transformer.gather_plan(cfg, mesh, axes)
+            plan["tp"] = tp.TensorParallel(mesh, gathers)
+            # the batch axes each leaf's gradient is still summed over:
+            # those its gather does not reduce-scatter
+            plan["rest"] = [tuple(a for a in axes if mesh.shape[a] > 1 and (
+                g is None or a not in g.summed))
+                for g in adamw.leaves(gathers)]
+        return plan
 
     def step(params, opt_state, batch):
         blocks = adamw.leaves(params)
         check_trainable(cfg, blocks[0].dtype, blocks[0].device)
-        specs, axes = rows_of(batch)
+        p = plan_for(batch)
+        specs, axes = p["specs"], p["axes"]
         lr = (lr_schedule(int(opt_state["step"]))
               if lr_schedule is not None else opt_cfg.lr)
-        full = [sharding.gather(b, sh).detach().requires_grad_(True)
-                for b, sh in zip(blocks, shardings)]
-        it = iter(full)
+        held = [b.detach().requires_grad_(True) for b in blocks]
+        it = iter(held)
         tree = adamw.tree_map(lambda _: next(it), params)
         grads, loss = None, 0.0
-        for i in range(accum):
-            rows = {k: sharding.local_block(
-                v, sharding.NamedSharding(mesh, specs[k]))
-                for k, v in _microbatch(batch, accum, i).items()}
-            tot, cnt = transformer.loss_parts(cfg, tree, rows, mode=mode)
-            # the global batch's parts, summed over the ranks whose rows
-            # differ (the others hold the same rows)
-            parts = torch.stack([tot.detach(), cnt.detach()])
-            if axes:
-                parts = mesh.psum(parts, axes)
-            denom = torch.clamp(parts[1], min=1.0)
-            g = torch.autograd.grad(tot / denom, full)
-            if accum > 1:
-                g = [x.float() for x in g]
-            grads = (list(g) if grads is None else
-                     [a + b for a, b in zip(grads, g)])
-            loss = loss + parts[0] / denom
+        with tp.use(p["tp"]):
+            for i in range(accum):
+                rows = {k: sharding.local_block(
+                    v, sharding.NamedSharding(mesh, specs[k]))
+                    for k, v in _microbatch(batch, accum, i).items()}
+                tot, cnt = transformer.loss_parts(cfg, tree, rows,
+                                                  mode=mode)
+                # the global batch's parts, summed over the ranks whose
+                # rows differ (the others hold the same rows)
+                parts = torch.stack([tot.detach(), cnt.detach()])
+                if axes:
+                    parts = mesh.psum(parts, axes)
+                denom = torch.clamp(parts[1], min=1.0)
+                g = list(torch.autograd.grad(tot / denom, held))
+                if accum > 1:
+                    g = [x.float() for x in g]
+                grads = (g if grads is None else
+                         [a + b for a, b in zip(grads, g)])
+                loss = loss + parts[0] / denom
         if accum > 1:
             loss = loss / accum
-        del full, tree
+        del held, tree
         out = []
-        for j, sh in enumerate(shardings):
+        for j, rest in enumerate(p["rest"]):
             g, grads[j] = grads[j], None
-            blk = sharding.reduce_block(g, sh, axes, torch.float32)
-            del g
-            out.append(blk / accum if accum > 1
-                       else blk.to(blocks[j].dtype))
+            if rest:
+                g = mesh.psum(g.float(), rest)
+            out.append(g.float() / accum if accum > 1
+                       else g.to(blocks[j].dtype))
         norm = _global_norm(out, shardings, mesh)
         it = iter(out)
         params, opt_state, last["grad_norm"] = adamw.adamw_step(
@@ -316,24 +332,30 @@ def _global_norm(blocks: list, shardings: list, mesh) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-class WholeParams:
-    """The whole parameters of ``cfg`` on every rank of ``mesh``,
-    gathered from this rank's blocks (``param_specs`` under the mesh).
+class TPShare:
+    """This rank's tensor-parallel share of the parameters of ``cfg`` on
+    ``mesh``: its blocks (``param_specs`` under the mesh) gathered over
+    their FSDP axes, still split over "model" (the SSD block's
+    ``in_proj``, ``conv_w`` and ``conv_b`` whole;
+    :func:`transformer.gather_plan`).
 
-    Calling it with the tree of blocks returns the tree of whole tensors.
-    Each leaf is gathered once and kept while its block is the same
-    tensor object at the same ``_version``: a decode loop gathers the
-    tree on its first call only.  An in-place edit of a block bumps its
-    version and brings that leaf's gather back on the next call (every
-    rank must edit the same blocks, as an SPMD program does: the gather
-    is a collective).  An inference tensor has no version counter, so
-    an in-place edit of one under ``torch.inference_mode`` goes unseen.
-    The steps take theirs from :func:`whole_params`."""
+    Calling it with the tree of blocks returns the tree of shares.  Each
+    leaf is gathered once and kept while its block is the same tensor
+    object at the same ``_version``: a decode loop gathers on its first
+    call only.  An in-place edit of a block bumps its version and brings
+    that leaf's gather back on the next call (every rank must edit the
+    same blocks, as an SPMD program does: the gather is a collective).
+    An inference tensor has no version counter, so an in-place edit of
+    one under ``torch.inference_mode`` goes unseen.  A leaf that no FSDP
+    axis splits is its block itself.  The steps take theirs from
+    :func:`tp_share`."""
 
     def __init__(self, cfg: ModelConfig, mesh):
         with sharding.use_mesh(mesh):
             self.shardings = adamw.leaves(sharding.named_shardings(
                 mesh, transformer.param_specs(cfg)))
+        self.plans = adamw.leaves(transformer.gather_plan(
+            cfg, mesh, per_layer=False))
         self._kept: list = [None] * len(self.shardings)
 
     def __call__(self, params):
@@ -341,24 +363,25 @@ class WholeParams:
         if len(blocks) != len(self.shardings):
             raise ValueError(f"{len(blocks)} param blocks, but the config "
                              f"has {len(self.shardings)} leaves")
-        for j, (b, sh) in enumerate(zip(blocks, self.shardings)):
+        for j, (b, plan) in enumerate(zip(blocks, self.plans)):
             ver = None if b.is_inference() else b._version
             kept = self._kept[j]
             if kept is None or kept[0] is not b or kept[1] != ver:
                 self._kept[j] = None      # free the old leaf first
-                self._kept[j] = (b, ver, sharding.gather(b.detach(), sh))
+                with torch.no_grad():
+                    self._kept[j] = (b, ver, tp.gather(b.detach(), plan))
         it = iter(k[2] for k in self._kept)
         return adamw.tree_map(lambda _: next(it), params)
 
 
-def whole_params(cfg: ModelConfig, mesh) -> WholeParams:
-    """The one :class:`WholeParams` of ``cfg`` on ``mesh``, kept in
+def tp_share(cfg: ModelConfig, mesh) -> TPShare:
+    """The one :class:`TPShare` of ``cfg`` on ``mesh``, kept in
     ``mesh.kept`` and dropped with the mesh: the prefill and serve steps
     of a config on a mesh (and ``serve_queue``'s waves) share it, so a
-    rank holds one whole tree.  ``mesh.kept.clear()`` frees it."""
-    kept = mesh.kept.setdefault("whole_params", {})
+    rank holds one share.  ``mesh.kept.clear()`` frees it."""
+    kept = mesh.kept.setdefault("tp_share", {})
     if cfg not in kept:
-        kept[cfg] = WholeParams(cfg, mesh)
+        kept[cfg] = TPShare(cfg, mesh)
     return kept[cfg]
 
 
@@ -371,9 +394,11 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, max_seq: int | None = None,
     With ``mesh`` every rank passes its blocks of the params and the
     whole global batch; the step takes this rank's rows by
     ``batch_specs`` (``batch_shapes``, or the first batch's shapes: every
-    batch must have them), runs the single-process prefill on them with
-    the whole params (:func:`whole_params`) and returns the whole ``logits_last`` on every rank (gathered
-    over the batch's mesh axes) and this rank's block of every cache leaf
+    batch must have them), runs the prefill on them tensor-parallel with
+    the rank's share of the params (:func:`tp_share`) and returns the
+    whole ``logits_last`` on every rank (gathered over the batch's mesh
+    axes and, where the output table splits its vocab, "model") and this
+    rank's block of every cache leaf
     under ``cache_specs_tree`` of the global cache (its shapes:
     ``transformer.init_decode_cache(cfg, B, max_seq)`` on ``meta``, which
     the prefill's cache must have).  ``step.cache_shapes`` is the global
@@ -397,10 +422,11 @@ def make_serve_step(cfg: ModelConfig, mesh=None, cache_shapes=None):
     required) every rank passes its blocks of the params, its blocks of
     the cache (``cache_specs_tree``), the whole (B, 1) tokens and
     ``pos``; the step decodes the rank's rows (the tokens' spec, as the
-    reference's) with the whole params (:func:`whole_params`) and returns this rank's block of the
-    logits, ``act_spec_shaped((B, 1, V), "batch", None, "vocab")``,
-    computed from the rank's vocab rows of the output table, and its new
-    cache blocks.  The cache is never gathered.  ``step.logits_sharding``
+    reference's) tensor-parallel with the rank's share of the params
+    (:func:`tp_share`) and returns this rank's block of the logits,
+    ``act_spec_shaped((B, 1, V), "batch", None, "vocab")``, computed from
+    the rank's vocab rows of the output table, and its new cache
+    blocks.  The cache is never gathered.  ``step.logits_sharding``
     is the logits' :class:`~repro_torch.runtime.sharding.NamedSharding`
     (``sharding.gather`` gives the whole logits)."""
     if mesh is not None:
@@ -472,31 +498,37 @@ def _sharded_prefill_step(cfg: ModelConfig, mesh, max_seq, batch_shapes,
         _check_cache_rows(plan["cache"], rows)
         plan["cache_shapes"] = _tree_shapes(meta)
         step.cache_shapes = meta
-        plan["logits"] = sharding.NamedSharding(mesh, P(rows or None, None))
+        vocab = _vocab_axes(cfg, mesh)
+        plan["logits"] = sharding.NamedSharding(mesh, P(rows or None,
+                                                        vocab or None))
         return plan
 
     def block_of(local, sh, shape):
         """This rank's block of a cache leaf of the global ``shape`` from
-        the prefill's leaf of its rows (dim 1 of the stacked leaves)."""
+        the prefill's leaf of its rows (dim 1 of the stacked leaves),
+        which holds each other dimension whole or as this block's share
+        already (a rank's kv heads)."""
         sl = list(sharding.block_slices(sh, shape))
-        if len(shape) > 1:
-            rows = sl[1].stop - sl[1].start
-            if tuple(local.shape) != shape[:1] + (rows,) + shape[2:]:
-                raise ValueError(
-                    f"the prefill's cache leaf {tuple(local.shape)} is not "
-                    f"the rows {rows} of the global {shape}")
-            sl[1] = slice(None)
-        elif tuple(local.shape) != shape:
-            raise ValueError(f"the prefill's cache leaf "
-                             f"{tuple(local.shape)} is not {shape}")
+        ok = local.dim() == len(shape)
+        for d, n in enumerate(local.shape if ok else ()):
+            size = sl[d].stop - sl[d].start
+            if d == 1 or (n == size and n != shape[d]):
+                ok &= n == size
+                sl[d] = slice(None)
+            else:
+                ok &= n == shape[d]
+        if not ok:
+            raise ValueError(
+                f"the prefill's cache leaf {tuple(local.shape)} is not "
+                f"this rank's rows of the global {shape}")
         return local[tuple(sl)].clone()
 
     def step(params, batch):
         p = plan_for(batch)
-        tree = whole_params(cfg, mesh)(params)
+        tree = tp_share(cfg, mesh)(params)
         rows = {k: sharding.local_block(v, sharding.NamedSharding(
             mesh, p["specs"][k])) for k, v in batch.items()}
-        with torch.inference_mode():
+        with torch.inference_mode(), tp.use(tp.TensorParallel(mesh)):
             logits, cache = transformer.prefill(cfg, tree, rows,
                                                 max_seq=max_seq, mode=mode)
             cache = adamw.tree_map(block_of, cache, p["cache"],
@@ -507,6 +539,15 @@ def _sharded_prefill_step(cfg: ModelConfig, mesh, max_seq, batch_shapes,
     step.cache_shapes = None
     step.plan = plan_for
     return step
+
+
+def _vocab_axes(cfg: ModelConfig, mesh) -> tuple:
+    """The mesh axes (of more than one rank) that split the output
+    table's vocab rows."""
+    with sharding.use_mesh(mesh):
+        spec = transformer.param_specs(cfg)[
+            "embed" if cfg.tie_embeddings else "unembed"]
+    return tuple(a for a in sharding.dim_axes(spec[0]) if mesh.shape[a] > 1)
 
 
 def _layout(sh, shape) -> attention.BlockLayout | None:
@@ -547,9 +588,9 @@ def _sharded_serve_step(cfg: ModelConfig, mesh, cache_shapes):
             layouts[key] = layout
 
     def step(params, cache, tokens, pos):
-        tree = whole_params(cfg, mesh)(params)
+        tree = tp_share(cfg, mesh)(params)
         rows = sharding.local_block(tokens, tshard)
-        with torch.inference_mode():
+        with torch.inference_mode(), tp.use(tp.TensorParallel(mesh)):
             return transformer.serve_step(
                 cfg, tree, cache, rows, pos, layouts=layouts,
                 vocab=None if vocab == (0, V) else vocab)

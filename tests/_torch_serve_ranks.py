@@ -16,13 +16,15 @@ from repro_torch import configs
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import attention, transformer
 from repro_torch.optim import adamw
-from repro_torch.runtime import sharding
+from repro_torch.runtime import sharding, tp
 from repro_torch.runtime import steps as steps_mod
 from repro_torch.runtime.mesh import ProcessMesh
 
 MESH = ((2, 2), ("data", "model"))
 COLLECTIVES = ("all_gather", "pmax", "psum", "reduce_scatter", "ppermute",
                "objects")
+# parameter gathers (``tp.Gather.forward`` calls) this rank has made
+PARAM_GATHERS = {"n": 0}
 
 
 def unflatten(flat: dict, prefix: str) -> dict:
@@ -65,22 +67,74 @@ def param_blocks(cfg, mesh, params):
                           params, shards)
 
 
+def _counts(mesh) -> dict:
+    return dict(mesh.counts, params=PARAM_GATHERS["n"])
+
+
 def _delta(mesh, before: dict) -> dict:
-    return {k: mesh.counts[k] - before[k] for k in COLLECTIVES
-            if mesh.counts[k] != before[k]}
+    now = _counts(mesh)
+    return {k: now[k] - before[k] for k in COLLECTIVES + ("params",)
+            if now[k] != before[k]}
 
 
-def expected_collectives(step, cache_shapes) -> dict:
-    """The collectives of one decode step with the params already whole:
-    an all-gather of head outputs a layer of a stack whose kv heads
-    split, a pmax and a psum a layer of one whose slots split."""
-    want = {}
+def _split(spec) -> bool:
+    return "model" in sharding.spec_axes(spec)
+
+
+def expected_collectives(cfg, mesh, step, cache_shapes) -> dict:
+    """The collectives of one decode step with the params' shares kept,
+    as the tensor-parallel model makes them: a psum of the embedding
+    where the vocab splits; a layer whose heads, d_ff, experts, channels
+    or SSD heads split a psum at its end (the SSD block one more, for its
+    norm), an all-gather of the new RG-LRU or SSD state; an attention
+    stack whose slots split a pmax and a psum a layer, and an all-gather
+    of the queries where its heads split too."""
+    with sharding.use_mesh(mesh):
+        specs = transformer.param_specs(cfg)
+    want: dict = {}
+
+    def add(kind, n):
+        if n:
+            want[kind] = want.get(kind, 0) + n
+
+    add("psum", int(_split(specs["embed"])))
+
+    def blocks(tree, n):
+        if "attn" in tree or "self_attn" in tree:
+            add("psum", n * int(_split(tree.get("attn", tree.get(
+                "self_attn", {}))["wq"])))
+        if "cross_attn" in tree:
+            add("psum", n * int(_split(tree["cross_attn"]["wq"])))
+        for key in ("mlp", "moe"):
+            if key in tree:
+                add("psum", n * int(_split(tree[key]["w_up"])))
+        if "rglru" in tree and _split(tree["rglru"]["w_in_rec"]):
+            add("psum", n)
+            add("all_gather", n)
+        if "ssd" in tree and _split(tree["ssd"]["norm"]):
+            add("psum", 2 * n)
+            add("all_gather", n)
+
+    layers = {k: int(adamw.leaves(v)[0].shape[0])
+              for k, v in transformer.param_shapes(cfg).items()
+              if k in transformer.STACKS and k != "encoder"}
+    for key, n in layers.items():
+        if key == "periods":
+            for sub in ("r1", "r2", "attn"):
+                blocks(specs[key][sub], n)
+        else:
+            blocks(specs[key], n)
+    heads = specs.get("blocks", specs.get("periods", {}).get(
+        "attn", specs.get("decoder")))
+    attn = heads.get("attn", heads.get("self_attn")) if heads else None
     for key, layout in step.layouts.items():
         leaf = cache_shapes[key]
-        layers = int((leaf["k"] if isinstance(leaf, dict) else leaf).shape[0])
-        kinds = ("all_gather",) if layout.dim == "heads" else ("pmax", "psum")
-        for kind in kinds:
-            want[kind] = want.get(kind, 0) + layers
+        n = int((leaf["k"] if isinstance(leaf, dict) else leaf).shape[0])
+        if layout.dim == "seq":
+            add("pmax", n)
+            add("psum", n)
+            add("all_gather", n * int(attn is not None
+                                      and _split(attn["wq"])))
     return want
 
 
@@ -89,7 +143,7 @@ def decode(step, params, cache, tokens, positions, mesh=None) -> tuple:
     cache blocks, and its collectives (``mesh``'s counts)."""
     logits, toks, caches, counts = [], [], [], []
     for i, pos in enumerate(positions):
-        before = dict(mesh.counts) if mesh is not None else None
+        before = _counts(mesh) if mesh is not None else None
         blk, cache = step(params, cache, tokens, pos)
         whole = sharding.gather(blk, step.logits_sharding)
         if mesh is not None:
@@ -108,18 +162,14 @@ def _local_softmax(scores, valid, v, layout):
     return torch.einsum("bhqs,bshk->bqhk", p, v.float())
 
 
-def _no_gather(out, layout):
-    """A broken head gather: this rank's head outputs in place, the
-    others' zero."""
-    per = out.shape[2] // (layout.stop - layout.start)
-    full = out.new_zeros(out.shape[:2] + (layout.size * per,)
-                         + out.shape[3:])
-    full[:, :, layout.start * per:layout.stop * per] = out
-    return full
+def _no_sum(out):
+    """A broken end of the attention layer: this rank's partial sum of
+    the row-parallel ``wo`` kept, the psum over "model" left out."""
+    return out
 
 
 MUTATIONS = {"seq": ("_combine_slots", _local_softmax),
-             "heads": ("_gather_heads", _no_gather)}
+             "heads": ("_sum_heads", _no_sum)}
 
 
 def run_case(device, mesh, path: str, case: dict) -> dict:
@@ -133,7 +183,7 @@ def run_case(device, mesh, path: str, case: dict) -> dict:
         flat = {k: z[k] for k in z.files}
     params = param_blocks(cfg, mesh, _tensors(unflatten(flat, "p"), device))
     batch = _tensors(unflatten(flat, "b"), device)
-    first = dict(mesh.counts)
+    first = _counts(mesh)
     recorded = collections.Counter(mesh.collectives)
     prefill = steps_mod.make_prefill_step(cfg, mesh, case["max_seq"])
     logits, cache = prefill(params, batch)
@@ -145,7 +195,7 @@ def run_case(device, mesh, path: str, case: dict) -> dict:
     serve = steps_mod.make_serve_step(cfg, mesh, shapes)
     out["layouts"] = {k: (v.dim, v.axes, v.start, v.stop, v.size)
                       for k, v in serve.layouts.items()}
-    out["expected"] = expected_collectives(serve, shapes)
+    out["expected"] = expected_collectives(cfg, mesh, serve, shapes)
     out["logits_split"] = bool(sharding.spec_axes(
         serve.logits_sharding.spec))
     start = batch["tokens"].shape[1] + (
@@ -166,14 +216,14 @@ def run_case(device, mesh, path: str, case: dict) -> dict:
             setattr(attention, name, keep)
 
     # one block edited in place: its leaf is gathered again, alone; a
-    # new serve step shares the mesh's whole params, and after they are
-    # dropped gathers every split leaf on its first call
+    # new serve step shares the mesh's kept shares, and after they are
+    # dropped gathers every leaf an FSDP axis splits on its first call
     tokens = torch.from_numpy(out["tokens"][0]).to(device)
-    shardings = steps_mod.whole_params(cfg, mesh).shardings
-    leaf = next(b for b, sh in zip(adamw.leaves(params), shardings)
-                if sharding.spec_axes(sh.spec))
+    plans = steps_mod.tp_share(cfg, mesh).plans
+    leaf = next(b for b, plan in zip(adamw.leaves(params), plans)
+                if plan is not None)
     leaf.mul_(1.0)
-    before = dict(mesh.counts)
+    before = _counts(mesh)
     serve(params, cache, tokens, positions[0])
     out["edited_counts"] = _delta(mesh, before)
     fresh = steps_mod.make_serve_step(cfg, mesh, shapes)
@@ -181,7 +231,7 @@ def run_case(device, mesh, path: str, case: dict) -> dict:
     for drop in (False, True, False):
         if drop:
             mesh.kept.clear()
-        before = dict(mesh.counts)
+        before = _counts(mesh)
         records = collections.Counter(mesh.collectives)
         fresh(params, cache, tokens, positions[0])
         runs.append(_delta(mesh, before))
@@ -190,8 +240,9 @@ def run_case(device, mesh, path: str, case: dict) -> dict:
     # the collectives of a decode step that gathers the params, as the
     # mesh records them
     out["fresh_collectives"] = recorded[1]
-    out["split_leaves"] = sum(1 for sh in shardings
-                              if sharding.spec_axes(sh.spec))
+    out["split_leaves"] = sum(1 for plan in plans if plan is not None)
+    out["gathered_leaves"] = [sorted(plan.axes) for plan in plans
+                              if plan is not None]
 
     if case.get("serve"):
         prompts = [flat[f"r/{i}"] for i in range(len(
@@ -210,9 +261,17 @@ def run_case(device, mesh, path: str, case: dict) -> dict:
     return out
 
 
+def _count_gathers(forward):
+    def run(plan, block):
+        PARAM_GATHERS["n"] += 1
+        return forward(plan, block)
+    return run
+
+
 def serve_rank(device, cases: dict, tmp: str) -> dict:
     """Every case of ``cases`` ({name: case}) on the ("data": 2,
     "model": 2) mesh."""
+    tp.Gather.forward = _count_gathers(tp.Gather.forward)
     mesh = ProcessMesh(*MESH, device=device)
     out = {"rank": mesh.rank, "coords": dict(mesh.coords), "cases": {}}
     for name, case in cases.items():

@@ -32,13 +32,20 @@ equal, every cache block within ATOL of its slice of the reference's
 global cache and "pos" bitwise after the prefill and after every step,
 every rank the same logits bits and ranks that hold the same block the
 same bits, and the collectives of a decode step (``ProcessMesh.counts``:
-the attention layers' and the logits' gather, no parameter gather; an
-in-place edit of one block brings its gather back).  A mutation check
+the tensor-parallel layers' psums and gathers and the logits' gather, no
+parameter gather; an in-place edit of one block brings its gather
+back).  A mutation check
 on the ``kv_seq`` cases (each rank's slots softmaxed alone, no combine)
-and on yi (the head gather left out) must read more than 100 ATOL from
-the reference.  ``serve_batch(mesh=)`` and ``serve_queue(mesh=,
-slots=2)`` give the reference's unsharded greedy tokens on every rank,
-and a sampled ``serve_batch(mesh=)`` the same tokens on every rank.
+and on yi (the psum after the row-parallel ``wo`` left out) must read
+more than 100 ATOL from the reference.  ``serve_batch(mesh=)`` and ``serve_queue(mesh=,
+slots=2)`` give on every rank the reference's unsharded
+``serve_batch`` and ``serve_queue`` tokens, but on OLMoE's shortest,
+left-padded request: there the reference's unsharded tokens differ from
+its own sharded steps' run as ``serve_batch`` runs its loop (checked),
+the routing order among the identical pad tokens being decided by
+rounding, and the port, which computes as the sharded steps partition,
+gives the sharded steps' tokens.  A sampled ``serve_batch(mesh=)`` gives
+the same tokens on every rank.
 """
 import json
 import os
@@ -78,12 +85,14 @@ def _case(arch, b, s, steps, max_seq, layout, **kw):
 
 # name -> case; ``layout``: each split stack's kind, as the reference's
 # cache specs give it; ``mutate``: the kind of layout the mutation breaks;
-# ``serve``: run serve_batch and serve_queue on this arch's requests.
+# ``serve``: run serve_batch and serve_queue on this arch's requests;
+# ``sharded_reference``: also run them through the reference's sharded
+# steps (``SHARDED_REFERENCE_ROWS``).
 CASES = {
     "yi": _case("yi_6b", 4, 16, 8, 24, {"full": "heads"}, mutate="heads",
                 serve=True),
     "olmoe": _case("olmoe_1b_7b", 4, 16, 8, 24, {"full": "heads"},
-                   serve=True),
+                   serve=True, sharded_reference=True),
     "phi3": _case("phi3_vision_4_2b", 4, 16, 8, 32, {"full": "heads"},
                   serve=True),
     "gemma3_dp": _case("gemma3_1b", 4, 20, 8, 28, {}, serve=True),
@@ -97,6 +106,13 @@ CASES = {
     "whisper_seq": _case("whisper_large_v3", 2, 8, 8, 24,
                          {"self": "seq", "cross_k": "seq"}, mutate="seq"),
 }
+
+# name -> the requests whose greedy tokens the reference's unsharded
+# ``serve_batch`` and ``serve_queue`` and its own sharded steps disagree
+# on: OLMoE's shortest prompt, left-padded by 6, whose identical pad
+# tokens' expert routing is ordered by rounding that differs between the
+# two; the port on the mesh is held to the sharded steps' tokens there.
+SHARDED_REFERENCE_ROWS = {"olmoe": (3,)}
 
 REF = r"""
 import json, os, sys
@@ -148,6 +164,43 @@ def put(tree, specs):
         tree, specs, is_leaf=is_spec)
 
 
+def sharded_serve(cfg, p, prompts, max_seq, max_new):
+    # greedy tokens of the prompts through the sharded steps, as
+    # serve_batch runs its loop: prompts left-padded with 0 to the
+    # longest, zero frames or patches, the prefill, then max_new decode
+    # steps, the first token the prefill's
+    S = max(len(r) for r in prompts)
+    toks = np.zeros((len(prompts), S), np.int32)
+    for i, r in enumerate(prompts):
+        toks[i, S - len(r):] = r
+    batch = {"tokens": toks}
+    P_off = 0
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = np.zeros((len(prompts), cfg.encoder_seq,
+                                    cfg.d_model), np.dtype(cfg.dtype))
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = np.zeros((len(prompts), cfg.num_patches,
+                                     cfg.d_model), np.dtype(cfg.dtype))
+        P_off = cfg.num_patches
+    shapes = {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
+              for k, v in batch.items()}
+    prefill = steps.make_prefill_step(cfg, mesh=mesh,
+                                      max_seq=max_seq + P_off,
+                                      batch_shapes=shapes)
+    logits, cache = prefill(p, put(batch, steps.batch_specs(cfg, shapes)))
+    cshapes = jax.tree.map(
+        lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), cache)
+    cache = put(cache, steps.cache_specs_tree(cfg, cshapes))
+    serve = steps.make_serve_step(cfg, mesh=mesh, cache_shapes=cshapes)
+    cur = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    got = []
+    for step in range(max_new):
+        got.append(np.asarray(cur[:, 0]))
+        logits, cache = serve(p, cache, cur, jnp.int32(P_off + S + step))
+        cur = jnp.argmax(logits, -1).astype(jnp.int32)
+    return np.stack(got, 1).tolist()
+
+
 out, specs = {}, {}
 for name, case in cases.items():
     cfg = configs.get_smoke_config(case["arch"])
@@ -184,6 +237,19 @@ for name, case in cases.items():
             out[f"{name}/tokens{i}"] = np.asarray(tok)
             for k, v in flatten(cache).items():
                 out[f"{name}/cache{i + 1}/{k}"] = np.asarray(v)
+        if case.get("sharded_reference"):
+            prompts = [flat[f"r/{i}"] for i in range(
+                len([k for k in flat if k.startswith("r/")]))]
+            for kind in ("serve_batch", "serve_queue"):
+                waves = ([prompts] if kind == "serve_batch" else
+                         [prompts[i:i + 2]
+                          for i in range(0, len(prompts), 2)])
+                got = []
+                for wave in waves:
+                    got += sharded_serve(cfg, p, wave,
+                                         case["serve_max_seq"],
+                                         case["max_new"])
+                out[f"{name}/{kind}_sharded"] = np.asarray(got)
     if case.get("serve"):
         prompts = [flat[f"r/{i}"] for i in range(
             len([k for k in flat if k.startswith("r/")]))]
@@ -365,31 +431,41 @@ def test_cache_layouts_are_the_reference_specs(launched, name):
             assert (start, stop, size) == (sl.start, sl.stop, whole[d])
 
 
-def _plus(counts: dict, gathers: int) -> dict:
+def _plus(counts: dict, gathers: int, params: int = 0) -> dict:
     out = dict(counts)
     if gathers:
         out["all_gather"] = out.get("all_gather", 0) + gathers
+    if params:
+        out["params"] = params
     return out
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_decode_makes_no_parameter_gather(launched, name):
-    """The prefill gathers every split param leaf once and the logits; a
-    decode step then makes only its attention layers' collectives, and
-    the caller's logits gather; an in-place edit of one block brings that
-    leaf's gather back; a new serve step shares the mesh's whole params
-    (no gather), and once the mesh drops them gathers every split leaf on
-    its first call and none on its second."""
+    """The prefill gathers each leaf that an FSDP axis splits once, over
+    the axes other than "model" (the SSD block's packed leaves over
+    "model" too), into the rank's tensor-parallel share; a decode step
+    then makes only its layers' tensor-parallel collectives
+    (``expected_collectives``) and the caller's logits gather; an
+    in-place edit of one block brings that leaf's gather back; a new
+    serve step shares the mesh's kept shares (no gather), and once the
+    mesh drops them gathers every such leaf on its first call and none on
+    its second."""
     out, _, _ = launched
     for o in out:
         r = o["cases"][name]
         want = r["expected"]
-        assert r["prefill_counts"] == {"all_gather": r["split_leaves"] + 1}
+        n = r["split_leaves"]
+        assert n and r["prefill_counts"]["params"] == n
+        ssd = CASES[name]["arch"] == "mamba2_1_3b"
+        assert all(axes == ["data"] or (ssd and "model" in axes)
+                   for axes in r["gathered_leaves"])
+        assert sum("model" in a for a in r["gathered_leaves"]) == (
+            3 if ssd else 0)
         assert all(c == _plus(want, int(r["logits_split"]))
                    for c in r["counts"]), (r["counts"], want)
-        assert r["edited_counts"] == _plus(want, 1)
-        assert r["fresh_counts"] == [want, _plus(want, r["split_leaves"]),
-                                     want]
+        assert r["edited_counts"] == _plus(want, 1, 1)
+        assert r["fresh_counts"] == [want, _plus(want, n, n), want]
 
 
 @pytest.mark.parametrize("name", [n for n, c in CASES.items()
@@ -405,10 +481,22 @@ def test_mutated_decode_reads_far_from_reference(launched, name):
 @pytest.mark.parametrize("name", [n for n, c in CASES.items()
                                   if c.get("serve")])
 def test_serve_batch_and_queue_match_reference_tokens(launched, name):
+    """The reference's own ``serve_batch`` and ``serve_queue`` are the
+    yardstick, but for the requests of ``SHARDED_REFERENCE_ROWS``: there
+    the reference's unsharded tokens differ from its own sharded steps'
+    (checked here), and the port, which computes as the sharded steps
+    partition, is held to those."""
     out, ref, _ = launched
+    rows = SHARDED_REFERENCE_ROWS.get(name, ())
     for kind in ("serve_batch", "serve_queue"):
         want = ref[f"{name}/{kind}"].tolist()
         assert len(want) == len(PROMPT_LENS)
+        if rows:
+            sharded = ref[f"{name}/{kind}_sharded"].tolist()
+            assert [i for i in range(len(want))
+                    if want[i] != sharded[i]] == list(rows), kind
+            for i in rows:
+                want[i] = sharded[i]
         for o in out:
             assert o["cases"][name][kind] == want, (kind, o["rank"])
 
