@@ -225,7 +225,7 @@ for name, bh, bkv, s, d, causal, window, heads in BWD_T:
         g = [torch.empty_like(t) for t in (q, k, v)]
         cargs = [*(t.data_ptr() for t in (q, k, v, o, dout, lse, ws, *g)),
                  q.shape[0], k.shape[0], q.shape[1], k.shape[1], 128, 128,
-                 1, 0, torch.cuda.current_stream().cuda_stream]
+                 1, 0, 0.0, torch.cuda.current_stream().cuda_stream]
         def host(fn, n=50):
             torch.cuda.synchronize()
             th = time.perf_counter()
@@ -258,7 +258,7 @@ for name, bh, bkv, s, d, causal, window, heads in BWD_T:
         fargs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), oo.data_ptr(),
                  lse_buf.data_ptr(), lse_buf.data_ptr() + 4 * q.shape[0] * q.shape[1],
                  q.shape[0], k.shape[0], q.shape[1], k.shape[1], 128, 128,
-                 1, 0, torch.cuda.current_stream().cuda_stream]
+                 1, 0, 0.0, torch.cuda.current_stream().cuda_stream]
         fc_us = host(lambda: fwd_c(*fargs))
         print(json.dumps({"tag": a.tag, "host_split_us": {
             "bwd_c_entry": c_us, "bwd_python": py_us, "fwd_c_entry": fc_us}}), flush=True)

@@ -283,7 +283,7 @@ gemma3's state saved under the mesh (one writer) and ``remesh``ed onto
 ("data": 4, "model": 1) and, in a launch of 2 ranks, ("data": 1,
 "model": 2), every block bitwise its slice of the saved arrays.  (b)
 Mamba-2 1.3B at full size in bf16 (the "tp" profile) through
-``train(mesh=)`` for 3 steps of 4 x 2048 tokens (2 rows a rank): step
+``train(mesh=)`` for one step of 4 x 2048 tokens (2 rows a rank): step
 0's loss and global grad norm within 1e-3 and 2e-2 of one process's on
 the same batch and weights, every rank's ``ssd_scan`` and backward
 launches each step as ``expected_train_launches``, each rank's resting
@@ -300,9 +300,9 @@ one prefill's kernels and decode none; (b) after RecurrentGemma's
 serving, RecurrentGemma-9B at full width in bf16 on two ranks of
 ("data": 1, "model": 2) through ``serve_batch(mesh=)``, its ring cache's
 slots split, held to a one-process ``serve_batch`` of the same weights
-and prompts (logits within the arch's gate, tokens to the first near
-tie); it prints each rank's gather, prefill and decode times, memory and
-launches.
+and the serving phase's two longest prompts (ragged, left-padded; logits
+within the arch's gate, tokens to the first near tie); it prints each
+rank's gather, prefill and decode times, memory and launches.
 
 Dry run (``dryrun``): ``repro_torch.launch.dryrun.lower_cell`` traces,
 on ``meta`` tensors, one step of each of five runs above (the trainer's
@@ -370,13 +370,19 @@ EARLIER_BWD_MS = {"flash_attention": 7.9980, "rglru_scan": 1.0065,
 EARLIER_FWD_MS = {"flash_attention_f32": 28.6055, "rglru_scan": 0.3605,
                   "rglru_scan_prefill": 0.4283}
 # The f32 attention kernels, forward and backward, by their names in
-# -Xptxas -v: none may spill.
-F32_ATTN_KERNELS = r"((?:flash_f32|fa32_bwd_[a-z]+)_kernel(?:ILi\d+E)?)"
+# -Xptxas -v (with the soft cap's flag, Lb0E or Lb1E, where the kernel
+# takes one): the ten uncapped ones may not spill; the capped ones'
+# spills are printed.
+F32_ATTN_KERNELS = (r"((?:flash_f32|fa32_bwd_[a-z]+)_kernel"
+                    r"(?:ILi\d+E(?:Lb[01]E)?)?)")
 # Each backward kernel's CUDA kernels by name, as the profiler and (with
-# the template's mangled arguments) -Xptxas -v name them.
+# the template's mangled arguments) -Xptxas -v name them; the attention's
+# with the soft cap's flag.
 BWD_KERNELS = {
-    "flash_attention": r"(fa_bwd_[a-z]+_kernel(?:ILi\d+E|<\d+>)?)",
-    "flash_attention_f32": r"(fa32_bwd_[a-z]+_kernel(?:ILi\d+E|<\d+>)?)",
+    "flash_attention": (r"(fa_bwd_[a-z]+_kernel(?:ILi\d+E(?:Lb[01]E)?"
+                        r"|<\d+(?:, (?:true|false))?>)?)"),
+    "flash_attention_f32": (r"(fa32_bwd_[a-z]+_kernel(?:ILi\d+E(?:Lb[01]E)?"
+                            r"|<\d+(?:, (?:true|false))?>)?)"),
     "rglru_scan": r"(rglru_bwd_[a-z]+_kernel(?:I\w+?E|<[\w:]+>)?)",
     "ssd_scan": r"(ssd_bwd_[a-z]+_kernel)"}
 REL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
@@ -456,11 +462,19 @@ def phase_build():
     if _build.BUILD_LOG:
         check(not any("C7508" in log for log in _build.BUILD_LOG),
               "ptxas reports no ignored setmaxnreg (C7508)")
-        f32 = ptxas_report(F32_ATTN_KERNELS)
+        # (the prep kernel, which both cap flags launch, is built in the
+        # capped kernels' source too: its lines are counted once)
+        f32 = list(dict.fromkeys(ptxas_report(F32_ATTN_KERNELS)))
+        capped = [line for line in f32 if "Lb1E" in line]
+        f32 = [line for line in f32 if "Lb1E" not in line]
         check(len(f32) == 10 and all(" 0 bytes spill stores" in line
                                      for line in f32),
-              f"ptxas reports no spills for the {len(f32)} f32 attention "
-              f"kernels (forward and backward at D 64, 128 and 256, prep)")
+              f"ptxas reports no spills for the {len(f32)} uncapped f32 "
+              f"attention kernels (forward and backward at D 64, 128 and "
+              f"256, prep)")
+        print(f"  the {len(capped)} soft-capped f32 attention kernels "
+              f"(spills reported, not gated): "
+              + "; ".join(capped))
     else:
         print("  library built by an earlier run: no ptxas output here")
 
@@ -2248,6 +2262,15 @@ def keep_prefill(store: list):
     return wrap
 
 
+def uncapped_kwargs(kwargs: dict) -> dict:
+    """A kept call's keyword arguments without a zero ``softcap`` (the
+    attention of a config with no cap passes 0.0), so that the SDPA and
+    FA2 yardsticks, which compute uncapped attention, take them as they
+    are; a capped call keeps its cap."""
+    return {k: v for k, v in kwargs.items()
+            if not (k == "softcap" and not v)}
+
+
 def keep_first_call(store: dict, name: str):
     """Wrap a kernel op so its first call's arguments land in ``store``,
     detached: a kept argument with its autograd graph would keep the
@@ -2258,7 +2281,8 @@ def keep_first_call(store: dict, name: str):
         def run(*args, **kwargs):
             if name not in store:
                 store[name] = (tuple(a.detach() if torch.is_tensor(a)
-                                     else a for a in args), kwargs)
+                                     else a for a in args),
+                               uncapped_kwargs(kwargs))
             return fn(*args, **kwargs)
         return run
     return wrap
@@ -2281,7 +2305,8 @@ def keep_attention_kinds(store: dict, tally: dict, name: str):
         def run(q, k, v, *args, **kwargs):
             kind = attention_kind(q, k, kwargs.get("causal", True))
             store.setdefault(f"{name}:{kind}", (
-                tuple(t.detach() for t in (q, k, v)), kwargs))
+                tuple(t.detach() for t in (q, k, v)),
+                uncapped_kwargs(kwargs)))
             tally[kind] = tally.get(kind, 0) + 1
             return fn(q, k, v, *args, **kwargs)
         return run
@@ -3538,6 +3563,618 @@ def phase_cross_attention() -> None:
                   f"launches bitwise equal")
             del qkv, kernel, one, two
             torch.cuda.empty_cache()
+
+
+# Soft-capped attention (attn_softcap > 0, cap tanh(s scale / cap) before
+# the mask): each kernel design with a cap that bites, at a path's shapes
+# (row name, label, (BH, BH_kv, S, S_kv, D), dtype, causal, window,
+# backward, query heads a batch row): the bf16 forward at D = 256 on
+# RecurrentGemma-9B's prefill shape and its backward at the training
+# shape (PERF.md rows 4 and 7), both at D = 128 on Yi-6B's prefill shape,
+# the forward at whisper-large-v3's cross shape (S_kv != S), and the f32
+# forward and backward at D = 256 on RecurrentGemma's f32 training shape
+# (rows 4 and 10).  Their q and k are drawn at SOFTCAP_AMP, so that the
+# scaled scores (standard deviation AMP^2 = 9) reach several caps of
+# SOFTCAP_CALL.
+SOFTCAP_CALL = 10.0
+SOFTCAP_AMP = 3.0
+SOFTCAP_CALLS = (
+    ("flash_attention_softcap_recurrentgemma_prefill",
+     "recurrentgemma-9b prefill", (64, 4, 4096, 4096, 256), torch.bfloat16,
+     True, 2048, False, 16),
+    ("flash_attention_bwd_softcap_recurrentgemma_train",
+     "recurrentgemma-9b training", (32, 2, 4096, 4096, 256), torch.bfloat16,
+     True, 2048, True, 16),
+    ("flash_attention_softcap_yi_6b_prefill", "yi-6b prefill",
+     (128, 16, 4096, 4096, 128), torch.bfloat16, True, 0, False, 32),
+    ("flash_attention_bwd_softcap_yi_6b", "yi-6b prefill shape",
+     (128, 16, 4096, 4096, 128), torch.bfloat16, True, 0, True, 32),
+    ("flash_attention_softcap_whisper_cross_prefill",
+     "whisper-large-v3 cross-attention prefill", (80, 80, 416, 1500, 64),
+     torch.bfloat16, False, 0, False, 20),
+    ("flash_attention_f32_softcap_recurrentgemma_train",
+     "recurrentgemma-9b f32 training", (32, 2, 4096, 4096, 256),
+     torch.float32, True, 2048, False, 16),
+    ("flash_attention_bwd_f32_softcap_recurrentgemma_train",
+     "recurrentgemma-9b f32 training", (32, 2, 4096, 4096, 256),
+     torch.float32, True, 2048, True, 16),
+)
+# The capped rows' library call (SDPA takes no cap): flex_attention with
+# the cap as its score_mod and the causal and window mask as its block
+# mask, compiled by torch.compile, one graph a shape.  Its compiles
+# (4-20 s a shape on the card) run first in a child process started
+# before the LM phases (``--warm-flex``), so that the rows' own compiles
+# read inductor's and Triton's caches under FLEX_CACHE.
+FLEX_CACHE = os.path.join(HERE, "build", "torchinductor")
+FLEX_WARM_LOG = os.path.join(HERE, "build", "flex_warm.log")
+_FLEX: dict = {}
+
+
+def flex_library(args, kwargs, heads: int, dout=None):
+    """flex_attention on a capped call's inputs, compiled: q as (B,
+    heads, S, D), k and v expanded to every query head (the copy made
+    here, before any timed window, as for SDPA), the cap and the
+    window's reach as tensors its mods capture, so that a graph serves
+    any cap and window at its shape.  Returns (the call, the wall of
+    its first call in seconds: the compile); the call is the forward, or
+    with ``dout`` the backward alone (``autograd.grad`` of a kept
+    forward, as :func:`sdpa_backward` times SDPA's)."""
+    import torch._dynamo.config as dynamo_config
+    import torch._functorch.config as functorch_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = FLEX_CACHE
+    # the backward is timed on a kept graph (retain_graph), which
+    # donated buffers refuse; every shape keeps its own graph
+    functorch_config.donated_buffer = False
+    dynamo_config.recompile_limit = 64
+    if "fn" not in _FLEX:
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False,
+                                    fullgraph=True)
+    compiled = _FLEX["fn"]
+    q, k, v = args
+    bh, s, d = q.shape
+    s_kv = k.shape[1]
+    rep, b = bh // k.shape[0], bh // heads
+    causal, window = bool(kwargs["causal"]), int(kwargs["window"])
+    if window > 0 and not causal:
+        raise ValueError("flex_library: a window without the causal mask")
+    cap = torch.tensor(float(kwargs["softcap"]), device=q.device)
+    reach = torch.tensor(window if window > 0 else s + s_kv,
+                         device=q.device)
+
+    def score_mod(score, bi, hi, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(bi, hi, qi, ki):
+        return (ki <= qi) & (qi - ki < reach)
+    mask = (create_block_mask(mask_mod, None, None, s, s_kv,
+                              device=q.device) if causal else None)
+    leaves = [q.detach().reshape(b, heads, s, d)] + [
+        t.detach().repeat_interleave(rep, dim=0).reshape(b, heads, s_kv, d)
+        for t in (k, v)]
+    t0 = time.perf_counter()
+    if dout is None:
+        def call():
+            return compiled(*leaves, score_mod=score_mod, block_mask=mask)
+        call()
+    else:
+        leaves = [t.clone().requires_grad_() for t in leaves]
+        out = compiled(*leaves, score_mod=score_mod, block_mask=mask)
+        dview = dout.reshape(b, heads, s, d)
+
+        def call():
+            return torch.autograd.grad(out, leaves, dview,
+                                       retain_graph=True)
+        call()
+    torch.cuda.synchronize()
+    return call, time.perf_counter() - t0
+
+
+def flex_specs() -> tuple:
+    """Every capped row's flex_attention call: ((BH, BH_kv, S, S_kv, D),
+    dtype, causal, window, backward, heads), the full-width gemma-7b
+    phase's three (its prefill in bf16 and in f32, its training step)
+    and SOFTCAP_CALLS'."""
+    from repro_torch import configs
+
+    g = configs.get_config("gemma-7b")
+    h, hk, d = g.num_heads, g.num_kv_heads, g.head_dim
+    b, s = SOFTCAP_PROMPTS, SOFTCAP_PROMPT_LEN
+    tb, ts = SOFTCAP_TRAIN
+    return (((b * h, b * hk, s, s, d), torch.bfloat16, True, 0, False, h),
+            ((b * h, b * hk, s, s, d), torch.float32, True, 0, False, h),
+            ((tb * h, tb * hk, ts, ts, d), torch.bfloat16, True, 0, True,
+             h)) + tuple(c[2:] for c in SOFTCAP_CALLS)
+
+
+def warm_flex() -> int:
+    """``chip_smoke.py --warm-flex``: compile (and run once) each of
+    :func:`flex_specs` on random inputs; its caches are what counts."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    for (bh, bh_kv, s, s_kv, d), dtype, causal, window, bwd, heads in \
+            flex_specs():
+        q, k, v, dout = (torch.randn(n, t, d, generator=gen,
+                                     device=DEVICE).to(dtype)
+                         for n, t in ((bh, s), (bh_kv, s_kv), (bh_kv, s_kv),
+                                      (bh, s)))
+        kw = {"causal": causal, "window": window, "softcap": SOFTCAP_CALL}
+        _, first = flex_library((q, k, v), kw, heads,
+                                dout if bwd else None)
+        print(f"flex_attention {'backward ' if bwd else ''}{(bh, s, d)} "
+              f"kv {(bh_kv, s_kv)} {dtype} causal {causal} window {window}:"
+              f" first call {first:.1f} s", flush=True)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    return 0
+
+
+def start_flex_warm():
+    """Start :func:`warm_flex` in a child process (its output in
+    FLEX_WARM_LOG); :func:`join_flex_warm` waits for it."""
+    import atexit
+
+    os.makedirs(os.path.dirname(FLEX_WARM_LOG), exist_ok=True)
+    log = open(FLEX_WARM_LOG, "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--warm-flex"],
+        stdout=log, stderr=subprocess.STDOUT, cwd=HERE,
+        env=dict(os.environ, TORCHINDUCTOR_CACHE_DIR=FLEX_CACHE))
+    log.close()
+    proc.started = time.perf_counter()
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def join_flex_warm(proc) -> None:
+    """Wait for the warm-up child and print its log; a child that failed
+    only leaves the rows' compiles uncached."""
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    with open(FLEX_WARM_LOG) as f:
+        lines = f.read().splitlines()
+    print(f"== flex_attention warm-up child: exit {rc}, "
+          f"{time.perf_counter() - proc.started:.1f} s since its start")
+    for line in (lines if rc == 0 else lines[-20:]):
+        print(f"  {line}")
+
+
+def softcap_row(name: str, label: str, args, kwargs, launches: int,
+                launches_from, backward: bool, heads: int) -> dict:
+    """A ``kernels`` row of a soft-capped flash_attention call (with
+    ``backward``, of its backward): held to the plain version under the
+    uncapped calls' gates (:func:`lm_compare`: LM_TOL and the worst row;
+    :func:`bwd_compare`: the forward outputs it reads, GRAD_TOL and the
+    rows of dQ, dK and dV); the capped and the uncapped kernel on the same
+    inputs differ by at least 10 times the gate (max abs over max abs for
+    the forward, every gradient's Frobenius distance over norm for the
+    backward), so a kernel that ignored the cap would fail; two launches
+    bitwise equal; the kernel, the uncapped kernel, the plain version
+    and the library (:func:`flex_library`, ``heads`` query heads a batch
+    row) timed beside the bound (the uncapped call's: the tanh runs on
+    the special-function units and is not counted)."""
+    from repro_torch.kernels import flash_attention
+
+    dtype, shape = args[0].dtype, tuple(args[0].shape)
+    uncapped_kw = {k: v for k, v in kwargs.items() if k != "softcap"}
+    what = f"{label} softcap {kwargs['softcap']:g} {shape}"
+    if backward:
+        gen = torch.Generator(device=DEVICE).manual_seed(17)
+        err, _, kernel, plain, dout, _ = bwd_compare(
+            "flash_attention", args, kwargs, gen, what, True)
+        fwd0 = flash_attention.flash_attention(*args, lse=True,
+                                               **uncapped_kw)
+
+        def uncapped():
+            return flash_attention.flash_attention_bwd(*args, *fwd0, dout,
+                                                       **uncapped_kw)
+        moved = min(_rel(a, b) for a, b in zip(uncapped(), kernel()))
+        gate, timer, reps, plain_reps = GRAD_TOL[dtype], median_ms, 7, 3
+        bound, by = bwd_bound("flash_attention", args, kwargs)
+        same = all(torch.equal(a, b) for a, b in zip(kernel(), kernel()))
+        library, compile_s = flex_library(args, kwargs, heads, dout)
+        # (dK and dV of every query head summed over each kv head's)
+        lib_diff = max(float((a.float().reshape(b.shape[0], -1,
+                                                *b.shape[1:]).sum(1)
+                              - b.float()).abs().max())
+                       for a, b in zip(library(), kernel()))
+    else:
+        err = lm_compare("flash_attention", args, kwargs, what)
+
+        def kernel():
+            return lm_kernel("flash_attention")(*args, **kwargs)
+
+        def uncapped():
+            return lm_kernel("flash_attention")(*args, **uncapped_kw)
+
+        def plain():
+            return lm_plain("flash_attention")(*args, **kwargs)
+        out, out0 = kernel(), uncapped()
+        moved = float((out.float() - out0.float()).abs().max()
+                      / out.float().abs().max())
+        del out, out0
+        gate, timer, reps, plain_reps = LM_TOL[dtype], time_ms, 20, 2
+        bound, by = lm_bound("flash_attention", args, kwargs)
+        same = torch.equal(kernel(), kernel())
+        library, compile_s = flex_library(args, kwargs, heads)
+        lib_diff = float((library().reshape(shape).float()
+                          - kernel().float()).abs().max())
+    kind = "flash_attention backward" if backward else "flash_attention"
+    check(moved >= 10 * gate, f"{kind} {what}: the capped and uncapped "
+          f"kernels differ by {moved:.3e} >= 10 x the gate {gate:g}")
+    check(same, f"{kind} {what}: two launches bitwise equal")
+    row = {
+        "name": name, "ok": True, "route": "cuda",
+        "source": (BWD_SOURCES["flash_attention_f32" if dtype ==
+                               torch.float32 else "flash_attention"]
+                   if backward else SOURCES["flash_attention"]),
+        "replaces": REPLACES["flash_attention"], "launches": launches,
+        "launches_from": launches_from, "max_abs_err": err,
+        "ms": timer(kernel, reps), "plain_ms": timer(plain, plain_reps),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": timer(library, 10 if timer is time_ms else 5),
+        "library": "flex_attention, compiled",
+        "uncapped_ms": timer(uncapped, reps),
+        "softcap": float(kwargs["softcap"]), "cap_moved": moved,
+        "shape": list(shape), "kv_shape": list(args[1].shape),
+        "dtype": str(dtype)[6:], "window": int(kwargs["window"]),
+    }
+    if backward:
+        row["pass"] = "backward"
+    print(f"  {kind} {what}, k, v "
+          f"{row['kv_shape']}, window {row['window']}: kernel "
+          f"{row['ms']:.4f} ms, uncapped {row['uncapped_ms']:.4f} ms "
+          f"(x{row['ms'] / row['uncapped_ms']:.2f}), plain "
+          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+          f"(flex_attention, compiled in {compile_s:.1f} s; max abs diff "
+          f"from the kernel's {lib_diff:.3e}), bound {bound:.4f} ms ({by}), "
+          f"share of the bound {bound / row['ms']:.3f}, {launches} launches "
+          f"({launches_from or 'no capped call of this shape on a path'})")
+    del library
+    return row
+
+
+def phase_softcap_calls() -> list:
+    """Every capped kernel design on SOFTCAP_CALLS' shapes
+    (:func:`softcap_row`), with the ptxas lines of the capped kernels.
+    No path of this script runs a capped call at these shapes: their rows
+    carry 0 launches and ``launches_from`` None (the full-width gemma-7b
+    phase's rows carry its launches)."""
+    print(f"== kernels: soft-capped flash_attention (cap {SOFTCAP_CALL:g}, "
+          f"q and k drawn at {SOFTCAP_AMP:g}), every design, forward and "
+          f"backward")
+    for line in ptxas_report(
+            r"((?:flash_bf16_persistent|flash_bf16|flash_f32|fa_bwd_[a-z]+"
+            r"|fa32_bwd_[a-z]+)_kernelILi\d+ELb1E)"):
+        print(f"  ptxas (capped): {line}")
+    gen = torch.Generator(device=DEVICE).manual_seed(29)
+    rows = []
+    for name, label, (bh, bh_kv, s, s_kv, d), dtype, causal, window, bwd, \
+            heads in SOFTCAP_CALLS:
+        q = (torch.randn(bh, s, d, generator=gen, device=DEVICE)
+             * SOFTCAP_AMP).to(dtype)
+        k = (torch.randn(bh_kv, s_kv, d, generator=gen, device=DEVICE)
+             * SOFTCAP_AMP).to(dtype)
+        v = torch.randn(bh_kv, s_kv, d, generator=gen, device=DEVICE).to(
+            dtype)
+        kw = {"causal": causal, "window": window, "softcap": SOFTCAP_CALL}
+        rows.append(softcap_row(name, label, (q, k, v), kw, 0, None, bwd,
+                                heads))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+# The full-width soft-capped model: gemma-7b (d_model 3072, 16 heads of
+# 256, 16 kv heads, d_ff 24576, vocab 256000, bf16) cut to SOFTCAP_LAYERS
+# layers for the time budget, with Gemma 2's final-logits cap 30.0 and
+# the first of SOFTCAP_MODEL_CAPS (Gemma 2's attention cap 50.0 first)
+# under which its first layer's capped and uncapped attention outputs
+# differ by at least 10 x LM_TOL; a prefill of SOFTCAP_PROMPTS prompts of
+# SOFTCAP_PROMPT_LEN tokens, SOFTCAP_NEW greedy tokens, one training step
+# of SOFTCAP_TRAIN (batch, seq).
+SOFTCAP_LAYERS = 4
+SOFTCAP_MODEL_CAPS = (50.0, 20.0, 10.0, 5.0, 2.0, 1.0, 0.5, 0.2, 0.1)
+SOFTCAP_PROMPTS, SOFTCAP_PROMPT_LEN, SOFTCAP_NEW = 4, 4096, 8
+SOFTCAP_TRAIN = (2, 4096)
+# The prefill's gates: the block whose output is the trunk's, the
+# control of bf16_control_gate (every attention output moved by up to
+# one bf16 ulp), and the f32 copy's limits (Mamba-2's and OLMoE's).
+SOFTCAP_PATH = {"block": "_attn_prefill_block", "fault": "flash_attention",
+                "control_scale": 2.0 ** -8,
+                "gates": LM_PATHS["olmoe-1b-7b"]["gates"]}
+
+
+class _FirstCall(Exception):
+    pass
+
+
+def softcap_first_call(cfg, params, batch):
+    """The arguments of the first flash_attention call of a prefill of
+    ``batch`` (layer 0's q, k, v: the cap does not touch them); the
+    prefill stops there."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import steps
+
+    kept: dict = {}
+
+    def wrap(fn):
+        def run(*args, **kwargs):
+            keep_first_call(kept, "first")(fn)(*args, **kwargs)
+            raise _FirstCall
+        return run
+    with wrapped(ops, "flash_attention", wrap):
+        try:
+            steps.make_prefill_step(cfg, max_seq=batch["tokens"].shape[1])(
+                params, batch)
+        except _FirstCall:
+            pass
+    return kept["first"][0]
+
+
+def phase_softcap_model(smi: str) -> list:
+    """gemma-7b at full width, SOFTCAP_LAYERS layers, with the attention
+    cap, through the port's entry points: ``serve_batch`` (a prefill of
+    4 x 4096 tokens through the capped kernels, SOFTCAP_NEW greedy
+    tokens); its prefill held to the plain route in bf16 within CONTROL_K
+    of the one-ulp control (:func:`bf16_control_gate`) and, on an f32
+    copy of the weights through the f32 capped kernel, at the f32 limits
+    (last-position logits, the trunk's output less the embedding in
+    Frobenius and at the worst position); every bf16 kernel call of a
+    prefill against its plain version; each decode step's logits after
+    the kernels' prefill against those after the plain route's on the
+    same tokens (the logits gate); step 0's loss and global grad norm
+    through the kernels against the plain route (TRAIN_LOSS_TOL,
+    TRAIN_NORM_TOL) and one ``launch.train.train`` step, launch counts
+    exact; then the capped rows at the first attention call of the
+    prefill, of the f32 prefill and of the training step.  Returns those
+    three rows."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    base = configs.get_config("gemma-7b").scaled(
+        num_layers=SOFTCAP_LAYERS, logits_softcap=30.0)
+    print(f"== softcap: gemma-7b full width, {SOFTCAP_LAYERS} of "
+          f"{configs.get_config('gemma-7b').num_layers} layers (cut for the "
+          f"time budget), d_model {base.d_model}, {base.num_heads} heads of "
+          f"{base.head_dim}, {base.num_kv_heads} kv heads, d_ff "
+          f"{base.d_ff}, vocab {base.vocab_size}, {base.dtype}, "
+          f"logits_softcap 30 ({smi})")
+    t0 = time.perf_counter()
+    params = transformer.init_params(base, 0, device=DEVICE)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in _leaves(params))
+    print(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s:"
+          f" {n / 1e9:.3f} B parameters")
+    prompts = draw_prompts(base, 0, (SOFTCAP_PROMPT_LEN,) * SOFTCAP_PROMPTS)
+    batch = {"tokens": torch.as_tensor(np.stack(prompts), device=DEVICE)}
+
+    # The cap: Gemma 2's 50.0 if it bites on these weights, else the
+    # largest of SOFTCAP_MODEL_CAPS that does.
+    args = softcap_first_call(base, params, batch)
+    out0 = lm_kernel("flash_attention")(*args, causal=True, window=0)
+    scale = float(out0.float().abs().max())
+    cap, moves = None, []
+    for c in SOFTCAP_MODEL_CAPS:
+        out = lm_kernel("flash_attention")(*args, causal=True, window=0,
+                                           softcap=c)
+        moved = float((out.float() - out0.float()).abs().max()) / scale
+        moves.append(f"{c:g}: {moved:.3e}")
+        if moved >= 10 * LM_TOL[torch.bfloat16]:
+            cap = c
+            break
+    x = (torch.einsum("bqd,bkd->bqk", args[0][:1].float(),
+                      args[1][:1].float()) / float(np.sqrt(args[0].shape[2])))
+    print(f"  layer 0's scaled scores (head 0): max |s| "
+          f"{float(x.abs().max()):.3f}, median {float(x.abs().median()):.3f};"
+          f" capped vs uncapped attention output, max abs over max abs, by "
+          f"cap: {', '.join(moves)}")
+    check(cap is not None, f"a cap of {SOFTCAP_MODEL_CAPS} bites on layer 0 "
+          f"(>= 10 x {LM_TOL[torch.bfloat16]:g})")
+    print(f"  attention cap {cap:g}"
+          + (" (Gemma 2's)" if cap == 50.0 else
+             " (Gemma 2's 50 does not bite on these random weights)"))
+    del out0, out, x
+    cfg = base.scaled(attn_softcap=cap)
+
+    # serve_batch through the capped kernels.
+    reqs = [serve.Request(rid=i, prompt=p, max_new=SOFTCAP_NEW)
+            for i, p in enumerate(prompts)]
+    kept: dict = {}
+    ops.reset_counts()
+    with wrapped(ops, "flash_attention", keep_first_call(kept, "prefill")):
+        reqs, stats = serve.serve_batch(
+            cfg, params, reqs, max_seq=SOFTCAP_PROMPT_LEN + SOFTCAP_NEW)
+    torch.cuda.synchronize()
+    served = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"  serve_batch: prefill {stats['prefill_s']:.4f} s, decode "
+          f"{stats['decode_s'] / SOFTCAP_NEW * 1e3:.3f} ms/step; launches "
+          f"{served}")
+    check(served == {"flash_attention": cfg.num_layers},
+          f"serve_batch: the prefill ran {cfg.num_layers} capped "
+          f"flash_attention launches, decode none")
+    toks = [r.out for r in reqs]
+    check(all(len(t) == SOFTCAP_NEW and all(0 <= x < cfg.vocab_size
+                                            for x in t) for t in toks),
+          f"{SOFTCAP_NEW} tokens in the vocabulary per request")
+
+    # The prefill against the plain route: in bf16 within CONTROL_K of the
+    # one-ulp control (the fixed gates read these random layers'
+    # amplified rounding: the trunk's Frobenius 2.4e-2 against 2e-2 in
+    # this PR's second check), and on an f32 copy of the weights, through
+    # the f32 capped kernel, at the f32 limits; every bf16 kernel call of
+    # a prefill against its plain version.
+    la, ha = prefill_trunk(cfg, params, batch, SOFTCAP_PATH["block"])
+    check(bool(torch.isfinite(la).all()) and tuple(la.shape) == (
+        SOFTCAP_PROMPTS, cfg.vocab_size), "prefill logits finite")
+    bf16_control_gate(cfg, params, batch, SOFTCAP_PATH, la, ha,
+                      tag=", capped")
+    del la, ha
+    gp = _cast(params, torch.float32)
+    ops.reset_counts()
+    with wrapped(ops, "flash_attention", keep_first_call(kept, "f32")):
+        lf, hf = prefill_trunk(cfg, gp, batch, SOFTCAP_PATH["block"])
+    f32_launches = ops.launch_counts()["flash_attention"]
+    lc, hc = prefill_trunk(cfg, gp, batch, SOFTCAP_PATH["block"],
+                           mode="plain")
+    gates = SOFTCAP_PATH["gates"]
+    rel = float((lf - lc).abs().max() / lc.abs().max())
+    emb = transformer.trunk_input(cfg, gp, batch).float()
+    frob, rows_ = trunk_diff("capped prefill, f32 copy, kernels vs plain",
+                             hf.float() - emb, hc.float() - emb)
+    check(rel <= gates["logits"] and frob <= gates["frob"]
+          and rows_ <= gates["rows"], f"capped prefill, f32 copy "
+          f"({f32_launches} f32 capped launches), kernels vs plain: logits "
+          f"{rel:.3e} <= {gates['logits']:g}, trunk Frobenius {frob:.3e} <= "
+          f"{gates['frob']:g}, worst position {rows_:.3e} <= "
+          f"{gates['rows']:g}")
+    del gp, lf, hf, lc, hc, emb
+    torch.cuda.empty_cache()
+    errs: dict = {}
+    with wrapped(ops, "flash_attention", compare_calls(errs,
+                                                       "flash_attention")):
+        prefill_trunk(cfg, params, batch, SOFTCAP_PATH["block"])
+    calls = errs["flash_attention"]
+    check(max(r for _, r in calls) <= 1, f"each of the {len(calls)} capped "
+          f"flash_attention calls of a prefill against its plain version: "
+          f"max abs err {max(e for e, _ in calls):.3e}, worst over its "
+          f"allowance {max(r for _, r in calls):.3e} <= 1")
+
+    # Decode after each route's prefill on serve_batch's tokens; the
+    # kernels' route's greedy tokens are serve_batch's.
+    serve_step = steps.make_serve_step(cfg)
+    fed = torch.as_tensor(toks, device=DEVICE)          # (B, SOFTCAP_NEW)
+    logits = {}
+    for mode in ("auto", "plain"):
+        lg, cache = steps.make_prefill_step(
+            cfg, max_seq=SOFTCAP_PROMPT_LEN + SOFTCAP_NEW, mode=mode)(
+                params, batch)
+        greedy = [torch.argmax(lg, -1)]
+        out = []
+        for i in range(SOFTCAP_NEW):
+            lg, cache = serve_step(params, cache, fed[:, i:i + 1],
+                                   SOFTCAP_PROMPT_LEN + i)
+            out.append(lg[:, 0].float())
+            greedy.append(torch.argmax(lg[:, 0], -1))
+        logits[mode] = torch.stack(out)
+        if mode == "auto":
+            check(torch.equal(torch.stack(greedy[:SOFTCAP_NEW], 1), fed),
+                  "the kernels' prefill and decode steps give serve_batch's "
+                  "greedy tokens")
+        del cache
+    rel = float(((logits["auto"] - logits["plain"]).abs().amax(dim=(1, 2))
+                 / logits["plain"].abs().amax(dim=(1, 2))).max())
+    check(rel <= LM_PATHS["yi-6b"]["gates"]["logits"], f"{SOFTCAP_NEW} "
+          f"decode steps after the capped prefill, kernels' cache vs plain "
+          f"route's: worst step's logits {rel:.3e} <= "
+          f"{LM_PATHS['yi-6b']['gates']['logits']:g}")
+    del logits
+
+    # One training step: step 0 kernels vs plain, then the trainer.
+    B, S = SOFTCAP_TRAIN
+    loader = pipeline.BalancedLoader(vocab_size=cfg.vocab_size, dp=2,
+                                     batch_per_shard=B // 2, seq=S, seed=0)
+    tb = train_mod.batch_on(DEVICE, *loader.next_batch())
+    want = expected_train_launches(cfg)
+    read = {}
+    for mode in ("auto", "plain"):
+        ops.reset_counts()
+        with (wrapped(ops, "flash_attention", keep_first_call(kept, "train"))
+              if mode == "auto" else contextlib.nullcontext()):
+            loss, grads = steps.value_and_grad(
+                steps.make_loss_fn(cfg, mode=mode), params, tb)
+            norm = float(adamw.global_norm(grads))
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        read[mode] = (float(loss), norm)
+        print(f"  step 0 {mode}: loss {float(loss):.6f}, grad norm "
+              f"{norm:.6f}, launches {counts}")
+        check(counts == (want if mode == "auto" else {}),
+              f"step 0 {mode}: launches {counts} == "
+              f"{want if mode == 'auto' else {}}")
+        del loss, grads
+    for p in adamw.leaves(params):
+        p.requires_grad_(False)
+    (lk, nk), (lp, np_) = read["auto"], read["plain"]
+    check(abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp)
+          and abs(nk - np_) <= TRAIN_NORM_TOL * np_,
+          f"capped step 0, kernels vs plain: loss {abs(lk - lp) / abs(lp):.3e}"
+          f" <= {TRAIN_LOSS_TOL:g}, grad norm {abs(nk - np_) / np_:.3e} <= "
+          f"{TRAIN_NORM_TOL:g}")
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    params, opt, losses = train_mod.train(
+        cfg, steps=1, seq=S, global_batch=B, dp=2, ckpt_dir=None, seed=0,
+        log_every=1, device=DEVICE, init_params=params)
+    torch.cuda.synchronize()
+    trained = {k: v for k, v in ops.launch_counts().items() if v}
+    check(trained == want and all(np.isfinite(losses)),
+          f"train: one capped step through launch.train.train, launches "
+          f"{trained} == {want}, loss {losses} finite "
+          f"({time.perf_counter() - t0:.2f} s)")
+    del params, opt
+    torch.cuda.empty_cache()
+
+    label = f"gemma-7b ({SOFTCAP_LAYERS} layers)"
+    rows = []
+    for key, name, what, launches, source, bwd in (
+            ("prefill", "flash_attention_softcap_gemma_7b_prefill",
+             "prefill", served["flash_attention"],
+             "softcap gemma-7b serve_batch", False),
+            ("f32", "flash_attention_f32_softcap_gemma_7b_prefill",
+             "prefill, f32 copy", f32_launches,
+             "softcap gemma-7b f32 prefill", False),
+            ("train", "flash_attention_bwd_softcap_gemma_7b_train",
+             "training", trained["flash_attention_bwd"],
+             "softcap gemma-7b train step", True)):
+        args, kw = kept.pop(key)
+        kw = {k: v for k, v in kw.items() if k != "mode"}
+        rows.append(softcap_row(name, f"{label} {what}", args, kw, launches,
+                                source, bwd, cfg.num_heads))
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+# The port's examples on the card at their CI flags, in this process.
+EXAMPLE_RUNS = (("quickstart_torch", []), ("serve_lm_torch", []),
+                ("train_lm_torch", ["--tiny", "--steps", "30"]),
+                ("dydd_assimilation_torch",
+                 ["--n", "96", "--m", "200", "--cycles", "4",
+                  "--scenarios", "drifting_swarm"]))
+
+
+def phase_examples() -> None:
+    """Each ``examples/*_torch.py`` ``main`` in-process on the card (no
+    ``--device``: the card is their default) at its CI flags; the
+    quickstart's error, every request finishing, the loss falling (the
+    examples check these themselves and raise) and each one's wall."""
+    import importlib.util
+    import tempfile
+
+    print("== examples: the port's four, on the card")
+    for name, argv in EXAMPLE_RUNS:
+        spec = importlib.util.spec_from_file_location(
+            f"_example_{name}", os.path.join(HERE, "examples", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        with tempfile.TemporaryDirectory() as tmp:
+            extra = ["--ckpt-dir", tmp] if name == "train_lm_torch" else []
+            t0 = time.perf_counter()
+            module.main(argv + extra)
+            torch.cuda.synchronize()
+        print(f"  ok: examples/{name}.py {' '.join(argv)} ran in "
+              f"{time.perf_counter() - t0:.1f} s")
 
 
 # flash_attention at head dimensions the kernels read zero-padded (BH,
@@ -4890,7 +5527,7 @@ def attention_launch_times(args, fwd, dout, kwargs, kernel,
                 *(t.data_ptr() for t in (q, k, v, o, dout, lse, ws, *grads)),
                 q.shape[0], k.shape[0], q.shape[1], k.shape[1], q.shape[2],
                 q.shape[2], int(bool(kwargs["causal"])), int(kwargs["window"]),
-                part,
+                float(kwargs.get("softcap", 0.0)), part,
                 torch.cuda.current_stream(q.device).cuda_stream),
                 f"flash_attention_bwd_{kind}_part")
         out.append((name, median_ms(one, 7)))
@@ -5116,14 +5753,15 @@ def whisper_train_rows(kept: dict, counts: dict) -> list:
 # under 1e-7 after a step, 2 lr a step there); the first one's state is
 # saved and remeshed onto ("data": 4, "model": 1) and, in a launch of two
 # ranks, ("data": 1, "model": 2).  (b) Mamba-2 1.3B at full size in bf16
-# through train(mesh=) for 3 steps of TRAIN_RUNS["mamba2-1.3b"]'s batch.
+# through train(mesh=) for one step of TRAIN_RUNS["mamba2-1.3b"]'s batch
+# (the time budget's cut; (a)'s smoke steps run on updated params).
 DP = {"ranks": 4, "backend": "gloo", "shape": (2, 2),
       "axes": ("data", "model")}
 DP_SMOKE = (("gemma3-1b", 8), ("yi-6b", 8))
 DP_SEQ = 32
 DP_LR = 1e-3
 DP_REMESH = ((4, 1), (1, 2))
-DP_FULL = {"arch": "mamba2-1.3b", "steps": 3,
+DP_FULL = {"arch": "mamba2-1.3b", "steps": 1,
            **{k: TRAIN_RUNS["mamba2-1.3b"][k] for k in ("batch", "seq",
                                                         "dp")}}
 DP_LOSS_RTOL, DP_NORM_RTOL, DP_PARAM_ATOL, DP_TINY_M = 1e-5, 1e-4, 1e-5, 1e-7
@@ -5590,121 +6228,92 @@ def ssd_rank_rows(args, chunk: int, launches: dict, tag: str,
     return [fwd, bwd]
 
 
-# The kernels at a rank's share of the tensor-parallel paths beyond the
-# two-rank runs' (dp_train (b)'s 32 SSD heads and serve_mesh (b)'s 8 query
-# heads and 2048 RG-LRU channels come from those runs): RecurrentGemma-9B
-# (16 query heads of 256 on one kv head, window 2048; 4096 RG-LRU
-# channels) at 8 and 1 heads and 2048 and 256 channels a rank, Mamba-2
-# 1.3B (64 SSD heads of 64, state 128, chunk 256) at 4 heads a rank, the
-# shares of the 16-way "model" axis of the production mesh.  Prefill
-# shapes (4 rows of 4096) for the forwards, training shapes (2 rows of
-# 4096; Mamba-2 a rank's 2 rows of 2048) for the backwards.
-RANK_ATTN_HEADS = (8, 1)
-RANK_RGLRU_WIDTHS = (2048, 256)
-RANK_SSD = {"heads": 4, "rows": 2, "seq": 2048, "p": 64, "n": 128,
-            "chunk": 256}
+# The LM kernels at a rank's share of serve_mesh (b)'s tensor-parallel
+# path: RecurrentGemma-9B (16 query heads of 256 on one kv head, window
+# 2048; 4096 RG-LRU channels) at 8 heads and 2048 channels a rank, its
+# 2-way "model" axis.  Prefill shapes (4 rows of 4096) for the forwards,
+# training shapes (2 rows of 4096) for the backwards.
+RANK_ATTN_HEADS = 8
+RANK_RGLRU_WIDTH = 2048
+RANK_SERVED = "serve_mesh (b) rank 0, RecurrentGemma-9B on (1, 2)"
 
 
 def phase_rank_kernels(launches: dict) -> list:
-    """Each on-path LM kernel, forward and backward, at the rank shares
-    of RANK_ATTN_HEADS, RANK_RGLRU_WIDTHS and RANK_SSD: against its plain
-    version on random values, two launches bitwise equal, timed beside
-    its bound (attention beside SDPA's time, the same mask).
-    ``launches`` is each kernel's launches on rank 0 of serve_mesh (b):
-    the rows at its share (the first of RANK_ATTN_HEADS and of
-    RANK_RGLRU_WIDTHS) carry that count, and ``launches_from`` names the
-    run; no run on the card launches the 16-way shares, so their rows
-    carry 0 launches and ``launches_from`` None."""
+    """flash_attention and rglru_scan, forward and backward, at
+    RANK_ATTN_HEADS heads and RANK_RGLRU_WIDTH channels a rank: against
+    the plain versions on random values, two launches bitwise equal,
+    timed beside the bound (attention beside SDPA's time, the same
+    mask).  ``launches`` is each kernel's launches on rank 0 of
+    serve_mesh (b) (its prefill's and its train step's), which each row
+    carries, ``launches_from`` naming the run."""
     from repro_torch.kernels import ref, rglru_scan
-
-    served = "serve_mesh (b) rank 0, RecurrentGemma-9B on (1, 2)"
-
-    def ran(share, first, name):
-        return ({"launches": launches[name], "launches_from": served}
-                if share == first else
-                {"launches": 0, "launches_from": None})
 
     rows = []
     gen = torch.Generator(device=DEVICE).manual_seed(33)
     kw = {"causal": True, "window": 2048}
-    print("== kernels at tensor-parallel rank shares")
-    for heads in RANK_ATTN_HEADS:
-        fwd = ran(heads, RANK_ATTN_HEADS[0], "flash_attention")
-        bwd = ran(heads, RANK_ATTN_HEADS[0], "flash_attention_bwd")
+    heads = RANK_ATTN_HEADS
+    print("== kernels at serve_mesh (b)'s tensor-parallel rank share")
 
-        def draw(b):
-            return tuple(torch.randn(s, generator=gen, device=DEVICE).to(
-                torch.bfloat16) for s in ((b * heads, 4096, 256),
-                                          (b, 4096, 256), (b, 4096, 256)))
-        rows.append(attention_shape_row(
-            f"flash_attention_rank{heads}",
-            f"RecurrentGemma-9B prefill, {heads} of 16 heads a rank",
-            draw(4), kw, fwd["launches"], heads))
-        rows[-1]["launches_from"] = fwd["launches_from"]
-        rows.append(attention_bwd_shape_row(
-            f"flash_attention_bwd_rank{heads}",
-            f"RecurrentGemma-9B training, {heads} of 16 heads a rank",
-            draw(2), kw, bwd["launches"], heads))
-        rows[-1]["launches_from"] = bwd["launches_from"]
-        torch.cuda.empty_cache()
-    for width in RANK_RGLRU_WIDTHS:
-        def draw(b):
-            a = torch.rand((b, 4096, width), generator=gen, device=DEVICE)
-            return (0.5 + 0.5 * a, torch.randn((b, 4096, width),
-                                               generator=gen,
-                                               device=DEVICE))
-        args = draw(4)
-        err = rglru_compare(args, f"{width} channels a rank")
-        bound, by = lm_bound("rglru_scan", args, {})
-        rows.append({
-            "name": f"rglru_scan_rank{width}", "ok": True, "route": "cuda",
-            "source": SOURCES["rglru_scan"],
-            "replaces": REPLACES["rglru_scan"],
-            **ran(width, RANK_RGLRU_WIDTHS[0], "rglru_scan"),
-            "max_abs_err": err,
-            "ms": time_ms(lambda: rglru_scan.rglru_scan(*args), 20),
-            "plain_ms": time_ms(lambda: ref.rglru_scan_plain(*args), 2),
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "shape": list(args[0].shape), "dtype": "float32",
-            "path": rglru_scan.last_path})
-        r = rows[-1]
-        print(f"  rglru_scan_rank{width} {tuple(args[0].shape)} "
-              f"({r['path']} path): kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}), share "
-              f"{bound / r['ms']:.3f}")
-        args = draw(2)
-        err_b, _, kernel, plain, _, _ = bwd_compare(
-            "rglru_scan", args, {}, gen, f"{width} channels a rank")
-        g1, g2 = kernel(), kernel()
-        check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
-              f"rglru_scan backward at {width} channels a rank: two "
-              f"launches bitwise equal")
-        del g1, g2
-        bound, by = bwd_bound("rglru_scan", args, {})
-        rows.append({
-            "name": f"rglru_scan_bwd_rank{width}", "ok": True,
-            "route": "cuda", "source": BWD_SOURCES["rglru_scan"],
-            "replaces": REPLACES["rglru_scan"], "pass": "backward",
-            **ran(width, RANK_RGLRU_WIDTHS[0], "rglru_scan_bwd"),
-            "max_abs_err": err_b,
-            "ms": median_ms(kernel, 7), "plain_ms": median_ms(plain, 3),
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "shape": list(args[0].shape), "dtype": "float32"})
-        r = rows[-1]
-        print(f"  rglru_scan_bwd_rank{width} {tuple(args[0].shape)}: kernel"
-              f" {r['ms']:.4f} ms (median), plain {r['plain_ms']:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}), share {bound / r['ms']:.3f}")
-        del kernel, plain, args
-        torch.cuda.empty_cache()
-    c = RANK_SSD
-    args = ssd_random(c["rows"] * c["heads"], c["rows"], c["seq"], c["p"],
-                      c["n"], gen)
-    rows += ssd_rank_rows(args, c["chunk"],
-                          {"ssd_scan": 0, "ssd_scan_bwd": 0},
-                          f"rank{c['heads']}",
-                          f"{c['heads']} of 64 heads a rank")
-    for r in rows[-2:]:
-        r["launches_from"] = None
+    def draw_attn(b):
+        return tuple(torch.randn(s, generator=gen, device=DEVICE).to(
+            torch.bfloat16) for s in ((b * heads, 4096, 256),
+                                      (b, 4096, 256), (b, 4096, 256)))
+    rows.append(attention_shape_row(
+        f"flash_attention_rank{heads}",
+        f"RecurrentGemma-9B prefill, {heads} of 16 heads a rank",
+        draw_attn(4), kw, launches["flash_attention"], heads))
+    rows.append(attention_bwd_shape_row(
+        f"flash_attention_bwd_rank{heads}",
+        f"RecurrentGemma-9B training, {heads} of 16 heads a rank",
+        draw_attn(2), kw, launches["flash_attention_bwd"], heads))
+    torch.cuda.empty_cache()
+    width = RANK_RGLRU_WIDTH
+
+    def draw_rglru(b):
+        a = torch.rand((b, 4096, width), generator=gen, device=DEVICE)
+        return (0.5 + 0.5 * a, torch.randn((b, 4096, width), generator=gen,
+                                           device=DEVICE))
+    args = draw_rglru(4)
+    err = rglru_compare(args, f"{width} channels a rank")
+    bound, by = lm_bound("rglru_scan", args, {})
+    rows.append({
+        "name": f"rglru_scan_rank{width}", "ok": True, "route": "cuda",
+        "source": SOURCES["rglru_scan"], "replaces": REPLACES["rglru_scan"],
+        "launches": launches["rglru_scan"], "max_abs_err": err,
+        "ms": time_ms(lambda: rglru_scan.rglru_scan(*args), 20),
+        "plain_ms": time_ms(lambda: ref.rglru_scan_plain(*args), 2),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": list(args[0].shape), "dtype": "float32",
+        "path": rglru_scan.last_path})
+    r = rows[-1]
+    print(f"  rglru_scan_rank{width} {tuple(args[0].shape)} ({r['path']} "
+          f"path): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}), share {bound / r['ms']:.3f}")
+    args = draw_rglru(2)
+    err_b, _, kernel, plain, _, _ = bwd_compare(
+        "rglru_scan", args, {}, gen, f"{width} channels a rank")
+    g1, g2 = kernel(), kernel()
+    check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
+          f"rglru_scan backward at {width} channels a rank: two launches "
+          f"bitwise equal")
+    del g1, g2
+    bound, by = bwd_bound("rglru_scan", args, {})
+    rows.append({
+        "name": f"rglru_scan_bwd_rank{width}", "ok": True, "route": "cuda",
+        "source": BWD_SOURCES["rglru_scan"],
+        "replaces": REPLACES["rglru_scan"], "pass": "backward",
+        "launches": launches["rglru_scan_bwd"], "max_abs_err": err_b,
+        "ms": median_ms(kernel, 7), "plain_ms": median_ms(plain, 3),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": list(args[0].shape), "dtype": "float32"})
+    r = rows[-1]
+    print(f"  rglru_scan_bwd_rank{width} {tuple(args[0].shape)}: kernel "
+          f"{r['ms']:.4f} ms (median), plain {r['plain_ms']:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), share {bound / r['ms']:.3f}")
+    del kernel, plain, args
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["launches_from"] = RANK_SERVED
     return rows
 
 
@@ -5785,9 +6394,10 @@ SERVE_MESH_SMOKE = (
 SERVE_MESH_ATOL = 1e-4
 # (b): RecurrentGemma-9B at full width in bf16 on ("data": 1, "model": 2):
 # its MQA ring of 2048 slots splits into two blocks of 1024; the serving
-# phase's prompts (PROMPT_LENS, seed 0), then ``steps`` greedy tokens.
+# phase's two longest prompts (PROMPT_LENS[:2], seed 0: ragged, the
+# shorter left-padded), then ``steps`` greedy tokens.
 SERVE_MESH_FULL = {"arch": "recurrentgemma-9b", "shape": (1, 2),
-                   "steps": 8}
+                   "prompts": PROMPT_LENS[:2], "steps": 8}
 # A rank's peak with every rank holding the whole tree beside its blocks
 # (NVIDIA H100 80GB HBM3, 700.00 W), and the most a rank of the
 # tensor-parallel path may take: the blocks (8.52 GB), the prefill's
@@ -6049,7 +6659,7 @@ def serve_mesh_full_single(cfg, params) -> dict:
     from repro_torch.runtime import steps
 
     n = SERVE_MESH_FULL["steps"]
-    prompts = draw_prompts(cfg, 0)
+    prompts = draw_prompts(cfg, 0, SERVE_MESH_FULL["prompts"])
     reqs = [serve.Request(rid=i, prompt=p, max_new=n)
             for i, p in enumerate(prompts)]
     pre, dec = [], []
@@ -6136,7 +6746,7 @@ def serve_mesh_full_rank(device) -> dict:
                       for t in adamw.leaves(share))
     del share
     gathered_gb = torch.cuda.memory_allocated() / 1e9
-    prompts = draw_prompts(cfg, 0)
+    prompts = draw_prompts(cfg, 0, SERVE_MESH_FULL["prompts"])
     reqs = [serve.Request(rid=i, prompt=p, max_new=n)
             for i, p in enumerate(prompts)]
     pre, dec, made = [], [], []
@@ -6279,7 +6889,8 @@ def phase_serve_mesh(smi: str, single: dict | None = None,
     print(f"== serve_mesh (b): {arch} full width, bf16, {ranks} ranks on "
           f"one card over {DP['backend']}, mesh "
           f"{dict(zip(DP['axes'], SERVE_MESH_FULL['shape']))}, prompts "
-          f"{PROMPT_LENS}, {SERVE_MESH_FULL['steps']} greedy tokens ({smi})")
+          f"{SERVE_MESH_FULL['prompts']}, {SERVE_MESH_FULL['steps']} greedy "
+          f"tokens ({smi})")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6307,8 +6918,10 @@ def phase_serve_mesh(smi: str, single: dict | None = None,
     print(f"  {ranks} ranks spawned, ran and joined in {wall:.2f} s")
     r0 = out[0]
     if peaks is not None:
-        keep_peak(peaks, "serve_mesh", arch, "prefill", len(PROMPT_LENS),
-                  max(PROMPT_LENS), r0["base"], measured=r0["peak"],
+        keep_peak(peaks, "serve_mesh", arch, "prefill",
+                  len(SERVE_MESH_FULL["prompts"]),
+                  max(SERVE_MESH_FULL["prompts"]), r0["base"],
+                  measured=r0["peak"],
                   mesh=SERVE_MESH_FULL["shape"], rank=0)
     check(all(r["launches"] == want and r["device"].startswith("cuda")
               for r in out),
@@ -6545,6 +7158,7 @@ def main() -> int:
     del first_rank
     phase_profile(paper, "drifting_swarm", 2000, 6)
     stamp("the DA paths")
+    flex_warm = start_flex_warm()
 
     phase_lm_small("recurrentgemma-9b")
     counts_lm, params, cfg, batch, inputs, layer_errs = phase_lm_serve(
@@ -6558,7 +7172,7 @@ def main() -> int:
     tp_launches = phase_serve_mesh(smi, serve_full, peaks=peaks)
     del serve_full
     rows += phase_rank_kernels(tp_launches)
-    stamp("sharded serving and the kernels at rank shares")
+    stamp("sharded serving and the kernels at its rank share")
 
     phase_lm_small("mamba2-1.3b")
     counts_m, params, cfg, batch, inputs, layer_errs = phase_lm_serve(
@@ -6604,6 +7218,14 @@ def main() -> int:
     phase_cross_attention()
     stamp("whisper's and phi-3-vision's serving")
 
+    # Soft-capped attention: gemma-7b at full width with the cap through
+    # serving and training, then every capped kernel design; the examples.
+    join_flex_warm(flex_warm)
+    rows += phase_softcap_model(smi)
+    rows += phase_softcap_calls()
+    phase_examples()
+    stamp("soft-capped attention and the examples")
+
     kept, train_counts = {}, {}
     for run in TRAIN_RUNS:
         train_counts.update(phase_train(run, smi, kept, peaks))
@@ -6637,7 +7259,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(warm_flex() if sys.argv[1:] == ["--warm-flex"] else main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -161,7 +161,8 @@ def run_rank(device, args) -> None:
         run_all(args, device)
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    """The CLI on ``argv`` (the command line's arguments by default)."""
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--device", default=None,
@@ -242,7 +243,7 @@ def main() -> None:
                     "Chrome trace into this directory (kernel-level)")
     ap.add_argument("--residuals", action="store_true",
                     help="journal per-iteration Schwarz residual histories")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.solver == "vmapped":
         run_all(args, args.device)
         return

@@ -11,8 +11,9 @@ variable is unset), which serves an installed package: it ships the
 sources and headers as package data.  The hash covers the sources, the
 headers and the flags, so an edited source or header builds anew and an
 unchanged tree is reused.  The library is loaded with ``ctypes``; every
-pointer and the stream travel as ``c_void_p`` and every int as
-``c_int``.  Nothing here runs at import time.
+pointer and the stream travel as ``c_void_p``, every int as ``c_int``
+and the attention's soft cap as ``c_float``.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the exported functions (all return a cudaError_t).
 SIGNATURES = {
     "repro_gram_f64": (_P, _P, _P, _I, _I, _I, _P),
@@ -44,12 +46,15 @@ SIGNATURES = {
     "repro_schwarz_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_schwarz_bwd_f64": (_P,) * 10 + (_I,) * 4 + (_P,),
     "repro_schwarz_bwd_f32": (_P,) * 10 + (_I,) * 4 + (_P,),
-    "repro_flash_attention_f32": (_P,) * 5 + (_I,) * 8 + (_P,),
-    "repro_flash_attention_bf16": (_P,) * 6 + (_I,) * 8 + (_P,),
-    "repro_flash_attention_bwd_bf16": (_P,) * 10 + (_I,) * 8 + (_P,),
-    "repro_flash_attention_bwd_f32": (_P,) * 10 + (_I,) * 8 + (_P,),
-    "repro_flash_attention_bwd_f32_part": (_P,) * 10 + (_I,) * 9 + (_P,),
-    "repro_flash_attention_bwd_bf16_part": (_P,) * 10 + (_I,) * 9 + (_P,),
+    # ..., causal, window, softcap (a c_float), [part,] stream
+    "repro_flash_attention_f32": (_P,) * 5 + (_I,) * 8 + (_F, _P),
+    "repro_flash_attention_bf16": (_P,) * 6 + (_I,) * 8 + (_F, _P),
+    "repro_flash_attention_bwd_bf16": (_P,) * 10 + (_I,) * 8 + (_F, _P),
+    "repro_flash_attention_bwd_f32": (_P,) * 10 + (_I,) * 8 + (_F, _P),
+    "repro_flash_attention_bwd_f32_part":
+        (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
+    "repro_flash_attention_bwd_bf16_part":
+        (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
     "repro_rglru_scan_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_rglru_scan_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_rglru_scan_bwd_carry_f32": (_P,) * 3 + (_I, _I, _I, _P),

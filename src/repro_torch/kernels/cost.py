@@ -108,10 +108,14 @@ def visible_scores(s: int, causal: bool, window: int,
 
 
 def flash_attention(q_shape, k_shape, dtype: torch.dtype, *,
-                    causal: bool = True, window: int = 0) -> Work:
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> Work:
     """q (BH, S, D), k and v (BH_kv, S_kv, D): 4 D flops a visible score
     entry (q k^T and p v); q read and o written at BH rows, k and v read
-    once at their own BH_kv rows."""
+    once at their own BH_kv rows.  The flops are the tensor cores' (or
+    the f32 FMAs'): a ``softcap`` call's tanh of each score runs on the
+    special-function units beside its exp and is not counted, so the
+    bound is the uncapped call's."""
     bh, s, d = q_shape
     flops = 4 * d * bh * visible_scores(s, causal, window, k_shape[1])
     nbytes = (2 * _numel(q_shape) + 2 * _numel(k_shape)) * _itemsize(dtype)
@@ -119,11 +123,14 @@ def flash_attention(q_shape, k_shape, dtype: torch.dtype, *,
 
 
 def flash_attention_bwd(q_shape, k_shape, dtype: torch.dtype, *,
-                        causal: bool = True, window: int = 0) -> Work:
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> Work:
     """The backward of :func:`flash_attention`: 2 D flops a visible pair
     for each of S (recomputed from the saved lse), dP, dV, dQ and dK; q,
     o, dO read and dQ written at BH rows, k, v read and dK, dV written at
-    BH_kv rows, the f32 lse read."""
+    BH_kv rows, the f32 lse read.  As in :func:`flash_attention`, a
+    ``softcap`` call's tanh and its factor 1 - tanh^2 on dS are not
+    counted."""
     bh, s, d = q_shape
     flops = 10 * d * bh * visible_scores(s, causal, window, k_shape[1])
     nbytes = ((4 * _numel(q_shape) + 4 * _numel(k_shape)) * _itemsize(dtype)

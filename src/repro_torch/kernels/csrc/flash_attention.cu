@@ -106,6 +106,25 @@
 // final division is floored at 1e-30, and every sum runs in a fixed order
 // with no atomics and no split over kv, so two runs give bitwise equal
 // outputs.
+//
+// Soft-capping (softcap > 0, Gemma 2's attn_logit_softcapping): each
+// scaled score x = scale s becomes cap tanh(x / cap) before the mask and
+// the softmax, as the reference caps its scores in jnp (the TPU kernel
+// takes no cap).  The cap is a compile-time flag (kCap) of every kernel,
+// so the uncapped instantiations are the code above unchanged; the capped
+// ones are built from this file by flash_attention_capped.cu, a source of
+// their own, beside them.  bf16: the
+// softmax runs on t = tanh(x / cap) itself with c = cap log2 e in place
+// of scale log2 e (2^(c t) = e^(cap t)), so the running max is t's and
+// lse = ln 2 (c m + log2 l) is the log-sum-exp of the capped scores; t is
+// 1 - r with r = 2 / (1 + 2^(2 log2 e x / cap)) (ex2 and rcp on the
+// special-function units), whose error is a few ulps of 1, i.e. cap times
+// that on the capped score: tanh.approx.f32's relative 2^-11 would move a
+// saturated score of cap 50 by 0.024, twelve times bf16's rounding of P.
+// Each score then takes three special-function operations in place of
+// one, which at D <= 128 sit on the consumers' path beside their
+// products.  f32: cap tanhf(x / cap), the accurate tanhf.  Masked entries
+// are set after the cap (cap tanh(-inf) would be -cap, not -inf).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -229,6 +248,14 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// 1 - tanh(x) = 2 / (1 + e^(2x)) from x2 = 2 x log2 e: 0 where e^(2x)
+// overflows, 2 where it underflows.
+__device__ __forceinline__ float one_minus_tanh(float x2) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(1.0f + ex2(x2)));
+  return 2.0f * y;
 }
 
 // Two bf16 in one register, the first in the low half.
@@ -384,14 +411,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
 // the S fragment, in place: updates the running max m (raw scores) and
 // sum l, returns the rescale factor alpha of each row, and leaves
 // P = 2^(c (s - m)) (c = scale * log2 e) in s.  kMask evaluates visible()
-// per entry (keys below Skv); masked entries become exactly 0.
-template <bool kMask, int N>
+// per entry (keys below Skv); masked entries become exactly 0.  kCap
+// first replaces each raw score by t = tanh(scale s / cap) (cs2 = 2
+// log2 e scale / cap), on which m runs (c = cap log2 e).
+template <bool kMask, bool kCap, int N>
 __device__ __forceinline__ void softmax_tile(float (&s)[N],
                                              float (&m_run)[2],
                                              float (&l_run)[2],
                                              float (&alpha)[2], float c,
-                                             int r0, int k0, int Skv,
-                                             int causal, int window) {
+                                             float cs2, int r0, int k0,
+                                             int Skv, int causal,
+                                             int window) {
   // Each row's max and sum over the thread's entries in kC chains (one
   // at N = 32; four at N = 64, the 128-key tiles, whose chains of 32
   // would sit on the consumer's path between its products).
@@ -401,6 +431,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N],
   for (int j = 0; j < kC; ++j) mx4[0][j] = m_run[0], mx4[1][j] = m_run[1];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
+    if constexpr (kCap) s[i] = 1.0f - one_minus_tanh(s[i] * cs2);
     if (kMask && !visible(r0 + 8 * ((i >> 1) & 1),
                           k0 + 8 * (i >> 2) + (i & 1), Skv, causal, window))
       s[i] = kNegInf;
@@ -508,14 +539,14 @@ __device__ __forceinline__ bool tile_full(int k_start, int q0, int Skv,
 // One step i >= 1 of the overlapped schedule: tile i's S = Q K^T and tile
 // i - 1's O += P V issued together in this consumer's turn, tile i's
 // softmax while P V runs, then O rescaled and tile i's P packed.
-template <int DP>
+template <int DP, bool kCap>
 struct OverlapStep {
   static constexpr int kStages = Bf16Cfg<DP>::kStages;
   static constexpr int kTile = Bf16Cfg<DP>::kTile;
   uint32_t k_ring, v_ring;
   Barriers<kStages> bars;
   uint64_t q_desc;
-  float c;
+  float c, cs2;
   int r0, Skv, causal, window, h, lane;
 
   template <bool kMask>
@@ -537,8 +568,8 @@ struct OverlapStep {
     named_arrive(4 - h, 256);
     wgmma_wait<1>();
     fence_regs(s);
-    softmax_tile<kMask>(s, m_run, l_run, alpha, c, r0, k0, Skv, causal,
-                        window);
+    softmax_tile<kMask, kCap>(s, m_run, l_run, alpha, c, cs2, r0, k0, Skv,
+                              causal, window);
     release(bars.empty_k(st), lane);
     wgmma_wait<0>();
     fence_regs(o);
@@ -547,14 +578,14 @@ struct OverlapStep {
   }
 };
 
-template <int DP>
+template <int DP, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
                   __grid_constant__ const CUtensorMap tk,
                   __grid_constant__ const CUtensorMap tv,
                   __grid_constant__ const CUtensorMap to,
                   float* __restrict__ lse, int BH, int rep, int S, int Skv,
-                  float c, int causal, int window) {
+                  float c, float cs2, int causal, int window) {
   using Cfg = Bf16Cfg<DP>;
   constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages, kTile = Cfg::kTile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -652,8 +683,8 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
       named_arrive(4 - h, 256);
       wgmma_wait<0>();
       fence_regs(s);
-      softmax_tile<true>(s, m_run, l_run, alpha, c, r0, kb_lo * kBK + 2 * t,
-                         Skv, causal, window);
+      softmax_tile<true, kCap>(s, m_run, l_run, alpha, c, cs2, r0,
+                               kb_lo * kBK + 2 * t, Skv, causal, window);
       release(bars.empty_k(0), lane);
       rescale_pack<DP>(o, p, s, alpha);
 
@@ -665,8 +696,9 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap tq,
           if (f1 == n_tiles) f1 = i + 1;
           f0 = i;
         }
-      const OverlapStep<DP> step{k_ring, v_ring, bars, q_desc, c, r0, Skv,
-                                 causal, window, h, lane};
+      const OverlapStep<DP, kCap> step{k_ring, v_ring, bars, q_desc, c,
+                                       cs2, r0, Skv, causal, window, h,
+                                       lane};
       for (int i = 1; i < f0; ++i)
         step.template run<true>(o, s, p, m_run, l_run, i,
                                 (kb_lo + i) * kBK + 2 * t);
@@ -901,13 +933,13 @@ __device__ __forceinline__ Item item_of(int idx, int rep, int S, int Skv,
 // over the CTA's items): tile i's S and tile i - 1's O += P V issued in
 // this consumer's turn, tile i's softmax while P V runs, O rescaled and
 // tile i's P packed.
-template <int DP>
+template <int DP, bool kCap>
 struct OverlapStep2 {
   static constexpr int kStages = Bf16Cfg2<DP>::kStages;
   static constexpr int kKVTile = Bf16Cfg2<DP>::kKVTile;
   uint32_t k_ring, v_ring;
   Barriers2<kStages> bars;
-  float c;
+  float c, cs2;
   int r0, Skv, causal, window, h, lane;
 
   template <bool kMask>
@@ -930,8 +962,8 @@ struct OverlapStep2 {
     named_arrive(4 - h, 256);
     wgmma_wait<1>();
     fence_regs(s);
-    softmax_tile<kMask>(s, m_run, l_run, alpha, c, r0, k0, Skv, causal,
-                        window);
+    softmax_tile<kMask, kCap>(s, m_run, l_run, alpha, c, cs2, r0, k0, Skv,
+                              causal, window);
     release(bars.empty_k(st), lane);
     wgmma_wait<0>();
     fence_regs(o);
@@ -942,18 +974,21 @@ struct OverlapStep2 {
 
 // Tile 0's softmax of an item from a fresh running max and sum, masked
 // unless every pair of the tile is visible.
+template <bool kCap>
 __device__ __forceinline__ void softmax_first(float (&s)[64], float (&m)[2],
-                                              float (&l)[2], float c, int r0,
-                                              int q0, int k0, int t, int Skv,
+                                              float (&l)[2], float c,
+                                              float cs2, int r0, int q0,
+                                              int k0, int t, int Skv,
                                               int causal, int window) {
   float alpha[2];
   m[0] = m[1] = kNegInf;
   l[0] = l[1] = 0.0f;
   if (tile_full2(k0, q0, Skv, causal, window))
-    softmax_tile<false>(s, m, l, alpha, c, r0, 0, Skv, causal, window);
+    softmax_tile<false, kCap>(s, m, l, alpha, c, cs2, r0, 0, Skv, causal,
+                              window);
   else
-    softmax_tile<true>(s, m, l, alpha, c, r0, k0 + 2 * t, Skv, causal,
-                       window);
+    softmax_tile<true, kCap>(s, m, l, alpha, c, cs2, r0, k0 + 2 * t, Skv,
+                             causal, window);
 }
 
 // The epilogue of this thread's rows r0 and r0 + 8 of head bh: each
@@ -985,7 +1020,7 @@ __device__ __forceinline__ void store_rows(
   }
 }
 
-template <int DP>
+template <int DP, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
                              __grid_constant__ const CUtensorMap tk,
@@ -993,7 +1028,7 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
                              __nv_bfloat16* __restrict__ out,
                              float* __restrict__ lse, int* __restrict__ next,
                              int BH, int rep, int S, int Skv, int D, float c,
-                             int causal, int window) {
+                             float cs2, int causal, int window) {
   using Cfg = Bf16Cfg2<DP>;
   constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages;
   constexpr int kQTile = Cfg::kQTile, kKVTile = Cfg::kKVTile;
@@ -1104,8 +1139,8 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
         named_arrive(4 - h, 256);
         wgmma_wait<0>();
         fence_regs(s);
-        softmax_first(s, m_run, l_run, c, q0 + row, q0, item.kb_lo * kBK2, t,
-                      Skv, causal, window);
+        softmax_first<kCap>(s, m_run, l_run, c, cs2, q0 + row, q0,
+                            item.kb_lo * kBK2, t, Skv, causal, window);
         release(bars.empty_k(st), lane);
 #pragma unroll
         for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
@@ -1125,8 +1160,8 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
             if (f1 == n) f1 = i + 1;
             f0 = i;
           }
-        const OverlapStep2<DP> step{k_ring, v_ring, bars, c, r0, Skv, causal,
-                                    window, h, lane};
+        const OverlapStep2<DP, kCap> step{k_ring, v_ring, bars, c, cs2, r0,
+                                          Skv, causal, window, h, lane};
         for (int i = 1; i < f0; ++i)
           step.template run<true>(o, s, p, qa, m_run, l_run, it + i,
                                   k_lo + i * kBK2 + 2 * t);
@@ -1174,8 +1209,8 @@ flash_bf16_persistent_kernel(__grid_constant__ const CUtensorMap tq,
         // The next item's softmax, from a fresh max and sum, while P V
         // runs; then this item's output.
         float m_new[2], l_new[2];
-        softmax_first(s, m_new, l_new, c, nq0 + row, nq0, next.kb_lo * kBK2,
-                      t, Skv, causal, window);
+        softmax_first<kCap>(s, m_new, l_new, c, cs2, nq0 + row, nq0,
+                            next.kb_lo * kBK2, t, Skv, causal, window);
         release(bars.empty_k(st), lane);
         wgmma_wait<0>();
         fence_regs(o);
@@ -1252,12 +1287,12 @@ using fa32::ld4;
 // own: the scores one fmaf chain over D, the online softmax updated tile
 // by tile, each tile's sum a butterfly over its 32 keys, its P V a chain
 // over its keys added to O alpha.
-template <int DP>
+template <int DP, bool kCap>
 __global__ void __launch_bounds__(kT32, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int BH, int S, int Skv, int D,
-                 int rep, float scale, int causal, int window) {
+                 int rep, float scale, float cap, int causal, int window) {
   using C = F32Cfg<DP>;
   constexpr int kPair = 2 * kBK32;              // keys of a pair
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1344,9 +1379,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int b = 0; b < 2; ++b) {
           const int c = 2 * tt + b;
+          float xc = s[i][c] * scale;
+          if constexpr (kCap) xc = tanhf(xc / cap) * cap;
           x[b] = visible(qpos, t0 * kBK32 + j16 + 16 * c, Skv, causal,
                          window)
-                     ? s[i][c] * scale
+                     ? xc
                      : kNegInf;
         }
         float mx = fmaxf(x[0], x[1]);
@@ -1465,26 +1502,41 @@ bool encode_map(CUtensorMap* map, const void* ptr, int heads, int S, int D,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
+// The bf16 kernels' softmax factors: c with 2^(c s) = e^(scale s) (the
+// scale and log2 e folded into one factor), or with a cap c = cap log2 e
+// on t = tanh(scale s / cap) and cs2 = 2 log2 e scale / cap
+// (softmax_tile).
+struct Bf16Factors {
+  float c, cs2;
+};
+
+Bf16Factors bf16_factors(int Dh, float softcap) {
+  const double log2e = 1.4426950408889634;
+  const double sqrt_dh = std::sqrt(static_cast<double>(Dh));
+  if (softcap > 0.0f)
+    return {static_cast<float>(softcap * log2e),
+            static_cast<float>(2.0 * log2e / sqrt_dh / softcap)};
+  return {static_cast<float>(log2e / sqrt_dh), 0.0f};
+}
+
+template <int DP, bool kCap>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int BH, int BH_kv, int S, int Skv, int D, int Dh,
-                int causal, int window, cudaStream_t stream) {
+                int causal, int window, float softcap, cudaStream_t stream) {
   const size_t bytes = Bf16Cfg<DP>::kSmem;
   CUtensorMap tq, tk, tv, to;
   if (!encode_map(&tq, q, BH, S, D) || !encode_map(&tk, k, BH_kv, Skv, D) ||
       !encode_map(&tv, v, BH_kv, Skv, D) || !encode_map(&to, o, BH, S, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bf16_kernel<DP, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
-  // 2^(c s) = e^(scale s): the scale and log2 e folded into one factor.
-  const float c = static_cast<float>(
-      1.4426950408889634 / std::sqrt(static_cast<double>(Dh)));
-  flash_bf16_kernel<DP><<<grid, kThreads, bytes, stream>>>(
-      tq, tk, tv, to, static_cast<float*>(lse), BH, BH / BH_kv, S, Skv, c,
-      causal, window);
+  const Bf16Factors f = bf16_factors(Dh, softcap);
+  flash_bf16_kernel<DP, kCap><<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, to, static_cast<float*>(lse), BH, BH / BH_kv, S, Skv, f.c,
+      f.cs2, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1501,11 +1553,11 @@ int num_sms() {
 // D <= 128: one persistent CTA an SM, at most one a work item; `next`
 // is the work items' counter, one int32 of scratch, zeroed here on the
 // stream.
-template <int DP>
+template <int DP, bool kCap>
 int launch_bf16_persistent(const void* q, const void* k, const void* v,
                            void* o, void* lse, void* next, int BH, int BH_kv,
                            int S, int Skv, int D, int Dh, int causal,
-                           int window, cudaStream_t stream) {
+                           int window, float softcap, cudaStream_t stream) {
   const size_t bytes = Bf16Cfg2<DP>::kSmem;
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, q, BH, S, D) ||
@@ -1513,7 +1565,7 @@ int launch_bf16_persistent(const void* q, const void* k, const void* v,
       !encode_map(&tv, v, BH_kv, Skv, D, kBK2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_persistent_kernel<DP>,
+      flash_bf16_persistent_kernel<DP, kCap>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaMemsetAsync(next, 0, sizeof(int), stream);
@@ -1521,48 +1573,118 @@ int launch_bf16_persistent(const void* q, const void* k, const void* v,
   const long long items = static_cast<long long>((S + kBQ - 1) / kBQ) * BH;
   const int sms = num_sms();
   const unsigned grid = static_cast<unsigned>(items < sms ? items : sms);
-  const float c = static_cast<float>(
-      1.4426950408889634 / std::sqrt(static_cast<double>(Dh)));
-  flash_bf16_persistent_kernel<DP><<<grid, kThreads, bytes, stream>>>(
+  const Bf16Factors f = bf16_factors(Dh, softcap);
+  flash_bf16_persistent_kernel<DP, kCap><<<grid, kThreads, bytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      static_cast<int*>(next), BH, BH / BH_kv, S, Skv, D, c, causal, window);
+      static_cast<int*>(next), BH, BH / BH_kv, S, Skv, D, f.c, f.cs2, causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+template <int DP, bool kCap>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int BH, int BH_kv, int S, int Skv, int D, int Dh,
-               int causal, int window, cudaStream_t stream) {
+               int causal, int window, float softcap, cudaStream_t stream) {
   const size_t bytes = F32Cfg<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<DP, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>((S + kBQ32 - 1) / kBQ32) * BH;
-  flash_f32_kernel<DP><<<grid, kT32, bytes, stream>>>(
+  flash_f32_kernel<DP, kCap><<<grid, kT32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), BH, S, Skv, D, BH / BH_kv, softmax_scale(Dh),
-      causal, window);
+      softcap, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-// S_kv differs from S only in non-causal attention with no window.
+// S_kv differs from S only in non-causal attention with no window; the
+// cap is finite and >= 0 (0: none).
 bool bad_shape(int BH, int BH_kv, int S, int Skv, int D, int Dh, int causal,
-               int window) {
+               int window, float softcap) {
   return BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || Skv <= 0 ||
          (Skv != S && (causal || window > 0)) || D <= 0 || D % 8 != 0 ||
-         D > 256 || Dh <= 0 || Dh > D;
+         D > 256 || Dh <= 0 || Dh > D ||
+         !(softcap >= 0.0f && softcap <= 3.4e38f);
+}
+
+// Every bf16 or f32 launch of one cap flag, by head dimension.
+template <bool kCap>
+int launch_bf16_any(const void* q, const void* k, const void* v, void* o,
+                    void* lse, void* work, int BH, int BH_kv, int S,
+                    int S_kv, int D, int Dh, int causal, int window,
+                    float softcap, cudaStream_t st) {
+  if (D <= 64)
+    return launch_bf16_persistent<64, kCap>(q, k, v, o, lse, work, BH, BH_kv,
+                                            S, S_kv, D, Dh, causal, window,
+                                            softcap, st);
+  if (D <= 128)
+    return launch_bf16_persistent<128, kCap>(q, k, v, o, lse, work, BH,
+                                             BH_kv, S, S_kv, D, Dh, causal,
+                                             window, softcap, st);
+  return launch_bf16<256, kCap>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh,
+                                causal, window, softcap, st);
+}
+
+template <bool kCap>
+int launch_f32_any(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int BH, int BH_kv, int S, int S_kv, int D,
+                   int Dh, int causal, int window, float softcap,
+                   cudaStream_t st) {
+  if (D <= 64)
+    return launch_f32<64, kCap>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh,
+                                causal, window, softcap, st);
+  if (D <= 128)
+    return launch_f32<128, kCap>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh,
+                                 causal, window, softcap, st);
+  return launch_f32<256, kCap>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh,
+                               causal, window, softcap, st);
 }
 
 }  // namespace
+
+// The capped launches.  flash_attention_capped.cu compiles this file with
+// REPRO_FA_CAPPED defined and holds them, so that nvcc builds the capped
+// and the uncapped kernels as two sources, in parallel.
+int repro_fa_bf16_capped(const void* q, const void* k, const void* v,
+                         void* o, void* lse, void* work, int BH, int BH_kv,
+                         int S, int S_kv, int D, int Dh, int causal,
+                         int window, float softcap, cudaStream_t st);
+int repro_fa_f32_capped(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int BH, int BH_kv, int S, int S_kv, int D,
+                        int Dh, int causal, int window, float softcap,
+                        cudaStream_t st);
+
+#ifdef REPRO_FA_CAPPED
+
+int repro_fa_bf16_capped(const void* q, const void* k, const void* v,
+                         void* o, void* lse, void* work, int BH, int BH_kv,
+                         int S, int S_kv, int D, int Dh, int causal,
+                         int window, float softcap, cudaStream_t st) {
+  return launch_bf16_any<true>(q, k, v, o, lse, work, BH, BH_kv, S, S_kv, D,
+                               Dh, causal, window, softcap, st);
+}
+
+int repro_fa_f32_capped(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int BH, int BH_kv, int S, int S_kv, int D,
+                        int Dh, int causal, int window, float softcap,
+                        cudaStream_t st) {
+  return launch_f32_any<true>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh,
+                              causal, window, softcap, st);
+}
+
+#else
 
 // q, o: (BH, S, D); k, v: (BH_kv, S_kv, D) with BH_kv dividing BH and S_kv
 // = S unless causal is 0 and window <= 0; lse: (BH, S)
 // f32, each row's log-sum-exp of its scaled scores; contiguous, 16-byte
 // aligned, one dtype, on the stream's device; D a multiple of 8 and at most
 // 256; Dh (at most D) sets the softmax scale 1 / sqrt(Dh): a head dimension
-// that is not a multiple of 8, zero-padded to D by the caller.  bf16 only:
+// that is not a multiple of 8, zero-padded to D by the caller.  softcap >
+// 0 caps each scaled score x as softcap tanh(x / softcap) before the mask
+// (lse is then that of the capped scores); 0 runs the uncapped kernels.
+// bf16 only:
 // `work`, one int32 of scratch on the device (the persistent grid's work
 // counter at D <= 128, zeroed on the stream before the launch; unused, and
 // may be null, at D = 256).  Returns the cudaError_t of the launch (0 on
@@ -1572,35 +1694,32 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           void* lse, void* work, int BH,
                                           int BH_kv, int S, int S_kv, int D,
                                           int Dh, int causal, int window,
-                                          void* stream) {
+                                          float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(BH, BH_kv, S, S_kv, D, Dh, causal, window) ||
+  if (bad_shape(BH, BH_kv, S, S_kv, D, Dh, causal, window, softcap) ||
       (D <= 128 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64)
-    return launch_bf16_persistent<64>(q, k, v, o, lse, work, BH, BH_kv, S,
-                                      S_kv, D, Dh, causal, window, st);
-  if (D <= 128)
-    return launch_bf16_persistent<128>(q, k, v, o, lse, work, BH, BH_kv, S,
-                                       S_kv, D, Dh, causal, window, st);
-  return launch_bf16<256>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh, causal,
-                          window, st);
+  if (softcap > 0.0f)
+    return repro_fa_bf16_capped(q, k, v, o, lse, work, BH, BH_kv, S, S_kv,
+                                D, Dh, causal, window, softcap, st);
+  return launch_bf16_any<false>(q, k, v, o, lse, work, BH, BH_kv, S, S_kv, D,
+                                Dh, causal, window, softcap, st);
 }
 
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          int BH, int BH_kv, int S, int S_kv,
                                          int D, int Dh, int causal,
-                                         int window, void* stream) {
+                                         int window, float softcap,
+                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(BH, BH_kv, S, S_kv, D, Dh, causal, window))
+  if (bad_shape(BH, BH_kv, S, S_kv, D, Dh, causal, window, softcap))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64)
-    return launch_f32<64>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh, causal,
-                          window, st);
-  if (D <= 128)
-    return launch_f32<128>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh,
-                           causal, window, st);
-  return launch_f32<256>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh, causal,
-                         window, st);
+  if (softcap > 0.0f)
+    return repro_fa_f32_capped(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh,
+                               causal, window, softcap, st);
+  return launch_f32_any<false>(q, k, v, o, lse, BH, BH_kv, S, S_kv, D, Dh,
+                               causal, window, softcap, st);
 }
+
+#endif  // REPRO_FA_CAPPED

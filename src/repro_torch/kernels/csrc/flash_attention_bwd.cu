@@ -88,6 +88,20 @@
 // right and bitwise repeatable but ~11 times slower: each hand-over (a
 // fence, a signal, a poll) sits on the path of every later kv block.
 //
+// Soft-capping (softcap > 0): the forward capped each scaled score x as
+// cap tanh(x / cap) and wrote the lse of the capped scores, so P is
+// rebuilt as 2^(c t - lse2) with t = tanh(x / cap) and c = cap log2 e (t
+// as the forward's bf16 kernels take it, 1 - r with r = 2 / (1 + e^(2x /
+// cap))), and dS, the gradient of the capped score, meets K and Q as g .*
+// dS with g = 1 - t^2 = r (2 - r) (no cancellation where |t| ~ 1).  dq
+// forms g .* dS where it forms dS; dkdv at D <= 128 forms P^T and g .*
+// dS^T in one pass over the fragment; at D = 256 consumer 0 hands g .*
+// P^T (not P^T) to consumer 1, which forms dS^T from it as before.  The
+// cap is a compile-time flag (kCap) of the dq and dkdv kernels: the
+// uncapped instantiations are the code above unchanged; the capped ones
+// are built from this file by flash_attention_bwd_capped.cu, a source of
+// their own, beside them; the prep launch is the same for both.
+//
 // Every sum runs in a fixed order with no atomics: two runs are bitwise
 // equal.
 #include <cuda.h>
@@ -182,6 +196,14 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// 1 - tanh(x) = 2 / (1 + e^(2x)) from x2 = 2 x log2 e, as the forward
+// computes it: 0 where e^(2x) overflows, 2 where it underflows.
+__device__ __forceinline__ float one_minus_tanh(float x2) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(1.0f + ex2(x2)));
+  return 2.0f * y;
 }
 
 // Two bf16 in one register, the first in the low half.
@@ -520,7 +542,7 @@ struct DqCfg {
   static_assert(kSmem <= 232448, "dq tiles exceed 227 KB");
 };
 
-template <int DP>
+template <int DP, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
                  __grid_constant__ const CUtensorMap tdo,
@@ -530,8 +552,8 @@ fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
                  __grid_constant__ const CUtensorMap tdq,
                  const float* __restrict__ lse, float* __restrict__ lse2,
                  float* __restrict__ delta, int BH, int rep, int S,
-                 int Skv, int S_pad, float c, float scale, int causal,
-                 int window) {
+                 int Skv, int S_pad, float c, float cs2, float scale,
+                 int causal, int window) {
   using Cfg = DqCfg<DP>;
   constexpr int kNB = Cfg::kNB, kBK = Cfg::kBK, kStages = Cfg::kStages;
   constexpr int kQTile = Cfg::kQTile, kKBox = Cfg::kKBox;
@@ -637,11 +659,19 @@ fa_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
     // dS = P .* (dP - Delta), P = 2^(c s - lse2), masked entries 0, of
     // the tile at k0, packed into ds (s and dp are only read: an
     // accumulator written outside wgmma would serialize the chained
-    // products, ptxas C7515).
+    // products, ptxas C7515).  kCap: P = 2^(c t - lse2) and g .* dS.
     auto ds_tile = [&](int k0) {
       auto ds_at = [&](int e) {
         const int hr = (e >> 1) & 1;
         const int kpos = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        if constexpr (kCap) {
+          const float r = one_minus_tanh(s[e] * cs2);
+          const float p =
+              visible(r0 + 8 * hr, kpos, S, Skv, causal, window)
+                  ? ex2(fmaf(1.0f - r, c, -l2[hr]))
+                  : 0.0f;
+          return p * (dp[e] - dl[hr]) * (r * (2.0f - r));
+        }
         const float p = visible(r0 + 8 * hr, kpos, S, Skv, causal, window)
                             ? ex2(fmaf(s[e], c, -l2[hr]))
                             : 0.0f;
@@ -850,7 +880,7 @@ constexpr int kBarPFull = 1;    // + buffer
 constexpr int kBarPEmpty = 3;   // + buffer
 constexpr int kBarDone = 5;
 
-template <int DP>
+template <int DP, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkdvsplit_kernel(__grid_constant__ const CUtensorMap tq,
                    __grid_constant__ const CUtensorMap tdo,
@@ -859,8 +889,8 @@ fa_bwd_dkdvsplit_kernel(__grid_constant__ const CUtensorMap tq,
                    const float* __restrict__ lse2,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int BH_kv, int rep, int groups,
-                   int S, int Skv, int S_pad, int D, float c, float scale,
-                   int causal, int window) {
+                   int S, int Skv, int S_pad, int D, float c, float cs2,
+                   float scale, int causal, int window) {
   using Cfg = KvCfg<DP>;
   constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages, kTile = Cfg::kTile;
   constexpr int kRowBytes = Cfg::kRowBytes, kPBuf = Cfg::kPBuf;
@@ -971,7 +1001,29 @@ fa_bwd_dkdvsplit_kernel(__grid_constant__ const CUtensorMap tq,
       wgmma_commit();
       wgmma_wait0();
       fence_regs(s);
-      if (h == 0) {
+      if (kCap && h == 0) {
+        // P^T = 2^(c t - lse2[q]), masked entries 0, kept for dV; g .*
+        // P^T to consumer 1, whose dS^T is then g .* dS^T.
+        const float* l2 = L2s + st * kBQT;
+        if (i >= 2) named_sync(kBarPEmpty + buf, 256);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float pg[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = 4 * j + u;
+            const int col = 8 * (e >> 2) + 2 * t + (e & 1);
+            const int kpos = kr + 8 * ((e >> 1) & 1);
+            const float r = one_minus_tanh(s[e] * cs2);
+            s[e] = visible(q0 + col, kpos, S, Skv, causal, window)
+                       ? ex2(fmaf(1.0f - r, c, -l2[col]))
+                       : 0.0f;
+            pg[u] = s[e] * (r * (2.0f - r));
+          }
+          pb[j * 128 + tid] = make_float4(pg[0], pg[1], pg[2], pg[3]);
+        }
+        named_arrive(kBarPFull + buf, 256);
+      } else if (h == 0) {
         // P^T = 2^(c S^T - lse2[q]), masked entries 0; to consumer 1.
         const float* l2 = L2s + st * kBQT;
 #pragma unroll
@@ -1121,7 +1173,7 @@ __device__ __forceinline__ void add_partial(float (&acc)[DP / 2],
   }
 }
 
-template <int DP>
+template <int DP, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
                    __grid_constant__ const CUtensorMap tdo,
@@ -1130,8 +1182,8 @@ fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
                    const float* __restrict__ lse2,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int BH_kv, int rep, int groups,
-                   int S, int Skv, int S_pad, int D, float c, float scale,
-                   int causal, int window) {
+                   int S, int Skv, int S_pad, int D, float c, float cs2,
+                   float scale, int causal, int window) {
   using Cfg = KvCfg2<DP>;
   constexpr int kNB = Cfg::kNB, kStages = Cfg::kStages, kTile = Cfg::kTile;
   constexpr int kRowBytes = Cfg::kRowBytes;
@@ -1256,6 +1308,41 @@ fa_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap tq,
       // P^T = 2^(c S^T - lse2[q]), masked entries 0; dV += P^T dO.
       const float* l2 = L2s + st * kBQT;
       const float* dl = Dls + st * kBQT;
+      if constexpr (kCap) {
+        // P^T = 2^(c t - lse2[q]) and g .* dS^T in one pass (s and dp
+        // only read), then dV += P^T dO and dK += (g .* dS^T) Q.
+        const bool full = tile_full(q0);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          float pe[2], de[2];
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int e = 2 * j + b;
+            const int col = 8 * (e >> 2) + 2 * t + (e & 1);
+            const int kpos = kr + 8 * ((e >> 1) & 1);
+            const float r = one_minus_tanh(s[e] * cs2);
+            pe[b] = full || visible(q0 + col, kpos, S, Skv, causal, window)
+                        ? ex2(fmaf(1.0f - r, c, -l2[col]))
+                        : 0.0f;
+            de[b] = pe[b] * (dp[e] - dl[col]) * (r * (2.0f - r));
+          }
+          pk[j] = pack2(pe[0], pe[1]);
+          pd[j] = pack2(de[0], de[1]);
+        }
+        wgmma_fence();
+        issue_rs<DP, kBQT>(dvr, pk,
+                           sw128_desc(do_ring + st * kTile, kBox, 1024));
+        wgmma_commit();
+        wgmma_fence();
+        issue_rs<DP, kBQT>(dkr, pd,
+                           sw128_desc(q_ring + st * kTile, kBox, 1024));
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(dvr);
+        fence_regs(dkr);
+        release(empty(st), lane);
+        continue;
+      }
       if (tile_full(q0)) {
 #pragma unroll
         for (int e = 0; e < 32; ++e)
@@ -1354,14 +1441,14 @@ int dkdv_groups(int rep, int n_kv_blocks) {
 // The dkdv launch at DP: at D <= 128 each consumer owns 64 of the CTA's
 // 128 kv rows; at D = 256 the two consumers share 64 kv rows, split by
 // gradient.
-template <int DP>
+template <int DP, bool kCap>
 struct Dkdv {
   static constexpr int kRows = DP <= 128 ? kBKV2 : kBKV;
   static auto kernel() {
     if constexpr (DP <= 128)
-      return fa_bwd_dkdv_kernel<DP>;
+      return fa_bwd_dkdv_kernel<DP, kCap>;
     else
-      return fa_bwd_dkdvsplit_kernel<DP>;
+      return fa_bwd_dkdvsplit_kernel<DP, kCap>;
   }
   static size_t smem() {
     if constexpr (DP <= 128)
@@ -1374,18 +1461,26 @@ struct Dkdv {
 // The launches of one call: all (part < 0) or only prep (0; none at D <=
 // 128, where the dq launch does its work), dq (1) or dkdv (2), which reads
 // what the earlier ones wrote.
-template <int DP>
+template <int DP, bool kCap>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* ws, void* dq, void* dk,
            void* dv, int BH, int BH_kv, int S, int Skv, int D, int Dh,
-           int causal, int window, int part, cudaStream_t stream) {
+           int causal, int window, float softcap, int part,
+           cudaStream_t stream) {
   const int rep = BH / BH_kv;
   const int S_pad = (S + kPad - 1) / kPad * kPad;
   float* lse2 = static_cast<float*>(ws);
   float* delta = lse2 + size_t(BH) * S_pad;
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(Dh)));
-  const float c = scale * kLog2e;   // 2^(c s) = e^(scale s)
+  // 2^(c s) = e^(scale s); with a cap 2^(c t) = e^(cap t), t = tanh(scale
+  // s / cap) = 1 - one_minus_tanh(s cs2).
+  const float c = kCap ? static_cast<float>(double(softcap) * kLog2e)
+                       : scale * kLog2e;
+  const float cs2 =
+      kCap ? static_cast<float>(2.0 * kLog2e / std::sqrt(double(Dh)) /
+                                softcap)
+           : 0.0f;
 
   CUtensorMap tq, tdo, to{}, tk_dq, tv_dq, tdq, tk, tv;
   if (!encode_map(&tq, q, BH, S, D, 64) ||
@@ -1397,10 +1492,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       !encode_map(&tk, k, BH_kv, Skv, D, 64) ||
       !encode_map(&tv, v, BH_kv, Skv, D, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto dkdv = Dkdv<DP>::kernel();
-  const size_t dkdv_smem = Dkdv<DP>::smem();
+  const auto dkdv = Dkdv<DP, kCap>::kernel();
+  const size_t dkdv_smem = Dkdv<DP, kCap>::smem();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_dq_kernel<DP, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(DqCfg<DP>::kSmem));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(dkdv,
@@ -1421,15 +1516,17 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
   if (part < 0 || part == 1) {
     const unsigned dq_grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
-    fa_bwd_dq_kernel<DP><<<dq_grid, kThreads, DqCfg<DP>::kSmem, stream>>>(
-        tq, tdo, to, tk_dq, tv_dq, tdq, static_cast<const float*>(lse), lse2,
-        delta, BH, rep, S, Skv, S_pad, c, scale, causal, window);
+    fa_bwd_dq_kernel<DP, kCap>
+        <<<dq_grid, kThreads, DqCfg<DP>::kSmem, stream>>>(
+            tq, tdo, to, tk_dq, tv_dq, tdq, static_cast<const float*>(lse),
+            lse2, delta, BH, rep, S, Skv, S_pad, c, cs2, scale, causal,
+            window);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
   }
   if (part >= 0 && part != 2) return 0;
 
-  const int nkb = (Skv + Dkdv<DP>::kRows - 1) / Dkdv<DP>::kRows;
+  const int nkb = (Skv + Dkdv<DP, kCap>::kRows - 1) / Dkdv<DP, kCap>::kRows;
   const int groups = dkdv_groups(rep, nkb * BH_kv);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(nkb * BH_kv * groups));
@@ -1447,29 +1544,74 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                            static_cast<const float*>(lse2),
                            static_cast<const float*>(delta),
                            static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                           BH_kv, rep, groups, S, Skv, S_pad, D, c, scale,
-                           causal, window);
+                           BH_kv, rep, groups, S, Skv, S_pad, D, c, cs2,
+                           scale, causal, window);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launches of one call of one cap flag, by head dimension.
+template <bool kCap>
+int run_any(const void* q, const void* k, const void* v, const void* o,
+            const void* dout, const void* lse, void* ws, void* dq, void* dk,
+            void* dv, int BH, int BH_kv, int S, int Skv, int D, int Dh,
+            int causal, int window, float softcap, int part,
+            cudaStream_t st) {
+  if (D <= 64)
+    return launch<64, kCap>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv,
+                            S, Skv, D, Dh, causal, window, softcap, part, st);
+  if (D <= 128)
+    return launch<128, kCap>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH,
+                             BH_kv, S, Skv, D, Dh, causal, window, softcap,
+                             part, st);
+  return launch<256, kCap>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv,
+                           S, Skv, D, Dh, causal, window, softcap, part, st);
+}
+
+}  // namespace
+
+// The capped launches: flash_attention_bwd_capped.cu compiles this
+// file with REPRO_FA_CAPPED defined and holds them, so that nvcc builds
+// the capped and the uncapped kernels as two sources, in parallel.
+int repro_fa_bwd_bf16_capped(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const void* lse,
+                             void* ws, void* dq, void* dk, void* dv, int BH,
+                             int BH_kv, int S, int Skv, int D, int Dh,
+                             int causal, int window, float softcap, int part,
+                             cudaStream_t st);
+
+#ifdef REPRO_FA_CAPPED
+
+int repro_fa_bwd_bf16_capped(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const void* lse,
+                             void* ws, void* dq, void* dk, void* dv, int BH,
+                             int BH_kv, int S, int Skv, int D, int Dh,
+                             int causal, int window, float softcap, int part,
+                             cudaStream_t st) {
+  return run_any<true>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
+                       Skv, D, Dh, causal, window, softcap, part, st);
+}
+
+#else
+
+namespace {
+
 int run(const void* q, const void* k, const void* v, const void* o,
         const void* dout, const void* lse, void* ws, void* dq, void* dk,
         void* dv, int BH, int BH_kv, int S, int Skv, int D, int Dh,
-        int causal, int window, int part, void* stream) {
+        int causal, int window, float softcap, int part, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || Skv <= 0 ||
       (Skv != S && (causal || window > 0)) || D <= 0 || D % 16 != 0 ||
-      D > 256 || Dh <= 0 || Dh > D || part > 2)
+      D > 256 || Dh <= 0 || Dh > D || part > 2 ||
+      !(softcap >= 0.0f && softcap <= 3.4e38f))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64)
-    return launch<64>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
-                      Skv, D, Dh, causal, window, part, st);
-  if (D <= 128)
-    return launch<128>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
-                       Skv, D, Dh, causal, window, part, st);
-  return launch<256>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
-                     Skv, D, Dh, causal, window, part, st);
+  if (softcap > 0.0f)
+    return repro_fa_bwd_bf16_capped(q, k, v, o, dout, lse, ws, dq, dk, dv,
+                                    BH, BH_kv, S, Skv, D, Dh, causal, window,
+                                    softcap, part, st);
+  return run_any<false>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
+                        Skv, D, Dh, causal, window, softcap, part, st);
 }
 
 }  // namespace
@@ -1479,7 +1621,8 @@ int run(const void* q, const void* k, const void* v, const void* o,
 // lse (the forward's): (BH, S) f32; the workspace ws:
 // (2, BH, S_pad) f32 with S_pad = S rounded up to 128.  Contiguous, 16-byte
 // aligned, on the stream's device; D a multiple of 16 and at most 256; Dh
-// (at most D) sets the softmax scale 1 / sqrt(Dh), as in the forward.
+// (at most D) sets the softmax scale 1 / sqrt(Dh), as in the forward;
+// softcap (finite, >= 0; 0 is none) the forward's cap.
 // Three launches on the stream (two at D <= 128); returns the first
 // nonzero cudaError_t (0 on success), cudaErrorInvalidValue for a shape
 // the kernels do not take.
@@ -1487,9 +1630,9 @@ extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
     void* dv, int BH, int BH_kv, int S, int S_kv, int D, int Dh, int causal,
-    int window, void* stream) {
+    int window, float softcap, void* stream) {
   return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, S_kv, D,
-             Dh, causal, window, -1, stream);
+             Dh, causal, window, softcap, -1, stream);
 }
 
 // One launch of the above alone, so that each can be timed between CUDA
@@ -1500,8 +1643,10 @@ extern "C" int repro_flash_attention_bwd_bf16_part(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
     void* dv, int BH, int BH_kv, int S, int S_kv, int D, int Dh, int causal,
-    int window, int part, void* stream) {
+    int window, float softcap, int part, void* stream) {
   if (part < 0) return static_cast<int>(cudaErrorInvalidValue);
   return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, S_kv, D,
-             Dh, causal, window, part, stream);
+             Dh, causal, window, softcap, part, stream);
 }
+
+#endif  // REPRO_FA_CAPPED

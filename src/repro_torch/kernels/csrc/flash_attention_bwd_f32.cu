@@ -75,6 +75,20 @@
 // fmaf chain, but dq's dO (V - O), compensated a quad at a time) and
 // every sum over keys or query rows in order: two launches are bitwise
 // equal.
+//
+// Soft-capping (softcap > 0): the forward capped each scaled score x as
+// cap t, t = tanhf(x / cap), and wrote the lse of the capped scores.  P
+// is exp(cap t - lse), and each dS meets K or Q times g = 1 - t^2: group A
+// leaves g in the dS buffer beside P, and group B, which forms dS, scales
+// it there (and, in dq, P too), so no buffer is added.  dq's sums keep
+// their form: dQ = scale (sum_j g dS'_ij K_j - m_i sum_j g P_ij K_j) with
+// dS' and m_i = sum_j dS'_ij / sum_j P_ij unchanged, the row sums of dS'
+// and P taken by group B where it forms them (a lane's keys, then the 8
+// lanes of a row) and handed to the dQ rows' warps through shared memory
+// at the end.  The cap is a compile-time flag (kCap) of the dq and dkdv
+// kernels: the uncapped instantiations are the code above unchanged; the
+// capped ones are built from this file by
+// flash_attention_bwd_f32_capped.cu, a source of their own, beside them.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -236,14 +250,14 @@ __device__ __forceinline__ void dot4_diff(float4 x, float4 y, float4 o,
   acc = t1;
 }
 
-template <int DP>
+template <int DP, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ o,
                    const float* __restrict__ dout,
                    const float* __restrict__ lse, float* __restrict__ dq,
                    int BH, int rep, int S, int Skv, int D, float scale,
-                   int causal, int window) {
+                   float cap, int causal, int window) {
   using C = Cfg<DP>;
   constexpr int kPair = kStages * kBK;   // keys of a pair
   constexpr int kRows = kBQ / 16;        // S rows a lane (3)
@@ -295,6 +309,8 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // order.
   float acc[kAcc][C::kNC][4], pk[kAcc][C::kNC][4];
   float sum_ds[kAcc], sum_p[kAcc];
+  // kCap: group B's sums of P and dS' of rows sr + i over its lanes' keys.
+  float lane_p[kRows] = {}, lane_ds[kRows] = {};
 #pragma unroll
   for (int r = 0; r < kAcc; ++r) {
     sum_ds[r] = sum_p[r] = 0.0f;
@@ -334,12 +350,19 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          Ps[(sr + i) * kPK + j8 + 8 * c] =
-              visible(q0 + sr + i, t0 * kBK + j8 + 8 * c, S, Skv, causal,
-                      window)
-                  ? expf(s[i][c] * scale - row_lse[i])
-                  : 0.0f;
+        for (int c = 0; c < 4; ++c) {
+          const int at = (sr + i) * kPK + j8 + 8 * c;
+          float x = s[i][c] * scale;
+          if constexpr (kCap) {
+            const float tc = tanhf(x / cap);
+            x = tc * cap;
+            Dss[at] = 1.0f - tc * tc;   // g, for group B
+          }
+          Ps[at] = visible(q0 + sr + i, t0 * kBK + j8 + 8 * c, S, Skv,
+                           causal, window)
+                       ? expf(x - row_lse[i])
+                       : 0.0f;
+        }
     } else {
       float err[kRows][4];
 #pragma unroll
@@ -373,7 +396,16 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int at = (sr + i) * kPK + j8 + 8 * c;
-          Dss[at] = Ps[at] * s[i][c];
+          if constexpr (kCap) {
+            // dS' and P into the rows' sums; g dS' and g P to dS K, P K.
+            const float p = Ps[at], dsp = p * s[i][c], gc = Dss[at];
+            lane_p[i] += p;
+            lane_ds[i] += dsp;
+            Dss[at] = gc * dsp;
+            Ps[at] = gc * p;
+          } else {
+            Dss[at] = Ps[at] * s[i][c];
+          }
         }
     }
     __syncthreads();   // dS is in
@@ -389,10 +421,12 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int r = 0; r < kAcc; ++r) {
           df[r] = ld4(Dss + (kAcc * warp + r) * kPK + j);
           pf[r] = ld4(Ps + (kAcc * warp + r) * kPK + j);
+          if constexpr (!kCap) {
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            sum_ds[r] += comp(df[r], u);
-            sum_p[r] += comp(pf[r], u);
+            for (int u = 0; u < 4; ++u) {
+              sum_ds[r] += comp(df[r], u);
+              sum_p[r] += comp(pf[r], u);
+            }
           }
         }
 #pragma unroll
@@ -419,6 +453,29 @@ fa32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   fa32::wait<0>();   // nothing left in flight, also when no kv tile ran
+  if constexpr (kCap) {
+    // Each row's sums over its 8 lanes, then to the warps of its dQ rows.
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int sh = 1; sh < 8; sh <<= 1) {
+        lane_p[i] += __shfl_xor_sync(0xffffffffu, lane_p[i], sh);
+        lane_ds[i] += __shfl_xor_sync(0xffffffffu, lane_ds[i], sh);
+      }
+    __syncthreads();   // every warp is past P and dS
+    if (group_b && j8 == 0)
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        Ps[sr + i] = lane_p[i];
+        Ps[kBQ + sr + i] = lane_ds[i];
+      }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kAcc; ++r) {
+      sum_p[r] = Ps[kAcc * warp + r];
+      sum_ds[r] = Ps[kBQ + kAcc * warp + r];
+    }
+  }
 
   // dQ = scale (dS K - (sum dS / sum P) P K): the row's dS less its
   // P-weighted mean, which is 0 in exact arithmetic (sum_j P_ij V_j = O_i)
@@ -479,7 +536,7 @@ __device__ __forceinline__ float4 ld_remote4(uint32_t local, uint32_t rank) {
   return v;
 }
 
-template <int DP>
+template <int DP, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 fa32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -487,8 +544,8 @@ fa32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int BH_kv, int rep, int groups,
-                     int S, int Skv, int D, float scale, int causal,
-                     int window) {
+                     int S, int Skv, int D, float scale, float cap,
+                     int causal, int window) {
   using C = Cfg<DP>;
   constexpr int kPairQ = kStages * kBQT;   // q rows of a pair of items
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -595,12 +652,19 @@ fa32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int half = c / 2;
         const int qpos = item_q0(2 * pr + half) + j - half * kBQT;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          float x = s[i][c] * scale;
+          if constexpr (kCap) {
+            const float tc = tanhf(x / cap);
+            x = tc * cap;
+            Dss[(sr + i) * kPQ + j] = 1.0f - tc * tc;   // g, for group B
+          }
           Ps[(sr + i) * kPQ + j] =
               half < items &&
                       visible(qpos, k0 + sr + i, S, Skv, causal, window)
-                  ? expf(s[i][c] * scale - Lp[j])
+                  ? expf(x - Lp[j])
                   : 0.0f;
+        }
       }
     }
     __syncthreads();   // P^T is in
@@ -610,7 +674,11 @@ fa32_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int j = j16 + 16 * c;
-          Dss[(sr + i) * kPQ + j] = Ps[(sr + i) * kPQ + j] * (s[i][c] - Ep[j]);
+          const int at = (sr + i) * kPQ + j;
+          if constexpr (kCap)
+            Dss[at] = Ps[at] * (s[i][c] - Ep[j]) * Dss[at];
+          else
+            Dss[at] = Ps[at] * (s[i][c] - Ep[j]);
         }
     }
     __syncthreads();   // dS^T is in
@@ -703,19 +771,21 @@ int dkdv_groups(int rep, int n_kv_blocks) {
 
 // The launches of one call: all three (part < 0) or only prep (0), dq (1)
 // or dkdv (2), which reads what the earlier ones wrote.
-template <int DP>
+template <int DP, bool kCap>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* delta, float* dq,
            float* dk, float* dv, int BH, int BH_kv, int S, int Skv, int D,
-           int Dh, int causal, int window, int part, cudaStream_t stream) {
+           int Dh, int causal, int window, float softcap, int part,
+           cudaStream_t stream) {
   const int rep = BH / BH_kv;
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(Dh)));
   cudaError_t err = cudaFuncSetAttribute(
-      fa32_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa32_bwd_dq_kernel<DP, kCap>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Cfg<DP>::kDqSmem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fa32_bwd_dkdv_kernel<DP>,
+    err = cudaFuncSetAttribute(fa32_bwd_dkdv_kernel<DP, kCap>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(Cfg<DP>::kDkdvSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -731,9 +801,10 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   }
   if (part < 0 || part == 1) {
     const unsigned dq_grid = static_cast<unsigned>((S + kBQ - 1) / kBQ) * BH;
-    fa32_bwd_dq_kernel<DP><<<dq_grid, kThreads, Cfg<DP>::kDqSmem, stream>>>(
-        q, k, v, o, dout, lse, dq, BH, rep, S, Skv, D, scale, causal,
-        window);
+    fa32_bwd_dq_kernel<DP, kCap>
+        <<<dq_grid, kThreads, Cfg<DP>::kDqSmem, stream>>>(
+            q, k, v, o, dout, lse, dq, BH, rep, S, Skv, D, scale, softcap,
+            causal, window);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
   }
@@ -753,35 +824,80 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fa32_bwd_dkdv_kernel<DP>, q, k, v, dout, lse,
-                           static_cast<const float*>(delta), dk, dv, BH_kv,
-                           rep, groups, S, Skv, D, scale, causal, window);
+  err = cudaLaunchKernelEx(&cfg, fa32_bwd_dkdv_kernel<DP, kCap>, q, k, v,
+                           dout, lse, static_cast<const float*>(delta), dk,
+                           dv, BH_kv, rep, groups, S, Skv, D, scale, softcap,
+                           causal, window);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-int run(const void* q, const void* k, const void* v, const void* o,
-        const void* dout, const void* lse, void* ws, void* dq, void* dk,
-        void* dv, int BH, int BH_kv, int S, int Skv, int D, int Dh,
-        int causal, int window, int part, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || Skv <= 0 ||
-      (Skv != S && (causal || window > 0)) || D <= 0 || D % 8 != 0 ||
-      D > 256 || Dh <= 0 || Dh > D || part > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
+// The launches of one call of one cap flag, by head dimension.
+template <bool kCap>
+int run_any(const void* q, const void* k, const void* v, const void* o,
+            const void* dout, const void* lse, void* ws, void* dq, void* dk,
+            void* dv, int BH, int BH_kv, int S, int Skv, int D, int Dh,
+            int causal, int window, float softcap, int part,
+            cudaStream_t st) {
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto w = [](void* p) { return static_cast<float*>(p); };
   if (D <= 64)
-    return launch<64>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws), w(dq),
-                      w(dk), w(dv), BH, BH_kv, S, Skv, D, Dh, causal, window,
-                      part, st);
+    return launch<64, kCap>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws),
+                            w(dq), w(dk), w(dv), BH, BH_kv, S, Skv, D, Dh,
+                            causal, window, softcap, part, st);
   if (D <= 128)
-    return launch<128>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws),
-                       w(dq), w(dk), w(dv), BH, BH_kv, S, Skv, D, Dh, causal,
-                       window, part, st);
-  return launch<256>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws), w(dq),
-                     w(dk), w(dv), BH, BH_kv, S, Skv, D, Dh, causal, window,
-                     part, st);
+    return launch<128, kCap>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws),
+                             w(dq), w(dk), w(dv), BH, BH_kv, S, Skv, D, Dh,
+                             causal, window, softcap, part, st);
+  return launch<256, kCap>(f(q), f(k), f(v), f(o), f(dout), f(lse), w(ws),
+                           w(dq), w(dk), w(dv), BH, BH_kv, S, Skv, D, Dh,
+                           causal, window, softcap, part, st);
+}
+
+}  // namespace
+
+// The capped launches: flash_attention_bwd_f32_capped.cu compiles this
+// file with REPRO_FA_CAPPED defined and holds them, so that nvcc builds
+// the capped and the uncapped kernels as two sources, in parallel.
+int repro_fa_bwd_f32_capped(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* lse,
+                            void* ws, void* dq, void* dk, void* dv, int BH,
+                            int BH_kv, int S, int Skv, int D, int Dh,
+                            int causal, int window, float softcap, int part,
+                            cudaStream_t st);
+
+#ifdef REPRO_FA_CAPPED
+
+int repro_fa_bwd_f32_capped(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* lse,
+                            void* ws, void* dq, void* dk, void* dv, int BH,
+                            int BH_kv, int S, int Skv, int D, int Dh,
+                            int causal, int window, float softcap, int part,
+                            cudaStream_t st) {
+  return run_any<true>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
+                       Skv, D, Dh, causal, window, softcap, part, st);
+}
+
+#else
+
+namespace {
+
+int run(const void* q, const void* k, const void* v, const void* o,
+        const void* dout, const void* lse, void* ws, void* dq, void* dk,
+        void* dv, int BH, int BH_kv, int S, int Skv, int D, int Dh,
+        int causal, int window, float softcap, int part, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (BH <= 0 || BH_kv <= 0 || BH % BH_kv != 0 || S <= 0 || Skv <= 0 ||
+      (Skv != S && (causal || window > 0)) || D <= 0 || D % 8 != 0 ||
+      D > 256 || Dh <= 0 || Dh > D || part > 2 ||
+      !(softcap >= 0.0f && softcap <= 3.4e38f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (softcap > 0.0f)
+    return repro_fa_bwd_f32_capped(q, k, v, o, dout, lse, ws, dq, dk, dv,
+                                   BH, BH_kv, S, Skv, D, Dh, causal, window,
+                                   softcap, part, st);
+  return run_any<false>(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S,
+                        Skv, D, Dh, causal, window, softcap, part, st);
 }
 
 }  // namespace
@@ -791,16 +907,17 @@ int run(const void* q, const void* k, const void* v, const void* o,
 // (the forward's): (BH, S) f32; the workspace ws: (BH, S) f32 (Delta).
 // Contiguous, 16-byte aligned, on the stream's device; D a multiple of 8
 // and at most 256; Dh (at most D) sets the softmax scale 1 / sqrt(Dh), as
-// in the forward.  Three launches on the
+// in the forward; softcap (finite, >= 0; 0 is none) the forward's cap.
+// Three launches on the
 // stream; returns the first nonzero cudaError_t (0 on success),
 // cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int repro_flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
     void* dv, int BH, int BH_kv, int S, int S_kv, int D, int Dh, int causal,
-    int window, void* stream) {
+    int window, float softcap, void* stream) {
   return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, S_kv, D,
-             Dh, causal, window, -1, stream);
+             Dh, causal, window, softcap, -1, stream);
 }
 
 // One launch of the above alone, so that each can be timed between CUDA
@@ -810,8 +927,10 @@ extern "C" int repro_flash_attention_bwd_f32_part(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
     void* dv, int BH, int BH_kv, int S, int S_kv, int D, int Dh, int causal,
-    int window, int part, void* stream) {
+    int window, float softcap, int part, void* stream) {
   if (part < 0) return static_cast<int>(cudaErrorInvalidValue);
   return run(q, k, v, o, dout, lse, ws, dq, dk, dv, BH, BH_kv, S, S_kv, D,
-             Dh, causal, window, part, stream);
+             Dh, causal, window, softcap, part, stream);
 }
+
+#endif  // REPRO_FA_CAPPED

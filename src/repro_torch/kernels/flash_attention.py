@@ -90,6 +90,16 @@ def _f32_row(dp: int) -> int:
     return max(dp, 128) + 4
 
 
+def check_softcap(name: str, softcap) -> float:
+    """``softcap`` as the float the C entries take (0 is no cap);
+    ``ValueError`` for a negative or non-finite one."""
+    cap = float(softcap)
+    if not (math.isfinite(cap) and cap >= 0.0):
+        raise ValueError(f"{name}: softcap must be finite and >= 0 (got "
+                         f"{softcap!r})")
+    return cap
+
+
 def padded_head_dim(d: int, multiple: int = 8) -> int:
     """D rounded up to a multiple of ``multiple``: the head dimension the
     kernels read (8 for the forward and the f32 backward, 16 for the bf16
@@ -156,14 +166,18 @@ def launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, lse: bool = False):
+                    causal: bool = True, window: int = 0, lse: bool = False,
+                    softcap: float = 0.0):
     """q (BH, S, D), k, v (BH_kv, S_kv, D) -> (BH, S, D); ``window <= 0``
     is unbounded; S_kv = S unless ``causal`` is false and ``window`` 0.
-    With ``lse`` also each row's log-sum-exp of its scaled scores, (BH, S)
+    ``softcap`` > 0 caps each scaled score s as softcap tanh(s / softcap)
+    before the mask (the kernels' capped instantiations).  With ``lse``
+    also each row's log-sum-exp of its scaled (capped) scores, (BH, S)
     f32."""
     global launches
     dtype = _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v},
                                 dtypes=_build.LM_DTYPES)
+    softcap = check_softcap("flash_attention", softcap)
     plan = launch_plan(q.shape, k.shape, v.shape, dtype, causal=causal,
                        window=window)
     d_pad = plan["d_pad"]
@@ -182,12 +196,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.is_meta:
         cost.record("flash_attention", cost.flash_attention(
             (bh, s, d), (k.shape[0], k.shape[1], d), dtype, causal=causal,
-            window=window))
+            window=window, softcap=softcap))
     else:
         lib = _build.load()
         err = getattr(lib, _FN[dtype])(
             *ptrs, bh, k.shape[0], s, k.shape[1], d_pad, d,
-            int(bool(causal)), int(window),
+            int(bool(causal)), int(window), softcap,
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(err, "flash_attention")
         launches += 1
@@ -290,18 +304,21 @@ _BWD_FN = {torch.float32: "repro_flash_attention_bwd_f32",
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0) -> tuple:
+                        window: int = 0, softcap: float = 0.0) -> tuple:
     """The gradients (dq, dk, dv) of :func:`flash_attention` from its
     inputs (k, v and so dk, dv with S_kv rows), its output ``o``, its
     ``lse`` and ``do``; f32 (exact FMA, D
     zero-padded to a multiple of 8) or bf16 (``wgmma``, D zero-padded to a
     multiple of 16), all in one dtype but the f32 ``lse``.  Three CUDA
     launches (Delta, dq, then dk and dv; two in bf16 at D <= 128, whose dq
-    launch computes Delta)."""
+    launch computes Delta).  ``softcap`` as in :func:`flash_attention`,
+    whose ``lse`` of the capped scores this call reads: P = exp(cap t -
+    lse) with t = tanh(s / cap), and every dS times 1 - t^2."""
     global bwd_launches
     dtype = _build.check_inputs("flash_attention_bwd",
                                 {"q": q, "k": k, "v": v, "o": o, "do": do},
                                 dtypes=_build.LM_DTYPES)
+    softcap = check_softcap("flash_attention_bwd", softcap)
     launch_plan(q.shape, k.shape, v.shape, dtype, causal=causal,
                 window=window)
     bh, s, d = q.shape
@@ -322,14 +339,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if q.is_meta:
         cost.record("flash_attention_bwd", cost.flash_attention_bwd(
             (bh, s, d), (k.shape[0], k.shape[1], d), dtype, causal=causal,
-            window=window))
+            window=window, softcap=softcap))
     else:
         lib = _build.load()
         err = getattr(lib, _BWD_FN[dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], s, k.shape[1],
-            d_pad, d, int(bool(causal)), int(window),
+            d_pad, d, int(bool(causal)), int(window), softcap,
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(err, "flash_attention_bwd")
         bwd_launches += 1
@@ -343,15 +360,18 @@ class FlashAttention(torch.autograd.Function):
     out and the log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                softcap: float = 0.0):
         if q.is_cuda or q.is_meta:
             out, lse = flash_attention(q, k, v, causal=causal,
-                                       window=window, lse=True)
+                                       window=window, lse=True,
+                                       softcap=softcap)
         else:
             out, lse = ref.attention_plain(q, k, v, causal=causal,
-                                           window=window, lse=True)
+                                           window=window, lse=True,
+                                           softcap=softcap)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return out
 
     @staticmethod
@@ -361,5 +381,5 @@ class FlashAttention(torch.autograd.Function):
         fn = (flash_attention_bwd if q.is_cuda or q.is_meta
               else ref.attention_bwd_plain)
         dq, dk, dv = fn(q, k, v, out, lse, do, causal=ctx.causal,
-                        window=ctx.window)
-        return dq, dk, dv, None, None
+                        window=ctx.window, softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None

@@ -64,16 +64,19 @@ def schwarz_bwd(A, r, b, Ax, u, x, muov, mask, *, mode: str = "auto"):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    mode: str = "auto"):
+                    softcap: float = 0.0, mode: str = "auto"):
     """Causal / sliding-window softmax attention, or cross-attention.
     q: (BH, S, D), k, v: (BH_kv, S_kv, D) with BH_kv dividing BH, row
     ``bh // (BH // BH_kv)`` serving query row ``bh`` -> (BH, S, D);
     ``window <= 0`` is unbounded.  S_kv may differ from S only when
     ``causal`` is false and ``window`` is 0 (``ValueError`` otherwise):
-    whisper's decoder reading the encoder's frames."""
+    whisper's decoder reading the encoder's frames.  ``softcap`` > 0
+    caps the scaled scores as softcap tanh(s / softcap) before the mask
+    and the softmax (Gemma 2's ``attn_logit_softcapping``)."""
     if _auto(mode):
-        return _fa.FlashAttention.apply(q, k, v, causal, window)
-    return _ref.attention_plain(q, k, v, causal=causal, window=window)
+        return _fa.FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _ref.attention_plain(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
 
 
 def rglru_scan(a, b, *, mode: str = "auto"):

@@ -83,29 +83,35 @@ def _visible(s: int, causal: bool, window: int, device, s_kv: int | None
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                    lse: bool = False, scale: float | None = None):
-    """Softmax attention with f32 scores.  q: (BH, S, D), k, v:
-    (BH_kv, S_kv, D) with BH_kv dividing BH, expanded along dim 0 in
-    ``repeat_interleave``'s order -> (BH, S, D) in q's dtype; a key is
-    visible when (causal) it is not after the query and (window > 0) it
-    is less than ``window`` before it; masked scores are -1e30.  S_kv
-    differs from S only in a non-causal call with no window
-    (:func:`attention_shapes`).  With ``lse`` also the log-sum-exp of each
-    row's scaled scores, (BH, S) in f32, which the backward reads.
-    ``scale`` defaults to 1 / sqrt(D); a head dimension zero-padded to D
-    keeps its own."""
+                    lse: bool = False, scale: float | None = None,
+                    softcap: float = 0.0):
+    """Softmax attention with f32 scores (f64 for f64 inputs).  q: (BH,
+    S, D), k, v: (BH_kv, S_kv, D) with BH_kv dividing BH, expanded along
+    dim 0 in ``repeat_interleave``'s order -> (BH, S, D) in q's dtype; a
+    key is visible when (causal) it is not after the query and (window >
+    0) it is less than ``window`` before it; masked scores are -1e30.
+    S_kv differs from S only in a non-causal call with no window
+    (:func:`attention_shapes`).  ``softcap`` > 0 caps the scaled scores
+    as cap tanh(s / cap) before the mask (the reference's
+    ``attn_softcap``).  With ``lse`` also the log-sum-exp of each row's
+    scaled (and capped) scores, (BH, S) in f32 (f64), which the backward
+    reads.  ``scale`` defaults to 1 / sqrt(D); a head dimension
+    zero-padded to D keeps its own."""
     rep = attention_shapes("attention_plain", q.shape, k.shape, v.shape,
                            causal=causal, window=window)
     if rep > 1:
         k = k.repeat_interleave(rep, dim=0)
         v = v.repeat_interleave(rep, dim=0)
     s, d = q.shape[1], q.shape[2]
+    wide = torch.promote_types(q.dtype, torch.float32)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    scores = torch.einsum("bqd,bkd->bqk", q.to(wide), k.to(wide)) * scale
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
     ok = _visible(s, causal, window, q.device, k.shape[1])
     scores = torch.where(ok[None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
+    out = torch.einsum("bqk,bkd->bqd", probs, v.to(wide)).to(q.dtype)
     if lse:
         return out, torch.logsumexp(scores, dim=-1)
     return out
@@ -137,7 +143,8 @@ def _dq_scores(dof, ve, of, causal: bool, window: int):
 
 
 def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0, scale: float | None = None):
+                        window: int = 0, scale: float | None = None,
+                        softcap: float = 0.0):
     """The gradients (dq, dk, dv) of :func:`attention_plain` by the FA2
     formulas the kernels evaluate: P = exp(s / sqrt(D) - lse) on visible
     keys, Delta = rowsum(dO .* O), dS = P .* (dO V^T - Delta), dK = dS^T
@@ -152,7 +159,14 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     P-weighted mean of K, far larger than the dQ of a row whose dS nearly
     cancels); f32 inside (f64 for f64 inputs), each gradient in its
     input's dtype.  ``scale`` (1 / sqrt(D) by default) as in
-    :func:`attention_plain`."""
+    :func:`attention_plain`.
+
+    ``softcap`` > 0: with t = tanh(s / sqrt(D) / cap), P = exp(cap t -
+    lse) and every dS is multiplied by g = 1 - t^2 before it meets K or
+    Q: dK = (g .* dS)^T Q / sqrt(D), and dQ = (g .* dS) K / sqrt(D) in
+    bf16, (sum_j g_ij dS'_ij K_j - m_i sum_j g_ij P_ij K_j) / sqrt(D) in
+    f32 and f64 with dS' and m unchanged (the m term carries g too); dV
+    is unchanged."""
     rep = attention_shapes("attention_bwd_plain", q.shape, k.shape,
                            v.shape, causal=causal, window=window)
     bh_kv, s_kv, d = k.shape
@@ -162,11 +176,19 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     qf, dof, of = q.to(wide), do.to(wide), o.to(wide)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     scores = torch.einsum("bqd,bkd->bqk", qf, ke) * scale
+    gate = None
+    if softcap > 0:
+        t = torch.tanh(scores / softcap)
+        scores = t * softcap
+        gate = 1 - t * t
+        del t
     ok = _visible(q.shape[1], causal, window, q.device, s_kv)[None]
     p = torch.where(ok, torch.exp(scores - lse.to(wide)[..., None]), 0.0)
     del scores
     delta = (dof * of).sum(-1)
     ds = p * (torch.einsum("bqd,bkd->bqk", dof, ve) - delta[..., None])
+    if gate is not None:
+        ds = ds * gate
     dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
     if q.dtype == torch.bfloat16:
@@ -175,6 +197,8 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
         del ds
         ds = p * _dq_scores(dof, ve, of, causal, window)
         mean = ds.sum(-1) / p.sum(-1).clamp_min(torch.finfo(wide).tiny)
+        if gate is not None:
+            ds, p = ds * gate, p * gate
         dq = (torch.einsum("bqk,bkd->bqd", ds, ke)
               - mean[..., None] * torch.einsum("bqk,bkd->bqd", p, ke)) * scale
     dk = dk.view(bh_kv, rep, s_kv, d).sum(1)

@@ -181,7 +181,8 @@ def attention(cfg: ModelConfig, params, x, positions, *, window: int,
     # query row bh, and with one kv head fold() is a view, not a copy.
     ka, va = (k, v) if idx is None else (_select(k, idx), _select(v, idx))
     out = ops.flash_attention(fold(q), fold(ka), fold(va), causal=causal,
-                              window=window, mode=mode)
+                              window=window, softcap=cfg.attn_softcap,
+                              mode=mode)
     out = out.view(B, H, S, K).permute(0, 2, 1, 3)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     if heads is not None:

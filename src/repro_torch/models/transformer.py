@@ -82,12 +82,6 @@ def _has_patches(cfg: ModelConfig, batch) -> bool:
     return cfg.frontend == "vision_stub" and "patches" in batch
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.attn_softcap > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: attention soft-capping is not in the flash kernel")
-
-
 # ---------------------------------------------------------------------------
 # Parameter trees.
 # ---------------------------------------------------------------------------
@@ -158,7 +152,6 @@ def _n_tail(cfg: ModelConfig) -> int:
 
 
 def _build(cfg: ModelConfig, b: nn.Builder):
-    _require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     params: dict = {
         "embed": b.param((v, d), ("vocab", "embed_table"), scale=1.0),
@@ -480,7 +473,6 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
     """Final hidden states (B, S, D) of the trunk over batch["tokens"]
     (B, S) (phi-3-vision with ``"patches"``: (B, P + S, D); whisper reads
     ``"frames"``).  ``mode`` goes to the kernel ops."""
-    _require_ported(cfg)
     return _forward(cfg, tp.gather_top(params, TOP), batch, mode)
 
 
@@ -544,7 +536,6 @@ def loss_parts(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
     scalars: :func:`loss_fn` is their quotient.  A batch split over ranks
     sums each part over the ranks before dividing (a mean of the ranks'
     means is another function where their masks differ)."""
-    _require_ported(cfg)
     params = tp.gather_top(params, TOP)
     h = _forward(cfg, params, batch, mode)
     tokens = batch["tokens"]
@@ -577,7 +568,6 @@ def loss_parts(cfg: ModelConfig, params, batch, *, mode: str = "auto"):
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=None, device=None):
     """The (stacked) cache tree for ``serve_step``."""
-    _require_ported(cfg)
     dev = device_mod.resolve(device)
     dtype = dtype or DTYPES[cfg.dtype]
 
@@ -643,7 +633,6 @@ def serve_step(cfg: ModelConfig, params, cache, tokens, pos: int, *,
     :class:`~repro_torch.models.attention.BlockLayout` (a stack not named
     holds whole heads and slots of its rows); tokens are the rank's rows;
     ``vocab`` = (v0, v1) returns the logits of those vocab rows alone."""
-    _require_ported(cfg)
     pos = int(pos)
     layouts = layouts or {}
     h = _embed_tokens(cfg, params, tokens)
@@ -777,7 +766,6 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None, *,
     multiple of ``min(cfg.ssm_chunk, S)``, as in the reference.  S must
     be at least the conv width minus one (3 for both recurrent
     families): a shorter prompt raises ``ValueError``."""
-    _require_ported(cfg)
     h = trunk_input(cfg, params, batch)
     B, S = h.shape[:2]                  # S includes prepended patches
     if _is_ssd(cfg):

@@ -389,7 +389,12 @@ class ProcessMesh(_Mesh):
         k = (key, tuple(shape), dtype)
         buf = self._pinned.get(k)
         if buf is None:
-            buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+            # a normal tensor even when first made while serving (under
+            # inference mode), so that a train step's collective of the
+            # same shape may write it
+            with torch.inference_mode(False):
+                buf = torch.empty(tuple(shape), dtype=dtype,
+                                  pin_memory=True)
             self._pinned[k] = buf
         return buf
 

@@ -26,12 +26,13 @@ def test_package_data_ships_every_cuda_source():
     shipped = {p for g in globs for p in PKG.glob(g)}
     sources = set(_build.CSRC.glob("*.cu"))
     assert sources and sources <= shipped
-    # and every header they include
+    # and every file they include: a header, or a source (the soft-capped
+    # instantiations' sources include the main ones)
     headers = set(_build.CSRC.glob("*.cuh"))
     assert headers and headers <= shipped
     for src in sources:
         for name in re.findall(r'#include "([^"]+)"', src.read_text()):
-            assert _build.CSRC / name in headers, (src.name, name)
+            assert _build.CSRC / name in headers | sources, (src.name, name)
 
 
 def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
@@ -108,11 +109,14 @@ def test_build_root_of_an_installed_package_is_the_cache(tmp_path,
 
 def _exported(source: str) -> dict:
     """{name: C parameter types} of every ``extern "C" int`` function of a
-    .cu source, each parameter as "P" (a pointer) or "I" (an int)."""
+    .cu source, each parameter as "P" (a pointer), "F" (a float) or "I"
+    (an int)."""
     out = {}
     for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', source):
         params = [p.strip() for p in m.group(2).split(",") if p.strip()]
-        out[m.group(1)] = tuple("P" if "*" in p else "I" for p in params)
+        out[m.group(1)] = tuple("P" if "*" in p else
+                                "F" if p.startswith("float ") else "I"
+                                for p in params)
     return out
 
 
@@ -130,7 +134,7 @@ def test_signatures_cover_every_exported_function():
                  "repro_rglru_scan_bwd_carry_bf16", "repro_ssd_scan_bwd_f32"):
         assert name in exported and name in _build.SIGNATURES
     assert set(exported) == set(_build.SIGNATURES)
-    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I"}
+    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
     for name, params in exported.items():
         assert tuple(kind[t] for t in _build.SIGNATURES[name]) == params, \
             name

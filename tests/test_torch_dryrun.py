@@ -9,8 +9,9 @@ routes, on the CPU, with no rank launched.
 * One cell at full width traced end to end.
 * Each kernel op's ``meta`` route gives its plain version's output (and,
   through autograd, gradient) shapes and dtypes, records its
-  ``kernels/cost.py`` work and counts no launch; CPU tensors still take
-  the plain versions and record nothing.
+  ``kernels/cost.py`` work and counts no launch (a soft-capped attention
+  call records the uncapped call's work); CPU tensors still take the
+  plain versions and record nothing.
 * ``kernels/cost.py``'s bounds at ``PERF.md`` §6's shapes.
 * The pieces the trace rests on: ``sharding.gather`` places the parts as
   the per-rank loop it replaced did; a traced prefill gathers the rank's
@@ -249,6 +250,12 @@ def _kernel_cases():
            _rand(gen, g, s, n))
     cases.append(("ssd_scan", ops.ssd_scan, ssd, dict(chunk=8, state=True),
                   (0, 1, 2, 3, 4)))
+    # a soft-capped attention call: the same work as the uncapped one
+    qkv = (_rand(gen, 8, 24, 16, dtype=torch.bfloat16, lo=-3.0, hi=3.0),
+           _rand(gen, 2, 24, 16, dtype=torch.bfloat16, lo=-3.0, hi=3.0),
+           _rand(gen, 2, 24, 16, dtype=torch.bfloat16))
+    cases.append(("flash_attention softcap 2.0", ops.flash_attention, qkv,
+                  dict(causal=True, window=8, softcap=2.0), (0, 1, 2)))
     return cases
 
 
@@ -295,6 +302,9 @@ def test_meta_route_shapes_and_cost(i):
     if kernel == "flash_attention":
         q, k = args[0], args[1]
         assert work == cost.flash_attention(q.shape, k.shape, q.dtype, **kw)
+        uncapped = {k: v for k, v in kw.items() if k != "softcap"}
+        assert work == cost.flash_attention(q.shape, k.shape, q.dtype,
+                                            **uncapped)
     elif kernel == "ssd_scan":
         assert work == cost.ssd_scan(args[0].shape, args[3].shape,
                                      kw["chunk"])

@@ -3,14 +3,15 @@
 * In a subprocess whose import system refuses ``jax`` and ``repro``,
   every module of ``repro_torch`` still imports.
 * No import statement anywhere in ``src/repro_torch``, in
-  ``chip_smoke.py``, ``attention_probe.py`` or ``schwarz_probe.py``
-  (including those inside functions) names ``jax`` or ``repro``.
+  ``chip_smoke.py``, ``attention_probe.py``, ``schwarz_probe.py`` or the
+  port's examples (``examples/*_torch.py``; including those inside
+  functions) names ``jax`` or ``repro``.
 * Entry points built without a device want the card and raise here:
   the assimilation engines (sequential and Parareal), the ranks'
   launcher, the fleet server,
   the engine's restore and elastic resume, the assimilation CLI, the LM
-  weights (and so ``serve_batch``), the serving CLI, and the training
-  driver (``train`` and its CLI).
+  weights (and so ``serve_batch``), the serving CLI, the trainer
+  (``train`` and its CLI) and the port's four examples.
 * The CUDA kernel wrappers, the backward kernels' among them, refuse CPU
   tensors instead of falling back.
 """
@@ -94,12 +95,35 @@ def _imported_roots(path: pathlib.Path) -> set:
 
 
 def test_no_import_statement_names_jax_or_repro():
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) == 4
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "attention_probe.py",
                                           ROOT / "schwarz_probe.py"]
     assert len(files) > 25
-    for f in files:
+    for f in files + examples:
         assert not _imported_roots(f) & {"jax", "jaxlib", "repro"}, f
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("quickstart_torch", []), ("serve_lm_torch", []),
+    ("train_lm_torch", ["--tiny", "--steps", "1"]),
+    ("dydd_assimilation_torch", ["--n", "64", "--m", "100", "--cycles", "1",
+                                 "--scenarios", "drifting_swarm"])])
+def test_examples_default_to_the_card(name, argv, tmp_path):
+    """Without ``--device cpu`` each port example wants the card and
+    raises before any work, naming the way out."""
+    import importlib.util
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    spec = importlib.util.spec_from_file_location(
+        f"_isolation_{name}", ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    if name == "train_lm_torch":
+        argv = argv + ["--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        module.main(argv)
 
 
 def test_engine_defaults_to_the_card():
